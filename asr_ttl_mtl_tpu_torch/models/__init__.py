@@ -1,0 +1,8 @@
+from .dims import PRESET_DIMS, ModelDimensions  # noqa: F401
+from .registry import (  # noqa: F401
+    WhisperModel,
+    from_random,
+    load_model,
+    state_dict_from_jax_params,
+)
+from . import whisper  # noqa: F401
