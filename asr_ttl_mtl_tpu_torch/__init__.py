@@ -6,7 +6,9 @@ kernels (`csrc/`, bound in `ops/`), each with a plain PyTorch version that
 the CPU takes and the CUDA path is checked against.
 
 Ported so far: the greedy 30 s window path, waveform -> log-mel -> encoder
--> cross-KV -> prefill -> greedy decode -> text.
+-> cross-KV -> prefill -> greedy decode -> text; and the single-device
+multi-task fine-tune (`mtl/`: dataset, trainer, chunked CE, 4-group AdamW),
+whose attention trains through the flash kernels' backward passes.
 """
 
 __version__ = "0.1.0"

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.mel import log_mel
-from .utils import exact_div
+from .utils import exact_div, resolve_device
 
 SAMPLE_RATE = 16000
 N_FFT = 400
@@ -204,8 +204,9 @@ def log_mel_spectrogram(
     device: Optional[Union[str, torch.device]] = None,
 ) -> torch.Tensor:
     """Log-mel spectrogram (..., n_mels, n_frames) of 16 kHz audio: a WAV path,
-    a numpy array or a tensor. `device` moves the waveform first (default: the
-    tensor's own device, or the CPU).
+    a numpy array or a tensor. A path or an array runs on the card unless
+    `device="cpu"`; a tensor runs on its own device unless `device` names
+    another.
 
     With `padding >= N_FFT` (long-form: 30 s of silence) the waveform is
     zero-extended to a 30 s multiple and the surplus frames sliced off, as in
@@ -214,8 +215,9 @@ def log_mel_spectrogram(
         audio = load_audio(audio)
     if not isinstance(audio, torch.Tensor):
         audio = torch.from_numpy(np.ascontiguousarray(audio, dtype=np.float32))
+        device = resolve_device(device)
     if device is not None:
-        audio = audio.to(device)
+        audio = audio.to(resolve_device(device))
     audio = audio.to(torch.float32)
     n = audio.shape[-1]
     if padding >= N_FFT:

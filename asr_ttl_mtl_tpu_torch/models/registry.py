@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import resolve_device
 from .dims import PRESET_DIMS, ModelDimensions
 from .whisper import AudioEncoder, TextDecoder, sinusoids
 
@@ -55,6 +56,25 @@ class WhisperModel(nn.Module):
             return 99
         return self.dims.n_vocab - 51765 - int(self.is_multilingual)
 
+    def resize_token_embeddings(self, new_vocab_size: int, generator: torch.Generator) -> None:
+        """Grow the tied token embedding to fit the spliced disease tokens
+        (JAX `models/whisper.py::resize_token_embeddings`): new rows are
+        N(0, std of the existing rows), drawn from `generator` (the JAX
+        package draws other numbers from its own key)."""
+        old = self.decoder.token_embedding.weight
+        cur = old.shape[0]
+        if new_vocab_size == cur:
+            return
+        assert new_vocab_size > cur, (new_vocab_size, cur)
+        with torch.no_grad():
+            std = old.float().std(unbiased=False)
+            rows = torch.randn((new_vocab_size - cur, old.shape[1]), generator=generator,
+                               device=generator.device, dtype=torch.float32)
+            weight = torch.cat([old.float(), rows.to(old.device) * std]).to(old.dtype)
+        self.decoder.token_embedding = nn.Embedding.from_pretrained(weight, freeze=not old.requires_grad)
+        self.dims = self.dims.replace(n_vocab=new_vocab_size)
+        self.encoder.dims = self.decoder.dims = self.dims
+
 
 def _init_random_(model: WhisperModel, gen: torch.Generator) -> None:
     """Fan-in uniform init like the JAX package's `init_params` (same
@@ -78,11 +98,13 @@ def _init_random_(model: WhisperModel, gen: torch.Generator) -> None:
 def from_random(
     name_or_dims: Union[str, ModelDimensions],
     seed: int = 0,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> WhisperModel:
     """Randomly initialized model from a seed (tests and benchmarks without
-    weights); `dtype` is the compute dtype (bf16 on the card)."""
+    weights), on the card unless `device="cpu"`; `dtype` is the compute
+    dtype (bf16 on the card)."""
+    device = resolve_device(device)
     dims = PRESET_DIMS[name_or_dims] if isinstance(name_or_dims, str) else name_or_dims
     name = name_or_dims if isinstance(name_or_dims, str) else "custom"
     model = WhisperModel(dims, compute_dtype=dtype, name=name)
@@ -92,17 +114,19 @@ def from_random(
 
 def load_model(
     checkpoint: Union[str, Dict[str, Any]],
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     compute_dtype: Optional[torch.dtype] = None,
 ) -> WhisperModel:
-    """Load a reference-layout checkpoint (a local `.pt` path or the loaded dict)."""
+    """Load a reference-layout checkpoint (a local `.pt` path or the loaded
+    dict), on the card unless `device="cpu"`."""
+    device = resolve_device(device)
     ckpt = checkpoint
     if isinstance(checkpoint, str):
         ckpt = torch.load(checkpoint, map_location="cpu", weights_only=False)
     dims = ckpt["dims"]
     dims = ModelDimensions(**dims) if isinstance(dims, dict) else dims
     if compute_dtype is None:
-        compute_dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+        compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = WhisperModel(dims, compute_dtype=compute_dtype)
     model.load_state_dict({k: v.float() for k, v in ckpt["model_state_dict"].items()})
     return model.to(device).eval().requires_grad_(False)

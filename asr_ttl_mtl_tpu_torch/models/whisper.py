@@ -12,7 +12,12 @@ rounding points:
   key tail masked, so the attention kernel K3 never re-pads;
 * decoding uses a static KV cache (bf16, or int8 with fp32 row scales),
   written in place, and dispatches one-token steps to the decode kernels
-  K1 (int8) and K2 (bf16/fp32) exactly where the JAX package does.
+  K1 (int8) and K2 (bf16/fp32) exactly where the JAX package does;
+* attention over 16 or more queries goes to the flash kernels: K3 (K6
+  backward) for non-causal shapes `h2_eligible` serves, K7 (K8 backward)
+  for causal ones;
+* autograd flows through every function here (training), with the flash
+  kernels' backward passes as `torch.autograd.Function`s.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.decode_attention import (
@@ -31,7 +37,7 @@ from ..ops.decode_attention import (
     int8_step,
     quantize_kv_rows,
 )
-from ..ops.flash_attention import h2_eligible, flash_attention_h2
+from ..ops.flash_attention import flash_attention_h2_vjp, flash_attention_vjp, h2_eligible
 from .dims import ModelDimensions
 
 F32 = torch.float32
@@ -114,22 +120,50 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 (N, in) @ w (out, in)^T with both operands in x2's dtype, fp32
+    accumulation and an fp32 result (the JAX `preferred_element_type=f32`);
+    `w` may be the fp32 master, cast here. No backward of its own on the
+    card: `_matmul_f32` gives it one, `ops/chunked_xent.py` writes its own."""
+    if x2.dtype == F32:
+        return F.linear(x2, w.float())
+    if x2.is_cuda:
+        return torch.mm(x2, w.to(x2.dtype).t(), out_dtype=F32)
+    return torch.mm(x2.float(), w.to(x2.dtype).float().t())  # products of bf16 values are exact in fp32
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`mm_f32` of a half-dtype x2 on the card. `torch.mm(...,
+    out_dtype=float32)` has no backward, so the backward is written here:
+    the incoming fp32 gradient is rounded to x2's dtype (as the TPU's
+    default-precision matmuls round their operands), dx comes back in x2's
+    dtype and dw in fp32, accumulated in fp32, for the fp32 master weight."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = torch.mm(g, w.to(x2.dtype)) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(g.t(), x2, out_dtype=F32).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., in) @ w (out, in)^T with fp32 accumulation and an fp32 result,
-    both operands in x's dtype (the JAX `preferred_element_type=f32`)."""
-    if x.dtype == F32:
-        return F.linear(x, w)
+    """`mm_f32` over the last axis of x (..., in), differentiable on every
+    device."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = torch.mm(x2, w.t(), out_dtype=F32)
-    else:
-        y = torch.mm(x2.float(), w.float().t())  # products of bf16 values are exact in fp32
+    y = _MatmulF32.apply(x2, w) if x.is_cuda and x.dtype != F32 else mm_f32(x2, w)
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W^T (+ b): fp32 accumulation, bias added in fp32, then rounded."""
-    out = _matmul_f32(x, lin.weight.to(x.dtype))
+    out = _matmul_f32(x, lin.weight)
     if lin.bias is not None:
         out = out + lin.bias.float()
     return out.to(x.dtype)
@@ -185,15 +219,18 @@ def qkv_attention(
     mask: Optional[torch.Tensor] = None,
     *,
     causal: bool = False,
+    q_offset: int = 0,
     kv_valid_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention over (B, T, D) projections.
 
     Dispatch as in the JAX package (whisper.py:248-286), where every query
     length >= 16 with a structural mask goes to a flash kernel: the
-    non-causal `h2_eligible` shapes to K3 (`flash_attention_h2`). The
-    causal kernel (K7) and the per-head kernel for h2-ineligible shapes (K5)
-    are not ported: on CUDA those shapes raise. Shorter queries (prompt
+    non-causal `h2_eligible` shapes to K3 (`flash_attention_h2`, backward
+    K6), causal ones (`mask` is then the causal / `q_offset` pattern, which
+    the kernel applies itself) to K7 (`flash_attention`, backward K8) over
+    split heads. The per-head kernel for non-causal h2-ineligible shapes
+    (K5) is not ported: on CUDA those shapes raise. Shorter queries (prompt
     prefill, buckets of 8) take the plain path below, which the JAX package
     leaves to XLA too.
     """
@@ -201,13 +238,21 @@ def qkv_attention(
     d_head = d // n_head
     flash = tq >= 16 and (mask is None or causal)
     if flash and not causal and mask is None and h2_eligible(tq, tk, d, n_head):
-        out = flash_attention_h2(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=float(d_head**-0.5))
-        return out
+        return flash_attention_h2_vjp(q, k, v, n_head, kv_valid_len, float(d_head**-0.5))
+    if flash and causal:
+        b = q.shape[0]
+
+        def split(x, t):
+            return _split_heads(x, n_head).reshape(b * n_head, t, d_head).contiguous()
+
+        out = flash_attention_vjp(
+            split(q, tq), split(k, tk), split(v, tk), True, q_offset, kv_valid_len, float(d_head**-0.5)
+        )
+        return _merge_heads(out.reshape(b, n_head, tq, d_head))
     if flash and q.is_cuda:
         raise NotImplementedError(
-            "attention with tq >= 16 here needs a flash kernel that is not ported yet: "
-            + ("K7 `flash_attention` (causal)" if causal else "K5 `flash_attention_mh`")
-            + " in asr_ttl_mtl_tpu/ops/flash_attention.py"
+            "non-causal attention with tq >= 16 at a shape h2_eligible rejects needs K5 "
+            "`flash_attention_mh` (asr_ttl_mtl_tpu/ops/flash_attention.py), which is not ported yet"
         )
 
     # reference numerics: both sides scaled by d_head**-0.25 in their dtype
@@ -231,12 +276,15 @@ def qkv_attention(
 
 
 def encoder_apply(
-    enc: AudioEncoder, mel: torch.Tensor, compute_dtype: torch.dtype = F32, *, int8_linears: bool = False
+    enc: AudioEncoder, mel: torch.Tensor, compute_dtype: torch.dtype = F32, *, int8_linears: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """mel (B, n_mels, 2T) -> audio features (B, T, D).
 
     int8_linears: the six projections of each block run as W8A8 `linear_i8`;
-    attention and the conv stem stay in compute_dtype."""
+    attention and the conv stem stay in compute_dtype.
+    remat: each block is a `torch.utils.checkpoint` (training): the backward
+    recomputes its activations from its (B, T, D) input."""
     lin = linear_i8 if int8_linears else linear
     dims = enc.dims
     x = mel.to(compute_dtype)
@@ -253,7 +301,7 @@ def encoder_apply(
         x = F.pad(x, (0, 0, 0, t_run - t_valid))
     x = x.contiguous()
 
-    for block in enc.blocks:
+    def one_block(x, block):
         res = x
         h = layer_norm(block.attn_ln, x)
         q, k, v = lin(block.attn.query, h), lin(block.attn.key, h), lin(block.attn.value, h)
@@ -264,7 +312,13 @@ def encoder_apply(
         res = x
         h = layer_norm(block.mlp_ln, x)
         h = gelu(lin(block.mlp[0], h))
-        x = res + lin(block.mlp[2], h)
+        return res + lin(block.mlp[2], h)
+
+    for block in enc.blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(one_block, x, block, use_reentrant=False)
+        else:
+            x = one_block(x, block)
 
     if t_run != t_valid:
         x = x[:, :t_valid]
@@ -366,6 +420,7 @@ def decoder_apply(
     pos_offset: int = 0,
     compute_dtype: torch.dtype = F32,
     logits_dtype: Optional[torch.dtype] = None,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the text decoder over `tokens`.
 
@@ -374,7 +429,9 @@ def decoder_apply(
     [pos_offset, pos_offset + T) and attention runs over the cache with
     `key_pos <= query_pos` (prefill for T > 1, a decode step for T == 1).
     Query rows b*G .. b*G+G-1 share cross-KV row b (G = B // cross batch).
-    Returns (logits fp32 or `logits_dtype`, the updated cache or None).
+    Returns (logits fp32 or `logits_dtype`, the updated cache or None); with
+    `return_hidden`, the final LayerNorm's (B, T, D) output instead of the
+    logits (training's chunked cross-entropy projects it itself).
     """
     dims = dec.dims
     B, T = tokens.shape
@@ -438,7 +495,7 @@ def decoder_apply(
                 v = (kv_cache["v"][li].float() * kv_cache["v_scale"][li][..., None]).to(compute_dtype)
             elif kv_cache is not None:
                 k, v = kv_cache["k"][li], kv_cache["v"][li]
-            att = qkv_attention(q, k, v, H, mask=mask, causal=True)
+            att = qkv_attention(q, k, v, H, mask=mask, causal=True, q_offset=pos_offset)
         x = res + linear(block.attn.out, att)
 
         # --- cross-attention ---
@@ -468,7 +525,9 @@ def decoder_apply(
         x = res + linear(block.mlp[2], h)
 
     x = layer_norm(dec.ln, x)
-    logits = _matmul_f32(x, dec.token_embedding.weight.to(x.dtype))  # tied embeddings
+    if return_hidden:
+        return x, kv_cache
+    logits = _matmul_f32(x, dec.token_embedding.weight)  # tied embeddings
     if logits_dtype is not None:
         logits = logits.to(logits_dtype)
     return logits, kv_cache

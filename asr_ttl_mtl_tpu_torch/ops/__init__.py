@@ -16,6 +16,11 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention_i8": 0,  # K1, ops/decode_attention.py
     "decode_attention": 0,  # K2, ops/decode_attention.py
     "flash_attention_h2": 0,  # K3, ops/flash_attention.py
+    "flash_attention_h2_lse": 0,  # K3 with the logsumexp (training forward)
+    "flash_attention_h2_bwd": 0,  # K6 (dq and dkv kernels, one launch each per call)
+    "flash_attention": 0,  # K7
+    "flash_attention_lse": 0,  # K7 with the logsumexp (training forward)
+    "flash_attention_bwd": 0,  # K8 (dq and dkv kernels, one launch each per call)
     "log_mel": 0,  # K4, ops/mel.py
 }
 

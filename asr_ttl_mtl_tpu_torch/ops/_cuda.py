@@ -44,8 +44,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "log_mel_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "flash_attention": {
-        # q, k, v, out, batch, tq, tk, d, n_head, kv_len, scale, stream
-        "flash_h2_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, out, lse (or null), batch, tq, tk, d, n_head, kv_len, scale, stream
+        "flash_h2_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, batch, tq, tk, d, n_head, kv_len, scale, stream
+        "flash_h2_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, out, lse (or null), bh, tq, tk, kv_len, causal, q_offset, scale, stream
+        "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, kv_len, causal, q_offset, scale, stream
+        "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "decode_attention": {
         # q, cache_k, cache_v, out, layer, n_layer, batch, group, tk, d, n_head,

@@ -10,20 +10,19 @@ item 3):
 The rank tables are the public Whisper `*.tiktoken` files shipped in
 `asr_ttl_mtl_tpu/assets/`, read by path (the JAX package is never imported).
 
-`decode` is a byte lookup. `encode` is a plain rank-table BPE (merge the
-adjacent pair whose concatenation has the lowest rank until none merges),
-which is exact for a text that is ONE pre-token of the GPT-2 pattern: an
-optional space followed by characters that are neither whitespace, letters
-nor digits, or a run of whitespace. That covers what the greedy window path
-encodes (the blank " " and the `non_speech_tokens` symbols). Pre-tokenizing
-arbitrary text (prompts, prefixes) belongs to the long-form slice and raises
-`NotImplementedError` here.
+`decode` is a byte lookup. `encode` splits the text into the pre-tokens of
+the GPT-2 pattern that the JAX package hands tiktoken,
+`'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`,
+with a scan over `unicodedata.category` (no `regex` package), then runs a
+plain rank-table BPE on each pre-token (merge the adjacent pair whose
+concatenation has the lowest rank until none merges).
 """
 
 from __future__ import annotations
 
 import base64
 import os
+import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
 from typing import Dict, List, Optional, Tuple
@@ -133,15 +132,55 @@ def load_ranks(name: str) -> Dict[bytes, int]:
     return ranks
 
 
-def _is_single_pretoken(text: str) -> bool:
-    """Whether `text` is one pre-token of the GPT-2 pattern that the plain
-    BPE below encodes exactly: ` ?[^\\s\\p{L}\\p{N}]+` or a whitespace run."""
-    if not text:
-        return False
-    if text.isspace():
-        return True
-    body = text[1:] if text[0] == " " else text
-    return bool(body) and not any(c.isspace() or c.isalpha() or c.isnumeric() for c in body)
+# Unicode White_Space, the `\\s` of the pattern (str.isspace also takes
+# U+001C..U+001F, which the pattern does not)
+_WHITESPACE = frozenset(
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006"
+    "\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
+)
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def _char_class(c: str) -> str:
+    """"s" whitespace, "L" letter, "N" number, "o" anything else."""
+    if c in _WHITESPACE:
+        return "s"
+    cat = unicodedata.category(c)[0]
+    return cat if cat in "LN" else "o"
+
+
+def pretokenize(text: str) -> List[str]:
+    """Split `text` as the GPT-2 pattern does: at each position the first
+    alternative that matches wins, each one as long as it can be."""
+    cls = [_char_class(c) for c in text]
+    n = len(text)
+    pieces = []
+    i = 0
+    while i < n:
+        j = None
+        if text[i] == "'":
+            for c in _CONTRACTIONS:
+                if text.startswith(c, i + 1):
+                    j = i + 1 + len(c)
+                    break
+        if j is None:
+            # ` ?\p{L}+`, ` ?\p{N}+`, ` ?[^\s\p{L}\p{N}]+`: an optional
+            # space, then a run of one class
+            start = i + 1 if text[i] == " " and i + 1 < n and cls[i + 1] != "s" else i
+            if cls[start] != "s":
+                j = start + 1
+                while j < n and cls[j] == cls[start]:
+                    j += 1
+        if j is None:
+            # `\s+(?!\S)`: a whitespace run that leaves its last character to
+            # the next token when a non-space follows; else `\s+`
+            end = i + 1
+            while end < n and cls[end] == "s":
+                end += 1
+            j = end if end == n or end - 1 == i else end - 1
+        pieces.append(text[i:j])
+        i = j
+    return pieces
 
 
 @dataclass(eq=False)
@@ -178,12 +217,15 @@ class Encoding:
         return [self.ranks[p] for p in parts]
 
     def encode(self, text: str) -> List[int]:
-        if not _is_single_pretoken(text):
-            raise NotImplementedError(
-                "encode of text with several pre-tokens (prompts, prefixes) is not "
-                f"ported yet; got {text!r}"
-            )
-        return self._bpe(text.encode("utf-8"))
+        """Token ids of ordinary text (special-token markers raise, as
+        tiktoken's default `disallowed_special="all"` does)."""
+        for marker in self.special_tokens:
+            if marker in text:
+                raise ValueError(f"text contains the special token {marker!r}")
+        ids: List[int] = []
+        for piece in pretokenize(text):
+            ids.extend(self._bpe(piece.encode("utf-8")))
+        return ids
 
     def decode(self, token_ids) -> str:
         table = self._id_to_bytes

@@ -1,12 +1,27 @@
 """Small host-side helpers (counterpart of `asr_ttl_mtl_tpu/utils/__init__.py`).
 
-Only what the greedy 30 s window path needs. The subtitle writers belong to
-the long-form slice and are not ported yet.
+Only what the ported paths need. The subtitle writers belong to the
+long-form slice and are not ported yet.
 """
 
 from __future__ import annotations
 
 import zlib
+from typing import Union
+
+
+def resolve_device(device: Union[str, "torch.device", None] = "cuda"):  # noqa: F821
+    """The device an entry point runs on: the card unless the caller names
+    the CPU. Asking for CUDA where there is none raises; nothing falls back
+    to the CPU on its own."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def exact_div(x: int, y: int) -> int:

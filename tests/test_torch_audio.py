@@ -42,7 +42,7 @@ def test_plain_k4_matches_pallas_kernel_30s():
     """K4's plain version vs the Pallas kernel (interpret) on a 3000-frame clip."""
     audio = waveforms(1, 3000, seed=0)
     want = np.asarray(log_mel_spectrogram_pallas(audio, n_mels=80, interpret=True))
-    got = PA.log_mel_spectrogram(audio).numpy()
+    got = PA.log_mel_spectrogram(audio, device="cpu").numpy()
     assert got.shape == want.shape == (1, 80, 3000)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
@@ -53,7 +53,7 @@ def test_plain_k4_matches_pallas_kernel_30s():
 def test_log_mel_matches_xla_path_192_frames(n_mels, atol):
     audio = waveforms(2, 192, seed=1)
     want = np.asarray(JA.log_mel_spectrogram_jax(audio, n_mels=n_mels))
-    got = PA.log_mel_spectrogram(audio, n_mels=n_mels).numpy()
+    got = PA.log_mel_spectrogram(audio, n_mels=n_mels, device="cpu").numpy()
     assert got.shape == want.shape == (2, n_mels, 192)
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
 
@@ -62,7 +62,7 @@ def test_log_mel_long_form_padding_bucket():
     """padding >= N_FFT: zero-extend to a 30 s multiple, keep the true frames."""
     audio = np.random.RandomState(2).randn(int(PA.N_SAMPLES * 0.37)).astype(np.float32) * 0.1
     want = np.asarray(JA.log_mel_spectrogram(audio, padding=PA.N_SAMPLES, use_pallas=False))
-    got = PA.log_mel_spectrogram(audio, padding=PA.N_SAMPLES).numpy()
+    got = PA.log_mel_spectrogram(audio, padding=PA.N_SAMPLES, device="cpu").numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
@@ -77,7 +77,7 @@ def test_log_mel_of_wav_file(tmp_path):
         w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
     np.testing.assert_array_equal(PA.load_audio(path), JA._read_wav(path)[0])
     want = np.asarray(JA.log_mel_spectrogram_jax(JA._read_wav(path)[0]))
-    np.testing.assert_allclose(PA.log_mel_spectrogram(path).numpy(), want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(PA.log_mel_spectrogram(path, device="cpu").numpy(), want, atol=ATOL, rtol=0)
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

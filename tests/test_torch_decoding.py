@@ -64,7 +64,7 @@ def test_slice_matches_jax(setup, opts, lp_tol):
     With kv_quant the JAX side runs its int8 kernel in interpret mode."""
     jmodel, tmodel, audio = setup
     jmel = JA.log_mel_spectrogram(audio, use_pallas=False)
-    tmel = PA.log_mel_spectrogram(audio)
+    tmel = PA.log_mel_spectrogram(audio, device="cpu")
     # each side decodes its own log-mel; fp32 bins of these louder tones
     # differ by up to ~1e-5 after log10 (tests/test_torch_audio.py)
     np.testing.assert_allclose(tmel.numpy(), np.asarray(jmel), atol=2e-5, rtol=0)
@@ -91,7 +91,7 @@ def test_timestamp_rules_and_language_detection(setup):
 
 def test_submit_collect_equals_run(setup):
     _, tmodel, audio = setup
-    mel = PA.log_mel_spectrogram(audio)
+    mel = PA.log_mel_spectrogram(audio, device="cpu")
     task = PD.DecodingTask(tmodel, PD.DecodingOptions(**BENCH))
     first, second = task.submit(mel), task.submit(mel, rng_seed=1)
     a, b = task.collect(first), task.collect(second)
@@ -100,7 +100,7 @@ def test_submit_collect_equals_run(setup):
 
 def test_sampling_is_seeded_and_best_of_ranks(setup):
     _, tmodel, audio = setup
-    mel = PA.log_mel_spectrogram(audio)
+    mel = PA.log_mel_spectrogram(audio, device="cpu")
     task = PD.DecodingTask(tmodel, PD.DecodingOptions(**dict(BENCH, temperature=1.0, best_of=2)))
     a, b = task.run(mel, rng_seed=5), task.run(mel, rng_seed=5)
     assert [r.tokens for r in a] == [r.tokens for r in b]
@@ -109,7 +109,7 @@ def test_sampling_is_seeded_and_best_of_ranks(setup):
 
 def test_decode_entry_point_single_window(setup):
     _, tmodel, audio = setup
-    mel = PA.log_mel_spectrogram(audio[0])
+    mel = PA.log_mel_spectrogram(audio[0], device="cpu")
     one = PD.decode(tmodel, mel, PD.DecodingOptions(**BENCH))
     assert isinstance(one, PD.DecodingResult) and len(one.tokens) == BENCH["sample_len"]
 
@@ -117,7 +117,7 @@ def test_decode_entry_point_single_window(setup):
 def test_beam_search_is_not_ported(setup):
     _, tmodel, audio = setup
     with pytest.raises(NotImplementedError):
-        PD.DecodingTask(tmodel, PD.DecodingOptions(beam_size=2)).run(PA.log_mel_spectrogram(audio))
+        PD.DecodingTask(tmodel, PD.DecodingOptions(beam_size=2)).run(PA.log_mel_spectrogram(audio, device="cpu"))
 
 
 def test_filter_config_and_buckets_match(setup):

@@ -1,0 +1,229 @@
+"""The training attention of the port: plain versions of K3 with lse, K6, K7
+and K8 against the Pallas kernels (interpret mode on the CPU), the autograd
+Functions against autograd of the plain forward, and the CUDA kernels
+against their plain versions on the card (marked `cuda`)."""
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from asr_ttl_mtl_tpu.ops import flash_attention as JF
+from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+from asr_ttl_mtl_tpu_torch.ops import flash_attention as PF
+
+from torch_port_helpers import cuda_device  # noqa: F401
+
+ATOL = 1e-5  # fp32 both sides; only the order of the sums differs
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _inputs(shapes, seed, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*s) * 0.5).astype(dtype) for s in shapes]
+
+
+def _close(got, want, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32), atol=atol, rtol=0)
+
+
+# ------------------------------------------------------- K3 lse and K6 ------
+
+H2_CASES = [(64, 64, None), (64, 200, None), (200, 64, None), (200, 200, 150), (64, 200, 130)]
+
+
+@pytest.mark.parametrize("tq,tk,kv_valid_len", H2_CASES)
+def test_k3_lse_and_k6_plain_match_pallas(tq, tk, kv_valid_len):
+    """d=128, 2 heads (dh 64, one lane tile of 2 heads)."""
+    b, d, n_head = 2, 128, 2
+    q, k, v, g = _inputs([(b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d)], seed=tq + tk)
+    kw = dict(n_head=n_head, kv_valid_len=kv_valid_len, scale=0.125)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = JF.flash_attention_h2(q, k, v, return_lse=True, interpret=True, **kw)
+        delta = np.asarray(JF.flash_attention_h2(q, k, v, return_lse=False, interpret=True, **kw))
+        jdelta = (g * delta).reshape(b, tq, 1, 2, 64).sum(-1).transpose(2, 0, 1, 3)
+        jgrads = JF.flash_attention_h2_bwd(q, k, v, jlse, jdelta, g, interpret=True, **kw)
+    pout, plse = PF.flash_attention_h2(_t(q), _t(k), _t(v), return_lse=True, **kw)
+    assert tuple(plse.shape) == (d // 128, b, tq, 2) == tuple(np.asarray(jlse).shape)
+    _close(pout, jout)
+    _close(plse, jlse)
+    _close(PF.h2_delta(_t(g), _t(delta), n_head), jdelta)
+    pgrads = PF.flash_attention_h2_bwd(_t(q), _t(k), _t(v), plse, _t(jdelta), _t(g), **kw)
+    for name, a, c in zip("dq dk dv".split(), pgrads, jgrads):
+        _close(a, c)
+    if kv_valid_len is not None:  # masked keys get exactly zero gradient
+        assert not pgrads[1][:, kv_valid_len:].any() and not pgrads[2][:, kv_valid_len:].any()
+
+
+def test_k3_lse_bf16_inputs_match_pallas():
+    """bf16 inputs: p and the outputs round to bf16 on both sides, in other
+    places; allow 2^-6 of the largest output."""
+    b, tq, tk, d = 1, 64, 200, 128
+    q, k, v, g = (x.astype(np.float32) for x in _inputs([(b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d)], 5))
+    tb = [_t(x).bfloat16() for x in (q, k, v, g)]
+    jb = [np.asarray(x.float().numpy()) for x in tb]
+    import jax.numpy as jnp
+
+    jbf = [jnp.asarray(x, jnp.bfloat16) for x in jb]
+    kw = dict(n_head=2, kv_valid_len=180, scale=0.125)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = JF.flash_attention_h2(*jbf[:3], return_lse=True, interpret=True, **kw)
+        jdelta = (np.asarray(jb[3]) * np.asarray(jout, np.float32)).reshape(b, tq, 1, 2, 64).sum(-1)
+        jdelta = jdelta.transpose(2, 0, 1, 3)
+        jgrads = JF.flash_attention_h2_bwd(*jbf[:3], jlse, jdelta, jbf[3], interpret=True, **kw)
+    pout, plse = PF.flash_attention_h2(*tb[:3], return_lse=True, **kw)
+    _close(pout.float(), jout, atol=2.0**-6 * np.abs(np.asarray(jout, np.float32)).max())
+    pgrads = PF.flash_attention_h2_bwd(*tb[:3], plse, _t(jdelta), tb[3], **kw)
+    for a, c in zip(pgrads, jgrads):
+        c = np.asarray(c, np.float32)
+        _close(a.float(), c, atol=2.0**-6 * np.abs(c).max())
+
+
+# ----------------------------------------------------------- K7 and K8 ------
+
+K7_CASES = [  # bh, tq, tk, causal, q_offset, kv_valid_len
+    (3, 37, 37, True, 0, None),
+    (3, 37, 100, True, 7, None),
+    (2, 130, 130, True, 0, None),
+    (2, 50, 257, False, 0, 200),
+    (2, 48, 300, True, 7, 250),
+]
+
+
+@pytest.mark.parametrize("bh,tq,tk,causal,q_offset,kv_valid_len", K7_CASES)
+def test_k7_and_k8_plain_match_pallas(bh, tq, tk, causal, q_offset, kv_valid_len):
+    q, k, v, g = _inputs([(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq * tk)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = JF.flash_attention(q, k, v, return_lse=True, interpret=True, **kw)
+        jout_nolse = JF.flash_attention(q, k, v, interpret=True, **kw)
+        jgrads = JF.flash_attention_bwd(q, k, v, jout, jlse, g, interpret=True, **kw)
+    pout, plse = PF.flash_attention(_t(q), _t(k), _t(v), return_lse=True, **kw)
+    assert tuple(plse.shape) == (bh, tq, 1)
+    _close(pout, jout)
+    _close(plse, jlse)
+    _close(PF.flash_attention(_t(q), _t(k), _t(v), **kw), jout_nolse)
+    pgrads = PF.flash_attention_bwd(_t(q), _t(k), _t(v), pout, plse, _t(g), **kw)
+    for a, c in zip(pgrads, jgrads):
+        _close(a, c)
+
+
+def test_k7_and_k8_bf16_inputs_match_pallas():
+    """bf16 inputs, causal with q_offset: p, dS and the outputs round to
+    bf16 on both sides, in other places; allow 2^-6 of the largest output."""
+    import jax.numpy as jnp
+
+    q, k, v, g = (_t(x).bfloat16() for x in _inputs([(2, 40, 64), (2, 90, 64), (2, 90, 64), (2, 40, 64)], 8))
+    jq, jk, jv, jg = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v, g))
+    kw = dict(causal=True, q_offset=7, kv_valid_len=80, scale=0.125)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = JF.flash_attention(jq, jk, jv, return_lse=True, interpret=True, **kw)
+        jgrads = JF.flash_attention_bwd(jq, jk, jv, jout, jlse, jg, interpret=True, **kw)
+    pout, plse = PF.flash_attention(q, k, v, return_lse=True, **kw)
+    want = np.asarray(jout, np.float32)
+    _close(pout.float(), want, atol=2.0**-6 * np.abs(want).max())
+    _close(plse, jlse, atol=1e-4)
+    for a, c in zip(PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw), jgrads):
+        c = np.asarray(c, np.float32)
+        _close(a.float(), c, atol=2.0**-6 * np.abs(c).max())
+
+
+def test_flash_attention_bhtd_layout():
+    q, k, v = _inputs([(2, 3, 40, 64), (2, 3, 40, 64), (2, 3, 40, 64)], seed=9)
+    with pltpu.force_tpu_interpret_mode():
+        want = JF.flash_attention_bhtd(q, k, v, causal=True, scale=0.125, interpret=True)
+    _close(PF.flash_attention_bhtd(_t(q), _t(k), _t(v), causal=True, scale=0.125), want)
+
+
+# ------------------------------------------------------- autograd Functions --
+
+
+def _loss(out):
+    return (out * torch.cos(out)).sum()  # a non-trivial cotangent
+
+
+@pytest.mark.parametrize("kv_valid_len", [None, 70])
+def test_h2_function_grads_equal_autograd_of_plain(kv_valid_len):
+    q, k, v = (_t(x).requires_grad_(True) for x in _inputs([(2, 40, 128), (2, 90, 128), (2, 90, 128)], seed=3))
+    kw = dict(n_head=2, kv_valid_len=kv_valid_len, scale=0.125)
+    reset_launch_counts()
+    got = torch.autograd.grad(_loss(PF.FlashAttentionH2Fn.apply(q, k, v, 2, kv_valid_len, 0.125)), (q, k, v))
+    want = torch.autograd.grad(_loss(PF.flash_attention_h2_plain(q, k, v, **kw)), (q, k, v))
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, atol=ATOL, rtol=0)
+    assert sum(LAUNCHES.values()) == 0  # CPU tensors never count kernel launches
+
+
+@pytest.mark.parametrize("causal,q_offset,kv_valid_len", [(True, 0, None), (True, 5, None), (False, 0, 60)])
+def test_flash_function_grads_equal_autograd_of_plain(causal, q_offset, kv_valid_len):
+    q, k, v = (_t(x).requires_grad_(True) for x in _inputs([(4, 33, 64), (4, 80, 64), (4, 80, 64)], seed=4))
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
+    got = torch.autograd.grad(_loss(PF.FlashAttentionFn.apply(q, k, v, causal, q_offset, kv_valid_len, 0.125)),
+                              (q, k, v))
+    want = torch.autograd.grad(_loss(PF.flash_attention_plain(q, k, v, **kw)), (q, k, v))
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, atol=ATOL, rtol=0)
+
+
+def test_vjp_helpers_take_the_forward_without_grad():
+    """Without a gradient the helpers run the forward without lse (what
+    evaluation launches); with one, the autograd Function."""
+    q, k, v = (_t(x) for x in _inputs([(2, 40, 128), (2, 40, 128), (2, 40, 128)], seed=5))
+    qs, ks, vs = (_t(x) for x in _inputs([(4, 40, 64), (4, 40, 64), (4, 40, 64)], seed=6))
+    assert PF.flash_attention_h2_vjp(q, k, v, 2, None, 0.125).grad_fn is None
+    assert PF.flash_attention_vjp(qs, ks, vs, True).grad_fn is None
+    q.requires_grad_(True)
+    qs.requires_grad_(True)
+    assert type(PF.flash_attention_h2_vjp(q, k, v, 2, None, 0.125).grad_fn).__name__ == "FlashAttentionH2FnBackward"
+    assert type(PF.flash_attention_vjp(qs, ks, vs, True).grad_fn).__name__ == "FlashAttentionFnBackward"
+    with torch.no_grad():
+        assert PF.flash_attention_vjp(qs, ks, vs, True).grad_fn is None
+
+
+# ------------------------------------------------------------ on the card ---
+
+
+def _card_inputs(dev, shapes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).bfloat16() for s in shapes]
+
+
+def _assert_card_close(got, want):
+    """bf16 rounding at other places (p, dS, the outputs): 2^-6 of the largest output."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2.0**-6 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,kv_valid_len", [(200, 200, 150), (48, 1500, None), (448, 1500, None)])
+def test_k3_lse_and_k6_kernels_on_card(cuda_device, tq, tk, kv_valid_len):  # noqa: F811
+    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq)
+    kw = dict(n_head=8, kv_valid_len=kv_valid_len, scale=0.125)
+    out, lse = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
+    pout, plse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    _assert_card_close(out, pout)
+    assert (lse - plse).abs().max().item() <= 1e-4
+    delta = PF.h2_delta(g, pout, 8)
+    for a, c in zip(PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
+                    PF.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw)):
+        _assert_card_close(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,q_offset,kv_valid_len", [(16, 64, 64, 0, None), (8, 448, 448, 0, None),
+                                                          (8, 37, 448, 11, None), (8, 100, 300, 7, 250)])
+def test_k7_and_k8_kernels_on_card(cuda_device, bh, tq, tk, q_offset, kv_valid_len):  # noqa: F811
+    q, k, v, g = _card_inputs(cuda_device, [(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq)
+    kw = dict(causal=True, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
+    out, lse = PF.flash_attention(q, k, v, return_lse=True, **kw)
+    pout, plse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _assert_card_close(out, pout)
+    _assert_card_close(PF.flash_attention(q, k, v, **kw), pout)
+    assert (lse - plse).abs().max().item() <= 1e-4
+    for a, c in zip(PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+                    PF.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)):
+        _assert_card_close(a, c)

@@ -48,15 +48,15 @@ def test_checkpoint_roundtrip(pair, tmp_path):
     _, tmodel = pair
     path = str(tmp_path / "m.pt")
     torch.save({"dims": tmodel.dims.__dict__, "model_state_dict": tmodel.state_dict()}, path)
-    loaded = load_model(path)
+    loaded = load_model(path, device="cpu")
     for (k, a), (_, b) in zip(tmodel.state_dict().items(), loaded.state_dict().items()):
         assert torch.equal(a, b), k
 
 
 def test_from_random_is_seeded():
-    a = from_random(PW.ModelDimensions(**SMALL), seed=3)
-    b = from_random(PW.ModelDimensions(**SMALL), seed=3)
-    c = from_random(PW.ModelDimensions(**SMALL), seed=4)
+    a = from_random(PW.ModelDimensions(**SMALL), seed=3, device="cpu")
+    b = from_random(PW.ModelDimensions(**SMALL), seed=3, device="cpu")
+    c = from_random(PW.ModelDimensions(**SMALL), seed=4, device="cpu")
     wa, wb, wc = (m.encoder.blocks[0].mlp[0].weight for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
     bound = 1 / np.sqrt(128)

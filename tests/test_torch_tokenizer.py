@@ -83,6 +83,54 @@ def test_single_pretoken_encode(text):
 
 
 def test_encode_of_several_pretokens_is_not_ported():
+    """Formerly not ported; now the full GPT-2 pre-tokenization: equal to tiktoken."""
     p = PT.get_tokenizer(True)
-    with pytest.raises(NotImplementedError):
-        p.encode(" hello world")
+    j = JT.get_tokenizer(True)
+    assert p.encode(" hello world") == j.encode(" hello world")
+
+
+CORPUS = [
+    "hello world", " Hello, world!", "it's we're they've I'm you'll he'd don't",
+    "IT'S WE'RE", "''s 's' '", "rock'n'roll", "abc123def 4567 8.9e10 ½ ²³ Ⅻ",
+    "café naïve Ünïcödé façade", "日本語のテキスト 中文 한국어", "Привет, мир!", "مرحبا بالعالم",
+    "!!! ??? ... --- ((( ))) ♪♪ ♪", "a  b   c    d", "line\nbreak\n\nand\r\ncrlf",
+    "tabs\tand\t\tmore", "trailing space ", "trailing spaces   ", "trailing newline\n",
+    "   leading", "\n\nleading newlines", " \u3000ideographic\u3000space", "nbsp\xa0here",
+    "mixed 12ab ab12 a1b2", "emoji 🙂🙂 👍🏽", "$100.00 & 50% off #1 @user", "",
+    "x", " ", "\t", " 's", "a's'b", "\u2028sep\u2029", "under_score-dash/slash\\back",
+]
+_CLASSES = ["abcXYZ", "0123456789", "éüñçßÆ", "日本語中文한국", " ", "  ", "\n", "\t", ".,!?;:'\"()-_/♪",
+            "'s", "'re", "'ll", "Ⅻ½²", "\xa0"]
+
+
+def _random_strings(seed: int, n: int):
+    rng = np.random.RandomState(seed)
+    for _ in range(n):
+        parts = []
+        for _ in range(rng.randint(1, 12)):
+            cls = _CLASSES[rng.randint(len(_CLASSES))]
+            parts.append("".join(cls[rng.randint(len(cls))] for _ in range(rng.randint(1, 4))))
+        yield "".join(parts)
+
+
+@pytest.mark.parametrize("multilingual", [True, False], ids=["multilingual", "en"])
+def test_encode_corpus_matches_tiktoken(multilingual):
+    j = JT.get_tokenizer(multilingual)
+    p = PT.get_tokenizer(multilingual)
+    for text in CORPUS:
+        assert p.encode(text) == j.encode(text), repr(text)
+
+
+@pytest.mark.parametrize("multilingual", [True, False], ids=["multilingual", "en"])
+def test_encode_random_strings_match_tiktoken(multilingual):
+    j = JT.get_tokenizer(multilingual, include_diseases=True)
+    p = PT.get_tokenizer(multilingual, include_diseases=True)
+    for text in _random_strings(seed=7, n=300):
+        assert p.encode(text) == j.encode(text), repr(text)
+        assert p.decode(p.encode(text)) == text
+
+
+def test_encode_rejects_special_token_text():
+    p = PT.get_tokenizer(True)
+    with pytest.raises(ValueError):
+        p.encode("hi <|endoftext|>")
