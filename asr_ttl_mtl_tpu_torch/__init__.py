@@ -5,10 +5,12 @@ never jax, nor the JAX package. Its hot path runs on hand-written Hopper
 kernels (`csrc/`, bound in `ops/`), each with a plain PyTorch version that
 the CPU takes and the CUDA path is checked against.
 
-Ported so far: the greedy 30 s window path, waveform -> log-mel -> encoder
--> cross-KV -> prefill -> greedy decode -> text; and the single-device
-multi-task fine-tune (`mtl/`: dataset, trainer, chunked CE, 4-group AdamW),
-whose attention trains through the flash kernels' backward passes.
+Ported so far: the 30 s window path, waveform -> log-mel -> encoder ->
+cross-KV -> prefill -> greedy, best-of or beam decode -> text; long-form
+`transcribe`, the writers and the CLI (`python -m asr_ttl_mtl_tpu_torch`);
+and the single-device multi-task fine-tune (`mtl/`: dataset, trainer,
+chunked CE, 4-group AdamW), whose attention trains through the flash
+kernels' backward passes.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,158 @@
+"""Command-line transcription (counterpart of `asr_ttl_mtl_tpu/cli.py`).
+
+    python -m asr_ttl_mtl_tpu_torch audio.wav --model base.pt [--device cpu] ...
+
+The flags, defaults and their rules are the JAX package's. `--model` names
+a reference-layout `.pt` file, or a preset name whose `<name>.pt` lies in
+`--model_dir`: nothing is downloaded. `--device` is a torch device, the
+card by default. The throughput modes (`--batch_mode`, `--dp`, `--tp`) are
+not ported yet and are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import traceback
+import warnings
+from typing import List, Optional
+
+import numpy as np
+
+from .tokenizer import LANGUAGES, TO_LANGUAGE_CODE
+from .utils import optional_float, optional_int, str2bool
+from .utils.writers import get_writer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The transcription flag surface, separate from `cli` so that it can be
+    tested."""
+    from .models.dims import PRESET_DIMS
+
+    def valid_model_name(name):
+        if name in PRESET_DIMS or os.path.exists(name):
+            return name
+        raise ValueError(f"model should be one of {sorted(PRESET_DIMS)} or path to a model checkpoint")
+
+    # fmt: off
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("audio", nargs="+", type=str, help="audio file(s) to transcribe")
+    parser.add_argument("--model", default="turbo", type=valid_model_name, help="a reference-layout .pt checkpoint, or a preset name whose <name>.pt lies in --model_dir")
+    parser.add_argument("--model_dir", type=str, default=None, help="directory holding <name>.pt checkpoints for preset names; nothing is downloaded")
+    parser.add_argument("--device", default="cuda", help="torch device to run on ('cuda' or 'cpu')")
+    parser.add_argument("--output_dir", "-o", type=str, default=".", help="directory to save the outputs")
+    parser.add_argument("--output_format", "-f", type=str, default="all", choices=["txt", "vtt", "srt", "tsv", "json", "all"], help="format of the output file; if not specified, all available formats will be produced")
+    parser.add_argument("--verbose", type=str2bool, default=True, help="whether to print out progress and debug messages")
+
+    parser.add_argument("--task", type=str, default="transcribe", choices=["transcribe", "translate"], help="perform X->X speech recognition ('transcribe') or X->English translation ('translate')")
+    parser.add_argument("--language", type=str, default=None, choices=sorted(LANGUAGES.keys()) + sorted([k.title() for k in TO_LANGUAGE_CODE.keys()]), help="language spoken in the audio; None performs language detection")
+
+    parser.add_argument("--temperature", type=float, default=0, help="temperature to use for sampling")
+    parser.add_argument("--best_of", type=optional_int, default=5, help="number of candidates when sampling with non-zero temperature")
+    parser.add_argument("--beam_size", type=optional_int, default=5, help="number of beams in beam search, only applicable when temperature is zero")
+    parser.add_argument("--patience", type=float, default=None, help="optional patience value in beam decoding (arXiv:2204.05424); 1.0 is conventional beam search")
+    parser.add_argument("--length_penalty", type=float, default=None, help="optional token length penalty coefficient (alpha, arXiv:1609.08144); simple length normalization by default")
+
+    parser.add_argument("--suppress_tokens", type=str, default="-1", help="comma-separated token ids to suppress; '-1' suppresses most special characters except common punctuation")
+    parser.add_argument("--initial_prompt", type=str, default=None, help="optional text to provide as a prompt for the first window")
+    parser.add_argument("--carry_initial_prompt", type=str2bool, default=False, help="prepend initial_prompt to every internal decode() call")
+
+    parser.add_argument("--condition_on_previous_text", type=str2bool, default=True, help="provide the previous output as a prompt for the next window")
+    parser.add_argument("--fp16", type=str2bool, default=True, help="use the fast half-precision compute dtype (bf16 on the card, which the card requires)")
+    parser.add_argument("--kv_int8", type=str2bool, default=False, help="store the attention K/V caches int8 (per-row scales): faster batched decoding, approximately identical output")
+    parser.add_argument("--int8_encoder", type=str2bool, default=False, help="run the encoder block projections as dynamically-quantized int8 matmuls: faster encoding, approximately identical output")
+    parser.add_argument("--fuse_encoder", type=str2bool, default=True, help="with --kv_int8, let the prompt prefill read the float cross K/V (the JAX package's fused window program); False reads the dequantized int8 store")
+    parser.add_argument("--batch_mode", type=str2bool, default=False, help="decode every 30s window of every input file in device-wide batches (not ported yet)")
+    parser.add_argument("--dp", type=optional_int, default=None, help="with --batch_mode: data-parallel devices (not ported yet)")
+    parser.add_argument("--tp", type=optional_int, default=None, help="with --batch_mode: tensor-parallel devices per dp replica (not ported yet)")
+
+    parser.add_argument("--temperature_increment_on_fallback", type=optional_float, default=0.2, help="temperature increment on decode-quality fallback")
+    parser.add_argument("--compression_ratio_threshold", type=optional_float, default=2.4, help="gzip compression ratio above which a decode is treated as failed")
+    parser.add_argument("--logprob_threshold", type=optional_float, default=-1.0, help="average log probability below which a decode is treated as failed")
+    parser.add_argument("--no_speech_threshold", type=optional_float, default=0.6, help="<|nospeech|> probability above which (with failed logprob) a segment is considered silent")
+    parser.add_argument("--word_timestamps", type=str2bool, default=False, help="extract word-level timestamps (not ported yet)")
+    parser.add_argument("--prepend_punctuations", type=str, default="\"'“¿([{-", help="with --word_timestamps: merge these punctuation symbols with the next word")
+    parser.add_argument("--append_punctuations", type=str, default="\"'.。,，!！?？:：”)]}、", help="with --word_timestamps: merge these punctuation symbols with the previous word")
+    parser.add_argument("--highlight_words", type=str2bool, default=False, help="(requires --word_timestamps) underline each word as it is spoken in srt/vtt")
+    parser.add_argument("--max_line_width", type=optional_int, default=None, help="(requires --word_timestamps) max characters per subtitle line")
+    parser.add_argument("--max_line_count", type=optional_int, default=None, help="(requires --word_timestamps) max lines per subtitle segment")
+    parser.add_argument("--max_words_per_line", type=optional_int, default=None, help="(requires --word_timestamps, no effect with --max_line_width) max words per segment")
+    parser.add_argument("--clip_timestamps", type=str, default="0", help="comma-separated start,end,... timestamps (s) of clips to process")
+    parser.add_argument("--hallucination_silence_threshold", type=optional_float, help="(requires --word_timestamps) skip silent periods longer than this (s) when a possible hallucination is detected")
+    parser.add_argument("--threads", type=optional_int, default=0, help="number of CPU threads for host-side compute (torch.set_num_threads)")
+    # fmt: on
+    return parser
+
+
+def _checkpoint_path(parser: argparse.ArgumentParser, model_name: str, model_dir: Optional[str]) -> str:
+    if os.path.isfile(model_name):
+        return model_name
+    path = os.path.join(model_dir, f"{model_name}.pt") if model_dir else None
+    if path is None or not os.path.isfile(path):
+        parser.error(
+            f"--model {model_name}: a checkpoint file is needed (a reference-layout .pt path, or "
+            f"{model_name}.pt in --model_dir); nothing is downloaded"
+        )
+    return path
+
+
+def cli(argv: Optional[List[str]] = None) -> None:
+    import torch
+
+    from .models import load_model
+    from .transcribe import transcribe
+
+    parser = build_parser()
+    args = parser.parse_args(argv).__dict__
+    model_name: str = args.pop("model")
+    model_dir: Optional[str] = args.pop("model_dir")
+    output_dir: str = args.pop("output_dir")
+    output_format: str = args.pop("output_format")
+    device: str = args.pop("device")
+
+    for flag in ("batch_mode", "dp", "tp"):
+        value = args.pop(flag)
+        if value not in (None, False):
+            parser.error(f"--{flag} is not ported yet (ROADMAP: transcribe_batch and the multi-device paths)")
+    os.makedirs(output_dir, exist_ok=True)
+
+    if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
+        if args["language"] is not None:
+            warnings.warn(f"{model_name} is an English-only model but received '{args['language']}'; using English instead.")
+        args["language"] = "en"
+
+    args["kv_quant"] = args.pop("kv_int8")
+    temperature = args.pop("temperature")
+    if (increment := args.pop("temperature_increment_on_fallback")) is not None:
+        temperature = tuple(np.arange(temperature, 1.0 + 1e-6, increment))
+    else:
+        temperature = [temperature]
+
+    if (threads := args.pop("threads") or 0) > 0:
+        torch.set_num_threads(threads)
+
+    model = load_model(_checkpoint_path(parser, model_name, model_dir), device=device)
+
+    writer = get_writer(output_format, output_dir)
+    word_options = ["highlight_words", "max_line_count", "max_line_width", "max_words_per_line"]
+    if not args["word_timestamps"]:
+        for option in word_options:
+            if args[option]:
+                parser.error(f"--{option} requires --word_timestamps True")
+    if args["max_line_count"] and not args["max_line_width"]:
+        warnings.warn("--max_line_count has no effect without --max_line_width")
+    if args["max_words_per_line"] and args["max_line_width"]:
+        warnings.warn("--max_words_per_line has no effect with --max_line_width")
+    writer_args = {arg: args.pop(arg) for arg in word_options}
+
+    for audio_path in args.pop("audio"):
+        try:
+            result = transcribe(model, audio_path, temperature=temperature, **args)
+            writer(result, audio_path, **writer_args)
+        except Exception as e:
+            traceback.print_exc()
+            print(f"Skipping {audio_path} due to {type(e).__name__}: {str(e)}")
+
+
+if __name__ == "__main__":
+    cli()

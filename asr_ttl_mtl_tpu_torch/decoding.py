@@ -1,46 +1,37 @@
 """Greedy decoding of batched 30-second windows.
 
 Counterpart of `asr_ttl_mtl_tpu/decoding.py`: `DecodingOptions` and
-`DecodingResult` (:59-126), the logit filters as one vectorized pass
-(`FilterConfig`, `_apply_filters` :133-224), the prompt buckets (:49-56),
-the greedy program (:323-452) as a Python loop over steps, language
+`DecodingResult` (:59-126), the greedy program (:323-452) as a Python loop over steps, language
 detection (:524), `MaximumLikelihoodRanker` (:578), and `DecodingTask`
-with `run`, `submit` and `collect`.
+with `run`, `submit` and `collect`. The logit filters and the prompt
+buckets, which the beam loop shares, are in `decode_steps.py`.
 
 Errors propagate: there is no retry on the plain paths when a kernel fails.
 `submit` enqueues the whole window (encoder, cross-KV, prefill, decode
 steps) on the current CUDA stream and returns device tensors; `collect`
-brings the results back with one `.cpu()` and assembles them. Beam search,
-word timestamps and string prompts belong to later slices.
+brings the results back with one `.cpu()` and assembles them. With
+`beam_size` the decode steps are the beam search of `beam.py`. Word
+timestamps belong to a later slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from functools import lru_cache
+from functools import partial
 from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .audio import CHUNK_LENGTH
+from .beam import collect_beam, dispatch_beam
+from .decode_steps import _EXIT_CHECK_EVERY, _NEG, _PROMPT_BUCKETS, FilterConfig, _apply_filters, _bucket, _fetch
 from .models import whisper as W
 from .tokenizer import Tokenizer, get_tokenizer, normalize_language
 from .utils import compression_ratio
 
 if TYPE_CHECKING:
     from .models.registry import WhisperModel
-
-_NEG = -1e9  # effective -inf that keeps softmax finite
-_PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256)
-_EXIT_CHECK_EVERY = 8  # steps between host checks of "every row finished"
-
-
-def _bucket(n: int) -> int:
-    for b in _PROMPT_BUCKETS:
-        if n <= b:
-            return b
-    return _PROMPT_BUCKETS[-1]
 
 
 @dataclass(frozen=True)
@@ -95,85 +86,6 @@ class DecodingResult:
     no_speech_prob: float = np.nan
     temperature: float = np.nan
     compression_ratio: float = np.nan
-
-
-# ---------------------------------------------------------------------------
-# vectorized logit filters
-# ---------------------------------------------------------------------------
-
-
-@dataclass(frozen=True)
-class FilterConfig:
-    """Static per-task filter configuration."""
-
-    n_vocab: int
-    eot: int
-    timestamp_begin: int
-    no_timestamps: int
-    blank_tokens: Tuple[int, ...]  # tokens suppressed at sample start
-    suppress_tokens: Tuple[int, ...]
-    suppress_blank: bool
-    apply_timestamp_rules: bool
-    max_initial_timestamp_index: int  # -1 = unlimited
-
-
-@lru_cache(maxsize=32)
-def _filter_masks(cfg: FilterConfig, device: torch.device):
-    """(blank, suppress) boolean (V,) masks on the device."""
-    blank = torch.zeros(cfg.n_vocab, dtype=torch.bool)
-    blank[list(cfg.blank_tokens)] = True
-    sup = torch.zeros(cfg.n_vocab, dtype=torch.bool)
-    sup[list(cfg.suppress_tokens)] = True
-    return blank.to(device), sup.to(device)
-
-
-def _apply_filters(
-    cfg: FilterConfig,
-    logits: torch.Tensor,  # (B, V) in the loop's compute dtype
-    step: int,  # number of sampled tokens so far
-    prev_tok: torch.Tensor,  # (B,) last sampled token (-1 before any)
-    penult_tok: torch.Tensor,  # (B,) second-to-last sampled token (-1)
-    last_ts: torch.Tensor,  # (B,) last sampled timestamp token (-1 if none)
-) -> torch.Tensor:
-    """All reference logit filters as one vectorized masking pass."""
-    blank, sup = _filter_masks(cfg, logits.device)
-    if cfg.suppress_blank and step == 0:
-        logits = logits.masked_fill(blank[None, :], _NEG)
-    if cfg.suppress_tokens:
-        logits = logits.masked_fill(sup[None, :], _NEG)
-
-    if cfg.apply_timestamp_rules:
-        ts_begin = cfg.timestamp_begin
-        vocab_ids = torch.arange(cfg.n_vocab, device=logits.device)[None, :]
-        logits = logits.masked_fill(vocab_ids == cfg.no_timestamps, _NEG)
-
-        last_was_ts = (prev_tok >= ts_begin) & (step >= 1)
-        penult_was_ts = (penult_tok >= ts_begin) | (step < 2)
-        force_non_ts = (last_was_ts & penult_was_ts)[:, None]
-        force_ts_or_eot = (last_was_ts & ~penult_was_ts)[:, None]
-        logits = logits.masked_fill(force_non_ts & (vocab_ids >= ts_begin), _NEG)
-        logits = logits.masked_fill(force_ts_or_eot & (vocab_ids < cfg.eot), _NEG)
-
-        # non-decreasing timestamps
-        has_ts = last_ts >= 0
-        ts_floor = torch.where(last_was_ts & ~penult_was_ts, last_ts, last_ts + 1)
-        ts_mask = has_ts[:, None] & (vocab_ids >= ts_begin) & (vocab_ids < ts_floor[:, None])
-        logits = logits.masked_fill(ts_mask, _NEG)
-
-        # at the first sample: force a timestamp, optionally capped
-        if step == 0:
-            logits = logits.masked_fill(vocab_ids < ts_begin, _NEG)
-            if cfg.max_initial_timestamp_index >= 0:
-                logits = logits.masked_fill(vocab_ids > ts_begin + cfg.max_initial_timestamp_index, _NEG)
-
-        # sample a timestamp if their total probability beats every text token
-        # (compared on raw logits: the log_softmax shift is common to both)
-        ts_logprob = torch.logsumexp(logits[:, ts_begin:].float(), dim=-1)
-        max_text = logits[:, :ts_begin].float().amax(dim=-1)
-        force_ts = (ts_logprob > max_text)[:, None]
-        logits = logits.masked_fill(force_ts & (vocab_ids < ts_begin), _NEG)
-
-    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +206,12 @@ class DecodingTask:
             max_initial_timestamp_index=max_initial_timestamp_index,
         )
         self.compute_dtype = model.compute_dtype if options.fp16 else torch.float32
+        if model.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
+            raise ValueError(
+                f"fp16={options.fp16} with a {model.compute_dtype} model computes in {self.compute_dtype}, but the "
+                "card's encoder attention kernel (K3) takes bf16 only (ROADMAP item 9): decode on the card with "
+                "fp16=True and a bf16 model, or on the CPU"
+            )
         self.kv_quant = bool(options.kv_quant)
         self.int8_encoder = bool(options.int8_encoder)
 
@@ -403,8 +321,6 @@ class DecodingTask:
     def submit(self, mel, rng_seed: int = 0):
         """Enqueue one batch of windows on the current stream; returns a
         handle for `collect`."""
-        if self.options.beam_size is not None:
-            raise NotImplementedError("beam search (asr_ttl_mtl_tpu/beam.py) is not ported yet")
         mel = torch.as_tensor(mel).to(self.model.device)
         n_audio = mel.shape[0]
         fused = self._fused(mel)
@@ -422,22 +338,30 @@ class DecodingTask:
 
             if self.options.task == "lang_id":
                 feats_np = feats.float().cpu().numpy()
-                return ("done", [
+                return [
                     DecodingResult(audio_features=feats_np[i], language=languages[i],
                                    language_probs=language_probs[i])
                     for i in range(n_audio)
-                ])
+                ]
 
-            arrays, meta = self._greedy(cross_kv, cross_prefill, initial, rng_seed)
+            if self.options.beam_size is not None:
+                arrays, meta = dispatch_beam(self, cross_kv, cross_prefill, initial)
+                assemble = partial(collect_beam, arrays, meta, self.tokenizer.eot)
+            else:
+                arrays, meta = self._greedy(cross_kv, cross_prefill, initial, rng_seed)
+                assemble = partial(self._assemble_greedy, *arrays, *meta)
         feats_out = feats if self.options.return_audio_features else None
-        return ("greedy", arrays, meta, languages, feats_out)
+        return (assemble, languages, feats_out)
 
     def collect(self, pending) -> List[DecodingResult]:
-        """Bring a submitted batch's results to the host and assemble them."""
-        if pending[0] == "done":
-            return pending[1]
-        _, arrays, meta, languages, feats = pending
-        tokens, sum_logprobs, no_speech_probs = self._assemble_greedy(*arrays, *meta)
+        """Bring a submitted batch's results to the host and assemble them.
+        `pending` is `submit`'s handle: (the function that fetches and
+        assembles the decode's outputs, languages, features), or the finished
+        results of a `lang_id` task."""
+        if isinstance(pending, list):
+            return pending
+        assemble, languages, feats = pending
+        tokens, sum_logprobs, no_speech_probs = assemble()
         feats_np = feats.float().cpu().numpy() if feats is not None else None
         return self._finalize(tokens, sum_logprobs, no_speech_probs, languages, feats_np)
 
@@ -530,16 +454,9 @@ class DecodingTask:
     def _assemble_greedy(self, buf, sum_lp, ns_probs, n_sampled: int, n_audio: int, n_group: int,
                          valid_len: int):
         """Fetch the outputs in one transfer, slice the sampled region and cut
-        at the first EOT (reference decoding.py:749-752). Token ids < 2^24
-        travel exactly as fp32."""
-        rows = buf.shape[0]
-        width = n_sampled
-        packed = torch.cat([
-            buf[:, valid_len : valid_len + width].float().reshape(-1), sum_lp.float(), ns_probs.float(),
-        ]).cpu().numpy()
-        toks = packed[: rows * width].astype(np.int64).reshape(rows, width)
-        sum_lp = packed[rows * width : rows * width + rows]
-        ns_probs = packed[rows * width + rows :]
+        at the first EOT (reference decoding.py:749-752)."""
+        toks, sum_lp, ns_probs = _fetch(buf[:, valid_len : valid_len + n_sampled], sum_lp, ns_probs)
+        toks = toks.astype(np.int64)
 
         tokens: List[List[List[int]]] = []
         sum_logprobs: List[List[float]] = []

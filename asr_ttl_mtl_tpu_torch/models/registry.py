@@ -75,6 +75,23 @@ class WhisperModel(nn.Module):
         self.dims = self.dims.replace(n_vocab=new_vocab_size)
         self.encoder.dims = self.decoder.dims = self.dims
 
+    # --- the reference's high-level API (late imports avoid cycles) ---
+
+    def decode(self, mel, options=None, **kwargs):
+        from ..decoding import decode
+
+        return decode(self, mel, options, **kwargs)
+
+    def detect_language(self, mel, tokenizer=None):
+        from ..decoding import detect_language
+
+        return detect_language(self, mel, tokenizer)
+
+    def transcribe(self, audio, **kwargs):
+        from ..transcribe import transcribe
+
+        return transcribe(self, audio, **kwargs)
+
 
 def _init_random_(model: WhisperModel, gen: torch.Generator) -> None:
     """Fan-in uniform init like the JAX package's `init_params` (same
@@ -130,6 +147,15 @@ def load_model(
     model = WhisperModel(dims, compute_dtype=compute_dtype)
     model.load_state_dict({k: v.float() for k, v in ckpt["model_state_dict"].items()})
     return model.to(device).eval().requires_grad_(False)
+
+
+def checkpoint_dict(model: WhisperModel) -> Dict[str, Any]:
+    """The reference `.pt` layout of a model, for `torch.save`: its dims and
+    its fp32 state dict on the CPU; `load_model` reads it back."""
+    return {
+        "dims": dict(model.dims.__dict__),
+        "model_state_dict": {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+    }
 
 
 def state_dict_from_jax_params(params: Dict[str, Any], dims: ModelDimensions) -> Dict[str, torch.Tensor]:

@@ -22,6 +22,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_lse": 0,  # K7 with the logsumexp (training forward)
     "flash_attention_bwd": 0,  # K8 (dq and dkv kernels, one launch each per call)
     "log_mel": 0,  # K4, ops/mel.py
+    "topk_logprobs": 0,  # K9, ops/topk.py
+    "topk": 0,  # K10, ops/topk.py
 }
 
 

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mel", "flash_attention", "decode_attention")
+SOURCES = ("mel", "flash_attention", "decode_attention", "topk")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,6 +62,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # n_head, tk_blk, valid_upto, scale, stream
         "decode_attn_i8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "decode_attn_i8_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
+    "topk": {
+        # x, values, indices, rows, v, k, stream
+        "topk_logprobs_bf16": (_P, _P, _P, _I, _I, _I, _P),
+        "topk_logprobs_f32": (_P, _P, _P, _I, _I, _I, _P),
+        "topk_bf16": (_P, _P, _P, _I, _I, _I, _P),
+        "topk_f32": (_P, _P, _P, _I, _I, _I, _P),
     },
 }
 

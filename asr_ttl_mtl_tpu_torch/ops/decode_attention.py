@@ -22,7 +22,7 @@ import torch
 from . import LAUNCHES, _cuda
 
 _NEG_INF = -1e30
-_MAX_GROUP = 8  # query rows per cache row the K2 kernel takes
+MAX_GROUP = 8  # query rows per cache row the K2 kernel takes
 # K1's p*v_scale/sp within this of a midpoint may round either way under
 # another exp (a few fp32 ulps of p, < 1e-4 of a step at 127 steps)
 _FLIP_MARGIN = 1e-3
@@ -126,7 +126,7 @@ def decode_attention(
     n_layer, b, tk, d = cache_k.shape
     if q.dtype != cache_k.dtype or cache_k.dtype != cache_v.dtype or q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"decode_attention kernel takes one of bf16/fp32 for q and caches, got {q.dtype}/{cache_k.dtype}")
-    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64 or not 1 <= group <= _MAX_GROUP:
+    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64 or not 1 <= group <= MAX_GROUP:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous")

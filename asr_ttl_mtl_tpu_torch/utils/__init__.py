@@ -1,13 +1,18 @@
-"""Small host-side helpers (counterpart of `asr_ttl_mtl_tpu/utils/__init__.py`).
-
-Only what the ported paths need. The subtitle writers belong to the
-long-form slice and are not ported yet.
+"""Small host-side helpers (counterpart of `asr_ttl_mtl_tpu/utils/__init__.py`):
+exact_div, str2bool, optional_int/float, compression_ratio,
+format_timestamp, get_start/get_end, make_safe, and the device rule of the
+entry points. The writers are in `utils/writers.py`.
 """
 
 from __future__ import annotations
 
+import sys
 import zlib
-from typing import Union
+from typing import Callable, List, Optional, TypeVar, Union
+
+system_encoding = sys.getdefaultencoding()
+
+_T = TypeVar("_T")
 
 
 def resolve_device(device: Union[str, "torch.device", None] = "cuda"):  # noqa: F821
@@ -51,3 +56,60 @@ def format_timestamp(
     if always_include_hours or hours:
         return f"{hours:02d}:{body}"
     return body
+
+
+def make_safe(string: str) -> str:
+    """Make `string` printable on the current stdout encoding: a UTF-8
+    console passes it through; a narrower one gets unrepresentable
+    characters replaced."""
+    if system_encoding == "utf-8":
+        return string
+    return string.encode(system_encoding, errors="replace").decode(system_encoding)
+
+
+_BOOL_WORDS = {"True": True, "False": False}
+
+
+def str2bool(string: str) -> bool:
+    """argparse bool type: accepts exactly the Python literals True/False."""
+    try:
+        return _BOOL_WORDS[string]
+    except KeyError:
+        raise ValueError(f"Expected one of {set(_BOOL_WORDS.keys())}, got {string}") from None
+
+
+def _none_or(string: str, parse: Callable[[str], _T]) -> Optional[_T]:
+    """argparse helper: the literal "None" means None, anything else parses."""
+    if string == "None":
+        return None
+    return parse(string)
+
+
+def optional_int(string: str) -> Optional[int]:
+    return _none_or(string, int)
+
+
+def optional_float(string: str) -> Optional[float]:
+    return _none_or(string, float)
+
+
+def get_start(segments: List[dict]) -> Optional[float]:
+    """Start time of the first aligned word; the first segment's start when
+    no segment carries words; None for an empty result."""
+    for segment in segments:
+        for word in segment["words"]:
+            return word["start"]
+    if segments:
+        return segments[0]["start"]
+    return None
+
+
+def get_end(segments: List[dict]) -> Optional[float]:
+    """End time of the last aligned word; the last segment's end when no
+    segment carries words; None for an empty result."""
+    for segment in reversed(segments):
+        for word in reversed(segment["words"]):
+            return word["end"]
+    if segments:
+        return segments[-1]["end"]
+    return None

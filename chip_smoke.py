@@ -8,8 +8,9 @@ Phases, each of which raises (exit code != 0) when it fails:
   2. builds the kernels from `asr_ttl_mtl_tpu_torch/csrc/` (one nvcc per
      source, in parallel, sm_90a);
   3. holds each kernel of the decode slice against its plain PyTorch
-     version on the card at the shapes of `base`, with the tolerance stated
-     per kernel, and times the kernel, the plain version and one PyTorch
+     version on the card at the shapes of `base` (K1 and K2 also at the
+     beam paths' group of 5 query rows per cache row), with the tolerance
+     stated per kernel, and times the kernel, the plain version and one PyTorch
      call computing the same function (`library_ms`, never called by the
      port), medians of CUDA-event timings, beside the kernel's bound (the
      larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -31,7 +32,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      CPU (fp32, plain path): loss and every parameter group's gradient;
   8. holds each training kernel against its plain version as phase 3 does,
      at the shapes phase 6 gave it (the token buckets of its batches) and
-     a few more.
+     a few more;
+  9. holds the top-k kernels K9 (bf16 and fp32) and K10 (fp32) against
+     their plain versions at the beam step's shape, 160 rows (32 windows x 5
+     beams) x 51865, k 6, on seeded logits with the real suppress mask at
+     -inf, exact ties, duplicates and a row of fewer than k finite values;
+ 10. drives the beam window path at the full width of `base`: phase 4's
+     options plus beam_size=5, 32 windows, 64 forced tokens, submit/collect
+     over 3 batches, launch counts reset before and read after;
+ 11. checks the card's beam against the plain path on the CPU (fp32) on 2
+     windows, teacher-forced to the card's best sequences;
+ 12. writes base's random weights to a `.pt` and a seeded 70 s WAV, and
+     transcribes it through the CLI in process (`cli.cli`, its defaults:
+     beam 5 at t=0, best-of 5 up the fallback ladder), with `--language
+     en`, detecting the language, and with a 19-token prompt carried into
+     every window (K7 in the prefill); checks the five output files and the
+     launch counts, then holds K7 and K3 against their plain versions at
+     the prefill shapes those runs gave them.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -58,6 +75,8 @@ MODEL = "base"
 DEVICE = "cuda"
 TRAIN_BATCH = 16
 TRAIN_STEPS = 4
+BEAM = 5
+BEAM_OPTIONS = dict(BASE_OPTIONS, beam_size=BEAM)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
@@ -98,6 +117,33 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `calls` calls captured in one CUDA
+    graph, replayed `replays` times between two events, so that the host's
+    cost of each call (the Python wrapper, the launch) is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture requires
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def attn_bound(macs: float, n_bytes: float, mults: int = 4):
@@ -383,6 +429,41 @@ def check_kernels(card: str):
                "asr_ttl_mtl_tpu/ops/decode_attention.py:186", got, want, tol,
                lambda: DA.decode_attention_i8(qd, *args, 5, 8, **kw),
                lambda: DA.decode_attention_i8_plain(qd, *args, 5, 8, **kw), bound=i8_bound, main=main)
+
+    # K1 and K2 at group 5, as the beam paths run cross-attention: the 5
+    # beams (or best-of candidates) of a window share its cross K/V row.
+    # Phase 10 runs K1 with q (160, 1, 512) over the int8 store; the CLI
+    # (phase 12, bf16 caches) runs K2 with q (5, 1, 512) over one window's
+    # (6, 1, 1500, 512), here also over 32 windows. Same tolerances as above.
+    qg = torch.randn((N_WINDOWS * BEAM, 1, 512), generator=gen, device=dev).bfloat16()
+    one_k, one_v = cross_k[:, :1].contiguous(), cross_v[:, :1].contiguous()
+    for case, q, ck, cv in (
+        (f"cross (6,1,1500,512) bf16, q ({BEAM},1,512), group {BEAM} (CLI)", qg[:BEAM], one_k, one_v),
+        (f"cross (6,32,1500,512) bf16, q ({N_WINDOWS * BEAM},1,512), group {BEAM}", qg, cross_k, cross_v),
+    ):
+        b = ck.shape[1]
+        kw = dict(scale=scale, group=BEAM)
+        want = DA.decode_attention_plain(q, ck, cv, 5, 8, **kw)
+        qh = q.reshape(b, BEAM, 8, 64).transpose(1, 2)
+        kh, vh = heads(ck[5], 8), heads(cv[5], 8)
+        record("decode_attention", case, "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu",
+               "asr_ttl_mtl_tpu/ops/decode_attention.py:39", DA.decode_attention(q, ck, cv, 5, 8, **kw), want,
+               2.0**-7 * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
+               lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
+               bound=attn_bound(b * BEAM * 1500 * 512, 2 * b * 1500 * 512 * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
+    kw = dict(scale=scale, valid_upto=1499, group=BEAM)
+    want, flip = DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, return_flip_bound=True, **kw)
+    ref = want.float().abs()
+    record("decode_attention_i8",
+           f"cross (6,32,1536,512) int8, q ({N_WINDOWS * BEAM},1,512), group {BEAM}, valid_upto 1499, tk_blk 256",
+           "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+           DA.decode_attention_i8(qg, ck8, cks, cv8, cvs, 5, 8, **kw), want,
+           (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
+           lambda: DA.decode_attention_i8(qg, ck8, cks, cv8, cvs, 5, 8, **kw),
+           lambda: DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, **kw),
+           bound=bound(4 * N_WINDOWS * BEAM * 1500 * 512, 2 * N_WINDOWS * 1500 * (512 + 4), "int8"), main=False)
     return rows
 
 
@@ -398,6 +479,21 @@ def make_waves(n: int, seed: int):
     env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.1, 1.0, size=(n, 1)).astype(np.float32) * t)
     tones = (np.sin(2 * np.pi * f[:, 0] * t) + 0.5 * np.sin(2 * np.pi * f[:, 1] * t)) * env
     return (0.1 * tones + 0.01 * rng.randn(n, N_SAMPLES)).astype(np.float32)
+
+
+def pipeline(task, mel, n_batches: int = N_BATCHES):
+    """n_batches batches of `mel` through a depth-2 submit/collect pipeline:
+    (results, wall s, s the host spent in collect waiting for the card)."""
+    t = time.perf_counter()
+    pending = task.submit(mel, rng_seed=0)
+    out, wait = [], 0.0
+    for i in range(1, n_batches + 1):
+        nxt = task.submit(mel, rng_seed=i) if i < n_batches else None
+        t_c = time.perf_counter()
+        out += task.collect(pending)
+        wait += time.perf_counter() - t_c
+        pending = nxt
+    return out, time.perf_counter() - t, wait
 
 
 def run_slice(card: str):
@@ -421,21 +517,7 @@ def run_slice(card: str):
     mel = log_mel_spectrogram(waves, device=DEVICE)
     sync()
     t_mel = time.perf_counter() - t0
-    def pipeline(task):
-        """N_BATCHES batches through a depth-2 submit/collect pipeline:
-        (results, wall s, s the host spent in collect waiting for the card)."""
-        t = time.perf_counter()
-        pending = task.submit(mel, rng_seed=0)
-        out, wait = [], 0.0
-        for i in range(1, N_BATCHES + 1):
-            nxt = task.submit(mel, rng_seed=i) if i < N_BATCHES else None
-            t_c = time.perf_counter()
-            out += task.collect(pending)
-            wait += time.perf_counter() - t_c
-            pending = nxt
-        return out, time.perf_counter() - t, wait
-
-    results, t_dec, t_wait = pipeline(task)
+    results, t_dec, t_wait = pipeline(task, mel)
     main_counts = dict(LAUNCHES)
 
     assert tuple(mel.shape) == (N_WINDOWS, 80, 3000) and bool(torch.isfinite(mel).all())
@@ -454,7 +536,7 @@ def run_slice(card: str):
     print(f"[slice] launches {json.dumps(main_counts)}; text[0]={results[0].text[:60]!r} "
           f"avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
     # the loop is host-bound and the host's cores are shared: repeat to show the spread
-    rates = sorted(audio_s / pipeline(task)[1] for _ in range(4))
+    rates = sorted(audio_s / pipeline(task, mel)[1] for _ in range(4))
     print(f"[slice] 4 more runs: {', '.join(f'{r:.1f}' for r in rates)} audio-s/s "
           f"(median {statistics.median(rates):.1f}) [{card}]", flush=True)
 
@@ -472,53 +554,64 @@ def run_slice(card: str):
     return model, main_counts, k2_counts
 
 
-def check_against_cpu(model, waves_seed: int = 1):
-    """Phase 5: the card's decode of 2 windows against the plain path on the
-    CPU in fp32, forced to the card's tokens (same weights, same options)."""
+def forced_on_cpu(model, waves, mel_card, toks, options):
+    """The plain path on the CPU in fp32, teacher-forced to the card's
+    tokens `toks` (rows, n) under the same options (a copy of the model, the
+    prefill reading the float cross K/V as the card's fused window does, the
+    steps the int8 store). Returns (log-mel max error against `mel_card`,
+    [(filtered logits (rows, V), chosen tokens (rows,)) per step])."""
     import copy
 
     import torch
 
     from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
-    from asr_ttl_mtl_tpu_torch.decoding import _apply_filters
+    from asr_ttl_mtl_tpu_torch.decode_steps import _apply_filters
     from asr_ttl_mtl_tpu_torch.models import whisper as W
-
-    waves = make_waves(2, seed=waves_seed)
-    mel = log_mel_spectrogram(waves, device=DEVICE)
-    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS))
-    card = task.run(mel)
 
     cpu = copy.deepcopy(model).to("cpu")
     cpu.compute_dtype = torch.float32
     mel_cpu = log_mel_spectrogram(waves, device="cpu")
-    mel_err = (mel.cpu() - mel_cpu).abs().max().item()
+    mel_err = (mel_card.cpu() - mel_cpu).abs().max().item()
+    rows = toks.shape[0]
+    steps = []
     with torch.no_grad():
-        feats = W.encoder_apply(cpu.encoder, mel_cpu, torch.float32, int8_linears=True)
+        feats = W.encoder_apply(cpu.encoder, mel_cpu, torch.float32, int8_linears=options["int8_encoder"])
         cross_f = W.precompute_cross_kv(cpu.decoder, feats, stack=False)
         cross = W.quantize_cross_kv(cross_f)
-        ref_task = DecodingTask(cpu, DecodingOptions(**{**BASE_OPTIONS, "fp16": False}))
+        ref_task = DecodingTask(cpu, DecodingOptions(**{**options, "fp16": False}))
         init = list(ref_task.initial_tokens)
-        toks = torch.tensor([r.tokens for r in card])  # (2, 64)
-        seq = torch.tensor([init + [ref_task.tokenizer.eot] * (8 - len(init))] * 2)
-        cache = W.init_kv_cache_i8(cpu.dims, 2, ctx=128)
+        seq = torch.tensor([init + [ref_task.tokenizer.eot] * (8 - len(init))] * rows)
+        cache = W.init_kv_cache_i8(cpu.dims, rows, ctx=128)
         logits, cache = W.decoder_apply(cpu.decoder, seq, cross_kv=cross_f, kv_cache=cache)
         step_logits = logits[:, len(init) - 1]
-        prev = penult = last_ts = torch.full((2,), -1)
-        sum_lp = torch.zeros(2)
-        worst_gap = 0.0
+        prev = penult = last_ts = torch.full((rows,), -1)
         for i in range(toks.shape[1]):
-            lg = _apply_filters(ref_task.filter_cfg, step_logits, i, prev, penult, last_ts)
             tok = toks[:, i]
-            chosen = lg.gather(1, tok[:, None])[:, 0]
-            worst_gap = max(worst_gap, (lg.amax(-1) - chosen).max().item())
-            sum_lp += chosen - torch.logsumexp(lg, -1)
+            steps.append((_apply_filters(ref_task.filter_cfg, step_logits, i, prev, penult, last_ts), tok))
             prev, penult = tok, prev
             if i + 1 < toks.shape[1]:
                 step_logits = W.decoder_apply(
                     cpu.decoder, tok[:, None], cross_kv=cross, kv_cache=cache, pos_offset=len(init) + i
                 )[0][:, 0]
-        avg = sum_lp / (toks.shape[1] + 1)
-        lp_err = max(abs(avg[r].item() - card[r].avg_logprob) for r in range(2))
+    return mel_err, steps
+
+
+def check_against_cpu(model, waves_seed: int = 1):
+    """Phase 5: the card's decode of 2 windows against the plain path on the
+    CPU in fp32, forced to the card's tokens (same weights, same options)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+
+    waves = make_waves(2, seed=waves_seed)
+    mel = log_mel_spectrogram(waves, device=DEVICE)
+    card = DecodingTask(model, DecodingOptions(**BASE_OPTIONS)).run(mel)
+    toks = torch.tensor([r.tokens for r in card])  # (2, 64)
+    mel_err, steps = forced_on_cpu(model, waves, mel, toks, BASE_OPTIONS)
+    worst_gap = max((lg.amax(-1) - lg.gather(1, tok[:, None])[:, 0]).max().item() for lg, tok in steps)
+    sum_lp = sum(lg.gather(1, tok[:, None])[:, 0] - torch.logsumexp(lg, -1) for lg, tok in steps)
+    avg = sum_lp / (toks.shape[1] + 1)
+    lp_err = max(abs(avg[r].item() - card[r].avg_logprob) for r in range(2))
     # bf16 on the card against fp32 here: logits move by ~1e-2, so a chosen
     # token may trail the fp32 argmax by that much, never by 0.5
     ok = mel_err < 1e-3 and worst_gap < 0.5 and lp_err < 0.1
@@ -686,6 +779,279 @@ def check_train_step_against_cpu(card: str, trainer, batch):
         raise AssertionError("the card's train step disagrees with the CPU reference")
 
 
+def check_topk_kernels(card: str, filter_cfg):
+    """Phase 9: K9 (bf16, fp32) and K10 (fp32) against their plain versions
+    at the beam step's shape: 32 windows x 5 beams = 160 rows of 51865, k 6.
+    Indices exact; K9's values within 4e-6 of max(1, |v|) (the row sum runs
+    in another order), K10's exact."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.decode_steps import _filter_masks
+    from asr_ttl_mtl_tpu_torch.ops import topk as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows_out = []
+    record = make_recorder(card, rows_out)
+    n_rows, k = N_WINDOWS * BEAM, BEAM + 1
+    x = torch.randn((n_rows, filter_cfg.n_vocab), generator=gen, device=dev) * 2.0
+    _, suppress = _filter_masks(filter_cfg, dev)
+    x = x.masked_fill(suppress[None, :], float("-inf"))
+    x[:, [1000, 2000, 3000]] = x.amax(dim=-1, keepdim=True) + 0.5  # an exact tie at the top
+    x[:, 4000] = x[:, 5000]  # a duplicate below it
+    x[7] = float("-inf")
+    x[7, [11, 12, 13]] = 1.0  # fewer than k finite values
+    src, replaces = "asr_ttl_mtl_tpu_torch/csrc/topk.cu", "asr_ttl_mtl_tpu/ops/pallas_topk.py"
+
+    def finite(v):
+        return torch.nan_to_num(v, neginf=-3e38)
+
+    for name, fn, plain, dtype, lib, main in (
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.bfloat16,
+         lambda xt: torch.topk(xt.float().log_softmax(-1), k), True),
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.float32,
+         lambda xt: torch.topk(xt.float().log_softmax(-1), k), False),
+        ("topk", T.topk, T.topk_plain, torch.float32, lambda xt: torch.topk(xt, k), True),
+    ):
+        xt = x.to(dtype).contiguous()
+        (gv, gi), (pv, pi) = fn(xt, k), plain(xt, k)
+        if not torch.equal(torch.isfinite(gv), torch.isfinite(pv)):
+            raise AssertionError(f"{name}: -inf values at other places than the plain version's")
+        v_tol = 4e-6 * pv.abs().clamp(min=1.0) if name == "topk_logprobs" else torch.full_like(pv, 1e-30)
+        esize = xt.element_size()
+        record(name, f"({n_rows}, {filter_cfg.n_vocab}) {str(dtype)[6:]}, k {k}", src,
+               f"{replaces}:{51 if name == 'topk_logprobs' else 32}",
+               [finite(gv), gi], [finite(pv), pi], [v_tol, 0.5],
+               lambda: fn(xt, k), lambda: plain(xt, k),
+               # bytes: the logits read once, values and indices written once;
+               # operations: a compare (and for K9 an exp and an add) an entry
+               bound=bound(xt.numel() * (3 if name == "topk_logprobs" else 1),
+                           xt.numel() * esize + n_rows * k * 8, "fp32"),
+               library=lambda: lib(xt), main=main)
+        # these kernels take tens of microseconds, as long as the wrapper's
+        # host work: their device time, and the library's, without it
+        row = rows_out[-1]
+        row["device_ms"], row["library_device_ms"] = graph_ms(lambda: fn(xt, k)), graph_ms(lambda: lib(xt))
+        print(f"[kernel] {name} {str(dtype)[6:]}: device time per call (CUDA graph of 10 calls, 5 replays) "
+              f"kernel {row['device_ms']:.4f} ms, library {row['library_device_ms']:.4f} ms [{card}]", flush=True)
+    return rows_out
+
+
+def run_beam_slice(card: str, model):
+    """Phase 10: the beam window path at base, 3 batches of 32 windows."""
+    import numpy as np
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    mel = log_mel_spectrogram(make_waves(N_WINDOWS, seed=0), device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**BEAM_OPTIONS))
+    task.run(mel)  # warm-up, not counted
+    sync()
+    reset_launch_counts()
+    results, t_dec, t_wait = pipeline(task, mel)
+    counts = dict(LAUNCHES)
+    steps = N_BATCHES * BEAM_OPTIONS["sample_len"]  # EOT is suppressed: every search runs to the horizon
+    assert len(results) == N_WINDOWS * N_BATCHES
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
+    assert counts["topk_logprobs"] == steps, (counts, steps)
+    assert counts["decode_attention_i8"] > 0, counts
+    assert counts["flash_attention_h2"] == model.dims.n_audio_layer * N_BATCHES, counts
+    audio_s = N_WINDOWS * N_BATCHES * 30.0
+    per_step = {k: round(v / steps, 2) for k, v in counts.items() if v}
+    print(f"[beam] base, {N_BATCHES} batches x {N_WINDOWS} windows x {BEAM} beams, kv_quant + int8_encoder, "
+          f"64 tokens: decode {t_dec:.3f} s = {audio_s / t_dec:.1f} audio-s/s, of which {t_wait * 1e3:.1f} ms "
+          f"in collect [{card}]", flush=True)
+    print(f"[beam] launches {json.dumps(counts)}; per beam step {json.dumps(per_step)}; "
+          f"text[0]={results[0].text[:60]!r} avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+    rates = sorted(audio_s / pipeline(task, mel)[1] for _ in range(4))
+    print(f"[beam] 4 more runs: {', '.join(f'{r:.1f}' for r in rates)} audio-s/s "
+          f"(median {statistics.median(rates):.1f}) [{card}]", flush=True)
+    return counts
+
+
+def check_beam_against_cpu(model, waves_seed: int = 1):
+    """Phase 11: the card's beam on 2 windows against the plain path on the
+    CPU in fp32, forced to the card's best sequences. Each chosen token is
+    among its beam's top K+1 on the card, so on the CPU it may trail the
+    (K+1)-th largest filtered logit only by the bf16 noise of the logits."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+
+    waves = make_waves(2, seed=waves_seed)
+    mel = log_mel_spectrogram(waves, device=DEVICE)
+    card = DecodingTask(model, DecodingOptions(**BEAM_OPTIONS)).run(mel)
+    toks = torch.tensor([r.tokens for r in card])  # (2, 64)
+    mel_err, steps = forced_on_cpu(model, waves, mel, toks, BEAM_OPTIONS)
+    worst_gap = max((lg.topk(BEAM + 1, dim=-1).values[:, -1] - lg.gather(1, tok[:, None])[:, 0]).max().item()
+                    for lg, tok in steps)
+    sum_lp = sum(lg.gather(1, tok[:, None])[:, 0] - torch.logsumexp(lg, -1) for lg, tok in steps)
+    avg = sum_lp / (toks.shape[1] + 1)
+    lp_err = max(abs(avg[r].item() - card[r].avg_logprob) for r in range(2))
+    ok = mel_err < 1e-3 and worst_gap <= 0.5 and lp_err <= 0.1
+    print(f"[check] beam {BEAM}, card vs CPU fp32 plain path, 2 windows: card tokens trail the fp32 "
+          f"{BEAM + 1}-th largest filtered logit by at most {worst_gap:.3f} (tol 0.5); |avg_logprob diff| "
+          f"{lp_err:.4f} (tol 0.1) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the card's beam disagrees with the CPU reference")
+
+
+def write_long_wav(path: str, seconds: float, seed: int) -> None:
+    """A seeded 16 kHz WAV: tones that change every 4-9 s, with 1-3 s of
+    silence between them, plus a little noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    parts, total = [], 0
+    while total < seconds * 16000:
+        n = int(16000 * rng.uniform(4.0, 9.0))
+        t = np.arange(n) / 16000
+        f = rng.uniform(150, 2500, size=2)
+        parts.append(0.3 * np.sin(2 * np.pi * f[0] * t) + 0.15 * np.sin(2 * np.pi * f[1] * t))
+        parts.append(np.zeros(int(16000 * rng.uniform(1.0, 3.0))))
+        total += parts[-2].size + parts[-1].size
+    audio = np.concatenate(parts)[: int(seconds * 16000)]
+    audio = audio + 0.005 * rng.randn(audio.size)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+CLI_PROMPT = "The patient reports a dry cough, a mild fever and shortness of breath since Tuesday morning."
+CLI_RUNS = (
+    ["--language", "en"],
+    [],
+    # every window's prefill holds the prompt (>= 16 tokens), so its causal
+    # self-attention runs K7; without conditioning on the previous text the
+    # prompt is exactly CLI_PROMPT, which fixes the shape phase 12 checks
+    ["--language", "en", "--initial_prompt", CLI_PROMPT, "--carry_initial_prompt", "True",
+     "--condition_on_previous_text", "False"],
+)
+
+
+def run_cli(card: str, model, workdir: str):
+    """Phase 12: long-form transcription of a 70 s WAV through the CLI, in
+    process, with its defaults: with --language en, detecting the language,
+    and with a prompt carried into every window. Returns the summed launch
+    counts and the prompted prefill's (bucket, self-cache length)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.decode_steps import _bucket
+    from asr_ttl_mtl_tpu_torch.models import checkpoint_dict
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    # the prompted windows' prefill, as `_greedy` and `dispatch_beam` size it
+    task = DecodingTask(model, DecodingOptions(language="en", prompt=CLI_PROMPT))
+    n_prompt = len(task.tokenizer.encode(" " + CLI_PROMPT.strip()))
+    if n_prompt < 16:
+        raise AssertionError(f"the prompt has {n_prompt} tokens, fewer than 16")
+    bucket = _bucket(len(task.initial_tokens))
+    cache_len = min(task.n_ctx, ((bucket + min(task.sample_len, task.n_ctx) + 127) // 128) * 128)
+
+    ckpt, clip = os.path.join(workdir, "base.pt"), os.path.join(workdir, "clip70.wav")
+    torch.save(checkpoint_dict(model), ckpt)
+    write_long_wav(clip, 70.0, seed=0)
+    total = {}
+    for n, extra in enumerate(CLI_RUNS):
+        out = os.path.join(workdir, f"cli{n}")
+        printed = io.StringIO()
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli([clip, "--model", ckpt, "--output_dir", out, *extra])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        text = printed.getvalue()
+        if "Skipping" in text:
+            raise AssertionError(f"the CLI skipped the file:\n{text[-3000:]}")
+        files = sorted(os.listdir(out))
+        if files != [f"clip70.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
+            raise AssertionError(f"the CLI wrote {files}")
+        with open(os.path.join(out, "clip70.json")) as f:
+            result = json.load(f)
+        seeks = sorted({s["seek"] for s in result["segments"]})
+        rungs = {s["seek"]: s["temperature"] for s in result["segments"]}
+        if len(seeks) < 2:
+            raise AssertionError(f"segments from {len(seeks)} window(s) only")
+        needed = ("topk_logprobs", "log_mel", "flash_attention_h2", "decode_attention")
+        if "--initial_prompt" in extra:
+            needed += ("flash_attention",)
+        for name in needed:
+            if counts[name] <= 0:
+                raise AssertionError(f"the CLI run launched no {name}: {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        label = ' '.join(extra).replace(CLI_PROMPT, f"<{n_prompt} tokens>") or "language detected"
+        print(f"[cli] {label}: {wall:.1f} s wall for 70 s of audio; "
+              f"language {result['language']}; {len(result['segments'])} segments from windows at seek "
+              f"{seeks}; accepted rung's temperature per window {json.dumps(rungs)}; "
+              f"{len(text.splitlines())} lines printed [{card}]", flush=True)
+        print(f"[cli] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    print(f"[cli] prompted prefill: {len(task.initial_tokens)} tokens in bucket {bucket}, self-cache {cache_len}",
+          flush=True)
+    return total, (bucket, cache_len)
+
+
+def check_prefill_kernels(card: str, bucket: int, cache_len: int):
+    """Phase 12, the CLI's prefill kernels against their plain versions at
+    the shapes its runs gave them (one window a decode). K7 on the prompted
+    prefill's causal self-attention: (8 | 40, bucket, 64) queries over the
+    (8 | 40, cache_len, 64) self-cache (beam: 1 row x 8 heads; best-of: 5
+    rows). K3 on the prefill's cross-attention over one window's (1, 1500,
+    512): the best-of rows fold into the queries, 5 x bucket, and 5 x 8 in
+    the unprompted runs (bucket 8; its self-attention stays plain)."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    record = make_recorder(card, rows)
+    src = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    # keys past the last query are masked: the kernel needs the first `bucket`
+    keep = torch.arange(cache_len, device=dev)[None, :] <= torch.arange(bucket, device=dev)[:, None]
+    for n_rows, what in ((1, "beam"), (BEAM, "best-of")):
+        bh = n_rows * 8
+        q, k, v = rnd(bh, bucket, 64), rnd(bh, cache_len, 64), rnd(bh, cache_len, 64)
+        kw = dict(causal=True, scale=0.125)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        record("flash_attention", f"causal prefill ({bh}, {bucket}, 64) x ({bh}, {cache_len}, 64), {what}", src,
+               "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+               FA.flash_attention(q, k, v, **kw), want, 2.0**-6 * want.float().abs().max().item(),
+               lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
+               bound=attn_bound(bh * bucket * (bucket + 1) // 2 * 64, (2 * q.numel() + 2 * bh * bucket * 64) * 2),
+               library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep, scale=0.125), main=False)
+    for tq, what in ((bucket, "beam, prompted"), (BEAM * bucket, "best-of, prompted"), (BEAM * 8, "best-of")):
+        q, k, v = rnd(1, tq, 512), rnd(1, 1500, 512), rnd(1, 1500, 512)
+        kw = dict(n_head=8, scale=0.125)
+        want = FA.flash_attention_h2_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, 8), heads(k, 8), heads(v, 8)
+        record("flash_attention_h2", f"cross prefill (1, {tq}, 512) x (1, 1500, 512), {what}", src,
+               "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
+               FA.flash_attention_h2(q, k, v, **kw), want, 2.0**-6 * want.float().abs().max().item(),
+               lambda: FA.flash_attention_h2(q, k, v, **kw), lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
+               bound=attn_bound(tq * 1500 * 512, (2 * q.numel() + 2 * 1500 * 512) * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=False)
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -725,18 +1091,35 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += check_train_kernels(card, *buckets)
 
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, from_random
+
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    rows += check_topk_kernels(card, DecodingTask(model, DecodingOptions(**BEAM_OPTIONS)).filter_cfg)
+    beam_counts = run_beam_slice(card, model)
+    check_beam_against_cpu(model)
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_counts, prefill = run_cli(card, model, workdir)
+    rows += check_prefill_kernels(card, *prefill)
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
-    # batch, train steps, evaluate), each counted from 0 just before it ran
-    launches = {name: main_counts[name] + k2_counts[name] + train_counts[name] + eval_counts[name]
-                for name in main_counts}
+    # batch, train steps, evaluate, beam slice, the CLI's runs), each counted from 0
+    # just before it ran
+    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts)
+    launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:
         if r.pop("main"):
             kernels.append({**r, "launches": launches[r["name"]]})
+    for k in kernels:
+        if k["name"] == "topk":
+            k["path"] = "none: as in the JAX package, no path calls topk_pallas (tests only)"
     names = [k["name"] for k in kernels]
     if len(set(names)) != len(names) or set(names) != set(launches):
         raise AssertionError(f"the kernels line needs one row per kernel: {names} against {sorted(launches)}")
-    missing = [name for name, n in launches.items() if n == 0]
+    # K10 is exempt: the JAX package's topk_pallas has no caller on any path
+    # either, so no main path can launch it; phase 9 holds it against its
+    # plain version
+    missing = [name for name, n in launches.items() if n == 0 and name != "topk"]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
     print(json.dumps({"kernels": kernels}))

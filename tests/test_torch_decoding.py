@@ -114,12 +114,6 @@ def test_decode_entry_point_single_window(setup):
     assert isinstance(one, PD.DecodingResult) and len(one.tokens) == BENCH["sample_len"]
 
 
-def test_beam_search_is_not_ported(setup):
-    _, tmodel, audio = setup
-    with pytest.raises(NotImplementedError):
-        PD.DecodingTask(tmodel, PD.DecodingOptions(beam_size=2)).run(PA.log_mel_spectrogram(audio, device="cpu"))
-
-
 def test_filter_config_and_buckets_match(setup):
     jmodel, tmodel, _ = setup
     for opts in (BENCH, dict(sample_len=5), dict(language="de", without_timestamps=False)):
@@ -158,7 +152,9 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['asr_ttl_mtl_tpu'] = None\n"
         "import asr_ttl_mtl_tpu_torch, asr_ttl_mtl_tpu_torch.ops.decode_attention, "
         "asr_ttl_mtl_tpu_torch.ops.flash_attention, asr_ttl_mtl_tpu_torch.ops.mel, "
-        "asr_ttl_mtl_tpu_torch.ops._cuda, asr_ttl_mtl_tpu_torch.utils, asr_ttl_mtl_tpu_torch.tokenizer\n"
+        "asr_ttl_mtl_tpu_torch.ops._cuda, asr_ttl_mtl_tpu_torch.ops.topk, asr_ttl_mtl_tpu_torch.utils, "
+        "asr_ttl_mtl_tpu_torch.utils.writers, asr_ttl_mtl_tpu_torch.tokenizer, asr_ttl_mtl_tpu_torch.beam, "
+        "asr_ttl_mtl_tpu_torch.transcribe, asr_ttl_mtl_tpu_torch.cli\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m] is not None)\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
