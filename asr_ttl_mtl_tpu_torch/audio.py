@@ -33,7 +33,9 @@ TOKENS_PER_SECOND = exact_div(SAMPLE_RATE, N_SAMPLES_PER_TOKEN)  # 20ms per audi
 
 
 def _read_wav(file: str) -> tuple[np.ndarray, int]:
-    """Minimal RIFF/WAVE reader: PCM 8/16/24/32-bit and IEEE float."""
+    """Minimal RIFF/WAVE reader: PCM 8/16/24/32-bit and IEEE float, plain or
+    WAVE_FORMAT_EXTENSIBLE (whose sub-format GUID starts with the format
+    code, at byte 24 of the `fmt ` body)."""
     import struct
     import wave
 
@@ -61,7 +63,8 @@ def _read_wav(file: str) -> tuple[np.ndarray, int]:
         else:
             raise RuntimeError(f"unsupported WAV sample width: {sampwidth}")
     except wave.Error:
-        # wave does not handle IEEE-float WAVs; parse the header by hand
+        # wave does not handle IEEE-float WAVs, extensible ones included;
+        # parse the header by hand
         with open(file, "rb") as f:
             blob = f.read()
         if blob[:4] != b"RIFF" or blob[8:12] != b"WAVE":
@@ -73,6 +76,8 @@ def _read_wav(file: str) -> tuple[np.ndarray, int]:
             body = blob[pos + 8 : pos + 8 + size]
             if cid == b"fmt ":
                 fmt = struct.unpack("<HHIIHH", body[:16])
+                if fmt[0] == 0xFFFE and len(body) >= 26:  # WAVE_FORMAT_EXTENSIBLE
+                    fmt = struct.unpack("<H", body[24:26]) + fmt[1:]
                 n_channels, framerate = fmt[1], fmt[2]
             elif cid == b"data":
                 data = body

@@ -26,7 +26,6 @@ import torch
 
 from .decode_steps import _EXIT_CHECK_EVERY, _NEG, _apply_filters, _bucket, _fetch
 from .models import whisper as W
-from .ops.decode_attention import MAX_GROUP
 from .ops.topk import topk_logprobs
 
 _INVALID = -0.5e9  # scores below this are dead-beam artifacts, never used
@@ -50,11 +49,6 @@ def dispatch_beam(task, cross_kv, cross_prefill, initial: np.ndarray):
     patience = options.patience or 1.0
     C = round(K * patience)
     assert C > 0, f"Invalid beam size ({K}) or patience ({patience})"
-    if dev.type == "cuda" and K > MAX_GROUP:
-        raise ValueError(
-            f"beam_size {K} exceeds {MAX_GROUP}, the most beams the card's decode attention kernels "
-            "share one cross-attention row between (ROADMAP item 9)"
-        )
 
     B, valid_len = initial.shape
     BK = B * K

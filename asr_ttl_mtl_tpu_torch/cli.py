@@ -4,7 +4,9 @@
 
 The flags, defaults and their rules are the JAX package's. `--model` names
 a reference-layout `.pt` file, or a preset name whose `<name>.pt` lies in
-`--model_dir`: nothing is downloaded. `--device` is a torch device, the
+`--model_dir`: nothing is downloaded. A preset name also sets that preset's
+alignment heads for `--word_timestamps`, as the JAX `load_model` does
+(when the checkpoint has the preset's decoder layers and heads). `--device` is a torch device, the
 card by default. The throughput modes (`--batch_mode`, `--dp`, `--tp`) are
 not ported yet and are refused.
 """
@@ -70,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compression_ratio_threshold", type=optional_float, default=2.4, help="gzip compression ratio above which a decode is treated as failed")
     parser.add_argument("--logprob_threshold", type=optional_float, default=-1.0, help="average log probability below which a decode is treated as failed")
     parser.add_argument("--no_speech_threshold", type=optional_float, default=0.6, help="<|nospeech|> probability above which (with failed logprob) a segment is considered silent")
-    parser.add_argument("--word_timestamps", type=str2bool, default=False, help="extract word-level timestamps (not ported yet)")
+    parser.add_argument("--word_timestamps", type=str2bool, default=False, help="extract word-level timestamps")
     parser.add_argument("--prepend_punctuations", type=str, default="\"'“¿([{-", help="with --word_timestamps: merge these punctuation symbols with the next word")
     parser.add_argument("--append_punctuations", type=str, default="\"'.。,，!！?？:：”)]}、", help="with --word_timestamps: merge these punctuation symbols with the previous word")
     parser.add_argument("--highlight_words", type=str2bool, default=False, help="(requires --word_timestamps) underline each word as it is spoken in srt/vtt")
@@ -99,7 +101,8 @@ def _checkpoint_path(parser: argparse.ArgumentParser, model_name: str, model_dir
 def cli(argv: Optional[List[str]] = None) -> None:
     import torch
 
-    from .models import load_model
+    from .models import PRESET_DIMS, load_model
+    from .models.registry import _ALIGNMENT_HEADS
     from .transcribe import transcribe
 
     parser = build_parser()
@@ -131,7 +134,13 @@ def cli(argv: Optional[List[str]] = None) -> None:
     if (threads := args.pop("threads") or 0) > 0:
         torch.set_num_threads(threads)
 
-    model = load_model(_checkpoint_path(parser, model_name, model_dir), device=device)
+    checkpoint = _checkpoint_path(parser, model_name, model_dir)
+    model = load_model(checkpoint, device=device)
+    preset = PRESET_DIMS.get(model_name)
+    if checkpoint != model_name and model_name in _ALIGNMENT_HEADS and (
+        (preset.n_text_layer, preset.n_text_head) == (model.dims.n_text_layer, model.dims.n_text_head)
+    ):  # a <name>.pt of other dims keeps the default heads
+        model.set_alignment_heads(_ALIGNMENT_HEADS[model_name])
 
     writer = get_writer(output_format, output_dir)
     word_options = ["highlight_words", "max_line_count", "max_line_width", "max_words_per_line"]

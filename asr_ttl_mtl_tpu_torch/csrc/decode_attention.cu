@@ -257,9 +257,12 @@ template <typename T, int G>
 int launch_decode_g(const void* q, const void* k, const void* v, void* out, int layer, int batch, int tk, int d,
                     int n_head, int valid_upto, float scale, void* stream) {
   const size_t smem = (size_t)G * tk * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(decode_attn_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the 48 KB default covers static and dynamic shared memory together
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, decode_attn_kernel<T, G>);
+  if (err != cudaSuccess) return (int)err;
+  if (smem + attr.sharedSizeBytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(decode_attn_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   decode_attn_kernel<T, G><<<dim3(batch, n_head), kThreads, smem, (cudaStream_t)stream>>>(

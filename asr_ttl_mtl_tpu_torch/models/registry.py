@@ -6,7 +6,9 @@ the reference's (`{"dims": {...}, "model_state_dict": {...}}`), and
 `state_dict_from_jax_params` gives exactly the keys, transposes and shapes
 of the JAX package's `export_torch_state_dict` (:168-223) from a tree of
 numpy arrays, without importing jax. Downloading official checkpoints is
-not ported: `load_model` reads local files.
+not ported: `load_model` reads local files. The alignment-head masks of the
+official checkpoints (`_ALIGNMENT_HEADS`, for word timestamps) are data
+kept here.
 """
 
 from __future__ import annotations
@@ -19,12 +21,35 @@ from torch import nn
 
 from ..utils import resolve_device
 from .dims import PRESET_DIMS, ModelDimensions
-from .whisper import AudioEncoder, TextDecoder, sinusoids
+from .whisper import AudioEncoder, TextDecoder, decode_alignment_heads_dump, default_alignment_heads, sinusoids
+
+# base85/gzip-encoded (n_text_layer, n_text_head) bool masks of the
+# cross-attention heads that word timestamps read, per official checkpoint
+# (the JAX package's `models/registry.py:55-70`, public registry data)
+_ALIGNMENT_HEADS = {
+    "tiny.en": b"ABzY8J1N>@0{>%R00Bk>$p{7v037`oCl~+#00",
+    "tiny": b"ABzY8bu8Lr0{>%RKn9Fp%m@SkK7Kt=7ytkO",
+    "base.en": b"ABzY8;40c<0{>%RzzG;p*o+Vo09|#PsxSZm00",
+    "base": b"ABzY8KQ!870{>%RzyTQH3`Q^yNP!>##QT-<FaQ7m",
+    "small.en": b"ABzY8>?_)10{>%RpeA61k&I|OI3I$65C{;;pbCHh0B{qLQ;+}v00",
+    "small": b"ABzY8DmU6=0{>%Rpa?J`kvJ6qF(V^F86#Xh7JUGMK}P<N0000",
+    "medium.en": b"ABzY8usPae0{>%R7<zz_OvQ{)4kMa0BMw6u5rT}kRKX;$NfYBv00*Hl@qhsU00",
+    "medium": b"ABzY8B0Jh+0{>%R7}kK1fFL7w6%<-Pf*t^=N)Qr&0RR9",
+    "large-v1": b"ABzY8r9j$a0{>%R7#4sLmoOs{s)o3~84-RPdcFk!JR<kSfC2yj",
+    "large-v2": b"ABzY8zd+h!0{>%R7=D0pU<_bnWW*tkYAhobTNnu$jnkEkXqp)j;w1Tzk)UH3X%SZd&fFZ2fC2yj",
+    "large-v3": b"ABzY8gWO1E0{>%R7(9S+Kn!D~%ngiGaR?*L!iJG9p-nab0JQ=-{D1-g00",
+    "large": b"ABzY8gWO1E0{>%R7(9S+Kn!D~%ngiGaR?*L!iJG9p-nab0JQ=-{D1-g00",
+    "large-v3-turbo": b"ABzY8j^C+e0{>%RARaKHP%t(lGR*)0g!tONPyhe`",
+    "turbo": b"ABzY8j^C+e0{>%RARaKHP%t(lGR*)0g!tONPyhe`",
+}
 
 
 class WhisperModel(nn.Module):
-    """Encoder + decoder modules, the dims, and the compute dtype (the
-    parameters stay fp32, as the JAX masters do)."""
+    """Encoder + decoder modules, the dims, the compute dtype (the
+    parameters stay fp32, as the JAX masters do) and the alignment heads,
+    a bool (n_text_layer, n_text_head) numpy mask of the cross-attention
+    heads word timestamps read (by default every head of the last half of
+    the layers)."""
 
     def __init__(self, dims: ModelDimensions, compute_dtype: torch.dtype = torch.float32, name: str = ""):
         super().__init__()
@@ -33,6 +58,11 @@ class WhisperModel(nn.Module):
         self.decoder = TextDecoder(dims)
         self.compute_dtype = compute_dtype
         self.name = name
+        self.alignment_heads = default_alignment_heads(dims)
+
+    def set_alignment_heads(self, dump: bytes) -> None:
+        """Set the alignment heads from a base85/gzip mask (`_ALIGNMENT_HEADS`)."""
+        self.alignment_heads = decode_alignment_heads_dump(self.dims, dump)
 
     @property
     def device(self) -> torch.device:

@@ -221,7 +221,8 @@ def qkv_attention(
     causal: bool = False,
     q_offset: int = 0,
     kv_valid_len: Optional[int] = None,
-) -> torch.Tensor:
+    return_qk: bool = False,
+):
     """Scaled dot-product attention over (B, T, D) projections.
 
     Dispatch as in the JAX package (whisper.py:248-286), where every query
@@ -233,10 +234,15 @@ def qkv_attention(
     (K5) is not ported: on CUDA those shapes raise. Shorter queries (prompt
     prefill, buckets of 8) take the plain path below, which the JAX package
     leaves to XLA too.
+
+    With `return_qk`, every shape takes the plain path, on the card too (as
+    JAX's `_flash_eligible` is False then), and the result is (out, the fp32
+    pre-softmax logits (B, H, Tq, Tk) of q and k each scaled by
+    d_head**-0.25, with the mask added).
     """
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
     d_head = d // n_head
-    flash = tq >= 16 and (mask is None or causal)
+    flash = tq >= 16 and (mask is None or causal) and not return_qk
     if flash and not causal and mask is None and h2_eligible(tq, tk, d, n_head):
         return flash_attention_h2_vjp(q, k, v, n_head, kv_valid_len, float(d_head**-0.5))
     if flash and causal:
@@ -266,8 +272,8 @@ def qkv_attention(
     if kv_valid_len is not None and kv_valid_len < tk:
         qk = torch.where(torch.arange(tk, device=q.device) < kv_valid_len, qk, float("-inf"))
     w = torch.softmax(qk, dim=-1).to(v.dtype)
-    out = (w.float() @ vh.float()).to(v.dtype)
-    return _merge_heads(out)
+    out = _merge_heads((w.float() @ vh.float()).to(v.dtype))
+    return (out, qk) if return_qk else out
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +427,9 @@ def decoder_apply(
     compute_dtype: torch.dtype = F32,
     logits_dtype: Optional[torch.dtype] = None,
     return_hidden: bool = False,
-) -> Tuple[torch.Tensor, Optional[Cache]]:
+    return_cross_qk: bool = False,
+    cross_qk_pairs: Optional[Tuple[Tuple[int, int], ...]] = None,
+):
     """Run the text decoder over `tokens`.
 
     kv_cache None: teacher-forced forward with a causal mask. With a cache:
@@ -432,6 +440,13 @@ def decoder_apply(
     Returns (logits fp32 or `logits_dtype`, the updated cache or None); with
     `return_hidden`, the final LayerNorm's (B, T, D) output instead of the
     logits (training's chunked cross-entropy projects it itself).
+
+    `return_cross_qk` (word timestamps) adds a third output, the fp32
+    pre-softmax cross-attention logits: (L, B, H, T, Ta), or with
+    `cross_qk_pairs` of (layer, head) the selected heads, (n_pairs, B, T,
+    Ta) in layer-major order whatever the order given (heads of one layer
+    in the order given), as JAX `decoder_apply` returns them. Capture
+    takes the plain attention path and needs kv_group 1.
     """
     dims = dec.dims
     B, T = tokens.shape
@@ -448,6 +463,8 @@ def decoder_apply(
     cross_b = cross_kv["k"].shape[1] if stacked else cross_kv["k"][0].shape[0]
     kv_group = B // cross_b
     assert B == kv_group * cross_b, f"token batch {B} not a multiple of cross-KV batch {cross_b}"
+    if return_cross_qk and kv_group > 1:
+        raise ValueError("cross-QK capture needs kv_group 1")
 
     neg = -1e9
     if kv_cache is None:
@@ -458,7 +475,7 @@ def decoder_apply(
         mask = torch.where(key_pos[None, :] > q_pos[:, None], neg, 0.0)[None, None]
 
     self_quant = kv_cache is not None and "k_scale" in kv_cache
-    fast_step = T == 1 and kv_cache is not None
+    fast_step = T == 1 and kv_cache is not None and not return_cross_qk
     kv_quantized = "k_scale" in cross_kv
     # the int8 kernel needs a geometry `_i8_blocks` serves; others dequantize
     # into the plain path, as in the JAX package (part of its semantics)
@@ -466,6 +483,7 @@ def decoder_apply(
     i8_self_ok = fast_step and self_quant and i8_supported(B, kv_cache["k"].shape[2], D)
     scale = float((D // H) ** -0.5)
     sl = slice(pos_offset, pos_offset + T)
+    cross_qks = []
 
     for li, block in enumerate(dec.blocks):
         # --- causal self-attention ---
@@ -514,6 +532,14 @@ def decoder_apply(
             ck, cv = _dequant_cross_layer(cross_kv, li, compute_dtype, dims.n_audio_ctx)
             if kv_group > 1:  # cross-attention has no mask: fold the group into queries
                 att = qkv_attention(qc.reshape(cross_b, kv_group * T, D), ck, cv, H).reshape(B, T, D)
+            elif return_cross_qk:
+                att, qk = qkv_attention(qc, ck, cv, H, return_qk=True)
+                if cross_qk_pairs is None:
+                    cross_qks.append(qk)
+                else:
+                    sel = [h for (l, h) in cross_qk_pairs if l == li]
+                    if sel:  # a layer without a selected head adds nothing
+                        cross_qks.append(qk[:, sel])
             else:
                 att = qkv_attention(qc, ck, cv, H)
         x = res + linear(block.cross_attn.out, att)
@@ -526,8 +552,33 @@ def decoder_apply(
 
     x = layer_norm(dec.ln, x)
     if return_hidden:
-        return x, kv_cache
-    logits = _matmul_f32(x, dec.token_embedding.weight)  # tied embeddings
-    if logits_dtype is not None:
-        logits = logits.to(logits_dtype)
-    return logits, kv_cache
+        out = x
+    else:
+        out = _matmul_f32(x, dec.token_embedding.weight)  # tied embeddings
+        if logits_dtype is not None:
+            out = out.to(logits_dtype)
+    if not return_cross_qk:
+        return out, kv_cache
+    if cross_qk_pairs is None:
+        return out, kv_cache, torch.stack(cross_qks)
+    if not cross_qks:
+        raise ValueError("cross_qk_pairs selects no head")
+    return out, kv_cache, torch.cat(cross_qks, dim=1).movedim(1, 0)
+
+
+def default_alignment_heads(dims: ModelDimensions) -> np.ndarray:
+    """Bool (n_text_layer, n_text_head): every head of the last half of the
+    decoder layers."""
+    heads = np.zeros((dims.n_text_layer, dims.n_text_head), dtype=bool)
+    heads[dims.n_text_layer // 2 :] = True
+    return heads
+
+
+def decode_alignment_heads_dump(dims: ModelDimensions, dump: bytes) -> np.ndarray:
+    """The base85 + gzip alignment-head mask shipped beside a checkpoint ->
+    bool (n_text_layer, n_text_head)."""
+    import base64
+    import gzip
+
+    array = np.frombuffer(gzip.decompress(base64.b85decode(dump)), dtype=bool).copy()
+    return array.reshape(dims.n_text_layer, dims.n_text_head)

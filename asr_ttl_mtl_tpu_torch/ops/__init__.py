@@ -24,6 +24,8 @@ LAUNCHES: Dict[str, int] = {
     "log_mel": 0,  # K4, ops/mel.py
     "topk_logprobs": 0,  # K9, ops/topk.py
     "topk": 0,  # K10, ops/topk.py
+    "median_filter": 0,  # K11, ops/median.py
+    "dtw_trace": 0,  # K13, ops/dtw.py
 }
 
 

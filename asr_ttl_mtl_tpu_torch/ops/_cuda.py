@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mel", "flash_attention", "decode_attention", "topk")
+SOURCES = ("mel", "flash_attention", "decode_attention", "topk", "median", "dtw")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +69,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "topk_logprobs_f32": (_P, _P, _P, _I, _I, _I, _P),
         "topk_bf16": (_P, _P, _P, _I, _I, _I, _P),
         "topk_f32": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "median": {
+        # x, out, rows, t, width, stream
+        "median_filter_f32": (_P, _P, _I, _I, _I, _P),
+    },
+    "dtw": {
+        # x, trace, n, m, stream
+        "dtw_trace_f32": (_P, _P, _I, _I, _P),
     },
 }
 

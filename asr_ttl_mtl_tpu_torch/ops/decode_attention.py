@@ -22,7 +22,7 @@ import torch
 from . import LAUNCHES, _cuda
 
 _NEG_INF = -1e30
-MAX_GROUP = 8  # query rows per cache row the K2 kernel takes
+MAX_GROUP = 8  # query rows per cache row one K2 launch takes; the wrapper splits larger groups
 # K1's p*v_scale/sp within this of a midpoint may round either way under
 # another exp (a few fp32 ulps of p, < 1e-4 of a step at 127 steps)
 _FLIP_MARGIN = 1e-3
@@ -115,8 +115,9 @@ def decode_attention(
     *, scale: float, valid_upto: Optional[int] = None, group: int = 1,
 ) -> torch.Tensor:
     """K2 wrapper: softmax(scale q K_layer^T) V_layer for 1-token queries; rows
-    [b*group, (b+1)*group) of q attend over cache row b. Keys past
-    `valid_upto` are masked (None: all valid)."""
+    [b*group, (b+1)*group) of q attend over cache row b, for any group (one
+    launch per MAX_GROUP rows of it). Keys past `valid_upto` are masked
+    (None: all valid)."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, cache_k, cache_v, layer, n_head, scale=scale, valid_upto=valid_upto, group=group
@@ -126,11 +127,26 @@ def decode_attention(
     n_layer, b, tk, d = cache_k.shape
     if q.dtype != cache_k.dtype or cache_k.dtype != cache_v.dtype or q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"decode_attention kernel takes one of bf16/fp32 for q and caches, got {q.dtype}/{cache_k.dtype}")
-    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64 or not 1 <= group <= MAX_GROUP:
+    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64 or group < 1:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous")
-    q = q.contiguous()
+    if group <= MAX_GROUP:
+        return _launch_k2(q.contiguous(), cache_k, cache_v, layer, n_head, scale, valid_upto, group)
+    # larger groups go in launches of at most MAX_GROUP query rows per cache
+    # row: each chunk's rows are gathered, and their outputs put back in place
+    qg = q.reshape(b, group, d)
+    out = torch.empty_like(qg)
+    for g0 in range(0, group, MAX_GROUP):
+        g1 = min(group, g0 + MAX_GROUP)
+        chunk = qg[:, g0:g1].reshape(b * (g1 - g0), 1, d).contiguous()
+        part = _launch_k2(chunk, cache_k, cache_v, layer, n_head, scale, valid_upto, g1 - g0)
+        out[:, g0:g1] = part.reshape(b, g1 - g0, d)
+    return out.reshape(b * group, 1, d)
+
+
+def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> torch.Tensor:
+    n_layer, b, tk, d = cache_k.shape
     out = torch.empty_like(q)
     fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(

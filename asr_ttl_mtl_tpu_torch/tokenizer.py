@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import base64
 import os
+import string
 import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
@@ -345,6 +346,56 @@ class Tokenizer:
                 if len(tokens) == 1 or symbol in miscellaneous:
                     result.add(tokens[0])
         return tuple(sorted(result))
+
+    # -- word splitting (word timestamps) --
+
+    def split_to_word_tokens(self, tokens: List[int]):
+        if self.language in {"zh", "ja", "th", "lo", "my", "yue"}:
+            # scripts without spaces: split at complete code points instead
+            return self.split_tokens_on_unicode(tokens)
+        return self.split_tokens_on_spaces(tokens)
+
+    def split_tokens_on_unicode(self, tokens: List[int]):
+        """Group tokens at code-point-complete boundaries: a group closes once
+        its decode has no U+FFFD, or has one that the decode of the whole
+        sequence also has at that place (a real U+FFFD in the text rather
+        than a code point split between tokens)."""
+        full_text = self.decode_with_timestamps(tokens)
+        texts: List[str] = []
+        groups: List[List[int]] = []
+        pending: List[int] = []
+        covered = 0  # code points of full_text in closed groups
+        for token in tokens:
+            pending.append(token)
+            text = self.decode_with_timestamps(pending)
+            cut = text.find("\ufffd")
+            if cut < 0 or full_text[covered + cut] == "\ufffd":
+                texts.append(text)
+                groups.append(pending)
+                covered += len(text)
+                pending = []
+        return texts, groups
+
+    def split_tokens_on_spaces(self, tokens: List[int]):
+        """Merge code-point groups into words: a group opens a word when it is
+        a special token, starts with a space or is bare punctuation;
+        anything else extends the word before it."""
+        words: List[str] = []
+        word_tokens: List[List[int]] = []
+        for piece, piece_tokens in zip(*self.split_tokens_on_unicode(tokens)):
+            opens_word = (
+                not words
+                or piece_tokens[0] >= self.eot
+                or piece.startswith(" ")
+                or piece.strip() in string.punctuation
+            )
+            if opens_word:
+                words.append(piece)
+                word_tokens.append(piece_tokens)
+            else:
+                words[-1] += piece
+                word_tokens[-1].extend(piece_tokens)
+        return words, word_tokens
 
 
 @lru_cache(maxsize=None)

@@ -7,15 +7,18 @@ consecutive-timestamp segment splitting, prompt conditioning
 (`condition_on_previous_text`, `carry_initial_prompt`) and
 `clip_timestamps` windows. Every window decode is one `DecodingTask` run
 (beam search on the t=0 rung with `beam_size`, best-of sampling above).
+With `word_timestamps`, each window's segments get their words
+(`timing.add_word_timestamps`) and the seek resumes after the last word;
+`hallucination_silence_threshold` then skips silences around segments
+that look hallucinated (JAX `transcribe.py:188-257, :414-468`).
 
 The mel of the whole file is computed once, on the model's device, and the
-windows are cut from it there. Word timestamps and the
-hallucination-silence heuristics belong to the words slice, and
-`transcribe_batch` to a later one: asking for them raises.
+windows are cut from it there. `transcribe_batch` belongs to a later slice.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 
@@ -24,11 +27,14 @@ import torch
 
 from .audio import FRAMES_PER_SECOND, HOP_LENGTH, N_FRAMES, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram, pad_or_trim
 from .decoding import DecodingOptions, DecodingResult
+from .timing import add_word_timestamps
 from .tokenizer import LANGUAGES, get_tokenizer, normalize_language
-from .utils import exact_div, format_timestamp, make_safe
+from .utils import exact_div, format_timestamp, get_end, make_safe
 
 if TYPE_CHECKING:
     from .models.registry import WhisperModel
+
+_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
 
 def _frames_to_sec(frames) -> float:
@@ -157,6 +163,81 @@ def _build_segment(tokenizer, *, seek, start, end, tokens, result) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# hallucination heuristics
+# ---------------------------------------------------------------------------
+
+
+def _anomaly_score(word: dict) -> float:
+    """Penalty for an implausible word: low probability, or a duration far
+    from the plausible band (too brief weighted 15x, too drawn out 1x)."""
+    duration = word["end"] - word["start"]
+    return (
+        (1.0 if word.get("probability", 0.0) < 0.15 else 0.0)
+        + max(0.0, 0.133 - duration) * 15
+        + max(0.0, duration - 2.0)
+    )
+
+
+def _is_hallucination(segment: Optional[dict]) -> bool:
+    """A segment looks hallucinated when its first (up to 8) words that are
+    not punctuation are anomalous together: a total penalty of 3 or more, or
+    about one point a word."""
+    if segment is None or not segment["words"]:
+        return False
+    words = [w for w in segment["words"] if w["word"] not in _PUNCTUATION][:8]
+    score = sum(_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def _first_with_words(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s["words"]), None)
+
+
+def _drop_hallucinated_tail(
+    segments: List[dict],
+    *,
+    threshold: float,
+    time_offset: float,
+    window_end_time: float,
+    segment_duration: float,
+    content_duration: float,
+    content_frames: int,
+    last_speech_timestamp: float,
+) -> Optional[int]:
+    """Find the first segment that looks hallucinated and has silence (or
+    more hallucination) on both sides; cut the list there and return the
+    frame to seek to. None: nothing dropped."""
+    prev_speech_end = last_speech_timestamp
+    for index, segment in enumerate(segments):
+        if not segment["words"]:
+            continue
+        if _is_hallucination(segment):
+            following = _first_with_words(segments[index + 1 :])
+            next_speech_start = (
+                following["words"][0]["start"] if following is not None else time_offset + segment_duration
+            )
+            quiet_before = (
+                segment["start"] - prev_speech_end > threshold
+                or segment["start"] < threshold
+                or segment["start"] - time_offset < 2.0
+            )
+            quiet_after = (
+                next_speech_start - segment["end"] > threshold
+                or _is_hallucination(following)
+                or window_end_time - segment["end"] < 2.0
+            )
+            if quiet_before and quiet_after:
+                if content_duration - segment["end"] < threshold:
+                    resume_at = content_frames  # a hallucinated coda: stop here
+                else:
+                    resume_at = _sec_to_frames(max(time_offset + 1, segment["start"]))
+                del segments[index:]
+                return resume_at
+        prev_speech_end = segment["end"]
+    return None
+
+
 def _parse_clip_ranges(clip_timestamps: Union[str, List[float]], content_frames: int) -> List[Tuple[int, int]]:
     """`"start,end,start2,end2,..."` seconds -> [(start_frame, end_frame), ...];
     an unpaired final start runs to the end of the audio."""
@@ -193,17 +274,13 @@ def transcribe(
     **decode_options,
 ):
     """Transcribe an audio file or waveform; returns {"text", "segments",
-    "language"} like the reference API. `prepend_punctuations` and
-    `append_punctuations` serve word timestamps, which are not ported yet."""
-    if word_timestamps or hallucination_silence_threshold is not None:
-        raise NotImplementedError(
-            "word_timestamps and hallucination_silence_threshold need the words slice "
-            "(asr_ttl_mtl_tpu/timing.py, kernels K11-K13), which is not ported yet"
-        )
+    "language"} like the reference API, each segment with its `words` under
+    `word_timestamps`."""
     # mel of the whole file on the model's device, plus 30 s of trailing
     # silence for the last window
     mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES, device=model.device)
     content_frames = mel.shape[-1] - N_FRAMES
+    content_duration = _frames_to_sec(content_frames)
 
     language = normalize_language(decode_options.get("language"))
     decode_options["language"] = language
@@ -227,6 +304,8 @@ def transcribe(
         task=task,
         include_diseases=model.has_disease_tokens,
     )
+    if word_timestamps and task == "translate":
+        warnings.warn("Word-level timestamps on translations may not be reliable.")
     gates = QualityGates(
         compression_ratio=compression_ratio_threshold, logprob=logprob_threshold, no_speech=no_speech_threshold
     )
@@ -252,11 +331,13 @@ def transcribe(
     all_tokens: List[int] = list(initial_prompt_tokens)
     all_segments: List[dict] = []
     prompt_reset_since = 0
+    last_speech_timestamp = 0.0
 
     for clip_start, clip_end in _parse_clip_ranges(clip_timestamps, content_frames):
         seek = clip_start
         while seek < clip_end:
             time_offset = _frames_to_sec(seek)
+            window_end_time = _frames_to_sec(seek + N_FRAMES)
             segment_size = min(N_FRAMES, content_frames - seek, clip_end - seek)
             segment_duration = _frames_to_sec(segment_size)
             mel_segment = pad_or_trim(mel[:, seek : seek + segment_size], N_FRAMES, axis=-1)
@@ -280,7 +361,7 @@ def transcribe(
                 return _build_segment(tokenizer, seek=previous_seek, start=start, end=end, tokens=tokens,
                                       result=result)
 
-            current_segments, advance, _ = _cut_segments(
+            current_segments, advance, single_ending = _cut_segments(
                 tokens,
                 tokenizer,
                 time_offset=time_offset,
@@ -291,6 +372,59 @@ def transcribe(
                 make=make,
             )
             seek += advance
+
+            if word_timestamps:
+                add_word_timestamps(
+                    segments=current_segments,
+                    model=model,
+                    tokenizer=tokenizer,
+                    mel=mel_segment,
+                    num_frames=segment_size,
+                    prepend_punctuations=prepend_punctuations,
+                    append_punctuations=append_punctuations,
+                    last_speech_timestamp=last_speech_timestamp,
+                )
+
+                if not single_ending:
+                    spoken_until = get_end(current_segments)
+                    if spoken_until is not None and spoken_until > time_offset:
+                        seek = _sec_to_frames(spoken_until)  # resume right after the last word
+
+                if hallucination_silence_threshold is not None:
+                    threshold = hallucination_silence_threshold
+                    if not single_ending:
+                        spoken_until = get_end(current_segments)
+                        if spoken_until is not None and spoken_until > time_offset:
+                            if window_end_time - spoken_until > threshold:
+                                seek = _sec_to_frames(spoken_until)
+                            else:
+                                seek = previous_seek + segment_size
+
+                    # a hallucination-like opener after leading silence:
+                    # decode again from where the speech starts
+                    leading = _first_with_words(current_segments)
+                    if leading is not None and _is_hallucination(leading):
+                        gap = leading["start"] - time_offset
+                        if gap > threshold:
+                            seek = previous_seek + _sec_to_frames(gap)
+                            continue
+
+                    resume_at = _drop_hallucinated_tail(
+                        current_segments,
+                        threshold=threshold,
+                        time_offset=time_offset,
+                        window_end_time=window_end_time,
+                        segment_duration=segment_duration,
+                        content_duration=content_duration,
+                        content_frames=content_frames,
+                        last_speech_timestamp=last_speech_timestamp,
+                    )
+                    if resume_at is not None:
+                        seek = resume_at
+
+                spoken_until = get_end(current_segments)
+                if spoken_until is not None:
+                    last_speech_timestamp = spoken_until
 
             if verbose:
                 for segment in current_segments:

@@ -9,7 +9,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      source, in parallel, sm_90a);
   3. holds each kernel of the decode slice against its plain PyTorch
      version on the card at the shapes of `base` (K1 and K2 also at the
-     beam paths' group of 5 query rows per cache row), with the tolerance
+     beam paths' group of 5 query rows per cache row, K2 at groups 9 and 16,
+     which its wrapper splits into launches of at most 8), with the tolerance
      stated per kernel, and times the kernel, the plain version and one PyTorch
      call computing the same function (`library_ms`, never called by the
      port), medians of CUDA-event timings, beside the kernel's bound (the
@@ -48,7 +49,19 @@ Phases, each of which raises (exit code != 0) when it fails:
      en`, detecting the language, and with a 19-token prompt carried into
      every window (K7 in the prefill); checks the five output files and the
      launch counts, then holds K7 and K3 against their plain versions at
-     the prefill shapes those runs gave them.
+     the prefill shapes those runs gave them;
+ 13. word timestamps through the CLI on the same 70 s WAV, with `--model
+     base --model_dir <tmp>` (the `base.pt` of phase 12, so the preset's 8
+     alignment heads are set) and one rung of the ladder: once with
+     `--word_timestamps True`, once adding `--hallucination_silence_threshold
+     2`, which re-seeks around every segment that looks hallucinated; checks
+     the words in the .json, one K11 and one K13 launch per aligned window,
+     and K3 and K7 in the alignment forward;
+ 14. holds K11 (median filter) and K13 (DTW fill) against their plain
+     versions, exactly, at the largest and smallest shapes phase 13 gave
+     them, and runs one window's post-forward pipeline (standardize, K11,
+     head mean, K13, backtrace) on its captured card weights with the
+     kernels and with the plain versions: the paths must be identical.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -174,12 +187,19 @@ def make_recorder(card: str, rows: list):
         gots, wants, tols = (x if isinstance(x, list) else [x] for x in (got, want, tol))
         err, worst, ref, finite = 0.0, 0.0, 0.0, True
         for g, w, t in zip(gots, wants, tols):
+            if isinstance(t, str):  # "exact": same values, NaN at the same places (min/max and int traces round nothing)
+                same = torch.equal(torch.isnan(g.float()), torch.isnan(w.float()))
+                diff = (torch.nan_to_num(g.float()) - torch.nan_to_num(w.float())).abs()
+                err = max(err, diff.max().item())
+                worst = max(worst, 0.0 if same and err == 0.0 else float("inf"))
+                ref = max(ref, torch.nan_to_num(w.float()).abs().max().item())
+                continue
             diff = (g.float() - w.float()).abs()
             err = max(err, diff.max().item())
             worst = max(worst, (diff / t).max().item())  # <= 1 passes
             ref = max(ref, w.float().abs().max().item())
             finite = finite and bool(torch.isfinite(g.float()).all())
-        tol_s = "; ".join(f"{t:.3e}" if isinstance(t, float) else
+        tol_s = "; ".join(t if isinstance(t, str) else f"{t:.3e}" if isinstance(t, float) else
                           f"per output, {t.min().item():.3e}..{t.max().item():.3e}" for t in tols)
         ms, plain_ms = timed_ms(run_kernel), timed_ms(run_plain)
         library_ms = timed_ms(library) if library is not None else None
@@ -452,6 +472,22 @@ def check_kernels(card: str):
                lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
                lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
                bound=attn_bound(b * BEAM * 1500 * 512, 2 * b * 1500 * 512 * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
+    # K2 above group 8 (best_of 9 and more): the wrapper splits the group
+    # into launches of at most 8 query rows per cache row
+    for group, b in ((9, 1), (16, N_WINDOWS)):
+        q = torch.randn((b * group, 1, 512), generator=gen, device=dev).bfloat16()
+        ck, cv = (one_k, one_v) if b == 1 else (cross_k, cross_v)
+        kw = dict(scale=scale, group=group)
+        want = DA.decode_attention_plain(q, ck, cv, 5, 8, **kw)
+        qh = q.reshape(b, group, 8, 64).transpose(1, 2)
+        kh, vh = heads(ck[5], 8), heads(cv[5], 8)
+        record("decode_attention", f"cross (6,{b},1500,512) bf16, q ({b * group},1,512), group {group}",
+               "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               DA.decode_attention(q, ck, cv, 5, 8, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
+               lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
+               bound=attn_bound(b * group * 1500 * 512, 2 * b * 1500 * 512 * 2),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
     kw = dict(scale=scale, valid_upto=1499, group=BEAM)
     want, flip = DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, return_flip_bound=True, **kw)
@@ -1052,6 +1088,218 @@ def check_prefill_kernels(card: str, bucket: int, cache_len: int):
     return rows
 
 
+WORDS_RUNS = (
+    ["--word_timestamps", "True"],
+    ["--word_timestamps", "True", "--hallucination_silence_threshold", "2"],
+)
+
+
+class WordsProbe:
+    """Wraps the words path's functions for one CLI run, calling through:
+    counts the aligned windows, the calls of K11 and K13 at shapes that
+    launch them (a window of under 8 frames leaves K11 nothing to filter),
+    the K3 and K7 launches inside the alignment forward and the longest
+    teacher-forced token row, and keeps the inputs K11 and K13 got (the
+    largest and smallest that launch) and the first window's alignment
+    weights on the card."""
+
+    def __init__(self):
+        from asr_ttl_mtl_tpu_torch import timing
+        from asr_ttl_mtl_tpu_torch.ops import LAUNCHES
+        from asr_ttl_mtl_tpu_torch.ops import dtw as dtw_ops
+
+        self.windows, self.forward_launches, self.inputs, self.first = 0, {}, {}, None
+        self.calls, self.longest = {"median_filter": 0, "dtw_trace": 0}, 0
+        self.seconds = {"forward": 0.0, "pipeline": 0.0}  # host clock, each ending in a sync
+
+        def clocked(key, fn, *args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        self.patched = []
+
+        def patch(module, name, make):
+            self.patched.append((module, name, getattr(module, name)))
+            setattr(module, name, make(getattr(module, name)))
+
+        def keep(kind, x):
+            self.calls[kind] += 1
+            held = self.inputs.setdefault(kind, {})
+            for key, better in (("largest", lambda a, b: a.numel() > b.numel()),
+                                ("smallest", lambda a, b: a.numel() < b.numel())):
+                if key not in held or better(x, held[key]):
+                    held[key] = x.detach().clone()
+
+        def weights(fn):
+            def run(model, tokens, *args, **kw):
+                self.windows += 1
+                self.longest = max(self.longest, len(tokens))
+                before = dict(LAUNCHES)
+                out = clocked("forward", fn, model, tokens, *args, **kw)
+                for name in ("flash_attention_h2", "flash_attention"):
+                    self.forward_launches[name] = self.forward_launches.get(name, 0) + LAUNCHES[name] - before[name]
+                return out
+            return run
+
+        def path(fn):
+            def run(w, *args):
+                if self.first is None:
+                    self.first = (w.detach().clone(), *args)
+                return clocked("pipeline", fn, w, *args)
+            return run
+
+        def median(fn):
+            def run(x, width):
+                if x.shape[-1] > width // 2:
+                    keep("median_filter", x)
+                return fn(x, width)
+            return run
+
+        def trace(fn):
+            def run(x):
+                if min(x.shape) >= 1:
+                    keep("dtw_trace", x)
+                return fn(x)
+            return run
+
+        patch(timing, "alignment_weights", weights)
+        patch(timing, "alignment_path", path)
+        patch(timing, "median_filter_network", median)
+        patch(dtw_ops, "dtw_trace", trace)
+
+    def close(self):
+        for module, name, original in reversed(self.patched):
+            setattr(module, name, original)
+
+
+def run_words_cli(card: str, workdir: str):
+    """Phase 13: word timestamps through the CLI on phase 12's 70 s WAV,
+    with `--model base --model_dir <workdir>` (so the preset's alignment
+    heads are set), `--language en` and one rung of the ladder (with the
+    hallucination threshold, random weights make every window re-seek about
+    1 s on: six rungs would take ~10 minutes). Returns the summed launch
+    counts and each run's probe."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    clip = os.path.join(workdir, "clip70.wav")
+    total, probes = {}, []
+    for n, extra in enumerate(WORDS_RUNS):
+        out = os.path.join(workdir, f"words{n}")
+        printed = io.StringIO()
+        probe = WordsProbe()
+        try:
+            sync()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cli([clip, "--model", "base", "--model_dir", workdir, "--output_dir", out, "--language", "en",
+                     "--temperature_increment_on_fallback", "None", *extra])
+            sync()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        finally:
+            probe.close()
+        text = printed.getvalue()
+        if "Skipping" in text:
+            raise AssertionError(f"the CLI skipped the file:\n{text[-3000:]}")
+        with open(os.path.join(out, "clip70.json")) as f:
+            result = json.load(f)
+        segments = result["segments"]
+        words = [w for s in segments for w in s.get("words", [])]
+        # a word whose tokens run on into the next segment (no space before
+        # them) spends that segment's tokens, which may leave it an empty list
+        if not all("words" in s for s in segments if s["text"].strip()):
+            raise AssertionError("a segment with text carries no words")
+        if not all(w["start"] <= w["end"] for w in words):
+            raise AssertionError("a word ends before it starts")
+        if n == 0 and not words:
+            raise AssertionError("the words run timed no word")
+        if (probe.windows < 1 or probe.calls["dtw_trace"] < 1
+                or any(counts[k] != probe.calls[k] for k in ("median_filter", "dtw_trace"))):
+            raise AssertionError(f"{probe.windows} aligned windows, calls {probe.calls}, launches {counts}")
+        if probe.forward_launches.get("flash_attention_h2", 0) <= 0 or probe.forward_launches.get("flash_attention", 0) <= 0:
+            raise AssertionError(f"the alignment forward launched {probe.forward_launches}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        seeks = sorted({s["seek"] for s in segments})
+        print(f"[words] {' '.join(extra)}: {wall:.1f} s wall for 70 s of audio; {probe.windows} aligned windows "
+              f"(the longest {probe.longest} tokens), K11 {counts['median_filter']} and K13 "
+              f"{counts['dtw_trace']} launches; {len(segments)} segments "
+              f"from windows at seek {seeks}, {len(words)} words, mean probability "
+              f"{np.mean([w['probability'] for w in words]) if words else float('nan'):.4f}; alignment forward "
+              f"{probe.seconds['forward']:.3f} s (launches {json.dumps(probe.forward_launches)}), standardize + "
+              f"K11 + head mean + K13 + backtrace {probe.seconds['pipeline']:.3f} s [{card}]", flush=True)
+        print(f"[words] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+        probes.append(probe)
+    return total, probes
+
+
+def check_words_kernels(card: str, probes):
+    """Phase 14: K11 and K13 against their plain versions, exactly, at the
+    largest and smallest inputs the words runs gave them; then one window's
+    post-forward pipeline with the kernels and with the plain versions."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import timing
+    from asr_ttl_mtl_tpu_torch.ops import dtw as DT
+    from asr_ttl_mtl_tpu_torch.ops import median as MD
+
+    rows = []
+    record = make_recorder(card, rows)
+    inputs = {}
+    for kind in ("median_filter", "dtw_trace"):
+        held = [x for probe in probes for x in probe.inputs[kind].values()]
+        inputs[kind] = {"largest": max(held, key=torch.numel), "smallest": min(held, key=torch.numel)}
+    for key in ("largest", "smallest"):
+        x = inputs["median_filter"][key]
+        record("median_filter", f"{key} of the words runs: {tuple(x.shape)} fp32, width 7",
+               "asr_ttl_mtl_tpu_torch/csrc/median.cu", "asr_ttl_mtl_tpu/ops/pallas_median.py:25",
+               MD.median_filter_network(x, 7), MD.median_filter_network_plain(x, 7), "exact",
+               lambda: MD.median_filter_network(x, 7), lambda: MD.median_filter_network_plain(x, 7),
+               bound=bound(3 * 7 * x.numel(), 2 * x.numel() * 4, "fp32"), main=key == "largest")
+    for key in ("largest", "smallest"):
+        x = inputs["dtw_trace"][key]
+        n, m = x.shape
+        record("dtw_trace", f"{key} of the words runs: ({n}, {m}) fp32, {n + m - 1} dependent diagonals",
+               "asr_ttl_mtl_tpu_torch/csrc/dtw.cu", "asr_ttl_mtl_tpu/ops/pallas_dtw.py:36",
+               DT.dtw_trace(x), DT.dtw_trace_plain(x), "exact",
+               lambda: DT.dtw_trace(x), lambda: DT.dtw_trace_plain(x),
+               bound=bound(4 * n * m, n * m * 4 + (n + 1) * (m + 1), "fp32"), main=key == "largest")
+    # device time, without the wrapper's host work (ctypes, the output's
+    # allocation): calls captured in a CUDA graph
+    xm, xd = inputs["median_filter"]["largest"], inputs["dtw_trace"]["largest"]
+    for r, fn in zip(rows[::2], (lambda: MD.median_filter_network(xm, 7), lambda: DT.dtw_trace(xd))):
+        r["device_ms"] = graph_ms(fn)
+        print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
+              f"{r['device_ms']:.4f} ms [{card}]", flush=True)
+
+    weights, *args = probes[0].first
+    kernel_path = timing.alignment_path(weights, *args)
+    median, trace = timing.median_filter_network, DT.dtw_trace
+    timing.median_filter_network, DT.dtw_trace = MD.median_filter_network_plain, DT.dtw_trace_plain
+    try:
+        plain_path = timing.alignment_path(weights, *args)
+    finally:
+        timing.median_filter_network, DT.dtw_trace = median, trace
+    same = all(np.array_equal(a, b) for a, b in zip(kernel_path, plain_path))
+    print(f"[words] pipeline on one window's card weights {tuple(weights.shape)}: path of "
+          f"{len(kernel_path[0])} steps with the kernels, {len(plain_path[0])} with the plain versions, "
+          f"{'identical' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError("the kernels' alignment path differs from the plain versions'")
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -1099,12 +1347,14 @@ def main() -> int:
     check_beam_against_cpu(model)
     with tempfile.TemporaryDirectory() as workdir:
         cli_counts, prefill = run_cli(card, model, workdir)
+        words_counts, probes = run_words_cli(card, workdir)
     rows += check_prefill_kernels(card, *prefill)
+    rows += check_words_kernels(card, probes)
 
     # launches: the sum over the main paths (decode slice, kv_quant=False
-    # batch, train steps, evaluate, beam slice, the CLI's runs), each counted from 0
-    # just before it ran
-    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts)
+    # batch, train steps, evaluate, beam slice, the CLI's runs, the words
+    # runs), each counted from 0 just before it ran
+    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

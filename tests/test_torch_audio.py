@@ -80,6 +80,42 @@ def test_log_mel_of_wav_file(tmp_path):
     np.testing.assert_allclose(PA.log_mel_spectrogram(path, device="cpu").numpy(), want, atol=ATOL, rtol=0)
 
 
+def _extensible_wav(path, samples: np.ndarray, sub_format: int, bits: int, rate: int = 16000):
+    """A WAVE_FORMAT_EXTENSIBLE file: a 40-byte `fmt ` chunk whose sub-format
+    GUID starts with `sub_format` (1 PCM, 3 IEEE float)."""
+    import struct
+
+    channels = samples.shape[1]
+    data = samples.astype({32: "<f4", 64: "<f8"}[bits] if sub_format == 3 else "<i2").tobytes()
+    guid = struct.pack("<H", sub_format) + b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xaa\x00\x38\x9b\x71"
+    align = channels * bits // 8
+    fmt = struct.pack("<HHIIHHHHI", 0xFFFE, channels, rate, rate * align, align, bits, 22, bits, 3) + guid
+    body = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(data)) + data
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+@pytest.mark.parametrize("sub_format,bits", [(3, 32), (3, 64), (1, 16)], ids=["float32", "float64", "pcm16"])
+def test_extensible_wav_loads_as_jax_loads_it(tmp_path, sub_format, bits):
+    """Extensible stereo WAVs: the mean of the channels written, and the JAX
+    `load_audio` (its native decoder, where it builds) on the same file."""
+    rng = np.random.RandomState(bits)
+    stereo = (rng.randn(4000, 2) * 0.2).astype(np.float32)
+    if sub_format == 1:
+        stereo = np.round(stereo * 32767)
+    path = str(tmp_path / "ext.wav")
+    _extensible_wav(path, stereo, sub_format, bits)
+    got = PA.load_audio(path)
+    want = stereo.mean(axis=1) / (32768.0 if sub_format == 1 else 1.0)
+    assert got.dtype == np.float32 and got.shape == (4000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+    try:
+        from asr_ttl_mtl_tpu.runtime import wav  # noqa: F401  the native decoder, built with g++
+    except ImportError:
+        return
+    np.testing.assert_array_equal(got, JA.load_audio(path))
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     audio = torch.from_numpy(waveforms(2, 64, seed=4))
     padded = torch.nn.functional.pad(audio[:, None], (200, 200), mode="reflect")[:, 0].contiguous()

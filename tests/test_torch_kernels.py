@@ -59,7 +59,8 @@ def _decode_inputs(b, group, n_layer, tk, d, seed):
 
 @pytest.mark.parametrize(
     "case,b,group,tk,valid",
-    [("cross", 3, 1, 96, None), ("self", 2, 1, 128, 37), ("group", 2, 3, 96, None), ("self-group", 2, 2, 128, 0)],
+    [("cross", 3, 1, 96, None), ("self", 2, 1, 128, 37), ("group", 2, 3, 96, None), ("self-group", 2, 2, 128, 0),
+     ("group-9", 2, 9, 96, None)],
 )
 def test_k2_plain_matches_pallas(case, b, group, tk, valid):
     q, ck, cv = _decode_inputs(b, group, 2, tk, 128, seed=1)
@@ -152,6 +153,41 @@ def test_k2_kernel_on_card(cuda_device, dtype):  # noqa: F811
     got = PD.decode_attention(q, ck, cv, 1, 8, **kw).float()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [9, 16])
+def test_k2_kernel_on_card_above_group_8(cuda_device, group):  # noqa: F811
+    """Groups above 8 go in launches of at most 8 rows per cache row."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    q, ck, cv = (_t(a).to(cuda_device, torch.bfloat16) for a in _decode_inputs(3, group, 2, 1500, 512, seed=6))
+    kw = dict(scale=0.125, group=group)
+    want = PD.decode_attention_plain(q, ck, cv, 1, 8, **kw).float()
+    reset_launch_counts()
+    got = PD.decode_attention(q, ck, cv, 1, 8, **kw).float()
+    assert LAUNCHES["decode_attention"] == -(-group // PD.MAX_GROUP)
+    assert (got - want).abs().max().item() <= 2.0**-7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_best_of_9_on_card_gives_the_plain_path_tokens(cuda_device, monkeypatch):  # noqa: F811
+    """decode(best_of=9) with bf16 caches: the cross-attention runs K2 at
+    group 9 and samples the tokens the plain K2 gives on the same card."""
+    from asr_ttl_mtl_tpu_torch.decoding import DecodingOptions, decode
+    from asr_ttl_mtl_tpu_torch.models import from_random
+    from asr_ttl_mtl_tpu_torch.models import whisper as PW
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    model = from_random("tiny", seed=0, device=cuda_device, dtype=torch.bfloat16)
+    mel = torch.randn(2, 80, 3000, generator=torch.Generator().manual_seed(0)).to(cuda_device) * 0.3
+    opts = DecodingOptions(language="en", temperature=0.6, best_of=9, sample_len=12)
+    reset_launch_counts()
+    got = decode(model, mel, opts)
+    assert LAUNCHES["decode_attention"] > 0
+    monkeypatch.setattr(PW, "decode_attention", PD.decode_attention_plain)
+    want = decode(model, mel, opts)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
 
 
 @pytest.mark.cuda

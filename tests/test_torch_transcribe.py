@@ -106,13 +106,6 @@ def test_hot_rung_resets_the_prompt(setup, monkeypatch):
     assert len(prompts) >= 4 and all(p == [] for p in prompts)
 
 
-def test_words_are_not_ported_yet(setup):
-    _, tmodel, audio = setup
-    for kw in (dict(word_timestamps=True), dict(hallucination_silence_threshold=2.0)):
-        with pytest.raises(NotImplementedError, match="words slice"):
-            PT.transcribe(tmodel, audio[:SR], **kw)
-
-
 def test_helpers_match_jax():
     import importlib
 
