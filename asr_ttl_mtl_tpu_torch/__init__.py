@@ -7,7 +7,8 @@ the CPU takes and the CUDA path is checked against.
 
 Ported so far: the 30 s window path, waveform -> log-mel -> encoder ->
 cross-KV -> prefill -> greedy, best-of or beam decode -> text; long-form
-`transcribe`, the writers and the CLI (`python -m asr_ttl_mtl_tpu_torch`);
+`transcribe` with word timestamps, batched `transcribe_batch`, the writers
+and the CLI (`python -m asr_ttl_mtl_tpu_torch`, `--batch_mode`);
 and the single-device multi-task fine-tune (`mtl/`: dataset, trainer,
 chunked CE, 4-group AdamW), whose attention trains through the flash
 kernels' backward passes.
@@ -18,3 +19,4 @@ __version__ = "0.1.0"
 from .audio import load_audio, log_mel_spectrogram, pad_or_trim  # noqa: F401
 from .decoding import DecodingOptions, DecodingResult, DecodingTask, decode, detect_language  # noqa: F401
 from .models import ModelDimensions, WhisperModel, from_random, load_model  # noqa: F401
+from .transcribe import transcribe_batch  # noqa: F401

@@ -7,13 +7,16 @@ a reference-layout `.pt` file, or a preset name whose `<name>.pt` lies in
 `--model_dir`: nothing is downloaded. A preset name also sets that preset's
 alignment heads for `--word_timestamps`, as the JAX `load_model` does
 (when the checkpoint has the preset's decoder layers and heads). `--device` is a torch device, the
-card by default. The throughput modes (`--batch_mode`, `--dp`, `--tp`) are
-not ported yet and are refused.
+card by default. `--batch_mode True` decodes every window of every file
+in batches through `transcribe_batch`; its options are routed as in JAX
+`cli.py:141-202`. The multi-device flags (`--dp`, `--tp`) are not ported
+yet and are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import traceback
 import warnings
@@ -64,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kv_int8", type=str2bool, default=False, help="store the attention K/V caches int8 (per-row scales): faster batched decoding, approximately identical output")
     parser.add_argument("--int8_encoder", type=str2bool, default=False, help="run the encoder block projections as dynamically-quantized int8 matmuls: faster encoding, approximately identical output")
     parser.add_argument("--fuse_encoder", type=str2bool, default=True, help="with --kv_int8, let the prompt prefill read the float cross K/V (the JAX package's fused window program); False reads the dequantized int8 store")
-    parser.add_argument("--batch_mode", type=str2bool, default=False, help="decode every 30s window of every input file in device-wide batches (not ported yet)")
+    parser.add_argument("--batch_mode", type=str2bool, default=False, help="decode every 30s window of every input file in device-wide batches (throughput mode; windows are decoded independently)")
     parser.add_argument("--dp", type=optional_int, default=None, help="with --batch_mode: data-parallel devices (not ported yet)")
     parser.add_argument("--tp", type=optional_int, default=None, help="with --batch_mode: tensor-parallel devices per dp replica (not ported yet)")
 
@@ -98,12 +101,32 @@ def _checkpoint_path(parser: argparse.ArgumentParser, model_name: str, model_dir
     return path
 
 
+# sequential-only options that the independent windows of --batch_mode
+# cannot honour, each with its reason
+BATCH_DROPPED = {
+    "verbose",  # per-segment streaming prints are sequential
+    "condition_on_previous_text",  # windows decode independently
+    "carry_initial_prompt",  # initial_prompt conditions every window already
+}
+
+
+def batch_supported() -> set:
+    """The options `--batch_mode` routes: `transcribe_batch`'s parameters and
+    the `DecodingOptions` fields, so that an option is either routed or
+    refused, never dropped in silence."""
+    from .decoding import DecodingOptions
+    from .transcribe import transcribe_batch
+
+    return (set(inspect.signature(transcribe_batch).parameters) | set(DecodingOptions.__dataclass_fields__)) - {
+        "model", "audios", "batch_size", "mesh", "decode_options", "temperature"}
+
+
 def cli(argv: Optional[List[str]] = None) -> None:
     import torch
 
     from .models import PRESET_DIMS, load_model
     from .models.registry import _ALIGNMENT_HEADS
-    from .transcribe import transcribe
+    from .transcribe import transcribe, transcribe_batch
 
     parser = build_parser()
     args = parser.parse_args(argv).__dict__
@@ -113,10 +136,9 @@ def cli(argv: Optional[List[str]] = None) -> None:
     output_format: str = args.pop("output_format")
     device: str = args.pop("device")
 
-    for flag in ("batch_mode", "dp", "tp"):
-        value = args.pop(flag)
-        if value not in (None, False):
-            parser.error(f"--{flag} is not ported yet (ROADMAP: transcribe_batch and the multi-device paths)")
+    for flag in ("dp", "tp"):
+        if args.pop(flag) is not None:
+            parser.error(f"--{flag} is not ported yet (ROADMAP: the multi-device paths)")
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -154,7 +176,27 @@ def cli(argv: Optional[List[str]] = None) -> None:
         warnings.warn("--max_words_per_line has no effect with --max_line_width")
     writer_args = {arg: args.pop(arg) for arg in word_options}
 
-    for audio_path in args.pop("audio"):
+    audio_paths = args.pop("audio")
+    if args.pop("batch_mode"):
+        if args.pop("hallucination_silence_threshold") is not None:
+            parser.error("--hallucination_silence_threshold needs the sequential adaptive seek loop; "
+                         "not supported with --batch_mode")
+        supported = batch_supported()
+        batch_args = {key: value for key, value in args.items() if key in supported}
+        unroutable = [key for key in args if key not in supported and key not in BATCH_DROPPED]
+        if unroutable:
+            parser.error(f"option(s) {unroutable} are not routable to --batch_mode: add them to "
+                         "transcribe_batch's signature or to the CLI's dropped table")
+        try:
+            results = transcribe_batch(model, list(audio_paths), temperature=tuple(temperature), **batch_args)
+            for audio_path, result in zip(audio_paths, results):
+                writer(result, audio_path, **writer_args)
+        except Exception as e:
+            traceback.print_exc()
+            print(f"Batch transcription failed: {type(e).__name__}: {str(e)}")
+        return
+
+    for audio_path in audio_paths:
         try:
             result = transcribe(model, audio_path, temperature=temperature, **args)
             writer(result, audio_path, **writer_args)

@@ -10,8 +10,7 @@ Errors propagate: there is no retry on the plain paths when a kernel fails.
 `submit` enqueues the whole window (encoder, cross-KV, prefill, decode
 steps) on the current CUDA stream and returns device tensors; `collect`
 brings the results back with one `.cpu()` and assembles them. With
-`beam_size` the decode steps are the beam search of `beam.py`. Word
-timestamps belong to a later slice.
+`beam_size` the decode steps are the beam search of `beam.py`.
 """
 
 from __future__ import annotations
@@ -290,15 +289,15 @@ class DecodingTask:
 
     # --- run ----------------------------------------------------------------
 
-    def _fused(self, mel: torch.Tensor) -> bool:
-        """Whether the JAX package would run this window as one fused program,
-        whose prefill reads the float cross K/V (decoding.py:874-885)."""
+    def _fusable(self, mel: torch.Tensor) -> bool:
+        """Whether the JAX package can run this window as one fused program
+        (its `submit`'s `fused_ok`, decoding.py:967-973); with `fuse_encoder`
+        it does, and the prefill reads the float cross K/V (:874-885)."""
         dims = self.model.dims
         return (
             self.options.task != "lang_id"
             and self.options.language is not None
             and not self.options.return_audio_features
-            and self.options.fuse_encoder
             and tuple(mel.shape[-2:]) != (dims.n_audio_ctx, dims.n_audio_state)
         )
 
@@ -318,14 +317,22 @@ class DecodingTask:
         cross_kv = W.precompute_cross_kv(dec, feats, quantize=self.kv_quant)
         return feats, cross_kv, cross_kv
 
-    def submit(self, mel, rng_seed: int = 0):
+    def submit(self, mel, rng_seed: int = 0, feature_sink=None):
         """Enqueue one batch of windows on the current stream; returns a
-        handle for `collect`."""
+        handle for `collect`.
+
+        `feature_sink`: with `fuse_encoder=False` and a known language, called
+        with this batch's encoder features (B, n_audio_ctx, D) on the device,
+        as JAX `submit` does (decoding.py:948-987): the words mode of
+        `transcribe_batch` keeps them so that the batched alignment forward
+        skips its encoder."""
         mel = torch.as_tensor(mel).to(self.model.device)
         n_audio = mel.shape[0]
-        fused = self._fused(mel)
+        fusable = self._fusable(mel)
         with torch.no_grad():
-            feats, cross_kv, cross_prefill = self._encode_audio(mel, fused)
+            feats, cross_kv, cross_prefill = self._encode_audio(mel, fusable and self.options.fuse_encoder)
+            if feature_sink is not None and fusable and not self.options.fuse_encoder:
+                feature_sink(feats)
 
             initial = np.tile(np.asarray(self.initial_tokens, np.int64), (n_audio, 1))
             languages = [self.options.language] * n_audio

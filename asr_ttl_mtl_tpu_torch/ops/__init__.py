@@ -26,6 +26,7 @@ LAUNCHES: Dict[str, int] = {
     "topk": 0,  # K10, ops/topk.py
     "median_filter": 0,  # K11, ops/median.py
     "dtw_trace": 0,  # K13, ops/dtw.py
+    "dtw_paths_batch": 0,  # K12, ops/dtw.py
 }
 
 

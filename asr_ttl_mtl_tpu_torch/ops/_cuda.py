@@ -77,6 +77,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "dtw": {
         # x, trace, n, m, stream
         "dtw_trace_f32": (_P, _P, _I, _I, _P),
+        # x, trace scratch, ti, tj, lens, n, m, batch, n_max, m_max, stream
+        "dtw_paths_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -1,22 +1,28 @@
 """Dynamic time warping for the cross-attention word alignment: the host
-sweep, the backtrace, and K13, the DTW fill on the card (kernel
-`csrc/dtw.cu`), with its plain version.
+sweep, the backtrace, K13, the DTW fill on the card, and K12, the batched
+fill with the backtrace on the card (kernels in `csrc/dtw.cu`), each with
+its plain version.
 
 Counterpart of `asr_ttl_mtl_tpu/ops/dtw.py` (`backtrace` :23,
 `dtw_wavefront_numpy` :47, `dtw` :80) and of
-`asr_ttl_mtl_tpu/ops/pallas_dtw.py::dtw_trace_pallas` (:105, kernel
-`_dtw_kernel` :36). x is the (N text tokens, M frames) cost matrix (callers
-pass -attention); a trace is (N+1, M+1) with 0 = diagonal, 1 = up,
+`asr_ttl_mtl_tpu/ops/pallas_dtw.py` (`dtw_trace_pallas` :105, kernel
+`_dtw_kernel` :36; `dtw_paths_batch`, `dtw_paths_dispatch` and
+`dtw_paths_collect` :242-284, kernel `_dtw_kernel_batch` :141 with
+`_backtrace_one` :175). x is the (N text tokens, M frames) cost matrix
+(callers pass -attention); a trace is (N+1, M+1) with 0 = diagonal, 1 = up,
 2 = left, and -1 outside the filled cells.
 
 The host sweep runs in float64, as the JAX package's does. The fill on the
 card runs in fp32, as the TPU kernel does. The tie rule is the same: t=0
 only if the diagonal is strictly smallest, t=1 only if the upper neighbour
 is strictly smaller than both, else t=2. Unlike the JAX `dtw`, which walks
-on the host when its kernel fails, `dtw` raises.
+on the host when its kernel fails, `dtw` raises; so do K12's dispatch and
+collect, where JAX `find_alignment_batch` falls back to the host walk.
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -121,3 +127,86 @@ def dtw(x) -> np.ndarray:
     if isinstance(x, torch.Tensor) and x.is_cuda:
         return backtrace(dtw_trace(x.float()).cpu().numpy())
     return backtrace(dtw_wavefront_numpy(np.asarray(x)))
+
+
+# ---------------------------------------------------------------------------
+# K12: the batched fill with the backtrace on the card
+# ---------------------------------------------------------------------------
+
+
+def _walk(trace: np.ndarray, n: int, m: int, ti: np.ndarray, tj: np.ndarray) -> int:
+    """`_backtrace_one`'s walk from (n, m) to (0, 0) over one row's trace,
+    with i == 0 read as 2 and j == 0 as 1; writes the path into ti, tj in
+    reverse order and returns its length."""
+    i, j, k = n, m, 0
+    while i > 0 or j > 0:
+        ti[k], tj[k] = i - 1, j - 1
+        k += 1
+        t = 2 if i == 0 else 1 if j == 0 else int(trace[i, j])
+        i -= int(t != 2)
+        j -= int(t != 1)
+    return k
+
+
+def dtw_paths_batch_plain(x: torch.Tensor, n, m):
+    """Plain PyTorch K12: `dtw_trace_plain` on each row's x[b, :n, :m] and the
+    walk on the host; returns (ti, tj (B, N_max+M_max) int32 in reverse path
+    order, 0 past each path; lens (B,) int32) on x's device."""
+    b, n_max, m_max = x.shape
+    ti = np.zeros((b, n_max + m_max), np.int32)
+    tj = np.zeros_like(ti)
+    lens = np.zeros(b, np.int32)
+    for r in range(b):
+        nr, mr = int(n[r]), int(m[r])
+        trace = dtw_trace_plain(x[r, :nr, :mr]).cpu().numpy()
+        lens[r] = _walk(trace, nr, mr, ti[r], tj[r])
+    return tuple(torch.from_numpy(a).to(x.device) for a in (ti, tj, lens))
+
+
+def dtw_paths_dispatch(x: torch.Tensor, n, m):
+    """K12 wrapper: the DTW paths of the rows of x (B, N_max, M_max) fp32,
+    each row bounded by its own n[b] <= N_max text tokens and m[b] <= M_max
+    frames, as (ti, tj, lens) device tensors (see `dtw_paths_batch_plain`),
+    enqueued on the current stream without a sync; the kernel for a CUDA
+    tensor, the plain version for a CPU one."""
+    b, n_max, m_max = x.shape
+    if not (len(n) == len(m) == b) or any(not 0 <= int(v) <= n_max for v in n) or any(
+            not 0 <= int(v) <= m_max for v in m):
+        raise ValueError(f"dtw_paths: row lengths n={list(n)}, m={list(m)} outside x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return dtw_paths_batch_plain(x, n, m)
+    if not x.is_cuda:
+        raise ValueError(f"dtw_paths: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"dtw_paths: the kernel takes fp32 cost matrices, got {x.dtype}")
+    if n_max > MAX_TOKENS:
+        raise ValueError(f"dtw_paths: {n_max} tokens, more than the kernel's {MAX_TOKENS}")
+    dev = x.device
+    ti = torch.empty((b, n_max + m_max), dtype=torch.int32, device=dev)
+    tj = torch.empty_like(ti)
+    lens = torch.empty(b, dtype=torch.int32, device=dev)
+    if n_max + m_max == 0:  # every row is empty: no path, no launch
+        return ti, tj, lens.zero_()
+    x = x.contiguous()
+    nm = torch.tensor([list(n), list(m)], dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    trace = torch.empty((b, n_max + 1, m_max + 1), dtype=torch.int8, device=dev)
+    code = _cuda.lib("dtw").dtw_paths_f32(
+        x.data_ptr(), trace.data_ptr(), ti.data_ptr(), tj.data_ptr(), lens.data_ptr(), nm[0].data_ptr(),
+        nm[1].data_ptr(), b, n_max, m_max, _cuda.stream_handle(dev),
+    )
+    _cuda.check("dtw", "dtw_paths_f32", code)
+    LAUNCHES["dtw_paths_batch"] += 1
+    return ti, tj, lens
+
+
+def dtw_paths_collect(handles) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Bring `dtw_paths_dispatch`'s three tensors to the host; returns each
+    row's (text_indices, time_indices) in path order."""
+    ti, tj, lens = (h.cpu().numpy() for h in handles)
+    return [(ti[r, : lens[r]][::-1].copy(), tj[r, : lens[r]][::-1].copy()) for r in range(len(lens))]
+
+
+def dtw_paths_batch(x: torch.Tensor, n, m) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Each row's path, equal to `backtrace(dtw_wavefront_numpy(x[b, :n, :m]))`
+    up to the fill's fp32 rounding."""
+    return dtw_paths_collect(dtw_paths_dispatch(x, n, m))

@@ -16,8 +16,14 @@ device in fp32: standardization, the median filter K11, the head mean and
 the DTW fill K13 run there, and only K13's int8 trace leaves the card for
 the backtrace. On the CPU the same steps run in float64 on the host with
 the sort median and the float64 DTW sweep, as JAX's non-TPU branch does.
-The batched alignment of `transcribe_batch` (`find_alignment_batch`, K12)
-is not ported yet.
+
+`find_alignment_batch` (JAX :189-458) is the words mode of
+`transcribe_batch`: one teacher-forced forward over a chunk of windows
+(or over the encoder features the decode kept), masked per row, with the
+standardization, the median filter and the head mean in fp32 on the
+model's device, and the teacher-forced probabilities from the chunked
+cross-entropy. On the card K12 fills every row's DTW and walks it there,
+and only the (B, L) path indices come back.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 
 from .audio import HOP_LENGTH, SAMPLE_RATE, TOKENS_PER_SECOND
 from .models.whisper import decoder_apply, encoder_apply
-from .ops.dtw import dtw
+from .ops.chunked_xent import chunked_softmax_xent
+from .ops.dtw import dtw, dtw_paths_collect, dtw_paths_dispatch
 from .ops.median import median_filter, median_filter_network
 from .tokenizer import Tokenizer
 
@@ -151,6 +158,174 @@ def _word_timings_from_path(
                    probability=float(np.mean(text_token_probs[lo:hi])))
         for word, tokens_, lo, hi in zip(words, word_tokens, edges[:-1], edges[1:])
     ]
+
+
+_TOKEN_BUCKETS = (64, 128, 192, 256, 320, 384, 448)
+
+
+def median_filter_rows(w: torch.Tensor, frame_lens: torch.Tensor, width: int) -> torch.Tensor:
+    """Median filter of w (B, T, Ta) along frames, each row b reflecting at 0
+    and at its own frame_lens[b] - 1 (the reflect pad `median_filter`
+    applies after cropping), by a gather of the `width` window elements and a
+    sort, which puts NaN last as `jnp.sort` does (JAX timing.py:259-277). Rows
+    with frame_lens <= width // 2 pass through unfiltered."""
+    half = width // 2
+    n_audio = w.shape[-1]
+    dev = w.device
+    t = torch.arange(n_audio, device=dev)[None, :, None]
+    j = torch.arange(width, device=dev)[None, None, :]
+    raw = (t + j - half).abs()  # reflect at 0
+    hi = (frame_lens[:, None, None] - 1).clamp(min=0)
+    raw = torch.where(raw > hi, 2 * hi - raw, raw)  # reflect at frame_len - 1
+    idx = raw.clamp(0, n_audio - 1)  # (B, Ta, width)
+    b, n_tok = w.shape[:2]
+    idx = idx.reshape(b, 1, n_audio * width).expand(b, n_tok, n_audio * width)
+    win = w.gather(-1, idx).reshape(b, n_tok, n_audio, width)
+    filt = torch.sort(win, dim=-1).values[..., half]
+    return torch.where((frame_lens > half)[:, None, None], filt, w)
+
+
+@torch.no_grad()
+def alignment_forward_batch(
+    model: "WhisperModel",
+    fwd_input: torch.Tensor,
+    tokens: torch.Tensor,
+    frame_lens: torch.Tensor,
+    row_lens: torch.Tensor,
+    *,
+    eot: int,
+    medfilt_width: int,
+    qk_scale: float = 1.0,
+    from_features: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched teacher-forced alignment forward (JAX
+    `_build_alignment_forward_batch`, timing.py:193-299): window mels (B,
+    n_mels, 3000), or with `from_features` the decode's encoder features (B,
+    n_audio_ctx, D), and token rows (B, bucket) padded with EOT ->
+    (the head-averaged DTW cost matrix before negation (B, bucket, Ta) fp32,
+    the probability each position gives its teacher-forced next token over
+    the text vocabulary (B, bucket) fp32). Frames at and past frame_lens[b]
+    are masked before the softmax; each frame column is standardized over
+    the row's row_lens[b] real tokens (a zero-variance column divides to
+    NaN, as in the reference); the median filter reflects at each row's
+    last frame and runs head by head to bound its (B, T, Ta, width)
+    transient."""
+    dt = model.compute_dtype
+    head_pairs = tuple((int(l), int(h)) for l, h in np.argwhere(model.alignment_heads))
+    if from_features:
+        feats = fwd_input.to(dt)
+    else:
+        feats = encoder_apply(model.encoder, fwd_input, dt)
+    hidden, _, weights = decoder_apply(
+        model.decoder, tokens, feats, compute_dtype=dt, return_cross_qk=True, return_hidden=True,
+        cross_qk_pairs=head_pairs,
+    )  # weights (n_sel, B, T, Ta) fp32
+    dev = weights.device
+    n_audio = weights.shape[-1]
+    frame_ok = torch.arange(n_audio, device=dev)[None, :] < frame_lens[:, None]
+    weights = torch.where(frame_ok[None, :, None, :], weights * qk_scale, float("-inf"))
+    weights = torch.softmax(weights, dim=-1)
+
+    tok_ok = (torch.arange(weights.shape[-2], device=dev)[None, :] < row_lens[:, None])[None, :, :, None]
+    cnt = row_lens.float()[None, :, None, None]
+    mean = torch.where(tok_ok, weights, 0.0).sum(dim=-2, keepdim=True) / cnt
+    var = torch.where(tok_ok, (weights - mean) ** 2, 0.0).sum(dim=-2, keepdim=True) / cnt
+    w = (weights - mean) / torch.sqrt(var)
+    matrix = torch.stack([median_filter_rows(wh, frame_lens, medfilt_width) for wh in w]).mean(dim=0)
+
+    tgt = torch.clamp(torch.roll(tokens, -1, dims=1), max=eot - 1)  # the last column is junk
+    nll, _ = chunked_softmax_xent(hidden, model.decoder.token_embedding.weight[:eot], tgt, ignore_index=-1)
+    return matrix, torch.exp(-nll)
+
+
+def find_alignment_batch(
+    model: "WhisperModel",
+    tokenizer: Tokenizer,
+    token_lists: List[List[int]],
+    mels,
+    num_frames_list: List[int],
+    *,
+    medfilt_width: int = 7,
+    qk_scale: float = 1.0,
+    batch_size: Optional[int] = None,
+    use_device_dtw: Optional[bool] = None,
+    features=None,
+) -> List[List[WordTiming]]:
+    """Word timings of many 30 s windows at once (JAX timing.py:302-458):
+    window i has text tokens token_lists[i], mel mels[i] (n_mels, 3000) and
+    num_frames_list[i] frames of content. Token rows share one bucket of
+    `_TOKEN_BUCKETS`; windows go through `alignment_forward_batch` in chunks
+    of `batch_size`, the last padded by repeating its final row. With
+    `features` (an object whose `gather(indices)` returns the decode's
+    encoder features of those windows) the forward skips its encoder.
+
+    `use_device_dtw` None: K12 on the card, and on the CPU the host walk of
+    the matrices in float64 (JAX's non-TPU branch); True on the CPU takes
+    K12's plain version, as JAX's "interpret" does. With K12, chunk c's path
+    fetch and word assembly overlap chunk c+1's forward (depth 2). A K12
+    failure raises: there is no host walk to fall back to."""
+    sot_len = len(tokenizer.sot_sequence)
+    rows = [[*tokenizer.sot_sequence, tokenizer.no_timestamps, *txt, tokenizer.eot] for txt in token_lists]
+    out: List[List[WordTiming]] = [[] for _ in token_lists]
+    live = [i for i, txt in enumerate(token_lists) if len(txt) > 0]
+    if not live:
+        return out
+
+    longest = max(len(rows[i]) for i in live)
+    bucket = next((b for b in _TOKEN_BUCKETS if b >= longest), longest)  # one bucket for every chunk
+    chunk = max(1, int(batch_size)) if batch_size else len(live)
+    dev = model.device
+    if use_device_dtw is None:
+        use_device_dtw = dev.type == "cuda"
+
+    def words(i, text_indices, time_indices, picked_row):
+        probs = picked_row[sot_len : sot_len + len(token_lists[i])].tolist()
+        out[i] = _word_timings_from_path(tokenizer, list(token_lists[i]), text_indices, time_indices, probs)
+
+    pending: List[tuple] = []  # (part, K12's handles or the matrices, picked)
+
+    def drain_one():
+        part, handles, picked = pending.pop(0)
+        picked = picked.cpu().numpy()
+        if use_device_dtw:
+            for r, (i, path) in enumerate(zip(part, dtw_paths_collect(handles))):
+                words(i, *path, picked[r])
+            return
+        matrices = handles.cpu().numpy().astype(np.float64)
+        for r, i in enumerate(part):
+            matrix = matrices[r, : len(rows[i]), : num_frames_list[i] // 2][sot_len:-1]
+            words(i, *dtw(-matrix), picked[r])
+
+    for c0 in range(0, len(live), chunk):
+        part = live[c0 : c0 + chunk]
+        pad = chunk - len(part) if len(live) > chunk else 0
+        idx = part + [part[-1]] * pad
+        tokens = np.full((len(idx), bucket), tokenizer.eot, np.int64)
+        for r, i in enumerate(idx):
+            tokens[r, : len(rows[i])] = rows[i]
+        frame_lens = [num_frames_list[i] // 2 for i in idx]
+        row_lens = [len(rows[i]) for i in idx]
+        if features is not None:
+            fwd_input = features.gather(idx)
+        else:
+            fwd_input = torch.as_tensor(mels)[torch.as_tensor(idx)].to(dev)
+        matrices, picked = alignment_forward_batch(
+            model, fwd_input, torch.from_numpy(tokens).to(dev), torch.tensor(frame_lens, device=dev),
+            torch.tensor(row_lens, device=dev), eot=tokenizer.eot, medfilt_width=medfilt_width, qk_scale=qk_scale,
+            from_features=features is not None,
+        )
+        if use_device_dtw:
+            # the SOT rows sliced off and the matrices negated on the device;
+            # each row's EOT row and the bucket's padding lie below its n
+            handles = dtw_paths_dispatch(-matrices[:, sot_len:, :], [n - sot_len - 1 for n in row_lens], frame_lens)
+        else:
+            handles = matrices
+        pending.append((part, handles, picked))
+        if len(pending) >= 2:
+            drain_one()
+    while pending:
+        drain_one()
+    return out
 
 
 def _absorb_opening_punct(alignment: List[WordTiming], marks: str) -> None:

@@ -62,6 +62,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      them, and runs one window's post-forward pipeline (standardize, K11,
      head mean, K13, backtrace) on its captured card weights with the
      kernels and with the plain versions: the paths must be identical.
+ 15. batched transcription at base: nine seeded WAVs of 12-150 s (829 s,
+     32 windows) through the CLI with `--batch_mode True` and `--model base
+     --model_dir <tmp>`: (a) its defaults, detecting each file's language
+     (beam 5 at t=0, best-of 5 up the ladder); (b) `--word_timestamps True
+     --language en` at one rung, whose alignment reads the decode's encoder
+     features and launches K12 once per alignment chunk; (c)
+     `transcribe_batch` over the nine waveforms in one batch of 32 windows,
+     greedy at t=0 with phase 4's bf16, kv_quant, int8_encoder and
+     without_timestamps; each with wall s, windows, rungs, audio-s/s and
+     the launch counts;
+ 16. holds K12 against its plain version, exactly, at the largest and
+     smallest chunks run (b) gave it and at a chunk padded by repeating a
+     row, times it, and runs one chunk's post-forward step (K12, walk,
+     words) with the kernel and with the plain version: the same words.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -176,13 +190,13 @@ def heads(x, n_head: int, n_keys=None):
 
 def make_recorder(card: str, rows: list):
     """record(name, case, source, replaces, got, want, tol, run_kernel,
-    run_plain, bound=(ms, by), library=None, main=True): check and time one
-    kernel. `got`/`want`/`tol` may be lists (one per output); a `tol` is
+    run_plain, bound=(ms, by), library=None, main=True, plain_iters=20):
+    check and time one kernel (the plain version over `plain_iters` calls). `got`/`want`/`tol` may be lists (one per output); a `tol` is
     one number or a tensor of per-output bounds on |kernel - plain|."""
     import torch
 
     def record(name, case, source, replaces, got, want, tol, run_kernel, run_plain, *, bound, library=None,
-               main=True):
+               main=True, plain_iters=20):
         torch.cuda.synchronize()
         gots, wants, tols = (x if isinstance(x, list) else [x] for x in (got, want, tol))
         err, worst, ref, finite = 0.0, 0.0, 0.0, True
@@ -201,7 +215,7 @@ def make_recorder(card: str, rows: list):
             finite = finite and bool(torch.isfinite(g.float()).all())
         tol_s = "; ".join(t if isinstance(t, str) else f"{t:.3e}" if isinstance(t, float) else
                           f"per output, {t.min().item():.3e}..{t.max().item():.3e}" for t in tols)
-        ms, plain_ms = timed_ms(run_kernel), timed_ms(run_plain)
+        ms, plain_ms = timed_ms(run_kernel), timed_ms(run_plain, iters=plain_iters, warmup=min(3, plain_iters))
         library_ms = timed_ms(library) if library is not None else None
         bound_ms, bound_by = bound
         ok = worst <= 1.0 and finite
@@ -1300,6 +1314,272 @@ def check_words_kernels(card: str, probes):
     return rows
 
 
+BATCH_SECONDS = (150, 150, 125, 120, 95, 70, 62, 45, 12)  # 32 windows at 30 s strides
+BATCH_RUNS = (
+    [],
+    ["--word_timestamps", "True", "--language", "en", "--temperature_increment_on_fallback", "None"],
+)
+
+
+class BatchProbe:
+    """Wraps the batched path's functions for one run, calling through: the
+    decode batches (temperature, rows), the alignment chunks and their
+    encoder calls and K3 launches, the windows with text, and the inputs K12
+    got and the first chunk's forward outputs (on the card, cloned)."""
+
+    def __init__(self):
+        from asr_ttl_mtl_tpu_torch import timing
+        from asr_ttl_mtl_tpu_torch import transcribe as T
+        from asr_ttl_mtl_tpu_torch.decoding import DecodingTask
+        from asr_ttl_mtl_tpu_torch.ops import LAUNCHES
+
+        self.decodes, self.dispatches, self.forwards, self.aligned = [], [], [], []
+        self.encoder_calls, self.forward_k3 = 0, 0
+        self.patched = []
+
+        def patch(owner, name, make):
+            self.patched.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, make(getattr(owner, name)))
+
+        def submit(fn):
+            def run(task, mel, *args, **kw):
+                self.decodes.append((task.options.temperature, int(mel.shape[0])))
+                return fn(task, mel, *args, **kw)
+            return run
+
+        def align(fn):
+            def run(model, tokenizer, token_lists, *args, **kw):
+                self.aligned.append((tokenizer, [list(t) for t in token_lists], kw.get("batch_size")))
+                return fn(model, tokenizer, token_lists, *args, **kw)
+            return run
+
+        def forward(fn):
+            def run(*args, **kw):
+                before = LAUNCHES["flash_attention_h2"]
+                out = fn(*args, **kw)
+                self.forward_k3 += LAUNCHES["flash_attention_h2"] - before
+                self.forwards.append(tuple(o.detach().clone() for o in out) if not self.forwards else None)
+                return out
+            return run
+
+        def encoder(fn):
+            def run(*args, **kw):
+                self.encoder_calls += 1
+                return fn(*args, **kw)
+            return run
+
+        def dispatch(fn):
+            def run(x, n, m):
+                self.dispatches.append((x.detach().clone(), list(n), list(m)))
+                return fn(x, n, m)
+            return run
+
+        patch(DecodingTask, "submit", submit)
+        patch(T, "find_alignment_batch", align)
+        patch(timing, "alignment_forward_batch", forward)
+        patch(timing, "encoder_apply", encoder)
+        patch(timing, "dtw_paths_dispatch", dispatch)
+
+    def close(self):
+        for owner, name, original in reversed(self.patched):
+            setattr(owner, name, original)
+
+
+def run_batch(card: str, model, workdir: str):
+    """Phase 15: batched transcription at base. Runs (a) and (b) through the
+    CLI on nine WAVs with phase 12's `base.pt` as `--model base --model_dir
+    <workdir>`, (c) through `transcribe_batch` on the same waveforms with
+    `model`. Returns the summed launch counts and run (b)'s probe."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from asr_ttl_mtl_tpu_torch import load_audio, transcribe_batch
+    from asr_ttl_mtl_tpu_torch import transcribe as T
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    paths = []
+    for n, seconds in enumerate(BATCH_SECONDS):
+        paths.append(os.path.join(workdir, f"batch{n}.wav"))
+        write_long_wav(paths[-1], float(seconds), seed=100 + n)
+    waves = [load_audio(p) for p in paths]
+    audio_s = sum(w.shape[-1] for w in waves) / 16000
+    n_windows = T._decode_audios(waves)[1]
+    if n_windows != 32:
+        raise AssertionError(f"{n_windows} windows, not 32")
+    total, probe_b = {}, None
+
+    def report(label, wall, outs, probe, counts):
+        rungs = sorted({round(float(t), 2) for t, _ in probe.decodes})
+        segments = sum(len(o["segments"]) for o in outs)
+        words = sum(len(s.get("words", [])) for o in outs for s in o["segments"])
+        print(f"[batch] {label}: {wall:.1f} s wall for {audio_s:.1f} s of audio in {n_windows} windows = "
+              f"{audio_s / wall:.1f} audio-s/s; {len(probe.decodes)} decode batches of "
+              f"{sorted({b for _, b in probe.decodes})} rows at rungs {rungs}; languages "
+              f"{sorted({o['language'] for o in outs})}; {segments} segments, {words} words [{card}]", flush=True)
+        print(f"[batch] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+
+    for n, extra in enumerate(BATCH_RUNS):
+        out = os.path.join(workdir, f"batch_out{n}")
+        printed = io.StringIO()
+        probe = BatchProbe()
+        try:
+            sync()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cli([*paths, "--model", "base", "--model_dir", workdir, "--output_dir", out, "--batch_mode", "True",
+                     *extra])
+            sync()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+        finally:
+            probe.close()
+        text = printed.getvalue()
+        if "failed" in text:
+            raise AssertionError(f"the batch CLI failed:\n{text[-3000:]}")
+        outs = []
+        for p in paths:
+            with open(os.path.join(out, os.path.basename(p)[:-4] + ".json")) as f:
+                outs.append(json.load(f))
+            if not outs[-1]["segments"]:
+                raise AssertionError(f"no segments for {p}")
+        needed = ("log_mel", "flash_attention_h2", "decode_attention", "topk_logprobs")
+        if any(counts[k] <= 0 for k in needed) or counts["log_mel"] != len(paths):
+            raise AssertionError(f"batch CLI run {n} launched {counts}")
+        if "--word_timestamps" in extra:
+            (tokenizer, token_lists, chunk), = probe.aligned
+            with_text = sum(1 for t in token_lists if t)
+            words = [w for o in outs for s in o["segments"] for w in s.get("words", [])]
+            if (counts["dtw_paths_batch"] != -(-with_text // chunk) or len(probe.dispatches) != counts["dtw_paths_batch"]
+                    or counts["dtw_trace"] or counts["median_filter"]):
+                raise AssertionError(f"{with_text} windows with text in chunks of {chunk}: launches {counts}")
+            if probe.encoder_calls or probe.forward_k3:
+                raise AssertionError(f"the alignment forward ran its encoder: {probe.encoder_calls} calls, "
+                                     f"{probe.forward_k3} K3 launches")
+            if not words or not all("words" in s for o in outs for s in o["segments"]):
+                raise AssertionError("the words run timed no word")
+            print(f"[batch] alignment: {with_text} of {n_windows} windows with text, chunks of {chunk}, "
+                  f"{len(probe.forwards)} forwards from the decode's features (encoder calls {probe.encoder_calls}, "
+                  f"K3 launches {probe.forward_k3}), K12 at {[tuple(x.shape) for x, _, _ in probe.dispatches]}",
+                  flush=True)
+            probe_b = probe
+        report(f"CLI --batch_mode {' '.join(extra) or '(defaults, language detected)'}", wall, outs, probe, counts)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    options = dict(language="en", fp16=True, kv_quant=True, int8_encoder=True, without_timestamps=True)
+    probe = BatchProbe()
+    try:
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = transcribe_batch(model, waves, batch_size=32, temperature=0.0, **options)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        probe.close()
+    if not all(o["segments"] for o in outs) or probe.decodes != [(0.0, 32)]:
+        raise AssertionError(f"transcribe_batch gave {[len(o['segments']) for o in outs]} segments, "
+                             f"decodes {probe.decodes}")
+    if any(counts[k] <= 0 for k in ("log_mel", "flash_attention_h2", "decode_attention_i8")):
+        raise AssertionError(f"run c launched {counts}")
+    lps = [s["avg_logprob"] for o in outs for s in o["segments"]]
+    if not np.isfinite(lps).all():
+        raise AssertionError("a segment's avg_logprob is not finite")
+    report("transcribe_batch(batch_size=32, temperature=0.0, bf16, kv_quant, int8_encoder, without_timestamps)",
+           wall, outs, probe, counts)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total, probe_b
+
+
+def k12_raw(x, n, m):
+    """K12 alone on fixed buffers, for a CUDA graph: the wrapper's checks,
+    allocations and host-to-device copy of n and m stay outside."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import _cuda
+
+    b, n_max, m_max = x.shape
+    dev = x.device
+    nm = torch.tensor([list(n), list(m)], dtype=torch.int32, device=dev)
+    ti = torch.empty((b, n_max + m_max), dtype=torch.int32, device=dev)
+    tj, lens = torch.empty_like(ti), torch.empty(b, dtype=torch.int32, device=dev)
+    trace = torch.empty((b, n_max + 1, m_max + 1), dtype=torch.int8, device=dev)
+    lib = _cuda.lib("dtw")
+
+    def run():
+        lib.dtw_paths_f32(x.data_ptr(), trace.data_ptr(), ti.data_ptr(), tj.data_ptr(), lens.data_ptr(),
+                          nm[0].data_ptr(), nm[1].data_ptr(), b, n_max, m_max, _cuda.stream_handle(dev))
+    return run
+
+
+def check_batch_kernels(card: str, probe):
+    """Phase 16: K12 against its plain version, exactly, at the largest and
+    smallest chunks of run (b) and at the largest padded by repeating a row;
+    then one chunk's post-forward step with the kernel and with the plain
+    version."""
+    from asr_ttl_mtl_tpu_torch import timing
+    from asr_ttl_mtl_tpu_torch.ops import dtw as DT
+
+    rows = []
+    record = make_recorder(card, rows)
+    largest = max(probe.dispatches, key=lambda d: d[0].numel())
+    smallest = min(reversed(probe.dispatches), key=lambda d: d[0].numel())  # another chunk where sizes tie
+    x, n, m = largest
+    keep = max(1, x.shape[0] * 2 // 3)  # the last rows repeat row keep-1, as find_alignment_batch pads
+    pad_rows = list(range(keep)) + [keep - 1] * (x.shape[0] - keep)
+    padded = (x[pad_rows].clone(), [n[r] for r in pad_rows], [m[r] for r in pad_rows])
+    for key, (x, n, m) in (("largest", largest), ("smallest", smallest), ("padded", padded)):
+        b, n_max, m_max = x.shape
+        cells = sum(a * c for a, c in zip(n, m))
+        steps = max(a + c for a, c in zip(n, m))
+        record("dtw_paths_batch", f"{key} chunk of the batched words run: ({b}, {n_max}, {m_max}) fp32, rows of "
+               f"{min(n)}-{max(n)} tokens x {min(m)}-{max(m)} frames, up to {steps - 1} dependent diagonals + "
+               f"{steps} walk steps", "asr_ttl_mtl_tpu_torch/csrc/dtw.cu", "asr_ttl_mtl_tpu/ops/pallas_dtw.py:141",
+               list(DT.dtw_paths_dispatch(x, n, m)), list(DT.dtw_paths_batch_plain(x, n, m)), ["exact"] * 3,
+               lambda: DT.dtw_paths_dispatch(x, n, m), lambda: DT.dtw_paths_batch_plain(x, n, m),
+               bound=bound(3 * cells, cells * 4 + 8 * b + 2 * b * (n_max + m_max) * 4 + 4 * b, "fp32"),
+               main=key == "largest", plain_iters=2)
+    r = rows[0]
+    r["device_ms"] = graph_ms(k12_raw(*largest))
+    # the fill half alone: K13 (the same fill) on the chunk's longest row
+    x, n, m = largest
+    b = max(range(len(n)), key=lambda i: n[i] + m[i])
+    row = x[b, : n[b], : m[b]].contiguous()
+    r["fill_ms"] = graph_ms(lambda: DT.dtw_trace(row))
+    print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
+          f"{r['device_ms']:.4f} ms; the fill alone of its longest row ({n[b]}, {m[b]}) by K13 "
+          f"{r['fill_ms']:.4f} ms, so the walk and the parallel rows add {r['device_ms'] - r['fill_ms']:.4f} ms; "
+          f"the chain of diagonals and walk steps, not the bytes, sets it [{card}]", flush=True)
+
+    # the first chunk's post-forward step on its card matrices: K12's paths
+    # and the plain version's give the same words
+    (tokenizer, token_lists, chunk), = probe.aligned
+    x, n, m = probe.dispatches[0]
+    picked = probe.forwards[0][1].float().cpu().numpy()
+    part = [i for i, t in enumerate(token_lists) if t][:chunk]
+    sot = len(tokenizer.sot_sequence)
+
+    def words(paths):
+        return [[(w.word, w.tokens, w.start, w.end, w.probability) for w in timing._word_timings_from_path(
+            tokenizer, token_lists[i], ti, tj, picked[r, sot : sot + len(token_lists[i])].tolist())]
+            for r, (i, (ti, tj)) in enumerate(zip(part, paths))]
+
+    with_kernel = words(DT.dtw_paths_collect(DT.dtw_paths_dispatch(x, n, m)))
+    with_plain = words(DT.dtw_paths_collect(DT.dtw_paths_batch_plain(x, n, m)))
+    same = with_kernel == with_plain
+    print(f"[batch] post-forward step of the first chunk ({len(part)} windows, {sum(map(len, with_kernel))} words): "
+          f"K12 and the plain version {'identical' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError("the words from K12's paths differ from the plain version's")
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -1348,13 +1628,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         cli_counts, prefill = run_cli(card, model, workdir)
         words_counts, probes = run_words_cli(card, workdir)
+        batch_counts, batch_probe = run_batch(card, model, workdir)
     rows += check_prefill_kernels(card, *prefill)
     rows += check_words_kernels(card, probes)
+    rows += check_batch_kernels(card, batch_probe)
 
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
-    # runs), each counted from 0 just before it ran
-    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts)
+    # runs, the batched runs), each counted from 0 just before it ran
+    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

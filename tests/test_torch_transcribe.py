@@ -235,8 +235,11 @@ def test_cli_writes_all_five_files(tmp_path, capsys):
 
 
 def test_cli_refusals(tmp_path):
+    ckpt = tmp_path / "small.pt"
+    torch.save(checkpoint_dict(from_random(TorchDims(**{**SMALL, **DIMS}), seed=3, device="cpu")), ckpt)
     for argv in (["a.wav", "--model", "base"],  # a preset name and no checkpoint file
-                 ["a.wav", "--model", "base", "--batch_mode", "True"],
+                 # the threshold needs the sequential seek loop, as in JAX
+                 ["a.wav", "--model", str(ckpt), "--batch_mode", "True", "--hallucination_silence_threshold", "2"],
                  ["a.wav", "--model", "base", "--dp", "2"]):
         with pytest.raises(SystemExit):
             PC.cli(argv + ["--output_dir", str(tmp_path), "--device", "cpu"])
