@@ -1,9 +1,12 @@
 // Flash attention for Hopper (sm_90a): the forward K3 (non-causal, natural
-// (B, T, D) layout, optional logsumexp) and K7 (head-split (BH, T, 64),
-// causal / q_offset / kv_len, optional logsumexp), and the FlashAttention-2
-// backward K6 (of K3) and K8 (of K7), bf16 in, fp32 accumulate.
+// (B, T, D) layout, optional logsumexp), K5 (non-causal, natural layout,
+// any head width that is a multiple of 8 up to 768) and K7 (head-split
+// (BH, T, 64), causal / q_offset / kv_len, optional logsumexp), and the
+// FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
+// accumulate.
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
+//   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
 //   K3  `_h2_fwd_kernel` :514 and `_h2_fwd_kernel_lse` :552
 //       (entry `flash_attention_h2` :562)
 //   K6  `_h2_bwd_dq_kernel` :651, `_h2_bwd_dkv_kernel` :691
@@ -52,6 +55,16 @@
 //     causal diagonal), keeps dk and dv in WMMA accumulators; p and dS are
 //     rounded to bf16 before P^T dO and dS^T Q. Key tiles at or past kv_len
 //     write zeros.
+// K5 at a head width of 64 is the K3 forward without the logsumexp, over
+// any number of heads (its device code reads the natural layout at 64
+// columns a head and never assumes d % 128 == 0; the lse layout is the only
+// part that does). Other widths take `flash_mh_kernel`: 4 warps over 16
+// queries of one head, 64-key tiles, the head slice zero-padded to a
+// multiple of 16 columns in shared memory (q, k then v over the same
+// buffer, the fp32 output accumulator), WMMA for S = Q K^T and O += P V,
+// and the same online softmax with p rounded to bf16 before P V. The TPU
+// kernel holds the whole key range of a row block in VMEM and takes one
+// softmax per head; on Hopper the keys go by tiles.
 // Not yet done: cp.async/TMA double-buffering and wgmma.
 
 #include <cuda_bf16.h>
@@ -478,7 +491,167 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- K5 at any head width
+
+constexpr int kMhRows = 16;   // queries per block
+constexpr int kMhKeys = 64;   // keys per tile
+constexpr int kMhMaxDh = 768;
+constexpr int kMhLds = kMhKeys + 8;   // fp32 row stride of the score tile
+constexpr int kMhLdp = kMhKeys + 16;  // bf16 row stride of the p tile
+
+struct MhShape {
+  int batch, tq, tk, d, n_head, dh, dhp, kv_len;
+  float scale;
+};
+
+// bf16 row stride of the q and k/v tiles and fp32 row stride of the output
+// accumulator: multiples of 32 bytes, so every WMMA pointer is 256-bit aligned
+__host__ __device__ __forceinline__ int mh_ldh(int dhp) { return dhp + 16; }
+__host__ __device__ __forceinline__ int mh_ldo(int dhp) { return dhp + 8; }
+
+__host__ __device__ __forceinline__ size_t mh_smem_bytes(int dhp) {
+  return (size_t)(kMhRows + kMhKeys) * mh_ldh(dhp) * 2 + (size_t)kMhRows * mh_ldo(dhp) * 4 +
+         (size_t)kMhRows * kMhLds * 4 + (size_t)kMhRows * kMhLdp * 2;
+}
+
+// `rows` rows from row0 of one head's slice (dh of every d values) into a
+// shared tile of dhp columns; columns dh.. and rows at or past n_rows are zero
+__device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
+                                               int rows, int n_rows, const MhShape& sh) {
+  const int chunks = sh.dhp / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < n_rows && c < sh.dh) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * sh.d + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, MhShape sh) {
+  extern __shared__ __align__(32) unsigned char mh_smem[];
+  const int ldh = mh_ldh(sh.dhp), ldo = mh_ldo(sh.dhp);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mh_smem);
+  __nv_bfloat16* kv = qs + kMhRows * ldh;  // the k tile, then the v tile
+  float* os = reinterpret_cast<float*>(kv + kMhKeys * ldh);
+  float* ss = os + kMhRows * ldo;
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + kMhRows * kMhLds);
+
+  const int q0 = blockIdx.x * kMhRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const size_t hoff = (size_t)h * sh.dh;
+  const __nv_bfloat16* kb = k + (size_t)b * sh.tk * sh.d + hoff;
+  const __nv_bfloat16* vb = v + (size_t)b * sh.tk * sh.d + hoff;
+
+  load_head_rows(qs, ldh, q + (size_t)b * sh.tq * sh.d + hoff, q0, kMhRows, sh.tq, sh);
+  for (int i = threadIdx.x; i < kMhRows * ldo; i += kThreads) os[i] = 0.f;
+
+  // the softmax: 8 threads per query row (neighbouring lanes), 8 keys each
+  const int row = threadIdx.x / 8, part = threadIdx.x % 8;
+  float m_run = kNegInf, l_run = 0.f;
+
+  const int n_tiles = (sh.kv_len + kMhKeys - 1) / kMhKeys;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kMhKeys;
+    __syncthreads();  // the previous tile's P V is done with the v tile
+    load_head_rows(kv, ldh, kb, k0, kMhKeys, sh.tk, sh);
+    __syncthreads();
+
+    {  // S = Q K^T: warp w takes keys k0 + 16w ..
+      FragC c;
+      wmma::fill_fragment(c, 0.f);
+      for (int kk = 0; kk < sh.dhp; kk += 16) {
+        FragA a;
+        FragBc bk;
+        wmma::load_matrix_sync(a, qs + kk, ldh);
+        wmma::load_matrix_sync(bk, kv + warp * 16 * ldh + kk, ldh);
+        wmma::mma_sync(c, a, bk, c);
+      }
+      wmma::store_matrix_sync(ss + warp * 16, c, kMhLds, wmma::mem_row_major);
+    }
+    __syncthreads();
+    load_head_rows(kv, ldh, vb, k0, kMhKeys, sh.tk, sh);  // the k tile is no longer read
+
+    float s[8];
+    bool valid[8];
+    float tile_max = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      valid[i] = k0 + part * 8 + i < sh.kv_len;
+      s[i] = valid[i] ? ss[row * kMhLds + part * 8 + i] * sh.scale : kNegInf;
+      tile_max = fmaxf(tile_max, s[i]);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+    const float m_new = fmaxf(m_run, tile_max);
+    const float corr = expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float p = valid[i] ? expf(s[i] - m_new) : 0.f;
+      psum += p;
+      ps[row * kMhLdp + part * 8 + i] = __float2bfloat16(p);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l_run = l_run * corr + psum;
+    m_run = m_new;
+    for (int c = part; c < sh.dhp; c += 8) os[row * ldo + c] *= corr;
+    __syncthreads();
+
+    // O += P V: warp w takes the output column tiles w, w + 4, ...
+    for (int nt = warp; nt < sh.dhp / 16; nt += kWarps) {
+      FragC c;
+      wmma::load_matrix_sync(c, os + nt * 16, ldo, wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kMhKeys / 16; ++kk) {
+        FragA a;
+        FragBr bv;
+        wmma::load_matrix_sync(a, ps + kk * 16, kMhLdp);
+        wmma::load_matrix_sync(bv, kv + kk * 16 * ldh + nt * 16, ldh);
+        wmma::mma_sync(c, a, bv, c);
+      }
+      wmma::store_matrix_sync(os + nt * 16, c, ldo, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+
+  const int qrow = q0 + row;
+  if (qrow < sh.tq) {  // a row with no valid key (l == 0) writes 0
+    __nv_bfloat16* dst = out + (size_t)b * sh.tq * sh.d + (size_t)qrow * sh.d + hoff;
+    for (int c = part * 2; c < sh.dh; c += 16) {
+      const float o0 = l_run == 0.f ? 0.f : os[row * ldo + c] / l_run;
+      const float o1 = l_run == 0.f ? 0.f : os[row * ldo + c + 1] / l_run;
+      *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(o0, o1);
+    }
+  }
+}
+
 }  // namespace
+
+// K5: natural (B, T, D) layout, non-causal, head width d / n_head any
+// multiple of 8 up to 768; no logsumexp
+extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
+                                 int d, int n_head, int kv_len, float scale, void* stream) {
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  if (dh == kDh) {
+    Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
+    return launch_fwd(q, k, v, out, nullptr, sh, false, stream);
+  }
+  if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
+    return (int)cudaErrorInvalidValue;
+  MhShape sh{batch, tq, tk, d, n_head, dh, (dh + 15) / 16 * 16, kv_len, scale};
+  const size_t smem = mh_smem_bytes(sh.dhp);
+  cudaError_t err = cudaFuncSetAttribute(flash_mh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((tq + kMhRows - 1) / kMhRows, n_head, batch);
+  flash_mh_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sh);
+  return (int)cudaGetLastError();
+}
 
 // K3: natural (B, T, D) layout, non-causal; `lse` may be null, else it is
 // (D/128, B, Tq, 2) fp32

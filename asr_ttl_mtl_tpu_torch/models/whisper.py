@@ -14,8 +14,11 @@ rounding points:
   written in place, and dispatches one-token steps to the decode kernels
   K1 (int8) and K2 (bf16/fp32) exactly where the JAX package does;
 * attention over 16 or more queries goes to the flash kernels: K3 (K6
-  backward) for non-causal shapes `h2_eligible` serves, K7 (K8 backward)
-  for causal ones;
+  backward) for non-causal shapes `h2_eligible` serves, K5 for the other
+  non-causal shapes `mh_flash_eligible` serves (K7 with K8 under autograd),
+  K7 (K8 backward) over split heads for the rest, causal or not;
+* under `set_int8_mlp_kernel("auto")` the W8A8 encoder's MLP is the fused
+  kernel K14 on the card, where the JAX package takes its TPU kernel;
 * autograd flows through every function here (training), with the flash
   kernels' backward passes as `torch.autograd.Function`s.
 """
@@ -37,12 +40,25 @@ from ..ops.decode_attention import (
     int8_step,
     quantize_kv_rows,
 )
-from ..ops.flash_attention import flash_attention_h2_vjp, flash_attention_vjp, h2_eligible
+from ..ops.flash_attention import flash_attention_mh_vjp, flash_attention_vjp, h2_eligible, mh_flash_eligible
+from ..ops.int8_mlp import int8_mlp, int8_mlp_supported
 from .dims import ModelDimensions
 
 F32 = torch.float32
 _HALF = (torch.bfloat16, torch.float16)
 Cache = Dict[str, torch.Tensor]
+
+# The fused W8A8 MLP kernel K14 (ops/int8_mlp.py), opt-in as in the JAX
+# package (models/whisper.py:141-153): "auto" takes it on the card where
+# the geometry fits, "off" keeps the linear_i8 composition.
+_INT8_MLP = {"mode": "off"}
+
+
+def set_int8_mlp_kernel(mode: str) -> None:
+    """Fused int8-MLP mode: "auto" (on the card when the geometry fits) or "off"."""
+    if mode not in ("auto", "off"):
+        raise ValueError(f"int8 MLP kernel mode must be 'auto' or 'off', got {mode!r}")
+    _INT8_MLP["mode"] = mode
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000) -> np.ndarray:
@@ -226,14 +242,14 @@ def qkv_attention(
     """Scaled dot-product attention over (B, T, D) projections.
 
     Dispatch as in the JAX package (whisper.py:248-286), where every query
-    length >= 16 with a structural mask goes to a flash kernel: the
-    non-causal `h2_eligible` shapes to K3 (`flash_attention_h2`, backward
-    K6), causal ones (`mask` is then the causal / `q_offset` pattern, which
-    the kernel applies itself) to K7 (`flash_attention`, backward K8) over
-    split heads. The per-head kernel for non-causal h2-ineligible shapes
-    (K5) is not ported: on CUDA those shapes raise. Shorter queries (prompt
-    prefill, buckets of 8) take the plain path below, which the JAX package
-    leaves to XLA too.
+    length >= 16 with a structural mask goes to a flash kernel:
+    non-causal attention without a mask at a shape `mh_flash_eligible` or
+    `h2_eligible` serves to `flash_attention_mh_vjp` (K3 / K6 for the h2
+    shapes, else K5, or K7 / K8 under autograd); the rest (`mask` None, or
+    the causal / `q_offset` pattern, which the kernel applies itself) to K7
+    (`flash_attention`, backward K8) over split heads. Shorter queries
+    (prompt prefill, buckets of 8) take the plain path below, which the JAX
+    package leaves to XLA too.
 
     With `return_qk`, every shape takes the plain path, on the card too (as
     JAX's `_flash_eligible` is False then), and the result is (out, the fp32
@@ -242,24 +258,20 @@ def qkv_attention(
     """
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
     d_head = d // n_head
-    flash = tq >= 16 and (mask is None or causal) and not return_qk
-    if flash and not causal and mask is None and h2_eligible(tq, tk, d, n_head):
-        return flash_attention_h2_vjp(q, k, v, n_head, kv_valid_len, float(d_head**-0.5))
-    if flash and causal:
+    flash = tq >= 16 and not return_qk
+    if (flash and not causal and mask is None
+            and (mh_flash_eligible(tq, tk, d, n_head, False) or h2_eligible(tq, tk, d, n_head))):
+        return flash_attention_mh_vjp(q, k, v, n_head, kv_valid_len, float(d_head**-0.5))
+    if flash and (mask is None or causal):
         b = q.shape[0]
 
         def split(x, t):
             return _split_heads(x, n_head).reshape(b * n_head, t, d_head).contiguous()
 
         out = flash_attention_vjp(
-            split(q, tq), split(k, tk), split(v, tk), True, q_offset, kv_valid_len, float(d_head**-0.5)
+            split(q, tq), split(k, tk), split(v, tk), causal, q_offset, kv_valid_len, float(d_head**-0.5)
         )
         return _merge_heads(out.reshape(b, n_head, tq, d_head))
-    if flash and q.is_cuda:
-        raise NotImplementedError(
-            "non-causal attention with tq >= 16 at a shape h2_eligible rejects needs K5 "
-            "`flash_attention_mh` (asr_ttl_mtl_tpu/ops/flash_attention.py), which is not ported yet"
-        )
 
     # reference numerics: both sides scaled by d_head**-0.25 in their dtype
     scale = torch.tensor(d_head**-0.25, dtype=q.dtype, device=q.device)
@@ -293,6 +305,12 @@ def encoder_apply(
     recomputes its activations from its (B, T, D) input."""
     lin = linear_i8 if int8_linears else linear
     dims = enc.dims
+    # K14 where the JAX package takes its TPU kernel: int8_linears, the
+    # switch on, the card, and the gate at B x n_audio_ctx rounded up to 128
+    d_enc = dims.n_audio_state
+    n_tok = mel.shape[0] * (-(-dims.n_audio_ctx // 128) * 128)
+    use_mlp_kernel = (int8_linears and _INT8_MLP["mode"] == "auto" and mel.is_cuda
+                      and int8_mlp_supported(n_tok, d_enc, 4 * d_enc))
     x = mel.to(compute_dtype)
     x = gelu(conv1d(enc.conv1, x, stride=1))
     x = gelu(conv1d(enc.conv2, x, stride=2))
@@ -317,6 +335,11 @@ def encoder_apply(
         x = res + lin(block.attn.out, att)
         res = x
         h = layer_norm(block.mlp_ln, x)
+        if use_mlp_kernel:  # weights quantized on each call, as in the JAX package
+            fc1, fc2 = block.mlp[0], block.mlp[2]
+            w1q, s1 = _quant_rowwise_sym(fc1.weight.float())
+            w2q, s2 = _quant_rowwise_sym(fc2.weight.float())
+            return res + int8_mlp(h, w1q, s1.reshape(-1), fc1.bias.float(), w2q, s2.reshape(-1), fc2.bias.float())
         h = gelu(lin(block.mlp[0], h))
         return res + lin(block.mlp[2], h)
 

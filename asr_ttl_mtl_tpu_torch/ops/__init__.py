@@ -18,6 +18,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_h2": 0,  # K3, ops/flash_attention.py
     "flash_attention_h2_lse": 0,  # K3 with the logsumexp (training forward)
     "flash_attention_h2_bwd": 0,  # K6 (dq and dkv kernels, one launch each per call)
+    "flash_attention_mh": 0,  # K5, per-head natural layout (shapes h2_eligible rejects)
     "flash_attention": 0,  # K7
     "flash_attention_lse": 0,  # K7 with the logsumexp (training forward)
     "flash_attention_bwd": 0,  # K8 (dq and dkv kernels, one launch each per call)
@@ -27,6 +28,7 @@ LAUNCHES: Dict[str, int] = {
     "median_filter": 0,  # K11, ops/median.py
     "dtw_trace": 0,  # K13, ops/dtw.py
     "dtw_paths_batch": 0,  # K12, ops/dtw.py
+    "int8_mlp": 0,  # K14, ops/int8_mlp.py
 }
 
 

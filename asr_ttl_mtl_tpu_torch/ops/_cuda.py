@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mel", "flash_attention", "decode_attention", "topk", "median", "dtw")
+SOURCES = ("mel", "flash_attention", "decode_attention", "topk", "median", "dtw", "int8_mlp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +52,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, kv_len, causal, q_offset, scale, stream
         "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, out, batch, tq, tk, d, n_head, kv_len, scale, stream
+        "flash_mh_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "decode_attention": {
         # q, cache_k, cache_v, out, layer, n_layer, batch, group, tk, d, n_head,
@@ -79,6 +81,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dtw_trace_f32": (_P, _P, _I, _I, _P),
         # x, trace scratch, ti, tj, lens, n, m, batch, n_max, m_max, stream
         "dtw_paths_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "int8_mlp": {
+        # x, w1, s1, b1, w2, s2, b2, out, qx, qg, sg (the last three may be null), n, d, hidden, stream
+        "int8_mlp_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

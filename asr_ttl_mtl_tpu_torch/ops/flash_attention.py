@@ -1,4 +1,4 @@
-"""Flash attention kernels K3, K6, K7 and K8 (`csrc/flash_attention.cu`),
+"""Flash attention kernels K3, K5, K6, K7 and K8 (`csrc/flash_attention.cu`),
 their plain PyTorch versions, and the autograd Functions that train through
 them.
 
@@ -8,18 +8,24 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
   :552): non-causal multi-head attention over natural (B, T, D) projections,
   with the logsumexp for training, lse (D//128, B, Tq, hpb) fp32 where head
   h = lane * hpb + j;
+* K5 `flash_attention_mh` (:401; `_flash_mh_kernel` :346): non-causal
+  attention over the natural layout for the shapes `h2_eligible` rejects
+  (`mh_flash_eligible`: d <= 768, a head width that is a multiple of 8,
+  at most 2048 keys), without the logsumexp;
 * K6 `flash_attention_h2_bwd` (:756): its FA2 backward;
 * K7 `flash_attention` (:211) and `flash_attention_bhtd` (:309): head-split
   (BH, T, dh) attention with causal / q_offset / kv_valid_len masks, with
   the logsumexp (BH, Tq, 1) for training;
 * K8 `flash_attention_bwd` (:1095): its FA2 backward;
-* `FlashAttentionH2Fn` and `FlashAttentionFn`, the counterparts of
-  `flash_attention_mh_vjp` (:852) and `flash_attention_vjp` (:1181): the
-  forward keeps the logsumexp, the backward is the kernel. delta =
-  rowsum(dO * O) is plain PyTorch, as the JAX package leaves it to XLA.
+* `FlashAttentionH2Fn` and `FlashAttentionFn`, the autograd Functions of
+  K3 and K7: the forward keeps the logsumexp, the backward is the kernel.
+  delta = rowsum(dO * O) is plain PyTorch, as the JAX package leaves it to
+  XLA;
+* `flash_attention_mh_vjp` (:852) and `flash_attention_vjp` (:1181), which
+  pick among them as the JAX package does.
 
-The per-head kernel K5 (`flash_attention_mh`, shapes `h2_eligible` rejects)
-is not ported. The CUDA kernels take bf16 with a head width of 64.
+The CUDA kernels take bf16. K3, K6, K7 and K8 take a head width of 64; K5
+any multiple of 8 up to 768.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 from . import LAUNCHES, _cuda
 
 _NEG_INF = -1e30
-_DH = 64  # the head width the CUDA kernels serve
+_DH = 64  # the head width the CUDA kernels K3, K6, K7 and K8 serve
+_MH_MAX_D = 768  # the widest d (and head width) K5 serves
 
 
 def h2_eligible(tq: int, tk: int, d: int, n_head: int) -> bool:
@@ -40,6 +47,19 @@ def h2_eligible(tq: int, tk: int, d: int, n_head: int) -> bool:
         return False
     dh = d // n_head
     return dh in (32, 64, 128) and d % 128 == 0 and tq >= 16 and tk <= 4096
+
+
+def mh_flash_eligible(tq: int, tk: int, d: int, n_head: int, causal: bool) -> bool:
+    """Shapes the per-head natural-layout kernel K5 serves (same rule as the
+    JAX package)."""
+    return (
+        not causal
+        and d <= _MH_MAX_D
+        and d % n_head == 0
+        and (d // n_head) % 8 == 0
+        and tq >= 16
+        and tk <= 2048
+    )
 
 
 def _kv_len(tk: int, kv_valid_len: Optional[int]) -> int:
@@ -253,6 +273,61 @@ def flash_attention_h2_vjp(q, k, v, n_head: int, kv_valid_len: Optional[int] = N
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionH2Fn.apply(q, k, v, n_head, kv_valid_len, scale)
     return flash_attention_h2(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# K5: natural (B, T, D) layout, non-causal, any head width K5 serves
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_mh_plain(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = None, scale: float = 1.0):
+    """Plain PyTorch K5: per head, fp32 scores x scale, keys >= kv_valid_len
+    masked, p cast to v's dtype for p.V, divided by the fp32 row sum."""
+    tq, tk = q.shape[1], k.shape[1]
+    mask = _mask(tq, tk, _kv_len(tk, kv_valid_len), False, 0, q.device)
+    out, _ = _fwd_plain(_split(q, n_head), _split(k, n_head), _split(v, n_head), mask, scale)
+    return _merge(out)
+
+
+def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = None, scale: float = 1.0):
+    """K5 wrapper: q (B, Tq, D), k and v (B, Tk, D) -> (B, Tq, D) in v's
+    dtype, softmax(scale q_h k_h^T) v_h per head h (columns h*dh ..)."""
+    if not _on_card("flash_attention_mh", q):
+        return flash_attention_mh_plain(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=scale)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if n_head < 1 or d % n_head or (d // n_head) % 8 or d // n_head > _MH_MAX_D:
+        raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
+                         f"{_MH_MAX_D}, got d={d} n_head={n_head}")
+    _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    out = torch.empty_like(q)
+    code = _cuda.lib("flash_attention").flash_mh_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
+    )
+    _cuda.check("flash_attention", "flash_mh_fwd_bf16", code)
+    LAUNCHES["flash_attention_mh"] += 1
+    return out
+
+
+def flash_attention_mh_vjp(q, k, v, n_head: int, kv_valid_len: Optional[int] = None, scale: float = 1.0):
+    """Non-causal natural-layout attention, dispatched as JAX
+    `flash_attention_mh_vjp` (:852-927): the K3 pair (K3 with lse, K6) for
+    the shapes `h2_eligible` serves; otherwise K5 when no gradient is
+    wanted, and under autograd K7 with lse and K8 over split heads."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if h2_eligible(tq, tk, d, n_head):
+        return flash_attention_h2_vjp(q, k, v, n_head, kv_valid_len, scale)
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention_mh(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=scale)
+    dh = d // n_head
+
+    def split(x, t):
+        return _split(x, n_head).reshape(b * n_head, t, dh).contiguous()
+
+    out = FlashAttentionFn.apply(split(q, tq), split(k, tk), split(v, tk), False, 0, kv_valid_len, scale)
+    return _merge(out.reshape(b, n_head, tq, dh))
 
 
 # ---------------------------------------------------------------------------

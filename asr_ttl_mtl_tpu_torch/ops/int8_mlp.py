@@ -1,0 +1,111 @@
+"""The fused W8A8 encoder MLP, K14 (`csrc/int8_mlp.cu`), and its plain
+PyTorch version.
+
+Counterpart of `asr_ttl_mtl_tpu/ops/int8_mlp.py` (`int8_mlp` :88,
+`_int8_mlp_kernel` :46): one pass over token rows computes
+
+    per-row int8 quantization of x -> int8 GEMM with w1 -> dequantize + b1
+    -> cast to the compute dtype -> tanh GELU -> per-row requantization
+    -> int8 GEMM with w2 -> dequantize + b2 -> cast to the compute dtype,
+
+with the (rows, 4D) intermediates kept out of device memory. The tanh GELU
+runs whatever the compute dtype, as in the TPU kernel (the unfused
+`gelu(linear_i8(...))` of the encoder takes exact erf in fp32).
+
+Weights are in the port's (out, in) layout: w1q (H, D) int8 with one fp32
+scale per row (per output column of the JAX (D, H) weight), w2q (D, H).
+The CUDA kernel takes bf16 activations.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import LAUNCHES, _cuda
+from .decode_attention import int8_step
+
+
+def int8_mlp_supported(n_tokens: int, d: int, hidden: int) -> bool:
+    """Geometry gate, rule for rule as in the JAX package: lane-dim
+    multiples of 128 and a hidden width the TPU kernel holds in VMEM."""
+    return (
+        d % 128 == 0
+        and hidden % 128 == 0
+        and 2 * d * hidden + 5 * 256 * hidden * 4 <= 14 * (1 << 20)
+        and n_tokens >= 8
+    )
+
+
+def _quant_rows(x32: torch.Tensor):
+    """Per-row symmetric int8: step max(absmax, 1e-30)/127, round half to
+    even, clip to +-127."""
+    scale = int8_step(x32.abs().amax(dim=-1, keepdim=True), 1e-30)
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def int8_mlp_plain(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
+    """Plain PyTorch K14, the TPU kernel's body step by step: x (..., D) in
+    the compute dtype -> (..., D) in that dtype (`torch._int_mm` on CUDA
+    needs more than 16 rows). With `return_int8`, also the two int8
+    intermediates and the second one's row scales: (out, qx (n, D),
+    qg (n, H), sg (n, 1))."""
+    cdt = x.dtype
+    d = x.shape[-1]
+    h = x.reshape(-1, d).float()
+    qx, sx = _quant_rows(h)
+    a1 = torch._int_mm(qx, w1q.t())
+    f1 = a1.float() * (sx * s1.float()[None, :]) + b1.float()
+    g = F.gelu(f1.to(cdt), approximate="tanh").float()
+    qg, sg = _quant_rows(g)
+    a2 = torch._int_mm(qg, w2q.t())
+    out = (a2.float() * (sg * s2.float()[None, :]) + b2.float()).to(cdt).reshape(x.shape)
+    return (out, qx, qg, sg) if return_int8 else out
+
+
+def _check(x, w1q, s1, b1, w2q, s2, b2) -> None:
+    d = x.shape[-1]
+    hidden = w1q.shape[0]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int8_mlp kernel takes bf16 activations, got {x.dtype}")
+    if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
+        raise TypeError(f"int8_mlp: weights must be int8, got {w1q.dtype}/{w2q.dtype}")
+    if tuple(w1q.shape) != (hidden, d) or tuple(w2q.shape) != (d, hidden):
+        raise ValueError(f"int8_mlp: w1q {tuple(w1q.shape)} and w2q {tuple(w2q.shape)} for d={d}")
+    for name, t, n in (("s1", s1, hidden), ("b1", b1, hidden), ("s2", s2, d), ("b2", b2, d)):
+        if t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"int8_mlp: {name} must be {n} contiguous fp32 values, got {t.dtype} {tuple(t.shape)}")
+    for t in (x, w1q, s1, b1, w2q, s2, b2):
+        if t.device != x.device:
+            raise ValueError(f"int8_mlp: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("int8_mlp: the kernel takes contiguous tensors")
+    if d % 128 or hidden % 128:
+        raise ValueError(f"int8_mlp kernel takes d and hidden in multiples of 128, got {d}, {hidden}")
+
+
+def int8_mlp(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
+    """K14 wrapper: x (..., D) -> (..., D) in x's dtype. With `return_int8`,
+    the kernel also writes its int8 intermediates (a check of the kernel,
+    not a path of the model): (out, qx, qg, sg) as `int8_mlp_plain` gives."""
+    if x.device.type == "cpu":
+        return int8_mlp_plain(x, w1q, s1, b1, w2q, s2, b2, return_int8=return_int8)
+    if not x.is_cuda:
+        raise ValueError(f"int8_mlp: unsupported device {x.device}")
+    _check(x, w1q, s1, b1, w2q, s2, b2)
+    d, hidden = x.shape[-1], w1q.shape[0]
+    n = x.numel() // d
+    out = torch.empty_like(x)
+    qx = qg = sg = None
+    if return_int8:
+        qx = torch.empty((n, d), dtype=torch.int8, device=x.device)
+        qg = torch.empty((n, hidden), dtype=torch.int8, device=x.device)
+        sg = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    ptr = [0 if t is None else t.data_ptr() for t in (qx, qg, sg)]
+    code = _cuda.lib("int8_mlp").int8_mlp_bf16(
+        x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), *ptr, n, d, hidden, _cuda.stream_handle(x.device),
+    )
+    _cuda.check("int8_mlp", "int8_mlp_bf16", code)
+    LAUNCHES["int8_mlp"] += 1
+    return (out, qx, qg, sg) if return_int8 else out

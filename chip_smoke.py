@@ -76,6 +76,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      smallest chunks run (b) gave it and at a chunk padded by repeating a
      row, times it, and runs one chunk's post-forward step (K12, walk,
      words) with the kernel and with the plain version: the same words.
+ 17. the K14 window path at base: phase 4's options under
+     `set_int8_mlp_kernel("auto")`, 3 batches with the launch counts reset
+     before and read after (one K14 per encoder layer and pass), audio-s/s
+     with the switch off and on in turns, an encoder pass timed both ways,
+     the greedy tokens against the switch-off run; then K14 against its
+     plain version at (32 x 1536, 512, 2048), with the share of int8
+     intermediates that differ;
+ 18. K5 through the CLI and the trainer at a geometry `h2_eligible`
+     rejects: random weights at base's depth with d 576 and 9 heads (head
+     width 64) to a `.pt`, phase 12's 70 s WAV through the CLI with
+     `--word_timestamps True` at one rung (K5 in the encoder and the beam
+     prefill's cross-attention), and 2 train steps at batch 8 in bf16
+     with these dims as `debug_dims` (non-causal K7 with lse and K8 over
+     split heads), counts reset and read around each;
+ 19. K5 against its plain version at (32, 1536, 576), at the CLI's shapes
+     and at head widths 8, 80 and 768, and K7 with lse and K8 at the shapes
+     the d=576 train steps gave them.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -601,7 +618,7 @@ def run_slice(card: str):
     assert k2_counts["decode_attention"] > 0 and k2_counts["flash_attention_h2"] == model.dims.n_audio_layer, k2_counts
     print(f"[slice] kv_quant=False, 1 batch: {t_bf16:.3f} s = {N_WINDOWS * 30.0 / t_bf16:.1f} audio-s/s "
           f"[{card}]; launches {json.dumps(k2_counts)}", flush=True)
-    return model, main_counts, k2_counts
+    return model, main_counts, k2_counts, statistics.median(rates)
 
 
 def forced_on_cpu(model, waves, mel_card, toks, options):
@@ -1580,6 +1597,339 @@ def check_batch_kernels(card: str, probe):
     return rows
 
 
+def run_int8_mlp(card: str, model, slice_rate: float):
+    """Phase 17: K14 on the window path at the full width of `base`: phase
+    4's options under `set_int8_mlp_kernel("auto")`, 3 batches through
+    submit/collect with the launch counts reset just before and read just
+    after (one K14 launch per encoder layer and pass), audio-s/s with the
+    switch off and on in turns, one encoder pass timed both ways, and the
+    greedy tokens of one batch against the switch-off run. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    mel = log_mel_spectrogram(make_waves(N_WINDOWS, seed=0), device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS))
+    n_layer = model.dims.n_audio_layer
+    audio_s = N_WINDOWS * N_BATCHES * 30.0
+    try:
+        W.set_int8_mlp_kernel("auto")
+        task.run(mel)  # warm-up, not counted
+        sync()
+        reset_launch_counts()
+        results, t_dec, t_wait = pipeline(task, mel)
+        counts = dict(LAUNCHES)
+        on_tokens = [r.tokens for r in task.run(mel)]
+    finally:
+        W.set_int8_mlp_kernel("off")
+    assert len(results) == N_WINDOWS * N_BATCHES
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
+    if counts["int8_mlp"] != n_layer * N_BATCHES or counts["flash_attention_h2"] != n_layer * N_BATCHES:
+        raise AssertionError(f"the K14 window path launched {counts}, expected {n_layer} K14 and K3 per pass")
+    off_tokens = [r.tokens for r in task.run(mel)]
+    same_windows = sum(a == b for a, b in zip(on_tokens, off_tokens))
+    same_pos = np.mean([np.mean(np.array(a) == np.array(b)) for a, b in zip(on_tokens, off_tokens)])
+    print(f"[int8_mlp] base, {N_BATCHES} batches x {N_WINDOWS} windows, phase 4's options with the K14 switch "
+          f"on: decode {t_dec:.3f} s = {audio_s / t_dec:.1f} audio-s/s (phase 4: median {slice_rate:.1f}), of "
+          f"which {t_wait * 1e3:.1f} ms in collect [{card}]", flush=True)
+    print(f"[int8_mlp] launches {json.dumps({k: v for k, v in counts.items() if v})}; greedy tokens against "
+          f"the switch off on the same batch: {same_windows}/{N_WINDOWS} windows identical, "
+          f"{same_pos:.4f} of token positions equal", flush=True)
+    rates = {"off": [], "auto": []}
+    try:
+        for mode in ("off", "auto", "auto", "off"):
+            W.set_int8_mlp_kernel(mode)
+            rates[mode].append(audio_s / pipeline(task, mel)[1])
+        enc_ms = {}
+        with torch.inference_mode():
+            for mode in ("off", "auto"):
+                W.set_int8_mlp_kernel(mode)
+                enc_ms[mode] = timed_ms(lambda: W.encoder_apply(model.encoder, mel, torch.bfloat16,
+                                                                int8_linears=True), iters=10, warmup=2)
+    finally:
+        W.set_int8_mlp_kernel("off")
+    print(f"[int8_mlp] runs in turns (off, on, on, off): off {', '.join(f'{r:.1f}' for r in rates['off'])}, "
+          f"on {', '.join(f'{r:.1f}' for r in rates['auto'])} audio-s/s; one encoder pass of {N_WINDOWS} windows "
+          f"(W8A8): switch off {enc_ms['off']:.3f} ms, on {enc_ms['auto']:.3f} ms [{card}]", flush=True)
+    return counts
+
+
+def check_int8_mlp(card: str, model):
+    """Phase 17, K14 against its plain version at the window path's shape,
+    (32 x 1536, 512) rows through base's first encoder MLP, bf16. Both
+    quantize the same values with the same divisions and roundings, so the
+    first int8 intermediate must be equal; the GELU's tanhf may differ in
+    its last bit, which can move a bf16 rounding and flip a second int8
+    intermediate by one step. Tolerance per output: one activation step
+    (|w2q| sg s2) for each flipped second intermediate of its row, plus
+    one bf16 rounding (2^-7 |ref|) and fp32 noise."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.ops import int8_mlp as M
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    record = make_recorder(card, rows)
+    fc1, fc2 = model.encoder.blocks[0].mlp[0], model.encoder.blocks[0].mlp[2]
+    d, hidden = fc1.in_features, fc1.out_features
+    w1q, s1 = W._quant_rowwise_sym(fc1.weight.float())
+    w2q, s2 = W._quant_rowwise_sym(fc2.weight.float())
+    n = N_WINDOWS * 1536
+    x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    args = (x, w1q, s1.reshape(-1), fc1.bias.float(), w2q, s2.reshape(-1), fc2.bias.float())
+    want, pqx, pqg, psg = M.int8_mlp_plain(*args, return_int8=True)
+    got, qx, qg, sg = M.int8_mlp(*args, return_int8=True)
+    sync()
+    x_flips = (qx != pqx).float().mean().item()
+    flips = (qg.int() - pqg.int()).abs()
+    print(f"[int8_mlp] int8 intermediates, kernel vs plain: first (x) {x_flips:.3e} differ, second (GELU) "
+          f"{(flips > 0).float().mean().item():.3e} differ, by at most {flips.max().item()}; row scales of the "
+          f"second, max relative difference {((sg - psg).abs() / psg).max().item():.3e}", flush=True)
+    if x_flips != 0.0 or flips.max().item() > 1:
+        raise AssertionError("int8_mlp: the kernel's int8 intermediates differ from the plain version's")
+    ref = want.float().abs()
+    tol = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1) + 2.0**-7 * ref + 1e-5 * ref.max()
+    del flips, pqx, pqg, qx, qg
+    with torch.inference_mode():
+        unfused_ms = timed_ms(lambda: W.linear_i8(fc2, W.gelu(W.linear_i8(fc1, x))))
+    print(f"[int8_mlp] the unfused composition linear_i8(fc2, gelu(linear_i8(fc1, x))) at this shape: "
+          f"{unfused_ms:.4f} ms [{card}]", flush=True)
+    # bound: the two int8 products; bytes: the bf16 rows in and out, the
+    # int8 weights and the fp32 scales and biases, once each
+    n_bytes = 2 * n * d * 2 + 2 * d * hidden + 2 * (d + hidden) * 4
+    record("int8_mlp", f"x ({n}, {d}) bf16, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8",
+           "asr_ttl_mtl_tpu_torch/csrc/int8_mlp.cu", "asr_ttl_mtl_tpu/ops/int8_mlp.py:46", got, want, tol,
+           lambda: M.int8_mlp(*args), lambda: M.int8_mlp_plain(*args),
+           bound=bound(4 * n * d * hidden, n_bytes, "int8"))
+    rows[-1]["unfused_ms"] = unfused_ms
+    return rows
+
+
+MH_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=576, n_audio_head=9, n_audio_layer=6, n_vocab=51865,
+               n_text_ctx=448, n_text_state=576, n_text_head=9, n_text_layer=6)  # base's depth, 9 heads of 64
+MH_TRAIN_BATCH = 8
+
+
+class ShapeProbe:
+    """Wraps a kernel wrapper of ops/flash_attention.py for one run, calling
+    through, and keeps the distinct call shapes (q, k, kv_valid_len, causal)."""
+
+    def __init__(self, name: str):
+        from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+        self.name, self.original, self.shapes = name, getattr(FA, name), set()
+
+        def run(q, k, v, *args, **kw):
+            self.shapes.add((tuple(q.shape), tuple(k.shape), kw.get("kv_valid_len"), kw.get("causal", False)))
+            return self.original(q, k, v, *args, **kw)
+
+        setattr(FA, name, run)
+
+    def close(self):
+        from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+        setattr(FA, self.name, self.original)
+
+
+def run_mh_cli(card: str, workdir: str):
+    """Phase 18 (a): random weights from seed 0 at MH_DIMS (d 576, 9 heads:
+    `h2_eligible` rejects it) written to a `.pt`, and phase 12's 70 s WAV
+    transcribed through the CLI with word timestamps at one rung. K5 runs in
+    the encoder (decode and alignment) and in the beam prefill's folded
+    cross-attention (5 x 8 queries). Returns the launch counts and the
+    shapes K5 got."""
+    import contextlib
+    import io
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, checkpoint_dict, from_random
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    ckpt, clip = os.path.join(workdir, "mh576.pt"), os.path.join(workdir, "clip70.wav")
+    torch.save(checkpoint_dict(from_random(ModelDimensions(**MH_DIMS), seed=0, device=DEVICE,
+                                           dtype=torch.bfloat16)), ckpt)
+    torch.cuda.empty_cache()
+    out = os.path.join(workdir, "mh_words")
+    printed = io.StringIO()
+    probe = ShapeProbe("flash_attention_mh")
+    try:
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli([clip, "--model", ckpt, "--output_dir", out, "--language", "en",
+                 "--temperature_increment_on_fallback", "None", "--word_timestamps", "True"])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        probe.close()
+    text = printed.getvalue()
+    if "Skipping" in text:
+        raise AssertionError(f"the CLI skipped the file:\n{text[-3000:]}")
+    files = sorted(os.listdir(out))
+    if files != [f"clip70.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
+        raise AssertionError(f"the CLI wrote {files}")
+    with open(os.path.join(out, "clip70.json")) as f:
+        segments = json.load(f)["segments"]
+    words = [w for s in segments for w in s.get("words", [])]
+    if not words or not all(w["start"] <= w["end"] for w in words):
+        raise AssertionError(f"the words run gave {len(words)} words")
+    for name in ("flash_attention_mh", "log_mel", "topk_logprobs", "decode_attention", "median_filter", "dtw_trace"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the d=576 CLI run launched no {name}: {counts}")
+    if counts["flash_attention_h2"] or counts["flash_attention_h2_lse"]:
+        raise AssertionError(f"the d=576 CLI run launched K3, which h2_eligible rejects there: {counts}")
+    print(f"[mh] CLI d=576 9 heads, --word_timestamps True at one rung: {wall:.1f} s wall for 70 s of audio; "
+          f"{len(segments)} segments, {len(words)} words; K5 shapes (q, k, kv_valid_len) "
+          f"{sorted((q, k, n) for q, k, n, _ in probe.shapes)} [{card}]", flush=True)
+    print(f"[mh] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    return counts, probe.shapes
+
+
+def run_mh_training(card: str, workdir: str):
+    """Phase 18 (b): 2 train steps of MultiTaskTrainer with MH_DIMS as
+    `debug_dims`, batch 8, bf16. The non-causal attention (encoder and
+    cross) runs K7 with lse and K8 over split heads there, the causal
+    self-attention K7 with lse and K8 as at base. Returns the summed launch
+    counts and the non-causal K7 shapes."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=MH_DIMS, batch_size=MH_TRAIN_BATCH,
+                         val_batch_size=MH_TRAIN_BATCH, compute_dtype="bfloat16", learning_rate=1e-5, seed=0,
+                         num_workers=4, epochs=1, save_dir=os.path.join(workdir, "mh_out"))
+    ds = MultiTaskSpeechDataset(write_clips(workdir, 2 * MH_TRAIN_BATCH, seed=2), cfg)
+    batches = list(DataLoader(ds, MH_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                              buckets=cfg.token_buckets))[:2]
+    trainer = MultiTaskTrainer(cfg, verbose=False)
+    n_layer = MH_DIMS["n_audio_layer"]
+    per_step = {"log_mel": 1, "flash_attention_lse": 3 * n_layer, "flash_attention_bwd": 3 * n_layer}
+    total, losses, step_s = {}, [], []
+    probe = ShapeProbe("flash_attention")
+    try:
+        for i, batch in enumerate(batches):
+            sync()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step(batch)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            counts = dict(LAUNCHES)
+            losses.append(float(loss))
+            launched = {k: v for k, v in counts.items() if v}
+            if launched != per_step:
+                raise AssertionError(f"d=576 train step {i + 1} launched {launched}, expected {per_step}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        probe.close()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    shapes = {s for s in probe.shapes if not s[3]}
+    if len(shapes) < 2:
+        raise AssertionError(f"the d=576 train steps ran non-causal K7 at {shapes}")
+    print(f"[mh] train d=576 9 heads, batch {MH_TRAIN_BATCH}, bf16, token buckets "
+          f"{[b['input_tokens'].shape[1] for b in batches]}: 2 steps, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"step s {', '.join(f'{x:.4f}' for x in step_s)} (the first has the set-up); launches per step "
+          f"{json.dumps(per_step)} ({2 * n_layer} of each non-causal); non-causal K7 shapes (q, k, kv_valid_len) "
+          f"{sorted((q, k, n) for q, k, n, _ in shapes)} [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return total, shapes
+
+
+def check_mh_kernels(card: str, cli_shapes, train_shapes):
+    """Phase 19: K5 against its plain version at the path's encoder shape
+    (32, 1536, 576), 9 heads, keys valid to 1500; at the shapes phase 18's
+    CLI run gave it; and at head widths 8, 80 and 768 (one head) with an
+    unaligned Tq and a masked key tail. Tolerance as K3's: p and the output
+    round to bf16 at other places, 2^-6 of the largest output. Then K7 with
+    lse and K8, non-causal, at the shapes phase 18's train steps gave them
+    (as phase 8 holds them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    record = make_recorder(card, rows)
+    src = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def rel_tol(x):
+        return 2.0**-6 * x.float().abs().max().item()
+
+    cases = [(N_WINDOWS, 1536, 1536, 576, 9, 1500, "encoder", True)]
+    cases += [(q[0], q[1], k[1], q[2], 9, n, "CLI", False) for q, k, n, _ in sorted(cli_shapes)]
+    cases += [(2, 200, 300, 8 * 4, 4, 270, "dh 8", False), (2, 200, 300, 80 * 4, 4, 270, "dh 80", False),
+              (2, 200, 300, 768, 1, 270, "dh 768", False)]
+    for b, tq, tk, d, n_head, kv_len, what, main in cases:
+        q, k, v = rnd(b, tq, d), rnd(b, tk, d), rnd(b, tk, d)
+        dh = d // n_head
+        n_keys = kv_len or tk
+        kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
+        want = FA.flash_attention_mh_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, n_head), heads(k, n_head), heads(v, n_head)
+        key_mask = (torch.arange(tk, device=dev) < n_keys)[None, None, None, :]
+        record("flash_attention_mh", f"{what}: q ({b}, {tq}, {d}), k ({b}, {tk}, {d}) bf16, {n_head} heads of {dh}"
+               f", kv_valid_len {kv_len}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+               FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
+               lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
+               bound=attn_bound(b * tq * n_keys * d, (2 * q.numel() + 2 * b * n_keys * d) * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_mask, scale=dh**-0.5),
+               main=main)
+        del q, k, v, want, qh, kh, vh
+
+    # K7 with lse and K8, non-causal over split heads (B x 9, T, 64)
+    for q_shape, k_shape, kv_len, _ in sorted(train_shapes):
+        bh, tq, _ = q_shape
+        tk = k_shape[1]
+        n_keys = kv_len or tk
+        q, k, v, g = rnd(bh, tq, 64), rnd(bh, tk, 64), rnd(bh, tk, 64), rnd(bh, tq, 64)
+        kw = dict(kv_valid_len=kv_len, scale=0.125)
+        out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        io = (2 * q.numel() + 2 * bh * n_keys * 64) * 2
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        key_mask = (torch.arange(tk, device=dev) < n_keys)[None, None, :]
+        case = f"non-causal ({bh}, {tq}, 64) x ({bh}, {tk}, 64), kv_valid_len {kv_len} (d=576 train step)"
+        record("flash_attention_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+               [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
+               lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+               lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+               bound=attn_bound(bh * tq * n_keys * 64, io + lse.numel() * 4),
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=key_mask, scale=0.125),
+               main=False)
+        got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+        want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=key_mask, scale=0.125)
+        record("flash_attention_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+               got, want, [rel_tol(w) for w in want],
+               lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+               lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+               bound=attn_bound(bh * tq * n_keys * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), main=False)
+        del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -1608,7 +1958,7 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
     rows = check_kernels(card)
-    model, main_counts, k2_counts = run_slice(card)
+    model, main_counts, k2_counts, slice_rate = run_slice(card)
     check_against_cpu(model)
     del model
     torch.cuda.empty_cache()
@@ -1633,10 +1983,22 @@ def main() -> int:
     rows += check_words_kernels(card, probes)
     rows += check_batch_kernels(card, batch_probe)
 
+    int8_counts = run_int8_mlp(card, model, slice_rate)
+    rows += check_int8_mlp(card, model)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        write_long_wav(os.path.join(workdir, "clip70.wav"), 70.0, seed=0)
+        mh_cli_counts, mh_shapes = run_mh_cli(card, workdir)
+        mh_train_counts, mh_train_shapes = run_mh_training(card, workdir)
+    rows += check_mh_kernels(card, mh_shapes, mh_train_shapes)
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
-    # runs, the batched runs), each counted from 0 just before it ran
-    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts)
+    # runs, the batched runs, the K14 window path, the d=576 CLI run and
+    # train steps), each counted from 0 just before it ran
+    paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
+             int8_counts, mh_cli_counts, mh_train_counts)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

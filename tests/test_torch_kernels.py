@@ -1,6 +1,6 @@
 """Plain versions of the port's kernels K1-K3 against the Pallas kernels
-(interpret mode on CPU), plus the kernels against their plain versions on
-the card (marked `cuda`, skipped without one)."""
+(interpret mode on CPU), plus the kernels (K1-K3, K5, K14) against their
+plain versions on the card (marked `cuda`, skipped without one)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +11,9 @@ from asr_ttl_mtl_tpu.ops import decode_attention as JD
 from asr_ttl_mtl_tpu.ops.flash_attention import flash_attention_h2 as jax_h2
 from asr_ttl_mtl_tpu.ops.flash_attention import h2_eligible as jax_h2_eligible
 from asr_ttl_mtl_tpu_torch.ops import decode_attention as PD
+from asr_ttl_mtl_tpu_torch.models import whisper as PW
 from asr_ttl_mtl_tpu_torch.ops import flash_attention as PF
+from asr_ttl_mtl_tpu_torch.ops import int8_mlp as PM
 
 from torch_port_helpers import cuda_device  # noqa: F401
 
@@ -203,3 +205,51 @@ def test_k1_kernel_on_card(cuda_device):  # noqa: F811
     # per output: what p rounding flips can move, one bf16 rounding, fp32 noise
     tol = (1 + 2.0**-7) * flip + 2.0**-7 * want.abs() + 1e-5 * want.abs().max()
     assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_k14_kernel_on_card(cuda_device):  # noqa: F811
+    """The kernel against its plain version at a small shape with a ragged
+    last block: both quantize the same values, so the int8 intermediates
+    agree but where tanhf's last bit moves a bf16 GELU rounding, and each
+    output within one activation step per flipped second intermediate plus
+    one bf16 rounding."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    d, h, n = 256, 1024, 300
+    x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
+    w1, w2 = (torch.randn(s, generator=g, device=cuda_device) * 0.05 for s in ((h, d), (d, h)))
+    w1q, s1 = PW._quant_rowwise_sym(w1)
+    w2q, s2 = PW._quant_rowwise_sym(w2)
+    b1, b2 = torch.randn(h, device=cuda_device) * 0.1, torch.randn(d, device=cuda_device) * 0.1
+    args = (x, w1q, s1.reshape(-1), b1, w2q, s2.reshape(-1), b2)
+    want, pqx, pqg, psg = PM.int8_mlp_plain(*args, return_int8=True)
+    reset_launch_counts()
+    got, qx, qg, sg = PM.int8_mlp(*args, return_int8=True)
+    assert LAUNCHES["int8_mlp"] == 1
+    assert torch.equal(qx, pqx)
+    flips = (qg.int() - pqg.int()).abs()
+    assert flips.max().item() <= 1 and flips.float().mean().item() < 1e-3
+    bound = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1)
+    tol = bound + 2.0**-7 * want.float().abs() + 1e-5
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,n_head", [(64, 9), (8, 2), (80, 2), (768, 1)])
+def test_k5_kernel_on_card(cuda_device, dh, n_head):  # noqa: F811
+    """K5 at head width 64 (K3's device code, 9 heads: d % 128 != 0) and at
+    other widths (its own kernel), unaligned Tq and a masked key tail;
+    the tolerance of K3."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    d = dh * n_head
+    q, k, v = (torch.randn((2, t, d), generator=g, device=cuda_device).bfloat16() for t in (37, 150, 150))
+    kw = dict(n_head=n_head, kv_valid_len=130, scale=dh**-0.5)
+    want = PF.flash_attention_mh_plain(q, k, v, **kw).float()
+    reset_launch_counts()
+    got = PF.flash_attention_mh(q, k, v, **kw).float()
+    assert LAUNCHES["flash_attention_mh"] == 1
+    assert (got - want).abs().max().item() <= 2.0**-6 * want.abs().max().item()
