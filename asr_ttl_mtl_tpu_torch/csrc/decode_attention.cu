@@ -19,13 +19,48 @@
 //
 // What bounds them on the H100: memory. One decode step reads the whole
 // cache of a layer for 1 query row per (batch row, head): 2 FLOPs per
-// cache element, far below the card's ~295 FLOPs per byte. The design goal
-// is to read each cache byte once, in whole 32-byte sectors.
+// cache element and query row, far below the card's ~295 FLOPs per byte.
+// The design goal is to read each cache byte once, in whole 32-byte
+// sectors, with enough bytes in flight to keep HBM busy even when the step
+// has few (cache row, head) pairs: one window of the CLI is 8 of them.
 //
-// Design, K2: one CTA per (cache row, head) streams the head's 64 columns of
-// K once (one thread per key, 16-byte loads) to get the `group` rows' scores
-// into shared memory, then V once (a thread per column, the two halves of
-// the CTA on alternate keys).
+// Design, K2: one thread-block cluster of S CTAs per (cache row, head).
+//   - The valid keys [0, n_valid) (n_valid = valid_upto + 1, or tk) are cut
+//     into S contiguous chunks of ceil(n_valid / S); a CTA reads only its
+//     own chunk, so masked keys are never read (exp(-1e30 - m) is exactly 0
+//     in fp32: skipping them changes nothing). S is in {1, 2, 4, 8} (8 is
+//     the portable cluster limit), chosen by the host (`k2_plan` in
+//     ops/decode_attention.py): the largest S that keeps the grid within
+//     the 2 x 132 CTAs the card holds at once, but no larger than leaves 64
+//     keys a CTA, raised further only when a chunk's scores would not fit
+//     in shared memory. One window of the CLI (8 heads) takes S = 8; 32
+//     windows already fill the card with S = 1, where a second wave of
+//     CTAs measured slower on an H100 (0.0546 against 0.0621 ms).
+//   - A CTA streams its chunk's K rows, then its V rows, in tiles of 128
+//     keys through a ring of shared-memory buffers filled by 16-byte
+//     cp.async (4 tiles in flight for bf16, 2 for fp32), so the V loads are
+//     already in flight while the softmax runs.
+//   - Products. bf16 caches: both on the tensor cores, mma.sync m16n8k16
+//     with the group's rows padded to 16 (rows beyond 16 in further passes
+//     over the tile already staged) and fp32 accumulation; a bf16 x bf16
+//     product is exact in fp32, as in the plain version's fp32 einsum. On
+//     the CUDA cores the FMAs of a group of 5 to 16 rows took longer than
+//     the bytes (group 16 over 32 windows took 0.21-0.32 ms on an H100).
+//     fp32 caches (the fp16=False option): the CUDA cores, a thread per
+//     (row, key) with the row's 64 q values in registers and four FMA
+//     chains, and for P.V a thread per (row, 8 columns, slice of keys);
+//     exact fp32 throughout, which tf32 mma would not be.
+//   - Softmax across the cluster, through distributed shared memory: each
+//     CTA's row maxima -> cluster barrier -> every CTA reads its peers' and
+//     takes the global max m; p = exp(s - m) and its partial row sums ->
+//     cluster barrier -> the global l, summed over the ranks in order; then
+//     p / l rounded to the cache dtype, exactly as the plain version does.
+//   - P.V partials go to shared memory and are summed over the cluster's
+//     ranks in order through distributed shared memory; each output is
+//     written once. No global scratch and no atomics: the result is the
+//     same from run to run.
+//   - Every group is one launch, and each cache byte is read from device
+//     memory once per call whatever the group.
 // Design, K1: one CTA per (query row, head), since the int8 rounding of p is
 // per row and per block and the blocks must be taken in order. A thread per
 // key computes its int8 score with __dp4a over four 16-byte loads; block
@@ -34,10 +69,13 @@
 // cache row, which then comes from L2. Split-K (flash-decoding) would fill
 // the card better but changes the rounding of p: a later change.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,84 +114,373 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 
 // ---------------------------------------------------------------- K2 ------
 
-// G is the exact group size, so the per-row accumulators and the hoisted
-// q values take registers for G rows only (a runtime group with a fixed
-// maximum of 8 spilled).
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
-                   T* __restrict__ out, int layer, int batch, int tk, int d, int valid_upto, float scale) {
-  extern __shared__ float sc[];  // [G][tk] scores, then probabilities
-  __shared__ float qs[G][kDh];
-  __shared__ float part[G][kDh];
-  __shared__ float red[kWarps];
+constexpr int kK2Threads = 128;  // 4 warps
+constexpr int kK2Warps = kK2Threads / 32;
+constexpr int kK2Tile = 128;     // keys a staged tile holds
+constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
+constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
+constexpr size_t kSmemLimit = 227 * 1024;
 
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const size_t row = (size_t)layer * batch + b;
-  const T* kb = cache_k + row * tk * d + (size_t)h * kDh;
-  const T* vb = cache_v + row * tk * d + (size_t)h * kDh;
+template <typename T>
+struct K2Cfg {
+  static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
+  static constexpr int kRowBytes = kDh * (int)sizeof(T) + 16;             // a staged key row, padded off the banks
+  static constexpr int kRing = sizeof(T) == 2 ? 4 : 2;                      // tiles in flight
+  static constexpr int kRingBytes = kRing * kK2Tile * kRowBytes;
+};
 
-  for (int i = tid; i < G * kDh; i += kThreads)
-    qs[i / kDh][i % kDh] = to_f(q[(size_t)(b * G + i / kDh) * d + (size_t)h * kDh + i % kDh]);
-  __syncthreads();
+__host__ __device__ __forceinline__ int k2_rows(int group) { return group < kK2RowChunk ? group : kK2RowChunk; }
+// P.V: a thread takes 8 columns of a row; the threads left over take slices of the keys
+__host__ __device__ __forceinline__ int k2_slices(int group) { return kK2Threads / (8 * k2_rows(group)); }
+__host__ __device__ __forceinline__ int k2_stride(int chunk) { return (chunk + 3) & ~3; }
 
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  for (int j = tid; j < tk; j += kThreads) {
-    const T* kr = kb + (size_t)j * d;
-    float acc[G];
+// ring, q (G x 64 fp32), scores (G x chunk fp32), P.V partials (slices x G
+// x 64 fp32), row max / sum, local and global (4 x G fp32), and one fp32 a
+// thread for the row reductions
+template <typename T>
+size_t k2_smem_bytes(int group, int chunk) {
+  return (size_t)K2Cfg<T>::kRingBytes +
+         4 * ((size_t)group * kDh + (size_t)group * k2_stride(chunk) + (size_t)k2_slices(group) * group * kDh +
+              4 * (size_t)group + kK2Threads);
+}
+
+// m16n8k16 bf16 products on the tensor cores, fp32 accumulate (bf16 x bf16
+// products are exact in fp32, as in the plain version's fp32 einsum)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- the products of one staged tile (128 keys; rows of kRowBytes)
+
+// bf16: scores of rows g0 .. g0 + 15 (zero past G) against 8 keys an mma;
+// warp w takes the key blocks w, w + kK2Warps, ...; thread (g8, t4) holds rows
+// g0 + g8 and g0 + g8 + 8, keys 2 t4 and 2 t4 + 1 of a block
+__device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
+                                           int j0, int G, float scale) {
+  constexpr int kRow = K2Cfg<__nv_bfloat16>::kRowBytes;
+  const int warp = threadIdx.x / 32, g8 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  for (int g0 = 0; g0 < G; g0 += 16) {
+    const int r0 = g0 + g8, r1 = r0 + 8;
+    uint32_t qa[kDh / 16][4];
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0.f;
+    for (int ks = 0; ks < kDh / 16; ++ks) {
+      const int c = 16 * ks + 2 * t4;
+      const float2 zero = make_float2(0.f, 0.f);
+      const float2 x00 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c) : zero;
+      const float2 x10 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c) : zero;
+      const float2 x01 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c + 8) : zero;
+      const float2 x11 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c + 8) : zero;
+      qa[ks][0] = pack_bf16(x00.x, x00.y);  // exact: q holds bf16 values
+      qa[ks][1] = pack_bf16(x10.x, x10.y);
+      qa[ks][2] = pack_bf16(x01.x, x01.y);
+      qa[ks][3] = pack_bf16(x11.x, x11.y);
+    }
+    for (int kb = 8 * warp; kb < nk; kb += 8 * kK2Warps) {
+      float dacc[4] = {0.f, 0.f, 0.f, 0.f};
+      const unsigned char* kr = tile + (kb + g8) * kRow + 4 * t4;
 #pragma unroll
-    for (int c0 = 0; c0 < kDh; c0 += kVec) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + c0);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      for (int ks = 0; ks < kDh / 16; ++ks)
+        mma_bf16(dacc, qa[ks], *reinterpret_cast<const uint32_t*>(kr + 32 * ks),
+                 *reinterpret_cast<const uint32_t*>(kr + 32 * ks + 16));
+      const int kl = kb + 2 * t4, j = j0 + kl;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        const float kv = to_f(e[c]);
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = fmaf(qs[g][c0 + c], kv, acc[g]);
+      for (int e = 0; e < 2; ++e) {
+        if (kl + e >= nk) continue;
+        if (r0 < G) sc[r0 * cs + j + e] = dacc[e] * scale;
+        if (r1 < G) sc[r1 * cs + j + e] = dacc[2 + e] * scale;
       }
     }
-    const bool masked = valid_upto >= 0 && j > valid_upto;
-#pragma unroll
-    for (int g = 0; g < G; ++g) sc[g * tk + j] = masked ? kNegInf : acc[g] * scale;
   }
-  __syncthreads();
+}
 
-  for (int g = 0; g < G; ++g) {
-    float* s = sc + g * tk;
-    float mx = kNegInf;
-    for (int j = tid; j < tk; j += kThreads) mx = fmaxf(mx, s[j]);
-    mx = block_reduce<true>(mx, red);
-    float sum = 0.f;
-    for (int j = tid; j < tk; j += kThreads) {
-      const float p = expf(s[j] - mx);
-      s[j] = p;
-      sum += p;
+// fp32 (and any type): thread (row tid % RC of a pass, slot tid / RC) takes
+// keys slot, slot + n_slots, ... with its row's 64 q values in registers
+template <typename T>
+__device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
+                                           int j0, int G, float scale) {
+  using C = K2Cfg<T>;
+  const int RC = k2_rows(G), slot = threadIdx.x / RC, n_slots = kK2Threads / RC;
+  for (int g0 = 0; g0 < G; g0 += RC) {
+    const int gg = g0 + threadIdx.x % RC;
+    if (slot >= n_slots || gg >= G) continue;
+    float qr[kDh];
+#pragma unroll
+    for (int c = 0; c < kDh; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(qs + gg * kDh + c);
+      qr[c] = x.x, qr[c + 1] = x.y, qr[c + 2] = x.z, qr[c + 3] = x.w;
     }
-    sum = block_reduce<false>(sum, red);
-    for (int j = tid; j < tk; j += kThreads) s[j] = to_f(from_f<T>(s[j] / sum));
+    for (int j = slot; j < nk; j += n_slots) {
+      const unsigned char* kr = tile + j * C::kRowBytes;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains keep the FMA pipe busy
+#pragma unroll
+      for (int c0 = 0; c0 < kDh; c0 += C::kVec) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + c0 * sizeof(T));
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int c = 0; c < C::kVec; ++c) acc[c % 4] = fmaf(qr[c0 + c], to_f(e[c]), acc[c % 4]);
+      }
+      sc[gg * cs + j0 + j] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * scale;
+    }
   }
-  __syncthreads();
+}
 
-  const int c = tid % kDh, half = tid / kDh;
-  float acc[G];
+// bf16: out rows g0 .. g0 + 15 += P (16 rows x 16 keys an mma) V (16 keys x 8
+// columns), into part (G x 64); warp w owns the 8-column blocks w, w +
+// kK2Warps, ..., and ldmatrix.trans turns the key-major V rows into B
+// fragments. V rows past nk are zero (the loader writes them), p is 0 there.
+__device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
+                                       int j0, int G) {
+  constexpr int kRow = K2Cfg<__nv_bfloat16>::kRowBytes, kBlocks = kDh / 8 / kK2Warps;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
+  // lanes 0-7 address keys 0-7 of a 16-key step, lanes 8-15 keys 8-15
+  const unsigned char* vrow = tile + (lane % 16) * kRow + 16 * warp;
+  for (int g0 = 0; g0 < G; g0 += 16) {
+    const int r0 = g0 + g8, r1 = r0 + 8;
+    float acc[kBlocks][4] = {};
+    for (int k16 = 0; k16 < nk; k16 += 16) {
+      uint32_t pa[4];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  for (int j = half; j < tk; j += 2) {
-    const float vv = to_f(vb[(size_t)j * d + c]);
+      for (int h8 = 0; h8 < 2; ++h8) {  // keys k16 + 2 t4 (+1), then 8 further
+        const int kl = k16 + 8 * h8 + 2 * t4, j = j0 + kl;
+        const float p00 = r0 < G && kl < nk ? sc[r0 * cs + j] : 0.f;
+        const float p01 = r0 < G && kl + 1 < nk ? sc[r0 * cs + j + 1] : 0.f;
+        const float p10 = r1 < G && kl < nk ? sc[r1 * cs + j] : 0.f;
+        const float p11 = r1 < G && kl + 1 < nk ? sc[r1 * cs + j + 1] : 0.f;
+        pa[2 * h8] = pack_bf16(p00, p01);  // exact: p / l was rounded to bf16
+        pa[2 * h8 + 1] = pack_bf16(p10, p11);
+      }
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = fmaf(sc[g * tk + j], vv, acc[g]);
+      for (int n = 0; n < kBlocks; ++n) {
+        uint32_t vb[2];
+        ldmatrix_x2_trans(vb, vrow + k16 * kRow + 16 * kK2Warps * n);
+        mma_bf16(acc[n], pa, vb[0], vb[1]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kBlocks; ++n) {
+      const int c = 8 * (warp + kK2Warps * n) + 2 * t4;
+      if (r0 < G) part[r0 * kDh + c] += acc[n][0], part[r0 * kDh + c + 1] += acc[n][1];
+      if (r1 < G) part[r1 * kDh + c] += acc[n][2], part[r1 * kDh + c + 1] += acc[n][3];
+    }
   }
-  if (half == 1) {
+}
+
+// fp32 (and any type): thread (8 columns col8, row rr of a pass, key slice
+// ks); each key slice sums into its own part[ks] (slices x G x 64)
+template <typename T>
+__device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
+                                       int j0, int G) {
+  using C = K2Cfg<T>;
+  const int RC = k2_rows(G), KS = k2_slices(G);
+  const int col8 = threadIdx.x % 8, rr = (threadIdx.x / 8) % RC, ks = threadIdx.x / (8 * RC);
+  if (ks >= KS) return;
+  for (int g0 = 0; g0 < G; g0 += RC) {
+    const int gg = g0 + rr;
+    if (gg >= G) continue;
+    const float* prow = sc + gg * cs + j0;
+    float acc[8];
 #pragma unroll
-    for (int g = 0; g < G; ++g) part[g][c] = acc[g];
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    for (int j = ks; j < nk; j += KS) {
+      const float p = prow[j];
+      const unsigned char* vr = tile + j * C::kRowBytes + col8 * 8 * sizeof(T);
+#pragma unroll
+      for (int c0 = 0; c0 < 8; c0 += C::kVec) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(vr + c0 * sizeof(T));
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int c = 0; c < C::kVec; ++c) acc[c0 + c] = fmaf(p, to_f(e[c]), acc[c0 + c]);
+      }
+    }
+    float* dst = part + ((size_t)ks * G + gg) * kDh + col8 * 8;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dst[c] += acc[c];
+  }
+}
+
+// grid (S, n_head, batch), cluster (S, 1, 1): block x is the rank in the
+// cluster, and takes keys [x * chunk, (x + 1) * chunk) of [0, n_valid)
+template <typename T>
+__global__ void __launch_bounds__(kK2Threads)
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
+                   T* __restrict__ out, int layer, int batch, int group, int tk, int d, int n_valid, int chunk,
+                   float scale) {
+  using C = K2Cfg<T>;
+  constexpr bool kMma = sizeof(T) == 2;  // bf16 caches: both products on the tensor cores
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int G = group, cs = k2_stride(chunk), RC = k2_rows(G), KS = k2_slices(G);
+
+  unsigned char* ring = smem;
+  float* qs = reinterpret_cast<float*>(smem + C::kRingBytes);
+  float* sc = qs + G * kDh;
+  float* part = sc + G * cs;
+  float* mloc = part + KS * G * kDh;
+  float* lloc = mloc + G;
+  float* mg = lloc + G;
+  float* lg = mg + G;
+  float* red = lg + G;
+
+  const int k_lo = min(n_valid, rank * chunk), n_c = min(n_valid, k_lo + chunk) - k_lo;
+  const int n_tiles = (n_c + kK2Tile - 1) / kK2Tile;
+  const size_t row = (size_t)layer * batch + b;
+  const T* kb = cache_k + (row * tk + k_lo) * d + (size_t)h * kDh;
+  const T* vb = cache_v + (row * tk + k_lo) * d + (size_t)h * kDh;
+
+  // the loads in order: K tiles 0 .. n_tiles-1, then V tiles; item i goes
+  // to ring slot i % kRing, and every item commits one group (empty past
+  // the end) so that wait_group counts stay fixed
+  auto load_item = [&](int i) {
+    if (i < 2 * n_tiles) {
+      const T* src = i < n_tiles ? kb : vb;
+      const int j0 = (i < n_tiles ? i : i - n_tiles) * kK2Tile, nk = min(kK2Tile, n_c - j0);
+      unsigned char* dst = ring + (size_t)(i % C::kRing) * kK2Tile * C::kRowBytes;
+      constexpr int kPerRow = kDh / C::kVec;
+      for (int e = tid; e < nk * kPerRow; e += kK2Threads) {
+        const int r = e / kPerRow, c = e % kPerRow;
+        cp_async16(dst + r * C::kRowBytes + c * 16, src + (size_t)(j0 + r) * d + c * C::kVec);
+      }
+      // the mma path takes V 16 keys at a time: rows past the chunk are zero
+      // (p is 0 there, and 0 x a stale NaN would not be)
+      if (kMma && i >= n_tiles)
+        for (int e = nk * kPerRow + tid; e < ((nk + 15) & ~15) * kPerRow; e += kK2Threads)
+          *reinterpret_cast<uint4*>(dst + (e / kPerRow) * C::kRowBytes + (e % kPerRow) * 16) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < C::kRing; ++i) load_item(i);
+
+  for (int i = tid; i < G * kDh; i += kK2Threads)
+    qs[i] = to_f(q[((size_t)b * G + i / kDh) * d + (size_t)h * kDh + i % kDh]);
+  for (int i = tid; i < KS * G * kDh; i += kK2Threads) part[i] = 0.f;
+
+  int item = 0;
+  // ---- scores: s = scale q.k for the chunk's keys, all G rows
+  for (int t = 0; t < n_tiles; ++t, ++item) {
+    cp_async_wait<C::kRing - 1>();
+    __syncthreads();
+    const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
+    const int nk = min(kK2Tile, n_c - t * kK2Tile);
+    if constexpr (kMma)
+      scores_mma(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+    else
+      scores_fma<T>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+    __syncthreads();  // the slot is free again
+    load_item(item + C::kRing);
+  }
+
+  // ---- softmax across the cluster (the V tiles are loading meanwhile).
+  // Thread (row tid % RC of a pass, slot tid / RC) takes keys slot,
+  // slot + n_slots, ... of its row; the slots' partials meet in `red` and a
+  // thread per row combines them in slot order.
+  const int slot = tid / RC, n_slots = kK2Threads / RC;
+  for (int g0 = 0; g0 < G; g0 += RC) {
+    const int gg = g0 + tid % RC;
+    float mx = kNegInf;
+    if (slot < n_slots && gg < G)
+      for (int j = slot; j < n_c; j += n_slots) mx = fmaxf(mx, sc[gg * cs + j]);
+    red[tid] = mx;
+    __syncthreads();
+    if (tid < RC && g0 + tid < G) {
+      for (int k = 1; k < n_slots; ++k) mx = fmaxf(mx, red[k * RC + tid]);
+      mloc[g0 + tid] = mx;
+    }
+    __syncthreads();
+  }
+  cluster.sync();
+  for (int g = tid; g < G; g += kK2Threads) {
+    float m = kNegInf;
+    for (int r = 0; r < split; ++r) m = fmaxf(m, cluster.map_shared_rank(mloc, r)[g]);
+    mg[g] = m;
   }
   __syncthreads();
-  if (half == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) out[(size_t)(b * G + g) * d + (size_t)h * kDh + c] = from_f<T>(acc[g] + part[g][c]);
+  for (int g0 = 0; g0 < G; g0 += RC) {
+    const int gg = g0 + tid % RC;
+    float sum = 0.f;
+    if (slot < n_slots && gg < G) {
+      const float m = mg[gg];
+      for (int j = slot; j < n_c; j += n_slots) {
+        const float p = expf(sc[gg * cs + j] - m);
+        sc[gg * cs + j] = p;
+        sum += p;
+      }
+    }
+    red[tid] = sum;
+    __syncthreads();
+    if (tid < RC && g0 + tid < G) {
+      for (int k = 1; k < n_slots; ++k) sum += red[k * RC + tid];
+      lloc[g0 + tid] = sum;
+    }
+    __syncthreads();
   }
+  cluster.sync();
+  for (int g = tid; g < G; g += kK2Threads) {
+    float l = 0.f;
+    for (int r = 0; r < split; ++r) l += cluster.map_shared_rank(lloc, r)[g];
+    lg[g] = l;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * n_c; e += kK2Threads) {
+    const int g = e / n_c, j = e % n_c;
+    sc[g * cs + j] = to_f(from_f<T>(sc[g * cs + j] / lg[g]));  // p / l in the cache dtype, as the plain version
+  }
+
+  // ---- P.V over the V tiles
+  for (int t = 0; t < n_tiles; ++t, ++item) {
+    cp_async_wait<C::kRing - 1>();
+    __syncthreads();  // also orders the p rounding above before the first tile
+    const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
+    const int nk = min(kK2Tile, n_c - t * kK2Tile);
+    if constexpr (kMma)
+      pv_mma(part, sc, cs, tile, nk, t * kK2Tile, G);
+    else
+      pv_fma<T>(part, sc, cs, tile, nk, t * kK2Tile, G);
+    __syncthreads();
+    load_item(item + C::kRing);
+  }
+  cp_async_wait<0>();
+
+  // ---- sum the key slices, then the cluster's ranks, each in order
+  __syncthreads();
+  for (int e = tid; e < G * kDh; e += kK2Threads) {
+    float s = part[e];
+    for (int k = 1; k < KS; ++k) s += part[(size_t)k * G * kDh + e];
+    part[e] = s;
+  }
+  cluster.sync();
+  for (int e = rank * kK2Threads + tid; e < G * kDh; e += split * kK2Threads) {
+    float s = 0.f;
+    for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[e];
+    out[((size_t)b * G + e / kDh) * d + (size_t)h * kDh + e % kDh] = from_f<T>(s);
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
 
 // ---------------------------------------------------------------- K1 ------
@@ -253,39 +580,51 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   }
 }
 
-template <typename T, int G>
-int launch_decode_g(const void* q, const void* k, const void* v, void* out, int layer, int batch, int tk, int d,
-                    int n_head, int valid_upto, float scale, void* stream) {
-  const size_t smem = (size_t)G * tk * sizeof(float);
-  // the 48 KB default covers static and dynamic shared memory together
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, decode_attn_kernel<T, G>);
-  if (err != cudaSuccess) return (int)err;
-  if (smem + attr.sharedSizeBytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(decode_attn_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  decode_attn_kernel<T, G><<<dim3(batch, n_head), kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), layer,
-      batch, tk, d, valid_upto, scale);
-  return (int)cudaGetLastError();
+// lifts a kernel's dynamic shared memory limit to `bytes` on the current
+// device once, not on every launch (the call costs host time a decode step
+// does not have)
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, size_t bytes) {
+  constexpr int kMaxDevices = 64;
+  static size_t lifted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && lifted[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) lifted[dev] = bytes;
+  return err;
 }
 
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
-                  int group, int tk, int d, int n_head, int valid_upto, float scale, void* stream) {
-  if (d != n_head * kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1) return (int)cudaErrorInvalidValue;
-  switch (group) {
-    case 1: return launch_decode_g<T, 1>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 2: return launch_decode_g<T, 2>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 3: return launch_decode_g<T, 3>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 4: return launch_decode_g<T, 4>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 5: return launch_decode_g<T, 5>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 6: return launch_decode_g<T, 6>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 7: return launch_decode_g<T, 7>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    case 8: return launch_decode_g<T, 8>(q, k, v, out, layer, batch, tk, d, n_head, valid_upto, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                  int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
+  if (d != n_head * kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
+      split > kK2MaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
+  const int chunk = (n_valid + split - 1) / split;
+  const size_t smem = k2_smem_bytes<T>(group, chunk);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t err = raise_smem_limit(decode_attn_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, n_head, batch);
+  cfg.blockDim = dim3(kK2Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T>, static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), static_cast<T*>(out), layer, batch, group, tk, d, n_valid,
+                           chunk, scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename TQ>
@@ -304,17 +643,18 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
 
 }  // namespace
 
+// `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`)
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
-                                int batch, int group, int tk, int d, int n_head, int valid_upto, float scale,
-                                void* stream) {
+                                int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
+                                float scale, void* stream) {
   return launch_decode<__nv_bfloat16>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
-                                      scale, stream);
+                                      split, scale, stream);
 }
 
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
-                               int batch, int group, int tk, int d, int n_head, int valid_upto, float scale,
-                               void* stream) {
-  return launch_decode<float>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, scale,
+                               int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
+                               float scale, void* stream) {
+  return launch_decode<float>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
                               stream);
 }
 

@@ -37,6 +37,10 @@
 // memory. At the decoder's causal shapes (T 48-448) the per-block work is
 // small and launch and load latency dominate.
 //
+// K3's forward (and K5's at a head width of 64) is `flash_fwd_sm90_kernel`
+// below: TMA, mbarriers and wgmma, with its own note. What follows here is
+// the design of the other kernels (K6, K7, K8, and K5 at other widths).
+//
 // Design. The TPU kernels hold all keys (or all queries) of a head in VMEM
 // and carry accumulators across a sequential grid axis; on Hopper blocks run
 // in parallel and in no order, so each block loops over the other axis
@@ -45,7 +49,7 @@
 // owns 16 rows. Products run on the tensor cores through WMMA 16x16x16 (bf16
 // in, fp32 accumulate); the per-element softmax work goes through a per-warp
 // fp32 tile in shared memory, two lanes per row, 32 columns each.
-//   forward: loops over 64-key tiles with an online softmax in fp32; p is
+//   forward (K7): loops over 64-key tiles with an online softmax in fp32; p is
 //     rounded to bf16 before P V while l sums the fp32 p, as on the TPU.
 //     Causal key tiles wholly above the diagonal, and tiles past kv_len, are
 //     skipped. A row with no valid key writes 0 and lse -1e30.
@@ -65,8 +69,9 @@
 // and the same online softmax with p rounded to bf16 before P V. The TPU
 // kernel holds the whole key range of a row block in VMEM and takes one
 // softmax per head; on Hopper the keys go by tiles.
-// Not yet done: cp.async/TMA double-buffering and wgmma.
+// Not yet done for K6, K7, K8 and K5 at other widths: TMA and wgmma.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -491,6 +496,396 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------- K3 forward on Hopper: TMA + wgmma
+//
+// Serves K3 (`flash_h2_fwd_bf16`, with and without the logsumexp) and K5 at
+// a head width of 64 (`flash_mh_fwd_bf16`). K7 (head-split, causal,
+// q_offset) stays on `flash_fwd_kernel` above: it already beats the library
+// at its shapes, and causal masking is outside this design.
+//
+// What bounds it on the H100: the tensor cores and the softmax between the
+// two products (~700 FLOPs a byte at the encoder shape), so the design keeps
+// the tensor cores fed and the scores out of shared memory:
+//   - One CTA takes 128 query rows of one (batch row, head) (64 where
+//     tq <= 64: the eval and prefill cross shapes) and walks the keys in
+//     tiles of 128 up to kv_len; tiles past kv_len are skipped, the last is
+//     masked, and TMA fills rows past tk with zeros.
+//   - One producer warp starts the TMA loads: Q once, then K and V tiles of 128
+//     keys x 64 columns (128 bytes a row, 128-byte swizzle) from 3-D tensor
+//     maps over the natural (B, T, D) layout at column h * 64, into a ring of
+//     stages with full and empty mbarriers (4 stages with two consumer
+//     warpgroups, 2 with one).
+//   - Each consumer warpgroup owns 64 query rows. S = Q K^T runs on
+//     wgmma.mma_async m64n128k16 with Q and K from shared memory through
+//     descriptors; the online softmax works on the accumulator registers
+//     (fp32, a running max per row, p = exp(s - m)); p is rounded to bf16
+//     in registers and is the register A operand of O += P V (m64n64k16,
+//     V from shared memory through a transposed-B descriptor), while l sums
+//     the fp32 p, as on the TPU. O is rescaled in registers and never
+//     leaves them until the epilogue writes O / l (and lse = m + log l).
+//   - The two consumer warpgroups share each K/V stage, so while one runs
+//     its softmax the other's products keep the tensor cores busy.
+// The scores are scaled into log2 units (exp2), which moves p by an fp32
+// rounding only.
+
+namespace sm90 {
+
+constexpr int kBM = 64;                // query rows a consumer warpgroup owns
+constexpr int kBN = 128;               // keys a K/V tile holds
+constexpr int kRowB = kDh * 2;         // 128 bytes: a tile row, the swizzle span
+constexpr int kTileB = kBN * kRowB;    // 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int kWG, int kStages>
+struct Smem {  // every tile 1024-byte aligned: the 128-byte swizzle repeats over 8 rows
+  alignas(1024) __nv_bfloat16 q[kWG * kBM * kDh];
+  alignas(1024) __nv_bfloat16 k[kStages][kBN * kDh];
+  alignas(1024) __nv_bfloat16 v[kStages][kBN * kDh];
+  uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t saddr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(saddr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a box of the 3-D tensor map at (column, row, batch) into shared memory;
+// completion counts its bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle: start address, leading byte offset (unused by a K-major operand;
+// for the MN-major V, whose 64 columns are one swizzle atom wide, also
+// unused), stride byte offset 1024 (8 rows of 128 bytes), layout 1 (128B)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are written by the asynchronous products: no read may
+// move above the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; -inf gives 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile on the S accumulators of a thread:
+// sc[4j + e] is row g (e < 2) or g + 8 (e >= 2), key k0 + 8j + 2 * t4 +
+// (e & 1); the 4 threads of a quad share a row. Keys past kv_len are -inf.
+// m_run is the running max of s * scale * log2(e); on return sc holds the
+// fp32 p = 2^(s * scale * log2(e) - m), l_run the running sum of p, corr
+// the factor for the rows' previous output.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
+                                             float (&corr)[2], int k0, int kv_len, int t4, float sl2) {
+  if (k0 + kBN > kv_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= kv_len) sc[i] = -INFINITY;
+  }
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m_run[r], tmax[r] * sl2);  // kv_len >= 1: tile 0 makes it finite
+    corr[r] = ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    sc[i] = ex2(fmaf(sc[i], sl2, neg_m[(i >> 1) & 1]));
+    psum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+    l_run[r] = l_run[r] * corr[r] + psum[r];
+  }
+}
+
+// p rounded to bf16 pairs as the A fragments of P V: the accumulator of 16
+// keys is the A fragment of one k16 step (pairs 4kk .. 4kk + 3)
+__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i / 4][i % 4] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// d (m64n128 fp32, 64 a thread) (+)= A (64 x 16, shared, K-major) . B (n128 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64 fp32, 32 a thread) += A (64 x 16 bf16, registers) . B (16 x n64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int kWG, int kStages>
+__global__ void __launch_bounds__(kWG * 128 + 32, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, Shape sh) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& s = *reinterpret_cast<Smem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (sh.kv_len + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&s.k_full[st], 1);
+      mbar_init(&s.v_full[st], 1);
+      mbar_init(&s.empty[st], kWG * 128);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWG * 4) {  // the producer warp: one thread starts every load
+    if (lane == 0) {
+      mbar_expect_tx(&s.q_full, kWG * kBM * kRowB);
+      tma_load_3d(s.q, &tm_q, &s.q_full, h * kDh, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
+        mbar_expect_tx(&s.k_full[st], kTileB);
+        tma_load_3d(s.k[st], &tm_k, &s.k_full[st], h * kDh, t * kBN, b);
+        mbar_expect_tx(&s.v_full[st], kTileB);
+        tma_load_3d(s.v[st], &tm_v, &s.v_full[st], h * kDh, t * kBN, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg * 64 + wq * 16 + {g, g + 8} of the CTA's
+  // tile in this thread, columns 2 * t4 + {0, 1} of every 8. Per tile t the
+  // products of S(t) and P(t-1) V(t-1) are started together, and the softmax
+  // of tile t runs while P V of the one before is still on the tensor cores.
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const float sl2 = sh.scale * kLog2e;
+  float o[32], sc[64], corr[2];
+  uint32_t pa[kBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  mbar_wait(&s.q_full, 0);
+  const uint64_t dq = desc_sw128(s.q + wg * kBM * kDh);
+  // S = Q K^T of tile t: 4 steps of 16 columns, +32 bytes each inside the swizzle atom
+  auto start_s = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&s.k_full[st], (t / kStages) & 1);
+    const uint64_t dk = desc_sw128(s.k[st]);
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    wg_commit();
+  };
+  // O += P V of tile t: 8 steps of 16 keys, +2048 bytes of V each
+  auto start_pv = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&s.v_full[st], (t / kStages) & 1);
+    const uint64_t dv = desc_sw128(s.v[st]);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs_m64n64(o, pa[kk], dv + (uint64_t)(kk * 16 * kRowB >> 4));
+    wg_commit();
+  };
+
+  wg_fence();
+  start_s(0);
+  wg_wait<0>();
+  reg_fence(sc);
+  softmax_tile(sc, m_run, l_run, corr, 0, sh.kv_len, t4, sl2);
+  pack_p(sc, pa);
+  for (int t = 1; t < n_tiles; ++t) {
+    wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
+    start_s(t);
+    start_pv(t - 1);
+    wg_wait<1>();  // S(t) is done; P V of t - 1 may still run
+    reg_fence(sc);
+    softmax_tile(sc, m_run, l_run, corr, t * kBN, sh.kv_len, t4, sl2);
+    wg_wait<0>();
+    reg_fence(o);
+    mbar_arrive(&s.empty[(t - 1) % kStages]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p(sc, pa);
+  }
+  wg_fence();
+  start_pv(n_tiles - 1);
+  wg_wait<0>();
+  reg_fence(o);
+
+  // o[4j + e]: row g (e < 2) or g + 8, column 8j + 2 * t4 + (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qrow = q0 + wg * kBM + wq * 16 + g + 8 * r;
+    if (qrow >= sh.tq) continue;
+    // a row with no valid key (l == 0) writes 0, and lse -1e30
+    const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
+    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * kDh + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kDh / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lse != nullptr && t4 == 0)
+      lse[res_index(sh, h, b, qrow)] = l_run[r] == 0.f ? kNegInf : m_run[r] * kLn2 + logf(l_run[r]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime so
+// that the library links the runtime only
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, T, D) bf16 tensor as a 3-D map (D, T, B), boxes of 64 columns x
+// `rows` rows x 1, 128-byte swizzle, zeros outside
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch, int t, int d, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kDh, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kWG, int kStages>
+int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) || !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kBN) ||
+      !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kBN))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem<kWG, kStages>) + 1024;  // + the alignment slack
+  // the limit is lifted once a device, not on every launch
+  constexpr int kMaxDevices = 64;
+  static bool lifted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !lifted[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<kWG, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) lifted[dev] = true;
+  }
+  dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
+  flash_fwd_sm90_kernel<kWG, kStages><<<grid, kWG * 128 + 32, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
+// non-causal forward over the natural layout (K3, and K5 at a head width of 64)
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
+                    void* stream) {
+  if (bad_shape(sh) || sh.q_offset != 0) return (int)cudaErrorInvalidValue;
+  // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = 64 * n_head)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  if (sh.tq <= sm90::kBM) return sm90::run<1, 2>(q, k, v, out, lse, sh, (cudaStream_t)stream);
+  return sm90::run<2, 4>(q, k, v, out, lse, sh, (cudaStream_t)stream);
+}
+
 // ------------------------------------------------- K5 at any head width
 
 constexpr int kMhRows = 16;   // queries per block
@@ -638,7 +1033,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   const int dh = d / n_head;
   if (dh == kDh) {
     Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-    return launch_fwd(q, k, v, out, nullptr, sh, false, stream);
+    return launch_fwd_sm90(q, k, v, out, nullptr, sh, stream);
   }
   if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
     return (int)cudaErrorInvalidValue;
@@ -658,7 +1053,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
 extern "C" int flash_h2_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                  int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
   Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_fwd(q, k, v, out, lse, sh, false, stream);
+  return launch_fwd_sm90(q, k, v, out, lse, sh, stream);
 }
 
 // K6: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 2) fp32

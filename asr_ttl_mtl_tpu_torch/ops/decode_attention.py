@@ -11,10 +11,15 @@ K1's numbers depend on its key-block size: p is quantized to int8 per
 (row, block) relative to the running max. The block size `tk_blk` therefore
 comes from `_i8_blocks`, as on the TPU, and both the kernel and the plain
 version walk the blocks in order.
+
+K2 splits the valid keys of each (cache row, head) across a thread-block
+cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
+as the kernel cuts them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,7 +27,6 @@ import torch
 from . import LAUNCHES, _cuda
 
 _NEG_INF = -1e30
-MAX_GROUP = 8  # query rows per cache row one K2 launch takes; the wrapper splits larger groups
 # K1's p*v_scale/sp within this of a midpoint may round either way under
 # another exp (a few fp32 ulps of p, < 1e-4 of a step at 127 steps)
 _FLIP_MARGIN = 1e-3
@@ -87,6 +91,55 @@ def _valid(valid_upto: Optional[int]) -> int:
 
 # ------------------------------------------------------------------ K2 ----
 
+# K2's launch plan; the constants mirror `csrc/decode_attention.cu`
+_RESIDENT = 2 * 132  # K2 CTAs resident at once: 2 on each of an H100's 132 streaming multiprocessors
+K2_SPLITS = (1, 2, 4, 8)  # cluster sizes; 8 is the portable limit
+K2_MIN_KEYS = 64  # n_keys // S stays at least this, unless S is 1
+_K2_TILE = 128  # keys a staged tile holds
+_K2_THREADS = 128
+_K2_ROW_CHUNK = 16
+_K2_SMEM_LIMIT = 227 * 1024
+
+
+def k2_n_valid(tk: int, valid_upto: Optional[int]) -> int:
+    """Keys the kernel reads: [0, valid_upto] (all tk when None or -1)."""
+    v = _valid(valid_upto)
+    return tk if v < 0 else min(v + 1, tk)
+
+
+def k2_smem_bytes(group: int, chunk: int, itemsize: int) -> int:
+    """Shared memory of one K2 CTA (`k2_smem_bytes` in the source): the
+    ring of staged tiles, q, the chunk's scores, the P.V partials, the row
+    statistics and the reduction buffer."""
+    ring = (4 if itemsize == 2 else 2) * _K2_TILE * (64 * itemsize + 16)
+    slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))
+    stride = (chunk + 3) // 4 * 4
+    return ring + 4 * (group * 64 + group * stride + slices * group * 64 + 4 * group + _K2_THREADS)
+
+
+@functools.lru_cache(maxsize=4096)  # a decode step asks the same few questions every call
+def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int = 2) -> int:
+    """S, the CTAs of K2's cluster for one (cache row, head) over `n_keys`
+    valid keys: the largest S in K2_SPLITS that keeps batch x n_head x S
+    within the card's resident CTAs (2 a streaming multiprocessor), but no
+    larger than keeps n_keys // S >= K2_MIN_KEYS; raised further only while
+    the chunk's scores do not fit in shared memory. Raises when no S fits
+    (a group of ~125 rows over 1500 keys)."""
+    by_keys = max(s for s in K2_SPLITS if s == 1 or n_keys // s >= K2_MIN_KEYS)
+    fill = max(s for s in K2_SPLITS if s == 1 or batch * n_head * s <= _RESIDENT)
+    split = min(fill, by_keys)
+    for s in K2_SPLITS:
+        if s >= split and k2_smem_bytes(group, -(-n_keys // s), itemsize) <= _K2_SMEM_LIMIT:
+            return s
+    raise ValueError(f"decode_attention: group {group} over {n_keys} keys needs more shared memory than a "
+                     f"cluster of {K2_SPLITS[-1]} CTAs has")
+
+
+def k2_chunks(n_keys: int, split: int):
+    """[(lo, hi)] of the keys each CTA of the cluster reads, as the kernel cuts them."""
+    chunk = -(-n_keys // split)
+    return [(min(n_keys, r * chunk), min(n_keys, (r + 1) * chunk)) for r in range(split)]
+
 
 def decode_attention_plain(
     q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, layer: int, n_head: int,
@@ -115,9 +168,8 @@ def decode_attention(
     *, scale: float, valid_upto: Optional[int] = None, group: int = 1,
 ) -> torch.Tensor:
     """K2 wrapper: softmax(scale q K_layer^T) V_layer for 1-token queries; rows
-    [b*group, (b+1)*group) of q attend over cache row b, for any group (one
-    launch per MAX_GROUP rows of it). Keys past `valid_upto` are masked
-    (None: all valid)."""
+    [b*group, (b+1)*group) of q attend over cache row b, any group in one
+    launch. Keys past `valid_upto` are masked (None: all valid)."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, cache_k, cache_v, layer, n_head, scale=scale, valid_upto=valid_upto, group=group
@@ -131,27 +183,17 @@ def decode_attention(
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous")
-    if group <= MAX_GROUP:
-        return _launch_k2(q.contiguous(), cache_k, cache_v, layer, n_head, scale, valid_upto, group)
-    # larger groups go in launches of at most MAX_GROUP query rows per cache
-    # row: each chunk's rows are gathered, and their outputs put back in place
-    qg = q.reshape(b, group, d)
-    out = torch.empty_like(qg)
-    for g0 in range(0, group, MAX_GROUP):
-        g1 = min(group, g0 + MAX_GROUP)
-        chunk = qg[:, g0:g1].reshape(b * (g1 - g0), 1, d).contiguous()
-        part = _launch_k2(chunk, cache_k, cache_v, layer, n_head, scale, valid_upto, g1 - g0)
-        out[:, g0:g1] = part.reshape(b, g1 - g0, d)
-    return out.reshape(b * group, 1, d)
+    return _launch_k2(q.contiguous(), cache_k, cache_v, layer, n_head, scale, valid_upto, group)
 
 
 def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> torch.Tensor:
     n_layer, b, tk, d = cache_k.shape
+    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size())
     out = torch.empty_like(q)
     fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
-        int(layer), n_layer, b, group, tk, d, n_head, _valid(valid_upto), float(scale),
+        int(layer), n_layer, b, group, tk, d, n_head, _valid(valid_upto), split, float(scale),
         _cuda.stream_handle(q.device),
     )
     _cuda.check("decode_attention", fn, code)

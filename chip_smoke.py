@@ -6,11 +6,15 @@
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card: requires CUDA, prints `nvidia-smi` name and power limit;
   2. builds the kernels from `asr_ttl_mtl_tpu_torch/csrc/` (one nvcc per
-     source, in parallel, sm_90a);
+     source, in parallel, sm_90a) and prints each kernel's registers, shared
+     memory and spills from `nvcc -Xptxas -v`;
   3. holds each kernel of the decode slice against its plain PyTorch
      version on the card at the shapes of `base` (K1 and K2 also at the
-     beam paths' group of 5 query rows per cache row, K2 at groups 9 and 16,
-     which its wrapper splits into launches of at most 8), with the tolerance
+     beam paths' group of 5 query rows per cache row, K2 at groups 9 and 16
+     in one launch each, at batch 1, and with `valid_upto` 0 and 37 inside
+     the first chunk of a 448-row self cache; K3 also at tq 200 over 150
+     valid keys, at tq 32 over 1500 keys and with the logsumexp at the
+     encoder shape), with the tolerance
      stated per kernel, and times the kernel, the plain version and one PyTorch
      call computing the same function (`library_ms`, never called by the
      port), medians of CUDA-event timings, beside the kernel's bound (the
@@ -122,6 +126,9 @@ TRAIN_STEPS = 4
 BEAM = 5
 BEAM_OPTIONS = dict(BASE_OPTIONS, beam_size=BEAM)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# kernels whose calls at small shapes are mostly the host's launch cost: their
+# device time alone is measured too, as one call's share of a CUDA graph
+DEVICE_TIMED = ("decode_attention", "flash_attention_h2", "flash_attention_h2_lse", "flash_attention_mh")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -234,17 +241,22 @@ def make_recorder(card: str, rows: list):
                           f"per output, {t.min().item():.3e}..{t.max().item():.3e}" for t in tols)
         ms, plain_ms = timed_ms(run_kernel), timed_ms(run_plain, iters=plain_iters, warmup=min(3, plain_iters))
         library_ms = timed_ms(library) if library is not None else None
+        device_ms = graph_ms(run_kernel) if name in DEVICE_TIMED else None
         bound_ms, bound_by = bound
         ok = worst <= 1.0 and finite
         lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+        dev_s = f" (device {device_ms:.4f} ms)" if device_ms is not None else ""
         print(f"[kernel] {name} {case}: max_abs_err={err:.3e} (tol {tol_s}; max|ref| {ref:.3e}), "
-              f"worst err/tol {worst:.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_s}, "
+              f"worst err/tol {worst:.3f}; kernel {ms:.4f} ms{dev_s}, plain {plain_ms:.4f} ms, library {lib_s}, "
               f"bound {bound_ms:.4f} ms ({bound_by}) [{card}] {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {case}: max_abs_err {err}, worst err/tol {worst} (tol {tol_s})")
-        rows.append(dict(name=name, case=case, route="cuda", source=source, replaces=replaces,
-                         max_abs_err=err, err_over_tol=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms, main=main))
+        row = dict(name=name, case=case, route="cuda", source=source, replaces=replaces, max_abs_err=err,
+                   err_over_tol=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, main=main)
+        if device_ms is not None:
+            row["device_ms"] = device_ms
+        rows.append(row)
 
     return record
 
@@ -366,6 +378,7 @@ def check_kernels(card: str):
     import torch
 
     from asr_ttl_mtl_tpu_torch.audio import N_SAMPLES, N_FFT
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
     from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
     from asr_ttl_mtl_tpu_torch.ops import mel as M
@@ -408,6 +421,34 @@ def check_kernels(card: str):
            lambda: FA.flash_attention_h2(q, k, v, **kw), lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
            bound=attn_bound(N_WINDOWS * 1536 * 1500 * 512, (2 * q.numel() + 2 * 32 * 1500 * 512) * 2),
            library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125))
+    # with the logsumexp (the training forward's kernel) at the same shape;
+    # lse within 1e-4, as phase 8 holds it
+    want, want_lse = FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    got, got_lse = FA.flash_attention_h2(q, k, v, return_lse=True, **kw)
+    record("flash_attention_h2_lse", "q,k,v (32, 1536, 512) bf16, kv_valid_len 1500",
+           "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", "asr_ttl_mtl_tpu/ops/flash_attention.py:552",
+           [got, got_lse], [want, want_lse], [2.0**-6 * want.float().abs().max().item(), 1e-4],
+           lambda: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
+           lambda: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw),
+           bound=attn_bound(N_WINDOWS * 1536 * 1500 * 512,
+                            (2 * q.numel() + 2 * 32 * 1500 * 512) * 2 + want_lse.numel() * 4),
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=False)
+    del q, k, v, want, qh, kh, vh, got, got_lse, want_lse
+    # the edges of the key tiles and of the one-warpgroup CTA (tq <= 64)
+    for case, b, tq, tk, kv_len in (("q (2, 200, 512), k,v (2, 200, 512), kv_valid_len 150", 2, 200, 200, 150),
+                                    ("q (32, 32, 512), k,v (32, 1500, 512)", N_WINDOWS, 32, 1500, None)):
+        q = torch.randn((b, tq, 512), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, tk, 512), generator=gen, device=dev).bfloat16() for _ in range(2))
+        kw = dict(n_head=8, kv_valid_len=kv_len, scale=0.125)
+        n_keys = kv_len or tk
+        want = FA.flash_attention_h2_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, 8), heads(k, 8, n_keys), heads(v, 8, n_keys)
+        record("flash_attention_h2", case, "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu",
+               "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
+               FA.flash_attention_h2(q, k, v, **kw), want, 2.0**-6 * want.float().abs().max().item(),
+               lambda: FA.flash_attention_h2(q, k, v, **kw), lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
+               bound=attn_bound(b * tq * n_keys * 512, (2 * q.numel() + 2 * b * n_keys * 512) * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=False)
     del q, k, v, want, qh, kh, vh
 
     # decode caches at base: cross (6, 32, 1500 | 1536, 512), self (6, 32, 128, 512)
@@ -504,22 +545,45 @@ def check_kernels(card: str):
                lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
                bound=attn_bound(b * BEAM * 1500 * 512, 2 * b * 1500 * 512 * 2),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
-    # K2 above group 8 (best_of 9 and more): the wrapper splits the group
-    # into launches of at most 8 query rows per cache row
-    for group, b in ((9, 1), (16, N_WINDOWS)):
+    # K2 above group 8 (best_of 9 and more) and at batch 1 and group 1: one
+    # launch for the whole group, whatever it is
+    for group, b in ((9, 1), (16, N_WINDOWS), (1, 1)):
         q = torch.randn((b * group, 1, 512), generator=gen, device=dev).bfloat16()
         ck, cv = (one_k, one_v) if b == 1 else (cross_k, cross_v)
         kw = dict(scale=scale, group=group)
         want = DA.decode_attention_plain(q, ck, cv, 5, 8, **kw)
+        reset_launch_counts()
+        got = DA.decode_attention(q, ck, cv, 5, 8, **kw)
+        if LAUNCHES["decode_attention"] != 1:
+            raise AssertionError(f"K2 at group {group}: {LAUNCHES['decode_attention']} launches, expected 1")
         qh = q.reshape(b, group, 8, 64).transpose(1, 2)
         kh, vh = heads(ck[5], 8), heads(cv[5], 8)
-        record("decode_attention", f"cross (6,{b},1500,512) bf16, q ({b * group},1,512), group {group}",
+        record("decode_attention", f"cross (6,{b},1500,512) bf16, q ({b * group},1,512), group {group}, one launch",
                "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
-               DA.decode_attention(q, ck, cv, 5, 8, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+               got, want, 2.0**-7 * want.float().abs().max().item(),
                lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
                lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
                bound=attn_bound(b * group * 1500 * 512, 2 * b * 1500 * 512 * 2),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
+    # K2 with valid_upto inside the first chunk of a 448-row self cache (one
+    # CTA a head), and a later position that splits it
+    long_k = torch.randn((6, N_WINDOWS, 448, 512), generator=gen, device=dev).bfloat16()
+    long_v = torch.randn((6, N_WINDOWS, 448, 512), generator=gen, device=dev).bfloat16()
+    for b, valid in ((N_WINDOWS, 0), (N_WINDOWS, 37), (1, 300)):
+        ck, cv = long_k[:, :b].contiguous(), long_v[:, :b].contiguous()
+        q = torch.randn((b, 1, 512), generator=gen, device=dev).bfloat16()
+        kw = dict(scale=scale, valid_upto=valid)
+        want = DA.decode_attention_plain(q, ck, cv, 5, 8, **kw)
+        n_keys = valid + 1
+        qh, kh, vh = heads(q, 8), heads(ck[5], 8, n_keys), heads(cv[5], 8, n_keys)
+        record("decode_attention", f"self (6,{b},448,512) bf16, valid_upto {valid}",
+               "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               DA.decode_attention(q, ck, cv, 5, 8, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
+               lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
+               bound=attn_bound(b * n_keys * 512, 2 * b * n_keys * 512 * 2),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
+    del long_k, long_v
     kw = dict(scale=scale, valid_upto=1499, group=BEAM)
     want, flip = DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, return_flip_bound=True, **kw)
     ref = want.float().abs()
@@ -1953,9 +2017,12 @@ def main() -> int:
     _cuda.build_all()
     print(f"[build] {len(_cuda.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in _cuda.SOURCES:
+        entry = "?"
         for line in _cuda.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:  # registers and smem, or stack and spills
+                print(f"[ptxas {name}] {entry}: {line.strip()}", flush=True)
 
     rows = check_kernels(card)
     model, main_counts, k2_counts, slice_rate = run_slice(card)

@@ -173,7 +173,7 @@ def test_beam_on_card_runs_k9(cuda_device):  # noqa: F811
     res = PD.DecodingTask(model, opts).run(mel)
     assert LAUNCHES["topk_logprobs"] == 16
     assert all(len(r.tokens) == 16 and np.isfinite(r.avg_logprob) for r in res)
-    # 9 beams share a cross row: K2 serves the group in launches of at most 8
+    # 9 beams share a cross row: K2 serves the whole group in one launch
     wide = PD.DecodingTask(model, PD.DecodingOptions(language="en", beam_size=9, sample_len=16,
                                                      suppress_tokens=f"-1,{EOT}")).run(mel)
     assert all(len(r.tokens) == 16 and np.isfinite(r.avg_logprob) for r in wide)

@@ -29,7 +29,7 @@ def _t(a):
 
 @pytest.mark.parametrize(
     "b,tq,tk,n_head,kv_valid_len",
-    [(2, 128, 128, 2, 96), (1, 48, 200, 2, 150), (2, 128, 128, 4, None)],
+    [(2, 128, 128, 2, 96), (1, 48, 200, 2, 150), (2, 128, 128, 4, None), (2, 32, 300, 2, 290)],
 )
 def test_k3_plain_matches_pallas(b, tq, tk, n_head, kv_valid_len):
     d = 128 if n_head == 2 else 256
@@ -62,7 +62,8 @@ def _decode_inputs(b, group, n_layer, tk, d, seed):
 @pytest.mark.parametrize(
     "case,b,group,tk,valid",
     [("cross", 3, 1, 96, None), ("self", 2, 1, 128, 37), ("group", 2, 3, 96, None), ("self-group", 2, 2, 128, 0),
-     ("group-9", 2, 9, 96, None)],
+     ("group-9", 2, 9, 96, None), ("group-16", 2, 16, 96, None), ("self-first-key", 2, 1, 128, 0),
+     ("group-16-self", 1, 16, 128, 37)],
 )
 def test_k2_plain_matches_pallas(case, b, group, tk, valid):
     q, ck, cv = _decode_inputs(b, group, 2, tk, 128, seed=1)
@@ -70,6 +71,76 @@ def test_k2_plain_matches_pallas(case, b, group, tk, valid):
     want = JD.decode_attention(q, ck, cv, 1, 2, interpret=True, **kw)
     got = PD.decode_attention(_t(q), _t(ck), _t(cv), 1, 2, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("batch", [1, 32, 160])
+@pytest.mark.parametrize("n_keys", [1, 38, 127, 128, 448, 1500])
+@pytest.mark.parametrize("group", [1, 16])
+def test_k2_plan_chunks_cover_the_valid_keys(batch, n_keys, group):
+    """S is a cluster size the card takes, every CTA gets keys, the chunks
+    cover [0, n_keys) in order, and short caches take one CTA."""
+    split = PD.k2_plan(batch, 8, n_keys, group)
+    assert split in PD.K2_SPLITS and split <= 8
+    chunks = PD.k2_chunks(n_keys, split)
+    assert len(chunks) == split
+    assert chunks[0][0] == 0 and chunks[-1][1] == n_keys
+    assert all(hi > lo for lo, hi in chunks)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    if n_keys < 2 * PD.K2_MIN_KEYS:
+        assert split == 1
+    if split > 1:
+        assert n_keys // split >= PD.K2_MIN_KEYS
+    assert PD.k2_smem_bytes(group, chunks[0][1], 2) <= 227 * 1024
+
+
+def test_k2_plan_examples():
+    """The rule's examples: one window of the CLI takes 8 CTAs a head; 32
+    windows already fill the resident slots with 1; a 71-key self cache
+    takes 1; 4 windows take 8 and 5 windows 4."""
+    assert PD.k2_plan(1, 8, 1500) == 8
+    assert PD.k2_plan(32, 8, 1500) == 1
+    assert PD.k2_plan(32, 8, 71) == 1
+    assert PD.k2_plan(1, 8, 1500, group=5) == 8
+    assert PD.k2_plan(4, 8, 1500) == 8
+    assert PD.k2_plan(5, 8, 1500) == 4
+    assert PD.k2_plan(1, 8, 300) == 4
+
+
+class _FakeK2Lib:
+    """Records the C entry calls the K2 wrapper makes (no card here)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return fn
+
+
+@pytest.mark.parametrize("group,valid", [(1, None), (5, None), (9, 37), (16, None), (40, 0)])
+def test_k2_one_launch_at_any_group(monkeypatch, group, valid):
+    """The wrapper makes one kernel call for the whole group, with the
+    cluster size k2_plan gives, and counts one launch."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES
+
+    fake = _FakeK2Lib()
+    monkeypatch.setattr(PD._cuda, "lib", lambda name: fake)
+    monkeypatch.setattr(PD._cuda, "stream_handle", lambda device: 0)
+    b, tk = 2, 1500
+    q = torch.zeros((b * group, 1, 512), dtype=torch.bfloat16)
+    ck = torch.zeros((2, b, tk, 512), dtype=torch.bfloat16)
+    before = LAUNCHES["decode_attention"]
+    PD._launch_k2(q, ck, ck, 1, 8, 0.125, valid, group)
+    assert LAUNCHES["decode_attention"] == before + 1
+    assert len(fake.calls) == 1
+    name, args = fake.calls[0]
+    assert name == "decode_attn_bf16"
+    # q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale, stream
+    assert args[6:13] == (b, group, tk, 512, 8, -1 if valid is None else valid,
+                          PD.k2_plan(b, 8, PD.k2_n_valid(tk, valid), group))
 
 
 # ---------------------------------------------------------------- K1 ------
@@ -147,6 +218,24 @@ def test_k3_kernel_on_card(cuda_device):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,kv_len", [(3, 32, 1500, None), (2, 48, 1536, 1500), (2, 300, 1536, 1500),
+                                            (1, 64, 130, 129), (1, 65, 200, 1)])
+def test_k3_kernel_on_card_with_lse(cuda_device, b, tq, tk, kv_len):  # noqa: F811
+    """K3 with the logsumexp: one consumer warpgroup (tq <= 64) and two, a
+    ragged last key tile, a single valid key; out within 2^-6 of the largest
+    output, lse within 1e-4 (as K6 reads it)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((b, tq, 512), generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn((b, tk, 512), generator=g, device=cuda_device).bfloat16() for _ in range(2))
+    kw = dict(n_head=8, kv_valid_len=kv_len, scale=0.125)
+    want, want_lse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    got, got_lse = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= 2.0**-6 * want.float().abs().max().item()
+    assert (got_lse - want_lse).abs().max().item() <= 1e-4
+    assert torch.equal(PF.flash_attention_h2(q, k, v, **kw), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_kernel_on_card(cuda_device, dtype):  # noqa: F811
     q, ck, cv = (_t(a).to(cuda_device, dtype) for a in _decode_inputs(4, 2, 2, 300, 512, seed=4))
@@ -160,7 +249,7 @@ def test_k2_kernel_on_card(cuda_device, dtype):  # noqa: F811
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [9, 16])
 def test_k2_kernel_on_card_above_group_8(cuda_device, group):  # noqa: F811
-    """Groups above 8 go in launches of at most 8 rows per cache row."""
+    """Groups above 8 take one launch, like any group."""
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     q, ck, cv = (_t(a).to(cuda_device, torch.bfloat16) for a in _decode_inputs(3, group, 2, 1500, 512, seed=6))
@@ -168,8 +257,23 @@ def test_k2_kernel_on_card_above_group_8(cuda_device, group):  # noqa: F811
     want = PD.decode_attention_plain(q, ck, cv, 1, 8, **kw).float()
     reset_launch_counts()
     got = PD.decode_attention(q, ck, cv, 1, 8, **kw).float()
-    assert LAUNCHES["decode_attention"] == -(-group // PD.MAX_GROUP)
+    assert LAUNCHES["decode_attention"] == 1
     assert (got - want).abs().max().item() <= 2.0**-7 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,group,tk,valid", [(1, 1, 1500, None), (1, 5, 1500, None), (2, 1, 448, 0),
+                                              (2, 3, 448, 37), (1, 1, 448, 300)])
+def test_k2_kernel_on_card_split_edges(cuda_device, dtype, b, group, tk, valid):  # noqa: F811
+    """Batch 1 (a cluster of 8 CTAs a head), valid_upto inside the first
+    chunk (0 and 37: one CTA), and a split self cache."""
+    q, ck, cv = (_t(a).to(cuda_device, dtype) for a in _decode_inputs(b, group, 2, tk, 512, seed=7))
+    kw = dict(scale=0.125, valid_upto=valid, group=group)
+    want = PD.decode_attention_plain(q, ck, cv, 1, 8, **kw).float()
+    got = PD.decode_attention(q, ck, cv, 1, 8, **kw).float()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
