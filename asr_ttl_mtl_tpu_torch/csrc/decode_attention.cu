@@ -61,13 +61,38 @@
 //     same from run to run.
 //   - Every group is one launch, and each cache byte is read from device
 //     memory once per call whatever the group.
-// Design, K1: one CTA per (query row, head), since the int8 rounding of p is
-// per row and per block and the blocks must be taken in order. A thread per
-// key computes its int8 score with __dp4a over four 16-byte loads; block
-// max, sum and the p quantization are CTA reductions; P.V accumulates int32
-// over a thread per column. With group > 1 the group's CTAs read the same
-// cache row, which then comes from L2. Split-K (flash-decoding) would fill
-// the card better but changes the rounding of p: a later change.
+// Design, K1: one thread-block cluster of S CTAs per (cache row, head, 16
+// query rows), so a group of up to 16 rows (the beam's 5) reads each cache
+// byte from device memory once a call.
+//   - The keys are walked in whole blocks of tk_blk (the contract): the nb
+//     blocks that hold a valid key are cut into S chunks of whole blocks
+//     (CTA r takes blocks [r nb / S, (r + 1) nb / S)); blocks wholly past
+//     valid_upto, and keys past it, are never read. S (1-8) comes from the
+//     host (`k1_plan` in ops/decode_attention.py): enough CTAs to fill the
+//     card's resident slots, at most one block a CTA.
+//   - Each CTA walks its blocks in order from its own running max, with the
+//     plain version's arithmetic: q quantized per (row, head); s = s32 x q
+//     step x scale x k scale; per block m = max(m, block max), p = exp(s -
+//     m), sp = max(p v_scale) / 127, p_int8 = rint(p v_scale / sp), acc =
+//     acc x exp(m_old - m) + (P_int8 V_int8) sp. p v_scale / sp does not
+//     depend on the running max beyond an fp32 rounding, so the int8 p of a
+//     block is the sequential walk's up to the flips the plain version's
+//     flip bound covers.
+//   - Per block, its K tiles (128 keys, with their k and v scales), then its
+//     V tiles, stream through a 4-deep cp.async ring, so the V loads are in
+//     flight during the block's softmax.
+//   - Both products on the tensor cores, mma.sync m16n8k32 s8 with int32
+//     accumulation (exact, as the plain version's float64 sums): the rows
+//     padded to 16; K rows are the B operand as they lie. For P V each V
+//     tile is transposed in shared memory (byte permutes, 4 keys x 4
+//     columns a thread) so that four keys of a column form one word of B.
+//   - The softmax of a row is one warp's: block max, sum, p max and the p
+//     quantization by warp shuffles, with no block-wide barrier between.
+//   - The CTAs' partials (m, l, acc) meet through distributed shared memory
+//     and are combined in rank order: out = sum acc e^(m - M) / sum l
+//     e^(m - M), each output written once. No atomics and no global
+//     scratch: the same bits on every run; with S = 1, e^0 = 1 and the
+//     result is the sequential walk's.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -80,8 +105,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kDh = 64;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlock = 1024;
 constexpr float kNegInf = -1e30f;
 
@@ -94,23 +117,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-
-// CTA-wide max or sum; every thread gets the result.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = kMax ? fmaxf(v, o) : v + o;
-  }
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();
-  return r;
-}
 
 // ---------------------------------------------------------------- K2 ------
 
@@ -485,99 +491,292 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
 
 // ---------------------------------------------------------------- K1 ------
 
+// 8 warps: on an H100 over 32 windows, 0.044 ms against 0.047 with 4 (0.058
+// against 0.075 at group 16)
+constexpr int kK1Threads = 256;
+constexpr int kK1Warps = kK1Threads / 32;
+constexpr int kK1ColBlocks = kDh / 8 / kK1Warps;  // 8-column blocks of the output a warp owns
+constexpr int kK1Tile = 128;                 // keys a staged tile holds
+constexpr int kK1Ring = 4;                   // tiles in flight
+constexpr int kK1Rows = 16;                  // query rows a CTA takes: the M of an mma
+constexpr int kK1MaxSplit = 8;               // CTAs a cluster: the portable limit
+constexpr int kK1Row = kDh + 16;             // 80 bytes: a staged int8 row, off the banks
+constexpr int kK1Slot = kK1Tile * kK1Row + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
+constexpr int kK1VtRow = kK1Tile + 16;       // 144 bytes: a column of the transposed V tile
+
+// shared memory of a K1 CTA: the ring, the transposed V tile, q in int8,
+// the scores of a block (fp32), its int8 p (16 rows, padded), the block's
+// v scales and the row statistics (m, l, correction, p step, q step)
+__host__ __device__ __forceinline__ int k1_score_stride(int tk_blk) { return tk_blk + 4; }
+__host__ __device__ __forceinline__ int k1_p_stride(int tk_blk) { return tk_blk + 16; }
+size_t k1_smem_bytes(int rows, int tk_blk) {
+  return (size_t)kK1Ring * kK1Slot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * kK1Row +
+         4 * (size_t)rows * k1_score_stride(tk_blk) + (size_t)kK1Rows * k1_p_stride(tk_blk) + 4 * (size_t)tk_blk +
+         4 * 5 * kK1Rows;
+}
+
+// m16n8k32 int8 products on the tensor cores, int32 accumulate (exact, as
+// the plain version's float64 sums of int8 products)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+template <bool kMax>
+__device__ __forceinline__ float warp_reduce(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  return v;
+}
+
+// grid (S, n_head, batch x row chunks of 16), cluster (S, 1, 1): block x is
+// the rank in the cluster and takes the whole key blocks
+// [x * nb / S, (x + 1) * nb / S) of the nb blocks that hold valid keys
 template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kK1Threads)
 decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache_k,
                       const float* __restrict__ k_scale, const int8_t* __restrict__ cache_v,
                       const float* __restrict__ v_scale, TQ* __restrict__ out, int layer, int batch, int group,
-                      int tk, int d, int tk_blk, int valid_upto, float scale) {
-  __shared__ __align__(16) int8_t qi[kDh];
-  __shared__ float pbuf[kMaxBlock];
-  __shared__ int opart[kDh];
-  __shared__ float red[kWarps];
-  __shared__ float sq_s;
+                      int tk, int d, int tk_blk, int n_valid, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n_rc = (group + kK1Rows - 1) / kK1Rows;
+  const int h = blockIdx.y, b = blockIdx.z / n_rc, g0 = (blockIdx.z % n_rc) * kK1Rows;
+  const int RC = min(kK1Rows, group - g0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int scs = k1_score_stride(tk_blk), pis = k1_p_stride(tk_blk);
 
-  const int qrow = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int b = qrow / group;
+  unsigned char* ring = smem;
+  int8_t* vt = reinterpret_cast<int8_t*>(ring + kK1Ring * kK1Slot);
+  int8_t* qi = vt + kDh * kK1VtRow;
+  float* sc = reinterpret_cast<float*>(qi + kK1Rows * kK1Row);
+  int8_t* pi = reinterpret_cast<int8_t*>(sc + RC * scs);
+  float* vsb = reinterpret_cast<float*>(pi + kK1Rows * pis);
+  float* m_s = vsb + tk_blk;
+  float* l_s = m_s + kK1Rows;
+  float* corr_s = l_s + kK1Rows;
+  float* sp_s = corr_s + kK1Rows;
+  float* qsc = sp_s + kK1Rows;
+  float* part = sc;  // the partial outputs (RC x 64) once the scores are done
+
+  const int n_blocks = (n_valid + tk_blk - 1) / tk_blk;
+  const int blk_lo = rank * n_blocks / split, blk_hi = (rank + 1) * n_blocks / split;
+  const int T = tk_blk / kK1Tile;  // tiles of a whole block
+  const int key_hi = min(blk_hi * tk_blk, n_valid);
+  const int t_last = blk_hi > blk_lo ? (key_hi - (blk_hi - 1) * tk_blk + kK1Tile - 1) / kK1Tile : 0;
+  const int n_items = blk_hi > blk_lo ? 2 * T * (blk_hi - blk_lo - 1) + 2 * t_last : 0;
   const size_t row = (size_t)layer * batch + b;
   const int8_t* kb = cache_k + row * tk * d + (size_t)h * kDh;
   const int8_t* vb = cache_v + row * tk * d + (size_t)h * kDh;
   const float* ksb = k_scale + row * tk;
-  const float* vsb = v_scale + row * tk;
+  const float* vsg = v_scale + row * tk;
 
-  // quantize this (row, head) of q: abs-max scale, round half to even
-  if (tid < 32) {
-    const TQ* qr = q + (size_t)qrow * d + (size_t)h * kDh;
-    const float x0 = to_f(qr[tid]), x1 = to_f(qr[tid + 32]);
-    float mx = fmaxf(fabsf(x0), fabsf(x1));
+  // the loads in order: per block its K tiles (with the k and v scales),
+  // then its V tiles; item i goes to ring slot i % kK1Ring, and every item
+  // commits one group (empty past the end) so that wait_group counts stay
+  // fixed. Keys at or past n_valid are never read.
+  auto item_at = [&](int i, int& j0, int& nk, bool& is_v) {
+    const int rel = i / (2 * T), blk = blk_lo + rel;
+    const int nt = blk == blk_hi - 1 ? t_last : T;
+    const int w = i - rel * 2 * T;
+    is_v = w >= nt;
+    j0 = blk * tk_blk + (is_v ? w - nt : w) * kK1Tile;
+    nk = min(kK1Tile, n_valid - j0);
+  };
+  auto load_item = [&](int i) {
+    if (i < n_items) {
+      int j0, nk;
+      bool is_v;
+      item_at(i, j0, nk, is_v);
+      unsigned char* dst = ring + (size_t)(i % kK1Ring) * kK1Slot;
+      const int8_t* src = (is_v ? vb : kb) + (size_t)j0 * d;
+      for (int e = tid; e < nk * (kDh / 16); e += kK1Threads)
+        cp_async16(dst + (e / 4) * kK1Row + (e % 4) * 16, src + (size_t)(e / 4) * d + (e % 4) * 16);
+      if (!is_v) {
+        float* dsc = reinterpret_cast<float*>(dst + kK1Tile * kK1Row);
+        for (int e = tid; e < 2 * nk; e += kK1Threads) {  // 4 bytes a key: no scale past n_valid is read
+          const int j = e % nk;
+          cp_async4(dsc + (e / nk) * kK1Tile + j, (e < nk ? ksb : vsg) + j0 + j);
+        }
+      }
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float sq = fmaxf(mx, 1e-20f) / 127.f;
-    qi[tid] = (int8_t)rintf(x0 / sq);
-    qi[tid + 32] = (int8_t)rintf(x1 / sq);
-    if (tid == 0) sq_s = sq;
+  for (int i = 0; i < kK1Ring; ++i) load_item(i);
+
+  // quantize q per (row, head): abs-max step, round half to even
+  for (int r = warp; r < RC; r += kK1Warps) {
+    const TQ* qr = q + ((size_t)b * group + g0 + r) * d + (size_t)h * kDh;
+    const float x0 = to_f(qr[lane]), x1 = to_f(qr[lane + 32]);
+    const float sq = fmaxf(warp_reduce<true>(fmaxf(fabsf(x0), fabsf(x1))), 1e-20f) / 127.f;
+    qi[r * kK1Row + lane] = (int8_t)rintf(x0 / sq);
+    qi[r * kK1Row + lane + 32] = (int8_t)rintf(x1 / sq);
+    if (lane == 0) {
+      qsc[r] = sq * scale;
+      m_s[r] = kNegInf;
+      l_s[r] = 0.f;
+    }
   }
   __syncthreads();
-  const float qscale = sq_s * scale;
-  int qw[kDh / 4];
+  // q as the A fragments of the two k32 steps (rows past RC are zero)
+  uint32_t qa[2][4];
 #pragma unroll
-  for (int i = 0; i < kDh / 4; ++i) qw[i] = reinterpret_cast<const int*>(qi)[i];
+  for (int ks = 0; ks < 2; ++ks) {
+    qa[ks][0] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 4 * t4) : 0u;
+    qa[ks][1] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 4 * t4) : 0u;
+    qa[ks][2] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
+    qa[ks][3] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
+  }
+  // this warp's output columns: the 8-column blocks kK1ColBlocks x warp + n
+  float acc[kK1ColBlocks][4] = {};
 
-  const int c = tid % kDh, half = tid / kDh;
-  float m_run = kNegInf, l_run = 0.f, acc = 0.f;
-
-  for (int k0 = 0; k0 < tk; k0 += tk_blk) {
-    float tmax = kNegInf;
-    for (int jj = tid; jj < tk_blk; jj += kThreads) {
-      const int j = k0 + jj;
-      const int4* kr = reinterpret_cast<const int4*>(kb + (size_t)j * d);
-      int s32 = 0;
+  int item = 0;
+  for (int blk = blk_lo; blk < blk_hi; ++blk) {
+    const int kb0 = blk * tk_blk, n_k = min(tk_blk, n_valid - kb0);
+    const int nt = (n_k + kK1Tile - 1) / kK1Tile;
+    // ---- scores s = (s32 x q step x scale) x k scale of the block's keys, all rows
+    for (int t = 0; t < nt; ++t, ++item) {
+      cp_async_wait<kK1Ring - 1>();
+      __syncthreads();
+      const unsigned char* slot = ring + (size_t)(item % kK1Ring) * kK1Slot;
+      const float* ks_t = reinterpret_cast<const float*>(slot + kK1Tile * kK1Row);
+      const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
+      for (int n8 = warp; n8 * 8 < nk; n8 += kK1Warps) {
+        int c[4] = {0, 0, 0, 0};
+        const int8_t* kr = reinterpret_cast<const int8_t*>(slot) + (n8 * 8 + g) * kK1Row + 4 * t4;
 #pragma unroll
-      for (int w = 0; w < kDh / 16; ++w) {
-        const int4 kv = kr[w];
-        s32 = __dp4a(kv.x, qw[4 * w + 0], s32);
-        s32 = __dp4a(kv.y, qw[4 * w + 1], s32);
-        s32 = __dp4a(kv.z, qw[4 * w + 2], s32);
-        s32 = __dp4a(kv.w, qw[4 * w + 3], s32);
+        for (int ks = 0; ks < 2; ++ks) mma_s8(c, qa[ks], ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = g + 8 * (e >> 1), key = n8 * 8 + 2 * t4 + (e & 1);
+          if (r < RC && key < nk) sc[r * scs + j0 + key] = __fmul_rn(__fmul_rn((float)c[e], qsc[r]), ks_t[key]);
+        }
       }
-      const bool masked = valid_upto >= 0 && j > valid_upto;
-      const float s = masked ? kNegInf : (float)s32 * qscale * ksb[j];
-      pbuf[jj] = s;
-      tmax = fmaxf(tmax, s);
+      for (int j = tid; j < nk; j += kK1Threads) vsb[j0 + j] = ks_t[kK1Tile + j];
+      __syncthreads();  // the slot is free again
+      load_item(item + kK1Ring);
     }
-    tmax = block_reduce<true>(tmax, red);
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = expf(m_run - m_new);
 
-    float psum = 0.f, pmax = 0.f;
-    for (int jj = tid; jj < tk_blk; jj += kThreads) {
-      const int j = k0 + jj;
-      const bool masked = valid_upto >= 0 && j > valid_upto;
-      const float p = masked ? 0.f : expf(pbuf[jj] - m_new);
-      psum += p;
-      const float pv = p * vsb[j];
-      pbuf[jj] = pv;
-      pmax = fmaxf(pmax, pv);
+    // ---- the block's softmax and p quantization, a warp per row (the V
+    // tiles are loading meanwhile): m = max(m, block max), p = exp(s - m),
+    // sp = max(p v_scale) / 127, p_int8 = rint(p v_scale / sp)
+    const int n_k32 = (n_k + 31) & ~31;
+    for (int r = warp; r < RC; r += kK1Warps) {
+      float* srow = sc + r * scs;
+      float mx = kNegInf;
+      for (int j = lane; j < n_k; j += 32) mx = fmaxf(mx, srow[j]);
+      const float m_old = m_s[r], m_new = fmaxf(m_old, warp_reduce<true>(mx));
+      float psum = 0.f, pmax = 0.f;
+      for (int j = lane; j < n_k; j += 32) {
+        const float p = expf(srow[j] - m_new);
+        const float pv = p * vsb[j];
+        psum += p;
+        pmax = fmaxf(pmax, pv);
+        srow[j] = pv;
+      }
+      psum = warp_reduce<false>(psum);
+      const float sp = fmaxf(warp_reduce<true>(pmax), 1e-30f) / 127.f;
+      int8_t* prow = pi + r * pis;
+      for (int j = lane; j < n_k; j += 32) prow[j] = (int8_t)rintf(srow[j] / sp);
+      for (int j = n_k + lane; j < n_k32; j += 32) prow[j] = 0;  // the last k32 step's keys past the block
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        corr_s[r] = corr;
+        sp_s[r] = sp;
+        l_s[r] = corr * l_s[r] + psum;
+        m_s[r] = m_new;
+      }
     }
-    psum = block_reduce<false>(psum, red);
-    pmax = block_reduce<true>(pmax, red);
-    l_run = corr * l_run + psum;
-    m_run = m_new;
-    const float sp = fmaxf(pmax, 1e-30f) / 127.f;
-    for (int jj = tid; jj < tk_blk; jj += kThreads) pbuf[jj] = rintf(pbuf[jj] / sp);
-    __syncthreads();
 
-    int o32 = 0;
-    for (int jj = half; jj < tk_blk; jj += 2) o32 += (int)pbuf[jj] * (int)vb[(size_t)(k0 + jj) * d + c];
-    if (half == 1) opart[c] = o32;
-    __syncthreads();
-    if (half == 0) acc = acc * corr + (float)(o32 + opart[c]) * sp;
-    __syncthreads();  // pbuf and opart are rewritten by the next block
+    // ---- P.V over the block's V tiles: V transposed in shared memory so
+    // that four keys of a column form one word of an mma's B
+    int o[kK1ColBlocks][4] = {};
+    for (int t = 0; t < nt; ++t, ++item) {
+      cp_async_wait<kK1Ring - 1>();
+      __syncthreads();  // also orders the softmax above before the first tile
+      const unsigned char* slot = ring + (size_t)(item % kK1Ring) * kK1Slot;
+      const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
+      for (int e = tid; e < ((nk + 3) / 4) * (kDh / 4); e += kK1Threads) {
+        const int k4 = e / (kDh / 4), c4 = e % (kDh / 4);
+        const unsigned char* src = slot + 4 * k4 * kK1Row + 4 * c4;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(src);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(src + kK1Row);
+        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(src + 2 * kK1Row);
+        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(src + 3 * kK1Row);
+        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+        int8_t* dst = vt + 4 * c4 * kK1VtRow + 4 * k4;
+        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
+        *reinterpret_cast<uint32_t*>(dst + kK1VtRow) = __byte_perm(lo01, lo23, 0x7632);
+        *reinterpret_cast<uint32_t*>(dst + 2 * kK1VtRow) = __byte_perm(hi01, hi23, 0x5410);
+        *reinterpret_cast<uint32_t*>(dst + 3 * kK1VtRow) = __byte_perm(hi01, hi23, 0x7632);
+      }
+      __syncthreads();
+      for (int k32 = 0; k32 < nk; k32 += 32) {
+        const int8_t* p0 = pi + j0 + k32 + 4 * t4;
+        uint32_t pa[4];
+        pa[0] = g < RC ? ld_u32(p0 + g * pis) : 0u;
+        pa[1] = g + 8 < RC ? ld_u32(p0 + (g + 8) * pis) : 0u;
+        pa[2] = g < RC ? ld_u32(p0 + g * pis + 16) : 0u;
+        pa[3] = g + 8 < RC ? ld_u32(p0 + (g + 8) * pis + 16) : 0u;
+#pragma unroll
+        for (int n = 0; n < kK1ColBlocks; ++n) {
+          const int8_t* vc = vt + ((kK1ColBlocks * warp + n) * 8 + g) * kK1VtRow + k32 + 4 * t4;
+          mma_s8(o[n], pa, ld_u32(vc), ld_u32(vc + 16));
+        }
+      }
+      __syncthreads();
+      load_item(item + kK1Ring);
+    }
+    // acc = acc x correction + o x sp, rounded as the plain version
+#pragma unroll
+    for (int n = 0; n < kK1ColBlocks; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1);
+        if (r < RC) acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], corr_s[r]), __fmul_rn((float)o[n][e], sp_s[r]));
+      }
   }
-  if (half == 0) {
-    const float safe = l_run == 0.f ? 1.f : l_run;
-    out[(size_t)qrow * d + (size_t)h * kDh + c] = from_f<TQ>(acc / safe);
+  cp_async_wait<0>();
+
+  // ---- combine the cluster's partials in rank order: M = max m, out =
+  // sum acc exp(m - M) / sum l exp(m - M) (one CTA: exp(0) = 1, the
+  // sequential result); each output is written once
+#pragma unroll
+  for (int n = 0; n < kK1ColBlocks; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1);
+      if (r < RC) part[r * kDh + (kK1ColBlocks * warp + n) * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+    }
+  cluster.sync();
+  for (int e = rank * kK1Threads + tid; e < RC * kDh; e += split * kK1Threads) {
+    const int r = e / kDh;
+    float m = kNegInf;
+    for (int c = 0; c < split; ++c) m = fmaxf(m, cluster.map_shared_rank(m_s, c)[r]);
+    float l = 0.f, a = 0.f;
+    for (int c = 0; c < split; ++c) {
+      const float f = expf(cluster.map_shared_rank(m_s, c)[r] - m);
+      l += cluster.map_shared_rank(l_s, c)[r] * f;
+      a += cluster.map_shared_rank(part, c)[e] * f;
+    }
+    out[((size_t)b * group + g0 + r) * d + (size_t)h * kDh + e % kDh] = from_f<TQ>(a / (l == 0.f ? 1.f : l));
   }
+  cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
 
 // lifts a kernel's dynamic shared memory limit to `bytes` on the current
@@ -630,14 +829,31 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
 template <typename TQ>
 int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* out,
                      int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
-                     int valid_upto, float scale, void* stream) {
-  if (d != n_head * kDh || group < 1 || tk_blk < 1 || tk_blk > kMaxBlock || tk % tk_blk != 0 || layer < 0 ||
-      layer >= n_layer || batch < 1)
+                     int valid_upto, int split, float scale, void* stream) {
+  if (d != n_head * kDh || group < 1 || tk_blk < kK1Tile || tk_blk > kMaxBlock || tk_blk % kK1Tile != 0 ||
+      tk % tk_blk != 0 || layer < 0 || layer >= n_layer || batch < 1 || split < 1 || split > kK1MaxSplit)
     return (int)cudaErrorInvalidValue;
-  decode_attn_i8_kernel<TQ><<<dim3(batch * group, n_head), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const TQ*>(q), static_cast<const int8_t*>(k), static_cast<const float*>(ks),
-      static_cast<const int8_t*>(v), static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group,
-      tk, d, tk_blk, valid_upto, scale);
+  const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
+  const size_t smem = k1_smem_bytes(min(group, kK1Rows), tk_blk);
+  cudaError_t err = raise_smem_limit(decode_attn_i8_kernel<TQ>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, n_head, batch * ((group + kK1Rows - 1) / kK1Rows));
+  cfg.blockDim = dim3(kK1Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_attn_i8_kernel<TQ>, static_cast<const TQ*>(q), static_cast<const int8_t*>(k),
+                           static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+                           static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group, tk, d, tk_blk,
+                           n_valid, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -658,18 +874,19 @@ extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void
                               stream);
 }
 
+// `split` is the cluster size S (1-8; `k1_plan`)
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
-                                   int n_head, int tk_blk, int valid_upto, float scale, void* stream) {
+                                   int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
   return launch_decode_i8<__nv_bfloat16>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
-                                         tk_blk, valid_upto, scale, stream);
+                                         tk_blk, valid_upto, split, scale, stream);
 }
 
 extern "C" int decode_attn_i8_f32(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                   void* out, int layer, int n_layer, int batch, int group, int tk, int d,
-                                  int n_head, int tk_blk, int valid_upto, float scale, void* stream) {
+                                  int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
   return launch_decode_i8<float>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
-                                 valid_upto, scale, stream);
+                                 valid_upto, split, scale, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

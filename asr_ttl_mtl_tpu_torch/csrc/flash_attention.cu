@@ -38,8 +38,9 @@
 // small and launch and load latency dominate.
 //
 // K3's forward (and K5's at a head width of 64) is `flash_fwd_sm90_kernel`
-// below: TMA, mbarriers and wgmma, with its own note. What follows here is
-// the design of the other kernels (K6, K7, K8, and K5 at other widths).
+// and K6 is `flash_bwd_dq_sm90_kernel` + `flash_bwd_dkv_sm90_kernel` below:
+// TMA, mbarriers and wgmma, each with its own note. What follows here is
+// the design of the other kernels (K7, K8, and K5 at other widths).
 //
 // Design. The TPU kernels hold all keys (or all queries) of a head in VMEM
 // and carry accumulators across a sequential grid axis; on Hopper blocks run
@@ -53,12 +54,14 @@
 //     rounded to bf16 before P V while l sums the fp32 p, as on the TPU.
 //     Causal key tiles wholly above the diagonal, and tiles past kv_len, are
 //     skipped. A row with no valid key writes 0 and lse -1e30.
-//   dq: per q tile, loops over key tiles, recomputes p from lse, keeps dq in
-//     WMMA accumulators; dS is rounded to bf16 before dS K.
-//   dkv: per key tile, loops over q tiles (skipping those wholly below the
-//     causal diagonal), keeps dk and dv in WMMA accumulators; p and dS are
-//     rounded to bf16 before P^T dO and dS^T Q. Key tiles at or past kv_len
-//     write zeros.
+//   dq (K8): per q tile, loops over key tiles, recomputes p from lse, keeps
+//     dq in WMMA accumulators; dS is rounded to bf16 before dS K.
+//   dkv (K8): per key tile, loops over q tiles (skipping those wholly below
+//     the causal diagonal), keeps dk and dv in WMMA accumulators; p and dS
+//     are rounded to bf16 before P^T dO and dS^T Q. Key tiles at or past
+//     kv_len write zeros.
+// K7 and K8 stay on WMMA: at the decoder's causal shapes they beat the
+// library call, and causal masking is outside the Hopper kernels' design.
 // K5 at a head width of 64 is the K3 forward without the logsumexp, over
 // any number of heads (its device code reads the natural layout at 64
 // columns a head and never assumes d % 128 == 0; the lse layout is the only
@@ -69,7 +72,6 @@
 // and the same online softmax with p rounded to bf16 before P V. The TPU
 // kernel holds the whole key range of a row block in VMEM and takes one
 // softmax per head; on Hopper the keys go by tiles.
-// Not yet done for K6, K7, K8 and K5 at other widths: TMA and wgmma.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -579,6 +581,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a box of a 1-D tensor map at element c0 into shared memory
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(
+          saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
 // swizzle: start address, leading byte offset (unused by a K-major operand;
 // for the MN-major V, whose 64 columns are one swizzle atom wide, also
@@ -846,6 +857,19 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch, int t
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the shared-memory limit of `kernel` lifted to `bytes` once a device, not on
+// every launch
+template <typename Kernel>
+cudaError_t lift_smem(Kernel kernel, int bytes, bool (&lifted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && lifted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) lifted[dev] = true;
+  return err;
+}
+
 template <int kWG, int kStages>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
   EncodeTiled enc = encoder();
@@ -855,21 +879,428 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
       !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kBN))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem<kWG, kStages>) + 1024;  // + the alignment slack
-  // the limit is lifted once a device, not on every launch
-  constexpr int kMaxDevices = 64;
-  static bool lifted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool lifted[64] = {};
+  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kWG, kStages>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || !lifted[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<kWG, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) lifted[dev] = true;
-  }
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
   flash_fwd_sm90_kernel<kWG, kStages><<<grid, kWG * 128 + 32, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------- K6 on Hopper: TMA + wgmma
+//
+// Serves K6 (`flash_h2_bwd_bf16`); K8 stays on the WMMA kernels above.
+//
+// What bounds it on the H100: the tensor cores and the exps between the
+// products. The backward does 10 T Tk dh FLOPs a head (S, dP, dQ, dK, dV)
+// against ~8 T dh bytes, and recomputes p = exp(s scale - lse) for every
+// (query, key) pair. The design keeps p and dS in registers and the tiles
+// flowing through TMA, in two kernels as the TPU has them: each output is
+// written once by the CTA that owns it, with no atomics (the results are
+// the same from run to run) and no scratch (a one-pass design's dq
+// partials would need atomics or ~600 MB at the encoder shape). The
+// split does 7 products where the bound counts 5, and the exps twice.
+//   - Each CTA is one producer warpgroup, whose first thread starts every
+//     TMA load into a ring of stages (full / empty mbarriers, the maps and
+//     swizzle of K3's forward), and one or two consumer warpgroups. The
+//     producer gives its registers to the consumers (setmaxnreg 40 / 232:
+//     with the 168 registers a thread of a 288- or 384-thread CTA gets,
+//     the dq consumers spilled).
+//   - dq: one CTA per 128 queries of a (batch row, head) (64 where tq <= 64:
+//     the token bucket's cross shape). Q and dO are loaded once, then K and
+//     V tiles of 128 keys up to kv_len. S = Q K^T and dP = dO V^T run on
+//     wgmma m64n128k16 from shared memory; p and dS = p (dP - delta) scale
+//     are computed on the accumulator registers (lse and delta read once a
+//     row); dS is rounded to bf16 in registers and is the register A
+//     operand of dQ += dS K (m64n64k16, K as an MN-major B, as V is in the
+//     forward's P V). dQ stays in registers until the epilogue.
+//   - dkv: one CTA per 128 keys (64 where tk <= 64). K and V are loaded
+//     once; Q and dO tiles of 64 queries stream through the ring with the
+//     tile's lse and delta for both heads of the pair, loaded by 1-D maps
+//     over the h2 residuals (staged through a warp's loads instead, a
+//     global round trip a tile on the producer's path set dkv's time).
+//     S^T = K Q^T and dP^T = V dO^T run on m64n64k16 (Q and dO as K-major
+//     Bs); bf16(p)^T and bf16(dS)^T are the register A operands of dV +=
+//     P^T dO and dK += dS^T Q, the same Q and dO tiles read again as
+//     MN-major Bs. 64-query tiles keep dK, dV, S^T and dP^T at 32 fp32
+//     registers each.
+//   - In both, the last products of tile t and the first of tile t + 1 are
+//     on the tensor cores together, and the two consumer warpgroups share
+//     every stage, so one's exps overlap the other's products.
+//   - Masks: keys at or past kv_len give p = 0 (dq: -inf scores in the
+//     ragged tile; dkv: rows of the CTA's keys, and CTAs wholly past kv_len
+//     write zeros without loading); queries past tq give p = 0 (dq: an
+//     infinite lse; dkv: the columns past tq, whose residual boxes hold the
+//     next pair's or zeros), and TMA fills rows past tq and tk with zeros.
+//   - Scores in log2 units (ex2), which moves p by an fp32 rounding only.
+
+// d (m64n64 fp32, 32 a thread) (+)= A (64 x 16, shared, K-major) . B (n64 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// a thread's accumulator rows (g, g + 8 of its warp's 16) as bf16, rows < n_rows
+template <int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* base, const float (&x)[N], int row0, int n_rows, int d,
+                                          int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= n_rows) continue;
+    __nv_bfloat16* dst = base + (size_t)(row0 + 8 * r) * d + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+  }
+}
+
+// the register split of the backward's warpgroups: the producer gives up
+// registers that the consumers take (128 x (40 + 2 x 232) <= 65536)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// launch bounds of three warpgroups whatever kWG: the register count at
+// entry is then 168, which the split above raises and lowers
+constexpr int kBwdThreadsMax = 3 * 128;
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int kWG, int kStages>
+struct DqSmem {
+  alignas(1024) __nv_bfloat16 q[kWG * kBM * kDh];
+  alignas(1024) __nv_bfloat16 g[kWG * kBM * kDh];
+  alignas(1024) __nv_bfloat16 k[kStages][kBN * kDh];
+  alignas(1024) __nv_bfloat16 v[kStages][kBN * kDh];
+  uint64_t qg_full, full[kStages], empty[kStages];
+};
+
+// dq: one CTA per kWG x 64 queries of a (batch row, head); the producer
+// warpgroup loads Q and dO once, then K and V tiles of 128 keys up to kv_len
+template <int kWG, int kStages>
+__global__ void __launch_bounds__(kBwdThreadsMax, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, Shape sh) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& s = *reinterpret_cast<DqSmem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (sh.kv_len + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.qg_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], kWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWG * 4) {  // the producer warpgroup: one thread starts every load
+    reg_dealloc<kProducerRegs>();
+    if (warp == kWG * 4 && lane == 0) {
+      mbar_expect_tx(&s.qg_full, 2 * kWG * kBM * kRowB);
+      tma_load_3d(s.q, &tm_q, &s.qg_full, h * kDh, q0, b);
+      tma_load_3d(s.g, &tm_g, &s.qg_full, h * kDh, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
+        mbar_expect_tx(&s.full[st], 2 * kTileB);
+        tma_load_3d(s.k[st], &tm_k, &s.full[st], h * kDh, t * kBN, b);
+        tma_load_3d(s.v[st], &tm_v, &s.full[st], h * kDh, t * kBN, b);
+      }
+    }
+    return;
+  }
+  reg_alloc<kConsumerRegs>();
+
+  // rows wg * 64 + wq * 16 + {g, g + 8} of the CTA's queries; S and dP
+  // columns 8j + 2 t4 + {0, 1} of the key tile. dQ of tile t and S, dP of
+  // tile t + 1 are on the tensor cores together.
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + wg * kBM + wq * 16 + g;
+  const float sl2 = sh.scale * kLog2e;
+  float lse2[2], dlt[2];  // lse in log2 units and delta x scale; p = 0 on rows past tq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < sh.tq ? lse[res_index(sh, h, b, row)] * kLog2e : INFINITY;
+    dlt[r] = row < sh.tq ? delta[res_index(sh, h, b, row)] * sh.scale : 0.f;
+  }
+  float sc[64], dp[64], acc[32];
+  uint32_t da[kBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  mbar_wait(&s.qg_full, 0);
+  const uint64_t dq_desc = desc_sw128(s.q + wg * kBM * kDh), dg_desc = desc_sw128(s.g + wg * kBM * kDh);
+  // S = Q K^T and dP = dO V^T of tile t, 4 steps of 16 columns each
+  auto start_s = [&](int t) {
+    const int st = t % kStages;
+    mbar_wait(&s.full[st], (t / kStages) & 1);
+    const uint64_t dk = desc_sw128(s.k[st]), dv = desc_sw128(s.v[st]);
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(sc, dq_desc + 2 * kk, dk + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(dp, dg_desc + 2 * kk, dv + 2 * kk, kk);
+    wg_commit();
+  };
+  wg_fence();
+  start_s(0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages, k0 = t * kBN;
+    wg_wait<0>();  // S, dP of tile t, and dQ of tile t - 1
+    reg_fence(sc);
+    reg_fence(dp);
+    reg_fence(acc);
+    if (t > 0) mbar_arrive(&s.empty[(t - 1) % kStages]);
+    // p = exp(s scale - lse) (0 at keys past kv_len), dS = p (dP - delta)
+    // scale, rounded to bf16 pairs straight from the accumulators, which
+    // no other instruction writes (ptxas would serialize the products)
+    const int k_hi = sh.kv_len - k0;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = (i >> 1) & 1, key = 8 * (i / 4) + 2 * t4;
+      const float p0 = key < k_hi ? ex2(fmaf(sc[i], sl2, -lse2[r])) : 0.f;
+      const float p1 = key + 1 < k_hi ? ex2(fmaf(sc[i + 1], sl2, -lse2[r])) : 0.f;
+      da[i / 8][(i / 2) % 4] =
+          pack_bf16(p0 * fmaf(dp[i], sh.scale, -dlt[r]), p1 * fmaf(dp[i + 1], sh.scale, -dlt[r]));
+    }
+    wg_fence();
+    const uint64_t dk = desc_sw128(s.k[st]);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)  // dQ += bf16(dS) K: K as an MN-major B, 16 keys a step
+      wgmma_rs_m64n64(acc, da[kk], dk + (uint64_t)(kk * 16 * kRowB >> 4));
+    wg_commit();
+    if (t + 1 < n_tiles) start_s(t + 1);
+  }
+  wg_wait<0>();
+  reg_fence(acc);
+  mbar_arrive(&s.empty[(n_tiles - 1) % kStages]);
+  store_acc(dq + (size_t)b * sh.tq * sh.d + (size_t)h * kDh, acc, row0, sh.tq, sh.d, t4);
+}
+
+constexpr int kBQ = 64;  // queries a Q / dO tile of the dkv kernel holds
+// a residual box: the tile's (query, head % 2) pairs from the 16-byte
+// boundary at or below their first (a TMA box starts on one), so 4 more
+constexpr int kResBox = 2 * kBQ + 4;
+constexpr int kResRow = 2 * kBQ + 32;  // its row in shared memory: 640 bytes, so every row starts on 128
+
+template <int kWG, int kStages>
+struct DkvSmem {
+  alignas(1024) __nv_bfloat16 k[kWG * kBM * kDh];
+  alignas(1024) __nv_bfloat16 v[kWG * kBM * kDh];
+  alignas(1024) __nv_bfloat16 q[kStages][kBQ * kDh];
+  alignas(1024) __nv_bfloat16 g[kStages][kBQ * kDh];
+  // lse and delta of the tile's queries for both heads of the head pair,
+  // (query, head % 2) in the h2 residual layout, from the element
+  // (first & ~3): the tile's first pair is at (first & 3) = 0 or 2
+  alignas(128) float lse[kStages][kResRow];
+  alignas(128) float dlt[kStages][kResRow];
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+
+// dk, dv: one CTA per kWG x 64 keys of a (batch row, head); the producer
+// warpgroup loads K and V once, then Q and dO tiles of 64 queries with
+// their lse and delta, all by TMA from one thread. CTAs whose keys all lie
+// at or past kv_len write zeros.
+template <int kWG, int kStages>
+__global__ void __launch_bounds__(kBwdThreadsMax, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+                          const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dlt,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& s = *reinterpret_cast<DkvSmem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  const int k0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = k0 < sh.kv_len ? (sh.tq + kBQ - 1) / kBQ : 0;
+  const int res0 = ((h / sh.hpb) * sh.batch + b) * sh.tq * sh.hpb;  // this (head pair, batch row)'s residuals
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s.kv_full, 1);
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], kWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWG * 4) {  // the producer warpgroup: one thread starts every load
+    reg_dealloc<kProducerRegs>();
+    if (warp == kWG * 4 && lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(&s.kv_full, 2 * kWG * kBM * kRowB);
+      tma_load_3d(s.k, &tm_k, &s.kv_full, h * kDh, k0, b);
+      tma_load_3d(s.v, &tm_v, &s.kv_full, h * kDh, k0, b);
+      // a box past tq reads the next pair's residuals (masked below) or
+      // zeros past the end
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages, first = res0 + t * kBQ * sh.hpb;
+        if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
+        mbar_expect_tx(&s.full[st], 2 * kBQ * kRowB + 2 * kResBox * 4);
+        tma_load_3d(s.q[st], &tm_q, &s.full[st], h * kDh, t * kBQ, b);
+        tma_load_3d(s.g[st], &tm_g, &s.full[st], h * kDh, t * kBQ, b);
+        tma_load_1d(s.lse[st], &tm_lse, &s.full[st], first & ~3);
+        tma_load_1d(s.dlt[st], &tm_dlt, &s.full[st], first & ~3);
+      }
+    }
+    return;
+  }
+  reg_alloc<kConsumerRegs>();
+
+  // keys wg * 64 + wq * 16 + {g, g + 8} of the CTA's; S^T and dP^T columns
+  // (queries) 8j + 2 t4 + {0, 1} of the q tile. dV, dK of tile t and S^T,
+  // dP^T of tile t + 1 are on the tensor cores together.
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + wg * kBM + wq * 16 + g;
+  const bool live[2] = {key0 < sh.kv_len, key0 + 8 < sh.kv_len};
+  const bool odd = h % sh.hpb != 0;
+  const float sl2 = sh.scale * kLog2e;
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n_tiles > 0) {
+    float sc[32], dp[32];
+    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+    mbar_wait(&s.kv_full, 0);
+    const uint64_t dk_desc = desc_sw128(s.k + wg * kBM * kDh), dv_desc = desc_sw128(s.v + wg * kBM * kDh);
+    // S^T = K Q^T and dP^T = V dO^T of q tile t
+    auto start_s = [&](int t) {
+      const int st = t % kStages;
+      mbar_wait(&s.full[st], (t / kStages) & 1);
+      const uint64_t dq_desc = desc_sw128(s.q[st]), dg_desc = desc_sw128(s.g[st]);
+#pragma unroll
+      for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n64(sc, dk_desc + 2 * kk, dq_desc + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n64(dp, dv_desc + 2 * kk, dg_desc + 2 * kk, kk);
+      wg_commit();
+    };
+    wg_fence();
+    start_s(0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      wg_wait<0>();  // S^T, dP^T of tile t, and dV, dK of tile t - 1
+      reg_fence(sc);
+      reg_fence(dp);
+      reg_fence(acc_k);
+      reg_fence(acc_v);
+      if (t > 0) mbar_arrive(&s.empty[(t - 1) % kStages]);
+      const int q_hi = sh.tq - t * kBQ;  // columns at or past it are queries past tq: p = 0
+      const int first = (res0 + t * kBQ * sh.hpb) & 3;  // the tile's first pair in its residual box
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j) {
+        // (lse, delta) of queries 8j + 2 t4 and + 1, both heads of the pair
+        const float* lp = &s.lse[st][first + 16 * j + 4 * t4];
+        const float* dl = &s.dlt[st][first + 16 * j + 4 * t4];
+        const float2 l0 = *reinterpret_cast<const float2*>(lp), l1 = *reinterpret_cast<const float2*>(lp + 2);
+        const float2 d0 = *reinterpret_cast<const float2*>(dl), d1 = *reinterpret_cast<const float2*>(dl + 2);
+        const float lse2[2] = {(odd ? l0.y : l0.x) * kLog2e, (odd ? l1.y : l1.x) * kLog2e};
+        const float dlt[2] = {(odd ? d0.y : d0.x) * sh.scale, (odd ? d1.y : d1.x) * sh.scale};
+        // the pairs (e, e + 1) of rows key0 (e = 0) and key0 + 8 (e = 2),
+        // rounded to bf16 straight from the accumulators, as in dq
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * j + e;
+          const bool on0 = live[e >> 1] && 8 * j + 2 * t4 < q_hi, on1 = live[e >> 1] && 8 * j + 2 * t4 + 1 < q_hi;
+          const float p0 = on0 ? ex2(fmaf(sc[i], sl2, -lse2[0])) : 0.f;
+          const float p1 = on1 ? ex2(fmaf(sc[i + 1], sl2, -lse2[1])) : 0.f;
+          pa[i / 8][(i / 2) % 4] = pack_bf16(p0, p1);
+          da[i / 8][(i / 2) % 4] = pack_bf16(on0 ? p0 * fmaf(dp[i], sh.scale, -dlt[0]) : 0.f,
+                                             on1 ? p1 * fmaf(dp[i + 1], sh.scale, -dlt[1]) : 0.f);
+        }
+      }
+      wg_fence();
+      const uint64_t dq_desc = desc_sw128(s.q[st]), dg_desc = desc_sw128(s.g[st]);
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)  // dV += bf16(P)^T dO: dO as an MN-major B, 16 queries a step
+        wgmma_rs_m64n64(acc_v, pa[kk], dg_desc + (uint64_t)(kk * 16 * kRowB >> 4));
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)  // dK += bf16(dS)^T Q: Q as an MN-major B
+        wgmma_rs_m64n64(acc_k, da[kk], dq_desc + (uint64_t)(kk * 16 * kRowB >> 4));
+      wg_commit();
+      if (t + 1 < n_tiles) start_s(t + 1);
+    }
+    wg_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    mbar_arrive(&s.empty[(n_tiles - 1) % kStages]);
+  }
+  const size_t off = (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
+  store_acc(dk + off, acc_k, key0, sh.tk, sh.d, t4);
+  store_acc(dv + off, acc_v, key0, sh.tk, sh.d, t4);
+}
+
+template <int kWG, int kStages>
+int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+           void* dq, const Shape& sh, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_g;
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) || !encode(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kWG * kBM) ||
+      !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kBN) || !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kBN))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(DqSmem<kWG, kStages>) + 1024;  // + the alignment slack
+  static bool lifted[64] = {};
+  cudaError_t err = lift_smem(flash_bwd_dq_sm90_kernel<kWG, kStages>, smem, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
+  flash_bwd_dq_sm90_kernel<kWG, kStages><<<grid, (kWG + 1) * 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), sh);
+  return (int)cudaGetLastError();
+}
+
+// an h2 residual (D/128, B, Tq, 2) fp32 as a 1-D map, boxes of one q tile's
+// (query, head % 2) pairs
+bool encode_res(EncodeTiled enc, CUtensorMap* map, const void* ptr, const Shape& sh) {
+  const cuuint64_t dims[1] = {(cuuint64_t)(sh.n_head / sh.hpb) * sh.batch * sh.tq * sh.hpb};
+  const cuuint64_t strides[1] = {4};  // none at rank 1
+  const cuuint32_t box[1] = {(cuuint32_t)kResBox};
+  const cuuint32_t elem[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kWG, int kStages>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+            void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt;
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kBQ) || !encode(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kBQ) ||
+      !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kWG * kBM) || !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kWG * kBM) ||
+      !encode_res(enc, &tm_lse, lse, sh) || !encode_res(enc, &tm_dlt, delta, sh))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(DkvSmem<kWG, kStages>) + 1024;
+  static bool lifted[64] = {};
+  cudaError_t err = lift_smem(flash_bwd_dkv_sm90_kernel<kWG, kStages>, smem, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tk + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
+  flash_bwd_dkv_sm90_kernel<kWG, kStages><<<grid, (kWG + 1) * 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
@@ -884,6 +1315,21 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void
     return (int)cudaErrorMisalignedAddress;
   if (sh.tq <= sm90::kBM) return sm90::run<1, 2>(q, k, v, out, lse, sh, (cudaStream_t)stream);
   return sm90::run<2, 4>(q, k, v, out, lse, sh, (cudaStream_t)stream);
+}
+
+// K6: (dq, dk, dv) of the non-causal forward over the natural layout
+int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* delta, void* dq, void* dk, void* dv, const Shape& sh, void* stream) {
+  if (bad_shape(sh) || sh.q_offset != 0 || sh.hpb != 2) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  auto s = (cudaStream_t)stream;
+  const int err = sh.tq <= sm90::kBM ? sm90::run_dq<1, 2>(q, k, v, dout, lse, delta, dq, sh, s)
+                                     : sm90::run_dq<2, 4>(q, k, v, dout, lse, delta, dq, sh, s);
+  if (err != 0) return err;
+  return sh.tk <= sm90::kBM ? sm90::run_dkv<1, 2>(q, k, v, dout, lse, delta, dk, dv, sh, s)
+                            : sm90::run_dkv<2, 4>(q, k, v, dout, lse, delta, dk, dv, sh, s);
 }
 
 // ------------------------------------------------- K5 at any head width
@@ -1061,7 +1507,7 @@ extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, co
                                  const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
                                  int n_head, int kv_len, float scale, void* stream) {
   Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
+  return launch_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
 // K7: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32

@@ -61,9 +61,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "decode_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "decode_attn_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, k_scale, v, v_scale, out, layer, n_layer, batch, group, tk, d,
-        # n_head, tk_blk, valid_upto, scale, stream
-        "decode_attn_i8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-        "decode_attn_i8_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        # n_head, tk_blk, valid_upto, split (the cluster size, `k1_plan`), scale, stream
+        "decode_attn_i8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "decode_attn_i8_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "topk": {
         # x, values, indices, rows, v, k, stream

@@ -9,8 +9,11 @@ and the int8 block geometry `_i8_blocks` / `i8_supported` (:294-323).
 
 K1's numbers depend on its key-block size: p is quantized to int8 per
 (row, block) relative to the running max. The block size `tk_blk` therefore
-comes from `_i8_blocks`, as on the TPU, and both the kernel and the plain
-version walk the blocks in order.
+comes from `_i8_blocks`, as on the TPU, and the plain version walks the
+blocks in order. The kernel splits the valid blocks of each (cache row,
+head) across a thread-block cluster of S CTAs, each walking its chunk in
+order from its own running max; `k1_plan` picks S and `k1_chunks` gives
+each CTA's keys.
 
 K2 splits the valid keys of each (cache row, head) across a thread-block
 cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
@@ -263,6 +266,37 @@ def decode_attention_i8_plain(
     return out
 
 
+# K1's launch plan; the constants mirror `csrc/decode_attention.cu`
+_K1_RESIDENT = 2 * 132  # K1 CTAs in one wave: 2 on each of an H100's 132 streaming multiprocessors
+K1_MAX_SPLIT = 8  # CTAs a cluster: the portable limit
+K1_ROWS = 16  # query rows a CTA takes; a larger group takes more clusters
+
+
+def k1_n_blocks(tk: int, tk_blk: int, valid_upto: Optional[int]) -> int:
+    """Key blocks of `tk_blk` that hold a valid key: the blocks K1 reads."""
+    return -(-k2_n_valid(tk, valid_upto) // tk_blk)
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_plan(batch: int, n_head: int, n_blocks: int, group: int = 1) -> int:
+    """S, the CTAs of K1's cluster for one (cache row, head, 16 query rows)
+    over `n_blocks` valid key blocks: as many as keep the grid within the
+    card's resident CTAs, at most K1_MAX_SPLIT and at most one block a CTA;
+    then as few as give the same longest chunk (ceil(n_blocks / S) blocks)."""
+    ctas = batch * n_head * -(-group // K1_ROWS)
+    split = max(1, min(K1_MAX_SPLIT, n_blocks, _K1_RESIDENT // ctas))
+    return -(-n_blocks // -(-n_blocks // split))
+
+
+def k1_chunks(n_keys: int, tk_blk: int, split: int):
+    """[(lo, hi)] of the keys each CTA of K1's cluster reads, as the kernel
+    cuts them: whole blocks of tk_blk, CTA r taking blocks
+    [r * nb // S, (r + 1) * nb // S) of the nb blocks that hold keys < n_keys."""
+    nb = -(-n_keys // tk_blk)
+    return [(min(n_keys, (r * nb // split) * tk_blk), min(n_keys, ((r + 1) * nb // split) * tk_blk))
+            for r in range(split)]
+
+
 def decode_attention_i8(
     q: torch.Tensor, cache_k: torch.Tensor, k_scale: torch.Tensor, cache_v: torch.Tensor,
     v_scale: torch.Tensor, layer: int, n_head: int,
@@ -289,12 +323,18 @@ def decode_attention_i8(
         raise ValueError(f"decode_attention_i8: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)}")
     if not all(t.is_contiguous() for t in (cache_k, cache_v, k_scale, v_scale)):
         raise ValueError("decode_attention_i8: caches and scales must be contiguous")
-    q = q.contiguous()
+    return _launch_k1(q.contiguous(), cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, valid_upto, group,
+                      blocks[1])
+
+
+def _launch_k1(q, cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, valid_upto, group, tk_blk):
+    n_layer, b, tk, d = cache_k.shape
+    split = k1_plan(b, n_head, k1_n_blocks(tk, tk_blk, valid_upto), group)
     out = torch.empty_like(q)
     fn = "decode_attn_i8_bf16" if q.dtype == torch.bfloat16 else "decode_attn_i8_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(
         q.data_ptr(), cache_k.data_ptr(), k_scale.data_ptr(), cache_v.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), int(layer), n_layer, b, group, tk, d, n_head, blocks[1], _valid(valid_upto),
+        out.data_ptr(), int(layer), n_layer, b, group, tk, d, n_head, tk_blk, _valid(valid_upto), split,
         float(scale), _cuda.stream_handle(q.device),
     )
     _cuda.check("decode_attention", fn, code)

@@ -128,7 +128,8 @@ BEAM_OPTIONS = dict(BASE_OPTIONS, beam_size=BEAM)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # kernels whose calls at small shapes are mostly the host's launch cost: their
 # device time alone is measured too, as one call's share of a CUDA graph
-DEVICE_TIMED = ("decode_attention", "flash_attention_h2", "flash_attention_h2_lse", "flash_attention_mh")
+DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
+                "flash_attention_h2_bwd", "flash_attention_mh")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -214,15 +215,22 @@ def heads(x, n_head: int, n_keys=None):
 
 def make_recorder(card: str, rows: list):
     """record(name, case, source, replaces, got, want, tol, run_kernel,
-    run_plain, bound=(ms, by), library=None, main=True, plain_iters=20):
-    check and time one kernel (the plain version over `plain_iters` calls). `got`/`want`/`tol` may be lists (one per output); a `tol` is
-    one number or a tensor of per-output bounds on |kernel - plain|."""
+    run_plain, bound=(ms, by), library=None, main=True, plain_iters=20,
+    repeat=False): check and time one kernel (the plain version over
+    `plain_iters` calls). `got`/`want`/`tol` may be lists (one per output); a `tol` is
+    one number or a tensor of per-output bounds on |kernel - plain|. With
+    `repeat`, one more launch must give `got` bit for bit."""
     import torch
 
     def record(name, case, source, replaces, got, want, tol, run_kernel, run_plain, *, bound, library=None,
-               main=True, plain_iters=20):
+               main=True, plain_iters=20, repeat=False):
         torch.cuda.synchronize()
         gots, wants, tols = (x if isinstance(x, list) else [x] for x in (got, want, tol))
+        if repeat:
+            again = run_kernel()
+            again = list(again) if isinstance(again, (tuple, list)) else [again]
+            if not all(torch.equal(a, g) for a, g in zip(again, gots)):
+                raise AssertionError(f"{name} {case}: a second launch gave other bits")
         err, worst, ref, finite = 0.0, 0.0, 0.0, True
         for g, w, t in zip(gots, wants, tols):
             if isinstance(t, str):  # "exact": same values, NaN at the same places (min/max and int traces round nothing)
@@ -246,8 +254,9 @@ def make_recorder(card: str, rows: list):
         ok = worst <= 1.0 and finite
         lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         dev_s = f" (device {device_ms:.4f} ms)" if device_ms is not None else ""
+        rep_s = ", bitwise on a second launch" if repeat else ""
         print(f"[kernel] {name} {case}: max_abs_err={err:.3e} (tol {tol_s}; max|ref| {ref:.3e}), "
-              f"worst err/tol {worst:.3f}; kernel {ms:.4f} ms{dev_s}, plain {plain_ms:.4f} ms, library {lib_s}, "
+              f"worst err/tol {worst:.3f}{rep_s}; kernel {ms:.4f} ms{dev_s}, plain {plain_ms:.4f} ms, library {lib_s}, "
               f"bound {bound_ms:.4f} ms ({bound_by}) [{card}] {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {case}: max_abs_err {err}, worst err/tol {worst} (tol {tol_s})")
@@ -321,7 +330,8 @@ def check_train_kernels(card: str, train_buckets, val_buckets):
                lambda: FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
                lambda: FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw),
                bound=attn_bound(b * tq * n_keys * 512, 2 * io + 2 * lse.numel() * 4, mults=10),
-               library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), main=main)
+               library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), main=main,
+               repeat=True)
         if tq in val_buckets:  # evaluate's cross-attention: K3 without lse
             record("flash_attention_h2", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
                    FA.flash_attention_h2(q, k, v, **kw), pout, rel_tol(pout),
@@ -499,7 +509,8 @@ def check_kernels(card: str):
     # tk_blk, p quantized once instead of per block, or a dropped 1500..1535
     # tail mask each exceed that bound 3-1100x (emulated with the plain
     # version on the CPU at these shapes). The order of the blocks cannot
-    # show: the running max cancels in p*v_scale / sp.
+    # show: the running max cancels in p*v_scale / sp; so does the kernel's
+    # split of the blocks across a cluster, each CTA from its own running max.
     ck8, cks = DA.quantize_kv_rows(cross_k)
     cv8, cvs = DA.quantize_kv_rows(cross_v)
     sk8, sks = DA.quantize_kv_rows(self_k)
@@ -520,7 +531,7 @@ def check_kernels(card: str):
         record("decode_attention_i8", case, "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu",
                "asr_ttl_mtl_tpu/ops/decode_attention.py:186", got, want, tol,
                lambda: DA.decode_attention_i8(qd, *args, 5, 8, **kw),
-               lambda: DA.decode_attention_i8_plain(qd, *args, 5, 8, **kw), bound=i8_bound, main=main)
+               lambda: DA.decode_attention_i8_plain(qd, *args, 5, 8, **kw), bound=i8_bound, main=main, repeat=True)
 
     # K1 and K2 at group 5, as the beam paths run cross-attention: the 5
     # beams (or best-of candidates) of a window share its cross K/V row.
@@ -584,17 +595,28 @@ def check_kernels(card: str):
                bound=attn_bound(b * n_keys * 512, 2 * b * n_keys * 512 * 2),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False)
     del long_k, long_v
-    kw = dict(scale=scale, valid_upto=1499, group=BEAM)
-    want, flip = DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, return_flip_bound=True, **kw)
-    ref = want.float().abs()
-    record("decode_attention_i8",
-           f"cross (6,32,1536,512) int8, q ({N_WINDOWS * BEAM},1,512), group {BEAM}, valid_upto 1499, tk_blk 256",
-           "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
-           DA.decode_attention_i8(qg, ck8, cks, cv8, cvs, 5, 8, **kw), want,
-           (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
-           lambda: DA.decode_attention_i8(qg, ck8, cks, cv8, cvs, 5, 8, **kw),
-           lambda: DA.decode_attention_i8_plain(qg, ck8, cks, cv8, cvs, 5, 8, **kw),
-           bound=bound(4 * N_WINDOWS * BEAM * 1500 * 512, 2 * N_WINDOWS * 1500 * (512 + 4), "int8"), main=False)
+    # K1 at the beam's group 5 and at group 16 over the 32 windows' store,
+    # and over one window (tk_blk 512: three blocks, a cluster of 3), each
+    # cache byte read once a call whatever the group
+    ck1 = [x[:, :1].contiguous() for x in (ck8, cks, cv8, cvs)]
+    for b, group, args in ((N_WINDOWS, BEAM, (ck8, cks, cv8, cvs)), (N_WINDOWS, 16, (ck8, cks, cv8, cvs)),
+                           (1, 1, ck1), (1, BEAM, ck1)):
+        q = qg if group == BEAM and b == N_WINDOWS else torch.randn((b * group, 1, 512), generator=gen,
+                                                                    device=dev).bfloat16()
+        kw = dict(scale=scale, valid_upto=1499, group=group)
+        want, flip = DA.decode_attention_i8_plain(q, *args, 5, 8, return_flip_bound=True, **kw)
+        ref = want.float().abs()
+        tk_blk = DA._i8_blocks(b, 1536, 512)[1]
+        split = DA.k1_plan(b, 8, DA.k1_n_blocks(1536, tk_blk, 1499), group)
+        record("decode_attention_i8",
+               f"cross (6,{b},1536,512) int8, q ({b * group},1,512), group {group}, valid_upto 1499, "
+               f"tk_blk {tk_blk}, cluster {split}",
+               "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+               DA.decode_attention_i8(q, *args, 5, 8, **kw), want,
+               (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
+               lambda: DA.decode_attention_i8(q, *args, 5, 8, **kw),
+               lambda: DA.decode_attention_i8_plain(q, *args, 5, 8, **kw),
+               bound=bound(4 * b * group * 1500 * 512, 2 * b * 1500 * (512 + 4), "int8"), main=False, repeat=True)
     return rows
 
 

@@ -32,7 +32,10 @@ def _close(got, want, atol=ATOL):
 
 # ------------------------------------------------------- K3 lse and K6 ------
 
-H2_CASES = [(64, 64, None), (64, 200, None), (200, 64, None), (200, 200, 150), (64, 200, 130)]
+# tq 48 is the token bucket's one ragged q tile; tk 200 with kv_valid_len 130
+# leaves a ragged, partly masked last key tile
+H2_CASES = [(64, 64, None), (64, 200, None), (200, 64, None), (200, 200, 150), (64, 200, 130), (48, 200, 130),
+            (48, 48, None)]
 
 
 @pytest.mark.parametrize("tq,tk,kv_valid_len", H2_CASES)
@@ -211,6 +214,28 @@ def test_k3_lse_and_k6_kernels_on_card(cuda_device, tq, tk, kv_valid_len):  # no
     for a, c in zip(PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
                     PF.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw)):
         _assert_card_close(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,kv_valid_len", [(48, 1500, None), (64, 1500, None), (200, 1500, None),
+                                                (1536, 1536, 1500), (1536, 1500, None), (48, 92, None),
+                                                (200, 220, 150)])
+def test_k6_kernel_on_card_edges(cuda_device, tq, tk, kv_valid_len):  # noqa: F811
+    """K6 at the edges of its dq and dkv kernels: one (tq <= 64) or two
+    consumer warpgroups, a ragged q tile, 1500 keys (a tail key tile of 92),
+    kv_valid_len inside a tile and one key tile of 92; two launches give the
+    same bits, and masked keys get zero dk and dv."""
+    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq + tk)
+    kw = dict(n_head=8, kv_valid_len=kv_valid_len, scale=0.125)
+    pout, plse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    delta = PF.h2_delta(g, pout, 8)
+    got = PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw)
+    again = PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw)
+    for a, b, c in zip(got, again, PF.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw)):
+        _assert_card_close(a, c)
+        assert torch.equal(a, b)
+    if kv_valid_len is not None:
+        assert not got[1][:, kv_valid_len:].any() and not got[2][:, kv_valid_len:].any()
 
 
 @pytest.mark.cuda

@@ -187,6 +187,145 @@ def test_k1_plain_matches_pallas(b, group, tk, valid, tk_blk):
     assert np.mean(diff <= ATOL) > 0.99
 
 
+@pytest.mark.parametrize("batch", [1, 4, 32, 160])
+@pytest.mark.parametrize("tk,valid", [(128, 70), (512, 37), (512, 255), (512, 256), (896, 800), (1536, 1499),
+                                      (1536, None)])
+@pytest.mark.parametrize("group", [1, 5, 16, 20])
+def test_k1_plan_chunks_cover_the_valid_blocks(batch, tk, valid, group):
+    """S is a cluster size the card takes and no larger than the valid
+    blocks; every CTA gets whole tk_blk blocks; the chunks cover exactly
+    [0, n_valid) in order; the grid stays within the resident CTAs unless
+    S is 1."""
+    tk_blk = PD._i8_blocks(batch, tk, 512)[1]
+    n_valid = PD.k2_n_valid(tk, valid)
+    n_blocks = PD.k1_n_blocks(tk, tk_blk, valid)
+    assert n_blocks == -(-n_valid // tk_blk)
+    split = PD.k1_plan(batch, 8, n_blocks, group)
+    assert 1 <= split <= min(PD.K1_MAX_SPLIT, n_blocks)
+    chunks = PD.k1_chunks(n_valid, tk_blk, split)
+    assert len(chunks) == split
+    assert chunks[0][0] == 0 and chunks[-1][1] == n_valid
+    assert all(hi > lo for lo, hi in chunks)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(lo % tk_blk == 0 and (hi % tk_blk == 0 or hi == n_valid) for lo, hi in chunks)
+    # the longest chunk is as short as the plan's S allows, and no S' < S gives it
+    longest = max(-(-(hi - lo) // tk_blk) for lo, hi in chunks)
+    assert longest == -(-n_blocks // split)
+    assert split == 1 or -(-n_blocks // (split - 1)) > longest
+    ctas = batch * 8 * -(-group // PD.K1_ROWS)
+    assert split == 1 or ctas * split <= PD._K1_RESIDENT
+
+
+def test_k1_plan_examples():
+    """The rule's examples at base: 32 windows' cross store (6 valid blocks
+    of 256) already fills the card with 1 CTA a (row, head), at group 5
+    and 16 too; one window (3 blocks of 512) takes 3, at groups 5 and 16
+    too; 8 windows could take 4 but take 3, which gives the same longest
+    chunk (2 blocks); a one-block self cache takes 1."""
+    assert PD.k1_plan(32, 8, 6) == 1
+    assert PD.k1_plan(32, 8, 6, 5) == 1
+    assert PD.k1_plan(32, 8, 6, 16) == 1
+    assert PD.k1_plan(1, 8, 3) == 3
+    assert PD.k1_plan(1, 8, 3, 5) == 3
+    assert PD.k1_plan(1, 8, 3, 16) == 3
+    assert PD.k1_plan(8, 8, 6) == 3
+    assert PD.k1_plan(1, 8, 1) == 1
+
+
+def _k1_split_plain(q, ki, ks, vi, vs, layer, n_head, *, scale, valid_upto, group, split):
+    """Test-only emulation of the split K1 with the plain version's
+    arithmetic: CTA r of the cluster walks the whole key blocks of
+    `k1_chunks(...)[r]` in order from its own running max; the partials
+    (m, l, acc) are then combined in rank order."""
+    _, b, tk, d = ki.shape
+    tk_blk = PD._i8_blocks(b, tk, d)[1]
+    dh = d // n_head
+    n_valid = PD.k2_n_valid(tk, valid_upto)
+    qh = q.reshape(b, group, n_head, dh).float()
+    sq = PD.int8_step(qh.abs().amax(dim=-1, keepdim=True), 1e-20)
+    qi = torch.round(qh / sq).double()
+    parts = []
+    for lo, hi in PD.k1_chunks(n_valid, tk_blk, split):
+        m = torch.full((b, group, n_head, 1), PD._NEG_INF)
+        l = torch.zeros((b, group, n_head, 1))
+        acc = torch.zeros((b, group, n_head, dh))
+        for k0 in range(lo, hi, tk_blk):
+            kb = ki[layer, :, k0:k0 + tk_blk].reshape(b, tk_blk, n_head, dh).double()
+            vb = vi[layer, :, k0:k0 + tk_blk].reshape(b, tk_blk, n_head, dh).double()
+            ksb = ks[layer, :, k0:k0 + tk_blk][:, None, None, :]
+            vsb = vs[layer, :, k0:k0 + tk_blk][:, None, None, :]
+            sc = torch.einsum("bghd,bkhd->bghk", qi, kb).float() * (sq * scale) * ksb
+            masked = torch.arange(k0, k0 + tk_blk) >= n_valid
+            sc = torch.where(masked, PD._NEG_INF, sc)
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.where(masked, 0.0, torch.exp(sc - m_new))
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1, keepdim=True)
+            m = m_new
+            pv = p * vsb
+            sp = PD.int8_step(pv.amax(dim=-1, keepdim=True), 1e-30)
+            o32 = torch.einsum("bghk,bkhd->bghd", torch.round(pv / sp).double(), vb).float()
+            acc = acc * corr + o32 * sp
+        parts.append((m, l, acc))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = torch.zeros_like(parts[0][1])
+    acc_all = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.exp(m - m_all)
+        l_all = l_all + l * f
+        acc_all = acc_all + acc * f
+    return (acc_all / torch.where(l_all == 0.0, 1.0, l_all)).to(q.dtype).reshape(b * group, 1, d)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 6])
+@pytest.mark.parametrize("b,group,tk,valid", [(2, 1, 896, 800), (3, 2, 896, None)])
+def test_k1_split_keeps_the_contract(split, b, group, tk, valid):
+    """The split K1 (each chunk of whole blocks from its own running max,
+    partials combined in rank order) against the JAX kernel in interpret
+    mode, within test_k1_plain_matches_pallas's tolerance: the running max
+    cancels in p*v_scale / sp up to an fp32 rounding, which the flip bound
+    covers. 7 blocks of 128 keys, so S = 6 gives chunks of 1 and 2 blocks."""
+    assert PD._i8_blocks(b, tk, 128)[1] == 128
+    q, ck, cv = _decode_inputs(b, group, 2, tk, 128, seed=8)
+    ki, ks = JD.quantize_kv_rows(jnp.asarray(ck))
+    vi, vs = JD.quantize_kv_rows(jnp.asarray(cv))
+    kw = dict(scale=64**-0.5, valid_upto=valid, group=group)
+    want = np.asarray(JD.decode_attention_i8(q, ki, ks, vi, vs, 1, 2, interpret=True, **kw))
+    args = (_t(q), _t(ki), _t(ks), _t(vi), _t(vs), 1, 2)
+    _, flip = PD.decode_attention_i8_plain(*args, return_flip_bound=True, **kw)
+    got = _k1_split_plain(*args, split=split, **kw)
+    if split == 1:  # one CTA is the sequential walk
+        assert torch.equal(got, PD.decode_attention_i8_plain(*args, **kw))
+    diff = np.abs(got.numpy() - want)
+    assert np.all(diff <= ATOL + flip.numpy()), (diff - flip.numpy()).max()
+    assert np.mean(diff <= ATOL) > 0.99
+
+
+@pytest.mark.parametrize("group,valid", [(1, None), (5, 1499), (16, 37), (20, 0)])
+def test_k1_one_launch_with_the_plan(monkeypatch, group, valid):
+    """The wrapper makes one kernel call with tk_blk from _i8_blocks and the
+    cluster size k1_plan gives, and counts one launch."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES
+
+    fake = _FakeK2Lib()
+    monkeypatch.setattr(PD._cuda, "lib", lambda name: fake)
+    monkeypatch.setattr(PD._cuda, "stream_handle", lambda device: 0)
+    b, tk = 2, 1536
+    q = torch.zeros((b * group, 1, 512), dtype=torch.bfloat16)
+    ck = torch.zeros((2, b, tk, 512), dtype=torch.int8)
+    sc = torch.zeros((2, b, tk))
+    tk_blk = PD._i8_blocks(b, tk, 512)[1]
+    before = LAUNCHES["decode_attention_i8"]
+    PD._launch_k1(q, ck, sc, ck, sc, 1, 8, 0.125, valid, group, tk_blk)
+    assert LAUNCHES["decode_attention_i8"] == before + 1
+    assert len(fake.calls) == 1
+    name, args = fake.calls[0]
+    assert name == "decode_attn_i8_bf16"
+    # q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk, valid_upto, split, scale, stream
+    assert args[6:16] == (1, 2, b, group, tk, 512, 8, tk_blk, -1 if valid is None else valid,
+                          PD.k1_plan(b, 8, PD.k1_n_blocks(tk, tk_blk, valid), group))
+
+
 def test_k1_flip_bound_separates_block_sizes():
     """The flip bound is tight enough to tell key blocks apart: the same
     four cache rows at b=4 (tk_blk 512) and as half of b=8 (tk_blk 256)
@@ -309,6 +448,30 @@ def test_k1_kernel_on_card(cuda_device):  # noqa: F811
     # per output: what p rounding flips can move, one bf16 rounding, fp32 noise
     tol = (1 + 2.0**-7) * flip + 2.0**-7 * want.abs() + 1e-5 * want.abs().max()
     assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,group,tk,valid", [(1, 1, 1536, 1499), (1, 5, 1536, 1499), (4, 16, 1536, 1499),
+                                              (2, 20, 1536, 1000), (32, 1, 1536, 1499), (4, 1, 512, 37),
+                                              (8, 1, 512, 255), (8, 1, 512, 256), (4, 1, 128, 70),
+                                              (4, 5, 448, 300)])
+def test_k1_kernel_on_card_split_edges(cuda_device, b, group, tk, valid):  # noqa: F811
+    """K1's cluster split at its edges: batch 1 (tk_blk 512, S 3), groups 1,
+    5, 16 and 20 (two row chunks), valid_upto inside the first block and at
+    either side of a block boundary, and self caches of 128 and 448 (padded
+    to 512) rows; within the flip bound of the plain version, and two
+    launches give the same bits."""
+    q, ck, cv = _decode_inputs(b, group, 2, tk, 512, seed=9)
+    ki, ks = PD.quantize_kv_rows(_t(ck).to(cuda_device))
+    vi, vs = PD.quantize_kv_rows(_t(cv).to(cuda_device))
+    qd = _t(q).to(cuda_device, torch.bfloat16)
+    kw = dict(scale=0.125, valid_upto=valid, group=group)
+    want, flip = PD.decode_attention_i8_plain(qd, ki, ks, vi, vs, 1, 8, return_flip_bound=True, **kw)
+    want = want.float()
+    got = PD.decode_attention_i8(qd, ki, ks, vi, vs, 1, 8, **kw)
+    assert torch.equal(got, PD.decode_attention_i8(qd, ki, ks, vi, vs, 1, 8, **kw))
+    tol = (1 + 2.0**-7) * flip + 2.0**-7 * want.abs() + 1e-5 * want.abs().max()
+    assert ((got.float() - want).abs() <= tol).all()
 
 
 @pytest.mark.cuda
