@@ -208,8 +208,8 @@ class DecodingTask:
         if model.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
             raise ValueError(
                 f"fp16={options.fp16} with a {model.compute_dtype} model computes in {self.compute_dtype}, but the "
-                "card's encoder attention kernel (K3) takes bf16 only (ROADMAP item 9): decode on the card with "
-                "fp16=True and a bf16 model, or on the CPU"
+                "card's encoder attention kernel (K3) takes bf16 only (ROADMAP: fp32 in the card's attention "
+                "kernels): decode on the card with fp16=True and a bf16 model, or on the CPU"
             )
         self.kv_quant = bool(options.kv_quant)
         self.int8_encoder = bool(options.int8_encoder)

@@ -124,7 +124,8 @@ class MultiTaskTrainer:
         self.compute_dtype = _DTYPES[config.compute_dtype]
         if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
             raise NotImplementedError(
-                "compute_dtype='float32' on CUDA: the attention kernels take bf16 (ROADMAP item 9)"
+                "compute_dtype='float32' on CUDA: the attention kernels take bf16 "
+                "(ROADMAP: fp32 in the card's attention kernels)"
             )
         self.model = self._load_base_model()
         self._expand_vocabulary()

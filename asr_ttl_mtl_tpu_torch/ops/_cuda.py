@@ -40,8 +40,9 @@ _F = ctypes.c_float
 # C signatures, one table per library: name -> (argtypes)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "mel": {
-        # padded audio, cos, sin, mel_t, out, batch, padded_len, n_frames, n_mels, stream
-        "log_mel_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # padded audio, consts (`dft_constants`), mel lo, hi, offsets, weights (`mel_ranges`), out,
+        # batch, padded_len, n_frames, n_mels, stream
+        "log_mel_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "flash_attention": {
         # q, k, v, out, lse (or null), batch, tq, tk, d, n_head, kv_len, scale, stream
@@ -66,11 +67,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "decode_attn_i8_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "topk": {
-        # x, values, indices, rows, v, k, stream
-        "topk_logprobs_bf16": (_P, _P, _P, _I, _I, _I, _P),
-        "topk_logprobs_f32": (_P, _P, _P, _I, _I, _I, _P),
-        "topk_bf16": (_P, _P, _P, _I, _I, _I, _P),
-        "topk_f32": (_P, _P, _P, _I, _I, _I, _P),
+        # x, values, indices, rows, v, k, split (the cluster size, `k9_plan`), stream
+        "topk_logprobs_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "topk_logprobs_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "topk_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "topk_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+        # the largest cluster the card schedules (or a negative CUDA error)
+        "topk_max_split": (),
     },
     "median": {
         # x, out, rows, t, width, stream

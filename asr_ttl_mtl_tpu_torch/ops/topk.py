@@ -13,17 +13,57 @@ values listed as often as they occur. The plain versions rank the raw fp32
 values with a stable descending sort (`torch.topk` leaves the order of
 ties open). K9's values are (x - max) - log(sum(exp(x - max))) at the
 chosen entries; the kernel's sum runs in another order, about 1 ulp apart.
+
+The kernel splits each row across a thread-block cluster of S CTAs, each
+reading one contiguous slice of the row (`k9_slices`); `k9_plan` picks S
+from the row count and the card's SM count, so that the CLI's 5 rows still
+fill the card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import torch
 
 from . import LAUNCHES, _cuda
 
 MAX_K = 32  # the kernel keeps at most 32 (value, index) pairs per thread
+
+# K9's launch plan; the constants mirror `csrc/topk.cu`
+K9_MAX_SPLIT = 16  # CTAs a cluster; above 8 the card must allow the non-portable size
+K9_MIN_SLICE = 2048  # elements a CTA reads at least (one 16-byte bf16 vector for each of 256 threads)
+_SM_COUNT = 132  # an H100 SXM's streaming multiprocessors
+
+
+@functools.lru_cache(maxsize=4096)  # a decode step asks the same few questions every call
+def k9_plan(rows: int, v: int, sm_count: int = _SM_COUNT, max_split: int = K9_MAX_SPLIT) -> int:
+    """S, the CTAs of K9's cluster for one row of `v` entries: as many as
+    keep rows x S within the card's `sm_count` SMs (S 1 at 80 and 160 rows,
+    16 at 5), but at most `max_split` and no more than keeps each slice at
+    K9_MIN_SLICE entries or longer. A second CTA on an SM costs more than
+    a row split in two saves (80 rows: S 2 measured slower than S 1)."""
+    want = sm_count // max(rows, 1)
+    return max(1, min(want, max_split, K9_MAX_SPLIT, v // K9_MIN_SLICE))
+
+
+def k9_slices(v: int, split: int) -> List[Tuple[int, int]]:
+    """[(lo, hi)] of the entries each CTA of the cluster reads, as the kernel
+    cuts them: contiguous, in rank order, each non-empty under `k9_plan`."""
+    chunk = -(-v // split)
+    return [(min(v, r * chunk), min(v, (r + 1) * chunk)) for r in range(split)]
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> Tuple[int, int]:
+    """(SM count, largest cluster the kernel can be launched with) of a card."""
+    sm_count = torch.cuda.get_device_properties(index).multi_processor_count
+    with torch.cuda.device(index):
+        max_split = _cuda.lib("topk").topk_max_split()
+    if max_split < 1:
+        raise RuntimeError(f"topk: no cluster size is schedulable (CUDA error {-max_split})")
+    return sm_count, max_split
 
 
 def _ranked(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,9 +99,10 @@ def _launch(kind: str, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Ten
     idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
     if rows == 0:
         return vals, idx
+    split = k9_plan(rows, v, *_card_limits(x.device.index if x.device.index is not None else 0))
     fn = f"{kind}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}"
     code = getattr(_cuda.lib("topk"), fn)(
-        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, k, _cuda.stream_handle(x.device)
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, k, split, _cuda.stream_handle(x.device)
     )
     _cuda.check("topk", fn, code)
     LAUNCHES[kind] += 1

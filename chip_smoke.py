@@ -9,7 +9,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      source, in parallel, sm_90a) and prints each kernel's registers, shared
      memory and spills from `nvcc -Xptxas -v`;
   3. holds each kernel of the decode slice against its plain PyTorch
-     version on the card at the shapes of `base` (K1 and K2 also at the
+     version on the card at the shapes of `base` (K4 at the decode slice's
+     32 x 30 s, the CLI's 1 x 12000 frames and a train step's 16 x 30 s,
+     with the reference composition torch.stft + |.|^2 + mel matmul + log10
+     as its "library" column, bound by its bytes or a real FFT's
+     operations, with the operations of its factored DFT and of the direct
+     DFT beside it as diagnostics; K1 and K2 also at the
      beam paths' group of 5 query rows per cache row, K2 at groups 9 and 16
      in one launch each, at batch 1, and with `valid_upto` 0 and 37 inside
      the first chunk of a 448-row self cache; K3 also at tq 200 over 150
@@ -38,10 +43,12 @@ Phases, each of which raises (exit code != 0) when it fails:
   8. holds each training kernel against its plain version as phase 3 does,
      at the shapes phase 6 gave it (the token buckets of its batches) and
      a few more;
-  9. holds the top-k kernels K9 (bf16 and fp32) and K10 (fp32) against
-     their plain versions at the beam step's shape, 160 rows (32 windows x 5
-     beams) x 51865, k 6, on seeded logits with the real suppress mask at
-     -inf, exact ties, duplicates and a row of fewer than k finite values;
+  9. holds the top-k kernels K9 (bf16 at 5, 80 and 160 rows: one window's
+     5 beams, batch mode's 80, 32 windows x 5 beams; fp32 at 160) and K10
+     (fp32, 160 rows) against their plain versions, x 51865, k 6, on seeded
+     logits with the real suppress mask at -inf, exact ties, duplicates and
+     a row of fewer than k finite values, with a second launch giving the
+     same bits, and times each beside the library on the device alone;
  10. drives the beam window path at the full width of `base`: phase 4's
      options plus beam_size=5, 32 windows, 64 forced tokens, submit/collect
      over 3 batches, launch counts reset before and read after;
@@ -104,9 +111,9 @@ It prints a JSON line of per-kernel results, then as its last line
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -129,7 +136,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # kernels whose calls at small shapes are mostly the host's launch cost: their
 # device time alone is measured too, as one call's share of a CUDA graph
 DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
-                "flash_attention_h2_bwd", "flash_attention_mh")
+                "flash_attention_h2_bwd", "flash_attention_mh", "log_mel")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -139,12 +146,27 @@ def bound(flops: float, n_bytes: float, kind: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
+def k4_flops(n_frames: int, n_mels: int) -> dict:
+    """fp32 operations of K4's function, a fused multiply-add counted as 2,
+    three ways. "least": what the function needs: the window (400
+    products), a 400-point real FFT at 2.5 N log2 N (half a complex FFT's
+    5 N log2 N), the 201 powers (3 each) and each mel's nonzero weights (a
+    product and a sum each). "factored": as `csrc/mel.cu` does them, its
+    20-point DFTs as direct sums: the window; 20 real 20-point DFTs over n1
+    (9 pair sums and 9 differences; 11 real parts of an add and 9
+    multiply-adds; 9 imaginary parts of 9); for each of 20 k1, 20 twiddle
+    products (6), 9 x 4 pair sums and differences, 10 bins of 2 adds and 36
+    multiply-adds and their powers (3); bin 200 (20 adds and a power); the
+    mels. "direct": the earlier kernel's 400 x 201 x 2 products and the
+    dense mel product."""
+    from asr_ttl_mtl_tpu_torch.ops.mel import mel_ranges
+
+    mels = 2 * mel_ranges(n_mels)[3].size
+    step1 = 20 * (18 + 11 * (1 + 9 * 2) + 9 * 9 * 2)
+    step2 = 20 * (20 * 6 + 36 + 10 * (2 + 36 * 2) + 10 * 3) + 20 + 3
+    return {"least": n_frames * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + mels),
+            "factored": n_frames * (400 + step1 + step2 + mels),
+            "direct": n_frames * (400 * 201 * 2 * 2 + 201 * n_mels * 2)}
 
 
 def sync() -> None:
@@ -171,33 +193,6 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
-    """Device time of one call of `fn`: `calls` calls captured in one CUDA
-    graph, replayed `replays` times between two events, so that the host's
-    cost of each call (the Python wrapper, the launch) is not counted."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream, as capture requires
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
-
-
 def attn_bound(macs: float, n_bytes: float, mults: int = 4):
     """Attention in bf16: `mults` FLOPs per (query, key, channel) triple
     (4 forward: QK^T and PV; 10 backward: S, dP, dV, dQ, dK)."""
@@ -221,6 +216,8 @@ def make_recorder(card: str, rows: list):
     one number or a tensor of per-output bounds on |kernel - plain|. With
     `repeat`, one more launch must give `got` bit for bit."""
     import torch
+
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
     def record(name, case, source, replaces, got, want, tol, run_kernel, run_plain, *, bound, library=None,
                main=True, plain_iters=20, repeat=False):
@@ -387,7 +384,7 @@ def check_kernels(card: str):
     """Phase 3: every kernel against its plain version at base shapes."""
     import torch
 
-    from asr_ttl_mtl_tpu_torch.audio import N_SAMPLES, N_FFT
+    from asr_ttl_mtl_tpu_torch.audio import HOP_LENGTH, N_FFT, mel_filters
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
     from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
@@ -400,23 +397,50 @@ def check_kernels(card: str):
     rows = []
     record = make_recorder(card, rows)
 
-    # K4: 32 clips of 30 s, fp32. Compared after the max-8 clamp and (x+4)/4,
-    # as the encoder sees it: fp32 sums of 400 products in another order move
-    # log10 of a bin by ~1e-6 except near the clamp floor.
-    wave = torch.randn((N_WINDOWS, N_SAMPLES), generator=gen, device=dev) * 0.1
-    padded = torch.nn.functional.pad(wave[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0].contiguous()
-
+    # K4 at the paths' shapes: 32 clips of 30 s (the decode slice), the CLI's
+    # 70 s WAV (70 s + 30 s of padding, bucketed to 120 s: 1 x 12000 frames)
+    # and the train step's 16 clips of 30 s, fp32. Compared after the max-8
+    # clamp and (x+4)/4, as the encoder sees it: the kernel's factored DFT and
+    # the plain version's direct products round differently (~1e-6 in log10
+    # of a bin, more near the clamp floor).
     def finish(x):
         return (torch.maximum(x, x.amax(dim=(-2, -1), keepdim=True) - 8.0) + 4.0) / 4.0
 
-    # bound: the DFT products (cos and sin, 400 x 201 per frame) and the mel
-    # projection (201 x 80) in fp32; bytes: the padded audio in, the mels out
-    n_fr = N_WINDOWS * 3000
-    record("log_mel", "B=32 x 480000 f32 -> (32, 80, 3000)", "asr_ttl_mtl_tpu_torch/csrc/mel.cu",
-           "asr_ttl_mtl_tpu/ops/pallas_mel.py:44",
-           finish(M.log_mel(padded, 3000, 80)), finish(M.log_mel_plain(padded, 3000, 80)), 1e-4,
-           lambda: M.log_mel(padded, 3000, 80), lambda: M.log_mel_plain(padded, 3000, 80),
-           bound=bound(n_fr * (400 * 201 * 2 * 2 + 201 * 80 * 2), padded.numel() * 4 + n_fr * 80 * 4, "fp32"))
+    fb = torch.from_numpy(mel_filters(80)).to(dev)
+    hann = torch.hann_window(N_FFT, device=dev)
+    for batch, n_frames, what in ((N_WINDOWS, 3000, "the decode slice's 32 x 30 s"),
+                                  (1, 12000, "the CLI's 70 s WAV, bucketed to 120 s"),
+                                  (TRAIN_BATCH, 3000, "a train step's 16 x 30 s")):
+        wave = torch.randn((batch, n_frames * HOP_LENGTH), generator=gen, device=dev) * 0.1
+        padded = F.pad(wave[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0].contiguous()
+        n_fr = batch * n_frames
+
+        def composition(wave=wave):
+            st = torch.stft(wave, N_FFT, HOP_LENGTH, window=hann, center=True, return_complex=True)
+            return torch.log10(torch.clamp(fb @ (st[..., :-1].abs() ** 2), min=1e-10))
+
+        # bound: the padded audio in and the mels out, or the function's
+        # least fp32 operations (a real FFT), whichever is larger; the
+        # operations of the kernel's factored DFT and of the direct form beside it
+        n_bytes = padded.numel() * 4 + n_fr * 80 * 4
+        flops = k4_flops(n_fr, 80)
+        got = M.log_mel(padded, n_frames, 80)
+        if not torch.equal(M.log_mel(padded, n_frames, 80), got):
+            raise AssertionError(f"log_mel ({batch}, {n_frames}): a second launch gave other bits")
+        record("log_mel", f"({batch}, {padded.shape[1]}) f32 -> ({batch}, 80, {n_frames}): {what}",
+               "asr_ttl_mtl_tpu_torch/csrc/mel.cu", "asr_ttl_mtl_tpu/ops/pallas_mel.py:44",
+               finish(got), finish(M.log_mel_plain(padded, n_frames, 80)), 1e-4,
+               lambda: M.log_mel(padded, n_frames, 80), lambda: M.log_mel_plain(padded, n_frames, 80),
+               bound=bound(flops["least"], n_bytes, "fp32"), library=composition)
+        row = rows[-1]
+        row["library_is"] = ("a composition, not one call: torch.stft(n_fft=400, hop_length=160, hann, "
+                             "center=True), |.|^2, the mel matmul, log10")
+        row["factored_bound_ms"] = bound(flops["factored"], n_bytes, "fp32")[0]
+        row["direct_bound_ms"] = bound(flops["direct"], n_bytes, "fp32")[0]
+        print(f"[kernel] log_mel ({batch}, {n_frames}): bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+              f"by the operations of the kernel's factored DFT {row['factored_bound_ms']:.4f} ms, of the direct "
+              f"DFT {row['direct_bound_ms']:.4f} ms [{card}]", flush=True)
+        del wave, padded, got
 
     # K3: encoder self-attention, bf16. p and the output round to bf16 (2^-8
     # relative); the kernel rounds p against a running max, the plain
@@ -934,13 +958,16 @@ def check_train_step_against_cpu(card: str, trainer, batch):
 
 def check_topk_kernels(card: str, filter_cfg):
     """Phase 9: K9 (bf16, fp32) and K10 (fp32) against their plain versions
-    at the beam step's shape: 32 windows x 5 beams = 160 rows of 51865, k 6.
-    Indices exact; K9's values within 4e-6 of max(1, |v|) (the row sum runs
-    in another order), K10's exact."""
+    at the paths' shapes: one window's 5 beams (5 rows, the CLI and the
+    words runs), batch mode's 80 and the beam slice's 32 windows x 5 beams
+    = 160 rows, of 51865, k 6. Indices exact; K9's values within 4e-6 of
+    max(1, |v|) (the row sum runs in another order), K10's exact; a second
+    launch gives the same bits (-inf and NaN included)."""
     import torch
 
     from asr_ttl_mtl_tpu_torch.decode_steps import _filter_masks
     from asr_ttl_mtl_tpu_torch.ops import topk as T
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -952,40 +979,48 @@ def check_topk_kernels(card: str, filter_cfg):
     x = x.masked_fill(suppress[None, :], float("-inf"))
     x[:, [1000, 2000, 3000]] = x.amax(dim=-1, keepdim=True) + 0.5  # an exact tie at the top
     x[:, 4000] = x[:, 5000]  # a duplicate below it
-    x[7] = float("-inf")
-    x[7, [11, 12, 13]] = 1.0  # fewer than k finite values
+    for r in (2, 7):  # fewer than k finite values (row 2 lies in every shape)
+        x[r] = float("-inf")
+        x[r, [11, 12, 13]] = 1.0
     src, replaces = "asr_ttl_mtl_tpu_torch/csrc/topk.cu", "asr_ttl_mtl_tpu/ops/pallas_topk.py"
 
     def finite(v):
         return torch.nan_to_num(v, neginf=-3e38)
 
-    for name, fn, plain, dtype, lib, main in (
-        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.bfloat16,
+    for name, fn, plain, dtype, rows, lib, main in (
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.bfloat16, BEAM,
          lambda xt: torch.topk(xt.float().log_softmax(-1), k), True),
-        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.float32,
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.bfloat16, 80,
+         lambda xt: torch.topk(xt.float().log_softmax(-1), k), True),
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.bfloat16, n_rows,
+         lambda xt: torch.topk(xt.float().log_softmax(-1), k), True),
+        ("topk_logprobs", T.topk_logprobs, T.topk_logprobs_plain, torch.float32, n_rows,
          lambda xt: torch.topk(xt.float().log_softmax(-1), k), False),
-        ("topk", T.topk, T.topk_plain, torch.float32, lambda xt: torch.topk(xt, k), True),
+        ("topk", T.topk, T.topk_plain, torch.float32, n_rows, lambda xt: torch.topk(xt, k), True),
     ):
-        xt = x.to(dtype).contiguous()
-        (gv, gi), (pv, pi) = fn(xt, k), plain(xt, k)
+        xt = x[:rows].to(dtype).contiguous()
+        (gv, gi), (pv, pi), (av, ai) = fn(xt, k), plain(xt, k), fn(xt, k)
+        if not (torch.equal(av.view(torch.int32), gv.view(torch.int32)) and torch.equal(ai, gi)):
+            raise AssertionError(f"{name} ({rows}) {dtype}: a second launch gave other bits")
         if not torch.equal(torch.isfinite(gv), torch.isfinite(pv)):
             raise AssertionError(f"{name}: -inf values at other places than the plain version's")
         v_tol = 4e-6 * pv.abs().clamp(min=1.0) if name == "topk_logprobs" else torch.full_like(pv, 1e-30)
         esize = xt.element_size()
-        record(name, f"({n_rows}, {filter_cfg.n_vocab}) {str(dtype)[6:]}, k {k}", src,
+        split = T.k9_plan(rows, filter_cfg.n_vocab, *T._card_limits(dev.index or 0))
+        record(name, f"({rows}, {filter_cfg.n_vocab}) {str(dtype)[6:]}, k {k}, cluster of {split}", src,
                f"{replaces}:{51 if name == 'topk_logprobs' else 32}",
                [finite(gv), gi], [finite(pv), pi], [v_tol, 0.5],
                lambda: fn(xt, k), lambda: plain(xt, k),
                # bytes: the logits read once, values and indices written once;
                # operations: a compare (and for K9 an exp and an add) an entry
                bound=bound(xt.numel() * (3 if name == "topk_logprobs" else 1),
-                           xt.numel() * esize + n_rows * k * 8, "fp32"),
+                           xt.numel() * esize + rows * k * 8, "fp32"),
                library=lambda: lib(xt), main=main)
-        # these kernels take tens of microseconds, as long as the wrapper's
-        # host work: their device time, and the library's, without it
+        # these kernels take microseconds, less than the wrapper's host
+        # work: their device time, and the library's, without it
         row = rows_out[-1]
         row["device_ms"], row["library_device_ms"] = graph_ms(lambda: fn(xt, k)), graph_ms(lambda: lib(xt))
-        print(f"[kernel] {name} {str(dtype)[6:]}: device time per call (CUDA graph of 10 calls, 5 replays) "
+        print(f"[kernel] {name} ({rows}) {str(dtype)[6:]}: device time per call (CUDA graph of 10 calls, 5 replays) "
               f"kernel {row['device_ms']:.4f} ms, library {row['library_device_ms']:.4f} ms [{card}]", flush=True)
     return rows_out
 
@@ -1370,6 +1405,7 @@ def check_words_kernels(card: str, probes):
     from asr_ttl_mtl_tpu_torch import timing
     from asr_ttl_mtl_tpu_torch.ops import dtw as DT
     from asr_ttl_mtl_tpu_torch.ops import median as MD
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
     rows = []
     record = make_recorder(card, rows)
@@ -1628,6 +1664,7 @@ def check_batch_kernels(card: str, probe):
     version."""
     from asr_ttl_mtl_tpu_torch import timing
     from asr_ttl_mtl_tpu_torch.ops import dtw as DT
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
     rows = []
     record = make_recorder(card, rows)
@@ -2028,6 +2065,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import card_line
+
     card = card_line()
     print(card, flush=True)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} devices {torch.cuda.device_count()}",
@@ -2097,8 +2136,9 @@ def main() -> int:
         if k["name"] == "topk":
             k["path"] = "none: as in the JAX package, no path calls topk_pallas (tests only)"
     names = [k["name"] for k in kernels]
-    if len(set(names)) != len(names) or set(names) != set(launches):
-        raise AssertionError(f"the kernels line needs one row per kernel: {names} against {sorted(launches)}")
+    cases = [(k["name"], k["case"]) for k in kernels]
+    if len(set(cases)) != len(cases) or set(names) != set(launches):
+        raise AssertionError(f"the kernels line needs a row for every kernel: {names} against {sorted(launches)}")
     # K10 is exempt: the JAX package's topk_pallas has no caller on any path
     # either, so no main path can launch it; phase 9 holds it against its
     # plain version

@@ -158,7 +158,7 @@ def test_fp16_false_still_decodes_on_cpu(setup):
 @pytest.mark.cuda
 def test_fp16_false_is_refused_on_card(cuda_device):  # noqa: F811
     model = from_random("tiny", seed=0, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="ROADMAP: fp32 in the card's attention kernels"):
         PD.DecodingTask(model, PD.DecodingOptions(language="en", fp16=False))
 
 

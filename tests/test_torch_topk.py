@@ -97,19 +97,119 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert dict(LAUNCHES) == before  # no kernel ran
 
 
+# ------------------------------------------------ K9's split of a row ----
+
+
+@pytest.mark.parametrize("rows", [1, 5, 80, 160, 320])
+@pytest.mark.parametrize("v", [130, 517, 51865])
+def test_k9_plan_covers_each_index_once(rows, v):
+    """The plan's slices cover [0, V) exactly once, contiguous, in rank
+    order, none empty; and at most K9_MAX_SPLIT CTAs, fewer on a card that
+    schedules smaller clusters."""
+    split = PT.k9_plan(rows, v)
+    assert 1 <= split <= PT.K9_MAX_SPLIT and PT.k9_plan(rows, v, max_split=8) <= 8
+    slices = PT.k9_slices(v, split)
+    assert len(slices) == split and slices[0][0] == 0 and slices[-1][1] == v
+    assert all(lo < hi for lo, hi in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in slices])
+    np.testing.assert_array_equal(covered, np.arange(v))
+
+
+def test_k9_plan_fills_the_card():
+    """S 16 at the CLI's 5 rows, 1 at batch mode's 80 and at 160, 2 at 66
+    (51865 wide): rows x S within the card's 132 SMs."""
+    assert [PT.k9_plan(r, 51865) for r in (5, 66, 80, 160)] == [16, 2, 1, 1]
+    assert PT.k9_plan(5, 51865, max_split=8) == 8
+
+
+def _split_topk_logprobs(x: torch.Tensor, k: int, split: int):
+    """The kernel's split, emulated: each slice's (m, s) and its own top-k,
+    then the (m, s) combined in rank order and the lists merged by (value
+    descending, index ascending)."""
+    xf = x.float()
+    vals, idx = [], []
+    for row in xf:
+        ms, cand_v, cand_i = [], [], []
+        for lo, hi in PT.k9_slices(row.numel(), split):
+            part = row[lo:hi]
+            m_c = part.max()
+            s_c = torch.exp(part - m_c).sum() if torch.isfinite(m_c) else torch.zeros(())
+            ms.append((m_c, s_c))
+            top = torch.sort(part, descending=True, stable=True)
+            cand_v.append(top.values[:k])
+            cand_i.append(top.indices[:k] + lo)
+        m = max(m_c for m_c, _ in ms)
+        s = torch.zeros(())
+        for m_c, s_c in ms:  # rank order
+            if torch.isfinite(m_c):
+                s = s + s_c * torch.exp(m_c - m)
+        cv, ci = torch.cat(cand_v), torch.cat(cand_i)
+        order = torch.sort(cv, descending=True, stable=True).indices[:k]  # ties keep rank (index) order
+        vals.append((cv[order] - m) - torch.log(s))
+        idx.append(ci[order])
+    return torch.stack(vals), torch.stack(idx).to(torch.int32)
+
+
+def _split_rows(v, split, seed):
+    """Seeded logits: an exact tie at the top across every slice boundary,
+    a duplicate in two slices, a row of all -inf but three entries, and the
+    real suppress pattern of -inf lanes."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(4, v) * 3).astype(np.float32)
+    x[:, 5:40] = -np.inf
+    top = x.max() + 1.0
+    for lo, _ in PT.k9_slices(v, split)[1:]:
+        x[0, [lo - 1, lo]] = top
+    x[1, [11, v - 7]] = top
+    x[1, v // 2] = x[1, 11] - 0.5
+    x[2] = -np.inf
+    x[2, [v - 1, 3, v // 2]] = 2.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 6, 32])
+@pytest.mark.parametrize("v,split", [(4099, 2), (4099, 3), (40000, 16), (51865, None)])
+def test_k9_split_matches_pallas(v, split, k, dtype):
+    """The slice-then-merge against the Pallas kernel (interpret): indices
+    exactly, values within 4e-6 x max(1, |v|); split None is the plan's at
+    5 rows (16)."""
+    split = split or PT.k9_plan(5, v)
+    x = jnp.asarray(_split_rows(v, split, seed=v + k)).astype(dtype)
+    want_v, want_i = topk_logprobs_pallas(x, k, interpret=True)
+    got_v, got_i = _split_topk_logprobs(_np(x), k, split)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    got_v, want_v = got_v.numpy(), np.asarray(want_v)
+    np.testing.assert_array_equal(np.isfinite(got_v), np.isfinite(want_v))
+    fin = np.isfinite(want_v)
+    np.testing.assert_array_less(np.abs(got_v[fin] - want_v[fin]), 4e-6 * np.maximum(1.0, np.abs(want_v[fin])))
+    if k >= 2:  # the tie across each boundary, lowest index first
+        lo = PT.k9_slices(v, split)[1][0] if split > 1 else None
+        if lo is not None:
+            assert got_i[0, :2].tolist() == sorted(got_i[0, :2].tolist()) and lo - 1 in got_i[0].tolist()
+
+
 # ------------------------------------------------------------ the card ----
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,v,k", [(160, 51865, 6), (7, 1000, 1), (5, 517, 8), (9, 130, 9), (4, 51866, 32)])
+@pytest.mark.parametrize(
+    "rows,v,k",
+    [(160, 51865, 6), (80, 51865, 6), (5, 51865, 6), (7, 1000, 1), (5, 517, 8), (9, 130, 9), (4, 51866, 32)],
+)
 def test_topk_kernels_on_card(cuda_device, rows, v, k, dtype):  # noqa: F811
     """Indices exact; values within 4e-6 of max(1, |v|) (K9: the row sum's
-    order); K10's values exact."""
+    order); K10's values exact; a second launch gives the same bits. 5 rows
+    split each row across a cluster of 16 CTAs (k9_plan)."""
     x = torch.from_numpy(np.array(_rows(rows, v, seed=rows + v, dtype="float32"))).to(cuda_device, dtype)
     for kernel, plain, tol in ((PT.topk_logprobs, PT.topk_logprobs_plain, 4e-6), (PT.topk, PT.topk_plain, 0.0)):
         (gv, gi), (pv, pi) = kernel(x, k), plain(x, k)
+        again_v, again_i = kernel(x, k)
         torch.cuda.synchronize()
+        # bit for bit, NaN (an all -inf row's log-probabilities) included
+        assert torch.equal(again_v.view(torch.int32), gv.view(torch.int32)) and torch.equal(again_i, gi)
         assert torch.equal(gi, pi)
         fin = torch.isfinite(pv)
         assert torch.equal(torch.isfinite(gv), fin)
