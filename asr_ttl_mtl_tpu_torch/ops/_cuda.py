@@ -80,14 +80,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "median_filter_f32": (_P, _P, _I, _I, _I, _P),
     },
     "dtw": {
-        # x, trace, n, m, stream
-        "dtw_trace_f32": (_P, _P, _I, _I, _P),
+        # x, trace, n, m, rows_per_lane, warps (`k13_plan`), stream
+        "dtw_trace_f32": (_P, _P, _I, _I, _I, _I, _P),
+        # out (32 fp32), iters, stream: K13's chain probe
+        "dtw_chain_probe": (_P, _I, _P),
         # x, trace scratch, ti, tj, lens, n, m, batch, n_max, m_max, stream
         "dtw_paths_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "int8_mlp": {
-        # x, w1, s1, b1, w2, s2, b2, out, qx, qg, sg (the last three may be null), n, d, hidden, stream
-        "int8_mlp_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # x, w1, s1, b1, w2, s2, b2, out, qx, qg, sg (the last three may be null), n, d, hidden,
+        # stages (`k14_plan`), stream: the wgmma route
+        "int8_mlp_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # the same without the stages: the mma.sync route
+        "int8_mlp_mma_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

@@ -29,7 +29,39 @@ import torch
 
 from . import LAUNCHES, _cuda
 
-MAX_TOKENS = 4095  # N + 1 <= 4096: the kernel's shared-memory ring
+MAX_TOKENS = 4095  # N + 1 <= 4096: K12's shared-memory ring, and K13's plan
+
+# K13's shared-memory plan (csrc/dtw.cu, `wave::warp_bytes`, `wave::chunk_for`)
+K13_RING = 4  # chunks of boundary costs between two compute warps
+K13_MAX_SMEM = 232448  # bytes a block may take on the H100
+
+
+def k13_chunk(rows_per_lane: int, warps: int) -> int:
+    """K13's steps a chunk: 32, 16 and 8 at 2, 4 and 8 rows a lane (8
+    compute warps' buffers fit a block), 4 for 16 warps of 8 rows."""
+    return {2: 32, 4: 16}.get(rows_per_lane, 8 if warps <= 8 else 4)
+
+
+def k13_warp_bytes(rows_per_lane: int, chunk: int) -> int:
+    """Shared memory of one compute warp of K13 and its helpers: 16
+    mbarriers, the ring of its last row's costs, x's double buffer (fp32)
+    and the trace tile's (int8), each [2][chunk][32 rows_per_lane + 4]."""
+    return 16 * 8 + K13_RING * chunk * 4 + 2 * chunk * (32 * rows_per_lane + 4) * 5
+
+
+def k13_plan(n: int, m: int) -> Tuple[int, int, int, int, int]:
+    """(rows a lane, steps a chunk, compute warps, helper warps a compute
+    warp, shared-memory bytes) of K13 for an (n, m) cost matrix: a lane
+    takes 2, 4 or 8 of the N+1 rows, the fewest that keep to 8 compute warps
+    (16 at 8 rows a lane, up to 4096 rows); each compute warp has 4 helper
+    warps up to 6 compute warps, 2 up to 10, else 1 (`wave::helpers_for`),
+    within 32 warps a block. The fill does not depend on m."""
+    rows = n + 1
+    rows_per_lane = next((r for r in (2, 4) if -(-rows // (32 * r)) <= 8), 8)
+    warps = -(-rows // (32 * rows_per_lane))
+    chunk = k13_chunk(rows_per_lane, warps)
+    helpers = 4 if warps <= 6 else 2 if warps <= 10 else 1
+    return rows_per_lane, chunk, warps, helpers, warps * k13_warp_bytes(rows_per_lane, chunk)
 
 
 def backtrace(trace: np.ndarray) -> np.ndarray:
@@ -113,8 +145,10 @@ def dtw_trace(x: torch.Tensor) -> torch.Tensor:
     if n == 0 or m == 0:  # no cell to fill (a window of under two frames)
         return torch.full((n + 1, m + 1), -1, dtype=torch.int8, device=x.device)
     x = x.contiguous()
+    rows_per_lane, _, warps, _, _ = k13_plan(n, m)
     trace = torch.empty((n + 1, m + 1), dtype=torch.int8, device=x.device)
-    code = _cuda.lib("dtw").dtw_trace_f32(x.data_ptr(), trace.data_ptr(), n, m, _cuda.stream_handle(x.device))
+    code = _cuda.lib("dtw").dtw_trace_f32(x.data_ptr(), trace.data_ptr(), n, m, rows_per_lane, warps,
+                                          _cuda.stream_handle(x.device))
     _cuda.check("dtw", "dtw_trace_f32", code)
     LAUNCHES["dtw_trace"] += 1
     return trace

@@ -14,10 +14,14 @@ runs whatever the compute dtype, as in the TPU kernel (the unfused
 
 Weights are in the port's (out, in) layout: w1q (H, D) int8 with one fp32
 scale per row (per output column of the JAX (D, H) weight), w2q (D, H).
-The CUDA kernel takes bf16 activations.
+The CUDA kernel takes bf16 activations. `k14_plan` picks its route by
+shape: the wgmma kernel on a cluster of 4 CTAs for d up to 1024 (every
+shape the gate admits there), else the earlier mma.sync kernel.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +39,65 @@ def int8_mlp_supported(n_tokens: int, d: int, hidden: int) -> bool:
         and 2 * d * hidden + 5 * 256 * hidden * 4 <= 14 * (1 << 20)
         and n_tokens >= 8
     )
+
+
+MAX_SMEM = 232448  # bytes of shared memory a block may take on the H100
+K14_TILE = 128  # hidden or output columns of a phase; bytes of a K chunk
+K14_ROWS = 64  # token rows a CTA of the wgmma route holds
+K14_CLUSTER = 4  # 2 hidden halves x 2 row tiles
+K14_MAX_STAGES = 4
+K14_MAX_D = 1024  # the wgmma route holds a row's x in 8 pieces a lane
+
+
+class K14Plan(NamedTuple):
+    route: str  # "wgmma" (int8_mlp_bf16) or "mma" (the mma.sync kernel, int8_mlp_mma_bf16)
+    cluster: int  # CTAs a cluster (1: no cluster)
+    rows_per_cta: int
+    stages: int  # 16 KB weight stages of the ring (0 on the mma route)
+    smem: int  # dynamic shared memory a block, bytes
+    hidden_per_cta: int  # hidden columns of GEMM1 the CTA computes (the most, where the halves differ)
+    out_per_cta: int  # output columns of GEMM2 the CTA computes (the most)
+
+
+def k14_sm90_smem(d: int, hidden: int, stages: int) -> int:
+    """`sm90::smem_bytes` of csrc/int8_mlp.cu: alignment slack, the stages,
+    the int8 x tile, the GELU tiles of the larger hidden half (later the
+    int8 GELU rows), the mbarriers and the row arrays."""
+    tiles = hidden // K14_TILE
+    return (1024 + stages * K14_TILE * K14_TILE + (d // K14_TILE) * K14_ROWS * K14_TILE
+            + (tiles + 1) // 2 * K14_ROWS * K14_TILE * 2 + 8 * (2 * stages + 3) + 4 * K14_ROWS * 5)
+
+
+def k14_mma_smem(d: int, hidden: int) -> int:
+    """The mma.sync kernel: 32 rows of int8 x and of bf16 GELU values, padded."""
+    return 32 * (d + 32) + 32 * (2 * hidden + 32) + 2 * 32 * 4
+
+
+def k14_plan(n: int, d: int, hidden: int) -> K14Plan:
+    """K14's route for (n rows, d, hidden): the wgmma kernel with the most
+    stages (2-4) that fit, for d up to 1024, else the mma.sync kernel; raises
+    where neither fits."""
+    if n < 1 or d < K14_TILE or hidden < K14_TILE or d % K14_TILE or hidden % K14_TILE:
+        raise ValueError(f"int8_mlp kernel takes n >= 1 and d, hidden in multiples of 128, got {n}, {d}, {hidden}")
+    tiles, out_tiles = hidden // K14_TILE, d // K14_TILE
+    for stages in range(K14_MAX_STAGES, 1, -1) if d <= K14_MAX_D else ():
+        smem = k14_sm90_smem(d, hidden, stages)
+        if smem <= MAX_SMEM:
+            return K14Plan("wgmma", K14_CLUSTER, K14_ROWS, stages, smem, (tiles + 1) // 2 * K14_TILE,
+                           (out_tiles + 1) // 2 * K14_TILE)
+    smem = k14_mma_smem(d, hidden)
+    if smem <= MAX_SMEM:
+        return K14Plan("mma", 1, 32, 0, smem, hidden, d)
+    raise ValueError(f"int8_mlp: no kernel route holds d={d}, hidden={hidden} in shared memory")
+
+
+def k14_slot_tiles(hidden: int, half: int) -> list:
+    """The wgmma route's K order for GEMM2 in the CTA of hidden half `half`:
+    the hidden tiles of 128 columns whose int8 GELU chunks sit in its slots
+    0, 1, ..., its own tiles (half, half + 2, ...) first, then the peer's,
+    as the kernel lays them out and its producer loads w2 in that order."""
+    tiles = hidden // K14_TILE
+    return list(range(half, tiles, 2)) + list(range(1 - half, tiles, 2))
 
 
 def _quant_rows(x32: torch.Tensor):
@@ -95,6 +158,7 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
     _check(x, w1q, s1, b1, w2q, s2, b2)
     d, hidden = x.shape[-1], w1q.shape[0]
     n = x.numel() // d
+    plan = k14_plan(n, d, hidden)
     out = torch.empty_like(x)
     qx = qg = sg = None
     if return_int8:
@@ -102,10 +166,10 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
         qg = torch.empty((n, hidden), dtype=torch.int8, device=x.device)
         sg = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     ptr = [0 if t is None else t.data_ptr() for t in (qx, qg, sg)]
-    code = _cuda.lib("int8_mlp").int8_mlp_bf16(
-        x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), *ptr, n, d, hidden, _cuda.stream_handle(x.device),
-    )
-    _cuda.check("int8_mlp", "int8_mlp_bf16", code)
+    args = (x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), *ptr, n, d, hidden)
+    fn, stages = ("int8_mlp_bf16", (plan.stages,)) if plan.route == "wgmma" else ("int8_mlp_mma_bf16", ())
+    code = getattr(_cuda.lib("int8_mlp"), fn)(*args, *stages, _cuda.stream_handle(x.device))
+    _cuda.check("int8_mlp", fn, code)
     LAUNCHES["int8_mlp"] += 1
     return (out, qx, qg, sg) if return_int8 else out

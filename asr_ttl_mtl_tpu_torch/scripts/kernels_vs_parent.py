@@ -1,20 +1,21 @@
-"""K9's and K4's device times on the card against an earlier checkout's
-kernels, and K4's distance from a float64 reference.
+"""K14's and K13's device times on the card against an earlier checkout's.
 
     python -m asr_ttl_mtl_tpu_torch.scripts.kernels_vs_parent --parent DIR
 
-`DIR` holds an earlier checkout's `asr_ttl_mtl_tpu_torch/csrc/topk.cu` and
-`mel.cu`, with their earlier C entry points: top-k without the cluster size
-(x, values, indices, rows, v, k, stream) and the direct log-mel (audio, cos,
-sin, mel_t, out, batch, padded_len, n_frames, n_mels, stream, with the bases
-and the filterbank zero-padded to 224 bins). They are built beside the
-current ones, each kernel is checked against its plain version, and both are
-timed in turns (parent, change, change, parent): device time, one call's
-share of a CUDA graph of 10 calls, at K9's (5 | 80 | 160, 51865) bf16 and
-(160, 51865) fp32, k 6, and at K4's 32 x 30 s, 1 x 12000 frames and
-16 x 30 s, 80 mels. Then K4's error after the finish (max-8 clamp, (x+4)/4)
-against a float64 reference (torch.fft), beside the plain version's, at 80
-and 128 mels. Needs a CUDA device.
+`DIR` holds an earlier checkout's `asr_ttl_mtl_tpu_torch/csrc`. The parent's
+`int8_mlp.cu` and `dtw.cu` are built beside the current ones, each kernel is
+checked against its plain version, and both are timed in turns (parent,
+change, change, parent): device time, one call's share of a CUDA graph of
+10 calls. Needs a CUDA device.
+
+- K14: the parent's entry `int8_mlp_bf16` (x, w1, s1, b1, w2, s2, b2, out,
+  qx, qg, sg, n, d, hidden, stream), at phase 17's (49152, 512, 2048) bf16
+  with base-like weights; both held to the plain version (qx equal, qg
+  within one step, the output within a step per flipped qg and a bf16
+  rounding).
+- K13: the parent's entry `dtw_trace_f32` (x, trace, n, m, stream), at the
+  words runs' largest (52, 1500) and a real window's (225, 1500), seeded;
+  both exact against the plain version.
 """
 
 from __future__ import annotations
@@ -24,28 +25,27 @@ import ctypes
 import os
 import subprocess
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ..audio import HOP_LENGTH, N_FFT, mel_filters
+from ..models import whisper as W
 from ..ops import _cuda
-from ..ops import mel as M
-from ..ops import topk as T
+from ..ops import dtw as DT
+from ..ops import int8_mlp as IM
 from .card_timing import card_line, graph_ms
 
-V = 51865
-K = 6
-K9_SHAPES = ((5, torch.bfloat16), (80, torch.bfloat16), (160, torch.bfloat16), (160, torch.float32))
-K4_SHAPES = ((32, 3000), (1, 12000), (16, 3000))
+K14_SHAPE = (49152, 512, 2048)
+K13_SHAPES = ((52, 1500), (225, 1500))
+SOURCES = ("int8_mlp", "dtw")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def build_parent(parent: str) -> dict:
-    """The parent's topk.cu and mel.cu, one nvcc each, in parallel, into the
-    build directory: {name: loaded library}."""
+def build_parent(parent: str, names) -> dict:
+    """The parent's sources `names` (e.g. "dtw"), one nvcc each, in parallel,
+    into the build directory: {name: loaded library}."""
     os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in ("topk", "mel"):
+    for name in names:
         src = os.path.join(parent, "asr_ttl_mtl_tpu_torch", "csrc", f"{name}.cu")
         out = os.path.join(_cuda.BUILD_DIR, f"parent_{name}.so")
         log = open(f"{out}.log", "w")
@@ -61,92 +61,92 @@ def build_parent(parent: str) -> dict:
     return libs
 
 
-def parent_k9(lib, x):
-    rows, v = x.shape
-    vals = torch.empty(rows, K, device=x.device)
-    idx = torch.empty(rows, K, dtype=torch.int32, device=x.device)
-    fn = getattr(lib, f"topk_logprobs_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}")
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-    code = fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, K, torch.cuda.current_stream().cuda_stream)
+def parent_k14(lib, args, return_int8=False):
+    x, w1q, s1, b1, w2q, s2, b2 = args
+    (n, d), hidden = x.shape, w1q.shape[0]
+    out = torch.empty_like(x)
+    mid = [torch.empty((n, d), dtype=torch.int8, device=x.device),
+           torch.empty((n, hidden), dtype=torch.int8, device=x.device),
+           torch.empty((n, 1), device=x.device)] if return_int8 else []
+    lib.int8_mlp_bf16.argtypes = [_P] * 11 + [_I, _I, _I, _P]
+    code = lib.int8_mlp_bf16(x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+                             s2.data_ptr(), b2.data_ptr(), out.data_ptr(), *[t.data_ptr() for t in mid] or
+                             [None] * 3, n, d, hidden, torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"the parent's K9 failed: CUDA error {code}")
-    return vals, idx
+        raise RuntimeError(f"the parent's K14 failed: CUDA error {code}")
+    return (out, *mid) if return_int8 else out
 
 
-def parent_k4(lib, padded, n_frames, consts):
-    cos_b, sin_b, mel_t = consts
-    out = torch.empty(padded.shape[0], 80, n_frames, device=padded.device)
-    lib.log_mel_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    code = lib.log_mel_f32(padded.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
-                           padded.shape[0], padded.shape[1], n_frames, 80, torch.cuda.current_stream().cuda_stream)
+def parent_k13(lib, x):
+    n, m = x.shape
+    trace = torch.empty((n + 1, m + 1), dtype=torch.int8, device=x.device)
+    lib.dtw_trace_f32.argtypes = [_P, _P, _I, _I, _P]
+    code = lib.dtw_trace_f32(x.data_ptr(), trace.data_ptr(), n, m, torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"the parent's K4 failed: CUDA error {code}")
-    return out
+        raise RuntimeError(f"the parent's K13 failed: CUDA error {code}")
+    return trace
 
 
-def finish(x):
-    return (torch.maximum(x, x.amax(dim=(-2, -1), keepdim=True) - 8.0) + 4.0) / 4.0
+def check_k14(got, want, args):
+    """K14's (out, qx, qg, sg) against the plain version's: qx equal, qg
+    within one step, the output within one activation step per flipped
+    second intermediate and a bf16 rounding."""
+    w2q, s2 = args[4], args[5]
+    out, pqx, pqg, psg = want
+    flips = (got[2].int() - pqg.int()).abs()
+    tol = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1) + 2.0**-7 * out.float().abs() + 1e-5
+    return (torch.equal(got[1], pqx) and flips.max().item() <= 1
+            and bool(((got[0].float() - out.float()).abs() <= tol).all()))
 
 
-def check_k9(got, x, who):
-    pv, pi = T.topk_logprobs_plain(x, K)
-    gv, gi = got
-    fin = torch.isfinite(pv)
-    if not (torch.equal(gi, pi) and bool(((gv - pv).abs() <= 4e-6 * pv.abs().clamp(min=1))[fin].all())):
-        raise AssertionError(f"{who} K9 disagrees with its plain version")
+def run_k14(lib, card, gen):
+    n, d, hidden = K14_SHAPE
+    dev = torch.device("cuda")
+    x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    w1, w2 = (torch.randn(s, generator=gen, device=dev) * 0.05 for s in ((hidden, d), (d, hidden)))
+    w1q, s1 = W._quant_rowwise_sym(w1)
+    w2q, s2 = W._quant_rowwise_sym(w2)
+    args = (x, w1q, s1.reshape(-1), torch.randn(hidden, generator=gen, device=dev) * 0.1, w2q, s2.reshape(-1),
+            torch.randn(d, generator=gen, device=dev) * 0.1)
+    want = IM.int8_mlp_plain(*args, return_int8=True)
+    for who, fn in (("this tree's", lambda: IM.int8_mlp(*args, return_int8=True)),
+                    ("the parent's", lambda: parent_k14(lib, args, return_int8=True))):
+        if not check_k14(fn(), want, args):
+            raise AssertionError(f"{who} K14 disagrees with its plain version")
+    old, new = (lambda: parent_k14(lib, args)), (lambda: IM.int8_mlp(*args))
+    turns = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
+    print(f"[K14] ({n}, {d}, {hidden}) bf16, {IM.k14_plan(n, d, hidden)}: parent, change, change, parent "
+          f"{', '.join(f'{t:.4f}' for t in turns)} ms (device time) [{card}]", flush=True)
+
+
+def run_k13(lib, card):
+    dev = torch.device("cuda")
+    for shape in K13_SHAPES:
+        x = torch.from_numpy(np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)).to(dev)
+        want = DT.dtw_trace_plain(x)
+        for who, fn in (("this tree's", lambda: DT.dtw_trace(x)), ("the parent's", lambda: parent_k13(lib, x))):
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{who} K13 disagrees with its plain version at {shape}")
+        old, new = (lambda: parent_k13(lib, x)), (lambda: DT.dtw_trace(x))
+        turns = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
+        print(f"[K13] {shape} fp32, (rows a lane, chunk, compute warps, helpers a warp, smem) {DT.k13_plan(*shape)}: "
+              f"parent, change, change, parent {', '.join(f'{t:.4f}' for t in turns)} ms (device time) [{card}]",
+              flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent", required=True, help="a checkout with the earlier K9 and K4 sources")
+    parser.add_argument("--parent", required=True, help="a checkout with the earlier kernels' sources")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernels_vs_parent needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
-    _cuda.build_all(["topk", "mel"])
-    old_libs = build_parent(args.parent)
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    for rows, dtype in K9_SHAPES:
-        x = (torch.randn((rows, V), generator=gen, device=dev) * 2.0).to(dtype)
-        check_k9(T.topk_logprobs(x, K), x, "this tree's")
-        check_k9(parent_k9(old_libs["topk"], x), x, "the parent's")
-        old, new = (lambda: parent_k9(old_libs["topk"], x)), (lambda: T.topk_logprobs(x, K))
-        turns = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
-        lib_dev = graph_ms(lambda: torch.topk(x.float().log_softmax(-1), K))
-        print(f"[K9] ({rows}, {V}) {str(dtype)[6:]}, cluster of {T.k9_plan(rows, V, *T._card_limits(dev.index or 0))}:"
-              f" parent, change, change, parent {', '.join(f'{t:.4f}' for t in turns)} ms; library "
-              f"{lib_dev:.4f} ms (device time) [{card}]", flush=True)
-
-    fb = {n: torch.from_numpy(mel_filters(n)).to(dev).double() for n in (80, 128)}
-    win = torch.hann_window(N_FFT, dtype=torch.float64, device=dev)
-    cos_b, sin_b, mel_t = M._constants(80, dev)
-    pad = lambda a, r, c: F.pad(a, (0, c - a.shape[1], 0, r - a.shape[0])).contiguous()  # noqa: E731
-    consts = (pad(cos_b, N_FFT, 224), pad(sin_b, N_FFT, 224), pad(mel_t, 224, 80))
-    for batch, n_frames in K4_SHAPES:
-        wave = torch.randn((batch, n_frames * HOP_LENGTH), generator=gen, device=dev) * 0.1
-        padded = F.pad(wave[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0].contiguous()
-        old = lambda: parent_k4(old_libs["mel"], padded, n_frames, consts)  # noqa: E731
-        new = lambda: M.log_mel(padded, n_frames, 80)  # noqa: E731
-        want = finish(M.log_mel_plain(padded, n_frames, 80))
-        for who, fn in (("this tree's", new), ("the parent's", old)):
-            if (finish(fn()) - want).abs().max().item() > 1e-4:
-                raise AssertionError(f"{who} K4 disagrees with its plain version")
-        turns = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
-        line = f"[K4] ({batch}, {n_frames}): parent, change, change, parent {', '.join(f'{t:.4f}' for t in turns)} ms"
-        line += " (device time);"
-        power = torch.fft.rfft(padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames].double() * win, dim=-1).abs() ** 2
-        for n_mels in (80, 128):
-            exact = finish(torch.log10(torch.clamp(power @ fb[n_mels].T, min=1e-10)).transpose(1, 2))
-            errs = [(finish(f(padded, n_frames, n_mels)).double() - exact).abs() for f in (M.log_mel, M.log_mel_plain)]
-            line += (f" {n_mels} mels, |x - float64| after the finish: kernel max {errs[0].max().item():.3e} mean "
-                     f"{errs[0].mean().item():.3e}, plain max {errs[1].max().item():.3e} mean "
-                     f"{errs[1].mean().item():.3e};")
-        print(line + f" [{card}]", flush=True)
-        del wave, padded, power
+    _cuda.build_all(SOURCES)
+    old_libs = build_parent(args.parent, SOURCES)
+    run_k14(old_libs["int8_mlp"], card, torch.Generator(device=dev).manual_seed(2))
+    run_k13(old_libs["dtw"], card)
 
 
 if __name__ == "__main__":

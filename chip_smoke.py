@@ -70,9 +70,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      and K3 and K7 in the alignment forward;
  14. holds K11 (median filter) and K13 (DTW fill) against their plain
      versions, exactly, at the largest and smallest shapes phase 13 gave
-     them, and runs one window's post-forward pipeline (standardize, K11,
-     head mean, K13, backtrace) on its captured card weights with the
-     kernels and with the plain versions: the paths must be identical.
+     them, K13 also at a seeded (225, 1500), a real window's shape, and on
+     a second launch, with its device time and, beside its bound, the
+     chain bound: (N+M-1) steps of the dependent step's latency, measured
+     here by a one-warp loop; then runs one window's post-forward pipeline
+     (standardize, K11, head mean, K13, backtrace) on its captured card
+     weights with the kernels and with the plain versions: the paths must
+     be identical.
  15. batched transcription at base: nine seeded WAVs of 12-150 s (829 s,
      32 windows) through the CLI with `--batch_mode True` and `--model base
      --model_dir <tmp>`: (a) its defaults, detecting each file's language
@@ -93,7 +97,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      with the switch off and on in turns, an encoder pass timed both ways,
      the greedy tokens against the switch-off run; then K14 against its
      plain version at (32 x 1536, 512, 2048), with the share of int8
-     intermediates that differ;
+     intermediates that differ, its device time and the same bits on a
+     second launch;
  18. K5 through the CLI and the trainer at a geometry `h2_eligible`
      rejects: random weights at base's depth with d 576 and 9 heads (head
      width 64) to a `.pt`, phase 12's 70 s WAV through the CLI with
@@ -136,7 +141,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # kernels whose calls at small shapes are mostly the host's launch cost: their
 # device time alone is measured too, as one call's share of a CUDA graph
 DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
-                "flash_attention_h2_bwd", "flash_attention_mh", "log_mel")
+                "flash_attention_h2_bwd", "flash_attention_mh", "log_mel", "dtw_trace", "int8_mlp")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -1395,10 +1400,36 @@ def run_words_cli(card: str, workdir: str):
     return total, probes
 
 
+def k13_step_ns() -> float:
+    """The latency of one dependent step of K13's wavefront, ns: a one-warp
+    loop of the recurrence (`dtw_chain_probe`), timed by CUDA events at
+    200000 and 100000 steps and differenced, so that the launch cancels;
+    the least of three."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import _cuda
+
+    lib, out = _cuda.lib("dtw"), torch.empty(32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_ms(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _cuda.check("dtw", "dtw_chain_probe", lib.dtw_chain_probe(out.data_ptr(), iters, stream))
+        start.record()
+        _cuda.check("dtw", "dtw_chain_probe", lib.dtw_chain_probe(out.data_ptr(), iters, stream))
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    return min((run_ms(200000) - run_ms(100000)) / 100000 * 1e6 for _ in range(3))
+
+
 def check_words_kernels(card: str, probes):
     """Phase 14: K11 and K13 against their plain versions, exactly, at the
-    largest and smallest inputs the words runs gave them; then one window's
-    post-forward pipeline with the kernels and with the plain versions."""
+    largest and smallest inputs the words runs gave them, K13 also at a
+    seeded (225, 1500) and on a second launch, with its chain bound beside
+    the bytes' bound; then one window's post-forward pipeline with the
+    kernels and with the plain versions."""
     import numpy as np
     import torch
 
@@ -1420,21 +1451,32 @@ def check_words_kernels(card: str, probes):
                MD.median_filter_network(x, 7), MD.median_filter_network_plain(x, 7), "exact",
                lambda: MD.median_filter_network(x, 7), lambda: MD.median_filter_network_plain(x, 7),
                bound=bound(3 * 7 * x.numel(), 2 * x.numel() * 4, "fp32"), main=key == "largest")
-    for key in ("largest", "smallest"):
-        x = inputs["dtw_trace"][key]
+    step_ns = k13_step_ns()
+    print(f"[kernel] dtw_trace: one dependent step of the wavefront (shuffle, compares, selects, add) "
+          f"{step_ns:.2f} ns on one warp [{card}]", flush=True)
+    x_window = torch.from_numpy(np.random.RandomState(225).randn(225, 1500).astype(np.float32)).cuda()
+    for key, x in (("largest", inputs["dtw_trace"]["largest"]), ("smallest", inputs["dtw_trace"]["smallest"]),
+                   ("window", x_window)):
         n, m = x.shape
-        record("dtw_trace", f"{key} of the words runs: ({n}, {m}) fp32, {n + m - 1} dependent diagonals",
+        where = "a seeded real window's shape" if key == "window" else f"{key} of the words runs"
+        record("dtw_trace", f"{where}: ({n}, {m}) fp32, {n + m - 1} dependent diagonals, "
+               f"(rows a lane, chunk, compute warps, helpers a warp, smem) {DT.k13_plan(n, m)}",
                "asr_ttl_mtl_tpu_torch/csrc/dtw.cu", "asr_ttl_mtl_tpu/ops/pallas_dtw.py:36",
                DT.dtw_trace(x), DT.dtw_trace_plain(x), "exact",
                lambda: DT.dtw_trace(x), lambda: DT.dtw_trace_plain(x),
-               bound=bound(4 * n * m, n * m * 4 + (n + 1) * (m + 1), "fp32"), main=key == "largest")
-    # device time, without the wrapper's host work (ctypes, the output's
-    # allocation): calls captured in a CUDA graph
-    xm, xd = inputs["median_filter"]["largest"], inputs["dtw_trace"]["largest"]
-    for r, fn in zip(rows[::2], (lambda: MD.median_filter_network(xm, 7), lambda: DT.dtw_trace(xd))):
-        r["device_ms"] = graph_ms(fn)
-        print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
-              f"{r['device_ms']:.4f} ms [{card}]", flush=True)
+               bound=bound(4 * n * m, n * m * 4 + (n + 1) * (m + 1), "fp32"), main=key == "largest", repeat=True,
+               plain_iters=20 if key != "window" else 3)
+        r = rows[-1]
+        r["chain_bound_ms"] = (n + m - 1) * step_ns * 1e-6
+        print(f"[kernel] dtw_trace {r['case']}: chain bound {r['chain_bound_ms']:.4f} ms (a diagnostic beside the "
+              f"bytes' {r['bound_ms']:.4f}), device {r['device_ms']:.4f} ms [{card}]", flush=True)
+    # device time of K11, without the wrapper's host work (ctypes, the
+    # output's allocation): calls captured in a CUDA graph
+    xm = inputs["median_filter"]["largest"]
+    r = rows[0]
+    r["device_ms"] = graph_ms(lambda: MD.median_filter_network(xm, 7))
+    print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
+          f"{r['device_ms']:.4f} ms [{card}]", flush=True)
 
     weights, *args = probes[0].first
     kernel_path = timing.alignment_path(weights, *args)
@@ -1687,14 +1729,14 @@ def check_batch_kernels(card: str, probe):
                main=key == "largest", plain_iters=2)
     r = rows[0]
     r["device_ms"] = graph_ms(k12_raw(*largest))
-    # the fill half alone: K13 (the same fill) on the chunk's longest row
+    # K13's register wavefront on the chunk's longest row: what K12's fill
+    # (its own, one block barrier a diagonal) would take there on K13's design
     x, n, m = largest
     b = max(range(len(n)), key=lambda i: n[i] + m[i])
     row = x[b, : n[b], : m[b]].contiguous()
-    r["fill_ms"] = graph_ms(lambda: DT.dtw_trace(row))
+    r["k13_row_ms"] = graph_ms(lambda: DT.dtw_trace(row))
     print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
-          f"{r['device_ms']:.4f} ms; the fill alone of its longest row ({n[b]}, {m[b]}) by K13 "
-          f"{r['fill_ms']:.4f} ms, so the walk and the parallel rows add {r['device_ms'] - r['fill_ms']:.4f} ms; "
+          f"{r['device_ms']:.4f} ms; K13 on its longest row ({n[b]}, {m[b]}) {r['k13_row_ms']:.4f} ms; "
           f"the chain of diagonals and walk steps, not the bytes, sets it [{card}]", flush=True)
 
     # the first chunk's post-forward step on its card matrices: K12's paths
@@ -1763,11 +1805,13 @@ def run_int8_mlp(card: str, model, slice_rate: float):
     print(f"[int8_mlp] launches {json.dumps({k: v for k, v in counts.items() if v})}; greedy tokens against "
           f"the switch off on the same batch: {same_windows}/{N_WINDOWS} windows identical, "
           f"{same_pos:.4f} of token positions equal", flush=True)
-    rates = {"off": [], "auto": []}
+    turns = ("off", "auto", "auto", "off")
+    label = {"off": "off", "auto": "on"}
+    rates = []
     try:
-        for mode in ("off", "auto", "auto", "off"):
+        for mode in turns:
             W.set_int8_mlp_kernel(mode)
-            rates[mode].append(audio_s / pipeline(task, mel)[1])
+            rates.append(audio_s / pipeline(task, mel)[1])
         enc_ms = {}
         with torch.inference_mode():
             for mode in ("off", "auto"):
@@ -1776,8 +1820,9 @@ def run_int8_mlp(card: str, model, slice_rate: float):
                                                                 int8_linears=True), iters=10, warmup=2)
     finally:
         W.set_int8_mlp_kernel("off")
-    print(f"[int8_mlp] runs in turns (off, on, on, off): off {', '.join(f'{r:.1f}' for r in rates['off'])}, "
-          f"on {', '.join(f'{r:.1f}' for r in rates['auto'])} audio-s/s; one encoder pass of {N_WINDOWS} windows "
+    print(f"[int8_mlp] runs in the order they ran: "
+          f"{', '.join(f'{label[m]} {r:.1f}' for m, r in zip(turns, rates))} "
+          f"audio-s/s; one encoder pass of {N_WINDOWS} windows "
           f"(W8A8): switch off {enc_ms['off']:.3f} ms, on {enc_ms['auto']:.3f} ms [{card}]", flush=True)
     return counts
 
@@ -1827,10 +1872,12 @@ def check_int8_mlp(card: str, model):
     # bound: the two int8 products; bytes: the bf16 rows in and out, the
     # int8 weights and the fp32 scales and biases, once each
     n_bytes = 2 * n * d * 2 + 2 * d * hidden + 2 * (d + hidden) * 4
-    record("int8_mlp", f"x ({n}, {d}) bf16, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8",
+    plan = M.k14_plan(n, d, hidden)
+    record("int8_mlp", f"x ({n}, {d}) bf16, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8, {plan.route} route, "
+           f"cluster of {plan.cluster}, {plan.stages} stages",
            "asr_ttl_mtl_tpu_torch/csrc/int8_mlp.cu", "asr_ttl_mtl_tpu/ops/int8_mlp.py:46", got, want, tol,
            lambda: M.int8_mlp(*args), lambda: M.int8_mlp_plain(*args),
-           bound=bound(4 * n * d * hidden, n_bytes, "int8"))
+           bound=bound(4 * n * d * hidden, n_bytes, "int8"), repeat=True)
     rows[-1]["unfused_ms"] = unfused_ms
     return rows
 

@@ -113,6 +113,75 @@ def test_gate_same_rule():
                 assert PM.int8_mlp_supported(n, d, hidden) == JM.int8_mlp_supported(n, d, hidden), (n, d, hidden)
 
 
+# ------------------------------------------------ K14's plan (no card) ----
+
+GATE_SHAPES = [(d, h) for d in range(128, 8192 + 1, 128) for h in range(128, 4096 + 1, 128)
+               if PM.int8_mlp_supported(8, d, h)]
+
+
+@pytest.mark.parametrize("d_lo,d_hi", [(128, 512), (640, 1024), (1152, 2048), (2176, 8192)])
+def test_k14_plan_over_the_gate(d_lo, d_hi):
+    """Every (d, hidden) the gate admits with d in the band: the route fits
+    in a block's shared memory with a portable cluster; on the wgmma route
+    the two hidden halves' tiles and output tiles cover hidden and d once
+    each, the ring has the most stages (2-4) that fit, and all of a row
+    tile's int8 GELU chunks (8 KB each) fit where the larger half's bf16
+    GELU tiles (16 KB each) were. A shape neither route holds was refused
+    by the mma.sync kernel too."""
+    seen = 0
+    for d, h in GATE_SHAPES:
+        if not d_lo <= d <= d_hi:
+            continue
+        seen += 1
+        try:
+            plan = PM.k14_plan(8, d, h)
+        except ValueError:
+            assert PM.k14_mma_smem(d, h) > PM.MAX_SMEM, (d, h)
+            assert d > PM.K14_MAX_D or PM.k14_sm90_smem(d, h, 2) > PM.MAX_SMEM, (d, h)
+            continue
+        assert plan.smem <= PM.MAX_SMEM and 1 <= plan.cluster <= 8, (d, h, plan)
+        if plan.route == "mma":
+            assert d > PM.K14_MAX_D or PM.k14_sm90_smem(d, h, 2) > PM.MAX_SMEM, (d, h)
+            assert plan.smem == PM.k14_mma_smem(d, h), (d, h)
+            continue
+        tiles, out_tiles = h // 128, d // 128
+        own = [list(range(half, tiles, 2)) for half in (0, 1)]
+        outs = [list(range(half, out_tiles, 2)) for half in (0, 1)]
+        assert sorted(own[0] + own[1]) == list(range(tiles)) and sorted(outs[0] + outs[1]) == list(range(out_tiles))
+        assert plan.hidden_per_cta == len(own[0]) * 128 and plan.out_per_cta == len(outs[0]) * 128
+        assert plan.smem == PM.k14_sm90_smem(d, h, plan.stages) and 2 <= plan.stages <= 4
+        assert plan.stages == 4 or PM.k14_sm90_smem(d, h, plan.stages + 1) > PM.MAX_SMEM
+        assert tiles * 64 * 128 <= len(own[0]) * 64 * 128 * 2
+        assert plan.cluster * plan.rows_per_cta == 256  # 2 row tiles x 2 halves of 64 rows
+    assert seen
+
+
+@pytest.mark.parametrize("d,h", [(128, 512), (256, 1024), (384, 1536), (512, 2048), (128, 640)])
+def test_k14_slot_order_gives_the_second_product(d, h):
+    """GEMM2 as the wgmma route runs it: each half's output tiles (half,
+    half + 2, ...) summed over its chunk slots in `k14_slot_tiles` order,
+    own tiles then the peer's, equal the whole int32 product; and the
+    in-place requantization writes slot j (8 KB at 8j KB) only inside GELU
+    tiles already read (tile j at 16j KB)."""
+    rng = np.random.RandomState(d + h)
+    qg = torch.from_numpy(rng.randint(-127, 128, size=(64, h)).astype(np.int32))
+    w2 = torch.from_numpy(rng.randint(-127, 128, size=(d, h)).astype(np.int32))
+    want = qg @ w2.t()
+    got = torch.zeros_like(want)
+    for half in (0, 1):
+        order = PM.k14_slot_tiles(h, half)
+        n_own = len(range(half, h // 128, 2))
+        assert sorted(order) == list(range(h // 128)) and order[:n_own] == list(range(half, h // 128, 2))
+        for o in range(half, d // 128, 2):
+            cols = slice(o * 128, o * 128 + 128)
+            for t in order:
+                k = slice(t * 128, t * 128 + 128)
+                got[:, cols] += qg[:, k] @ w2[cols, k].t()
+        for j in range(n_own):  # slot j's bytes lie in GELU tiles 0 .. j
+            assert (8 * j + 8) <= 16 * (j + 1) and 8 * j >= 16 * (j // 2)
+    assert torch.equal(got, want)
+
+
 def test_encoder_with_the_switch_on_matches_jax_composition():
     """On the CPU the JAX gate is off (it needs a TPU) and the port's needs
     the card: with the switch on, both encoders run the linear_i8

@@ -475,17 +475,31 @@ def test_k1_kernel_on_card_split_edges(cuda_device, b, group, tk, valid):  # noq
 
 
 @pytest.mark.cuda
-def test_k14_kernel_on_card(cuda_device):  # noqa: F811
-    """The kernel against its plain version at a small shape with a ragged
-    last block: both quantize the same values, so the int8 intermediates
-    agree but where tanhf's last bit moves a bf16 GELU rounding, and each
-    output within one activation step per flipped second intermediate plus
-    one bf16 rounding."""
+@pytest.mark.parametrize("n,d,h,tiny_row", [
+    (300, 128, 512, None), (300, 256, 1024, None), (300, 384, 1536, None), (300, 512, 2048, None),
+    (40, 512, 2048, None), (1000, 256, 1024, None), (100, 3072, 128, None), (300, 128, 2688, None),
+    (300, 512, 2176, None), (300, 1024, 2048, None), (300, 1024, 128, None), (300, 512, 2048, 7)],
+    ids=["d128", "d256", "d384", "d512", "below-one-tile", "ragged", "mma-route", "odd-tiles-widest",
+         "odd-tiles", "d1024", "one-hidden-tile", "tiny-row"])
+def test_k14_kernel_on_card(cuda_device, n, d, h, tiny_row):  # noqa: F811
+    """The kernel against its plain version at every (d, 4d) the gate admits
+    up to base's, below one 64-row tile, with a ragged last tile, at odd
+    counts of hidden tiles (the two halves own different counts), at d 1024
+    (8 pieces of a row a lane), at one hidden tile (one half runs no first
+    product), with a row below 2^-100 (the scaled branch of the division)
+    and at a shape `k14_plan` gives to the mma.sync kernel: both quantize the
+    same values, so the int8 intermediates agree but where tanhf's last bit
+    moves a bf16 GELU rounding, and each output within one activation step
+    per flipped second intermediate plus one bf16 rounding. A second launch
+    gives the same bits."""
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
+    assert PM.int8_mlp_supported(n, d, h)
+    assert PM.k14_plan(n, d, h).route == ("mma" if d == 3072 else "wgmma")
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    d, h, n = 256, 1024, 300
     x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
+    if tiny_row is not None:
+        x[tiny_row] = (x[tiny_row].float() * 2.0**-103).bfloat16()
     w1, w2 = (torch.randn(s, generator=g, device=cuda_device) * 0.05 for s in ((h, d), (d, h)))
     w1q, s1 = PW._quant_rowwise_sym(w1)
     w2q, s2 = PW._quant_rowwise_sym(w2)
@@ -493,14 +507,16 @@ def test_k14_kernel_on_card(cuda_device):  # noqa: F811
     args = (x, w1q, s1.reshape(-1), b1, w2q, s2.reshape(-1), b2)
     want, pqx, pqg, psg = PM.int8_mlp_plain(*args, return_int8=True)
     reset_launch_counts()
-    got, qx, qg, sg = PM.int8_mlp(*args, return_int8=True)
+    got = PM.int8_mlp(*args, return_int8=True)
     assert LAUNCHES["int8_mlp"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(PM.int8_mlp(*args, return_int8=True), got))
+    out, qx, qg, _ = got
     assert torch.equal(qx, pqx)
     flips = (qg.int() - pqg.int()).abs()
     assert flips.max().item() <= 1 and flips.float().mean().item() < 1e-3
     bound = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1)
     tol = bound + 2.0**-7 * want.float().abs() + 1e-5
-    assert ((got.float() - want.float()).abs() <= tol).all()
+    assert ((out.float() - want.float()).abs() <= tol).all()
 
 
 @pytest.mark.cuda

@@ -361,6 +361,26 @@ def test_hallucination_helpers_match_jax(seed):
     assert PTR._PUNCTUATION == JTR._PUNCTUATION
 
 
+@pytest.mark.parametrize("lo,hi", [(1, 511), (512, 1023), (1024, 2047), (2048, PD.MAX_TOKENS)],
+                         ids=["2-rows-a-lane", "4-rows", "8-rows-8-warps", "8-rows-16-warps"])
+def test_k13_plan_covers_the_rows(lo, hi):
+    """K13's plan for every token count the wrapper takes: the lanes of the
+    compute warps cover the N+1 rows with no idle warp, at most 8 compute
+    warps (16 at 8 rows a lane) with 1, 2 or 4 helpers each, within 1024 threads,
+    the shared memory fits a block, and a helper's staging and writing
+    passes (32 / chunk rows each) tile a warp's rows."""
+    for n in range(lo, hi + 1):
+        rows_per_lane, chunk, warps, helpers, smem = PD.k13_plan(n, 1500)
+        assert rows_per_lane in (2, 4, 8) and chunk in (4, 8, 16, 32), n
+        assert (warps - 1) * 32 * rows_per_lane < n + 1 <= warps * 32 * rows_per_lane, n
+        assert warps <= 8 or (rows_per_lane == 8 and warps <= 16), n
+        assert helpers in (1, 2, 4) and warps * (1 + helpers) * 32 <= 1024, n
+        assert (rows_per_lane * chunk) % helpers == 0, n  # a helper's passes: a whole number
+        assert chunk == PD.k13_chunk(rows_per_lane, warps), n
+        assert smem == warps * PD.k13_warp_bytes(rows_per_lane, chunk) <= PD.K13_MAX_SMEM, n
+        assert (32 * rows_per_lane) % (32 // chunk) == 0, n
+
+
 # ------------------------------------------------------- on the card ------
 
 
@@ -375,11 +395,42 @@ def test_k11_kernel_on_card(cuda_device, width):  # noqa: F811
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
+K13_CARD_CASES = [(shape, ties, None) for shape, ties in DTW_CASES] + [
+    ((225, 1500), False, None), ((300, 700), True, None), ((225, 1499), False, None), ((52, 1500), False, None),
+    ((1100, 300), False, None), ((4095, 40), False, None), ((60, 200), False, 17), ((450, 300), False, None),
+    ((600, 200), False, None), ((900, 100), False, None), ((1700, 60), False, None), ((2300, 40), False, None)]
+K13_CARD_IDS = DTW_IDS + ["base-window", "ties-large", "row-not-16-byte", "words-largest", "over-1024-rows",
+                          "4096-rows", "nan-row", "2-rows-2-helpers", "4-rows-4-helpers", "4-rows-2-helpers",
+                          "8-rows-2-helpers", "8-rows-9-warps"]
+
+
+def test_k13_card_cases_cover_every_instance():
+    """Each (rows a lane, chunk, helpers) that `k13_plan` picks for some N up
+    to 4095 is a template instance of its own in csrc/dtw.cu; the card test
+    runs every one of them."""
+    def instance(n):
+        rows_per_lane, chunk, _, helpers, _ = PD.k13_plan(n, 1)
+        return rows_per_lane, chunk, helpers
+
+    picked = {instance(n) for n in range(1, 4096)}
+    assert {instance(shape[0]) for shape, _, _ in K13_CARD_CASES} == picked
+    assert len(K13_CARD_CASES) == len(K13_CARD_IDS) == len(set(K13_CARD_IDS))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,ties", DTW_CASES + [((225, 1500), False), ((300, 700), True)],
-                         ids=DTW_IDS + ["base-window", "ties-large"])
-def test_k13_kernel_on_card(cuda_device, shape, ties):  # noqa: F811
-    x = _t(_cost(shape, seed=sum(shape), ties=ties)).to(cuda_device)
-    assert torch.equal(PD.dtw_trace(x), PD.dtw_trace_plain(x))
+@pytest.mark.parametrize("shape,ties,nan_row", K13_CARD_CASES, ids=K13_CARD_IDS)
+def test_k13_kernel_on_card(cuda_device, shape, ties, nan_row):  # noqa: F811
+    """Bit for bit against the plain version, on a second launch too: a real
+    window's shape, a row of x not a multiple of 16 bytes (M 1499), more
+    than 1024 rows (8 a lane), 4096 rows (16 warps), ties, a row of NaN
+    (t = 2 wherever a NaN cost is compared), and among them every
+    (rows a lane, chunk, helpers) instance `k13_plan` picks."""
+    x = _cost(shape, seed=sum(shape), ties=ties)
+    if nan_row is not None:
+        x[nan_row] = np.nan
+    x = _t(x).to(cuda_device)
+    got = PD.dtw_trace(x)
+    assert torch.equal(got, PD.dtw_trace_plain(x))
+    assert torch.equal(PD.dtw_trace(x), got)
     assert torch.equal(PD.dtw_trace(x[:, :0]), PD.dtw_trace_plain(x[:, :0]))  # no frames: no launch
     np.testing.assert_array_equal(PD.dtw(x), PD.backtrace(PD.dtw_trace_plain(x).cpu().numpy()))
