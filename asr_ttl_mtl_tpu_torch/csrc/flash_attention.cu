@@ -37,31 +37,15 @@
 // memory. At the decoder's causal shapes (T 48-448) the per-block work is
 // small and launch and load latency dominate.
 //
-// K3's forward (and K5's at a head width of 64) is `flash_fwd_sm90_kernel`
-// and K6 is `flash_bwd_dq_sm90_kernel` + `flash_bwd_dkv_sm90_kernel` below:
-// TMA, mbarriers and wgmma, each with its own note. What follows here is
-// the design of the other kernels (K7, K8, and K5 at other widths).
-//
-// Design. The TPU kernels hold all keys (or all queries) of a head in VMEM
-// and carry accumulators across a sequential grid axis; on Hopper blocks run
-// in parallel and in no order, so each block loops over the other axis
-// itself and owns every accumulator it writes (no atomics: the results are
-// the same from run to run). One block of 4 warps per 64-row tile; each warp
-// owns 16 rows. Products run on the tensor cores through WMMA 16x16x16 (bf16
-// in, fp32 accumulate); the per-element softmax work goes through a per-warp
-// fp32 tile in shared memory, two lanes per row, 32 columns each.
-//   forward (K7): loops over 64-key tiles with an online softmax in fp32; p is
-//     rounded to bf16 before P V while l sums the fp32 p, as on the TPU.
-//     Causal key tiles wholly above the diagonal, and tiles past kv_len, are
-//     skipped. A row with no valid key writes 0 and lse -1e30.
-//   dq (K8): per q tile, loops over key tiles, recomputes p from lse, keeps
-//     dq in WMMA accumulators; dS is rounded to bf16 before dS K.
-//   dkv (K8): per key tile, loops over q tiles (skipping those wholly below
-//     the causal diagonal), keeps dk and dv in WMMA accumulators; p and dS
-//     are rounded to bf16 before P^T dO and dS^T Q. Key tiles at or past
-//     kv_len write zeros.
-// K7 and K8 stay on WMMA: at the decoder's causal shapes they beat the
-// library call, and causal masking is outside the Hopper kernels' design.
+// K3's and K7's forwards (and K5's at a head width of 64) are
+// `flash_fwd_sm90_kernel`, and K6 and K8 are `flash_bwd_dq_sm90_kernel` +
+// `flash_bwd_dkv_sm90_kernel` below: TMA, mbarriers and wgmma, each with its
+// own note. The causal mask and `q_offset` are a template parameter of all
+// three: a CTA walks key tiles only up to the diagonal of its last live
+// query (dkv: q tiles only from the first whose last query reaches its first
+// key), and masks per row inside the tiles it walks. K7/K8 read (BH, T, 64)
+// as the natural layout with batch = BH and one head, and their residuals
+// through `res_index` with hpb = 1.
 // K5 at a head width of 64 is the K3 forward without the logsumexp, over
 // any number of heads (its device code reads the natural layout at 64
 // columns a head and never assumes d % 128 == 0; the lse layout is the only
@@ -85,11 +69,8 @@ using namespace nvcuda;
 namespace {
 
 constexpr int kDh = 64;
-constexpr int kBlock = 64;          // rows of a q tile and of a key tile
-constexpr int kWarps = kBlock / 16;
+constexpr int kWarps = 4;          // flash_mh_kernel's warps
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdh = kDh + 8;       // bf16 row stride of the tiles
-constexpr int kLds = kBlock + 4;    // fp32 row stride of a warp's score tile
 constexpr float kNegInf = -1e30f;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
@@ -106,412 +87,31 @@ __device__ __forceinline__ size_t res_index(const Shape& sh, int h, int b, int t
   return ((size_t)(h / sh.hpb) * sh.batch + b) * (size_t)sh.tq * sh.hpb + (size_t)t * sh.hpb + h % sh.hpb;
 }
 
-// 64 rows x 64 bf16 from `src` (row stride d) into a shared tile; rows at or
-// past `n_rows` are zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int n_rows,
-                                          int d) {
-  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
-    const int r = i / 8, c = i % 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c * 8) = val;
-  }
-}
-
-// this warp's 16 rows of a shared tile as four A fragments (16 x 64)
-__device__ __forceinline__ void load_a(FragA (&f)[kDh / 16], const __nv_bfloat16* tile, int warp) {
-#pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) wmma::load_matrix_sync(f[kk], tile + warp * 16 * kLdh + kk * 16, kLdh);
-}
-
-// out (16 x 64 fp32, row stride kLds) = A (16 x 64) . tile^T, tile 64 rows x 64
-__device__ __forceinline__ void mul_abt(float* out, const FragA (&a)[kDh / 16], const __nv_bfloat16* tile) {
-#pragma unroll
-  for (int n = 0; n < kBlock / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) {
-      FragBc b;
-      wmma::load_matrix_sync(b, tile + n * 16 * kLdh + kk * 16, kLdh);
-      wmma::mma_sync(c, a[kk], b, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, kLds, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += A (16 x 64, bf16 in shared memory at row stride kLdh) . tile
-// (64 x 64 row-major)
-__device__ __forceinline__ void mac_ab(FragC (&acc)[kDh / 16], const __nv_bfloat16* a_s,
-                                       const __nv_bfloat16* tile) {
-  FragA a[kBlock / 16];
-#pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) wmma::load_matrix_sync(a[kk], a_s + kk * 16, kLdh);
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      FragBr b;
-      wmma::load_matrix_sync(b, tile + kk * 16 * kLdh + n * 16, kLdh);
-      wmma::mma_sync(acc[n], a[kk], b, acc[n]);
-    }
-  }
-}
-
-// write this warp's 16 x 64 fp32 accumulators as bf16 rows (rows < n_rows)
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, FragC (&acc)[kDh / 16], float* sw, int row0,
-                                           int n_rows, int d) {
-  const int lane = threadIdx.x % 32, row = lane / 2, cbase = (lane % 2) * 32;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) wmma::store_matrix_sync(sw + n * 16, acc[n], kLds, wmma::mem_row_major);
-  __syncwarp();
-  if (row0 + row < n_rows) {
-    __nv_bfloat16* out = dst + (size_t)(row0 + row) * d + cbase;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2)
-      *reinterpret_cast<__nv_bfloat162*>(out + i) =
-          __floats2bfloat162_rn(sw[row * kLds + cbase + i], sw[row * kLds + cbase + i + 1]);
-  }
-}
-
-// ------------------------------------------------------------------ forward
-
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 Shape sh) {
-  __shared__ __align__(32) __nv_bfloat16 qs[kBlock * kLdh];
-  __shared__ __align__(32) __nv_bfloat16 ks[kBlock * kLdh];
-  __shared__ __align__(32) __nv_bfloat16 vs[kBlock * kLdh];
-  __shared__ __align__(32) float ss[kWarps * 16 * kLds];
-
-  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* qb = q + (size_t)b * sh.tq * sh.d + (size_t)h * kDh;
-  const __nv_bfloat16* kb = k + (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-  const __nv_bfloat16* vb = v + (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-
-  load_tile(qs, qb, q0, sh.tq, sh.d);
-  __syncthreads();
-  FragA qf[kDh / 16];
-  load_a(qf, qs, warp);
-
-  float* sw = ss + warp * 16 * kLds;
-  // p (bf16) reuses this warp's score tile once the scores are in registers
-  __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(sw);
-  const int row = lane / 2;           // this lane's row of the warp's 16
-  const int cbase = (lane % 2) * 32;  // and its 32 columns
-  const int qpos = sh.q_offset + q0 + warp * 16 + row;
-
-  float o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
-
-  int n_tiles = (sh.kv_len + kBlock - 1) / kBlock;
-  if (kCausal) n_tiles = min(n_tiles, (sh.q_offset + q0 + kBlock - 1) / kBlock + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlock;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile(ks, kb, k0, sh.tk, sh.d);
-    load_tile(vs, vb, k0, sh.tk, sh.d);
-    __syncthreads();
-
-    mul_abt(sw, qf, ks);  // S = Q K^T for this warp's 16 rows
-    __syncwarp();
-
-    // online softmax over the tile, fp32
-    float s[32];
-    bool valid[32];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int kpos = k0 + cbase + i;
-      valid[i] = kpos < sh.kv_len && (!kCausal || kpos <= qpos);
-      s[i] = valid[i] ? sw[row * kLds + cbase + i] * sh.scale : kNegInf;
-      tile_max = fmaxf(tile_max, s[i]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    const float m_new = fmaxf(m_run, tile_max);
-    const float corr = expf(m_run - m_new);
-    __syncwarp();  // all scores read before p overwrites the tile
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = valid[i] ? expf(s[i] - m_new) : 0.f;
-      psum += p;
-      pw[row * kLdh + cbase + i] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    __syncwarp();
-
-    // O_tile = P V
-    FragC of[kDh / 16];
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) wmma::fill_fragment(of[n], 0.f);
-    FragA pf[kBlock / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) wmma::load_matrix_sync(pf[kk], pw + kk * 16, kLdh);
-    __syncwarp();  // p is in registers; the tile now takes P V
-#pragma unroll
-    for (int n = 0; n < kDh / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) {
-        FragBr vf;
-        wmma::load_matrix_sync(vf, vs + kk * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(of[n], pf[kk], vf, of[n]);
-      }
-      wmma::store_matrix_sync(sw + n * 16, of[n], kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = o[i] * corr + sw[row * kLds + cbase + i];
-  }
-
-  const int qrow = q0 + warp * 16 + row;
-  if (qrow < sh.tq) {
-    // a row with no valid key (l == 0) writes 0, and lse -1e30
-    const float inv = l_run == 0.f ? 0.f : 1.f / l_run;
-    __nv_bfloat16* dst = out + (size_t)b * sh.tq * sh.d + (size_t)qrow * sh.d + (size_t)h * kDh + cbase;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2)
-      *reinterpret_cast<__nv_bfloat162*>(dst + i) = __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
-    if (lse != nullptr && cbase == 0)
-      lse[res_index(sh, h, b, qrow)] = l_run == 0.f ? kNegInf : m_run + logf(l_run);
-  }
-}
-
-// ---------------------------------------------------------------- backward
-
-// dq: one block per (q tile, head, batch row), looping over key tiles
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                    Shape sh) {
-  __shared__ __align__(32) __nv_bfloat16 stage[kBlock * kLdh];  // q, then dO
-  __shared__ __align__(32) __nv_bfloat16 ks[kBlock * kLdh];
-  __shared__ __align__(32) __nv_bfloat16 vs[kBlock * kLdh];
-  __shared__ __align__(32) float ss[kWarps * 16 * kLds];
-  __shared__ float lse_s[kBlock], delta_s[kBlock];
-
-  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qoff = (size_t)b * sh.tq * sh.d + (size_t)h * kDh;
-  const __nv_bfloat16* kb = k + (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-  const __nv_bfloat16* vb = v + (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-    const bool in = q0 + i < sh.tq;
-    lse_s[i] = in ? lse[res_index(sh, h, b, q0 + i)] : 0.f;
-    delta_s[i] = in ? delta[res_index(sh, h, b, q0 + i)] : 0.f;
-  }
-  load_tile(stage, q + qoff, q0, sh.tq, sh.d);
-  __syncthreads();
-  FragA qf[kDh / 16], dof[kDh / 16];
-  load_a(qf, stage, warp);
-  __syncthreads();
-  load_tile(stage, dout + qoff, q0, sh.tq, sh.d);
-  __syncthreads();
-  load_a(dof, stage, warp);
-
-  float* sw = ss + warp * 16 * kLds;
-  __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(sw);
-  const int row = lane / 2, cbase = (lane % 2) * 32;
-  const int qrow = q0 + warp * 16 + row;
-  const int qpos = sh.q_offset + qrow;
-  const float lse_r = lse_s[warp * 16 + row], delta_r = delta_s[warp * 16 + row];
-
-  FragC acc[kDh / 16];
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  int n_tiles = (sh.kv_len + kBlock - 1) / kBlock;
-  if (kCausal) n_tiles = min(n_tiles, (sh.q_offset + q0 + kBlock - 1) / kBlock + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlock;
-    __syncthreads();
-    load_tile(ks, kb, k0, sh.tk, sh.d);
-    load_tile(vs, vb, k0, sh.tk, sh.d);
-    __syncthreads();
-
-    mul_abt(sw, qf, ks);  // S
-    __syncwarp();
-    float p[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int kpos = k0 + cbase + i;
-      const bool valid = kpos < sh.kv_len && qrow < sh.tq && (!kCausal || kpos <= qpos);
-      p[i] = valid ? expf(sw[row * kLds + cbase + i] * sh.scale - lse_r) : 0.f;
-    }
-    __syncwarp();
-    mul_abt(sw, dof, vs);  // dP = dO V^T
-    __syncwarp();
-    float ds[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) ds[i] = p[i] * (sw[row * kLds + cbase + i] - delta_r) * sh.scale;
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) pw[row * kLdh + cbase + i] = __float2bfloat16(ds[i]);
-    __syncwarp();
-    mac_ab(acc, pw, ks);  // dQ += bf16(dS) K
-  }
-  store_rows(dq + qoff, acc, sw, q0 + warp * 16, sh.tq, sh.d);
-}
-
-// dk, dv: one block per (key tile, head, batch row), looping over q tiles
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Shape sh) {
-  __shared__ __align__(32) __nv_bfloat16 qs[kBlock * kLdh];   // k, then q tiles
-  __shared__ __align__(32) __nv_bfloat16 dos[kBlock * kLdh];  // v, then dO tiles
-  __shared__ __align__(32) float ss[kWarps * 16 * kLds];
-  __shared__ float lse_s[kBlock], delta_s[kBlock];
-
-  const int k0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t koff = (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-  const size_t qoff = (size_t)b * sh.tq * sh.d + (size_t)h * kDh;
-  float* sw = ss + warp * 16 * kLds;
-  __nv_bfloat16* pw = reinterpret_cast<__nv_bfloat16*>(sw);
-  const int row = lane / 2, cbase = (lane % 2) * 32;
-  const int kpos = k0 + warp * 16 + row;
-
-  FragC dk_acc[kDh / 16], dv_acc[kDh / 16];
-#pragma unroll
-  for (int n = 0; n < kDh / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  if (k0 < sh.kv_len) {  // key tiles at or past kv_len keep dk = dv = 0
-    load_tile(qs, k + koff, k0, sh.tk, sh.d);
-    load_tile(dos, v + koff, k0, sh.tk, sh.d);
-    __syncthreads();
-    FragA kf[kDh / 16], vf[kDh / 16];
-    load_a(kf, qs, warp);
-    load_a(vf, dos, warp);
-
-    // causal: q tiles whose last query lies above this tile's first key
-    // see none of it
-    const int lo = k0 - sh.q_offset - (kBlock - 1);
-    const int qt0 = (kCausal && lo > 0) ? (lo + kBlock - 1) / kBlock : 0;
-    const int n_qt = (sh.tq + kBlock - 1) / kBlock;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kBlock;
-      __syncthreads();  // every warp is done with the previous q/dO tile
-      load_tile(qs, q + qoff, q0, sh.tq, sh.d);
-      load_tile(dos, dout + qoff, q0, sh.tq, sh.d);
-      for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-        const bool in = q0 + i < sh.tq;
-        lse_s[i] = in ? lse[res_index(sh, h, b, q0 + i)] : 0.f;
-        delta_s[i] = in ? delta[res_index(sh, h, b, q0 + i)] : 0.f;
-      }
-      __syncthreads();
-
-      mul_abt(sw, kf, qs);  // S^T = K Q^T: this warp's 16 keys x 64 queries
-      __syncwarp();
-      float p[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int qrow = q0 + cbase + i;
-        const bool valid = kpos < sh.kv_len && qrow < sh.tq && (!kCausal || kpos <= sh.q_offset + qrow);
-        p[i] = valid ? expf(sw[row * kLds + cbase + i] * sh.scale - lse_s[cbase + i]) : 0.f;
-      }
-      __syncwarp();
-      mul_abt(sw, vf, dos);  // dP^T = V dO^T
-      __syncwarp();
-      float ds[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) ds[i] = p[i] * (sw[row * kLds + cbase + i] - delta_s[cbase + i]) * sh.scale;
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) pw[row * kLdh + cbase + i] = __float2bfloat16(p[i]);
-      __syncwarp();
-      mac_ab(dv_acc, pw, dos);  // dV += bf16(P)^T dO
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) pw[row * kLdh + cbase + i] = __float2bfloat16(ds[i]);
-      __syncwarp();
-      mac_ab(dk_acc, pw, qs);  // dK += bf16(dS)^T Q
-    }
-  }
-  store_rows(dk + koff, dk_acc, sw, k0 + warp * 16, sh.tk, sh.d);
-  store_rows(dv + koff, dv_acc, sw, k0 + warp * 16, sh.tk, sh.d);
-}
-
 bool bad_shape(const Shape& sh) {
   return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * kDh ||
          sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
 }
 
-int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
-               void* stream) {
-  if (bad_shape(sh)) return (int)cudaErrorInvalidValue;
-  dim3 grid((sh.tq + kBlock - 1) / kBlock, sh.n_head, sh.batch);
-  auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kp = static_cast<const __nv_bfloat16*>(k);
-  auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* lp = static_cast<float*>(lse);
-  if (causal)
-    flash_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(qp, kp, vp, op, lp, sh);
-  else
-    flash_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(qp, kp, vp, op, lp, sh);
-  return (int)cudaGetLastError();
-}
-
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
-               void* dq, void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
-  if (bad_shape(sh)) return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kp = static_cast<const __nv_bfloat16*>(k);
-  auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* gp = static_cast<const __nv_bfloat16*>(dout);
-  auto* lp = static_cast<const float*>(lse);
-  auto* dp = static_cast<const float*>(delta);
-  auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  auto* dkp = static_cast<__nv_bfloat16*>(dk);
-  auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  dim3 gq((sh.tq + kBlock - 1) / kBlock, sh.n_head, sh.batch);
-  dim3 gk((sh.tk + kBlock - 1) / kBlock, sh.n_head, sh.batch);
-  if (causal) {
-    flash_bwd_dq_kernel<true><<<gq, kThreads, 0, s>>>(qp, kp, vp, gp, lp, dp, dqp, sh);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<true><<<gk, kThreads, 0, s>>>(qp, kp, vp, gp, lp, dp, dkp, dvp, sh);
-  } else {
-    flash_bwd_dq_kernel<false><<<gq, kThreads, 0, s>>>(qp, kp, vp, gp, lp, dp, dqp, sh);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<false><<<gk, kThreads, 0, s>>>(qp, kp, vp, gp, lp, dp, dkp, dvp, sh);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------- K3 forward on Hopper: TMA + wgmma
+// ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
 //
-// Serves K3 (`flash_h2_fwd_bf16`, with and without the logsumexp) and K5 at
-// a head width of 64 (`flash_mh_fwd_bf16`). K7 (head-split, causal,
-// q_offset) stays on `flash_fwd_kernel` above: it already beats the library
-// at its shapes, and causal masking is outside this design.
+// Serves K3 (`flash_h2_fwd_bf16`, with and without the logsumexp), K5 at a
+// head width of 64 (`flash_mh_fwd_bf16`) and K7 (`flash_fwd_bf16`: causal
+// or not, any q_offset, with and without the logsumexp).
 //
 // What bounds it on the H100: the tensor cores and the softmax between the
 // two products (~700 FLOPs a byte at the encoder shape), so the design keeps
 // the tensor cores fed and the scores out of shared memory:
 //   - One CTA takes 128 query rows of one (batch row, head) (64 where
-//     tq <= 64: the eval and prefill cross shapes) and walks the keys in
-//     tiles of 128 up to kv_len; tiles past kv_len are skipped, the last is
-//     masked, and TMA fills rows past tk with zeros.
+//     tq <= 64: the eval and prefill cross shapes, the token bucket) and
+//     walks the keys in tiles of 128 up to kv_len; tiles past kv_len are
+//     skipped, the last is masked, and TMA fills rows past tk with zeros.
+//   - Causal (a template parameter): the walk also stops at the tile that
+//     holds the diagonal of the CTA's last live query, and a tile that
+//     reaches past a warp's first row is masked per row (key >= kv_len or
+//     key > q_offset + query). Every consumer thread still releases every
+//     stage, so a warpgroup whose rows all lie above a tile computes it
+//     fully masked: key 0 is valid for every row, so the running max is
+//     finite from tile 0 on and p is exactly 0 there.
 //   - One producer warp starts the TMA loads: Q once, then K and V tiles of 128
 //     keys x 64 columns (128 bytes a row, 128-byte swizzle) from 3-D tensor
 //     maps over the natural (B, T, D) layout at column h * 64, into a ring of
@@ -626,16 +226,19 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; -inf gives 0
 
 // The online softmax of one tile on the S accumulators of a thread:
 // sc[4j + e] is row g (e < 2) or g + 8 (e >= 2), key k0 + 8j + 2 * t4 +
-// (e & 1); the 4 threads of a quad share a row. Keys past kv_len are -inf.
-// m_run is the running max of s * scale * log2(e); on return sc holds the
-// fp32 p = 2^(s * scale * log2(e) - m), l_run the running sum of p, corr
-// the factor for the rows' previous output.
+// (e & 1); the 4 threads of a quad share a row. Keys at or past the row's
+// limit lim[r] (kv_len, and q_offset + query + 1 when causal) are -inf;
+// `warp_lim` is the least limit of the warp's rows, so the test is the
+// same for the whole warp. m_run is the running max of s * scale *
+// log2(e); on return sc holds the fp32 p = 2^(s * scale * log2(e) - m),
+// l_run the running sum of p, corr the factor for the rows' previous output.
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
-                                             float (&corr)[2], int k0, int kv_len, int t4, float sl2) {
-  if (k0 + kBN > kv_len) {
+                                             float (&corr)[2], int k0, const int (&lim)[2], int warp_lim, int t4,
+                                             float sl2) {
+  if (k0 + kBN > warp_lim) {
 #pragma unroll
     for (int i = 0; i < 64; ++i)
-      if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= kv_len) sc[i] = -INFINITY;
+      if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= lim[(i >> 1) & 1]) sc[i] = -INFINITY;
   }
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -645,7 +248,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
   for (int r = 0; r < 2; ++r) {
     tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
     tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-    const float m_new = fmaxf(m_run[r], tmax[r] * sl2);  // kv_len >= 1: tile 0 makes it finite
+    const float m_new = fmaxf(m_run[r], tmax[r] * sl2);  // key 0 is valid: tile 0 makes it finite
     corr[r] = ex2(m_run[r] - m_new);
     m_run[r] = m_new;
     neg_m[r] = -m_new;
@@ -709,7 +312,21 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int kWG, int kStages>
+// the key tiles of 128 that queries [q0, q_end) see: up to kv_len and, when
+// causal, up to the tile that holds the last query's diagonal
+template <bool kCausal>
+__device__ __forceinline__ int key_tiles(const Shape& sh, int q0, int q_end) {
+  const int n = (sh.kv_len + kBN - 1) / kBN;
+  return kCausal ? min(n, (sh.q_offset + min(q_end, sh.tq) - 1) / kBN + 1) : n;
+}
+
+// the key limit of query row `row`: keys at or past it are masked
+template <bool kCausal>
+__device__ __forceinline__ int key_limit(const Shape& sh, int row) {
+  return kCausal ? min(sh.kv_len, sh.q_offset + row + 1) : sh.kv_len;
+}
+
+template <int kWG, int kStages, bool kCausal>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
@@ -718,7 +335,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   auto& s = *reinterpret_cast<Smem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = (sh.kv_len + kBN - 1) / kBN;
+  const int n_tiles = key_tiles<kCausal>(sh, q0, q0 + kWG * kBM);
 
   if (threadIdx.x == 0) {
     mbar_init(&s.q_full, 1);
@@ -753,6 +370,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   // products of S(t) and P(t-1) V(t-1) are started together, and the softmax
   // of tile t runs while P V of the one before is still on the tensor cores.
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + wg * kBM + wq * 16;  // the warp's first row
+  const int lim[2] = {key_limit<kCausal>(sh, row0 + g), key_limit<kCausal>(sh, row0 + g + 8)};
+  const int warp_lim = key_limit<kCausal>(sh, row0);
   const float sl2 = sh.scale * kLog2e;
   float o[32], sc[64], corr[2];
   uint32_t pa[kBN / 16][4];
@@ -785,7 +405,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   start_s(0);
   wg_wait<0>();
   reg_fence(sc);
-  softmax_tile(sc, m_run, l_run, corr, 0, sh.kv_len, t4, sl2);
+  softmax_tile(sc, m_run, l_run, corr, 0, lim, warp_lim, t4, sl2);
   pack_p(sc, pa);
   for (int t = 1; t < n_tiles; ++t) {
     wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
@@ -793,7 +413,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     start_pv(t - 1);
     wg_wait<1>();  // S(t) is done; P V of t - 1 may still run
     reg_fence(sc);
-    softmax_tile(sc, m_run, l_run, corr, t * kBN, sh.kv_len, t4, sl2);
+    softmax_tile(sc, m_run, l_run, corr, t * kBN, lim, warp_lim, t4, sl2);
     wg_wait<0>();
     reg_fence(o);
     mbar_arrive(&s.empty[(t - 1) % kStages]);
@@ -809,7 +429,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   // o[4j + e]: row g (e < 2) or g + 8, column 8j + 2 * t4 + (e & 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qrow = q0 + wg * kBM + wq * 16 + g + 8 * r;
+    const int qrow = row0 + g + 8 * r;
     if (qrow >= sh.tq) continue;
     // a row with no valid key (l == 0) writes 0, and lse -1e30
     const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
@@ -870,7 +490,7 @@ cudaError_t lift_smem(Kernel kernel, int bytes, bool (&lifted)[64]) {
   return err;
 }
 
-template <int kWG, int kStages>
+template <int kWG, int kStages, bool kCausal>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -880,17 +500,18 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem<kWG, kStages>) + 1024;  // + the alignment slack
   static bool lifted[64] = {};
-  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kWG, kStages>, smem, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kWG, kStages, kCausal>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_fwd_sm90_kernel<kWG, kStages><<<grid, kWG * 128 + 32, smem, stream>>>(
+  flash_fwd_sm90_kernel<kWG, kStages, kCausal><<<grid, kWG * 128 + 32, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------- K6 on Hopper: TMA + wgmma
+// ------------------------------------- K6 and K8 on Hopper: TMA + wgmma
 //
-// Serves K6 (`flash_h2_bwd_bf16`); K8 stays on the WMMA kernels above.
+// Serves K6 (`flash_h2_bwd_bf16`) and K8 (`flash_bwd_bf16`: causal or not,
+// any q_offset, residuals at hpb = 1).
 //
 // What bounds it on the H100: the tensor cores and the exps between the
 // products. The backward does 10 T Tk dh FLOPs a head (S, dP, dQ, dK, dV)
@@ -928,11 +549,24 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //   - In both, the last products of tile t and the first of tile t + 1 are
 //     on the tensor cores together, and the two consumer warpgroups share
 //     every stage, so one's exps overlap the other's products.
-//   - Masks: keys at or past kv_len give p = 0 (dq: -inf scores in the
-//     ragged tile; dkv: rows of the CTA's keys, and CTAs wholly past kv_len
-//     write zeros without loading); queries past tq give p = 0 (dq: an
-//     infinite lse; dkv: the columns past tq, whose residual boxes hold the
-//     next pair's or zeros), and TMA fills rows past tq and tk with zeros.
+//   - Masks: keys at or past kv_len give p = 0 (dq: a per-row key limit
+//     in the select that computes p; dkv: rows of the CTA's keys, and CTAs
+//     wholly past kv_len write zeros without loading); queries past tq give
+//     p = 0 (dq: an infinite lse; dkv: the columns past tq, whose residual
+//     boxes hold the next pair's or zeros), and TMA fills rows past tq and
+//     tk with zeros.
+//   - Causal (a template parameter): dq walks key tiles only up to the
+//     diagonal of its last live query, and its per-row key limit becomes
+//     min(kv_len, q_offset + query + 1); dkv starts at the first q tile
+//     whose last query reaches the CTA's first key, masks each key row to
+//     the queries at or past key - q_offset, and a CTA whose keys no query
+//     sees writes zeros without loading. The masks are selects on p, never
+//     writes to the accumulators.
+//   - Residuals (a template parameter of dkv): a box holds one q tile's
+//     hpb x 64 floats from the 16-byte boundary at or below its first, so
+//     up to 4 more: the (query, head % 2) pairs of the h2 layout (hpb 2),
+//     or the tile's 64 queries of (BH, Tq, 1) (hpb 1, where b * tq + t * 64
+//     need not be a multiple of 4).
 //   - Scores in log2 units (ex2), which moves p by an fp32 rounding only.
 
 // d (m64n64 fp32, 32 a thread) (+)= A (64 x 16, shared, K-major) . B (n64 x 16, shared, K-major)^T
@@ -992,7 +626,7 @@ struct DqSmem {
 
 // dq: one CTA per kWG x 64 queries of a (batch row, head); the producer
 // warpgroup loads Q and dO once, then K and V tiles of 128 keys up to kv_len
-template <int kWG, int kStages>
+template <int kWG, int kStages, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreadsMax, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
@@ -1002,7 +636,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   auto& s = *reinterpret_cast<DqSmem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = (sh.kv_len + kBN - 1) / kBN;
+  const int n_tiles = key_tiles<kCausal>(sh, q0, q0 + kWG * kBM);
 
   if (threadIdx.x == 0) {
     mbar_init(&s.qg_full, 1);
@@ -1040,11 +674,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   const int row0 = q0 + wg * kBM + wq * 16 + g;
   const float sl2 = sh.scale * kLog2e;
   float lse2[2], dlt[2];  // lse in log2 units and delta x scale; p = 0 on rows past tq
+  int lim[2];             // the rows' key limits
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     lse2[r] = row < sh.tq ? lse[res_index(sh, h, b, row)] * kLog2e : INFINITY;
     dlt[r] = row < sh.tq ? delta[res_index(sh, h, b, row)] * sh.scale : 0.f;
+    lim[r] = key_limit<kCausal>(sh, row);
   }
   float sc[64], dp[64], acc[32];
   uint32_t da[kBN / 16][4];
@@ -1073,15 +709,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
     reg_fence(dp);
     reg_fence(acc);
     if (t > 0) mbar_arrive(&s.empty[(t - 1) % kStages]);
-    // p = exp(s scale - lse) (0 at keys past kv_len), dS = p (dP - delta)
-    // scale, rounded to bf16 pairs straight from the accumulators, which
-    // no other instruction writes (ptxas would serialize the products)
-    const int k_hi = sh.kv_len - k0;
+    // p = exp(s scale - lse) (0 at keys past the row's limit), dS = p (dP -
+    // delta) scale, rounded to bf16 pairs straight from the accumulators,
+    // which no other instruction writes (ptxas would serialize the products)
+    const int k_hi[2] = {lim[0] - k0, lim[1] - k0};
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int r = (i >> 1) & 1, key = 8 * (i / 4) + 2 * t4;
-      const float p0 = key < k_hi ? ex2(fmaf(sc[i], sl2, -lse2[r])) : 0.f;
-      const float p1 = key + 1 < k_hi ? ex2(fmaf(sc[i + 1], sl2, -lse2[r])) : 0.f;
+      const float p0 = key < k_hi[r] ? ex2(fmaf(sc[i], sl2, -lse2[r])) : 0.f;
+      const float p1 = key + 1 < k_hi[r] ? ex2(fmaf(sc[i + 1], sl2, -lse2[r])) : 0.f;
       da[i / 8][(i / 2) % 4] =
           pack_bf16(p0 * fmaf(dp[i], sh.scale, -dlt[r]), p1 * fmaf(dp[i + 1], sh.scale, -dlt[r]));
     }
@@ -1100,41 +736,48 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
 }
 
 constexpr int kBQ = 64;  // queries a Q / dO tile of the dkv kernel holds
-// a residual box: the tile's (query, head % 2) pairs from the 16-byte
-// boundary at or below their first (a TMA box starts on one), so 4 more
-constexpr int kResBox = 2 * kBQ + 4;
-constexpr int kResRow = 2 * kBQ + 32;  // its row in shared memory: 640 bytes, so every row starts on 128
+// a residual box: the tile's hpb x 64 residuals from the 16-byte boundary at
+// or below their first (a TMA box starts on one), so 4 more
+template <int kHpb>
+constexpr int kResBox = kHpb * kBQ + 4;
+// its row in shared memory, a multiple of 128 bytes: 640 (hpb 2), 384 (hpb 1)
+template <int kHpb>
+constexpr int kResRow = (kResBox<kHpb> + 31) / 32 * 32;
 
-template <int kWG, int kStages>
+template <int kWG, int kStages, int kHpb>
 struct DkvSmem {
   alignas(1024) __nv_bfloat16 k[kWG * kBM * kDh];
   alignas(1024) __nv_bfloat16 v[kWG * kBM * kDh];
   alignas(1024) __nv_bfloat16 q[kStages][kBQ * kDh];
   alignas(1024) __nv_bfloat16 g[kStages][kBQ * kDh];
-  // lse and delta of the tile's queries for both heads of the head pair,
-  // (query, head % 2) in the h2 residual layout, from the element
-  // (first & ~3): the tile's first pair is at (first & 3) = 0 or 2
-  alignas(128) float lse[kStages][kResRow];
-  alignas(128) float dlt[kStages][kResRow];
+  // lse and delta of the tile's queries (hpb 2: for both heads of the head
+  // pair, (query, head % 2) in the h2 layout) from the element (first & ~3):
+  // the tile's first is at (first & 3)
+  alignas(128) float lse[kStages][kResRow<kHpb>];
+  alignas(128) float dlt[kStages][kResRow<kHpb>];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
 // dk, dv: one CTA per kWG x 64 keys of a (batch row, head); the producer
 // warpgroup loads K and V once, then Q and dO tiles of 64 queries with
 // their lse and delta, all by TMA from one thread. CTAs whose keys all lie
-// at or past kv_len write zeros.
-template <int kWG, int kStages>
+// at or past kv_len, or that no query sees, write zeros.
+template <int kWG, int kStages, bool kCausal, int kHpb>
 __global__ void __launch_bounds__(kBwdThreadsMax, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
                           const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dlt,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
   extern __shared__ unsigned char smem_raw[];
-  auto& s = *reinterpret_cast<DkvSmem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  auto& s = *reinterpret_cast<DkvSmem<kWG, kStages, kHpb>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int k0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = k0 < sh.kv_len ? (sh.tq + kBQ - 1) / kBQ : 0;
-  const int res0 = ((h / sh.hpb) * sh.batch + b) * sh.tq * sh.hpb;  // this (head pair, batch row)'s residuals
+  // causal: q tiles whose last query lies above the CTA's first key see none of it
+  const int n_qt = (sh.tq + kBQ - 1) / kBQ;
+  const int lo = k0 - sh.q_offset - (kBQ - 1);
+  const int qt0 = kCausal && lo > 0 ? (lo + kBQ - 1) / kBQ : 0;
+  const int n_tiles = k0 < sh.kv_len && qt0 < n_qt ? n_qt - qt0 : 0;
+  const int res0 = ((h / kHpb) * sh.batch + b) * sh.tq * kHpb;  // this (head pair, batch row)'s residuals
 
   if (threadIdx.x == 0) {
     mbar_init(&s.kv_full, 1);
@@ -1156,11 +799,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
       // a box past tq reads the next pair's residuals (masked below) or
       // zeros past the end
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages, first = res0 + t * kBQ * sh.hpb;
+        const int st = t % kStages, first = res0 + (qt0 + t) * kBQ * kHpb;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&s.full[st], 2 * kBQ * kRowB + 2 * kResBox * 4);
-        tma_load_3d(s.q[st], &tm_q, &s.full[st], h * kDh, t * kBQ, b);
-        tma_load_3d(s.g[st], &tm_g, &s.full[st], h * kDh, t * kBQ, b);
+        mbar_expect_tx(&s.full[st], 2 * kBQ * kRowB + 2 * kResBox<kHpb> * 4);
+        tma_load_3d(s.q[st], &tm_q, &s.full[st], h * kDh, (qt0 + t) * kBQ, b);
+        tma_load_3d(s.g[st], &tm_g, &s.full[st], h * kDh, (qt0 + t) * kBQ, b);
         tma_load_1d(s.lse[st], &tm_lse, &s.full[st], first & ~3);
         tma_load_1d(s.dlt[st], &tm_dlt, &s.full[st], first & ~3);
       }
@@ -1175,7 +818,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
   const int key0 = k0 + wg * kBM + wq * 16 + g;
   const bool live[2] = {key0 < sh.kv_len, key0 + 8 < sh.kv_len};
-  const bool odd = h % sh.hpb != 0;
+  const bool odd = h % kHpb != 0;
   const float sl2 = sh.scale * kLog2e;
   float acc_k[32], acc_v[32];
 #pragma unroll
@@ -1207,23 +850,43 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
       reg_fence(acc_k);
       reg_fence(acc_v);
       if (t > 0) mbar_arrive(&s.empty[(t - 1) % kStages]);
-      const int q_hi = sh.tq - t * kBQ;  // columns at or past it are queries past tq: p = 0
-      const int first = (res0 + t * kBQ * sh.hpb) & 3;  // the tile's first pair in its residual box
+      const int q_tile = qt0 + t;
+      // the tile's columns c with q_lo[r] <= c < q_hi[r] are the queries key
+      // row r sees: none for a key at or past kv_len, none past tq, and when
+      // causal none above the key's diagonal (query < key - q_offset)
+      int q_lo[2], q_hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        q_lo[r] = kCausal ? key0 + 8 * r - sh.q_offset - q_tile * kBQ : 0;
+        q_hi[r] = live[r] ? sh.tq - q_tile * kBQ : 0;
+      }
+      const int first = (res0 + q_tile * kBQ * kHpb) & 3;  // the tile's first residual in its box
 #pragma unroll
       for (int j = 0; j < kBQ / 8; ++j) {
-        // (lse, delta) of queries 8j + 2 t4 and + 1, both heads of the pair
-        const float* lp = &s.lse[st][first + 16 * j + 4 * t4];
-        const float* dl = &s.dlt[st][first + 16 * j + 4 * t4];
-        const float2 l0 = *reinterpret_cast<const float2*>(lp), l1 = *reinterpret_cast<const float2*>(lp + 2);
-        const float2 d0 = *reinterpret_cast<const float2*>(dl), d1 = *reinterpret_cast<const float2*>(dl + 2);
-        const float lse2[2] = {(odd ? l0.y : l0.x) * kLog2e, (odd ? l1.y : l1.x) * kLog2e};
-        const float dlt[2] = {(odd ? d0.y : d0.x) * sh.scale, (odd ? d1.y : d1.x) * sh.scale};
+        // (lse, delta) of queries 8j + 2 t4 and + 1 (hpb 2: both heads of the pair)
+        float lse2[2], dlt[2];
+        if constexpr (kHpb == 2) {
+          const float* lp = &s.lse[st][first + 16 * j + 4 * t4];
+          const float* dl = &s.dlt[st][first + 16 * j + 4 * t4];
+          const float2 l0 = *reinterpret_cast<const float2*>(lp), l1 = *reinterpret_cast<const float2*>(lp + 2);
+          const float2 d0 = *reinterpret_cast<const float2*>(dl), d1 = *reinterpret_cast<const float2*>(dl + 2);
+          lse2[0] = (odd ? l0.y : l0.x) * kLog2e;
+          lse2[1] = (odd ? l1.y : l1.x) * kLog2e;
+          dlt[0] = (odd ? d0.y : d0.x) * sh.scale;
+          dlt[1] = (odd ? d1.y : d1.x) * sh.scale;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            lse2[c] = s.lse[st][first + 8 * j + 2 * t4 + c] * kLog2e;
+            dlt[c] = s.dlt[st][first + 8 * j + 2 * t4 + c] * sh.scale;
+          }
+        }
         // the pairs (e, e + 1) of rows key0 (e = 0) and key0 + 8 (e = 2),
         // rounded to bf16 straight from the accumulators, as in dq
 #pragma unroll
         for (int e = 0; e < 4; e += 2) {
-          const int i = 4 * j + e;
-          const bool on0 = live[e >> 1] && 8 * j + 2 * t4 < q_hi, on1 = live[e >> 1] && 8 * j + 2 * t4 + 1 < q_hi;
+          const int i = 4 * j + e, r = e >> 1, c0 = 8 * j + 2 * t4;
+          const bool on0 = c0 >= q_lo[r] && c0 < q_hi[r], on1 = c0 + 1 >= q_lo[r] && c0 + 1 < q_hi[r];
           const float p0 = on0 ? ex2(fmaf(sc[i], sl2, -lse2[0])) : 0.f;
           const float p1 = on1 ? ex2(fmaf(sc[i + 1], sl2, -lse2[1])) : 0.f;
           pa[i / 8][(i / 2) % 4] = pack_bf16(p0, p1);
@@ -1252,7 +915,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   store_acc(dv + off, acc_v, key0, sh.tk, sh.d, t4);
 }
 
-template <int kWG, int kStages>
+template <int kWG, int kStages, bool kCausal>
 int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
            void* dq, const Shape& sh, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_g;
@@ -1263,28 +926,29 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(DqSmem<kWG, kStages>) + 1024;  // + the alignment slack
   static bool lifted[64] = {};
-  cudaError_t err = lift_smem(flash_bwd_dq_sm90_kernel<kWG, kStages>, smem, lifted);
+  cudaError_t err = lift_smem(flash_bwd_dq_sm90_kernel<kWG, kStages, kCausal>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_bwd_dq_sm90_kernel<kWG, kStages><<<grid, (kWG + 1) * 128, smem, stream>>>(
+  flash_bwd_dq_sm90_kernel<kWG, kStages, kCausal><<<grid, (kWG + 1) * 128, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_g, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), sh);
   return (int)cudaGetLastError();
 }
 
-// an h2 residual (D/128, B, Tq, 2) fp32 as a 1-D map, boxes of one q tile's
-// (query, head % 2) pairs
+// a residual, (D/128, B, Tq, 2) (h2) or (BH, Tq, 1) fp32, as a 1-D map,
+// boxes of one q tile's residuals
+template <int kHpb>
 bool encode_res(EncodeTiled enc, CUtensorMap* map, const void* ptr, const Shape& sh) {
-  const cuuint64_t dims[1] = {(cuuint64_t)(sh.n_head / sh.hpb) * sh.batch * sh.tq * sh.hpb};
+  const cuuint64_t dims[1] = {(cuuint64_t)(sh.n_head / kHpb) * sh.batch * sh.tq * kHpb};
   const cuuint64_t strides[1] = {4};  // none at rank 1
-  const cuuint32_t box[1] = {(cuuint32_t)kResBox};
+  const cuuint32_t box[1] = {(cuuint32_t)kResBox<kHpb>};
   const cuuint32_t elem[1] = {1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kWG, int kStages>
+template <int kWG, int kStages, bool kCausal, int kHpb>
 int run_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
             void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt;
@@ -1292,44 +956,49 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout, const
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kBQ) || !encode(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kBQ) ||
       !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kWG * kBM) || !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kWG * kBM) ||
-      !encode_res(enc, &tm_lse, lse, sh) || !encode_res(enc, &tm_dlt, delta, sh))
+      !encode_res<kHpb>(enc, &tm_lse, lse, sh) || !encode_res<kHpb>(enc, &tm_dlt, delta, sh))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(DkvSmem<kWG, kStages>) + 1024;
+  const int smem = (int)sizeof(DkvSmem<kWG, kStages, kHpb>) + 1024;
   static bool lifted[64] = {};
-  cudaError_t err = lift_smem(flash_bwd_dkv_sm90_kernel<kWG, kStages>, smem, lifted);
+  cudaError_t err = lift_smem(flash_bwd_dkv_sm90_kernel<kWG, kStages, kCausal, kHpb>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tk + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_bwd_dkv_sm90_kernel<kWG, kStages><<<grid, (kWG + 1) * 128, smem, stream>>>(
+  flash_bwd_dkv_sm90_kernel<kWG, kStages, kCausal, kHpb><<<grid, (kWG + 1) * 128, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace sm90
 
-// non-causal forward over the natural layout (K3, and K5 at a head width of 64)
-int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
+// the forward over the natural layout (K3, K5 at a head width of 64, and K7
+// as batch = BH, one head)
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
                     void* stream) {
-  if (bad_shape(sh) || sh.q_offset != 0) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh)) return (int)cudaErrorInvalidValue;
   // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = 64 * n_head)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  if (sh.tq <= sm90::kBM) return sm90::run<1, 2>(q, k, v, out, lse, sh, (cudaStream_t)stream);
-  return sm90::run<2, 4>(q, k, v, out, lse, sh, (cudaStream_t)stream);
+  auto s = (cudaStream_t)stream;
+  if (sh.tq <= sm90::kBM)
+    return causal ? sm90::run<1, 2, true>(q, k, v, out, lse, sh, s) : sm90::run<1, 2, false>(q, k, v, out, lse, sh, s);
+  return causal ? sm90::run<2, 4, true>(q, k, v, out, lse, sh, s) : sm90::run<2, 4, false>(q, k, v, out, lse, sh, s);
 }
 
-// K6: (dq, dk, dv) of the non-causal forward over the natural layout
+// (dq, dk, dv) of the forward: K6 (natural layout, h2 residuals, kHpb 2,
+// never causal) and K8 (batch = BH, one head, kHpb 1)
+template <bool kCausal, int kHpb>
 int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, void* dq, void* dk, void* dv, const Shape& sh, void* stream) {
-  if (bad_shape(sh) || sh.q_offset != 0 || sh.hpb != 2) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh) || sh.hpb != kHpb || sh.n_head % kHpb) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)) % 16)
     return (int)cudaErrorMisalignedAddress;
   auto s = (cudaStream_t)stream;
-  const int err = sh.tq <= sm90::kBM ? sm90::run_dq<1, 2>(q, k, v, dout, lse, delta, dq, sh, s)
-                                     : sm90::run_dq<2, 4>(q, k, v, dout, lse, delta, dq, sh, s);
+  const int err = sh.tq <= sm90::kBM ? sm90::run_dq<1, 2, kCausal>(q, k, v, dout, lse, delta, dq, sh, s)
+                                     : sm90::run_dq<2, 4, kCausal>(q, k, v, dout, lse, delta, dq, sh, s);
   if (err != 0) return err;
-  return sh.tk <= sm90::kBM ? sm90::run_dkv<1, 2>(q, k, v, dout, lse, delta, dk, dv, sh, s)
-                            : sm90::run_dkv<2, 4>(q, k, v, dout, lse, delta, dk, dv, sh, s);
+  return sh.tk <= sm90::kBM ? sm90::run_dkv<1, 2, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s)
+                            : sm90::run_dkv<2, 4, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s);
 }
 
 // ------------------------------------------------- K5 at any head width
@@ -1479,7 +1148,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   const int dh = d / n_head;
   if (dh == kDh) {
     Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-    return launch_fwd_sm90(q, k, v, out, nullptr, sh, stream);
+    return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream);
   }
   if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
     return (int)cudaErrorInvalidValue;
@@ -1499,7 +1168,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
 extern "C" int flash_h2_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                  int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
   Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_fwd_sm90(q, k, v, out, lse, sh, stream);
+  return launch_fwd_sm90(q, k, v, out, lse, sh, false, stream);
 }
 
 // K6: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 2) fp32
@@ -1507,14 +1176,14 @@ extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, co
                                  const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
                                  int n_head, int kv_len, float scale, void* stream) {
   Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
+  return launch_bwd_sm90<false, 2>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
 // K7: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                               int tk, int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
-  return launch_fwd(q, k, v, out, lse, sh, causal != 0, stream);
+  return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
 // K8: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
@@ -1522,7 +1191,8 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
                               const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int kv_len,
                               int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
-  return launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
+  return causal ? launch_bwd_sm90<true, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream)
+                : launch_bwd_sm90<false, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

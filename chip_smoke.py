@@ -108,7 +108,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      split heads), counts reset and read around each;
  19. K5 against its plain version at (32, 1536, 576), at the CLI's shapes
      and at head widths 8, 80 and 768, and K7 with lse and K8 at the shapes
-     the d=576 train steps gave them.
+     the d=576 train steps gave them (the encoder's (72, 1536, 64) is their
+     row of the `kernels` line). Every K7 and K8 row (phases 8, 12, 19)
+     gives the same bits on a second launch and prints its device time.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -141,7 +143,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # kernels whose calls at small shapes are mostly the host's launch cost: their
 # device time alone is measured too, as one call's share of a CUDA graph
 DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
-                "flash_attention_h2_bwd", "flash_attention_mh", "log_mel", "dtw_trace", "int8_mlp")
+                "flash_attention_h2_bwd", "flash_attention_mh", "flash_attention", "flash_attention_lse",
+                "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -358,7 +361,8 @@ def check_train_kernels(card: str, train_buckets, val_buckets):
             lib = dict(attn_mask=mask)
         else:
             lib = dict(is_causal=True)
-        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        # 4-D (1, BH, T, 64) for the library call: SDPA's fused kernels take no 3-D input
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k, v))
         out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
         pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
         record("flash_attention_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
@@ -366,13 +370,14 @@ def check_train_kernels(card: str, train_buckets, val_buckets):
                lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
                lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
                bound=attn_bound(128 * pairs * 64, io + lse.numel() * 4),
-               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, **lib), main=train_main)
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, **lib), main=train_main,
+               repeat=True)
         record("flash_attention", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
                FA.flash_attention(q, k, v, **kw), pout, rel_tol(pout),
                lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
                bound=attn_bound(128 * pairs * 64, io),
                library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, **lib),
-               main=not q_offset and tq == main_v)
+               main=not q_offset and tq == main_v, repeat=True)
         got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
         want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, **lib)
@@ -381,7 +386,8 @@ def check_train_kernels(card: str, train_buckets, val_buckets):
                lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
                lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
                bound=attn_bound(128 * pairs * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
-               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), main=train_main)
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True),
+               main=train_main, repeat=True)
     return rows
 
 
@@ -1218,8 +1224,9 @@ def check_prefill_kernels(card: str, bucket: int, cache_len: int):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
-    # keys past the last query are masked: the kernel needs the first `bucket`
-    keep = torch.arange(cache_len, device=dev)[None, :] <= torch.arange(bucket, device=dev)[:, None]
+    # keys past the last query are masked: the kernel reads the first
+    # `bucket`, and the library call gets those alone, causal, in 4-D (SDPA's
+    # fused kernels take no 3-D input)
     for n_rows, what in ((1, "beam"), (BEAM, "best-of")):
         bh = n_rows * 8
         q, k, v = rnd(bh, bucket, 64), rnd(bh, cache_len, 64), rnd(bh, cache_len, 64)
@@ -1230,7 +1237,8 @@ def check_prefill_kernels(card: str, bucket: int, cache_len: int):
                FA.flash_attention(q, k, v, **kw), want, 2.0**-6 * want.float().abs().max().item(),
                lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
                bound=attn_bound(bh * bucket * (bucket + 1) // 2 * 64, (2 * q.numel() + 2 * bh * bucket * 64) * 2),
-               library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep, scale=0.125), main=False)
+               library=lambda: F.scaled_dot_product_attention(q[None], k[None, :, :bucket], v[None, :, :bucket],
+                                                              is_causal=True, scale=0.125), main=False, repeat=True)
     for tq, what in ((bucket, "beam, prompted"), (BEAM * bucket, "best-of, prompted"), (BEAM * 8, "best-of")):
         q, k, v = rnd(1, tq, 512), rnd(1, 1500, 512), rnd(1, 1500, 512)
         kw = dict(n_head=8, scale=0.125)
@@ -2028,7 +2036,9 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
     unaligned Tq and a masked key tail. Tolerance as K3's: p and the output
     round to bf16 at other places, 2^-6 of the largest output. Then K7 with
     lse and K8, non-causal, at the shapes phase 18's train steps gave them
-    (as phase 8 holds them)."""
+    (as phase 8 holds them), each bitwise on a second launch; the encoder's
+    self-attention shape is their row of the `kernels` line. The library
+    call takes the valid keys alone, without a mask, as phase 8 times K3's."""
     import torch
     import torch.nn.functional as F
 
@@ -2056,15 +2066,13 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
         n_keys = kv_len or tk
         kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
         want = FA.flash_attention_mh_plain(q, k, v, **kw)
-        qh, kh, vh = heads(q, n_head), heads(k, n_head), heads(v, n_head)
-        key_mask = (torch.arange(tk, device=dev) < n_keys)[None, None, None, :]
+        qh, kh, vh = heads(q, n_head), heads(k, n_head, n_keys), heads(v, n_head, n_keys)
         record("flash_attention_mh", f"{what}: q ({b}, {tq}, {d}), k ({b}, {tk}, {d}) bf16, {n_head} heads of {dh}"
                f", kv_valid_len {kv_len}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
                FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
                lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
                bound=attn_bound(b * tq * n_keys * d, (2 * q.numel() + 2 * b * n_keys * d) * 2),
-               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=key_mask, scale=dh**-0.5),
-               main=main)
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh**-0.5), main=main)
         del q, k, v, want, qh, kh, vh
 
     # K7 with lse and K8, non-causal over split heads (B x 9, T, 64)
@@ -2077,25 +2085,27 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
         out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
         pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
         io = (2 * q.numel() + 2 * bh * n_keys * 64) * 2
-        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
-        key_mask = (torch.arange(tk, device=dev) < n_keys)[None, None, :]
+        # the library call over the valid keys alone, without a mask (as phase 8 times K3's), in 4-D
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k[:, :n_keys], v[:, :n_keys]))
+        # the encoder's self-attention, where K7 and K8 lose the most, is a row of the kernels line
+        main = tq == tk
         case = f"non-causal ({bh}, {tq}, 64) x ({bh}, {tk}, 64), kv_valid_len {kv_len} (d=576 train step)"
         record("flash_attention_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
                [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
                lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
                lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
                bound=attn_bound(bh * tq * n_keys * 64, io + lse.numel() * 4),
-               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=key_mask, scale=0.125),
-               main=False)
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125), main=main, repeat=True)
         got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
         want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=key_mask, scale=0.125)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)
         record("flash_attention_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
                got, want, [rel_tol(w) for w in want],
                lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
                lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
                bound=attn_bound(bh * tq * n_keys * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
-               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), main=False)
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=main,
+               repeat=True)
         del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
     return rows
 

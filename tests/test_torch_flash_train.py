@@ -238,17 +238,51 @@ def test_k6_kernel_on_card_edges(cuda_device, tq, tk, kv_valid_len):  # noqa: F8
         assert not got[1][:, kv_valid_len:].any() and not got[2][:, kv_valid_len:].any()
 
 
+# bh, tq, tk, causal, q_offset, kv_valid_len: one consumer warpgroup (tq <=
+# 64) and two (tq > 128), odd tq (the hpb-1 residual box off a 16-byte
+# boundary), tk > tq with q_offset (the prefill), ragged kv_valid_len tiles,
+# causal with keys past q_offset + tq that no query sees, fewer residuals
+# than one residual box holds, and the d=576 encoder and cross shapes at a
+# small BH
+K7_CARD_CASES = [
+    (1, 20, 40, True, 0, None),
+    (16, 64, 64, True, 0, None),
+    (8, 448, 448, True, 0, None),
+    (8, 37, 448, True, 11, None),
+    (8, 100, 300, True, 7, 250),
+    (8, 48, 96, True, 48, None),
+    (40, 32, 256, True, 0, None),
+    (3, 300, 300, True, 0, 290),
+    (3, 130, 520, True, 5, None),
+    (6, 37, 37, False, 0, None),
+    (5, 37, 200, False, 0, 150),
+    (6, 200, 300, False, 0, 270),
+    (4, 48, 1500, False, 0, None),
+    (4, 1536, 1536, False, 0, 1500),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,tq,tk,q_offset,kv_valid_len", [(16, 64, 64, 0, None), (8, 448, 448, 0, None),
-                                                          (8, 37, 448, 11, None), (8, 100, 300, 7, 250)])
-def test_k7_and_k8_kernels_on_card(cuda_device, bh, tq, tk, q_offset, kv_valid_len):  # noqa: F811
-    q, k, v, g = _card_inputs(cuda_device, [(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq)
-    kw = dict(causal=True, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
+@pytest.mark.parametrize("bh,tq,tk,causal,q_offset,kv_valid_len", K7_CARD_CASES)
+def test_k7_and_k8_kernels_on_card(cuda_device, bh, tq, tk, causal, q_offset, kv_valid_len):  # noqa: F811
+    """K7 (with and without lse) and K8 against their plain versions; a
+    second launch gives the same bits, and keys that no query sees (past
+    kv_valid_len, or past q_offset + tq when causal) get zero dk and dv."""
+    q, k, v, g = _card_inputs(cuda_device, [(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq + tk)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
     out, lse = PF.flash_attention(q, k, v, return_lse=True, **kw)
     pout, plse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
     _assert_card_close(out, pout)
-    _assert_card_close(PF.flash_attention(q, k, v, **kw), pout)
+    nolse = PF.flash_attention(q, k, v, **kw)
+    _assert_card_close(nolse, pout)
     assert (lse - plse).abs().max().item() <= 1e-4
-    for a, c in zip(PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
-                    PF.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)):
+    out2, lse2 = PF.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(nolse, PF.flash_attention(q, k, v, **kw))
+    got = PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw)
+    again = PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw)
+    for a, b, c in zip(got, again, PF.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)):
         _assert_card_close(a, c)
+        assert torch.equal(a, b)
+    seen = min(tk if kv_valid_len is None else kv_valid_len, q_offset + tq if causal else tk)
+    if seen < tk:
+        assert not got[1][:, seen:].any() and not got[2][:, seen:].any()
