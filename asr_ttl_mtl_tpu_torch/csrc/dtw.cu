@@ -20,21 +20,22 @@
 // (pallas_dtw.py:141, :175; entries `dtw_paths_batch` :242 and
 // `dtw_paths_dispatch` :262). x is (B, N_max, M_max) fp32; row b is filled
 // with K13's recurrence inside its own (n[b], m[b]), and no cell outside it
-// is read. Then one thread walks the row's trace from (n, m) to (0, 0),
-// taking i == 0 as t = 2 and j == 0 as t = 1 (the host walk's priming), and
-// writes ti[k] = i-1, tj[k] = j-1 for k = 0, 1, ... (reverse path order) and
-// the length to lens[b]. Slots past the length hold 0, as the zeros the JAX
-// while_loop starts from.
+// is read. Then the row's trace is walked from (n, m) to (0, 0), taking
+// i == 0 as t = 2 and j == 0 as t = 1 (the host walk's priming), and
+// ti[k] = i-1, tj[k] = j-1 are written for k = 0, 1, ... (reverse path
+// order) and the length to lens[b]. Slots past the length hold 0, as the
+// zeros the JAX while_loop starts from. K12's trace is an int8 scratch of
+// (B, N_max+1, M_max+1) that the wrapper allocates.
 //
 // What bounds them on the H100: the dependency chain, not the bytes. K13
 // reads N*M*4 bytes and writes (N+1)*(M+1) (at N=225, M=1500: 1.35 MB and
 // 0.34 MB, about 0.5 us at 3.35 TB/s), but diagonal d needs diagonal d-1, so
-// the fill is N+M-1 dependent steps. K12's walk adds N+M dependent reads of
-// the trace, which the fill has just written and which stays in L2 (16 rows
-// x 449 x 1501 bytes is 10.8 MB of the 50 MB).
+// the fill is N+M-1 dependent steps. K12's walk adds up to N+M dependent
+// steps, each a read of the trace the fill has just written.
 //
-// K13's design, `dtw_wave_kernel`: a register wavefront with no block
-// barrier per diagonal. One CTA per matrix. Compute warp w owns 32 R
+// The fill, `dtw_wave_kernel`: a register wavefront with no block barrier
+// per diagonal. One CTA per matrix (K13) or per row of the batch (K12).
+// Compute warp w owns 32 R
 // consecutive rows, R a lane (R from `k13_plan` in ops/dtw.py: 2 up to 512
 // rows, then 4 and 8, so that at most 8 compute warps run up to 2048 rows
 // and 16 up to 4096), and at step s computes cell (i, s - i) of each of its
@@ -68,16 +69,32 @@
 // The 16-byte TMA is not used: a row of x is 4M bytes, not always a multiple
 // of 16 (M = 1499), and the window is skewed by one float per row.
 //
-// K12's design (its own fill, not K13's): one CTA per row of the batch, a thread
-// per text index i (N+1 rounded up to a warp; up to kItems indices a thread
-// when N+1 > 1024). The cost of the last three anti-diagonals lives in
-// shared memory as a ring of three fp32 rows of N+1, with one __syncthreads
-// per diagonal: step d writes slot d % 3, which step d-1 read as d-3 before
-// the barrier. Each thread loads its x for the next diagonal before the
-// barrier, so the load's latency overlaps it. The ring's 48 KB of static
-// shared memory bounds N+1 to 4096 (the wrappers check it), in place of the
-// JAX VMEM guards (pallas_dtw.py:115-116, :274-275). K12's trace is an int8
-// scratch of (B, N_max+1, M_max+1) that the wrapper allocates.
+// K12 runs the same kernel with the plan of N_max. Each CTA reads its row's
+// n and m; x's row stride is M_max and the trace's M_max + 1, apart from the
+// row's own m. Compute warps whose rows all lie below n (and their helpers)
+// skip the fill, and the last live compute warp has no warp below it. A row
+// with n == 0 or m == 0 has no cell to fill and its walk reads no trace.
+//
+// K12's walk, `walk_paths`: the next steps from (i, j) stay inside the box
+// [i - BR + 1, i] x [j - BC + 1, j], so the whole block copies that box of
+// the trace into shared memory in one round trip, as each cell's move (up,
+// left or diagonal; none on a sentinel row above the box, a sentinel column
+// left of it, and at (0, 0)). A trace row is M_max + 1 bytes, odd at the
+// words run's M_max, so each box row is read as aligned 4-byte words, the
+// last holding column j, and the up to three cells left of the first word
+// count as sentinels (K12's trace scratch has 4 bytes past its end for the
+// last word). The block then chains each cell's next four steps (their 2-bit
+// codes and the cell they reach), and one thread walks with one
+// shared-memory load and one add per four steps until it lands on a
+// sentinel or on (0, 0), staging each group's first cell and codes; the
+// block expands the groups into (ti, tj) while it loads the next box. The
+// box holds 4096 cells, BR x (BC + 1) with BR = 4 .. 128, shaped by the
+// row's n / m so that the path leaves it as late as it can: a few boxes a
+// row, in place of one dependent read of L2 a step. A larger box loads
+// more cells the path never visits, a smaller one takes more round trips
+// and barriers. The walk is a function of its own, not inlined, so that
+// its registers do not press on the fill's loop, and its shared memory lies
+// behind the fill's.
 
 #include <cuda_runtime.h>
 
@@ -85,118 +102,32 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kItems = 4;
-constexpr int kMaxRows = kThreads * kItems;  // N + 1; 3 x 4096 fp32 = 48 KB
-
-// Fill the trace of one (n, m) matrix: x row i at x + i * ldx, trace row i at
-// trace + i * ldt. Ends with a barrier, so the whole block sees the trace.
-__device__ void dtw_fill(const float* __restrict__ x, size_t ldx, int8_t* __restrict__ trace, size_t ldt, int n,
-                         int m, float (*ring)[kMaxRows]) {
-  const int n1 = n + 1;
-  const float inf = __int_as_float(0x7f800000);
-
-  // diagonals 0 and 1: cost[0, 0] = 0, cost[0, 1] = cost[1, 0] = inf; their
-  // trace cells are -1
-  for (int i = threadIdx.x; i < n1; i += blockDim.x) {
-    ring[0][i] = i == 0 ? 0.f : inf;
-    ring[1][i] = inf;
-    trace[i * ldt] = -1;             // (i, 0), which holds (1, 0)
-    if (i == 0 && m >= 1) trace[1] = -1;  // (0, 1)
-  }
-
-  // x[i-1, d-i-1] of this thread's cells for the diagonal about to run
-  float xn[kItems];
-  auto load = [&](int d) {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      const int j = d - i;
-      xn[k] = (i >= 1 && i <= n && j >= 1 && j <= m) ? __ldg(x + (i - 1) * ldx + (j - 1)) : 0.f;
-    }
-  };
-  load(2);
-  __syncthreads();
-
-  for (int d = 2; d <= n + m; ++d) {
-    const float* prev2 = ring[(d - 2) % 3];
-    const float* prev1 = ring[(d - 1) % 3];
-    float* cur = ring[d % 3];
-    float xc[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) xc[k] = xn[k];
-    if (d < n + m) load(d + 1);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + k * blockDim.x;
-      if (i >= n1) break;
-      const int j = d - i;
-      if (j < 0 || j > m) continue;  // not on this diagonal's part of the grid
-      float c = inf;
-      int8_t t = -1;
-      if (i >= 1 && j >= 1) {
-        const float c0 = prev2[i - 1], c1 = prev1[i - 1], c2 = prev1[i];
-        if (c0 < c1 && c0 < c2) {
-          c = c0;
-          t = 0;
-        } else if (c1 < c0 && c1 < c2) {
-          c = c1;
-          t = 1;
-        } else {
-          c = c2;
-          t = 2;
-        }
-        c = __fadd_rn(xc[k], c);
-      }
-      cur[i] = c;
-      trace[i * ldt + j] = t;
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) dtw_paths_kernel(const float* __restrict__ x, int8_t* __restrict__ trace,
-                                                             int* __restrict__ ti, int* __restrict__ tj,
-                                                             int* __restrict__ lens, const int* __restrict__ ns,
-                                                             const int* __restrict__ ms, int n_max, int m_max) {
-  __shared__ float ring[3][kMaxRows];
-  const int b = blockIdx.x;
-  const int n = ns[b], m = ms[b];
-  const int l_max = n_max + m_max;
-  const size_t ldt = m_max + 1;
-  int8_t* tr = trace + (size_t)b * (n_max + 1) * ldt;
-  int* ti_b = ti + (size_t)b * l_max;
-  int* tj_b = tj + (size_t)b * l_max;
-  for (int k = threadIdx.x; k < l_max; k += blockDim.x) ti_b[k] = tj_b[k] = 0;
-  dtw_fill(x + (size_t)b * n_max * m_max, m_max, tr, ldt, n, m, ring);  // ends with a barrier
-
-  if (threadIdx.x == 0) {
-    int i = n, j = m, k = 0;
-    while (i > 0 || j > 0) {
-      ti_b[k] = i - 1;
-      tj_b[k] = j - 1;
-      ++k;
-      const int t = i == 0 ? 2 : j == 0 ? 1 : tr[i * ldt + j];
-      i -= t != 2;
-      j -= t != 1;
-    }
-    lens[b] = k;
-  }
-}
-
-int threads_for(int rows) { return rows <= kThreads ? (rows + 31) / 32 * 32 : kThreads; }
-
-// ------------------------------------------------------------------ K13
-
 namespace wave {
 
 constexpr int kRing = 4;              // chunks of boundary costs between two compute warps
 constexpr int kMaxWarps = 16;         // compute warps
+constexpr int kMaxRows = kMaxWarps * 32 * 8;  // N + 1
 // helper warps a compute warp: 4 up to 6 compute warps, 2 up to 10, else 1
 // (`k13_plan` mirrors it); each takes every H-th pass of a chunk's rows
 __host__ __device__ constexpr int helpers_for(int warps) { return warps <= 6 ? 4 : warps <= 10 ? 2 : 1; }
 constexpr int kMaxSmem = 232448;
 constexpr unsigned kFull = 0xffffffffu;
+
+// K12's walk: a box of kBoxCells cells, (kBoxCells / LD) rows of LD (LD =
+// 32 .. 1024, the first column a sentinel) under a sentinel row, twice: each
+// cell's move and code (int16) and its next four steps (8 bytes); the
+// staged groups of four steps of one box (at most (rows + LD - 2) / 4 + 1);
+// the box's next anchor and group count. It lies behind the fill's shared
+// memory, within a block's at every plan (8 compute warps of 2 rows a lane:
+// 179200 + 52304 bytes).
+constexpr int kBoxCells = 4096;
+constexpr int kMaxLd = 1024;
+constexpr int kGroups = 272;
+constexpr int kWalkBytes = (kBoxCells + kMaxLd) * (2 + 8) + kGroups * 4 + 16;
+// K12's block: the warps past the fill's only walk, and a box loads in one round trip
+constexpr int kWalkThreads = 1024;
+constexpr int kWordsInFlight = 4;   // 4-byte words of the box a thread reads before it writes any
+constexpr int kChains = 4;          // cells a thread chains four steps on from at once
 
 __device__ __forceinline__ uint32_t saddr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 
@@ -222,6 +153,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
 
 // The chunk of steps for R rows a lane (`k13_plan` mirrors it): the
 // buffers of 8 compute warps fit a block at 32, 16 and 8 steps; 16 warps
@@ -236,6 +172,157 @@ __host__ __device__ constexpr int chunk_for(int rows_per_lane, int warps) {
 __host__ __device__ constexpr int warp_bytes(int rows_per_lane, int chunk) {
   return 16 * 8 + kRing * chunk * 4 + 2 * chunk * (32 * rows_per_lane + 4) * 5;
 }
+// K13's plan (`k13_plan`): 2, 4 or 8 rows a lane, the fewest that keep to 8
+// compute warps, and the compute warps for N + 1 rows
+__host__ __device__ constexpr int rows_per_lane_for(int rows) { return rows <= 512 ? 2 : rows <= 1024 ? 4 : 8; }
+
+// K12's batch: row b's lengths, its path's outputs, and the batch's shape
+struct Batch {
+  const int* ns;
+  const int* ms;
+  int* ti;
+  int* tj;
+  int* lens;
+  int n_max, m_max;
+};
+
+// K12's walk of one row's trace (row i at trace + i * ldt) from (n, m) to
+// (0, 0), box by box, with its shared memory at `offset`, behind the
+// fill's; the whole block calls it after the trace is written. A box is
+// copied in as each cell's move in cells and its code (0 stop, 1 left, 2
+// up, 3 diagonal; a stop at a sentinel and at (0, 0)); then each cell's
+// next four steps are chained from those, as their codes (a stop repeats)
+// and the byte offset of the cell four steps on; one thread walks with one
+// load and one add per four steps, staging each group's first cell and
+// codes, until a group ends on a stop: a sentinel (the next box's anchor)
+// or (0, 0). The block expands the groups into (ti, tj). Not inlined: its
+// registers are its own, and the fill's loop keeps K13's.
+__device__ __noinline__ void walk_paths(const int8_t* trace, int ldt, int n, int m, int* ti, int* tj, int* len,
+                                        int l_max, int offset) {
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  int16_t* mv = reinterpret_cast<int16_t*>(walk_smem + offset);    // [kMaxLd + kBoxCells]
+  uint2* four = reinterpret_cast<uint2*>(mv + kMaxLd + kBoxCells);  // [kMaxLd + kBoxCells]
+  uint32_t* groups = reinterpret_cast<uint32_t*>(four + kMaxLd + kBoxCells);  // cell | codes << 16
+  int* ctl = reinterpret_cast<int*>(groups + kGroups);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // the box with the fewest boxes over the whole path: max(n / BR, m / (LD - 1))
+  int lg = 10;
+  float fewest = __int_as_float(0x7f800000);
+  for (int g = 10; g >= 5; --g) {
+    const float boxes = fmaxf((float)n / (kBoxCells >> g), (float)m / ((1 << g) - 1));
+    if (boxes < fewest) {
+      fewest = boxes;
+      lg = g;
+    }
+  }
+  const int ld = 1 << lg, br = kBoxCells >> lg, cells = kBoxCells;
+  for (int c = tid; c < ld; c += nt) {  // the sentinel row
+    mv[c] = 0;
+    four[c] = make_uint2(0, 0);
+  }
+  const uint32_t base = saddr(four);
+
+  int ai = n, aj = m, k = 0, n_groups = 0, pi = 0, pj = 0;  // the box's anchor, steps so far, the last box's
+  while (true) {
+    // the last box's groups, four steps each but the last: shared (r, c) is
+    // cell (pi - br + r, pj - ld + 1 + c)
+    for (int q = tid; q < n_groups; q += nt) {
+      const uint32_t g = groups[q];
+      int gi = pi - br + (int)((g & 0xffff) >> lg), gj = pj - ld + 1 + (int)(g & (ld - 1));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t code = (g >> (16 + 2 * u)) & 3;
+        if (code == 0) break;
+        ti[k + 4 * q + u] = gi - 1;
+        tj[k + 4 * q + u] = gj - 1;
+        gi -= code >> 1;
+        gj -= code != 2;
+      }
+    }
+    if (n_groups > 0) {  // four steps a group but the last, whose steps are its nonzero codes
+      const uint32_t last = groups[n_groups - 1] >> 16;
+      k += 4 * (n_groups - 1) + __popc((last | last >> 1) & 0x55);
+    }
+    if (ai == 0 && aj == 0) break;
+    // the box whose bottom right cell is (ai, aj): shared (r, c) holds cell
+    // (oi + r, oj + c) for r >= 1, c >= 1, as its move in cells << 2 | its
+    // code. Row r is read as ld / 4 aligned words, the last holding
+    // (oi + r, aj); the cells left of the first word are stops
+    const int oi = ai - br, oj = aj - ld + 1, wpr = ld >> 2, words = cells >> 2;
+    for (int w0 = tid; w0 < words; w0 += kWordsInFlight * nt) {
+      uint32_t v[kWordsInFlight];
+#pragma unroll
+      for (int u = 0; u < kWordsInFlight; ++u) {
+        const int w = w0 + u * nt, gi = oi + (w >> (lg - 2)) + 1, q = w & (wpr - 1);
+        const unsigned long long end = (unsigned long long)(trace + (long long)gi * ldt + aj);
+        const unsigned long long at = (end & ~3ull) - 4ull * (wpr - 1 - q);
+        const int gj0 = aj - (int)(end - at);  // the column of the word's first byte
+        v[u] = w < words && gi >= 1 && gj0 + 3 >= 1 ? *reinterpret_cast<const uint32_t*>(at) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kWordsInFlight; ++u) {
+        const int w = w0 + u * nt, r = (w >> (lg - 2)) + 1, gi = oi + r, q = w & (wpr - 1);
+        if (w >= words) break;
+        const unsigned long long end = (unsigned long long)(trace + (long long)gi * ldt + aj);
+        const int gj0 = aj - (int)(end - ((end & ~3ull) - 4ull * (wpr - 1 - q)));
+        int16_t* row = mv + r * ld;
+        if (q == 0)  // the sentinel column and the cells before the first word
+          for (int c = 0; c < max(gj0 - oj, 1); ++c) row[c] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int gj = gj0 + b, c = gj - oj, t = (int8_t)(v[u] >> (8 * b));
+          if (c < 1 || c > ld - 1) continue;
+          int e = 0;  // a stop: (0, 0), or a cell the walk cannot reach
+          if (gi >= 0 && gj >= 0 && (gi | gj) != 0)  // row 0 moves left, column 0 up
+            e = gi == 0 || (gj != 0 && t == 2) ? -4 + 1 : gj == 0 || t == 1 ? -4 * ld + 2 : -4 * (ld + 1) + 3;
+          row[c] = (int16_t)e;
+        }
+      }
+    }
+    __syncthreads();
+    for (int c0 = ld + tid; c0 < ld + cells; c0 += kChains * nt) {  // four steps on from each cell
+      int at[kChains];
+      uint32_t codes[kChains] = {};
+#pragma unroll
+      for (int u = 0; u < kChains; ++u) at[u] = c0 + u * nt < ld + cells ? c0 + u * nt : c0;
+#pragma unroll
+      for (int step = 0; step < 4; ++step) {
+#pragma unroll
+        for (int u = 0; u < kChains; ++u) {
+          const int e = mv[at[u]];
+          codes[u] |= (uint32_t)(e & 3) << (2 * step);
+          at[u] += e >> 2;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kChains; ++u)
+        if (c0 + u * nt < ld + cells) four[c0 + u * nt] = make_uint2(codes[u], (uint32_t)(8 * (at[u] - c0 - u * nt)));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      uint32_t a = base + 8 * (br * ld + ld - 1);  // (ai, aj)
+      int q = 0;
+      uint2 e;
+      do {
+        e = lds64(a);
+        groups[q++] = ((a - base) >> 3) | (e.x << 16);
+        a += e.y;
+      } while (e.x >> 6);  // the fourth step moved: the next group starts at a
+      const int off = (a - base) >> 3;  // a sentinel (the next box's anchor) or (0, 0)
+      ctl[0] = oi + (off >> lg);
+      ctl[1] = oj + (off & (ld - 1));
+      ctl[2] = q;
+    }
+    __syncthreads();
+    pi = ai;
+    pj = aj;
+    ai = ctl[0];
+    aj = ctl[1];
+    n_groups = ctl[2];
+  }
+  for (int q = k + tid; q < l_max; q += nt) ti[q] = tj[q] = 0;
+  if (tid == 0) *len = k;
+}
 
 // Compute warp w (w < W) owns rows 32 R w .. + 32 R - 1 of the cost matrix
 // (row 0 the border, row i >= 1 text token i - 1), R consecutive rows a
@@ -243,15 +330,30 @@ __host__ __device__ constexpr int warp_bytes(int rows_per_lane, int chunk) {
 // Helper warps W + H w .. + H - 1 stage its x and write its trace, each
 // every H-th pass of 32 / C rows (H from `helpers_for`). Steps run in chunks of C, from the chunk
 // holding the warp's column 0 to the one holding its last row's column M.
-template <int R, int C, int H>
+// K13 (kPaths false): one (n, m) matrix, x's row stride m and the trace's
+// m + 1. K12 (kPaths true): row blockIdx.x of `batch`, then its walk, with
+// warps past the fill's W (H + 1) that only walk.
+template <int R, int C, int H, bool kPaths>
 __global__ void __launch_bounds__(1024) dtw_wave_kernel(const float* __restrict__ x, int8_t* __restrict__ trace,
-                                                        int n, int m) {
+                                                        int n, int m, int n_warps, Batch batch) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int LD = 32 * R + 4;              // row of x's buffer (fp32) and of the trace tile (int8)
   constexpr int kPass = 32 / C;               // rows a helper pass covers: lane l takes step l % C
   constexpr int kPasses = 32 * R / kPass / H;  // passes of each helper a chunk
-  const int n_warps = blockDim.x / (32 * (1 + H)), warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int ldx = m, ldt = m + 1;  // 32-bit strides: each row offset is one wide multiply-add
+  if constexpr (kPaths) {
+    const int b = blockIdx.x;
+    n = batch.ns[b];
+    m = batch.ms[b];
+    ldx = batch.m_max;
+    ldt = batch.m_max + 1;
+    x += (long long)b * batch.n_max * ldx;
+    trace += (long long)b * (batch.n_max + 1) * ldt;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = warp < n_warps ? warp : (warp - n_warps) / H;  // the compute warp this warp is or serves
+  const int live = (n + 32 * R) / (32 * R);  // compute warps that hold a row of the matrix
+  const bool fills = n >= 1 && m >= 1 && warp < n_warps * (1 + H) && w < live;
   constexpr int per_warp = warp_bytes(R, C);
   auto bars_of = [&](int v) { return reinterpret_cast<uint64_t*>(smem + v * per_warp); };
   uint64_t* bars = bars_of(w);
@@ -282,7 +384,7 @@ __global__ void __launch_bounds__(1024) dtw_wave_kernel(const float* __restrict_
   const int r0 = w * 32 * R, rl = min(r0 + 32 * R, n + 1) - 1;
   const int k0 = r0 / C, k1 = (rl + m) / C;  // the warp's chunks
 
-  if (warp >= n_warps) {  // a helper: stage chunk k + 1, then write chunk k's trace
+  if (fills && warp >= n_warps) {  // a helper: stage chunk k + 1, then write chunk k's trace
     const int h = (warp - n_warps) % H, l_step = lane % C, l_row = lane / C;
     const int last_row = n - r0;  // rows rr <= last_row exist
     // In a chunk whose columns j - 1 all lie in [0, m) no cell of x is off
@@ -294,8 +396,8 @@ __global__ void __launch_bounds__(1024) dtw_wave_kernel(const float* __restrict_
       mbar_wait(&x_empty[b], ((it >> 1) & 1) ^ 1);
       const int s = kc * C + l_step;
       float* dst = xs + b * C * LD + l_step * LD;
-      // x[i-1, j-1] of row r0 + rr, column j = s - r0 - rr: x0 + rr (m - 1)
-      const float* x0 = x + ((long long)(r0 - 1) * m + (s - r0 - 1));
+      // x[i-1, j-1] of row r0 + rr, column j = s - r0 - rr: x0 + rr (ldx - 1)
+      const float* x0 = x + ((long long)(r0 - 1) * ldx + (s - r0 - 1));
       const bool fast = inside(kc);
 #pragma unroll
       for (int q = 0; q < kPasses; ++q) {
@@ -303,7 +405,7 @@ __global__ void __launch_bounds__(1024) dtw_wave_kernel(const float* __restrict_
         const bool valid = rr <= last_row && r0 + rr >= 1 && (fast || (j >= 1 && j <= m));
         // off the matrix: zeros (the compute warp puts the border's +inf on them)
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst + rr)),
-                     "l"(valid ? x0 + (long long)rr * (m - 1) : x), "r"(valid ? 4 : 0)
+                     "l"(valid ? x0 + (long long)rr * (ldx - 1) : x), "r"(valid ? 4 : 0)
                      : "memory");
       }
       mbar_arrive_cp_async(&x_full[b]);
@@ -315,123 +417,132 @@ __global__ void __launch_bounds__(1024) dtw_wave_kernel(const float* __restrict_
       mbar_wait(&t_full[b], (it >> 1) & 1);
       const int s = kc * C + l_step;
       const int8_t* src = tile + b * C * LD + l_step * LD;
-      int8_t* t0 = trace + ((long long)r0 * (m + 1) + (s - r0));  // row r0 + rr, column s - r0 - rr: t0 + rr m
+      // row r0 + rr, column s - r0 - rr: t0 + rr (ldt - 1)
+      int8_t* t0 = trace + ((long long)r0 * ldt + (s - r0));
       const bool fast = inside(kc);
 #pragma unroll
       for (int q = 0; q < kPasses; ++q) {
         const int rr = l_row + kPass * (h + H * q), j = s - r0 - rr;
         if (rr <= last_row && (fast || (j >= 0 && j <= m)))
-          t0[(long long)rr * m] = (r0 + rr == 0 || (!fast && j == 0)) ? (int8_t)-1 : src[rr];
+          t0[(long long)rr * (ldt - 1)] = (r0 + rr == 0 || (!fast && j == 0)) ? (int8_t)-1 : src[rr];
       }
       mbar_arrive(&t_empty[b]);
     }
-    return;
-  }
+  } else if (fills) {  // the compute warp
+    const float* bnd_up = reinterpret_cast<const float*>(bars_of(w > 0 ? w - 1 : 0) + 16);
+    uint64_t* full_up = bars_of(w > 0 ? w - 1 : 0);
+    const bool below = w + 1 < live;
+    uint64_t* done_down = bars_of(below ? w + 1 : w) + kRing;
+    const int up_k1 = (r0 - 1 + m) / C;        // the warp above's last chunk
+    const int down_k0 = (r0 + 32 * R) / C;     // the warp below's first chunk
+    const float inf = __int_as_float(0x7f800000);
 
-  // the compute warp
-  const float* bnd_up = reinterpret_cast<const float*>(bars_of(w > 0 ? w - 1 : 0) + 16);
-  uint64_t* full_up = bars_of(w > 0 ? w - 1 : 0);
-  uint64_t* done_down = bars_of(w + 1 < n_warps ? w + 1 : w) + kRing;
-  const bool below = w + 1 < n_warps;
-  const int up_k1 = (r0 - 1 + m) / C;        // the warp above's last chunk
-  const int down_k0 = (r0 + 32 * R) / C;     // the warp below's first chunk
-  const float inf = __int_as_float(0x7f800000);
-
-  float cur[R], old[R];  // this lane's costs on the last two diagonals
-  // the border: x is taken as +inf at the steps s with lo <= s <= hi, left
-  // of column 1 (s <= i) on row i >= 1 and right of column 0 (s >= 1) on
-  // row 0, where the helper staged zeros; so cost[i, 0] = inf, cost[0, 0]
-  // = 0 and cost[0, j] = inf with the recurrence unchanged
-  int lo[R];
-  unsigned span[R];
+    float cur[R], old[R];  // this lane's costs on the last two diagonals
+    // the border: x is taken as +inf at the steps s with lo <= s <= hi, left
+    // of column 1 (s <= i) on row i >= 1 and right of column 0 (s >= 1) on
+    // row 0, where the helper staged zeros; so cost[i, 0] = inf, cost[0, 0]
+    // = 0 and cost[0, j] = inf with the recurrence unchanged
+    int lo[R];
+    unsigned span[R];
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int i = r0 + lane * R + k;
-    lo[k] = i == 0 ? 1 : -(1 << 30);
-    span[k] = (unsigned)((i == 0 ? (1 << 30) : i) - lo[k]);
-    cur[k] = old[k] = i == 0 ? 0.f : inf;
-  }
-  float up_old = inf;  // the row above's cost on the diagonal before last
-
-  for (int kc = k0; kc <= k1; ++kc) {
-    const int it = kc - k0, b = it & 1;
-    mbar_wait(&x_full[b], (it >> 1) & 1);
-    mbar_wait(&t_empty[b], ((it >> 1) & 1) ^ 1);
-    // the full and done barriers count chunks from the lower warp's first
-    // one, so neither side's wait is ever two phases from the barrier's
-    if (w > 0 && kc <= up_k1) mbar_wait(&full_up[(kc - k0) % kRing], ((kc - k0) / kRing) & 1);
-    const int freed = kc - kRing + 1;  // the warp below must have read this chunk before its slots are rewritten
-    if (below && freed >= down_k0)
-      mbar_wait(&done_down[(freed - down_k0) % kRing], ((freed - down_k0) / kRing) & 1);
-
-    const float* xb = xs + b * C * LD + lane * R;
-    int8_t* tb = tile + b * C * LD + lane * R;
-    int from_lo[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) from_lo[k] = kc * C - lo[k];
-    // a step's x and the warp above's cost are loaded a step ahead, before
-    // the step's stores, so that no load's latency sits on the chain
-    float xn[R];
-    auto load_x = [&](int l) {
-#pragma unroll
-      for (int k = 0; k < R; k += 2) {
-        const float2 v = *reinterpret_cast<const float2*>(xb + l * LD + k);
-        xn[k] = v.x;
-        xn[k + 1] = v.y;
-      }
-    };
-    load_x(0);
-    float bn = w > 0 ? bnd_up[(kc * C - 1) & ring_mask] : inf;
-#pragma unroll
-    for (int l = 0; l < C; ++l) {
-      const int s = kc * C + l;
-      float xv[R];
-#pragma unroll
-      for (int k = 0; k < R; ++k) xv[k] = (unsigned)(from_lo[k] + l) <= span[k] ? inf : xn[k];
-      const float from_warp = bn;
-      if (l + 1 < C) {
-        load_x(l + 1);
-        bn = w > 0 ? bnd_up[s & ring_mask] : inf;
-      }
-      // the shuffle first, then rows R-1 .. 1, whose inputs are this lane's
-      // own, while it is in flight, then row 0 from the lane above
-      const float from_lane = __shfl_up_sync(kFull, cur[R - 1], 1);
-      float nw[R];
-      uint32_t packed[(R + 3) / 4] = {};
-      auto cell = [&](int k, float c0, float c1) {
-        const float c2 = cur[k];
-        const bool t0 = c0 < c1 && c0 < c2, t1 = c1 < c0 && c1 < c2;
-        packed[k / 4] |= (uint32_t)(t0 ? 0 : t1 ? 1 : 2) << (8 * (k % 4));
-        nw[k] = __fadd_rn(xv[k], t0 ? c0 : t1 ? c1 : c2);
-      };
-#pragma unroll
-      for (int k = R - 1; k >= 1; --k) cell(k, old[k - 1], cur[k - 1]);
-      const float up = lane == 0 ? from_warp : from_lane;
-      cell(0, up_old, up);
-      up_old = up;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        old[k] = cur[k];
-        cur[k] = nw[k];
-      }
-      if (R == 2) {
-        *reinterpret_cast<uint16_t*>(tb + l * LD) = (uint16_t)packed[0];
-      } else {
-#pragma unroll
-        for (int k = 0; k < R / 4; ++k) *reinterpret_cast<uint32_t*>(tb + l * LD + 4 * k) = packed[k];
-      }
-      if (lane == 31) bnd[s & ring_mask] = cur[R - 1];
+    for (int k = 0; k < R; ++k) {
+      const int i = r0 + lane * R + k;
+      lo[k] = i == 0 ? 1 : -(1 << 30);
+      span[k] = (unsigned)((i == 0 ? (1 << 30) : i) - lo[k]);
+      cur[k] = old[k] = i == 0 ? 0.f : inf;
     }
-    mbar_arrive(&x_empty[b]);
-    mbar_arrive(&t_full[b]);
-    if (below && lane == 31 && kc >= down_k0) mbar_arrive(&full[(kc - down_k0) % kRing]);
-    if (w > 0 && lane == 0) mbar_arrive(&done[(kc - k0) % kRing]);
+    float up_old = inf;  // the row above's cost on the diagonal before last
+
+    for (int kc = k0; kc <= k1; ++kc) {
+      const int it = kc - k0, b = it & 1;
+      mbar_wait(&x_full[b], (it >> 1) & 1);
+      mbar_wait(&t_empty[b], ((it >> 1) & 1) ^ 1);
+      // the full and done barriers count chunks from the lower warp's first
+      // one, so neither side's wait is ever two phases from the barrier's
+      if (w > 0 && kc <= up_k1) mbar_wait(&full_up[(kc - k0) % kRing], ((kc - k0) / kRing) & 1);
+      const int freed = kc - kRing + 1;  // the warp below must have read this chunk before its slots are rewritten
+      if (below && freed >= down_k0)
+        mbar_wait(&done_down[(freed - down_k0) % kRing], ((freed - down_k0) / kRing) & 1);
+
+      const float* xb = xs + b * C * LD + lane * R;
+      int8_t* tb = tile + b * C * LD + lane * R;
+      int from_lo[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) from_lo[k] = kc * C - lo[k];
+      // a step's x and the warp above's cost are loaded a step ahead, before
+      // the step's stores, so that no load's latency sits on the chain
+      float xn[R];
+      auto load_x = [&](int l) {
+#pragma unroll
+        for (int k = 0; k < R; k += 2) {
+          const float2 v = *reinterpret_cast<const float2*>(xb + l * LD + k);
+          xn[k] = v.x;
+          xn[k + 1] = v.y;
+        }
+      };
+      load_x(0);
+      float bn = w > 0 ? bnd_up[(kc * C - 1) & ring_mask] : inf;
+#pragma unroll
+      for (int l = 0; l < C; ++l) {
+        const int s = kc * C + l;
+        float xv[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) xv[k] = (unsigned)(from_lo[k] + l) <= span[k] ? inf : xn[k];
+        const float from_warp = bn;
+        if (l + 1 < C) {
+          load_x(l + 1);
+          bn = w > 0 ? bnd_up[s & ring_mask] : inf;
+        }
+        // the shuffle first, then rows R-1 .. 1, whose inputs are this lane's
+        // own, while it is in flight, then row 0 from the lane above
+        const float from_lane = __shfl_up_sync(kFull, cur[R - 1], 1);
+        float nw[R];
+        uint32_t packed[(R + 3) / 4] = {};
+        auto cell = [&](int k, float c0, float c1) {
+          const float c2 = cur[k];
+          const bool t0 = c0 < c1 && c0 < c2, t1 = c1 < c0 && c1 < c2;
+          packed[k / 4] |= (uint32_t)(t0 ? 0 : t1 ? 1 : 2) << (8 * (k % 4));
+          nw[k] = __fadd_rn(xv[k], t0 ? c0 : t1 ? c1 : c2);
+        };
+#pragma unroll
+        for (int k = R - 1; k >= 1; --k) cell(k, old[k - 1], cur[k - 1]);
+        const float up = lane == 0 ? from_warp : from_lane;
+        cell(0, up_old, up);
+        up_old = up;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          old[k] = cur[k];
+          cur[k] = nw[k];
+        }
+        if (R == 2) {
+          *reinterpret_cast<uint16_t*>(tb + l * LD) = (uint16_t)packed[0];
+        } else {
+#pragma unroll
+          for (int k = 0; k < R / 4; ++k) *reinterpret_cast<uint32_t*>(tb + l * LD + 4 * k) = packed[k];
+        }
+        if (lane == 31) bnd[s & ring_mask] = cur[R - 1];
+      }
+      mbar_arrive(&x_empty[b]);
+      mbar_arrive(&t_full[b]);
+      if (below && lane == 31 && kc >= down_k0) mbar_arrive(&full[(kc - down_k0) % kRing]);
+      if (w > 0 && lane == 0) mbar_arrive(&done[(kc - k0) % kRing]);
+    }
+  }
+
+  if constexpr (kPaths) {
+    __syncthreads();  // the row's trace is written
+    const int b = blockIdx.x, l_max = batch.n_max + batch.m_max;
+    walk_paths(trace, ldt, n, m, batch.ti + (long long)b * l_max, batch.tj + (long long)b * l_max,
+               batch.lens + b, l_max, n_warps * per_warp);
   }
 }
 
-template <int R, int C, int H>
-int launch(const float* x, int8_t* trace, int n, int m, int warps, cudaStream_t stream) {
-  const int smem = warps * warp_bytes(R, C);
+// One launch of the fill: K13's (kPaths false, one CTA) or K12's (one CTA a
+// row of the batch, the plan from n_max); n is the rows the plan covers.
+template <int R, int C, int H, bool kPaths>
+int launch(const float* x, int8_t* trace, int n, int m, int warps, const Batch& batch, int grid,
+           cudaStream_t stream) {
+  const int smem = warps * warp_bytes(R, C) + (kPaths ? kWalkBytes : 0);
   if (warps < 1 || warps > kMaxWarps || (warps - 1) * 32 * R >= n + 1 || warps * 32 * R < n + 1 ||
       chunk_for(R, warps) != C || helpers_for(warps) != H || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -440,12 +551,33 @@ int launch(const float* x, int8_t* trace, int n, int m, int warps, cudaStream_t 
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !lifted[dev]) {  // once a device, not on every launch
-    err = cudaFuncSetAttribute(dtw_wave_kernel<R, C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    err = cudaFuncSetAttribute(dtw_wave_kernel<R, C, H, kPaths>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) lifted[dev] = true;
   }
-  dtw_wave_kernel<R, C, H><<<1, warps * (1 + H) * 32, smem, stream>>>(x, trace, n, m);
+  const int fill_threads = warps * (1 + H) * 32;
+  const int threads = kPaths ? kWalkThreads : fill_threads;
+  dtw_wave_kernel<R, C, H, kPaths><<<grid, threads, smem, stream>>>(x, trace, n, m, warps, batch);
   return (int)cudaGetLastError();
+}
+
+// the instantiations `k13_plan` can ask for
+template <bool kPaths>
+int dispatch(const float* x, int8_t* trace, int n, int m, int rows_per_lane, int warps, const Batch& batch,
+             int grid, cudaStream_t st) {
+  switch (rows_per_lane * 8 + helpers_for(warps)) {
+    case 2 * 8 + 4: return launch<2, 32, 4, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 2 * 8 + 2: return launch<2, 32, 2, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 4 * 8 + 4: return launch<4, 16, 4, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 4 * 8 + 2: return launch<4, 16, 2, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 8 * 8 + 4: return launch<8, 8, 4, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 8 * 8 + 2:
+      return warps <= 8 ? launch<8, 8, 2, kPaths>(x, trace, n, m, warps, batch, grid, st)
+                        : launch<8, 4, 2, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    case 8 * 8 + 1: return launch<8, 4, 1, kPaths>(x, trace, n, m, warps, batch, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The latency of one dependent step of the wavefront, for the chain bound:
@@ -472,22 +604,9 @@ __global__ void chain_probe_kernel(float* out, int iters) {
 
 // K13; rows_per_lane (2, 4 or 8) and warps (compute warps) from `k13_plan`
 extern "C" int dtw_trace_f32(const void* x, void* trace, int n, int m, int rows_per_lane, int warps, void* stream) {
-  if (n < 1 || m < 1 || n + 1 > kMaxRows) return (int)cudaErrorInvalidValue;
-  const float* xp = static_cast<const float*>(x);
-  int8_t* tp = static_cast<int8_t*>(trace);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int h = wave::helpers_for(warps);
-  switch (rows_per_lane * 8 + h) {  // the instantiations `k13_plan` can ask for
-    case 2 * 8 + 4: return wave::launch<2, 32, 4>(xp, tp, n, m, warps, st);
-    case 2 * 8 + 2: return wave::launch<2, 32, 2>(xp, tp, n, m, warps, st);
-    case 4 * 8 + 4: return wave::launch<4, 16, 4>(xp, tp, n, m, warps, st);
-    case 4 * 8 + 2: return wave::launch<4, 16, 2>(xp, tp, n, m, warps, st);
-    case 8 * 8 + 4: return wave::launch<8, 8, 4>(xp, tp, n, m, warps, st);
-    case 8 * 8 + 2:
-      return warps <= 8 ? wave::launch<8, 8, 2>(xp, tp, n, m, warps, st) : wave::launch<8, 4, 2>(xp, tp, n, m, warps, st);
-    case 8 * 8 + 1: return wave::launch<8, 4, 1>(xp, tp, n, m, warps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (n < 1 || m < 1 || n + 1 > wave::kMaxRows) return (int)cudaErrorInvalidValue;
+  return wave::dispatch<false>(static_cast<const float*>(x), static_cast<int8_t*>(trace), n, m, rows_per_lane,
+                               warps, wave::Batch{}, 1, (cudaStream_t)stream);
 }
 
 // K13's chain bound: one warp, `iters` dependent steps; out holds 32 floats
@@ -497,14 +616,17 @@ extern "C" int dtw_chain_probe(void* out, int iters, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// K12: K13's fill with the plan of n_max, one CTA a row, then the walk
 extern "C" int dtw_paths_f32(const void* x, void* trace, void* ti, void* tj, void* lens, const void* ns,
                              const void* ms, int batch, int n_max, int m_max, void* stream) {
-  if (batch < 1 || n_max < 0 || m_max < 0 || n_max + 1 > kMaxRows || n_max + m_max < 1)
+  if (batch < 1 || n_max < 0 || m_max < 0 || n_max + 1 > wave::kMaxRows || n_max + m_max < 1)
     return (int)cudaErrorInvalidValue;
-  dtw_paths_kernel<<<batch, threads_for(n_max + 1), 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(trace), static_cast<int*>(ti), static_cast<int*>(tj),
-      static_cast<int*>(lens), static_cast<const int*>(ns), static_cast<const int*>(ms), n_max, m_max);
-  return (int)cudaGetLastError();
+  const int rows_per_lane = wave::rows_per_lane_for(n_max + 1);
+  const int warps = (n_max + 32 * rows_per_lane) / (32 * rows_per_lane);
+  const wave::Batch rows{static_cast<const int*>(ns), static_cast<const int*>(ms), static_cast<int*>(ti),
+                         static_cast<int*>(tj), static_cast<int*>(lens), n_max, m_max};
+  return wave::dispatch<true>(static_cast<const float*>(x), static_cast<int8_t*>(trace), n_max, m_max,
+                              rows_per_lane, warps, rows, batch, (cudaStream_t)stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -29,11 +29,17 @@ import torch
 
 from . import LAUNCHES, _cuda
 
-MAX_TOKENS = 4095  # N + 1 <= 4096: K12's shared-memory ring, and K13's plan
+MAX_TOKENS = 4095  # N + 1 <= 4096: K13's plan, which K12 shares
 
 # K13's shared-memory plan (csrc/dtw.cu, `wave::warp_bytes`, `wave::chunk_for`)
 K13_RING = 4  # chunks of boundary costs between two compute warps
 K13_MAX_SMEM = 232448  # bytes a block may take on the H100
+# K12's walk behind the fill's shared memory (`wave::kWalkBytes`): a box of
+# 4096 cells under a sentinel row of up to 1024, each cell's move (int16) and
+# its next four steps (8 bytes), 272 staged groups of four steps and 16
+# bytes of control; and its block (`kWalkThreads`)
+K12_WALK_BYTES = (4096 + 1024) * (2 + 8) + 272 * 4 + 16
+K12_THREADS = 1024
 
 
 def k13_chunk(rows_per_lane: int, warps: int) -> int:
@@ -62,6 +68,16 @@ def k13_plan(n: int, m: int) -> Tuple[int, int, int, int, int]:
     chunk = k13_chunk(rows_per_lane, warps)
     helpers = 4 if warps <= 6 else 2 if warps <= 10 else 1
     return rows_per_lane, chunk, warps, helpers, warps * k13_warp_bytes(rows_per_lane, chunk)
+
+
+def k12_plan(n_max: int) -> Tuple[int, int, int, int, int, int]:
+    """(rows a lane, steps a chunk, compute warps, helper warps a compute
+    warp, threads, shared-memory bytes) of K12 for a batch of up to n_max
+    tokens, as `dtw_paths_f32` derives it: K13's plan at n_max for every
+    row, 1024 threads a block (the warps past the fill's only walk), and
+    the walk's shared memory behind the fill's."""
+    rows_per_lane, chunk, warps, helpers, smem = k13_plan(n_max, 0)
+    return rows_per_lane, chunk, warps, helpers, K12_THREADS, smem + K12_WALK_BYTES
 
 
 def backtrace(trace: np.ndarray) -> np.ndarray:
@@ -197,6 +213,12 @@ def dtw_paths_batch_plain(x: torch.Tensor, n, m):
     return tuple(torch.from_numpy(a).to(x.device) for a in (ti, tj, lens))
 
 
+def k12_trace_scratch(b: int, n_max: int, m_max: int, device) -> torch.Tensor:
+    """K12's int8 trace scratch, (b, n_max + 1, m_max + 1) row-major, and 4
+    bytes past it: the walk reads the trace as aligned 4-byte words."""
+    return torch.empty(b * (n_max + 1) * (m_max + 1) + 4, dtype=torch.int8, device=device)
+
+
 def dtw_paths_dispatch(x: torch.Tensor, n, m):
     """K12 wrapper: the DTW paths of the rows of x (B, N_max, M_max) fp32,
     each row bounded by its own n[b] <= N_max text tokens and m[b] <= M_max
@@ -223,7 +245,7 @@ def dtw_paths_dispatch(x: torch.Tensor, n, m):
         return ti, tj, lens.zero_()
     x = x.contiguous()
     nm = torch.tensor([list(n), list(m)], dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
-    trace = torch.empty((b, n_max + 1, m_max + 1), dtype=torch.int8, device=dev)
+    trace = k12_trace_scratch(b, n_max, m_max, dev)
     code = _cuda.lib("dtw").dtw_paths_f32(
         x.data_ptr(), trace.data_ptr(), ti.data_ptr(), tj.data_ptr(), lens.data_ptr(), nm[0].data_ptr(),
         nm[1].data_ptr(), b, n_max, m_max, _cuda.stream_handle(dev),

@@ -70,8 +70,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      and K3 and K7 in the alignment forward;
  14. holds K11 (median filter) and K13 (DTW fill) against their plain
      versions, exactly, at the largest and smallest shapes phase 13 gave
-     them, K13 also at a seeded (225, 1500), a real window's shape, and on
-     a second launch, with its device time and, beside its bound, the
+     them, K11 also at width 13 and at a seeded (8, 229, 1500), K13 also at
+     a seeded (225, 1500), a real window's shape, each on a second launch
+     too, with its device time and, beside K13's bound, the
      chain bound: (N+M-1) steps of the dependent step's latency, measured
      here by a one-warp loop; then runs one window's post-forward pipeline
      (standardize, K11, head mean, K13, backtrace) on its captured card
@@ -88,8 +89,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      without_timestamps; each with wall s, windows, rungs, audio-s/s and
      the launch counts;
  16. holds K12 against its plain version, exactly, at the largest and
-     smallest chunks run (b) gave it and at a chunk padded by repeating a
-     row, times it, and runs one chunk's post-forward step (K12, walk,
+     smallest chunks run (b) gave it, at a chunk padded by repeating a row
+     and at base's largest chunk (16, 444, 1500), seeded, each on a second
+     launch too, times it beside the chain bound of its longest row and
+     K13 on that row, and runs one chunk's post-forward step (K12, walk,
      words) with the kernel and with the plain version: the same words.
  17. the K14 window path at base: phase 4's options under
      `set_int8_mlp_kernel("auto")`, 3 batches with the launch counts reset
@@ -144,7 +147,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # device time alone is measured too, as one call's share of a CUDA graph
 DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
                 "flash_attention_h2_bwd", "flash_attention_mh", "flash_attention", "flash_attention_lse",
-                "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp")
+                "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp", "median_filter")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -227,6 +230,10 @@ def make_recorder(card: str, rows: list):
 
     from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
+    def bits(t):  # a float tensor's bits, so that a NaN equals itself
+        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+        return t.view(ints[t.dtype]) if t.dtype in ints else t
+
     def record(name, case, source, replaces, got, want, tol, run_kernel, run_plain, *, bound, library=None,
                main=True, plain_iters=20, repeat=False):
         torch.cuda.synchronize()
@@ -234,7 +241,7 @@ def make_recorder(card: str, rows: list):
         if repeat:
             again = run_kernel()
             again = list(again) if isinstance(again, (tuple, list)) else [again]
-            if not all(torch.equal(a, g) for a, g in zip(again, gots)):
+            if not all(torch.equal(bits(a), bits(g)) for a, g in zip(again, gots)):
                 raise AssertionError(f"{name} {case}: a second launch gave other bits")
         err, worst, ref, finite = 0.0, 0.0, 0.0, True
         for g, w, t in zip(gots, wants, tols):
@@ -1434,17 +1441,17 @@ def k13_step_ns() -> float:
 
 def check_words_kernels(card: str, probes):
     """Phase 14: K11 and K13 against their plain versions, exactly, at the
-    largest and smallest inputs the words runs gave them, K13 also at a
-    seeded (225, 1500) and on a second launch, with its chain bound beside
-    the bytes' bound; then one window's post-forward pipeline with the
-    kernels and with the plain versions."""
+    largest and smallest inputs the words runs gave them, K11 also at width
+    13 and at a seeded (8, 229, 1500), K13 also at a seeded (225, 1500),
+    each on a second launch too and with its device time, K13's chain bound
+    beside the bytes' bound; then one window's post-forward pipeline with
+    the kernels and with the plain versions."""
     import numpy as np
     import torch
 
     from asr_ttl_mtl_tpu_torch import timing
     from asr_ttl_mtl_tpu_torch.ops import dtw as DT
     from asr_ttl_mtl_tpu_torch.ops import median as MD
-    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
 
     rows = []
     record = make_recorder(card, rows)
@@ -1452,13 +1459,20 @@ def check_words_kernels(card: str, probes):
     for kind in ("median_filter", "dtw_trace"):
         held = [x for probe in probes for x in probe.inputs[kind].values()]
         inputs[kind] = {"largest": max(held, key=torch.numel), "smallest": min(held, key=torch.numel)}
-    for key in ("largest", "smallest"):
-        x = inputs["median_filter"][key]
-        record("median_filter", f"{key} of the words runs: {tuple(x.shape)} fp32, width 7",
+    rng = np.random.RandomState(229)
+    x_tall = torch.from_numpy(rng.randn(8, 229, 1500).astype(np.float32)).cuda()
+    x_tall[..., 750] = float("nan")  # a zero-variance column after the standardization
+    k11_cases = [("largest of the words runs", inputs["median_filter"]["largest"], 7),
+                 ("smallest of the words runs", inputs["median_filter"]["smallest"], 7),
+                 ("largest of the words runs", inputs["median_filter"]["largest"], 13),
+                 ("seeded, a window of 229 tokens", x_tall, 7), ("seeded, a window of 229 tokens", x_tall, 13)]
+    for n, (where, x, width) in enumerate(k11_cases):
+        record("median_filter", f"{where}: {tuple(x.shape)} fp32, width {width}",
                "asr_ttl_mtl_tpu_torch/csrc/median.cu", "asr_ttl_mtl_tpu/ops/pallas_median.py:25",
-               MD.median_filter_network(x, 7), MD.median_filter_network_plain(x, 7), "exact",
-               lambda: MD.median_filter_network(x, 7), lambda: MD.median_filter_network_plain(x, 7),
-               bound=bound(3 * 7 * x.numel(), 2 * x.numel() * 4, "fp32"), main=key == "largest")
+               MD.median_filter_network(x, width), MD.median_filter_network_plain(x, width), "exact",
+               lambda x=x, width=width: MD.median_filter_network(x, width),
+               lambda x=x, width=width: MD.median_filter_network_plain(x, width),
+               bound=bound(3 * width * x.numel(), 2 * x.numel() * 4, "fp32"), main=n == 0, repeat=True)
     step_ns = k13_step_ns()
     print(f"[kernel] dtw_trace: one dependent step of the wavefront (shuffle, compares, selects, add) "
           f"{step_ns:.2f} ns on one warp [{card}]", flush=True)
@@ -1478,13 +1492,6 @@ def check_words_kernels(card: str, probes):
         r["chain_bound_ms"] = (n + m - 1) * step_ns * 1e-6
         print(f"[kernel] dtw_trace {r['case']}: chain bound {r['chain_bound_ms']:.4f} ms (a diagnostic beside the "
               f"bytes' {r['bound_ms']:.4f}), device {r['device_ms']:.4f} ms [{card}]", flush=True)
-    # device time of K11, without the wrapper's host work (ctypes, the
-    # output's allocation): calls captured in a CUDA graph
-    xm = inputs["median_filter"]["largest"]
-    r = rows[0]
-    r["device_ms"] = graph_ms(lambda: MD.median_filter_network(xm, 7))
-    print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
-          f"{r['device_ms']:.4f} ms [{card}]", flush=True)
 
     weights, *args = probes[0].first
     kernel_path = timing.alignment_path(weights, *args)
@@ -1692,26 +1699,33 @@ def k12_raw(x, n, m):
     import torch
 
     from asr_ttl_mtl_tpu_torch.ops import _cuda
+    from asr_ttl_mtl_tpu_torch.ops import dtw as DT
 
     b, n_max, m_max = x.shape
     dev = x.device
     nm = torch.tensor([list(n), list(m)], dtype=torch.int32, device=dev)
     ti = torch.empty((b, n_max + m_max), dtype=torch.int32, device=dev)
     tj, lens = torch.empty_like(ti), torch.empty(b, dtype=torch.int32, device=dev)
-    trace = torch.empty((b, n_max + 1, m_max + 1), dtype=torch.int8, device=dev)
+    trace = DT.k12_trace_scratch(b, n_max, m_max, dev)
     lib = _cuda.lib("dtw")
 
     def run():
-        lib.dtw_paths_f32(x.data_ptr(), trace.data_ptr(), ti.data_ptr(), tj.data_ptr(), lens.data_ptr(),
-                          nm[0].data_ptr(), nm[1].data_ptr(), b, n_max, m_max, _cuda.stream_handle(dev))
+        code = lib.dtw_paths_f32(x.data_ptr(), trace.data_ptr(), ti.data_ptr(), tj.data_ptr(), lens.data_ptr(),
+                                 nm[0].data_ptr(), nm[1].data_ptr(), b, n_max, m_max, _cuda.stream_handle(dev))
+        _cuda.check("dtw", "dtw_paths_f32", code)
     return run
 
 
 def check_batch_kernels(card: str, probe):
     """Phase 16: K12 against its plain version, exactly, at the largest and
-    smallest chunks of run (b) and at the largest padded by repeating a row;
-    then one chunk's post-forward step with the kernel and with the plain
-    version."""
+    smallest chunks of run (b), at the largest padded by repeating a row and
+    at base's largest chunk, seeded (16, 444, 1500), each on a second launch
+    too and with its device time, and with the chain bound of its longest
+    row beside the bytes' bound; then one chunk's post-forward step with the
+    kernel and with the plain version."""
+    import numpy as np
+    import torch
+
     from asr_ttl_mtl_tpu_torch import timing
     from asr_ttl_mtl_tpu_torch.ops import dtw as DT
     from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
@@ -1724,28 +1738,37 @@ def check_batch_kernels(card: str, probe):
     keep = max(1, x.shape[0] * 2 // 3)  # the last rows repeat row keep-1, as find_alignment_batch pads
     pad_rows = list(range(keep)) + [keep - 1] * (x.shape[0] - keep)
     padded = (x[pad_rows].clone(), [n[r] for r in pad_rows], [m[r] for r in pad_rows])
-    for key, (x, n, m) in (("largest", largest), ("smallest", smallest), ("padded", padded)):
+    rng = np.random.RandomState(444)
+    ns, ms = rng.randint(2, 445, size=16).tolist(), rng.randint(1, 1501, size=16).tolist()
+    ns[0], ms[0] = 444, 1500
+    base_largest = (torch.from_numpy(rng.randn(16, 444, 1500).astype(np.float32)).cuda(), ns, ms)
+    step_ns = k13_step_ns()
+    cases = (("largest chunk of the batched words run", largest), ("smallest chunk of the batched words run", smallest),
+             ("largest chunk padded", padded), ("base's largest chunk, seeded", base_largest))
+    for key, (x, n, m) in cases:
         b, n_max, m_max = x.shape
         cells = sum(a * c for a, c in zip(n, m))
         steps = max(a + c for a, c in zip(n, m))
-        record("dtw_paths_batch", f"{key} chunk of the batched words run: ({b}, {n_max}, {m_max}) fp32, rows of "
-               f"{min(n)}-{max(n)} tokens x {min(m)}-{max(m)} frames, up to {steps - 1} dependent diagonals + "
-               f"{steps} walk steps", "asr_ttl_mtl_tpu_torch/csrc/dtw.cu", "asr_ttl_mtl_tpu/ops/pallas_dtw.py:141",
+        record("dtw_paths_batch", f"{key}: ({b}, {n_max}, {m_max}) fp32, rows of {min(n)}-{max(n)} tokens x "
+               f"{min(m)}-{max(m)} frames, up to {steps - 1} dependent diagonals + {steps} walk steps, (rows a "
+               f"lane, chunk, compute warps, helpers a warp, threads, smem) {DT.k12_plan(n_max)}",
+               "asr_ttl_mtl_tpu_torch/csrc/dtw.cu", "asr_ttl_mtl_tpu/ops/pallas_dtw.py:141",
                list(DT.dtw_paths_dispatch(x, n, m)), list(DT.dtw_paths_batch_plain(x, n, m)), ["exact"] * 3,
-               lambda: DT.dtw_paths_dispatch(x, n, m), lambda: DT.dtw_paths_batch_plain(x, n, m),
+               lambda x=x, n=n, m=m: DT.dtw_paths_dispatch(x, n, m),
+               lambda x=x, n=n, m=m: DT.dtw_paths_batch_plain(x, n, m),
                bound=bound(3 * cells, cells * 4 + 8 * b + 2 * b * (n_max + m_max) * 4 + 4 * b, "fp32"),
-               main=key == "largest", plain_iters=2)
-    r = rows[0]
-    r["device_ms"] = graph_ms(k12_raw(*largest))
-    # K13's register wavefront on the chunk's longest row: what K12's fill
-    # (its own, one block barrier a diagonal) would take there on K13's design
-    x, n, m = largest
-    b = max(range(len(n)), key=lambda i: n[i] + m[i])
-    row = x[b, : n[b], : m[b]].contiguous()
-    r["k13_row_ms"] = graph_ms(lambda: DT.dtw_trace(row))
-    print(f"[kernel] {r['name']} {r['case']}: device time per call (CUDA graph of 10 calls, 5 replays) "
-          f"{r['device_ms']:.4f} ms; K13 on its longest row ({n[b]}, {m[b]}) {r['k13_row_ms']:.4f} ms; "
-          f"the chain of diagonals and walk steps, not the bytes, sets it [{card}]", flush=True)
+               main=key.startswith("largest chunk of"), plain_iters=1 if n_max > 100 else 2, repeat=True)
+        r = rows[-1]
+        r["device_ms"] = graph_ms(k12_raw(x, n, m))
+        r["chain_bound_ms"] = (steps - 1) * step_ns * 1e-6
+        # K13 on the chunk's longest row: the fill alone, on its own plan
+        longest = max(range(len(n)), key=lambda i: n[i] + m[i])
+        row = x[longest, : n[longest], : m[longest]].contiguous()
+        r["k13_row_ms"] = graph_ms(lambda: DT.dtw_trace(row))
+        print(f"[kernel] {r['name']} {key}: device time per call (CUDA graph of 10 calls, 5 replays) "
+              f"{r['device_ms']:.4f} ms; the chain bound of its longest row ({n[longest]}, {m[longest]}), "
+              f"{steps - 1} diagonals x {step_ns:.2f} ns, {r['chain_bound_ms']:.4f} ms (a diagnostic beside the "
+              f"bytes' {r['bound_ms']:.4f}); K13 on that row {r['k13_row_ms']:.4f} ms [{card}]", flush=True)
 
     # the first chunk's post-forward step on its card matrices: K12's paths
     # and the plain version's give the same words

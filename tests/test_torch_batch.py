@@ -405,22 +405,79 @@ def test_cli_batch_mode_refusals(doll, monkeypatch, capsys):
 # ------------------------------------------------------- on the card ------
 
 
+# K12 on the card: (n_max, m_max, ns, ms, kind), x seeded at (len(ns), n_max,
+# m_max); n_max picks the plan, so that every (rows a lane, chunk, helpers)
+# instance runs, 4095 tokens included; odd m_max with rows short of it;
+# rows without tokens or frames; rows short of n_max by more than a compute
+# warp's rows (the warps below them idle); ties and NaN
+K12_CARD_CASES = [
+    (max(NS), max(MS), NS, MS, "ragged"),
+    (max(NS), max(MS), NS, MS, "ties"),
+    (max(NS), max(MS), NS, MS, "nan"),
+    (37, 143, [0, 5, 37, 0, 37, 12, 0], [9, 0, 143, 0, 143, 1, 0], "ragged"),
+    (61, 1499, [52, 5, 61, 17, 33], [1499, 250, 1101, 1499, 780], "ragged"),
+    (444, 1500, [444, 5, 60, 130, 200, 443], [1500, 1200, 1499, 700, 333, 1], "ties"),
+    (444, 1501, [444, 2, 64, 65, 300], [1501, 1501, 900, 1500, 1], "nan"),
+    (600, 201, [600, 100, 599], [201, 200, 77], "ragged"),
+    (900, 150, [900, 129, 640], [150, 149, 3], "ties"),
+    (1100, 99, [1100, 255, 1000], [99, 60, 98], "ragged"),
+    (1700, 61, [1700, 256, 1699], [61, 61, 7], "ragged"),
+    (2300, 41, [2300, 1000, 2047], [41, 40, 13], "nan"),
+    (PD.MAX_TOKENS, 29, [PD.MAX_TOKENS, 2048, 300], [29, 28, 29], "ragged"),
+]
+K12_CARD_IDS = ["ragged", "ties", "nan", "empty-rows", "run-b-chunk-odd-m", "base-largest-idle-warps",
+                "base-largest-nan-odd-m", "4-rows-4-helpers", "4-rows-2-helpers", "8-rows-4-helpers",
+                "8-rows-2-helpers", "8-rows-9-warps", "4095-tokens"]
+
+
+def _k12_card_costs(n_max, m_max, ns, kind):
+    rng = np.random.RandomState(n_max + m_max)
+    x = rng.randn(len(ns), n_max, m_max).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2)
+    if kind == "nan":  # NaN columns and a NaN row inside the rows' bounds
+        x[0, :, m_max // 3 : m_max // 3 + 3] = np.nan
+        x[-1, ns[-1] // 2] = np.nan
+    return x
+
+
+def test_k12_card_cases_cover_every_instance():
+    """K12's plan is K13's at n_max, and each (rows a lane, chunk, helpers)
+    it can pick is a template instance of its own: the card test runs every
+    one, with rows whose tokens end more than a compute warp's rows short of
+    n_max, rows without tokens and rows without frames."""
+    def instance(n):
+        rows_per_lane, chunk, _, helpers, _, _ = PD.k12_plan(n)
+        return rows_per_lane, chunk, helpers
+
+    picked = {instance(n) for n in range(0, PD.MAX_TOKENS + 1)}
+    assert {instance(case[0]) for case in K12_CARD_CASES} == picked
+    assert len(K12_CARD_CASES) == len(K12_CARD_IDS) == len(set(K12_CARD_IDS))
+    for n_max, m_max, ns, ms, _ in K12_CARD_CASES:
+        assert len(ns) == len(ms) and max(ns) == n_max and max(ms) <= m_max
+        assert all(0 <= n <= n_max for n in ns) and all(0 <= m <= m_max for m in ms)
+    short = [(case[0], n) for case in K12_CARD_CASES for n in case[2]
+             if n + 1 <= case[0] + 1 - 32 * PD.k12_plan(case[0])[0]]
+    assert short and any(0 in case[2] for case in K12_CARD_CASES) and any(0 in case[3] for case in K12_CARD_CASES)
+    assert any(case[1] % 2 and min(case[3]) < case[1] for case in K12_CARD_CASES)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["ragged", "ties", "nan"])
-def test_k12_kernel_on_card(cuda_device, kind):  # noqa: F811
-    """ti, tj and lens identical to the plain version's, on the shapes above
-    and at base's largest alignment chunk (16 rows of up to 444 tokens x
-    1500 frames)."""
-    x = _t(_k12_costs(kind)).to(cuda_device)
-    got, want = PD.dtw_paths_dispatch(x, NS, MS), PD.dtw_paths_batch_plain(x, NS, MS)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    rng = np.random.RandomState(3)
-    ns, ms = rng.randint(2, 445, size=16), rng.randint(1, 1501, size=16)
-    ns[0], ms[0] = 444, 1500
-    big = _t(np.round(rng.randn(16, 444, 1500).astype(np.float32) * (2 if kind == "ties" else 8)) / 8).to(cuda_device)
-    for g, w in zip(PD.dtw_paths_dispatch(big, ns, ms), PD.dtw_paths_batch_plain(big, ns, ms)):
-        assert torch.equal(g, w)
+@pytest.mark.parametrize("n_max,m_max,ns,ms,kind", K12_CARD_CASES, ids=K12_CARD_IDS)
+def test_k12_kernel_on_card(cuda_device, n_max, m_max, ns, ms, kind):  # noqa: F811
+    """ti, tj and lens identical to the plain version's (the zeros past each
+    path included) and the same bits on a second launch; then the batch
+    padded by repeating a row, as `find_alignment_batch` pads its last
+    chunk."""
+    x = _t(_k12_card_costs(n_max, m_max, ns, kind)).to(cuda_device)
+    got, want = PD.dtw_paths_dispatch(x, ns, ms), PD.dtw_paths_batch_plain(x, ns, ms)
+    for g, w, again in zip(got, want, PD.dtw_paths_dispatch(x, ns, ms)):
+        assert torch.equal(g, w) and torch.equal(again, g)
+    if kind == "ragged" and n_max <= 444:
+        rows = list(range(len(ns) - 1)) + [len(ns) - 2] * 2
+        padded, pns, pms = x[rows].contiguous(), [ns[r] for r in rows], [ms[r] for r in rows]
+        for g, w in zip(PD.dtw_paths_dispatch(padded, pns, pms), PD.dtw_paths_batch_plain(padded, pns, pms)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -361,14 +361,16 @@ def test_hallucination_helpers_match_jax(seed):
     assert PTR._PUNCTUATION == JTR._PUNCTUATION
 
 
-@pytest.mark.parametrize("lo,hi", [(1, 511), (512, 1023), (1024, 2047), (2048, PD.MAX_TOKENS)],
+@pytest.mark.parametrize("lo,hi", [(0, 511), (512, 1023), (1024, 2047), (2048, PD.MAX_TOKENS)],
                          ids=["2-rows-a-lane", "4-rows", "8-rows-8-warps", "8-rows-16-warps"])
 def test_k13_plan_covers_the_rows(lo, hi):
     """K13's plan for every token count the wrapper takes: the lanes of the
     compute warps cover the N+1 rows with no idle warp, at most 8 compute
     warps (16 at 8 rows a lane) with 1, 2 or 4 helpers each, within 1024 threads,
     the shared memory fits a block, and a helper's staging and writing
-    passes (32 / chunk rows each) tile a warp's rows."""
+    passes (32 / chunk rows each) tile a warp's rows. K12's plan at each
+    n_max (0 included: a batch of rows without tokens) is K13's, and the
+    walk's shared memory behind the fill's fits a block too."""
     for n in range(lo, hi + 1):
         rows_per_lane, chunk, warps, helpers, smem = PD.k13_plan(n, 1500)
         assert rows_per_lane in (2, 4, 8) and chunk in (4, 8, 16, 32), n
@@ -379,20 +381,50 @@ def test_k13_plan_covers_the_rows(lo, hi):
         assert chunk == PD.k13_chunk(rows_per_lane, warps), n
         assert smem == warps * PD.k13_warp_bytes(rows_per_lane, chunk) <= PD.K13_MAX_SMEM, n
         assert (32 * rows_per_lane) % (32 // chunk) == 0, n
+        # K12 takes K13's plan at its n_max, 1024 threads, and the walk's shared memory behind the fill's
+        k12 = PD.k12_plan(n)
+        assert k12[:4] == (rows_per_lane, chunk, warps, helpers), n
+        assert k12[4] == PD.K12_THREADS >= warps * (1 + helpers) * 32, n
+        assert k12[5] == smem + PD.K12_WALK_BYTES <= PD.K13_MAX_SMEM, n
 
 
 # ------------------------------------------------------- on the card ------
 
 
+def _k11_card_inputs(width: int):
+    """K11's card cases at one width: the words path's largest shape with a
+    NaN column; t = width // 2 + 1, the least the kernel takes; odd t, not
+    a whole number of a thread's two outputs; more than 65535 rows at a
+    short t (the grid's loop over rows); a NaN at each position of a window
+    (row r holds one at column 9 + r, and the edges' reflections one at
+    columns 0 and 1), with +-inf and ties beside them."""
+    h = width // 2
+    yield "words-largest", _median_inputs((8, 229, 1500), seed=width)
+    yield "t-least", _median_inputs((5, h + 1), seed=width, nan_column=False)
+    yield "t-odd", _median_inputs((3, 37), seed=width)
+    yield "rows-over-65535", _median_inputs((70001, 9), seed=width, nan_column=False)
+    x = np.round(np.random.RandomState(width).randn(width + 3, 41).astype(np.float32) * 2)
+    for r in range(width + 1):
+        x[r, 9 + r] = np.nan
+    x[width + 1, 0] = x[width + 2, 1] = np.nan
+    x[:, 30], x[:, 33] = np.inf, -np.inf
+    yield "nan-at-each-position", x
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [3, 7, 13])
+@pytest.mark.parametrize("width", [3, 5, 7, 9, 11, 13])
 def test_k11_kernel_on_card(cuda_device, width):  # noqa: F811
-    """Exact: min and max round nothing, and both propagate NaN."""
-    x = _t(_median_inputs((8, 229, 1500), seed=width)).to(cuda_device)
-    got = PM.median_filter_network(x, width)
-    want = PM.median_filter_network_plain(x, width)
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    """Exact: min and max round nothing, and both propagate NaN, so the
+    kernel's pruned network gives the plain transposition network's NaN
+    mask and values; the same bits on a second launch."""
+    for case, x in _k11_card_inputs(width):
+        x = _t(x).to(cuda_device)
+        got = PM.median_filter_network(x, width)
+        want = PM.median_filter_network_plain(x, width)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), case
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)), case
+        again = PM.median_filter_network(x, width)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32)), case
 
 
 K13_CARD_CASES = [(shape, ties, None) for shape, ties in DTW_CASES] + [
