@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--carry_initial_prompt", type=str2bool, default=False, help="prepend initial_prompt to every internal decode() call")
 
     parser.add_argument("--condition_on_previous_text", type=str2bool, default=True, help="provide the previous output as a prompt for the next window")
-    parser.add_argument("--fp16", type=str2bool, default=True, help="use the fast half-precision compute dtype (bf16 on the card, which the card requires)")
+    parser.add_argument("--fp16", type=str2bool, default=True, help="use the fast half-precision compute dtype (bf16 on the card); False decodes in fp32, on the card through its fp32 kernels")
     parser.add_argument("--kv_int8", type=str2bool, default=False, help="store the attention K/V caches int8 (per-row scales): faster batched decoding, approximately identical output")
     parser.add_argument("--int8_encoder", type=str2bool, default=False, help="run the encoder block projections as dynamically-quantized int8 matmuls: faster encoding, approximately identical output")
     parser.add_argument("--fuse_encoder", type=str2bool, default=True, help="with --kv_int8, let the prompt prefill read the float cross K/V (the JAX package's fused window program); False reads the dequantized int8 store")

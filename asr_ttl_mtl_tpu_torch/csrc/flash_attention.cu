@@ -3,7 +3,8 @@
 // any head width that is a multiple of 8 up to 768) and K7 (head-split
 // (BH, T, 64), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
-// accumulate.
+// accumulate; and the same functions in fp32 (K5 at a head width of 64
+// only), on the CUDA cores (namespace f32, its own note below).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -1138,6 +1139,372 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
+// ------------------------------------------ fp32: K3, K5 at dh 64, K7, K6, K8
+//
+// fp32 in, fp32 out, every product in fp32 on the CUDA cores (FFMA): the
+// tensor cores take fp32 operands only as TF32, whose 10-bit mantissa moves
+// a score by ~5e-4 of its size. Serves `flash_h2_fwd_f32`,
+// `flash_mh_fwd_f32` (head width 64), `flash_fwd_f32`, `flash_h2_bwd_f32`
+// and `flash_bwd_f32` over the layouts, masks and residuals of the bf16
+// kernels (`Shape`, `res_index`), causal a template parameter; p and dS
+// stay fp32, as the JAX kernels keep them in v's (q's) dtype.
+//
+// What bounds it on the H100: the FFMA rate (67 TFLOP/s dense fp32 at
+// 700 W). The encoder forward does 4 T^2 dh operations a head against
+// 16 T dh bytes, so memory is far off. The design is the simple one:
+//   - A CTA of 256 threads takes a tile of 64 rows (queries; keys in the
+//     dk/dv kernel) of one (batch row, head) and walks the other side in
+//     tiles of 64. Every product is a 64 x 64 x 64 block from shared
+//     memory: thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and
+//     columns tx + 16 j (i, j < 4), reading 4 + 4 values a step of the
+//     reduction for 16 FFMAs.
+//   - Tiles keep a row stride of 65 floats, so the 16 threads that read one
+//     column of 16 rows hit 16 banks; 4-byte cp.async fills them, rows past
+//     the end with zeros.
+//   - A row of the score tile lies in 16 lanes of one warp: the online
+//     softmax reduces with 4 shuffles, and the p (dS) tile that the next
+//     product reads as its A operand is written and read by that warp
+//     alone (a __syncwarp, no block barrier).
+//   - Forward: Q once, K and V double-buffered (6 tiles, 100 KB: 2 CTAs an
+//     SM). Backward as FA2 without atomics, so a second launch gives the
+//     same bits: a dq kernel over the key tiles (S, dP, then dQ += dS K)
+//     and a dk/dv kernel over the query tiles (S^T, dP^T, then
+//     dV += P^T dO, dK += dS^T Q), single-buffered in 5 and 6 tiles.
+// Rows and keys that no mask lets through follow the plain version: p 0,
+// an output row of 0 and lse -1e30 where a row sees no key, dk and dv 0 for
+// keys that no query sees.
+
+namespace f32 {
+
+constexpr int kT = 64;               // rows of a tile: queries or keys
+constexpr int kLd = kDh + 1;         // fp32 row stride of a shared tile
+constexpr int kTileF = kT * kLd;     // floats of a shared tile
+constexpr int kThreads = 256;        // 16 x 16 threads, a 4 x 4 block each
+constexpr int kFwdSmem = 6 * kTileF * 4;
+constexpr int kDqSmem = 5 * kTileF * 4;
+constexpr int kDkvSmem = 6 * kTileF * 4 + 2 * kT * 4;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows row0 .. row0 + 63 of one (batch row, head) slice (row r at
+// src + r * d, 64 values) into a shared tile; rows at or past n_rows are zero
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n_rows, int d) {
+  for (int i = threadIdx.x; i < kT * kDh; i += kThreads) {
+    const int r = i / kDh, c = i % kDh;
+    const bool in = row0 + r < n_rows;
+    cp_async4(dst + r * kLd + c, src + (size_t)(in ? row0 + r : 0) * d + c, in);
+  }
+}
+
+// acc[i][j] += sum_k a[ty + 16 i][k] B(k, tx + 16 j), k < 64, with `a` a
+// shared tile read along its rows and B(k, c) = b[c][k] (K in Q K^T) or,
+// with kBRows, b[k][c] (V in P V)
+template <bool kBRows>
+__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* a, const float* b) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 16
+  for (int k = 0; k < kT; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kLd + k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = kBRows ? b[k * kLd + tx + 16 * j] : b[(tx + 16 * j) * kLd + k];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// over the 16 lanes that hold one row
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+using sm90::key_limit;
+
+// the key tiles that queries q0 .. q0 + 63 see
+template <bool kCausal>
+__device__ __forceinline__ int key_tiles(const Shape& sh, int q0) {
+  const int n = (sh.kv_len + kT - 1) / kT;
+  return kCausal ? min(n, (sh.q_offset + min(q0 + kT, sh.tq) - 1) / kT + 1) : n;
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 2)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           float* __restrict__ out, float* __restrict__ lse, Shape sh) {
+  extern __shared__ float fsm[];
+  float* qs = fsm;
+  float* ks = qs + kTileF;      // two buffers
+  float* vs = ks + 2 * kTileF;  // two buffers
+  float* ps = vs + 2 * kTileF;
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* qb = q + (size_t)b * sh.tq * sh.d + h * kDh;
+  const float* kb = k + (size_t)b * sh.tk * sh.d + h * kDh;
+  const float* vb = v + (size_t)b * sh.tk * sh.d + h * kDh;
+  const int n_tiles = key_tiles<kCausal>(sh, q0);
+
+  load_tile(qs, qb, q0, sh.tq, sh.d);
+  if (n_tiles > 0) {
+    load_tile(ks, kb, 0, sh.tk, sh.d);
+    load_tile(vs, vb, 0, sh.tk, sh.d);
+  }
+  cp_commit();
+  float o[4][4] = {}, m[4], l[4];
+  int lim[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+    lim[i] = key_limit<kCausal>(sh, q0 + ty + 16 * i);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {  // the next tile into the other buffer, freed by the last iteration's barrier
+      const int nb = (t + 1) & 1;
+      load_tile(ks + nb * kTileF, kb, (t + 1) * kT, sh.tk, sh.d);
+      load_tile(vs + nb * kTileF, vb, (t + 1) * kT, sh.tk, sh.d);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + (t & 1) * kTileF;
+    const float* vt = vs + (t & 1) * kTileF;
+    float s[4][4] = {};
+    mma_tile<false>(s, qs, kt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tile_max = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = t * kT + tx + 16 * j < lim[i] ? s[i][j] * sh.scale : kNegInf;
+        tile_max = fmaxf(tile_max, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(tile_max));
+      const float corr = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = t * kT + tx + 16 * j < lim[i] ? expf(s[i][j] - m_new) : 0.f;
+        ps[(ty + 16 * i) * kLd + tx + 16 * j] = p;
+        psum += p;
+      }
+      l[i] = l[i] * corr + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] *= corr;
+    }
+    __syncwarp();
+    mma_tile<true>(o, ps, vt);
+    __syncthreads();  // every warp is done with this tile's buffers and its p rows
+  }
+
+  float* ob = out + (size_t)b * sh.tq * sh.d + h * kDh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sh.tq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ob[(size_t)row * sh.d + tx + 16 * j] = l[i] == 0.f ? 0.f : o[i][j] / l[i];
+    if (lse != nullptr && tx == 0) lse[res_index(sh, h, b, row)] = l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
+  }
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+              const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, Shape sh) {
+  extern __shared__ float fsm[];
+  float* qs = fsm;
+  float* gs = qs + kTileF;
+  float* ks = gs + kTileF;
+  float* vs = ks + kTileF;
+  float* dss = vs + kTileF;
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const int n_tiles = key_tiles<kCausal>(sh, q0);
+
+  load_tile(qs, q + qoff, q0, sh.tq, sh.d);
+  load_tile(gs, dout + qoff, q0, sh.tq, sh.d);
+  cp_commit();
+  float lr[4], dr[4];
+  int lim[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    lr[i] = row < sh.tq ? lse[res_index(sh, h, b, row)] : 0.f;
+    dr[i] = row < sh.tq ? delta[res_index(sh, h, b, row)] : 0.f;
+    lim[i] = key_limit<kCausal>(sh, row);
+  }
+  float acc[4][4] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) __syncthreads();  // the last tile's dQ product is done with ks
+    load_tile(ks, k + koff, t * kT, sh.tk, sh.d);
+    load_tile(vs, v + koff, t * kT, sh.tk, sh.d);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    mma_tile<false>(s, qs, ks);
+    mma_tile<false>(dp, gs, vs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = t * kT + tx + 16 * j < lim[i] ? expf(s[i][j] * sh.scale - lr[i]) : 0.f;
+        dss[(ty + 16 * i) * kLd + tx + 16 * j] = p * (dp[i][j] - dr[i]) * sh.scale;
+      }
+    __syncwarp();
+    mma_tile<true>(acc, dss, ks);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sh.tq) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[qoff + (size_t)row * sh.d + tx + 16 * j] = acc[i][j];
+  }
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+               const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, Shape sh) {
+  extern __shared__ float fsm[];
+  float* ks = fsm;
+  float* vs = ks + kTileF;
+  float* qs = vs + kTileF;
+  float* gs = qs + kTileF;
+  float* pts = gs + kTileF;   // p^T: key rows, query columns
+  float* dsts = pts + kTileF;  // dS^T
+  float* lse_s = dsts + kTileF;
+  float* dl_s = lse_s + kT;
+  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const int n_q = (sh.tq + kT - 1) / kT;
+  // the first query tile that sees key k0 (none for keys past kv_len)
+  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kT : 0;
+
+  if (first < n_q) {
+    load_tile(ks, k + koff, k0, sh.tk, sh.d);
+    load_tile(vs, v + koff, k0, sh.tk, sh.d);
+    cp_commit();
+  }
+  float acc_k[4][4] = {}, acc_v[4][4] = {};
+  for (int qt = first; qt < n_q; ++qt) {
+    __syncthreads();  // the last tile's products are done with qs, gs and the residuals
+    load_tile(qs, q + qoff, qt * kT, sh.tq, sh.d);
+    load_tile(gs, dout + qoff, qt * kT, sh.tq, sh.d);
+    cp_commit();
+    if (threadIdx.x < kT) {
+      const int row = qt * kT + threadIdx.x;
+      lse_s[threadIdx.x] = row < sh.tq ? lse[res_index(sh, h, b, row)] : 0.f;
+      dl_s[threadIdx.x] = row < sh.tq ? delta[res_index(sh, h, b, row)] : 0.f;
+    }
+    cp_wait<0>();
+    __syncthreads();
+    float st[4][4] = {}, dpt[4][4] = {};
+    mma_tile<false>(st, ks, qs);
+    mma_tile<false>(dpt, vs, gs);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = qt * kT + tx + 16 * j;
+      const int lim = row < sh.tq ? key_limit<kCausal>(sh, row) : 0;
+      const float lr = lse_s[tx + 16 * j], dr = dl_s[tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = k0 + ty + 16 * i < lim ? expf(st[i][j] * sh.scale - lr) : 0.f;
+        pts[(ty + 16 * i) * kLd + tx + 16 * j] = p;
+        dsts[(ty + 16 * i) * kLd + tx + 16 * j] = p * (dpt[i][j] - dr) * sh.scale;
+      }
+    }
+    __syncwarp();
+    mma_tile<true>(acc_v, pts, gs);
+    mma_tile<true>(acc_k, dsts, qs);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= sh.tk) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dk[koff + (size_t)key * sh.d + tx + 16 * j] = acc_k[i][j];
+      dv[koff + (size_t)key * sh.d + tx + 16 * j] = acc_v[i][j];
+    }
+  }
+}
+
+template <bool kCausal>
+int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
+  static bool lifted[64] = {};
+  const cudaError_t err = sm90::lift_smem(fwd_kernel<kCausal>, kFwdSmem, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tq + kT - 1) / kT, sh.n_head, sh.batch);
+  fwd_kernel<kCausal><<<grid, kThreads, kFwdSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCausal>
+int run_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+            void* dq, void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
+  static bool lifted_dq[64] = {}, lifted_dkv[64] = {};
+  cudaError_t err = sm90::lift_smem(bwd_dq_kernel<kCausal>, kDqSmem, lifted_dq);
+  if (err == cudaSuccess) err = sm90::lift_smem(bwd_dkv_kernel<kCausal>, kDkvSmem, lifted_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
+              *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
+  bwd_dq_kernel<kCausal><<<dim3((sh.tq + kT - 1) / kT, sh.n_head, sh.batch), kThreads, kDqSmem, stream>>>(
+      qf, kf, vf, gf, lf, df, static_cast<float*>(dq), sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkv_kernel<kCausal><<<dim3((sh.tk + kT - 1) / kT, sh.n_head, sh.batch), kThreads, kDkvSmem, stream>>>(
+      qf, kf, vf, gf, lf, df, static_cast<float*>(dk), static_cast<float*>(dv), sh);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
+               void* stream) {
+  if (bad_shape(sh) || (lse != nullptr && sh.n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return causal ? run_fwd<true>(q, k, v, out, lse, sh, s) : run_fwd<false>(q, k, v, out, lse, sh, s);
+}
+
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+               void* dq, void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
+  if (bad_shape(sh) || sh.n_head % sh.hpb) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return causal ? run_bwd<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s)
+                : run_bwd<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // K5: natural (B, T, D) layout, non-causal, head width d / n_head any
@@ -1193,6 +1560,46 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
   Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
   return causal ? launch_bwd_sm90<true, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream)
                 : launch_bwd_sm90<false, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
+}
+
+// ------------------------------------------------------ fp32 entry points
+// The same arguments and layouts as the bf16 entries above, fp32 tensors.
+
+// K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 2) fp32
+extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+                                int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
+  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
+  return f32::launch_fwd(q, k, v, out, lse, sh, false, stream);
+}
+
+// K5 at fp32, a head width of 64 only (d = 64 * n_head); no logsumexp
+extern "C" int flash_mh_fwd_f32(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
+                                int d, int n_head, int kv_len, float scale, void* stream) {
+  Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
+  return f32::launch_fwd(q, k, v, out, nullptr, sh, false, stream);
+}
+
+// K6 at fp32: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 2) fp32
+extern "C" int flash_h2_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
+                                int n_head, int kv_len, float scale, void* stream) {
+  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
+  return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
+}
+
+// K7 at fp32: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32
+extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
+                             int tk, int kv_len, int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
+  return f32::launch_fwd(q, k, v, out, lse, sh, causal != 0, stream);
+}
+
+// K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
+extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                             const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int kv_len,
+                             int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
+  return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

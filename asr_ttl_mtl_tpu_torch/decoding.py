@@ -205,11 +205,10 @@ class DecodingTask:
             max_initial_timestamp_index=max_initial_timestamp_index,
         )
         self.compute_dtype = model.compute_dtype if options.fp16 else torch.float32
-        if model.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
+        if model.device.type == "cuda" and self.compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
                 f"fp16={options.fp16} with a {model.compute_dtype} model computes in {self.compute_dtype}, but the "
-                "card's encoder attention kernel (K3) takes bf16 only (ROADMAP: fp32 in the card's attention "
-                "kernels): decode on the card with fp16=True and a bf16 model, or on the CPU"
+                "card's kernels serve bf16 and fp32: decode with a bf16 model (fp16=True) or with fp16=False (fp32)"
             )
         self.kv_quant = bool(options.kv_quant)
         self.int8_encoder = bool(options.int8_encoder)

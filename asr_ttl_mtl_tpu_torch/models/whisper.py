@@ -8,12 +8,15 @@ rounding points:
 
 * `linear` accumulates in fp32 and adds the bias in fp32 before it rounds;
 * LayerNorm runs in fp32; GELU is exact erf in fp32 and tanh in bf16/fp16;
+* the conv stem in fp32 runs without TF32 on the card (cuDNN's default
+  would give it about three decimal digits);
 * the encoder runs its blocks at T padded once from 1500 to 1536 with the
   key tail masked, so the attention kernel K3 never re-pads;
 * decoding uses a static KV cache (bf16, or int8 with fp32 row scales),
   written in place, and dispatches one-token steps to the decode kernels
   K1 (int8) and K2 (bf16/fp32) exactly where the JAX package does;
-* attention over 16 or more queries goes to the flash kernels: K3 (K6
+* attention over 16 or more queries goes to the flash kernels, bf16 or
+  fp32 by the tensors' dtype: K3 (K6
   backward) for non-causal shapes `h2_eligible` serves, K5 for the other
   non-causal shapes `mh_flash_eligible` serves (K7 with K8 under autograd),
   K7 (K8 backward) over split heads for the rest, causal or not;
@@ -206,9 +209,45 @@ def linear_i8(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype).reshape(*x.shape[:-1], lin.out_features)
 
 
+def _no_tf32():
+    """cuDNN without TF32 for the calls inside: an fp32 convolution on the
+    card otherwise runs in TF32 by default (`torch.backends.cudnn.allow_tf32`
+    is True), about three decimal digits. The other flags stay as set."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                       allow_tf32=False)
+
+
+class _Conv1dF32(torch.autograd.Function):
+    """The fp32 conv stem's convolution (stride s, padding 1), forward and
+    backward under `_no_tf32`: the backward reads cuDNN's flags when it
+    runs, after the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _no_tf32():
+            return F.conv1d(x, w, None, stride=stride, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        with _no_tf32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [ctx.stride], [1], [1], False, [0], 1, mask)
+        return dx, dw, None
+
+
 def conv1d(conv: nn.Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
-    """1-D conv over (B, C, T) in x's dtype, bias added in fp32."""
-    out = F.conv1d(x, conv.weight.to(x.dtype), None, stride=stride, padding=1)
+    """1-D conv over (B, C, T) in x's dtype, bias added in fp32; in fp32
+    without TF32 (`_Conv1dF32`), on every device."""
+    w = conv.weight.to(x.dtype)
+    if x.dtype == F32:
+        out = _Conv1dF32.apply(x, w, stride)
+    else:
+        out = F.conv1d(x, w, None, stride=stride, padding=1)
     return (out.float() + conv.bias.float()[None, :, None]).to(x.dtype)
 
 

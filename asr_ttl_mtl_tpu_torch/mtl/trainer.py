@@ -17,8 +17,9 @@ Evaluation is teacher-forced with materialized fp32 logits. Checkpoints are
 the reference `.pt` layout, readable by the JAX package's trainer and the
 other way round. Not served here, and raising `NotImplementedError` when
 asked for: meshes / tp / ZeRO-1, `steps_per_call > 1` and packed dispatch,
-the orbax `resume_dir`, `audio_transfer_dtype="mel_fp16"`, `profile_dir`,
-and fp32 compute on the card (the attention kernels take bf16).
+the orbax `resume_dir`, `audio_transfer_dtype="mel_fp16"` and
+`profile_dir`. `compute_dtype` "bfloat16" or "float32" runs on the card
+through the kernels of that dtype.
 """
 
 from __future__ import annotations
@@ -121,12 +122,9 @@ class MultiTaskTrainer:
         self.disease_token_ids = dict(self.tokenizer.disease_tokens)
         self.disease_token_position = 1 if self.is_english_only else 2
 
+        if config.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype={config.compute_dtype!r}: the port serves {sorted(_DTYPES)}")
         self.compute_dtype = _DTYPES[config.compute_dtype]
-        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "compute_dtype='float32' on CUDA: the attention kernels take bf16 "
-                "(ROADMAP: fp32 in the card's attention kernels)"
-            )
         self.model = self._load_base_model()
         self._expand_vocabulary()
         self.model.requires_grad_(True)

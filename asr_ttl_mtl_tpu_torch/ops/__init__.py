@@ -9,7 +9,9 @@ else, so a run can show that it went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
 
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {
@@ -29,9 +31,46 @@ LAUNCHES: Dict[str, int] = {
     "dtw_trace": 0,  # K13, ops/dtw.py
     "dtw_paths_batch": 0,  # K12, ops/dtw.py
     "int8_mlp": 0,  # K14, ops/int8_mlp.py
+    # the fp32 kernels (bf16 launches count under the names above)
+    "flash_attention_h2_f32": 0,  # K3 at fp32
+    "flash_attention_h2_lse_f32": 0,
+    "flash_attention_h2_bwd_f32": 0,  # K6 at fp32
+    "flash_attention_mh_f32": 0,  # K5 at fp32, head width 64
+    "flash_attention_f32": 0,  # K7 at fp32
+    "flash_attention_lse_f32": 0,
+    "flash_attention_bwd_f32": 0,  # K8 at fp32
+    "int8_mlp_f32": 0,  # K14 with fp32 activations
 }
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the suffix of a kernel's C symbol for the dtype it computes in
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
+    """The C symbol suffix for the tensors' one dtype, "bf16" or "f32".
+    Mixed dtypes, or any other dtype (fp16 among them), raise."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in _SUFFIX:
+        raise TypeError(f"{name} kernel takes bf16 or fp32 tensors of one dtype, got "
+                        f"{sorted(str(d) for d in dtypes)}")
+    return _SUFFIX[tensors[0].dtype]
+
+
+def count_launch(name: str, sfx: str) -> None:
+    """One launch of kernel `name`: an fp32 one counts under `<name>_f32`."""
+    LAUNCHES[name if sfx == "bf16" else f"{name}_{sfx}"] += 1
+
+
+def on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version); True for CUDA; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True

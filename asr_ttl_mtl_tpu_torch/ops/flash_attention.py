@@ -24,8 +24,12 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
 * `flash_attention_mh_vjp` (:852) and `flash_attention_vjp` (:1181), which
   pick among them as the JAX package does.
 
-The CUDA kernels take bf16. K3, K6, K7 and K8 take a head width of 64; K5
-any multiple of 8 up to 768.
+The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
+`ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
+count under their own keys, e.g. `flash_attention_h2_f32`). K3, K6, K7 and
+K8 take a head width of 64; K5 any multiple of 8 up to 768 in bf16, 64 in
+fp32. On the card fp32 never falls back to a plain version or to a bf16
+kernel: a shape or dtype no kernel serves raises.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, _cuda
+from . import _cuda, count_launch, kernel_dtype, on_card
 
 _NEG_INF = -1e30
 _DH = 64  # the head width the CUDA kernels K3, K6, K7 and K8 serve
@@ -142,18 +146,19 @@ def _bwd_plain(q, k, v, g, lse, delta, mask, scale):
     return dq, dk, dv
 
 
-def _check(name: str, tensors, shapes) -> None:
-    """The CUDA wrappers take bf16, contiguous tensors of the given shapes on one device."""
+def _check(name: str, tensors, shapes) -> str:
+    """The CUDA wrappers take contiguous tensors of the given shapes on one
+    device, all bf16 or all fp32; returns the symbol suffix."""
+    sfx = kernel_dtype(name, tensors)
     dev = tensors[0].device
     for t, shape in zip(tensors, shapes):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes bf16, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return sfx
 
 
 def _check_res(name: str, tensors, shape) -> None:
@@ -161,15 +166,6 @@ def _check_res(name: str, tensors, shape) -> None:
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{name}: lse/delta must be contiguous fp32 {tuple(shape)}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-
-
-def _on_card(name: str, x: torch.Tensor) -> bool:
-    """False for a CPU tensor (plain version); True for CUDA; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if not x.is_cuda:
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +189,23 @@ def flash_attention_h2(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
                        scale: float = 1.0, return_lse: bool = False):
     """K3 wrapper: q (B, Tq, D), k and v (B, Tk, D) -> (B, Tq, D) in v's
     dtype, plus lse (D//128, B, Tq, hpb) fp32 with return_lse."""
-    if not _on_card("flash_attention_h2", q):
+    if not on_card("flash_attention_h2", q):
         return flash_attention_h2_plain(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len,
                                         scale=scale, return_lse=return_lse)
     b, tq, d = q.shape
     tk = k.shape[1]
     if d != n_head * _DH:
         raise ValueError(f"flash_attention_h2 kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
-    _check("flash_attention_h2", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    sfx = _check("flash_attention_h2", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
     out = torch.empty_like(q)
     lse = torch.empty((d // 128, b, tq, 128 // _DH), dtype=torch.float32, device=q.device) if return_lse else None
-    code = _cuda.lib("flash_attention").flash_h2_fwd_bf16(
+    fn = f"flash_h2_fwd_{sfx}"
+    code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
         b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", "flash_h2_fwd_bf16", code)
-    LAUNCHES["flash_attention_h2_lse" if return_lse else "flash_attention_h2"] += 1
+    _cuda.check("flash_attention", fn, code)
+    count_launch("flash_attention_h2_lse" if return_lse else "flash_attention_h2", sfx)
     return (out, lse) if return_lse else out
 
 
@@ -227,23 +224,24 @@ def flash_attention_h2_bwd_plain(q, k, v, lse, delta, g, *, n_head: int,
 def flash_attention_h2_bwd(q, k, v, lse, delta, g, *, n_head: int,
                            kv_valid_len: Optional[int] = None, scale: float = 1.0):
     """K6 wrapper: (dq, dk, dv) of K3, dk and dv zero at keys >= kv_valid_len."""
-    if not _on_card("flash_attention_h2_bwd", q):
+    if not on_card("flash_attention_h2_bwd", q):
         return flash_attention_h2_bwd_plain(q, k, v, lse, delta, g, n_head=n_head,
                                             kv_valid_len=kv_valid_len, scale=scale)
     b, tq, d = q.shape
     tk = k.shape[1]
     if d != n_head * _DH:
         raise ValueError(f"flash_attention_h2_bwd kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
-    _check("flash_attention_h2_bwd", (q, k, v, g), ((b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d)))
+    sfx = _check("flash_attention_h2_bwd", (q, k, v, g), ((b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d)))
     _check_res("flash_attention_h2_bwd", (lse, delta), (d // 128, b, tq, 128 // _DH))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    code = _cuda.lib("flash_attention").flash_h2_bwd_bf16(
+    fn = f"flash_h2_bwd_{sfx}"
+    code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", "flash_h2_bwd_bf16", code)
-    LAUNCHES["flash_attention_h2_bwd"] += 1
+    _cuda.check("flash_attention", fn, code)
+    count_launch("flash_attention_h2_bwd", sfx)
     return dq, dk, dv
 
 
@@ -292,21 +290,24 @@ def flash_attention_mh_plain(q, k, v, *, n_head: int, kv_valid_len: Optional[int
 def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = None, scale: float = 1.0):
     """K5 wrapper: q (B, Tq, D), k and v (B, Tk, D) -> (B, Tq, D) in v's
     dtype, softmax(scale q_h k_h^T) v_h per head h (columns h*dh ..)."""
-    if not _on_card("flash_attention_mh", q):
+    if not on_card("flash_attention_mh", q):
         return flash_attention_mh_plain(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=scale)
     b, tq, d = q.shape
     tk = k.shape[1]
     if n_head < 1 or d % n_head or (d // n_head) % 8 or d // n_head > _MH_MAX_D:
         raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
                          f"{_MH_MAX_D}, got d={d} n_head={n_head}")
-    _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    if sfx == "f32" and d != n_head * _DH:
+        raise ValueError(f"flash_attention_mh fp32 kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
     out = torch.empty_like(q)
-    code = _cuda.lib("flash_attention").flash_mh_fwd_bf16(
+    fn = f"flash_mh_fwd_{sfx}"
+    code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", "flash_mh_fwd_bf16", code)
-    LAUNCHES["flash_attention_mh"] += 1
+    _cuda.check("flash_attention", fn, code)
+    count_launch("flash_attention_mh", sfx)
     return out
 
 
@@ -349,21 +350,22 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                     kv_valid_len: Optional[int] = None, scale: float = 1.0, return_lse: bool = False):
     """K7 wrapper: softmax(scale q k^T + mask) v over flattened (batch*heads),
     plus lse (BH, Tq, 1) fp32 with return_lse."""
-    if not _on_card("flash_attention", q):
+    if not on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                      scale=scale, return_lse=return_lse)
     bh, tq, d = q.shape
     tk = k.shape[1]
-    _check("flash_attention", (q, k, v), ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH)))
+    sfx = _check("flash_attention", (q, k, v), ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH)))
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
-    code = _cuda.lib("flash_attention").flash_fwd_bf16(
+    fn = f"flash_fwd_{sfx}"
+    code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
         bh, tq, tk, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", "flash_fwd_bf16", code)
-    LAUNCHES["flash_attention_lse" if return_lse else "flash_attention"] += 1
+    _cuda.check("flash_attention", fn, code)
+    count_launch("flash_attention_lse" if return_lse else "flash_attention", sfx)
     return (out, lse) if return_lse else out
 
 
@@ -387,24 +389,25 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = False, q_o
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset: int = 0,
                         kv_valid_len: Optional[int] = None, scale: float = 1.0):
     """K8 wrapper: (dq, dk, dv) of K7; delta = rowsum(dO * O) in PyTorch."""
-    if not _on_card("flash_attention_bwd", q):
+    if not on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, scale=scale)
     bh, tq, _ = q.shape
     tk = k.shape[1]
-    _check("flash_attention_bwd", (q, k, v, out, g),
-           ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH), (bh, tq, _DH), (bh, tq, _DH)))
+    sfx = _check("flash_attention_bwd", (q, k, v, out, g),
+                 ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH), (bh, tq, _DH), (bh, tq, _DH)))
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    code = _cuda.lib("flash_attention").flash_bwd_bf16(
+    fn = f"flash_bwd_{sfx}"
+    code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bh, tq, tk, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", "flash_bwd_bf16", code)
-    LAUNCHES["flash_attention_bwd"] += 1
+    _cuda.check("flash_attention", fn, code)
+    count_launch("flash_attention_bwd", sfx)
     return dq, dk, dv
 
 

@@ -14,7 +14,9 @@ runs whatever the compute dtype, as in the TPU kernel (the unfused
 
 Weights are in the port's (out, in) layout: w1q (H, D) int8 with one fp32
 scale per row (per output column of the JAX (D, H) weight), w2q (D, H).
-The CUDA kernel takes bf16 activations. `k14_plan` picks its route by
+The CUDA kernel takes bf16 or fp32 activations (`int8_mlp_bf16` /
+`int8_mlp_f32` and the mma.sync route's pair; fp32 launches count under
+`int8_mlp_f32`); any other dtype raises. `k14_plan` picks its route by
 shape: the wgmma kernel on a cluster of 4 CTAs for d up to 1024 (every
 shape the gate admits there), else the earlier mma.sync kernel.
 """
@@ -26,7 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES, _cuda
+from . import _cuda, count_launch, kernel_dtype, on_card
 from .decode_attention import int8_step
 
 
@@ -50,7 +52,7 @@ K14_MAX_D = 1024  # the wgmma route holds a row's x in 8 pieces a lane
 
 
 class K14Plan(NamedTuple):
-    route: str  # "wgmma" (int8_mlp_bf16) or "mma" (the mma.sync kernel, int8_mlp_mma_bf16)
+    route: str  # "wgmma" (int8_mlp_<dtype>) or "mma" (the mma.sync kernel, int8_mlp_mma_<dtype>)
     cluster: int  # CTAs a cluster (1: no cluster)
     rows_per_cta: int
     stages: int  # 16 KB weight stages of the ring (0 on the mma route)
@@ -68,15 +70,18 @@ def k14_sm90_smem(d: int, hidden: int, stages: int) -> int:
             + (tiles + 1) // 2 * K14_ROWS * K14_TILE * 2 + 8 * (2 * stages + 3) + 4 * K14_ROWS * 5)
 
 
-def k14_mma_smem(d: int, hidden: int) -> int:
-    """The mma.sync kernel: 32 rows of int8 x and of bf16 GELU values, padded."""
-    return 32 * (d + 32) + 32 * (2 * hidden + 32) + 2 * 32 * 4
+def k14_mma_smem(d: int, hidden: int, act_bytes: int = 2) -> int:
+    """The mma.sync kernel: 32 rows of int8 x and of GELU values in the
+    activation dtype (`act_bytes` each), padded."""
+    return 32 * (d + 32) + 32 * (act_bytes * hidden + 32) + 2 * 32 * 4
 
 
-def k14_plan(n: int, d: int, hidden: int) -> K14Plan:
-    """K14's route for (n rows, d, hidden): the wgmma kernel with the most
-    stages (2-4) that fit, for d up to 1024, else the mma.sync kernel; raises
-    where neither fits."""
+def k14_plan(n: int, d: int, hidden: int, act_bytes: int = 2) -> K14Plan:
+    """K14's route for (n rows, d, hidden) with activations of `act_bytes`
+    (2 bf16, 4 fp32): the wgmma kernel with the most stages (2-4) that fit,
+    for d up to 1024, else the mma.sync kernel; raises where neither fits.
+    The wgmma route's shared memory does not depend on the activation dtype
+    (fp32 quantizes GEMM1's output straight into the int8 chunk slots)."""
     if n < 1 or d < K14_TILE or hidden < K14_TILE or d % K14_TILE or hidden % K14_TILE:
         raise ValueError(f"int8_mlp kernel takes n >= 1 and d, hidden in multiples of 128, got {n}, {d}, {hidden}")
     tiles, out_tiles = hidden // K14_TILE, d // K14_TILE
@@ -85,7 +90,7 @@ def k14_plan(n: int, d: int, hidden: int) -> K14Plan:
         if smem <= MAX_SMEM:
             return K14Plan("wgmma", K14_CLUSTER, K14_ROWS, stages, smem, (tiles + 1) // 2 * K14_TILE,
                            (out_tiles + 1) // 2 * K14_TILE)
-    smem = k14_mma_smem(d, hidden)
+    smem = k14_mma_smem(d, hidden, act_bytes)
     if smem <= MAX_SMEM:
         return K14Plan("mma", 1, 32, 0, smem, hidden, d)
     raise ValueError(f"int8_mlp: no kernel route holds d={d}, hidden={hidden} in shared memory")
@@ -126,11 +131,10 @@ def int8_mlp_plain(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
     return (out, qx, qg, sg) if return_int8 else out
 
 
-def _check(x, w1q, s1, b1, w2q, s2, b2) -> None:
+def _check(x, w1q, s1, b1, w2q, s2, b2) -> str:
     d = x.shape[-1]
     hidden = w1q.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8_mlp kernel takes bf16 activations, got {x.dtype}")
+    sfx = kernel_dtype("int8_mlp", [x])
     if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
         raise TypeError(f"int8_mlp: weights must be int8, got {w1q.dtype}/{w2q.dtype}")
     if tuple(w1q.shape) != (hidden, d) or tuple(w2q.shape) != (d, hidden):
@@ -145,20 +149,19 @@ def _check(x, w1q, s1, b1, w2q, s2, b2) -> None:
             raise ValueError("int8_mlp: the kernel takes contiguous tensors")
     if d % 128 or hidden % 128:
         raise ValueError(f"int8_mlp kernel takes d and hidden in multiples of 128, got {d}, {hidden}")
+    return sfx
 
 
 def int8_mlp(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
     """K14 wrapper: x (..., D) -> (..., D) in x's dtype. With `return_int8`,
     the kernel also writes its int8 intermediates (a check of the kernel,
     not a path of the model): (out, qx, qg, sg) as `int8_mlp_plain` gives."""
-    if x.device.type == "cpu":
+    if not on_card("int8_mlp", x):
         return int8_mlp_plain(x, w1q, s1, b1, w2q, s2, b2, return_int8=return_int8)
-    if not x.is_cuda:
-        raise ValueError(f"int8_mlp: unsupported device {x.device}")
-    _check(x, w1q, s1, b1, w2q, s2, b2)
+    sfx = _check(x, w1q, s1, b1, w2q, s2, b2)
     d, hidden = x.shape[-1], w1q.shape[0]
     n = x.numel() // d
-    plan = k14_plan(n, d, hidden)
+    plan = k14_plan(n, d, hidden, x.element_size())
     out = torch.empty_like(x)
     qx = qg = sg = None
     if return_int8:
@@ -168,8 +171,8 @@ def int8_mlp(x, w1q, s1, b1, w2q, s2, b2, *, return_int8: bool = False):
     ptr = [0 if t is None else t.data_ptr() for t in (qx, qg, sg)]
     args = (x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), *ptr, n, d, hidden)
-    fn, stages = ("int8_mlp_bf16", (plan.stages,)) if plan.route == "wgmma" else ("int8_mlp_mma_bf16", ())
+    fn, stages = (f"int8_mlp_{sfx}", (plan.stages,)) if plan.route == "wgmma" else (f"int8_mlp_mma_{sfx}", ())
     code = getattr(_cuda.lib("int8_mlp"), fn)(*args, *stages, _cuda.stream_handle(x.device))
     _cuda.check("int8_mlp", fn, code)
-    LAUNCHES["int8_mlp"] += 1
+    count_launch("int8_mlp", sfx)
     return (out, qx, qg, sg) if return_int8 else out

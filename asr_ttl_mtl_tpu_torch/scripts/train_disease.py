@@ -6,8 +6,9 @@
 Counterpart of `scripts/train_disease.py`, with the same flags. Training
 runs on the card unless `--device cpu`. Flags asking for what the port does
 not serve (meshes, `--zero1`, `--steps_per_call` > 1, `--packed_dispatch
-True`, `--resume_dir`, `--audio_transfer_dtype mel_fp16`, fp32 compute on
-the card) raise `NotImplementedError`. Writes
+True`, `--resume_dir`, `--audio_transfer_dtype mel_fp16`) raise
+`NotImplementedError`. `--compute_dtype float32` trains in fp32, on the
+card through its fp32 kernels. Writes
 `best_multitask_model_<size>.pt`, `training_history_<size>.json` and
 `training_config_<size>.json` into `--save_dir`.
 """

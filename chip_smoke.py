@@ -114,6 +114,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      the d=576 train steps gave them (the encoder's (72, 1536, 64) is their
      row of the `kernels` line). Every K7 and K8 row (phases 8, 12, 19)
      gives the same bits on a second launch and prints its device time.
+ 20. fp32 on the card, with cuDNN's default allow_tf32=True back on (the
+     port's conv-stem guard keeps its convolution in fp32): (a) phase 4's
+     window path with fp16=False, 3 batches of 32 windows, kv_quant and the
+     W8A8 encoder, then the same under `set_int8_mlp_kernel("auto")`, and
+     an fp32 model from `load_model(..., compute_dtype=torch.float32)` at
+     d 576 (K5), audio-s/s and launch counts, no bf16 flash or K14 launch;
+     (b) phase 12's WAV through the CLI with `--fp16 False
+     --word_timestamps True` at one rung with the 19-token prompt; (c) 4
+     train steps at batch 16 with `compute_dtype="float32"`, then
+     `evaluate`; (e) gates: one fp32 step from phase 7's weights, batch and
+     dropout mask within 2e-4 of phase 7's CPU loss and gradient norms;
+     the conv stem within 1e-5 of float64; the fp32 decode of 2 windows
+     against the CPU's fp32 plain path (same tokens, logits within 5e-3);
+     (d) each fp32 kernel (K3, K3-lse, K5 at d 576, K6, K7, K7-lse, K8,
+     K14) against its plain version at the shapes those runs gave it,
+     within 2e-5 of its largest output and bitwise on a second launch,
+     timed beside SDPA at fp32 and its fp32 bound.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -147,7 +164,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # device time alone is measured too, as one call's share of a CUDA graph
 DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
                 "flash_attention_h2_bwd", "flash_attention_mh", "flash_attention", "flash_attention_lse",
-                "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp", "median_filter")
+                "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp", "median_filter",
+                "flash_attention_h2_f32", "flash_attention_h2_lse_f32", "flash_attention_h2_bwd_f32",
+                "flash_attention_mh_f32", "flash_attention_f32", "flash_attention_lse_f32", "flash_attention_bwd_f32",
+                "int8_mlp_f32")
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
 
 
@@ -204,10 +224,10 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attn_bound(macs: float, n_bytes: float, mults: int = 4):
-    """Attention in bf16: `mults` FLOPs per (query, key, channel) triple
-    (4 forward: QK^T and PV; 10 backward: S, dP, dV, dQ, dK)."""
-    return bound(mults * macs, n_bytes, "bf16")
+def attn_bound(macs: float, n_bytes: float, mults: int = 4, kind: str = "bf16"):
+    """Attention in bf16 (or `kind`): `mults` FLOPs per (query, key,
+    channel) triple (4 forward: QK^T and PV; 10 backward: S, dP, dV, dQ, dK)."""
+    return bound(mults * macs, n_bytes, kind)
 
 
 def heads(x, n_head: int, n_keys=None):
@@ -749,12 +769,13 @@ def run_slice(card: str):
     return model, main_counts, k2_counts, statistics.median(rates)
 
 
-def forced_on_cpu(model, waves, mel_card, toks, options):
-    """The plain path on the CPU in fp32, teacher-forced to the card's
-    tokens `toks` (rows, n) under the same options (a copy of the model, the
-    prefill reading the float cross K/V as the card's fused window does, the
-    steps the int8 store). Returns (log-mel max error against `mel_card`,
-    [(filtered logits (rows, V), chosen tokens (rows,)) per step])."""
+def forced_steps(model, waves, toks, options, device: str = "cpu"):
+    """The plain path in fp32 on `device` (a copy of the model), teacher-
+    forced to the card's tokens `toks` (rows, n) under the same options:
+    with kv_quant the prefill reads the float cross K/V, as the card's fused
+    window does, and the steps the int8 store; without it, float caches.
+    Returns (its log-mel, [(filtered logits (rows, V), chosen tokens (rows,))
+    per step])."""
     import copy
 
     import torch
@@ -763,32 +784,43 @@ def forced_on_cpu(model, waves, mel_card, toks, options):
     from asr_ttl_mtl_tpu_torch.decode_steps import _apply_filters
     from asr_ttl_mtl_tpu_torch.models import whisper as W
 
-    cpu = copy.deepcopy(model).to("cpu")
-    cpu.compute_dtype = torch.float32
-    mel_cpu = log_mel_spectrogram(waves, device="cpu")
-    mel_err = (mel_card.cpu() - mel_cpu).abs().max().item()
+    ref = copy.deepcopy(model).to(device)
+    ref.compute_dtype = torch.float32
+    mel = log_mel_spectrogram(waves, device=device)
     rows = toks.shape[0]
+    toks = toks.to(device)
     steps = []
     with torch.no_grad():
-        feats = W.encoder_apply(cpu.encoder, mel_cpu, torch.float32, int8_linears=options["int8_encoder"])
-        cross_f = W.precompute_cross_kv(cpu.decoder, feats, stack=False)
-        cross = W.quantize_cross_kv(cross_f)
-        ref_task = DecodingTask(cpu, DecodingOptions(**{**options, "fp16": False}))
+        feats = W.encoder_apply(ref.encoder, mel, torch.float32, int8_linears=options["int8_encoder"])
+        if options["kv_quant"]:
+            cross_f = W.precompute_cross_kv(ref.decoder, feats, stack=False)
+            cross = W.quantize_cross_kv(cross_f)
+            cache = W.init_kv_cache_i8(ref.dims, rows, ctx=128, device=device)
+        else:
+            cross_f = cross = W.precompute_cross_kv(ref.decoder, feats)
+            cache = W.init_kv_cache(ref.dims, rows, torch.float32, ctx=128, device=device)
+        ref_task = DecodingTask(ref, DecodingOptions(**{**options, "fp16": False}))
         init = list(ref_task.initial_tokens)
-        seq = torch.tensor([init + [ref_task.tokenizer.eot] * (8 - len(init))] * rows)
-        cache = W.init_kv_cache_i8(cpu.dims, rows, ctx=128)
-        logits, cache = W.decoder_apply(cpu.decoder, seq, cross_kv=cross_f, kv_cache=cache)
+        seq = torch.tensor([init + [ref_task.tokenizer.eot] * (8 - len(init))] * rows, device=device)
+        logits, cache = W.decoder_apply(ref.decoder, seq, cross_kv=cross_f, kv_cache=cache)
         step_logits = logits[:, len(init) - 1]
-        prev = penult = last_ts = torch.full((rows,), -1)
+        prev = penult = last_ts = torch.full((rows,), -1, device=device)
         for i in range(toks.shape[1]):
             tok = toks[:, i]
             steps.append((_apply_filters(ref_task.filter_cfg, step_logits, i, prev, penult, last_ts), tok))
             prev, penult = tok, prev
             if i + 1 < toks.shape[1]:
                 step_logits = W.decoder_apply(
-                    cpu.decoder, tok[:, None], cross_kv=cross, kv_cache=cache, pos_offset=len(init) + i
+                    ref.decoder, tok[:, None], cross_kv=cross, kv_cache=cache, pos_offset=len(init) + i
                 )[0][:, 0]
-    return mel_err, steps
+    return mel, steps
+
+
+def forced_on_cpu(model, waves, mel_card, toks, options):
+    """`forced_steps` on the CPU: (log-mel max error against `mel_card`,
+    its steps)."""
+    mel_cpu, steps = forced_steps(model, waves, toks, options)
+    return (mel_card.cpu() - mel_cpu).abs().max().item(), steps
 
 
 def check_against_cpu(model, waves_seed: int = 1):
@@ -845,16 +877,18 @@ def write_clips(directory: str, n: int, seed: int) -> str:
     return csv_path
 
 
-def run_training(card: str, workdir: str):
-    """Phase 6: the training slice at the full width of base, bf16."""
+def run_training(card: str, workdir: str, compute_dtype: str = "bfloat16"):
+    """Phase 6: the training slice at the full width of base, bf16; phase
+    20 (c) runs it in fp32, where every launch is an fp32 kernel's."""
     import numpy as np
     import torch
 
     from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
+    tag, sfx = ("[train]", "") if compute_dtype == "bfloat16" else ("[train fp32]", "_f32")
     cfg = TrainingConfig(model_size=MODEL, pretrained="random", batch_size=TRAIN_BATCH, val_batch_size=TRAIN_BATCH,
-                         compute_dtype="bfloat16", learning_rate=1e-5, seed=0, num_workers=4, epochs=1,
+                         compute_dtype=compute_dtype, learning_rate=1e-5, seed=0, num_workers=4, epochs=1,
                          save_dir=os.path.join(workdir, "out"))
     train_ds = MultiTaskSpeechDataset(write_clips(workdir, 32, seed=0), cfg)
     val_ds = MultiTaskSpeechDataset(write_clips(workdir, 16, seed=1), cfg)
@@ -866,11 +900,13 @@ def run_training(card: str, workdir: str):
     val_batches = list(DataLoader(val_ds, TRAIN_BATCH, num_workers=4, buckets=cfg.token_buckets))
     trainer = MultiTaskTrainer(cfg, verbose=False)
     n_params = sum(p.numel() for _, p in trainer.named_trainable())
-    print(f"[train] base: {n_params} parameters (vocab {trainer.model.dims.n_vocab}), batch {TRAIN_BATCH}, "
+    print(f"{tag} base: {n_params} parameters (vocab {trainer.model.dims.n_vocab}), batch {TRAIN_BATCH}, "
           f"token buckets {[b['input_tokens'].shape[1] for b in batches]}", flush=True)
 
-    per_step = {"log_mel": 1, "flash_attention_h2_lse": 12, "flash_attention_h2_bwd": 12,
-                "flash_attention_lse": 6, "flash_attention_bwd": 6}
+    # K3 in each encoder layer and each cross-attention, K7 in each causal self-attention
+    n_h2, n_k7 = trainer.model.dims.n_audio_layer + trainer.model.dims.n_text_layer, trainer.model.dims.n_text_layer
+    per_step = {"log_mel": 1, f"flash_attention_h2_lse{sfx}": n_h2, f"flash_attention_h2_bwd{sfx}": n_h2,
+                f"flash_attention_lse{sfx}": n_k7, f"flash_attention_bwd{sfx}": n_k7}
     torch.cuda.reset_peak_memory_stats()
     step_s, losses, train_counts = [], [], {}
     for i, batch in enumerate(batches):
@@ -893,11 +929,11 @@ def run_training(card: str, workdir: str):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
     steady = statistics.median(step_s[1:])
-    print(f"[train] {TRAIN_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; alpha {trainer.alpha:.4f} "
+    print(f"{tag} {TRAIN_STEPS} steps: losses {', '.join(f'{x:.4f}' for x in losses)}; alpha {trainer.alpha:.4f} "
           f"beta {trainer.beta:.4f}; step s {', '.join(f'{x:.4f}' for x in step_s)} (first has the set-up); "
           f"steady {steady * 1e3:.1f} ms = {TRAIN_BATCH / steady:.1f} samples/s; peak memory "
           f"{peak_gb:.2f} GB (max_memory_allocated) [{card}]", flush=True)
-    print(f"[train] launches per step {json.dumps(per_step)}", flush=True)
+    print(f"{tag} launches per step {json.dumps(per_step)}", flush=True)
 
     sync()
     reset_launch_counts()
@@ -907,13 +943,13 @@ def run_training(card: str, workdir: str):
     t_eval = time.perf_counter() - t0
     eval_counts = dict(LAUNCHES)
     n_val = len(val_batches)
-    expect = {"log_mel": n_val, "flash_attention_h2": 12 * n_val, "flash_attention": 6 * n_val}
+    expect = {"log_mel": n_val, f"flash_attention_h2{sfx}": n_h2 * n_val, f"flash_attention{sfx}": n_k7 * n_val}
     if {k: v for k, v in eval_counts.items() if v} != expect:
         raise AssertionError(f"evaluate launched {eval_counts}, expected {expect}")
     for key in ("loss", "cls_loss", "trans_loss", "wer", "cer", "disease_acc"):
         if not np.isfinite(metrics[key]):
             raise AssertionError(f"evaluate: {key} = {metrics[key]}")
-    print(f"[train] evaluate on {len(val_ds)} clips: {t_eval:.3f} s; loss {metrics['loss']:.4f} "
+    print(f"{tag} evaluate on {len(val_ds)} clips: {t_eval:.3f} s; loss {metrics['loss']:.4f} "
           f"wer {metrics['wer']:.4f} cer {metrics['cer']:.4f} acc {metrics['disease_acc']:.4f}; "
           f"launches {json.dumps(expect)} [{card}]", flush=True)
 
@@ -921,39 +957,46 @@ def run_training(card: str, workdir: str):
     trainer.save_checkpoint(epoch=0, best_loss=metrics["loss"], val_metrics=metrics)
     path = trainer.checkpoint_path()
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    if ckpt["model_state_dict"]["decoder.token_embedding.weight"].shape != (51869, 512):
+    if ckpt["model_state_dict"]["decoder.token_embedding.weight"].shape != (51869, trainer.model.dims.n_text_state):
         raise AssertionError("checkpoint: unexpected embedding shape")
-    print(f"[train] save_checkpoint {path}: {os.path.getsize(path) / 1e6:.1f} MB in "
+    print(f"{tag} save_checkpoint {path}: {os.path.getsize(path) / 1e6:.1f} MB in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     buckets = ([b["input_tokens"].shape[1] for b in batches], [b["input_tokens"].shape[1] for b in val_batches])
     return trainer, batches[0], train_counts, eval_counts, buckets
 
 
+def grads_by_group(trainer):
+    """A trainer's gradients after a step, flattened per optimizer group, fp32 on the CPU."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.mtl.fused_optim import group_of
+
+    out = {}
+    for name, p in trainer.named_trainable():
+        out.setdefault(group_of(name), []).append(p.grad.detach().float().cpu().flatten())
+    return {g: torch.cat(v) for g, v in out.items()}
+
+
 def check_train_step_against_cpu(card: str, trainer, batch):
     """Phase 7: the same weights, 2-clip batch and dropout mask through one
     bf16 step on the card and one fp32 step on the CPU (plain path): the
-    losses within 2% and each group's gradient at cosine >= 0.99."""
+    losses within 2% and each group's gradient at cosine >= 0.99. Returns
+    the CPU step's inputs and results for phase 20's fp32 step."""
     import numpy as np
     import torch
 
     from asr_ttl_mtl_tpu_torch.mtl import MultiTaskTrainer, TrainingConfig
-    from asr_ttl_mtl_tpu_torch.mtl.fused_optim import group_of
 
     small = {k: (v[:2] if k in ("audio", "input_tokens", "target_tokens", "classes", "texts", "paths") else v)
              for k, v in batch.items()}
     keep = torch.from_numpy(np.random.RandomState(3).rand(2, trainer.model.dims.n_audio_state // 2) < 0.9)
-    model_sd = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    head_sd = {k: v.detach().cpu() for k, v in trainer.classifier.state_dict().items()}
+    # copies (the step below updates the trainer's weights in place), for phase 20's fp32 step too
+    model_sd = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    head_sd = {k: v.detach().cpu().clone() for k, v in trainer.classifier.state_dict().items()}
     cpu = MultiTaskTrainer(TrainingConfig(model_size=MODEL, pretrained="random", compute_dtype="float32",
                                           device="cpu", seed=0), verbose=False)
     cpu.load_state(model_sd, head_sd)
     cpu.alpha, cpu.beta = trainer.alpha, trainer.beta
-
-    def grads_by_group(tr):
-        out = {}
-        for name, p in tr.named_trainable():
-            out.setdefault(group_of(name), []).append(p.grad.detach().float().cpu().flatten())
-        return {g: torch.cat(v) for g, v in out.items()}
 
     card_loss, _ = trainer.train_step(small, keep=keep)
     card_g = grads_by_group(trainer)
@@ -972,6 +1015,8 @@ def check_train_step_against_cpu(card: str, trainer, batch):
           f"CPU step {t_cpu:.1f} s {'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("the card's train step disagrees with the CPU reference")
+    return dict(batch=small, keep=keep, model_sd=model_sd, head_sd=head_sd, alpha=trainer.alpha, beta=trainer.beta,
+                cpu_loss=float(cpu_loss), cpu_grads=cpu_g)
 
 
 def check_topk_kernels(card: str, filter_cfg):
@@ -1920,15 +1965,17 @@ MH_TRAIN_BATCH = 8
 
 class ShapeProbe:
     """Wraps a kernel wrapper of ops/flash_attention.py for one run, calling
-    through, and keeps the distinct call shapes (q, k, kv_valid_len, causal)."""
+    through, and keeps the distinct call shapes (q, k, kv_valid_len, causal),
+    of the calls in `dtype` alone if one is given."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, dtype=None):
         from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
 
         self.name, self.original, self.shapes = name, getattr(FA, name), set()
 
         def run(q, k, v, *args, **kw):
-            self.shapes.add((tuple(q.shape), tuple(k.shape), kw.get("kv_valid_len"), kw.get("causal", False)))
+            if dtype is None or q.dtype == dtype:
+                self.shapes.add((tuple(q.shape), tuple(k.shape), kw.get("kv_valid_len"), kw.get("causal", False)))
             return self.original(q, k, v, *args, **kw)
 
         setattr(FA, name, run)
@@ -2133,6 +2180,491 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
     return rows
 
 
+# ------------------------------------------------------------------ phase 20
+
+FP32_REL = 2e-5  # an fp32 kernel against its plain version, a share of the largest output: sum order only
+# the fp32 gates: float caches and float linears, so that no int8 rounding
+# midpoint, which fp32 sum order moves, stands between card and CPU
+FP32_GATE_OPTIONS = dict(BASE_OPTIONS, fp16=False, kv_quant=False, int8_encoder=False)
+FP32_LOGIT_TOL = 5e-3  # 100x tighter than the bf16 decode gate's 0.5
+FP32_TRAIN_TOL = 2e-4  # 100x tighter than the bf16 train gate's 2%
+BF16_KERNELS = ("flash_attention_h2", "flash_attention_h2_lse", "flash_attention_h2_bwd", "flash_attention_mh",
+                "flash_attention", "flash_attention_lse", "flash_attention_bwd", "int8_mlp")
+
+
+def no_bf16_kernel(counts: dict, what: str) -> None:
+    """An fp32 run launches no bf16 flash or K14 kernel."""
+    launched = {k: counts[k] for k in BF16_KERNELS if counts[k]}
+    if launched:
+        raise AssertionError(f"{what} launched bf16 kernels: {launched}")
+
+
+def run_fp32_slice(card: str, slice_rate: float):
+    """Phase 20 (a): phase 4's window path with fp16=False (fp32 compute on
+    base's random weights, kv_quant and the W8A8 encoder), 3 batches of 32
+    windows with the launch counts reset before and read after, then the
+    same under `set_int8_mlp_kernel("auto")`; then an fp32 model from
+    `load_model(..., compute_dtype=torch.float32)` at MH_DIMS (d 576, 9
+    heads), one batch of 8 windows, whose encoder runs K5 at fp32. Returns
+    the summed launch counts and the shapes K5 got."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, from_random, load_model, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, checkpoint_dict
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    n_layer = model.dims.n_audio_layer
+    mel = log_mel_spectrogram(make_waves(N_WINDOWS, seed=0), device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**{**BASE_OPTIONS, "fp16": False}))
+    if task.compute_dtype != torch.float32:
+        raise AssertionError(f"fp16=False computes in {task.compute_dtype}")
+    audio_s = N_WINDOWS * N_BATCHES * 30.0
+    total = {}
+    try:
+        for mode in ("off", "auto"):
+            W.set_int8_mlp_kernel(mode)
+            task.run(mel)  # warm-up, not counted
+            sync()
+            reset_launch_counts()
+            results, t_dec, t_wait = pipeline(task, mel)
+            counts = dict(LAUNCHES)
+            assert len(results) == N_WINDOWS * N_BATCHES
+            for r in results:
+                assert len(r.tokens) == BASE_OPTIONS["sample_len"] and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
+            want = {"flash_attention_h2_f32": n_layer * N_BATCHES, "int8_mlp_f32": n_layer * N_BATCHES * (mode == "auto")}
+            if any(counts[k] != n for k, n in want.items()) or counts["decode_attention_i8"] <= 0:
+                raise AssertionError(f"the fp32 window path (K14 switch {mode}) launched {counts}, expected {want}")
+            no_bf16_kernel(counts, f"the fp32 window path (K14 switch {mode})")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            print(f"[fp32] base, {N_BATCHES} batches x {N_WINDOWS} windows, fp16=False, kv_quant + int8_encoder, "
+                  f"K14 switch {mode}: decode {t_dec:.3f} s = {audio_s / t_dec:.1f} audio-s/s (phase 4, bf16: median "
+                  f"{slice_rate:.1f}), of which {t_wait * 1e3:.1f} ms in collect; text[0]={results[0].text[:40]!r} "
+                  f"[{card}]", flush=True)
+            print(f"[fp32] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    finally:
+        W.set_int8_mlp_kernel("off")
+    del task, model
+    torch.cuda.empty_cache()
+
+    dims = ModelDimensions(**MH_DIMS)
+    m576 = load_model(checkpoint_dict(from_random(dims, seed=0, device=DEVICE)), device=DEVICE,
+                      compute_dtype=torch.float32)
+    task = DecodingTask(m576, DecodingOptions(**BASE_OPTIONS))  # fp16=True: the model's fp32
+    if task.compute_dtype != torch.float32:
+        raise AssertionError(f"an fp32 model computes in {task.compute_dtype}")
+    mel8 = mel[:8].contiguous()
+    task.run(mel8)  # warm-up, not counted
+    probe = ShapeProbe("flash_attention_mh", torch.float32)
+    try:
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = task.run(mel8)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        probe.close()
+    for r in results:
+        assert len(r.tokens) == BASE_OPTIONS["sample_len"] and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
+    if counts["flash_attention_mh_f32"] != dims.n_audio_layer or counts["decode_attention_i8"] <= 0:
+        raise AssertionError(f"the fp32 d=576 window path launched {counts}")
+    no_bf16_kernel(counts, "the fp32 d=576 window path")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[fp32] d=576 9 heads, an fp32 model from load_model(compute_dtype=float32), 1 batch x 8 windows: "
+          f"{wall:.3f} s = {8 * 30.0 / wall:.1f} audio-s/s; K5 shapes {sorted(probe.shapes)}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    del task, m576
+    torch.cuda.empty_cache()
+    return total, probe.shapes
+
+
+def run_fp32_cli(card: str, model, workdir: str):
+    """Phase 20 (b): phase 12's 70 s WAV through the CLI with `--fp16 False
+    --word_timestamps True` at one rung, `--model base --model_dir` (base's
+    alignment heads) and the 19-token prompt carried into every window: the
+    beam decode and its prompted prefill (K7) in fp32; the alignment forward
+    runs in the model's dtype (bf16), as in the JAX package. Returns the
+    launch counts and the shapes of the fp32 K7 calls."""
+    import contextlib
+    import io
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.models import checkpoint_dict
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    torch.save(checkpoint_dict(model), os.path.join(workdir, f"{MODEL}.pt"))
+    clip = os.path.join(workdir, "clip70.wav")
+    write_long_wav(clip, 70.0, seed=0)
+    out = os.path.join(workdir, "fp32_words")
+    printed = io.StringIO()
+    probe = ShapeProbe("flash_attention", torch.float32)
+    try:
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli([clip, "--model", MODEL, "--model_dir", workdir, "--device", DEVICE, "--output_dir", out,
+                 "--language", "en", "--fp16", "False", "--word_timestamps", "True", "--temperature_increment_on_fallback", "None",
+                 "--initial_prompt", CLI_PROMPT, "--carry_initial_prompt", "True",
+                 "--condition_on_previous_text", "False"])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        probe.close()
+    text = printed.getvalue()
+    if "Skipping" in text:
+        raise AssertionError(f"the CLI skipped the file:\n{text[-3000:]}")
+    files = sorted(os.listdir(out))
+    if files != [f"clip70.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
+        raise AssertionError(f"the CLI wrote {files}")
+    with open(os.path.join(out, "clip70.json")) as f:
+        segments = json.load(f)["segments"]
+    words = [w for s in segments for w in s.get("words", [])]
+    if not words or not all(w["start"] <= w["end"] for w in words):
+        raise AssertionError(f"the fp32 words run gave {len(words)} words")
+    for name in ("flash_attention_h2_f32", "flash_attention_f32", "topk_logprobs", "decode_attention", "log_mel",
+                 "median_filter", "dtw_trace"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the fp32 CLI run launched no {name}: {counts}")
+    print(f"[fp32] CLI --fp16 False --word_timestamps True, the 19-token prompt, one rung: {wall:.1f} s wall for "
+          f"70 s of audio; {len(segments)} segments, {len(words)} words; fp32 K7 shapes (q, k, kv_valid_len, causal) "
+          f"{sorted(probe.shapes)} [{card}]", flush=True)
+    print(f"[fp32] launches {json.dumps({k: v for k, v in counts.items() if v})} (the bf16 flash launches are the "
+          f"alignment forward's, in the model's dtype)", flush=True)
+    return counts, probe.shapes
+
+
+def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_shapes, model):
+    """Phase 20 (d): each fp32 kernel against its plain version at the
+    shapes phase 20's runs gave it, plus the d=576 encoder's K5 at (1, 1536,
+    576) and K7-lse/K8 at (72, 1536, 64) over 1536 keys valid to 1500, each
+    within FP32_REL of its largest output per output (out, lse, dq, dk, dv)
+    and bitwise on a second launch. Timed beside SDPA at fp32 on 4-D views
+    (its backward for K6 and K8) and the bound at 67 TFLOP/s. K14 at fp32:
+    the first int8 intermediate exact, the second only at rounding
+    midpoints of g / sg, each output within one activation step per flip."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+    from asr_ttl_mtl_tpu_torch.ops import int8_mlp as M
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    record = make_recorder(card, rows)
+    src = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def tol(x):
+        return FP32_REL * x.abs().max().item()
+
+    def fbound(macs, n_bytes, mults=4):
+        return attn_bound(macs, n_bytes, mults, "fp32")
+
+    main_t, main_v = train_buckets[0], val_buckets[0]
+    # K3: the window path's encoder (32, 1536, 512), keys valid to 1500; evaluate's cross
+    for b, tq, tk, kv, what, main in [(N_WINDOWS, 1536, 1536, 1500, "encoder, the fp32 window path", True),
+                                      (TRAIN_BATCH, main_v, 1500, None, "cross, evaluate's token bucket", False)]:
+        q, k, v = rnd(b, tq, 512), rnd(b, tk, 512), rnd(b, tk, 512)
+        n_keys = kv or tk
+        kw = dict(n_head=8, kv_valid_len=kv, scale=0.125)
+        want = FA.flash_attention_h2_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, 8), heads(k, 8, n_keys), heads(v, 8, n_keys)
+        record("flash_attention_h2_f32", f"{what}: q ({b}, {tq}, 512), k ({b}, {tk}, 512) fp32, kv_valid_len {kv}",
+               src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514", FA.flash_attention_h2(q, k, v, **kw), want,
+               tol(want), lambda: FA.flash_attention_h2(q, k, v, **kw),
+               lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
+               bound=fbound(b * tq * n_keys * 512, (2 * q.numel() + 2 * b * n_keys * 512) * 4),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
+        del q, k, v, want, qh, kh, vh
+
+    # K3 with lse and K6: the train step's encoder (16, 1536, 512) and cross at its token bucket
+    for b, tq, tk, kv, what, main in [(TRAIN_BATCH, 1536, 1536, 1500, "encoder, the fp32 train step", True),
+                                      (TRAIN_BATCH, main_t, 1500, None, "cross, the train step's token bucket", False)]:
+        q, k, v, g = rnd(b, tq, 512), rnd(b, tk, 512), rnd(b, tk, 512), rnd(b, tq, 512)
+        n_keys = kv or tk
+        kw = dict(n_head=8, kv_valid_len=kv, scale=0.125)
+        case = f"{what}: q ({b}, {tq}, 512), k ({b}, {tk}, 512) fp32, kv_valid_len {kv}"
+        out, lse = FA.flash_attention_h2(q, k, v, return_lse=True, **kw)
+        pout, plse = FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+        io = (2 * q.numel() + 2 * b * n_keys * 512) * 4
+        qh = heads(q, 8).detach().requires_grad_(True)
+        kh, vh = (heads(x, 8, n_keys).detach().requires_grad_(True) for x in (k, v))
+        record("flash_attention_h2_lse_f32", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:552",
+               [out, lse], [pout, plse], [tol(pout), tol(plse)],
+               lambda: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
+               lambda: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw),
+               bound=fbound(b * tq * n_keys * 512, io + lse.numel() * 4),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
+        delta = FA.h2_delta(g, pout, 8)
+        got = list(FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw))
+        want = list(FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)
+        gh = heads(g, 8)
+        record("flash_attention_h2_bwd_f32", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:651,691",
+               got, want, [tol(w) for w in want],
+               lambda: FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
+               lambda: FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw),
+               bound=fbound(b * tq * n_keys * 512, 2 * io + 2 * lse.numel() * 4, mults=10),
+               library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), main=main,
+               repeat=True)
+        del q, k, v, g, out, lse, pout, plse, delta, got, want, lib_out, qh, kh, vh
+
+    # K7 with lse and K8 at the train step's causal (128, bucket, 64), K7 at evaluate's
+    for t in sorted({main_t, main_v}):
+        q, k, v, g = rnd(128, t, 64), rnd(128, t, 64), rnd(128, t, 64), rnd(128, t, 64)
+        kw = dict(causal=True, scale=0.125)
+        io = 4 * q.numel() * 4  # q, k, v in, out written
+        pairs = t * (t + 1) // 2
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k, v))
+        case = f"causal (128, {t}, 64) fp32, the token bucket"
+        out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        if t == main_v:
+            record("flash_attention_f32", case + " (evaluate)", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+                   FA.flash_attention(q, k, v, **kw), pout, tol(pout), lambda: FA.flash_attention(q, k, v, **kw),
+                   lambda: FA.flash_attention_plain(q, k, v, **kw), bound=fbound(128 * pairs * 64, io),
+                   library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, is_causal=True),
+                   main=True, repeat=True)
+        if t == main_t:
+            record("flash_attention_lse_f32", case + " (train)", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+                   [out, lse], [pout, plse], [tol(pout), tol(plse)],
+                   lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+                   lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+                   bound=fbound(128 * pairs * 64, io + lse.numel() * 4),
+                   library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, is_causal=True),
+                   main=True, repeat=True)
+            got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+            want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, is_causal=True)
+            record("flash_attention_bwd_f32", case + " (train)", src,
+                   "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030", got, want, [tol(w) for w in want],
+                   lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+                   lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+                   bound=fbound(128 * pairs * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
+                   library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True),
+                   main=True, repeat=True)
+        del q, k, v, g, out, lse, pout, plse, ql, kl, vl
+
+    # K7 at the CLI's prompted prefills: causal queries over the self-cache
+    for q_shape, k_shape, kv, causal in sorted(cli_k7_shapes):
+        bh, tq, _ = q_shape
+        tk = k_shape[1]
+        q, k, v = rnd(bh, tq, 64), rnd(bh, tk, 64), rnd(bh, tk, 64)
+        kw = dict(causal=causal, kv_valid_len=kv, scale=0.125)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        seen = min(tq, kv or tk) if causal else (kv or tk)
+        record("flash_attention_f32", f"the CLI's prompted prefill, causal {causal}: ({bh}, {tq}, 64) x ({bh}, {tk}, "
+               f"64) fp32", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+               FA.flash_attention(q, k, v, **kw), want, tol(want), lambda: FA.flash_attention(q, k, v, **kw),
+               lambda: FA.flash_attention_plain(q, k, v, **kw),
+               bound=fbound(bh * tq * (tq + 1) // 2 * 64, (2 * q.numel() + 2 * bh * seen * 64) * 4),
+               library=lambda: F.scaled_dot_product_attention(q[None], k[None, :, :seen], v[None, :, :seen],
+                                                              is_causal=causal, scale=0.125),
+               main=False, repeat=True)
+        del q, k, v, want
+
+    # K5 at the d=576 window path's shapes and the one-window (1, 1536, 576)
+    cases = [(q[0], q[1], k[1], n, True) for q, k, n, _ in sorted(k5_shapes)] + [(1, 1536, 1536, 1500, False)]
+    for b, tq, tk, kv, main in cases:
+        q, k, v = rnd(b, tq, 576), rnd(b, tk, 576), rnd(b, tk, 576)
+        n_keys = kv or tk
+        kw = dict(n_head=9, kv_valid_len=kv, scale=0.125)
+        want = FA.flash_attention_mh_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, 9), heads(k, 9, n_keys), heads(v, 9, n_keys)
+        record("flash_attention_mh_f32", f"d=576 encoder: q ({b}, {tq}, 576), k ({b}, {tk}, 576) fp32, 9 heads of "
+               f"64, kv_valid_len {kv}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+               FA.flash_attention_mh(q, k, v, **kw), want, tol(want), lambda: FA.flash_attention_mh(q, k, v, **kw),
+               lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
+               bound=fbound(b * tq * n_keys * 576, (2 * q.numel() + 2 * b * n_keys * 576) * 4),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
+        del q, k, v, want, qh, kh, vh
+
+    # K7 with lse and K8, non-causal, at the d=576 train step's encoder (8 x 9, 1536, 64), keys valid to 1500
+    bh = MH_TRAIN_BATCH * 9
+    q, k, v, g = rnd(bh, 1536, 64), rnd(bh, 1536, 64), rnd(bh, 1536, 64), rnd(bh, 1536, 64)
+    kw = dict(kv_valid_len=1500, scale=0.125)
+    out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    io = (2 * q.numel() + 2 * bh * 1500 * 64) * 4
+    ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k[:, :1500], v[:, :1500]))
+    case = f"non-causal ({bh}, 1536, 64) x ({bh}, 1536, 64) fp32, kv_valid_len 1500 (the d=576 encoder)"
+    record("flash_attention_lse_f32", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+           [out, lse], [pout, plse], [tol(pout), tol(plse)],
+           lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+           lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+           bound=fbound(bh * 1536 * 1500 * 64, io + lse.numel() * 4),
+           library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125), main=False, repeat=True)
+    got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+    want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=0.125)
+    record("flash_attention_bwd_f32", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+           got, want, [tol(w) for w in want],
+           lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+           lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+           bound=fbound(bh * 1536 * 1500 * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
+           library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=False,
+           repeat=True)
+    del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
+
+    # K14 at fp32 through base's first encoder MLP at the window path's (32 x 1536, 512) rows
+    fc1, fc2 = model.encoder.blocks[0].mlp[0], model.encoder.blocks[0].mlp[2]
+    d, hidden = fc1.in_features, fc1.out_features
+    w1q, s1 = W._quant_rowwise_sym(fc1.weight.float())
+    w2q, s2 = W._quant_rowwise_sym(fc2.weight.float())
+    n = N_WINDOWS * 1536
+    x = rnd(n, d)
+    args = (x, w1q, s1.reshape(-1), fc1.bias.float(), w2q, s2.reshape(-1), fc2.bias.float())
+    want, pqx, pqg, psg = M.int8_mlp_plain(*args, return_int8=True)
+    got, qx, qg, sg = M.int8_mlp(*args, return_int8=True)
+    sync()
+    flips = (qg.int() - pqg.int()).abs()
+    # the plain version's g / sg where the second intermediate flipped: a flip
+    # is a GELU value whose last bits (tanhf's) move it across a rounding midpoint
+    sx = W.int8_step(x.abs().amax(-1, keepdim=True), 1e-30)
+    f1 = torch._int_mm(pqx, w1q.t()).float() * (sx * s1.reshape(1, -1)) + fc1.bias.float()
+    ratio = F.gelu(f1, approximate="tanh") / psg
+    off_mid = (ratio.abs().frac() - 0.5).abs()[flips > 0]
+    worst_mid = off_mid.max().item() if off_mid.numel() else 0.0
+    share = (flips > 0).float().mean().item()
+    print(f"[fp32] K14 int8 intermediates, kernel vs plain: first (x) {(qx != pqx).float().mean().item():.3e} "
+          f"differ; second (GELU) {share:.3e} differ ({int((flips > 0).sum())} of {flips.numel()}), by at most "
+          f"{flips.max().item()}, each within {worst_mid:.2e} of a rounding midpoint of g / sg (tol 1e-4); row scales "
+          f"of the second, max relative difference {((sg - psg).abs() / psg).max().item():.3e}", flush=True)
+    if not torch.equal(qx, pqx) or flips.max().item() > 1 or worst_mid > 1e-4:
+        raise AssertionError("int8_mlp fp32: the int8 intermediates differ from the plain version's beyond midpoints")
+    ref = want.abs()
+    tol14 = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1) + 2e-6 * ref + 1e-6 * ref.max()
+    del flips, pqx, pqg, qx, qg, f1, ratio
+    n_bytes = 2 * n * d * 4 + 2 * d * hidden + 2 * (d + hidden) * 4
+    plan = M.k14_plan(n, d, hidden, 4)
+    record("int8_mlp_f32", f"x ({n}, {d}) fp32, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8, {plan.route} route, "
+           f"cluster of {plan.cluster}, {plan.stages} stages, GEMM1 twice",
+           "asr_ttl_mtl_tpu_torch/csrc/int8_mlp.cu", "asr_ttl_mtl_tpu/ops/int8_mlp.py:46", got, want, tol14,
+           lambda: M.int8_mlp(*args), lambda: M.int8_mlp_plain(*args),
+           bound=bound(4 * n * d * hidden, n_bytes, "int8"), repeat=True)
+    rows[-1]["second_int8_flip_share"] = share
+    return rows
+
+
+def check_conv_stem_fp32(card: str, model):
+    """Phase 20 (e): the fp32 conv stem on the card under cuDNN's default
+    allow_tf32=True: the port's guard runs it in fp32, so `W.conv1d` is
+    within 1e-5 of its largest output of a float64 reference on the CPU;
+    the same F.conv1d outside the guard, in TF32, printed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch import log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("phase 20 runs with cuDNN's default allow_tf32=True")
+    mel = log_mel_spectrogram(make_waves(2, seed=2), device=DEVICE)
+    conv = model.encoder.conv1
+    with torch.no_grad():
+        got = W.conv1d(conv, mel, stride=1).cpu().double()
+        raw = F.conv1d(mel, conv.weight.float(), None, padding=1).cpu().double() + conv.bias.double().cpu()[None, :, None]
+        ref = F.conv1d(mel.cpu().double(), conv.weight.cpu().double(), None, padding=1) + \
+            conv.bias.cpu().double()[None, :, None]
+    scale = ref.abs().max().item()
+    err, err_raw = (got - ref).abs().max().item() / scale, (raw - ref).abs().max().item() / scale
+    ok = err <= 1e-5
+    print(f"[check] fp32 conv stem on the card (conv1 of base over 2 x 30 s), cuDNN allow_tf32 left True: the port's "
+          f"max error {err:.2e} of its largest output against float64 (tol 1e-5); F.conv1d outside the guard "
+          f"{err_raw:.2e} [{card}] {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the fp32 conv stem is not fp32 on the card")
+
+
+def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1):
+    """Phase 20 (e): the card's fp32 decode of 2 windows (FP32_GATE_OPTIONS)
+    against the plain path on the CPU in fp32: teacher-forced to the card's
+    tokens on both, the card's tokens are the CPU's argmax (up to ties
+    within the tolerance), and every filtered logit of the card's forced run
+    is within FP32_LOGIT_TOL of the CPU's."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    waves = make_waves(2, seed=waves_seed)
+    mel = log_mel_spectrogram(waves, device=DEVICE)
+    reset_launch_counts()
+    card_res = DecodingTask(model, DecodingOptions(**FP32_GATE_OPTIONS)).run(mel)
+    counts = dict(LAUNCHES)
+    if counts["flash_attention_h2_f32"] != model.dims.n_audio_layer or counts["decode_attention"] <= 0:
+        raise AssertionError(f"the fp32 gate's decode launched {counts}")
+    no_bf16_kernel(counts, "the fp32 gate's decode")
+    toks = torch.tensor([r.tokens for r in card_res])
+    _, card_steps = forced_steps(model, waves, toks, FP32_GATE_OPTIONS, device=DEVICE)
+    t0 = time.perf_counter()
+    mel_cpu, cpu_steps = forced_steps(model, waves, toks, FP32_GATE_OPTIONS)
+    t_cpu = time.perf_counter() - t0
+    mel_err = (mel.cpu() - mel_cpu).abs().max().item()
+    worst_gap = max((lg.amax(-1) - lg.gather(1, tok[:, None])[:, 0]).max().item() for lg, tok in cpu_steps)
+    not_argmax = sum(int((lg.argmax(-1) != tok).sum()) for lg, tok in cpu_steps)
+    logit_err, same_mask = 0.0, True
+    for (lc, _), (lp, _) in zip(card_steps, cpu_steps):
+        lc, fin = lc.cpu(), torch.isfinite(lp)
+        same_mask = same_mask and torch.equal(torch.isfinite(lc), fin)
+        logit_err = max(logit_err, (lc - lp)[fin].abs().max().item())
+    ok = mel_err < 1e-3 and same_mask and logit_err <= FP32_LOGIT_TOL and worst_gap <= FP32_LOGIT_TOL
+    print(f"[check] fp32 decode, card vs CPU fp32 plain path, 2 windows x {toks.shape[1]} tokens (fp16=False, float "
+          f"caches and linears): {not_argmax} card tokens are not the CPU's argmax, trailing it by at most "
+          f"{worst_gap:.2e} (tol {FP32_LOGIT_TOL}); filtered logits max |card - CPU| {logit_err:.2e} (tol "
+          f"{FP32_LOGIT_TOL}, 100x the bf16 gate's 0.5), -inf at the same places {same_mask}; log-mel max err "
+          f"{mel_err:.2e}; CPU forced run {t_cpu:.1f} s [{card}] {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the card's fp32 decode disagrees with the CPU reference")
+
+
+def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict):
+    """Phase 20 (e): one fp32 train step on the card from phase 7's weights,
+    2-clip batch and dropout mask against phase 7's fp32 CPU step: the loss
+    and every group's gradient norm within FP32_TRAIN_TOL (relative)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    trainer.load_state(ref["model_sd"], ref["head_sd"])
+    trainer.alpha, trainer.beta = ref["alpha"], ref["beta"]
+    reset_launch_counts()
+    loss, _ = trainer.train_step(ref["batch"], keep=ref["keep"])
+    sync()
+    counts = dict(LAUNCHES)
+    no_bf16_kernel(counts, "the fp32 gate's train step")
+    card_g, cpu_g = grads_by_group(trainer), ref["cpu_grads"]
+    rel = abs(float(loss) - ref["cpu_loss"]) / abs(ref["cpu_loss"])
+    norms = {g: (card_g[g].double().norm().item(), cpu_g[g].double().norm().item()) for g in cpu_g}
+    norm_rel = {g: abs(a - b) / b for g, (a, b) in norms.items()}
+    cos = {g: float(torch.nn.functional.cosine_similarity(card_g[g].double(), cpu_g[g].double(), dim=0))
+           for g in cpu_g}
+    worst = max(norm_rel, key=norm_rel.get)
+    ok = rel <= FP32_TRAIN_TOL and norm_rel[worst] <= FP32_TRAIN_TOL
+    print(f"[check] train step, card fp32 vs CPU fp32 plain path (phase 7's weights, 2 clips, dropout mask): loss "
+          f"{float(loss):.7f} vs {ref['cpu_loss']:.7f}, rel diff {rel:.2e} (tol {FP32_TRAIN_TOL}, 100x tighter than "
+          f"the bf16 gate's 2%); gradient norm rel diff {', '.join(f'{g} {r:.2e}' for g, r in norm_rel.items())}, "
+          f"worst {worst} (tol {FP32_TRAIN_TOL}); cosine {', '.join(f'{g} {c:.7f}' for g, c in cos.items())}; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}] {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the card's fp32 train step disagrees with the CPU reference")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -2172,7 +2704,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         trainer, batch, train_counts, eval_counts, buckets = run_training(card, workdir)
-        check_train_step_against_cpu(card, trainer, batch)
+        ref7 = check_train_step_against_cpu(card, trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
     rows += check_train_kernels(card, *buckets)
@@ -2201,12 +2733,33 @@ def main() -> int:
         mh_train_counts, mh_train_shapes = run_mh_training(card, workdir)
     rows += check_mh_kernels(card, mh_shapes, mh_train_shapes)
 
+    # phase 20, fp32 on the card, with cuDNN's default allow_tf32=True back:
+    # the conv stem's own guard is what keeps it in fp32
+    torch.backends.cudnn.allow_tf32 = True
+    fp32_slice_counts, k5_shapes = run_fp32_slice(card, slice_rate)
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as workdir:
+        fp32_cli_counts, cli_k7_shapes = run_fp32_cli(card, model, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer, _, fp32_train_counts, fp32_eval_counts, buckets32 = run_training(card, workdir, "float32")
+        check_fp32_train_step_against_cpu(card, trainer, ref7)
+    del trainer, ref7
+    torch.cuda.empty_cache()
+    check_conv_stem_fp32(card, model)
+    check_fp32_decode_against_cpu(card, model)
+    rows += check_fp32_kernels(card, *buckets32, cli_k7_shapes, k5_shapes, model)
+    torch.backends.cudnn.allow_tf32 = False
+    del model
+    torch.cuda.empty_cache()
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
-    # train steps), each counted from 0 just before it ran
+    # train steps, and phase 20's fp32 window paths, CLI run, train steps
+    # and evaluate), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
-             int8_counts, mh_cli_counts, mh_train_counts)
+             int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
+             fp32_eval_counts)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

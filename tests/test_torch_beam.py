@@ -157,9 +157,14 @@ def test_fp16_false_still_decodes_on_cpu(setup):
 
 @pytest.mark.cuda
 def test_fp16_false_is_refused_on_card(cuda_device):  # noqa: F811
+    """The card's kernels serve bf16 and fp32: fp16=False (fp32) is taken,
+    while a dtype no kernel serves (an fp16 model with fp16=True) is still
+    refused, with a message that names what is served."""
     model = from_random("tiny", seed=0, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP: fp32 in the card's attention kernels"):
-        PD.DecodingTask(model, PD.DecodingOptions(language="en", fp16=False))
+    assert PD.DecodingTask(model, PD.DecodingOptions(language="en", fp16=False)).compute_dtype == torch.float32
+    half = from_random("tiny", seed=0, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="serve bf16 and fp32"):
+        PD.DecodingTask(half, PD.DecodingOptions(language="en", fp16=True))
 
 
 @pytest.mark.cuda

@@ -33,9 +33,11 @@ def _close(got, want, atol=ATOL):
 # ------------------------------------------------------- K3 lse and K6 ------
 
 # tq 48 is the token bucket's one ragged q tile; tk 200 with kv_valid_len 130
-# leaves a ragged, partly masked last key tile
+# leaves a ragged, partly masked last key tile; tq 100 is not a multiple of
+# the fp32 kernel's 64-row tile, and keys valid to 97 end inside its second
+# key tile
 H2_CASES = [(64, 64, None), (64, 200, None), (200, 64, None), (200, 200, 150), (64, 200, 130), (48, 200, 130),
-            (48, 48, None)]
+            (48, 48, None), (100, 170, 97)]
 
 
 @pytest.mark.parametrize("tq,tk,kv_valid_len", H2_CASES)
@@ -93,6 +95,7 @@ K7_CASES = [  # bh, tq, tk, causal, q_offset, kv_valid_len
     (2, 130, 130, True, 0, None),
     (2, 50, 257, False, 0, 200),
     (2, 48, 300, True, 7, 250),
+    (2, 100, 170, True, 9, 97),
 ]
 
 
@@ -189,43 +192,62 @@ def test_vjp_helpers_take_the_forward_without_grad():
 # ------------------------------------------------------------ on the card ---
 
 
-def _card_inputs(dev, shapes, seed):
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _card_inputs(dev, shapes, seed, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(s, generator=g, device=dev).bfloat16() for s in shapes]
+    return [torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes]
 
 
 def _assert_card_close(got, want):
-    """bf16 rounding at other places (p, dS, the outputs): 2^-6 of the largest output."""
+    """bf16: rounding at other places (p, dS, the outputs), 2^-6 of the
+    largest output; fp32: sums in another order only, 2e-5 of it."""
+    assert got.dtype == want.dtype
+    rel = 2.0**-6 if got.dtype == torch.bfloat16 else 2e-5
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
-    assert (got - want).abs().max().item() <= 2.0**-6 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+def _assert_lse_close(got, want, dtype):
+    """lse within 1e-4 in bf16 (as the backward reads it), 2e-5 of its largest in fp32."""
+    tol = 1e-4 if dtype == torch.bfloat16 else 2e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tq,tk,kv_valid_len", [(200, 200, 150), (48, 1500, None), (448, 1500, None)])
-def test_k3_lse_and_k6_kernels_on_card(cuda_device, tq, tk, kv_valid_len):  # noqa: F811
-    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq)
+def test_k3_lse_and_k6_kernels_on_card(cuda_device, tq, tk, kv_valid_len, dtype):  # noqa: F811
+    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq,
+                              dtype=dtype)
     kw = dict(n_head=8, kv_valid_len=kv_valid_len, scale=0.125)
     out, lse = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
     pout, plse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
     _assert_card_close(out, pout)
-    assert (lse - plse).abs().max().item() <= 1e-4
+    _assert_lse_close(lse, plse, dtype)
     delta = PF.h2_delta(g, pout, 8)
-    for a, c in zip(PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
-                    PF.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw)):
+    reset_launch_counts()
+    got = PF.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw)
+    assert LAUNCHES["flash_attention_h2_bwd" if dtype == torch.bfloat16 else "flash_attention_h2_bwd_f32"] == 1
+    for a, c in zip(got, PF.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw)):
         _assert_card_close(a, c)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tq,tk,kv_valid_len", [(48, 1500, None), (64, 1500, None), (200, 1500, None),
                                                 (1536, 1536, 1500), (1536, 1500, None), (48, 92, None),
-                                                (200, 220, 150)])
-def test_k6_kernel_on_card_edges(cuda_device, tq, tk, kv_valid_len):  # noqa: F811
+                                                (200, 220, 150), (100, 200, 97)])
+def test_k6_kernel_on_card_edges(cuda_device, tq, tk, kv_valid_len, dtype):  # noqa: F811
     """K6 at the edges of its dq and dkv kernels: one (tq <= 64) or two
     consumer warpgroups, a ragged q tile, 1500 keys (a tail key tile of 92),
-    kv_valid_len inside a tile and one key tile of 92; two launches give the
-    same bits, and masked keys get zero dk and dv."""
-    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq + tk)
+    kv_valid_len inside a tile and one key tile of 92, and for the fp32
+    kernel's 64-row tiles a tq of 100 over keys valid to 97; two launches
+    give the same bits, and masked keys get zero dk and dv."""
+    q, k, v, g = _card_inputs(cuda_device, [(2, tq, 512), (2, tk, 512), (2, tk, 512), (2, tq, 512)], seed=tq + tk,
+                              dtype=dtype)
     kw = dict(n_head=8, kv_valid_len=kv_valid_len, scale=0.125)
     pout, plse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
     delta = PF.h2_delta(g, pout, 8)
@@ -242,8 +264,9 @@ def test_k6_kernel_on_card_edges(cuda_device, tq, tk, kv_valid_len):  # noqa: F8
 # 64) and two (tq > 128), odd tq (the hpb-1 residual box off a 16-byte
 # boundary), tk > tq with q_offset (the prefill), ragged kv_valid_len tiles,
 # causal with keys past q_offset + tq that no query sees, fewer residuals
-# than one residual box holds, and the d=576 encoder and cross shapes at a
-# small BH
+# than one residual box holds, the d=576 encoder and cross shapes at a
+# small BH, and a tq of 100 (not a multiple of the fp32 kernel's 64-row
+# tile) with keys valid to 97, inside a key tile
 K7_CARD_CASES = [
     (1, 20, 40, True, 0, None),
     (16, 64, 64, True, 0, None),
@@ -259,23 +282,30 @@ K7_CARD_CASES = [
     (6, 200, 300, False, 0, 270),
     (4, 48, 1500, False, 0, None),
     (4, 1536, 1536, False, 0, 1500),
+    (3, 100, 170, True, 9, 97),
 ]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,tq,tk,causal,q_offset,kv_valid_len", K7_CARD_CASES)
-def test_k7_and_k8_kernels_on_card(cuda_device, bh, tq, tk, causal, q_offset, kv_valid_len):  # noqa: F811
-    """K7 (with and without lse) and K8 against their plain versions; a
-    second launch gives the same bits, and keys that no query sees (past
-    kv_valid_len, or past q_offset + tq when causal) get zero dk and dv."""
-    q, k, v, g = _card_inputs(cuda_device, [(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq + tk)
+def test_k7_and_k8_kernels_on_card(cuda_device, bh, tq, tk, causal, q_offset, kv_valid_len, dtype):  # noqa: F811
+    """K7 (with and without lse) and K8 against their plain versions, bf16
+    and fp32 (each launch counted under its dtype's key); a second launch
+    gives the same bits, and keys that no query sees (past kv_valid_len, or
+    past q_offset + tq when causal) get zero dk and dv."""
+    q, k, v, g = _card_inputs(cuda_device, [(bh, tq, 64), (bh, tk, 64), (bh, tk, 64), (bh, tq, 64)], seed=tq + tk,
+                              dtype=dtype)
     kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=0.125)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    reset_launch_counts()
     out, lse = PF.flash_attention(q, k, v, return_lse=True, **kw)
     pout, plse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
     _assert_card_close(out, pout)
     nolse = PF.flash_attention(q, k, v, **kw)
+    assert LAUNCHES[f"flash_attention_lse{sfx}"] == 1 and LAUNCHES[f"flash_attention{sfx}"] == 1
     _assert_card_close(nolse, pout)
-    assert (lse - plse).abs().max().item() <= 1e-4
+    _assert_lse_close(lse, plse, dtype)
     out2, lse2 = PF.flash_attention(q, k, v, return_lse=True, **kw)
     assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(nolse, PF.flash_attention(q, k, v, **kw))
     got = PF.flash_attention_bwd(q, k, v, pout, plse, g, **kw)

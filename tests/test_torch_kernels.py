@@ -346,32 +346,48 @@ def test_k1_flip_bound_separates_block_sizes():
 # ------------------------------------------------------- on the card ------
 
 
+# tolerance of a flash kernel's outputs against its plain version, a share
+# of the largest output: bf16 rounds p and the outputs at other places; fp32
+# sums in another order only (a TF32 product would miss it by ~25x)
+FLASH_REL = {torch.bfloat16: 2.0**-6, torch.float32: 2e-5}
+
+
 @pytest.mark.cuda
-def test_k3_kernel_on_card(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_kernel_on_card(cuda_device, dtype):  # noqa: F811
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn((2, 200, 512), generator=g, device=cuda_device).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn((2, 200, 512), generator=g, device=cuda_device).to(dtype) for _ in range(3))
     kw = dict(n_head=8, kv_valid_len=150, scale=0.125)
     want = PF.flash_attention_h2_plain(q, k, v, **kw).float()
-    got = PF.flash_attention_h2(q, k, v, **kw).float()
-    assert (got - want).abs().max().item() <= 2.0**-6 * want.abs().max().item()
+    got = PF.flash_attention_h2(q, k, v, **kw)
+    assert got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= FLASH_REL[dtype] * want.abs().max().item()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,tq,tk,kv_len", [(3, 32, 1500, None), (2, 48, 1536, 1500), (2, 300, 1536, 1500),
                                             (1, 64, 130, 129), (1, 65, 200, 1)])
-def test_k3_kernel_on_card_with_lse(cuda_device, b, tq, tk, kv_len):  # noqa: F811
+def test_k3_kernel_on_card_with_lse(cuda_device, b, tq, tk, kv_len, dtype):  # noqa: F811
     """K3 with the logsumexp: one consumer warpgroup (tq <= 64) and two, a
-    ragged last key tile, a single valid key; out within 2^-6 of the largest
-    output, lse within 1e-4 (as K6 reads it)."""
+    ragged last key tile, a single valid key; out within 2^-6 (bf16) or
+    2e-5 (fp32) of the largest output, lse within 1e-4 (bf16, as K6 reads
+    it) or 2e-5 of the largest; the same bits on a second launch."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    q = torch.randn((b, tq, 512), generator=g, device=cuda_device).bfloat16()
-    k, v = (torch.randn((b, tk, 512), generator=g, device=cuda_device).bfloat16() for _ in range(2))
+    q = torch.randn((b, tq, 512), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, tk, 512), generator=g, device=cuda_device).to(dtype) for _ in range(2))
     kw = dict(n_head=8, kv_valid_len=kv_len, scale=0.125)
     want, want_lse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    reset_launch_counts()
     got, got_lse = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
-    assert (got.float() - want.float()).abs().max().item() <= 2.0**-6 * want.float().abs().max().item()
-    assert (got_lse - want_lse).abs().max().item() <= 1e-4
+    assert LAUNCHES["flash_attention_h2_lse" if dtype == torch.bfloat16 else "flash_attention_h2_lse_f32"] == 1
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_REL[dtype] * want.float().abs().max().item()
+    lse_tol = 1e-4 if dtype == torch.bfloat16 else 2e-5 * want_lse.abs().max().item()
+    assert (got_lse - want_lse).abs().max().item() <= lse_tol
     assert torch.equal(PF.flash_attention_h2(q, k, v, **kw), got)
+    assert all(torch.equal(a, c) for a, c in zip(PF.flash_attention_h2(q, k, v, return_lse=True, **kw), (got, got_lse)))
 
 
 @pytest.mark.cuda
@@ -475,31 +491,39 @@ def test_k1_kernel_on_card_split_edges(cuda_device, b, group, tk, valid):  # noq
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,d,h,tiny_row", [
     (300, 128, 512, None), (300, 256, 1024, None), (300, 384, 1536, None), (300, 512, 2048, None),
     (40, 512, 2048, None), (1000, 256, 1024, None), (100, 3072, 128, None), (300, 128, 2688, None),
-    (300, 512, 2176, None), (300, 1024, 2048, None), (300, 1024, 128, None), (300, 512, 2048, 7)],
+    (300, 512, 2176, None), (300, 1024, 2048, None), (300, 1024, 128, None), (300, 512, 2048, 7),
+    (100, 1280, 1280, None)],
     ids=["d128", "d256", "d384", "d512", "below-one-tile", "ragged", "mma-route", "odd-tiles-widest",
-         "odd-tiles", "d1024", "one-hidden-tile", "tiny-row"])
-def test_k14_kernel_on_card(cuda_device, n, d, h, tiny_row):  # noqa: F811
+         "odd-tiles", "d1024", "one-hidden-tile", "tiny-row", "mma-route-d1280"])
+def test_k14_kernel_on_card(cuda_device, n, d, h, tiny_row, dtype):  # noqa: F811
     """The kernel against its plain version at every (d, 4d) the gate admits
     up to base's, below one 64-row tile, with a ragged last tile, at odd
     counts of hidden tiles (the two halves own different counts), at d 1024
     (8 pieces of a row a lane), at one hidden tile (one half runs no first
     product), with a row below 2^-100 (the scaled branch of the division)
-    and at a shape `k14_plan` gives to the mma.sync kernel: both quantize the
-    same values, so the int8 intermediates agree but where tanhf's last bit
-    moves a bf16 GELU rounding, and each output within one activation step
-    per flipped second intermediate plus one bf16 rounding. A second launch
-    gives the same bits."""
+    and at shapes `k14_plan` gives to the mma.sync kernel (d 3072 and 1280),
+    in bf16 and fp32 activations: both quantize the same values, so the
+    first int8 intermediate is equal and the second agrees but where
+    tanhf's last bit moves the GELU (bf16: its rounding; fp32: the value
+    itself) across a rounding midpoint of the quantization. Each output is
+    within one activation step per flipped second intermediate plus one
+    rounding of its dtype (2^-7 bf16, 2e-6 fp32). A second launch gives the
+    same bits."""
+    import torch.nn.functional as F
+
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     assert PM.int8_mlp_supported(n, d, h)
-    assert PM.k14_plan(n, d, h).route == ("mma" if d == 3072 else "wgmma")
+    assert PM.k14_plan(n, d, h, torch.empty((), dtype=dtype).element_size()).route == (
+        "mma" if d > PM.K14_MAX_D else "wgmma")
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
+    x = torch.randn((n, d), generator=g, device=cuda_device).to(dtype)
     if tiny_row is not None:
-        x[tiny_row] = (x[tiny_row].float() * 2.0**-103).bfloat16()
+        x[tiny_row] = (x[tiny_row].float() * 2.0**-103).to(dtype)
     w1, w2 = (torch.randn(s, generator=g, device=cuda_device) * 0.05 for s in ((h, d), (d, h)))
     w1q, s1 = PW._quant_rowwise_sym(w1)
     w2q, s2 = PW._quant_rowwise_sym(w2)
@@ -508,31 +532,41 @@ def test_k14_kernel_on_card(cuda_device, n, d, h, tiny_row):  # noqa: F811
     want, pqx, pqg, psg = PM.int8_mlp_plain(*args, return_int8=True)
     reset_launch_counts()
     got = PM.int8_mlp(*args, return_int8=True)
-    assert LAUNCHES["int8_mlp"] == 1
+    assert LAUNCHES["int8_mlp" if dtype == torch.bfloat16 else "int8_mlp_f32"] == 1 and sum(LAUNCHES.values()) == 1
     assert all(torch.equal(a, b) for a, b in zip(PM.int8_mlp(*args, return_int8=True), got))
     out, qx, qg, _ = got
+    assert out.dtype == dtype
     assert torch.equal(qx, pqx)
     flips = (qg.int() - pqg.int()).abs()
     assert flips.max().item() <= 1 and flips.float().mean().item() < 1e-3
+    if dtype == torch.float32 and flips.any():  # only next to a rounding midpoint of g / sg
+        sx = PW.int8_step(x.float().abs().amax(-1, keepdim=True), 1e-30)
+        f1 = torch._int_mm(pqx, w1q.t()).float() * (sx * s1.reshape(1, -1)) + b1
+        ratio = F.gelu(f1, approximate="tanh") / psg
+        assert ((ratio.abs().frac() - 0.5).abs()[flips > 0] <= 1e-4).all()
+    rounding = 2.0**-7 if dtype == torch.bfloat16 else 2e-6
     bound = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1)
-    tol = bound + 2.0**-7 * want.float().abs() + 1e-5
+    tol = bound + rounding * want.float().abs() + 1e-5
     assert ((out.float() - want.float()).abs() <= tol).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,n_head", [(64, 9), (8, 2), (80, 2), (768, 1)])
-def test_k5_kernel_on_card(cuda_device, dh, n_head):  # noqa: F811
-    """K5 at head width 64 (K3's device code, 9 heads: d % 128 != 0) and at
-    other widths (its own kernel), unaligned Tq and a masked key tail;
-    the tolerance of K3."""
+@pytest.mark.parametrize("dh,n_head,dtype", [(64, 9, torch.bfloat16), (8, 2, torch.bfloat16),
+                                             (80, 2, torch.bfloat16), (768, 1, torch.bfloat16),
+                                             (64, 9, torch.float32), (64, 3, torch.float32)])
+def test_k5_kernel_on_card(cuda_device, dh, n_head, dtype):  # noqa: F811
+    """K5 at head width 64 (K3's device code, or the fp32 kernel; 9 heads:
+    d % 128 != 0) and at other widths (its own kernel, bf16), unaligned Tq
+    and a masked key tail; the tolerance of K3 in each dtype."""
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     g = torch.Generator(device=cuda_device).manual_seed(1)
     d = dh * n_head
-    q, k, v = (torch.randn((2, t, d), generator=g, device=cuda_device).bfloat16() for t in (37, 150, 150))
+    q, k, v = (torch.randn((2, t, d), generator=g, device=cuda_device).to(dtype) for t in (37, 150, 150))
     kw = dict(n_head=n_head, kv_valid_len=130, scale=dh**-0.5)
     want = PF.flash_attention_mh_plain(q, k, v, **kw).float()
     reset_launch_counts()
-    got = PF.flash_attention_mh(q, k, v, **kw).float()
-    assert LAUNCHES["flash_attention_mh"] == 1
-    assert (got - want).abs().max().item() <= 2.0**-6 * want.abs().max().item()
+    got = PF.flash_attention_mh(q, k, v, **kw)
+    assert LAUNCHES["flash_attention_mh" if dtype == torch.bfloat16 else "flash_attention_mh_f32"] == 1
+    assert got.dtype == dtype and torch.equal(PF.flash_attention_mh(q, k, v, **kw), got)
+    assert (got.float() - want).abs().max().item() <= FLASH_REL[dtype] * want.abs().max().item()
