@@ -1,5 +1,7 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
-// (L, B, Tk, D) KV caches, for Hopper (sm_90a).
+// (L, B, Tk, D) KV caches, for Hopper (sm_90a), at head widths dh = D /
+// n_head of 32, 64 and 128 with bf16 q (a template parameter of both
+// kernels), and 64 with fp32 q.
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
@@ -41,8 +43,10 @@
 //     cp.async (4 tiles in flight for bf16, 2 for fp32), so the V loads are
 //     already in flight while the softmax runs.
 //   - Products. bf16 caches: both on the tensor cores, mma.sync m16n8k16
-//     with the group's rows padded to 16 (rows beyond 16 in further passes
-//     over the tile already staged) and fp32 accumulation; a bf16 x bf16
+//     (dh / 16 steps for the scores; P.V's dh / 8 column blocks round the
+//     4 warps) with the group's rows padded to 16 (rows beyond 16 in
+//     further passes over the tile already staged) and fp32 accumulation;
+//     the ring holds 4 tiles of 128 keys, 2 at dh 128; a bf16 x bf16
 //     product is exact in fp32, as in the plain version's fp32 einsum. On
 //     the CUDA cores the FMAs of a group of 5 to 16 rows took longer than
 //     the bytes (group 16 over 32 windows took 0.21-0.32 ms on an H100).
@@ -86,6 +90,10 @@
 //     padded to 16; K rows are the B operand as they lie. For P V each V
 //     tile is transposed in shared memory (byte permutes, 4 keys x 4
 //     columns a thread) so that four keys of a column form one word of B.
+//     The output's dh / 8 column blocks go round the 8 warps (`K1Cfg`): one
+//     a warp at dh 64, two at dh 128, and at dh 32 two warps to a block,
+//     each over alternate 32-key steps, their exact int32 sums added once a
+//     key block.
 //   - The softmax of a row is one warp's: block max, sum, p max and the p
 //     quantization by warp shuffles, with no block-wide barrier between.
 //   - The CTAs' partials (m, l, acc) meet through distributed shared memory
@@ -104,7 +112,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kDh = 64;
 constexpr int kMaxBlock = 1024;
 constexpr float kNegInf = -1e30f;
 
@@ -127,11 +134,13 @@ constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
 constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
 constexpr size_t kSmemLimit = 227 * 1024;
 
-template <typename T>
+// kDh: the head width, 32, 64 or 128 for bf16 caches and 64 for fp32
+template <typename T, int kDh>
 struct K2Cfg {
   static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
   static constexpr int kRowBytes = kDh * (int)sizeof(T) + 16;             // a staged key row, padded off the banks
-  static constexpr int kRing = sizeof(T) == 2 ? 4 : 2;                      // tiles in flight
+  // tiles in flight: ~70 KB of bf16 rows at every width, 2 of fp32
+  static constexpr int kRing = sizeof(T) == 2 ? (kDh == 128 ? 2 : 4) : 2;
   static constexpr int kRingBytes = kRing * kK2Tile * kRowBytes;
 };
 
@@ -140,12 +149,12 @@ __host__ __device__ __forceinline__ int k2_rows(int group) { return group < kK2R
 __host__ __device__ __forceinline__ int k2_slices(int group) { return kK2Threads / (8 * k2_rows(group)); }
 __host__ __device__ __forceinline__ int k2_stride(int chunk) { return (chunk + 3) & ~3; }
 
-// ring, q (G x 64 fp32), scores (G x chunk fp32), P.V partials (slices x G
-// x 64 fp32), row max / sum, local and global (4 x G fp32), and one fp32 a
+// ring, q (G x dh fp32), scores (G x chunk fp32), P.V partials (slices x G
+// x dh fp32), row max / sum, local and global (4 x G fp32), and one fp32 a
 // thread for the row reductions
-template <typename T>
+template <typename T, int kDh>
 size_t k2_smem_bytes(int group, int chunk) {
-  return (size_t)K2Cfg<T>::kRingBytes +
+  return (size_t)K2Cfg<T, kDh>::kRingBytes +
          4 * ((size_t)group * kDh + (size_t)group * k2_stride(chunk) + (size_t)k2_slices(group) * group * kDh +
               4 * (size_t)group + kK2Threads);
 }
@@ -182,12 +191,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- the products of one staged tile (128 keys; rows of kRowBytes)
 
-// bf16: scores of rows g0 .. g0 + 15 (zero past G) against 8 keys an mma;
-// warp w takes the key blocks w, w + kK2Warps, ...; thread (g8, t4) holds rows
-// g0 + g8 and g0 + g8 + 8, keys 2 t4 and 2 t4 + 1 of a block
+// bf16: scores of rows g0 .. g0 + 15 (zero past G) against 8 keys an mma
+// (dh / 16 steps); warp w takes the key blocks w, w + kK2Warps, ...; thread
+// (g8, t4) holds rows g0 + g8 and g0 + g8 + 8, keys 2 t4 and 2 t4 + 1 of a block
+template <int kDh>
 __device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
                                            int j0, int G, float scale) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16>::kRowBytes;
+  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes;
   const int warp = threadIdx.x / 32, g8 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
   for (int g0 = 0; g0 < G; g0 += 16) {
     const int r0 = g0 + g8, r1 = r0 + 8;
@@ -224,11 +234,11 @@ __device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, c
 }
 
 // fp32 (and any type): thread (row tid % RC of a pass, slot tid / RC) takes
-// keys slot, slot + n_slots, ... with its row's 64 q values in registers
-template <typename T>
+// keys slot, slot + n_slots, ... with its row's dh q values in registers
+template <typename T, int kDh>
 __device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
                                            int j0, int G, float scale) {
-  using C = K2Cfg<T>;
+  using C = K2Cfg<T, kDh>;
   const int RC = k2_rows(G), slot = threadIdx.x / RC, n_slots = kK2Threads / RC;
   for (int g0 = 0; g0 < G; g0 += RC) {
     const int gg = g0 + threadIdx.x % RC;
@@ -255,12 +265,14 @@ __device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, c
 }
 
 // bf16: out rows g0 .. g0 + 15 += P (16 rows x 16 keys an mma) V (16 keys x 8
-// columns), into part (G x 64); warp w owns the 8-column blocks w, w +
-// kK2Warps, ..., and ldmatrix.trans turns the key-major V rows into B
-// fragments. V rows past nk are zero (the loader writes them), p is 0 there.
+// columns), into part (G x dh); warp w owns the 8-column blocks w, w +
+// kK2Warps, ... (dh / 32 of them), and ldmatrix.trans turns the key-major V
+// rows into B fragments. V rows past nk are zero (the loader writes them), p
+// is 0 there.
+template <int kDh>
 __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16>::kRowBytes, kBlocks = kDh / 8 / kK2Warps;
+  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kBlocks = kDh / 8 / kK2Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
   // lanes 0-7 address keys 0-7 of a 16-key step, lanes 8-15 keys 8-15
   const unsigned char* vrow = tile + (lane % 16) * kRow + 16 * warp;
@@ -296,11 +308,13 @@ __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, con
 }
 
 // fp32 (and any type): thread (8 columns col8, row rr of a pass, key slice
-// ks); each key slice sums into its own part[ks] (slices x G x 64)
-template <typename T>
+// ks); each key slice sums into its own part[ks] (slices x G x 64); a head
+// width of 64 only (8 threads a row)
+template <typename T, int kDh>
 __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
-  using C = K2Cfg<T>;
+  static_assert(kDh == 64, "the fp32 P.V takes a head width of 64");
+  using C = K2Cfg<T, kDh>;
   const int RC = k2_rows(G), KS = k2_slices(G);
   const int col8 = threadIdx.x % 8, rr = (threadIdx.x / 8) % RC, ks = threadIdx.x / (8 * RC);
   if (ks >= KS) return;
@@ -330,12 +344,12 @@ __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, con
 
 // grid (S, n_head, batch), cluster (S, 1, 1): block x is the rank in the
 // cluster, and takes keys [x * chunk, (x + 1) * chunk) of [0, n_valid)
-template <typename T>
+template <typename T, int kDh>
 __global__ void __launch_bounds__(kK2Threads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
                    T* __restrict__ out, int layer, int batch, int group, int tk, int d, int n_valid, int chunk,
                    float scale) {
-  using C = K2Cfg<T>;
+  using C = K2Cfg<T, kDh>;
   constexpr bool kMma = sizeof(T) == 2;  // bf16 caches: both products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -395,9 +409,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
     const int nk = min(kK2Tile, n_c - t * kK2Tile);
     if constexpr (kMma)
-      scores_mma(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+      scores_mma<kDh>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
     else
-      scores_fma<T>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+      scores_fma<T, kDh>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
     __syncthreads();  // the slot is free again
     load_item(item + C::kRing);
   }
@@ -465,9 +479,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
     const int nk = min(kK2Tile, n_c - t * kK2Tile);
     if constexpr (kMma)
-      pv_mma(part, sc, cs, tile, nk, t * kK2Tile, G);
+      pv_mma<kDh>(part, sc, cs, tile, nk, t * kK2Tile, G);
     else
-      pv_fma<T>(part, sc, cs, tile, nk, t * kK2Tile, G);
+      pv_fma<T, kDh>(part, sc, cs, tile, nk, t * kK2Tile, G);
     __syncthreads();
     load_item(item + C::kRing);
   }
@@ -495,22 +509,36 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
 // against 0.075 at group 16)
 constexpr int kK1Threads = 256;
 constexpr int kK1Warps = kK1Threads / 32;
-constexpr int kK1ColBlocks = kDh / 8 / kK1Warps;  // 8-column blocks of the output a warp owns
 constexpr int kK1Tile = 128;                 // keys a staged tile holds
 constexpr int kK1Ring = 4;                   // tiles in flight
 constexpr int kK1Rows = 16;                  // query rows a CTA takes: the M of an mma
 constexpr int kK1MaxSplit = 8;               // CTAs a cluster: the portable limit
-constexpr int kK1Row = kDh + 16;             // 80 bytes: a staged int8 row, off the banks
-constexpr int kK1Slot = kK1Tile * kK1Row + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
 constexpr int kK1VtRow = kK1Tile + 16;       // 144 bytes: a column of the transposed V tile
+
+// K1 at head width kDh (32, 64 or 128): the staged rows and how the 8 warps
+// share the P.V products. The output's kDh / 8 column blocks go round the
+// warps, kColBlocks a warp; at dh 32 its 4 blocks take 4 warps, so two
+// warps share each block (kKSplit 2) and take alternate 32-key steps, and
+// their int32 sums, exact in any order, meet after the block's last tile.
+template <int kDh>
+struct K1Cfg {
+  static constexpr int kRow = kDh + 16;                           // a staged int8 row, off the banks
+  static constexpr int kSlot = kK1Tile * kRow + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
+  static constexpr int kChunks = kDh / 16;                        // 16-byte copies a row
+  static constexpr int kColBlocks = kDh / 8 > kK1Warps ? kDh / 8 / kK1Warps : 1;  // 8-column blocks a warp owns
+  static constexpr int kColWarps = kDh / 8 / kColBlocks;          // warps over the columns
+  static constexpr int kKSplit = kK1Warps / kColWarps;            // warps that share a column block
+};
 
 // shared memory of a K1 CTA: the ring, the transposed V tile, q in int8,
 // the scores of a block (fp32), its int8 p (16 rows, padded), the block's
 // v scales and the row statistics (m, l, correction, p step, q step)
 __host__ __device__ __forceinline__ int k1_score_stride(int tk_blk) { return tk_blk + 4; }
 __host__ __device__ __forceinline__ int k1_p_stride(int tk_blk) { return tk_blk + 16; }
+template <int kDh>
 size_t k1_smem_bytes(int rows, int tk_blk) {
-  return (size_t)kK1Ring * kK1Slot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * kK1Row +
+  using C = K1Cfg<kDh>;
+  return (size_t)kK1Ring * C::kSlot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * C::kRow +
          4 * (size_t)rows * k1_score_stride(tk_blk) + (size_t)kK1Rows * k1_p_stride(tk_blk) + 4 * (size_t)tk_blk +
          4 * 5 * kK1Rows;
 }
@@ -543,12 +571,14 @@ __device__ __forceinline__ float warp_reduce(float v) {
 // grid (S, n_head, batch x row chunks of 16), cluster (S, 1, 1): block x is
 // the rank in the cluster and takes the whole key blocks
 // [x * nb / S, (x + 1) * nb / S) of the nb blocks that hold valid keys
-template <typename TQ>
+template <typename TQ, int kDh>
 __global__ void __launch_bounds__(kK1Threads)
 decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache_k,
                       const float* __restrict__ k_scale, const int8_t* __restrict__ cache_v,
                       const float* __restrict__ v_scale, TQ* __restrict__ out, int layer, int batch, int group,
                       int tk, int d, int tk_blk, int n_valid, float scale) {
+  using C = K1Cfg<kDh>;
+  constexpr int kK1Row = C::kRow, kK1Slot = C::kSlot, kK1ColBlocks = C::kColBlocks;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -556,6 +586,8 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   const int h = blockIdx.y, b = blockIdx.z / n_rc, g0 = (blockIdx.z % n_rc) * kK1Rows;
   const int RC = min(kK1Rows, group - g0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  // P.V: this warp's column group and, where warps share one, its part of the keys
+  const int cw = warp % C::kColWarps, kp = warp / C::kColWarps;
   const int scs = k1_score_stride(tk_blk), pis = k1_p_stride(tk_blk);
 
   unsigned char* ring = smem;
@@ -602,8 +634,9 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       item_at(i, j0, nk, is_v);
       unsigned char* dst = ring + (size_t)(i % kK1Ring) * kK1Slot;
       const int8_t* src = (is_v ? vb : kb) + (size_t)j0 * d;
-      for (int e = tid; e < nk * (kDh / 16); e += kK1Threads)
-        cp_async16(dst + (e / 4) * kK1Row + (e % 4) * 16, src + (size_t)(e / 4) * d + (e % 4) * 16);
+      for (int e = tid; e < nk * C::kChunks; e += kK1Threads)
+        cp_async16(dst + (e / C::kChunks) * kK1Row + (e % C::kChunks) * 16,
+                   src + (size_t)(e / C::kChunks) * d + (e % C::kChunks) * 16);
       if (!is_v) {
         float* dsc = reinterpret_cast<float*>(dst + kK1Tile * kK1Row);
         for (int e = tid; e < 2 * nk; e += kK1Threads) {  // 4 bytes a key: no scale past n_valid is read
@@ -620,10 +653,15 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   // quantize q per (row, head): abs-max step, round half to even
   for (int r = warp; r < RC; r += kK1Warps) {
     const TQ* qr = q + ((size_t)b * group + g0 + r) * d + (size_t)h * kDh;
-    const float x0 = to_f(qr[lane]), x1 = to_f(qr[lane + 32]);
-    const float sq = fmaxf(warp_reduce<true>(fmaxf(fabsf(x0), fabsf(x1))), 1e-20f) / 127.f;
-    qi[r * kK1Row + lane] = (int8_t)rintf(x0 / sq);
-    qi[r * kK1Row + lane + 32] = (int8_t)rintf(x1 / sq);
+    float x[kDh / 32], amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDh / 32; ++i) {
+      x[i] = to_f(qr[lane + 32 * i]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    const float sq = fmaxf(warp_reduce<true>(amax), 1e-20f) / 127.f;
+#pragma unroll
+    for (int i = 0; i < kDh / 32; ++i) qi[r * kK1Row + lane + 32 * i] = (int8_t)rintf(x[i] / sq);
     if (lane == 0) {
       qsc[r] = sq * scale;
       m_s[r] = kNegInf;
@@ -631,16 +669,16 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     }
   }
   __syncthreads();
-  // q as the A fragments of the two k32 steps (rows past RC are zero)
-  uint32_t qa[2][4];
+  // q as the A fragments of the dh / 32 k32 steps (rows past RC are zero)
+  uint32_t qa[kDh / 32][4];
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
+  for (int ks = 0; ks < kDh / 32; ++ks) {
     qa[ks][0] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 4 * t4) : 0u;
     qa[ks][1] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 4 * t4) : 0u;
     qa[ks][2] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
     qa[ks][3] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
   }
-  // this warp's output columns: the 8-column blocks kK1ColBlocks x warp + n
+  // this warp's output columns: the 8-column blocks kK1ColBlocks x cw + n
   float acc[kK1ColBlocks][4] = {};
 
   int item = 0;
@@ -658,7 +696,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         int c[4] = {0, 0, 0, 0};
         const int8_t* kr = reinterpret_cast<const int8_t*>(slot) + (n8 * 8 + g) * kK1Row + 4 * t4;
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) mma_s8(c, qa[ks], ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
+        for (int ks = 0; ks < kDh / 32; ++ks) mma_s8(c, qa[ks], ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = g + 8 * (e >> 1), key = n8 * 8 + 2 * t4 + (e & 1);
@@ -726,7 +764,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         *reinterpret_cast<uint32_t*>(dst + 3 * kK1VtRow) = __byte_perm(hi01, hi23, 0x7632);
       }
       __syncthreads();
-      for (int k32 = 0; k32 < nk; k32 += 32) {
+      for (int k32 = 32 * kp; k32 < nk; k32 += 32 * C::kKSplit) {
         const int8_t* p0 = pi + j0 + k32 + 4 * t4;
         uint32_t pa[4];
         pa[0] = g < RC ? ld_u32(p0 + g * pis) : 0u;
@@ -735,14 +773,36 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         pa[3] = g + 8 < RC ? ld_u32(p0 + (g + 8) * pis + 16) : 0u;
 #pragma unroll
         for (int n = 0; n < kK1ColBlocks; ++n) {
-          const int8_t* vc = vt + ((kK1ColBlocks * warp + n) * 8 + g) * kK1VtRow + k32 + 4 * t4;
+          const int8_t* vc = vt + ((kK1ColBlocks * cw + n) * 8 + g) * kK1VtRow + k32 + 4 * t4;
           mma_s8(o[n], pa, ld_u32(vc), ld_u32(vc + 16));
         }
       }
       __syncthreads();
       load_item(item + kK1Ring);
     }
-    // acc = acc x correction + o x sp, rounded as the plain version
+    if constexpr (C::kKSplit > 1) {
+      // the later key parts hand their int32 sums to the first through the
+      // transposed V tile, which no warp reads again before the next block:
+      // a slot per (key part kq >= 1, column block n of this warp, lane, e)
+      auto slot = [&](int kq, int n, int e) {
+        return (((kq - 1) * C::kColWarps + cw) * kK1ColBlocks + n) * 128 + lane * 4 + e;
+      };
+      int* xo = reinterpret_cast<int*>(vt);
+      if (kp > 0)
+#pragma unroll
+        for (int n = 0; n < kK1ColBlocks; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xo[slot(kp, n, e)] = o[n][e];
+      __syncthreads();
+      if (kp == 0)
+#pragma unroll
+        for (int n = 0; n < kK1ColBlocks; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            for (int kq = 1; kq < C::kKSplit; ++kq) o[n][e] += xo[slot(kq, n, e)];
+    }
+    // acc = acc x correction + o x sp, rounded as the plain version (the
+    // first key part's warps hold the block's sums)
 #pragma unroll
     for (int n = 0; n < kK1ColBlocks; ++n)
 #pragma unroll
@@ -756,13 +816,14 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   // ---- combine the cluster's partials in rank order: M = max m, out =
   // sum acc exp(m - M) / sum l exp(m - M) (one CTA: exp(0) = 1, the
   // sequential result); each output is written once
+  if (kp == 0)
 #pragma unroll
-  for (int n = 0; n < kK1ColBlocks; ++n)
+    for (int n = 0; n < kK1ColBlocks; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = g + 8 * (e >> 1);
-      if (r < RC) part[r * kDh + (kK1ColBlocks * warp + n) * 8 + 2 * t4 + (e & 1)] = acc[n][e];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1);
+        if (r < RC) part[r * kDh + (kK1ColBlocks * cw + n) * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+      }
   cluster.sync();
   for (int e = rank * kK1Threads + tid; e < RC * kDh; e += split * kK1Threads) {
     const int r = e / kDh;
@@ -781,21 +842,22 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
 
 // lifts a kernel's dynamic shared memory limit to `bytes` on the current
 // device once, not on every launch (the call costs host time a decode step
-// does not have)
-template <typename Kernel>
-cudaError_t raise_smem_limit(Kernel kernel, size_t bytes) {
+// does not have); one record per kernel, not per kernel type: the head
+// widths' instances share a signature
+template <auto kKernel>
+cudaError_t raise_smem_limit(size_t bytes) {
   constexpr int kMaxDevices = 64;
   static size_t lifted[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && lifted[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && dev < kMaxDevices) lifted[dev] = bytes;
   return err;
 }
 
-template <typename T>
+template <typename T, int kDh>
 int launch_decode(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
                   int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
   if (d != n_head * kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
@@ -803,9 +865,9 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
   const int chunk = (n_valid + split - 1) / split;
-  const size_t smem = k2_smem_bytes<T>(group, chunk);
+  const size_t smem = k2_smem_bytes<T, kDh>(group, chunk);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = raise_smem_limit(decode_attn_kernel<T>, smem);
+  cudaError_t err = raise_smem_limit<decode_attn_kernel<T, kDh>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, n_head, batch);
@@ -819,14 +881,14 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T>, static_cast<const T*>(q), static_cast<const T*>(k),
+  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, kDh>, static_cast<const T*>(q), static_cast<const T*>(k),
                            static_cast<const T*>(v), static_cast<T*>(out), layer, batch, group, tk, d, n_valid,
                            chunk, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
+template <typename TQ, int kDh>
 int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* out,
                      int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
                      int valid_upto, int split, float scale, void* stream) {
@@ -834,8 +896,8 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
       tk % tk_blk != 0 || layer < 0 || layer >= n_layer || batch < 1 || split < 1 || split > kK1MaxSplit)
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
-  const size_t smem = k1_smem_bytes(min(group, kK1Rows), tk_blk);
-  cudaError_t err = raise_smem_limit(decode_attn_i8_kernel<TQ>, smem);
+  const size_t smem = k1_smem_bytes<kDh>(min(group, kK1Rows), tk_blk);
+  cudaError_t err = raise_smem_limit<decode_attn_i8_kernel<TQ, kDh>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, n_head, batch * ((group + kK1Rows - 1) / kK1Rows));
@@ -849,44 +911,72 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attn_i8_kernel<TQ>, static_cast<const TQ*>(q), static_cast<const int8_t*>(k),
-                           static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+  err = cudaLaunchKernelEx(&cfg, decode_attn_i8_kernel<TQ, kDh>, static_cast<const TQ*>(q),
+                           static_cast<const int8_t*>(k), static_cast<const float*>(ks), static_cast<const int8_t*>(v),
                            static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group, tk, d, tk_blk,
                            n_valid, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// the head width of a call: d / n_head, or 0 where n_head does not divide d
+int head_width(int d, int n_head) { return n_head > 0 && d % n_head == 0 ? d / n_head : 0; }
+
 }  // namespace
 
-// `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`)
+// `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`); head widths 32,
+// 64 and 128 (d = dh * n_head)
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                 int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                 float scale, void* stream) {
-  return launch_decode<__nv_bfloat16>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
-                                      split, scale, stream);
+  switch (head_width(d, n_head)) {
+    case 32:
+      return launch_decode<__nv_bfloat16, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
+                                              split, scale, stream);
+    case 64:
+      return launch_decode<__nv_bfloat16, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
+                                              split, scale, stream);
+    case 128:
+      return launch_decode<__nv_bfloat16, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head,
+                                               valid_upto, split, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
+// fp32 caches: a head width of 64 only
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                float scale, void* stream) {
-  return launch_decode<float>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
-                              stream);
+  return launch_decode<float, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                  scale, stream);
 }
 
-// `split` is the cluster size S (1-8; `k1_plan`)
+// `split` is the cluster size S (1-8; `k1_plan`); bf16 q at head widths 32,
+// 64 and 128, fp32 q at 64
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                    int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
-  return launch_decode_i8<__nv_bfloat16>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
-                                         tk_blk, valid_upto, split, scale, stream);
+  switch (head_width(d, n_head)) {
+    case 32:
+      return launch_decode_i8<__nv_bfloat16, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
+                                                 tk_blk, valid_upto, split, scale, stream);
+    case 64:
+      return launch_decode_i8<__nv_bfloat16, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
+                                                 tk_blk, valid_upto, split, scale, stream);
+    case 128:
+      return launch_decode_i8<__nv_bfloat16, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d,
+                                                  n_head, tk_blk, valid_upto, split, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int decode_attn_i8_f32(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                   void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                   int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
-  return launch_decode_i8<float>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
-                                 valid_upto, split, scale, stream);
+  return launch_decode_i8<float, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                     valid_upto, split, scale, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a): the forward K3 (non-causal, natural
 // (B, T, D) layout, optional logsumexp), K5 (non-causal, natural layout,
 // any head width that is a multiple of 8 up to 768) and K7 (head-split
-// (BH, T, 64), causal / q_offset / kv_len, optional logsumexp), and the
+// (BH, T, dh), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
-// accumulate; and the same functions in fp32 (K5 at a head width of 64
-// only), on the CUDA cores (namespace f32, its own note below).
+// accumulate, at head widths dh of 32, 64 and 128 (K5 at any); and the
+// same functions in fp32 at a head width of 64, on the CUDA cores
+// (namespace f32, its own note below).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -25,32 +26,34 @@
 // JAX package leaves it to XLA).
 //
 // Both layouts are one addressing scheme: a block serves (q or k tile, head
-// h, batch row b) and reads rows of 64 values at stride `d` from
-// b*T*d + h*64. K3/K6 pass the natural layout (d = 64 * n_head); K7/K8 pass
-// (BH, T, 64) as batch = BH, n_head = 1, d = 64. The lse/delta residuals
+// h, batch row b) and reads rows of dh values at stride `d` from
+// b*T*d + h*dh. K3/K6 pass the natural layout (d = dh * n_head); K7/K8 pass
+// (BH, T, dh) as batch = BH, n_head = 1, d = dh. The lse/delta residuals
 // live at ((h / hpb) * batch + b) * T * hpb + t * hpb + h % hpb: the JAX
-// h2 layout (D//128, B, Tq, hpb) with hpb = 2, and (BH, Tq, 1) with hpb = 1.
+// h2 layout (D//128, B, Tq, hpb) with hpb = 128 / dh (4, 2 or 1), and
+// (BH, Tq, 1) with hpb = 1.
 //
-// What bounds them on the H100: at the encoder's shapes (T 1536, dh 64) the
-// forward does 4 T^2 dh FLOPs per head against 4 T dh bytes (~700 FLOPs per
-// byte) and the backward 10 T^2 dh against 8 T dh bytes, so all are bound by
-// the tensor cores and the fp32 softmax work between the products, not by
-// memory. At the decoder's causal shapes (T 48-448) the per-block work is
-// small and launch and load latency dominate.
+// What bounds them on the H100: at the encoder's shapes (T 1536, d 512) the
+// forward does 4 T^2 d FLOPs per batch row against 4 T d bytes (~700 FLOPs
+// per byte) and the backward 10 T^2 d against 8 T d bytes, so all are bound
+// by the tensor cores and the fp32 softmax work between the products (one
+// exp per query, key and head: twice dh 64's at dh 32, half at dh 128),
+// not by memory. At the decoder's causal shapes (T 48-448) the per-block
+// work is small and launch and load latency dominate.
 //
-// K3's and K7's forwards (and K5's at a head width of 64) are
+// K3's and K7's forwards (and K5's at head widths 32, 64 and 128) are
 // `flash_fwd_sm90_kernel`, and K6 and K8 are `flash_bwd_dq_sm90_kernel` +
 // `flash_bwd_dkv_sm90_kernel` below: TMA, mbarriers and wgmma, each with its
-// own note. The causal mask and `q_offset` are a template parameter of all
-// three: a CTA walks key tiles only up to the diagonal of its last live
-// query (dkv: q tiles only from the first whose last query reaches its first
-// key), and masks per row inside the tiles it walks. K7/K8 read (BH, T, 64)
-// as the natural layout with batch = BH and one head, and their residuals
-// through `res_index` with hpb = 1.
-// K5 at a head width of 64 is the K3 forward without the logsumexp, over
-// any number of heads (its device code reads the natural layout at 64
-// columns a head and never assumes d % 128 == 0; the lse layout is the only
-// part that does). Other widths take `flash_mh_kernel`: 4 warps over 16
+// own note, the head width a template parameter of all three. The causal
+// mask and `q_offset` are one too: a CTA walks key tiles only up to the
+// diagonal of its last live query (dkv: q tiles only from the first whose
+// last query reaches its first key), and masks per row inside the tiles it
+// walks. K7/K8 read (BH, T, dh) as the natural layout with batch = BH and
+// one head, and their residuals through `res_index` with hpb = 1.
+// K5 at those widths is the K3 forward without the logsumexp, over any
+// number of heads (its device code reads the natural layout at dh columns
+// a head and never assumes d % 128 == 0; the lse layout is the only part
+// that does). Other widths take `flash_mh_kernel`: 4 warps over 16
 // queries of one head, 64-key tiles, the head slice zero-padded to a
 // multiple of 16 columns in shared memory (q, k then v over the same
 // buffer, the fp32 output accumulator), WMMA for S = Q K^T and O += P V,
@@ -69,7 +72,6 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int kDh = 64;
 constexpr int kWarps = 4;          // flash_mh_kernel's warps
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
@@ -88,24 +90,28 @@ __device__ __forceinline__ size_t res_index(const Shape& sh, int h, int b, int t
   return ((size_t)(h / sh.hpb) * sh.batch + b) * (size_t)sh.tq * sh.hpb + (size_t)t * sh.hpb + h % sh.hpb;
 }
 
-bool bad_shape(const Shape& sh) {
-  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * kDh ||
+// a shape the kernels take at head width dh (d = dh * n_head)
+bool bad_shape(const Shape& sh, int dh) {
+  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * dh ||
          sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
 }
 
 // ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
 //
 // Serves K3 (`flash_h2_fwd_bf16`, with and without the logsumexp), K5 at a
-// head width of 64 (`flash_mh_fwd_bf16`) and K7 (`flash_fwd_bf16`: causal
-// or not, any q_offset, with and without the logsumexp).
+// head width of 32, 64 or 128 (`flash_mh_fwd_bf16`) and K7
+// (`flash_fwd_bf16`: causal or not, any q_offset, with and without the
+// logsumexp), each at head widths 32, 64 and 128 (a template parameter).
 //
 // What bounds it on the H100: the tensor cores and the softmax between the
-// two products (~700 FLOPs a byte at the encoder shape), so the design keeps
-// the tensor cores fed and the scores out of shared memory:
+// two products (~700 FLOPs a byte at the encoder shape at dh 64), so the
+// design keeps the tensor cores fed and the scores out of shared memory:
 //   - One CTA takes 128 query rows of one (batch row, head) (64 where
 //     tq <= 64: the eval and prefill cross shapes, the token bucket) and
-//     walks the keys in tiles of 128 up to kv_len; tiles past kv_len are
-//     skipped, the last is masked, and TMA fills rows past tk with zeros.
+//     walks the keys in tiles of kN up to kv_len (128; 64 at dh 128, where
+//     O takes 64 registers a thread and 128-key tiles spilled); tiles past
+//     kv_len are skipped, the last is masked, and TMA fills rows past tk
+//     with zeros.
 //   - Causal (a template parameter): the walk also stops at the tile that
 //     holds the diagonal of the CTA's last live query, and a tile that
 //     reaches past a warp's first row is masked per row (key >= kv_len or
@@ -113,19 +119,24 @@ bool bad_shape(const Shape& sh) {
 //     stage, so a warpgroup whose rows all lie above a tile computes it
 //     fully masked: key 0 is valid for every row, so the running max is
 //     finite from tile 0 on and p is exactly 0 there.
-//   - One producer warp starts the TMA loads: Q once, then K and V tiles of 128
-//     keys x 64 columns (128 bytes a row, 128-byte swizzle) from 3-D tensor
-//     maps over the natural (B, T, D) layout at column h * 64, into a ring of
-//     stages with full and empty mbarriers (4 stages with two consumer
-//     warpgroups, 2 with one).
+//   - One producer warp starts the TMA loads: Q once, then K and V tiles of
+//     kN keys x dh columns from 3-D tensor maps over the natural (B, T, D)
+//     layout at column h * dh, into a ring of stages with full and empty
+//     mbarriers (4 stages with two consumer warpgroups, 2 with one). A tile
+//     lies in shared memory as
+//     `Geo`'s swizzled boxes: one box of 64-byte rows at dh 32 (64-byte
+//     swizzle), one of 128-byte rows at dh 64, and two 64-column boxes of
+//     128-byte rows at dh 128 (no swizzle spans more than 128 bytes).
 //   - Each consumer warpgroup owns 64 query rows. S = Q K^T runs on
-//     wgmma.mma_async m64n128k16 with Q and K from shared memory through
-//     descriptors; the online softmax works on the accumulator registers
-//     (fp32, a running max per row, p = exp(s - m)); p is rounded to bf16
-//     in registers and is the register A operand of O += P V (m64n64k16,
-//     V from shared memory through a transposed-B descriptor), while l sums
-//     the fp32 p, as on the TPU. O is rescaled in registers and never
-//     leaves them until the epilogue writes O / l (and lse = m + log l).
+//     wgmma.mma_async m64n{kN}k16 (dh / 16 steps) with Q and K from shared
+//     memory through descriptors; the online softmax works on the
+//     accumulator registers (fp32, a running max per row, p = exp(s - m));
+//     p is rounded to bf16 in registers and is the register A operand of
+//     O += P V (m64n{dh}k16, V from shared memory through a transposed-B
+//     descriptor whose leading byte offset steps from one box to the next
+//     at dh 128), while l sums the fp32 p, as on the TPU. O (dh / 2
+//     registers a thread) is rescaled in registers and never leaves them
+//     until the epilogue writes O / l (and lse = m + log l).
 //   - The two consumer warpgroups share each K/V stage, so while one runs
 //     its softmax the other's products keep the tensor cores busy.
 // The scores are scaled into log2 units (exp2), which moves p by an fp32
@@ -134,17 +145,32 @@ bool bad_shape(const Shape& sh) {
 namespace sm90 {
 
 constexpr int kBM = 64;                // query rows a consumer warpgroup owns
-constexpr int kBN = 128;               // keys a K/V tile holds
-constexpr int kRowB = kDh * 2;         // 128 bytes: a tile row, the swizzle span
-constexpr int kTileB = kBN * kRowB;    // 16 KB
+// keys a K/V tile of the forward holds: S takes kN / 2 registers a thread
+// beside O's dh / 2
+template <int kDh>
+constexpr int kFwdKeys = kDh == 128 ? 64 : 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int kWG, int kStages>
-struct Smem {  // every tile 1024-byte aligned: the 128-byte swizzle repeats over 8 rows
+// How a tile of R rows x kDh bf16 columns lies in shared memory: kBoxes
+// boxes of R rows x kBoxCols columns, each one TMA box, box j at element
+// j * R * kBoxCols, every box row kSwB bytes and swizzled over kSwB bytes.
+template <int kDh>
+struct Geo {
+  static_assert(kDh == 32 || kDh == 64 || kDh == 128, "the sm90 kernels take head widths 32, 64 and 128");
+  static constexpr int kSwB = kDh * 2 < 128 ? kDh * 2 : 128;  // a box row: the swizzle span
+  static constexpr int kBoxCols = kSwB / 2;
+  static constexpr int kBoxes = kDh / kBoxCols;
+  static constexpr int kRowB = kDh * 2;     // a row over all boxes: the bytes a TMA row moves
+  static constexpr int kSteps = kSwB / 32;  // k16 steps of a K-major operand in a box row
+};
+
+template <int kDh, int kWG, int kStages>
+struct Smem {  // every tile 1024-byte aligned: a swizzle pattern repeats over 8 rows (1024 or 512 bytes)
+  static constexpr int kN = kFwdKeys<kDh>;
   alignas(1024) __nv_bfloat16 q[kWG * kBM * kDh];
-  alignas(1024) __nv_bfloat16 k[kStages][kBN * kDh];
-  alignas(1024) __nv_bfloat16 v[kStages][kBN * kDh];
+  alignas(1024) __nv_bfloat16 k[kStages][kN * kDh];
+  alignas(1024) __nv_bfloat16 v[kStages][kN * kDh];
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
 
@@ -191,13 +217,40 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
-// swizzle: start address, leading byte offset (unused by a K-major operand;
-// for the MN-major V, whose 64 columns are one swizzle atom wide, also
-// unused), stride byte offset 1024 (8 rows of 128 bytes), layout 1 (128B)
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
+// a tile of `rows` rows x kDh columns at (column col, row, batch b) into
+// shared memory, one box a kBoxCols columns; completion counts on `bar`
+template <int kDh>
+__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                         int row, int b, int rows) {
+  using G = Geo<kDh>;
+#pragma unroll
+  for (int j = 0; j < G::kBoxes; ++j)
+    tma_load_3d(dst + j * rows * G::kBoxCols, map, bar, col + j * G::kBoxCols, row, b);
+}
+
+// wgmma shared-memory descriptor of a tile of kSwB-byte box rows in the
+// kSwB-byte swizzle: start address, leading byte offset `box_bytes` (the
+// distance between two boxes, which an MN-major operand wider than one box
+// steps by: V, K, Q or dO as the B of a product whose N is dh 128; unused
+// by a K-major operand and by one box), stride byte offset 8 rows, layout
+// 1 (128-byte swizzle) or 2 (64-byte)
+template <int kDh>
+__device__ __forceinline__ uint64_t desc(const void* p, int box_bytes) {
+  constexpr int kSwB = Geo<kDh>::kSwB;
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)((box_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((8 * kSwB) >> 4) << 32) | ((uint64_t)(kSwB == 128 ? 1 : 2) << 62);
+}
+// the descriptor offset (16-byte units) of k16 step kk of a K-major operand
+// whose boxes lie box_bytes apart: 32 bytes a step inside a box row
+template <int kDh>
+__device__ __forceinline__ uint64_t kstep(int kk, int box_bytes) {
+  constexpr int kS = Geo<kDh>::kSteps;
+  return (uint64_t)(((kk / kS) * box_bytes + (kk % kS) * 32) >> 4);
+}
+// ... of an MN-major operand: 16 rows of kSwB bytes a step
+template <int kDh>
+__device__ __forceinline__ uint64_t mnstep(int kk) {
+  return (uint64_t)((kk * 16 * Geo<kDh>::kSwB) >> 4);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -233,17 +286,18 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; -inf gives 0
 // same for the whole warp. m_run is the running max of s * scale *
 // log2(e); on return sc holds the fp32 p = 2^(s * scale * log2(e) - m),
 // l_run the running sum of p, corr the factor for the rows' previous output.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
+template <int N>  // N = kN / 2: the tile's kN keys
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m_run)[2], float (&l_run)[2],
                                              float (&corr)[2], int k0, const int (&lim)[2], int warp_lim, int t4,
                                              float sl2) {
-  if (k0 + kBN > warp_lim) {
+  if (k0 + 2 * N > warp_lim) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i)
+    for (int i = 0; i < N; ++i)
       if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= lim[(i >> 1) & 1]) sc[i] = -INFINITY;
   }
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+  for (int i = 0; i < N; ++i) tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
   float neg_m[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -256,7 +310,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
   }
   float psum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     sc[i] = ex2(fmaf(sc[i], sl2, neg_m[(i >> 1) & 1]));
     psum[(i >> 1) & 1] += sc[i];
   }
@@ -270,21 +324,61 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
 
 // p rounded to bf16 pairs as the A fragments of P V: the accumulator of 16
 // keys is the A fragment of one k16 step (pairs 4kk .. 4kk + 3)
-__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[kBN / 16][4]) {
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N], uint32_t (&pa)[N / 8][4]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) pa[i / 4][i % 4] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) pa[i / 4][i % 4] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
-// d (m64n128 fp32, 64 a thread) (+)= A (64 x 16, shared, K-major) . B (n128 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+// d (m64nN fp32, N / 2 a thread) (+)= A (64 x 16, shared, K-major) . B (nN x 16, shared, K-major)^T
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -297,14 +391,35 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (m64n64 fp32, 32 a thread) += A (64 x 16 bf16, registers) . B (16 x n64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// d (m64nN fp32, N / 2 a thread) += A (64 x 16 bf16, registers) . B (16 x nN, shared, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -313,12 +428,36 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// the key tiles of 128 that queries [q0, q_end) see: up to kv_len and, when
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the key tiles of kN that queries [q0, q_end) see: up to kv_len and, when
 // causal, up to the tile that holds the last query's diagonal
-template <bool kCausal>
+template <bool kCausal, int kN>
 __device__ __forceinline__ int key_tiles(const Shape& sh, int q0, int q_end) {
-  const int n = (sh.kv_len + kBN - 1) / kBN;
-  return kCausal ? min(n, (sh.q_offset + min(q_end, sh.tq) - 1) / kBN + 1) : n;
+  const int n = (sh.kv_len + kN - 1) / kN;
+  return kCausal ? min(n, (sh.q_offset + min(q_end, sh.tq) - 1) / kN + 1) : n;
 }
 
 // the key limit of query row `row`: keys at or past it are masked
@@ -327,16 +466,18 @@ __device__ __forceinline__ int key_limit(const Shape& sh, int row) {
   return kCausal ? min(sh.kv_len, sh.q_offset + row + 1) : sh.kv_len;
 }
 
-template <int kWG, int kStages, bool kCausal>
+template <int kDh, int kWG, int kStages, bool kCausal>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, Shape sh) {
+  using G = Geo<kDh>;
+  constexpr int kN = kFwdKeys<kDh>;
   extern __shared__ unsigned char smem_raw[];
-  auto& s = *reinterpret_cast<Smem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  auto& s = *reinterpret_cast<Smem<kDh, kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = key_tiles<kCausal>(sh, q0, q0 + kWG * kBM);
+  const int n_tiles = key_tiles<kCausal, kN>(sh, q0, q0 + kWG * kBM);
 
   if (threadIdx.x == 0) {
     mbar_init(&s.q_full, 1);
@@ -352,15 +493,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
 
   if (warp == kWG * 4) {  // the producer warp: one thread starts every load
     if (lane == 0) {
-      mbar_expect_tx(&s.q_full, kWG * kBM * kRowB);
-      tma_load_3d(s.q, &tm_q, &s.q_full, h * kDh, q0, b);
+      mbar_expect_tx(&s.q_full, kWG * kBM * G::kRowB);
+      tma_tile<kDh>(s.q, &tm_q, &s.q_full, h * kDh, q0, b, kWG * kBM);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&s.k_full[st], kTileB);
-        tma_load_3d(s.k[st], &tm_k, &s.k_full[st], h * kDh, t * kBN, b);
-        mbar_expect_tx(&s.v_full[st], kTileB);
-        tma_load_3d(s.v[st], &tm_v, &s.v_full[st], h * kDh, t * kBN, b);
+        mbar_expect_tx(&s.k_full[st], kN * G::kRowB);
+        tma_tile<kDh>(s.k[st], &tm_k, &s.k_full[st], h * kDh, t * kN, b, kN);
+        mbar_expect_tx(&s.v_full[st], kN * G::kRowB);
+        tma_tile<kDh>(s.v[st], &tm_v, &s.v_full[st], h * kDh, t * kN, b, kN);
       }
     }
     return;
@@ -375,30 +516,32 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   const int lim[2] = {key_limit<kCausal>(sh, row0 + g), key_limit<kCausal>(sh, row0 + g + 8)};
   const int warp_lim = key_limit<kCausal>(sh, row0);
   const float sl2 = sh.scale * kLog2e;
-  float o[32], sc[64], corr[2];
-  uint32_t pa[kBN / 16][4];
+  constexpr int kQBox = kWG * kBM * G::kSwB, kKBox = kN * G::kSwB;  // bytes of a box of the Q and K/V tiles
+  float o[kDh / 2], sc[kN / 2], corr[2];
+  uint32_t pa[kN / 16][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDh / 2; ++i) o[i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
 
   mbar_wait(&s.q_full, 0);
-  const uint64_t dq = desc_sw128(s.q + wg * kBM * kDh);
-  // S = Q K^T of tile t: 4 steps of 16 columns, +32 bytes each inside the swizzle atom
+  const uint64_t dq = desc<kDh>(s.q + wg * kBM * G::kBoxCols, kQBox);  // this warpgroup's rows of each box
+  // S = Q K^T of tile t: dh / 16 steps of 16 columns
   auto start_s = [&](int t) {
     const int st = t % kStages;
     mbar_wait(&s.k_full[st], (t / kStages) & 1);
-    const uint64_t dk = desc_sw128(s.k[st]);
+    const uint64_t dk = desc<kDh>(s.k[st], kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    for (int kk = 0; kk < kDh / 16; ++kk)
+      wgmma_ss<kN>(sc, dq + kstep<kDh>(kk, kQBox), dk + kstep<kDh>(kk, kKBox), kk);
     wg_commit();
   };
-  // O += P V of tile t: 8 steps of 16 keys, +2048 bytes of V each
+  // O += P V of tile t: kN / 16 steps of 16 keys
   auto start_pv = [&](int t) {
     const int st = t % kStages;
     mbar_wait(&s.v_full[st], (t / kStages) & 1);
-    const uint64_t dv = desc_sw128(s.v[st]);
+    const uint64_t dv = desc<kDh>(s.v[st], kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs_m64n64(o, pa[kk], dv + (uint64_t)(kk * 16 * kRowB >> 4));
+    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kDh>(o, pa[kk], dv + mnstep<kDh>(kk));
     wg_commit();
   };
 
@@ -414,12 +557,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     start_pv(t - 1);
     wg_wait<1>();  // S(t) is done; P V of t - 1 may still run
     reg_fence(sc);
-    softmax_tile(sc, m_run, l_run, corr, t * kBN, lim, warp_lim, t4, sl2);
+    softmax_tile(sc, m_run, l_run, corr, t * kN, lim, warp_lim, t4, sl2);
     wg_wait<0>();
     reg_fence(o);
     mbar_arrive(&s.empty[(t - 1) % kStages]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < kDh / 2; ++i) o[i] *= corr[(i >> 1) & 1];
     pack_p(sc, pa);
   }
   wg_fence();
@@ -466,16 +609,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (B, T, D) bf16 tensor as a 3-D map (D, T, B), boxes of 64 columns x
-// `rows` rows x 1, 128-byte swizzle, zeros outside
+// a (B, T, D) bf16 tensor as a 3-D map (D, T, B), boxes of kBoxCols columns
+// x `rows` rows x 1 in the kSwB-byte swizzle, zeros outside
+template <int kDh>
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch, int t, int d, int rows) {
+  constexpr int kSwB = Geo<kDh>::kSwB;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kDh, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)Geo<kDh>::kBoxCols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             CU_TENSOR_MAP_INTERLEAVE_NONE, kSwB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the shared-memory limit of `kernel` lifted to `bytes` once a device, not on
@@ -491,20 +636,21 @@ cudaError_t lift_smem(Kernel kernel, int bytes, bool (&lifted)[64]) {
   return err;
 }
 
-template <int kWG, int kStages, bool kCausal>
+template <int kDh, int kWG, int kStages, bool kCausal>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) || !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kBN) ||
-      !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kBN))
+  if (!encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) ||
+      !encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kFwdKeys<kDh>) ||
+      !encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kFwdKeys<kDh>))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem<kWG, kStages>) + 1024;  // + the alignment slack
+  const int smem = (int)sizeof(Smem<kDh, kWG, kStages>) + 1024;  // + the alignment slack
   static bool lifted[64] = {};
-  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kWG, kStages, kCausal>, smem, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_fwd_sm90_kernel<kWG, kStages, kCausal><<<grid, kWG * 128 + 32, smem, stream>>>(
+  flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal><<<grid, kWG * 128 + 32, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
@@ -512,7 +658,8 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 // ------------------------------------- K6 and K8 on Hopper: TMA + wgmma
 //
 // Serves K6 (`flash_h2_bwd_bf16`) and K8 (`flash_bwd_bf16`: causal or not,
-// any q_offset, residuals at hpb = 1).
+// any q_offset, residuals at hpb = 1), each at head widths 32, 64 and 128
+// (a template parameter; the tiles lie in shared memory as the forward's).
 //
 // What bounds it on the H100: the tensor cores and the exps between the
 // products. The backward does 10 T Tk dh FLOPs a head (S, dP, dQ, dK, dV)
@@ -531,22 +678,25 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //     the dq consumers spilled).
 //   - dq: one CTA per 128 queries of a (batch row, head) (64 where tq <= 64:
 //     the token bucket's cross shape). Q and dO are loaded once, then K and
-//     V tiles of 128 keys up to kv_len. S = Q K^T and dP = dO V^T run on
-//     wgmma m64n128k16 from shared memory; p and dS = p (dP - delta) scale
-//     are computed on the accumulator registers (lse and delta read once a
-//     row); dS is rounded to bf16 in registers and is the register A
-//     operand of dQ += dS K (m64n64k16, K as an MN-major B, as V is in the
+//     V tiles of kN keys up to kv_len: 128, and 64 at dh 128, where dQ
+//     takes 64 registers a thread. S = Q K^T and dP = dO V^T run on wgmma
+//     m64n{kN}k16 from shared memory; p and dS = p (dP - delta) scale are
+//     computed on the accumulator registers (lse and delta read once a
+//     row); dS is rounded to bf16 in registers and is the register A operand
+//     of dQ += dS K (m64n{dh}k16, K as an MN-major B, as V is in the
 //     forward's P V). dQ stays in registers until the epilogue.
 //   - dkv: one CTA per 128 keys (64 where tk <= 64). K and V are loaded
-//     once; Q and dO tiles of 64 queries stream through the ring with the
-//     tile's lse and delta for both heads of the pair, loaded by 1-D maps
-//     over the h2 residuals (staged through a warp's loads instead, a
-//     global round trip a tile on the producer's path set dkv's time).
-//     S^T = K Q^T and dP^T = V dO^T run on m64n64k16 (Q and dO as K-major
-//     Bs); bf16(p)^T and bf16(dS)^T are the register A operands of dV +=
-//     P^T dO and dK += dS^T Q, the same Q and dO tiles read again as
-//     MN-major Bs. 64-query tiles keep dK, dV, S^T and dP^T at 32 fp32
-//     registers each.
+//     once; Q and dO tiles of kQ queries (64, and 32 at dh 128) stream
+//     through the ring with the tile's lse and delta for every head of the
+//     h2 lane, loaded by 1-D maps over the residuals (staged through a
+//     warp's loads instead, a global round trip a tile on the producer's
+//     path set dkv's time). S^T = K Q^T and dP^T = V dO^T run on
+//     m64n{kQ}k16 (Q and dO as K-major Bs); bf16(p)^T and bf16(dS)^T are
+//     the register A operands of dV += P^T dO and dK += dS^T Q
+//     (m64n{dh}k16), the same Q and dO tiles read again as MN-major Bs.
+//     dK and dV take dh / 2 registers each, S^T and dP^T kQ / 2: 32 + 32 +
+//     32 + 32 at dh 64, 64 + 64 + 16 + 16 at dh 128, which the 32-query
+//     tiles keep inside the consumers' 232.
 //   - In both, the last products of tile t and the first of tile t + 1 are
 //     on the tensor cores together, and the two consumer warpgroups share
 //     every stage, so one's exps overlap the other's products.
@@ -554,7 +704,7 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //     in the select that computes p; dkv: rows of the CTA's keys, and CTAs
 //     wholly past kv_len write zeros without loading); queries past tq give
 //     p = 0 (dq: an infinite lse; dkv: the columns past tq, whose residual
-//     boxes hold the next pair's or zeros), and TMA fills rows past tq and
+//     boxes hold the next lane's or zeros), and TMA fills rows past tq and
 //     tk with zeros.
 //   - Causal (a template parameter): dq walks key tiles only up to the
 //     diagonal of its last live query, and its per-row key limit becomes
@@ -564,27 +714,11 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //     sees writes zeros without loading. The masks are selects on p, never
 //     writes to the accumulators.
 //   - Residuals (a template parameter of dkv): a box holds one q tile's
-//     hpb x 64 floats from the 16-byte boundary at or below its first, so
-//     up to 4 more: the (query, head % 2) pairs of the h2 layout (hpb 2),
-//     or the tile's 64 queries of (BH, Tq, 1) (hpb 1, where b * tq + t * 64
-//     need not be a multiple of 4).
+//     hpb x kQ floats from the 16-byte boundary at or below its first, so
+//     up to 4 more: the (query, head % hpb) entries of the h2 layout (hpb
+//     4 at dh 32, 2 at dh 64, 1 at dh 128), or the tile's queries of (BH,
+//     Tq, 1) (hpb 1, where b * tq + t * kQ need not be a multiple of 4).
 //   - Scores in log2 units (ex2), which moves p by an fp32 rounding only.
-
-// d (m64n64 fp32, 32 a thread) (+)= A (64 x 16, shared, K-major) . B (n64 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // a thread's accumulator rows (g, g + 8 of its warp's 16) as bf16, rows < n_rows
 template <int N>
@@ -616,28 +750,35 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-template <int kWG, int kStages>
+// keys a K/V tile of the dq kernel holds
+template <int kDh>
+constexpr int kDqKeys = kDh == 128 ? 64 : 128;
+
+template <int kDh, int kWG, int kStages>
 struct DqSmem {
+  static constexpr int kN = kDqKeys<kDh>;
   alignas(1024) __nv_bfloat16 q[kWG * kBM * kDh];
   alignas(1024) __nv_bfloat16 g[kWG * kBM * kDh];
-  alignas(1024) __nv_bfloat16 k[kStages][kBN * kDh];
-  alignas(1024) __nv_bfloat16 v[kStages][kBN * kDh];
+  alignas(1024) __nv_bfloat16 k[kStages][kN * kDh];
+  alignas(1024) __nv_bfloat16 v[kStages][kN * kDh];
   uint64_t qg_full, full[kStages], empty[kStages];
 };
 
 // dq: one CTA per kWG x 64 queries of a (batch row, head); the producer
-// warpgroup loads Q and dO once, then K and V tiles of 128 keys up to kv_len
-template <int kWG, int kStages, bool kCausal>
+// warpgroup loads Q and dO once, then K and V tiles of kN keys up to kv_len
+template <int kDh, int kWG, int kStages, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreadsMax, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, Shape sh) {
+  using G = Geo<kDh>;
+  constexpr int kN = kDqKeys<kDh>;
   extern __shared__ unsigned char smem_raw[];
-  auto& s = *reinterpret_cast<DqSmem<kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  auto& s = *reinterpret_cast<DqSmem<kDh, kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = key_tiles<kCausal>(sh, q0, q0 + kWG * kBM);
+  const int n_tiles = key_tiles<kCausal, kN>(sh, q0, q0 + kWG * kBM);
 
   if (threadIdx.x == 0) {
     mbar_init(&s.qg_full, 1);
@@ -653,15 +794,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   if (warp >= kWG * 4) {  // the producer warpgroup: one thread starts every load
     reg_dealloc<kProducerRegs>();
     if (warp == kWG * 4 && lane == 0) {
-      mbar_expect_tx(&s.qg_full, 2 * kWG * kBM * kRowB);
-      tma_load_3d(s.q, &tm_q, &s.qg_full, h * kDh, q0, b);
-      tma_load_3d(s.g, &tm_g, &s.qg_full, h * kDh, q0, b);
+      mbar_expect_tx(&s.qg_full, 2 * kWG * kBM * G::kRowB);
+      tma_tile<kDh>(s.q, &tm_q, &s.qg_full, h * kDh, q0, b, kWG * kBM);
+      tma_tile<kDh>(s.g, &tm_g, &s.qg_full, h * kDh, q0, b, kWG * kBM);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&s.full[st], 2 * kTileB);
-        tma_load_3d(s.k[st], &tm_k, &s.full[st], h * kDh, t * kBN, b);
-        tma_load_3d(s.v[st], &tm_v, &s.full[st], h * kDh, t * kBN, b);
+        mbar_expect_tx(&s.full[st], 2 * kN * G::kRowB);
+        tma_tile<kDh>(s.k[st], &tm_k, &s.full[st], h * kDh, t * kN, b, kN);
+        tma_tile<kDh>(s.v[st], &tm_v, &s.full[st], h * kDh, t * kN, b, kN);
       }
     }
     return;
@@ -674,6 +815,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
   const int row0 = q0 + wg * kBM + wq * 16 + g;
   const float sl2 = sh.scale * kLog2e;
+  constexpr int kQBox = kWG * kBM * G::kSwB, kKBox = kN * G::kSwB;  // bytes of a box of the Q/dO and K/V tiles
   float lse2[2], dlt[2];  // lse in log2 units and delta x scale; p = 0 on rows past tq
   int lim[2];             // the rows' key limits
 #pragma unroll
@@ -683,28 +825,31 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
     dlt[r] = row < sh.tq ? delta[res_index(sh, h, b, row)] * sh.scale : 0.f;
     lim[r] = key_limit<kCausal>(sh, row);
   }
-  float sc[64], dp[64], acc[32];
-  uint32_t da[kBN / 16][4];
+  float sc[kN / 2], dp[kN / 2], acc[kDh / 2];
+  uint32_t da[kN / 16][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDh / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(&s.qg_full, 0);
-  const uint64_t dq_desc = desc_sw128(s.q + wg * kBM * kDh), dg_desc = desc_sw128(s.g + wg * kBM * kDh);
-  // S = Q K^T and dP = dO V^T of tile t, 4 steps of 16 columns each
+  const uint64_t dq_desc = desc<kDh>(s.q + wg * kBM * G::kBoxCols, kQBox);
+  const uint64_t dg_desc = desc<kDh>(s.g + wg * kBM * G::kBoxCols, kQBox);
+  // S = Q K^T and dP = dO V^T of tile t, dh / 16 steps of 16 columns each
   auto start_s = [&](int t) {
     const int st = t % kStages;
     mbar_wait(&s.full[st], (t / kStages) & 1);
-    const uint64_t dk = desc_sw128(s.k[st]), dv = desc_sw128(s.v[st]);
+    const uint64_t dk = desc<kDh>(s.k[st], kKBox), dv = desc<kDh>(s.v[st], kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(sc, dq_desc + 2 * kk, dk + 2 * kk, kk);
+    for (int kk = 0; kk < kDh / 16; ++kk)
+      wgmma_ss<kN>(sc, dq_desc + kstep<kDh>(kk, kQBox), dk + kstep<kDh>(kk, kKBox), kk);
 #pragma unroll
-    for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n128(dp, dg_desc + 2 * kk, dv + 2 * kk, kk);
+    for (int kk = 0; kk < kDh / 16; ++kk)
+      wgmma_ss<kN>(dp, dg_desc + kstep<kDh>(kk, kQBox), dv + kstep<kDh>(kk, kKBox), kk);
     wg_commit();
   };
   wg_fence();
   start_s(0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages, k0 = t * kBN;
+    const int st = t % kStages, k0 = t * kN;
     wg_wait<0>();  // S, dP of tile t, and dQ of tile t - 1
     reg_fence(sc);
     reg_fence(dp);
@@ -715,7 +860,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
     // which no other instruction writes (ptxas would serialize the products)
     const int k_hi[2] = {lim[0] - k0, lim[1] - k0};
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < kN / 2; i += 2) {
       const int r = (i >> 1) & 1, key = 8 * (i / 4) + 2 * t4;
       const float p0 = key < k_hi[r] ? ex2(fmaf(sc[i], sl2, -lse2[r])) : 0.f;
       const float p1 = key + 1 < k_hi[r] ? ex2(fmaf(sc[i + 1], sl2, -lse2[r])) : 0.f;
@@ -723,10 +868,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
           pack_bf16(p0 * fmaf(dp[i], sh.scale, -dlt[r]), p1 * fmaf(dp[i + 1], sh.scale, -dlt[r]));
     }
     wg_fence();
-    const uint64_t dk = desc_sw128(s.k[st]);
+    const uint64_t dk = desc<kDh>(s.k[st], kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)  // dQ += bf16(dS) K: K as an MN-major B, 16 keys a step
-      wgmma_rs_m64n64(acc, da[kk], dk + (uint64_t)(kk * 16 * kRowB >> 4));
+    for (int kk = 0; kk < kN / 16; ++kk)  // dQ += bf16(dS) K: K as an MN-major B, 16 keys a step
+      wgmma_rs<kDh>(acc, da[kk], dk + mnstep<kDh>(kk));
     wg_commit();
     if (t + 1 < n_tiles) start_s(t + 1);
   }
@@ -736,49 +881,65 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   store_acc(dq + (size_t)b * sh.tq * sh.d + (size_t)h * kDh, acc, row0, sh.tq, sh.d, t4);
 }
 
-constexpr int kBQ = 64;  // queries a Q / dO tile of the dkv kernel holds
-// a residual box: the tile's hpb x 64 residuals from the 16-byte boundary at
-// or below their first (a TMA box starts on one), so 4 more
-template <int kHpb>
-constexpr int kResBox = kHpb * kBQ + 4;
-// its row in shared memory, a multiple of 128 bytes: 640 (hpb 2), 384 (hpb 1)
-template <int kHpb>
-constexpr int kResRow = (kResBox<kHpb> + 31) / 32 * 32;
+// queries a Q / dO tile of the dkv kernel holds
+template <int kDh>
+constexpr int kDkvQueries = kDh == 128 ? 32 : 64;
+// a tile's residuals: its hpb x kQ from the 16-byte boundary at or below
+// their first (a TMA box starts on one), so 4 more, in kResPieces boxes of
+// kResBox floats (a box spans at most 256): one exact box at hpb 1 and 2,
+// two boxes of 160 at hpb 4, contiguous in shared memory and in the
+// residual array, each 128-byte aligned in shared memory as TMA wants
+template <int kHpb, int kQ>
+constexpr int kResNeed = kHpb * kQ + 4;
+template <int kHpb, int kQ>
+constexpr int kResPieces = (kResNeed<kHpb, kQ> + 255) / 256;
+template <int kHpb, int kQ>
+constexpr int kResBox = kResPieces<kHpb, kQ> == 1
+                            ? kResNeed<kHpb, kQ>
+                            : ((kResNeed<kHpb, kQ> + kResPieces<kHpb, kQ> - 1) / kResPieces<kHpb, kQ> + 31) / 32 * 32;
+// their row in shared memory, a multiple of 128 bytes: 1280 (hpb 4), 640
+// (hpb 2), 384 (hpb 1) bytes at 64 queries, 256 at hpb 1 and 32 queries
+template <int kHpb, int kQ>
+constexpr int kResRow = (kResPieces<kHpb, kQ> * kResBox<kHpb, kQ> + 31) / 32 * 32;
 
-template <int kWG, int kStages, int kHpb>
+template <int kDh, int kWG, int kStages, int kHpb>
 struct DkvSmem {
+  static constexpr int kQ = kDkvQueries<kDh>;
   alignas(1024) __nv_bfloat16 k[kWG * kBM * kDh];
   alignas(1024) __nv_bfloat16 v[kWG * kBM * kDh];
-  alignas(1024) __nv_bfloat16 q[kStages][kBQ * kDh];
-  alignas(1024) __nv_bfloat16 g[kStages][kBQ * kDh];
-  // lse and delta of the tile's queries (hpb 2: for both heads of the head
-  // pair, (query, head % 2) in the h2 layout) from the element (first & ~3):
-  // the tile's first is at (first & 3)
-  alignas(128) float lse[kStages][kResRow<kHpb>];
-  alignas(128) float dlt[kStages][kResRow<kHpb>];
+  alignas(1024) __nv_bfloat16 q[kStages][kQ * kDh];
+  alignas(1024) __nv_bfloat16 g[kStages][kQ * kDh];
+  // lse and delta of the tile's queries (hpb > 1: for every head of the h2
+  // lane, (query, head % hpb) in the h2 layout) from the element (first &
+  // ~3): the tile's first is at (first & 3)
+  alignas(128) float lse[kStages][kResRow<kHpb, kQ>];
+  alignas(128) float dlt[kStages][kResRow<kHpb, kQ>];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 
 // dk, dv: one CTA per kWG x 64 keys of a (batch row, head); the producer
-// warpgroup loads K and V once, then Q and dO tiles of 64 queries with
+// warpgroup loads K and V once, then Q and dO tiles of kQ queries with
 // their lse and delta, all by TMA from one thread. CTAs whose keys all lie
 // at or past kv_len, or that no query sees, write zeros.
-template <int kWG, int kStages, bool kCausal, int kHpb>
+template <int kDh, int kWG, int kStages, bool kCausal, int kHpb>
 __global__ void __launch_bounds__(kBwdThreadsMax, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
                           const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dlt,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
+  using G = Geo<kDh>;
+  constexpr int kQ = kDkvQueries<kDh>;
   extern __shared__ unsigned char smem_raw[];
-  auto& s = *reinterpret_cast<DkvSmem<kWG, kStages, kHpb>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  auto& s =
+      *reinterpret_cast<DkvSmem<kDh, kWG, kStages, kHpb>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int k0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // causal: q tiles whose last query lies above the CTA's first key see none of it
-  const int n_qt = (sh.tq + kBQ - 1) / kBQ;
-  const int lo = k0 - sh.q_offset - (kBQ - 1);
-  const int qt0 = kCausal && lo > 0 ? (lo + kBQ - 1) / kBQ : 0;
+  const int n_qt = (sh.tq + kQ - 1) / kQ;
+  const int lo = k0 - sh.q_offset - (kQ - 1);
+  const int qt0 = kCausal && lo > 0 ? (lo + kQ - 1) / kQ : 0;
   const int n_tiles = k0 < sh.kv_len && qt0 < n_qt ? n_qt - qt0 : 0;
-  const int res0 = ((h / kHpb) * sh.batch + b) * sh.tq * kHpb;  // this (head pair, batch row)'s residuals
+  const int res0 = ((h / kHpb) * sh.batch + b) * sh.tq * kHpb;  // this (h2 lane, batch row)'s residuals
 
   if (threadIdx.x == 0) {
     mbar_init(&s.kv_full, 1);
@@ -794,19 +955,23 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   if (warp >= kWG * 4) {  // the producer warpgroup: one thread starts every load
     reg_dealloc<kProducerRegs>();
     if (warp == kWG * 4 && lane == 0 && n_tiles > 0) {
-      mbar_expect_tx(&s.kv_full, 2 * kWG * kBM * kRowB);
-      tma_load_3d(s.k, &tm_k, &s.kv_full, h * kDh, k0, b);
-      tma_load_3d(s.v, &tm_v, &s.kv_full, h * kDh, k0, b);
-      // a box past tq reads the next pair's residuals (masked below) or
+      mbar_expect_tx(&s.kv_full, 2 * kWG * kBM * G::kRowB);
+      tma_tile<kDh>(s.k, &tm_k, &s.kv_full, h * kDh, k0, b, kWG * kBM);
+      tma_tile<kDh>(s.v, &tm_v, &s.kv_full, h * kDh, k0, b, kWG * kBM);
+      // a box past tq reads the next lane's residuals (masked below) or
       // zeros past the end
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages, first = res0 + (qt0 + t) * kBQ * kHpb;
+        const int st = t % kStages, first = res0 + (qt0 + t) * kQ * kHpb;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&s.full[st], 2 * kBQ * kRowB + 2 * kResBox<kHpb> * 4);
-        tma_load_3d(s.q[st], &tm_q, &s.full[st], h * kDh, (qt0 + t) * kBQ, b);
-        tma_load_3d(s.g[st], &tm_g, &s.full[st], h * kDh, (qt0 + t) * kBQ, b);
-        tma_load_1d(s.lse[st], &tm_lse, &s.full[st], first & ~3);
-        tma_load_1d(s.dlt[st], &tm_dlt, &s.full[st], first & ~3);
+        constexpr int kPieces = kResPieces<kHpb, kQ>, kBox = kResBox<kHpb, kQ>;
+        mbar_expect_tx(&s.full[st], 2 * kQ * G::kRowB + 2 * kPieces * kBox * 4);
+        tma_tile<kDh>(s.q[st], &tm_q, &s.full[st], h * kDh, (qt0 + t) * kQ, b, kQ);
+        tma_tile<kDh>(s.g[st], &tm_g, &s.full[st], h * kDh, (qt0 + t) * kQ, b, kQ);
+#pragma unroll
+        for (int pc = 0; pc < kPieces; ++pc) {
+          tma_load_1d(s.lse[st] + pc * kBox, &tm_lse, &s.full[st], (first & ~3) + pc * kBox);
+          tma_load_1d(s.dlt[st] + pc * kBox, &tm_dlt, &s.full[st], (first & ~3) + pc * kBox);
+        }
       }
     }
     return;
@@ -819,26 +984,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
   const int key0 = k0 + wg * kBM + wq * 16 + g;
   const bool live[2] = {key0 < sh.kv_len, key0 + 8 < sh.kv_len};
-  const bool odd = h % kHpb != 0;
+  const int hm = h % kHpb;  // the head's place in its h2 lane
   const float sl2 = sh.scale * kLog2e;
-  float acc_k[32], acc_v[32];
+  constexpr int kKBox = kWG * kBM * G::kSwB, kQBox = kQ * G::kSwB;  // bytes of a box of the K/V and Q/dO tiles
+  float acc_k[kDh / 2], acc_v[kDh / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < kDh / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   if (n_tiles > 0) {
-    float sc[32], dp[32];
-    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+    float sc[kQ / 2], dp[kQ / 2];
+    uint32_t pa[kQ / 16][4], da[kQ / 16][4];
     mbar_wait(&s.kv_full, 0);
-    const uint64_t dk_desc = desc_sw128(s.k + wg * kBM * kDh), dv_desc = desc_sw128(s.v + wg * kBM * kDh);
+    const uint64_t dk_desc = desc<kDh>(s.k + wg * kBM * G::kBoxCols, kKBox);
+    const uint64_t dv_desc = desc<kDh>(s.v + wg * kBM * G::kBoxCols, kKBox);
     // S^T = K Q^T and dP^T = V dO^T of q tile t
     auto start_s = [&](int t) {
       const int st = t % kStages;
       mbar_wait(&s.full[st], (t / kStages) & 1);
-      const uint64_t dq_desc = desc_sw128(s.q[st]), dg_desc = desc_sw128(s.g[st]);
+      const uint64_t dq_desc = desc<kDh>(s.q[st], kQBox), dg_desc = desc<kDh>(s.g[st], kQBox);
 #pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n64(sc, dk_desc + 2 * kk, dq_desc + 2 * kk, kk);
+      for (int kk = 0; kk < kDh / 16; ++kk)
+        wgmma_ss<kQ>(sc, dk_desc + kstep<kDh>(kk, kKBox), dq_desc + kstep<kDh>(kk, kQBox), kk);
 #pragma unroll
-      for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss_m64n64(dp, dv_desc + 2 * kk, dg_desc + 2 * kk, kk);
+      for (int kk = 0; kk < kDh / 16; ++kk)
+        wgmma_ss<kQ>(dp, dv_desc + kstep<kDh>(kk, kKBox), dg_desc + kstep<kDh>(kk, kQBox), kk);
       wg_commit();
     };
     wg_fence();
@@ -858,28 +1027,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
       int q_lo[2], q_hi[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        q_lo[r] = kCausal ? key0 + 8 * r - sh.q_offset - q_tile * kBQ : 0;
-        q_hi[r] = live[r] ? sh.tq - q_tile * kBQ : 0;
+        q_lo[r] = kCausal ? key0 + 8 * r - sh.q_offset - q_tile * kQ : 0;
+        q_hi[r] = live[r] ? sh.tq - q_tile * kQ : 0;
       }
-      const int first = (res0 + q_tile * kBQ * kHpb) & 3;  // the tile's first residual in its box
+      const int first = (res0 + q_tile * kQ * kHpb) & 3;  // the tile's first residual in its box
 #pragma unroll
-      for (int j = 0; j < kBQ / 8; ++j) {
-        // (lse, delta) of queries 8j + 2 t4 and + 1 (hpb 2: both heads of the pair)
+      for (int j = 0; j < kQ / 8; ++j) {
+        // (lse, delta) of queries 8j + 2 t4 and + 1 (hpb > 1: at the head's
+        // place among the lane's hpb)
         float lse2[2], dlt[2];
         if constexpr (kHpb == 2) {
           const float* lp = &s.lse[st][first + 16 * j + 4 * t4];
           const float* dl = &s.dlt[st][first + 16 * j + 4 * t4];
           const float2 l0 = *reinterpret_cast<const float2*>(lp), l1 = *reinterpret_cast<const float2*>(lp + 2);
           const float2 d0 = *reinterpret_cast<const float2*>(dl), d1 = *reinterpret_cast<const float2*>(dl + 2);
-          lse2[0] = (odd ? l0.y : l0.x) * kLog2e;
-          lse2[1] = (odd ? l1.y : l1.x) * kLog2e;
-          dlt[0] = (odd ? d0.y : d0.x) * sh.scale;
-          dlt[1] = (odd ? d1.y : d1.x) * sh.scale;
+          lse2[0] = (hm ? l0.y : l0.x) * kLog2e;
+          lse2[1] = (hm ? l1.y : l1.x) * kLog2e;
+          dlt[0] = (hm ? d0.y : d0.x) * sh.scale;
+          dlt[1] = (hm ? d1.y : d1.x) * sh.scale;
         } else {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            lse2[c] = s.lse[st][first + 8 * j + 2 * t4 + c] * kLog2e;
-            dlt[c] = s.dlt[st][first + 8 * j + 2 * t4 + c] * sh.scale;
+            const int e = first + kHpb * (8 * j + 2 * t4 + c) + hm;
+            lse2[c] = s.lse[st][e] * kLog2e;
+            dlt[c] = s.dlt[st][e] * sh.scale;
           }
         }
         // the pairs (e, e + 1) of rows key0 (e = 0) and key0 + 8 (e = 2),
@@ -896,13 +1067,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
         }
       }
       wg_fence();
-      const uint64_t dq_desc = desc_sw128(s.q[st]), dg_desc = desc_sw128(s.g[st]);
+      const uint64_t dq_desc = desc<kDh>(s.q[st], kQBox), dg_desc = desc<kDh>(s.g[st], kQBox);
 #pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk)  // dV += bf16(P)^T dO: dO as an MN-major B, 16 queries a step
-        wgmma_rs_m64n64(acc_v, pa[kk], dg_desc + (uint64_t)(kk * 16 * kRowB >> 4));
+      for (int kk = 0; kk < kQ / 16; ++kk)  // dV += bf16(P)^T dO: dO as an MN-major B, 16 queries a step
+        wgmma_rs<kDh>(acc_v, pa[kk], dg_desc + mnstep<kDh>(kk));
 #pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk)  // dK += bf16(dS)^T Q: Q as an MN-major B
-        wgmma_rs_m64n64(acc_k, da[kk], dq_desc + (uint64_t)(kk * 16 * kRowB >> 4));
+      for (int kk = 0; kk < kQ / 16; ++kk)  // dK += bf16(dS)^T Q: Q as an MN-major B
+        wgmma_rs<kDh>(acc_k, da[kk], dq_desc + mnstep<kDh>(kk));
       wg_commit();
       if (t + 1 < n_tiles) start_s(t + 1);
     }
@@ -916,91 +1087,135 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   store_acc(dv + off, acc_v, key0, sh.tk, sh.d, t4);
 }
 
-template <int kWG, int kStages, bool kCausal>
+template <int kDh, int kWG, int kStages, bool kCausal>
 int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
            void* dq, const Shape& sh, cudaStream_t stream) {
+  constexpr int kN = kDqKeys<kDh>;
   CUtensorMap tm_q, tm_k, tm_v, tm_g;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) || !encode(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kWG * kBM) ||
-      !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kBN) || !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kBN))
+  if (!encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) ||
+      !encode<kDh>(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kWG * kBM) ||
+      !encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kN) || !encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kN))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(DqSmem<kWG, kStages>) + 1024;  // + the alignment slack
+  const int smem = (int)sizeof(DqSmem<kDh, kWG, kStages>) + 1024;  // + the alignment slack
   static bool lifted[64] = {};
-  cudaError_t err = lift_smem(flash_bwd_dq_sm90_kernel<kWG, kStages, kCausal>, smem, lifted);
+  cudaError_t err = lift_smem(flash_bwd_dq_sm90_kernel<kDh, kWG, kStages, kCausal>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_bwd_dq_sm90_kernel<kWG, kStages, kCausal><<<grid, (kWG + 1) * 128, smem, stream>>>(
+  flash_bwd_dq_sm90_kernel<kDh, kWG, kStages, kCausal><<<grid, (kWG + 1) * 128, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_g, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), sh);
   return (int)cudaGetLastError();
 }
 
-// a residual, (D/128, B, Tq, 2) (h2) or (BH, Tq, 1) fp32, as a 1-D map,
+// a residual, (D/128, B, Tq, hpb) (h2) or (BH, Tq, 1) fp32, as a 1-D map,
 // boxes of one q tile's residuals
-template <int kHpb>
+template <int kHpb, int kQ>
 bool encode_res(EncodeTiled enc, CUtensorMap* map, const void* ptr, const Shape& sh) {
   const cuuint64_t dims[1] = {(cuuint64_t)(sh.n_head / kHpb) * sh.batch * sh.tq * kHpb};
   const cuuint64_t strides[1] = {4};  // none at rank 1
-  const cuuint32_t box[1] = {(cuuint32_t)kResBox<kHpb>};
+  const cuuint32_t box[1] = {(cuuint32_t)kResBox<kHpb, kQ>};
   const cuuint32_t elem[1] = {1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kWG, int kStages, bool kCausal, int kHpb>
+template <int kDh, int kWG, int kStages, bool kCausal, int kHpb>
 int run_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
             void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
+  constexpr int kQ = kDkvQueries<kDh>;
   CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  if (!encode(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kBQ) || !encode(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kBQ) ||
-      !encode(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kWG * kBM) || !encode(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kWG * kBM) ||
-      !encode_res<kHpb>(enc, &tm_lse, lse, sh) || !encode_res<kHpb>(enc, &tm_dlt, delta, sh))
+  if (!encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kQ) ||
+      !encode<kDh>(enc, &tm_g, dout, sh.batch, sh.tq, sh.d, kQ) ||
+      !encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kWG * kBM) ||
+      !encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kWG * kBM) ||
+      !encode_res<kHpb, kQ>(enc, &tm_lse, lse, sh) || !encode_res<kHpb, kQ>(enc, &tm_dlt, delta, sh))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(DkvSmem<kWG, kStages, kHpb>) + 1024;
+  const int smem = (int)sizeof(DkvSmem<kDh, kWG, kStages, kHpb>) + 1024;
   static bool lifted[64] = {};
-  cudaError_t err = lift_smem(flash_bwd_dkv_sm90_kernel<kWG, kStages, kCausal, kHpb>, smem, lifted);
+  cudaError_t err = lift_smem(flash_bwd_dkv_sm90_kernel<kDh, kWG, kStages, kCausal, kHpb>, smem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tk + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_bwd_dkv_sm90_kernel<kWG, kStages, kCausal, kHpb><<<grid, (kWG + 1) * 128, smem, stream>>>(
+  flash_bwd_dkv_sm90_kernel<kDh, kWG, kStages, kCausal, kHpb><<<grid, (kWG + 1) * 128, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
-}  // namespace sm90
-
-// the forward over the natural layout (K3, K5 at a head width of 64, and K7
+// the forward over the natural layout (K3, K5 at a head width of kDh, and K7
 // as batch = BH, one head)
-int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
-                    void* stream) {
-  if (bad_shape(sh)) return (int)cudaErrorInvalidValue;
-  // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = 64 * n_head)
+template <int kDh>
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
+        cudaStream_t s) {
+  if (bad_shape(sh, kDh)) return (int)cudaErrorInvalidValue;
+  // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = kDh * n_head)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  auto s = (cudaStream_t)stream;
-  if (sh.tq <= sm90::kBM)
-    return causal ? sm90::run<1, 2, true>(q, k, v, out, lse, sh, s) : sm90::run<1, 2, false>(q, k, v, out, lse, sh, s);
-  return causal ? sm90::run<2, 4, true>(q, k, v, out, lse, sh, s) : sm90::run<2, 4, false>(q, k, v, out, lse, sh, s);
+  if (sh.tq <= kBM)
+    return causal ? run<kDh, 1, 2, true>(q, k, v, out, lse, sh, s) : run<kDh, 1, 2, false>(q, k, v, out, lse, sh, s);
+  return causal ? run<kDh, 2, 4, true>(q, k, v, out, lse, sh, s) : run<kDh, 2, 4, false>(q, k, v, out, lse, sh, s);
 }
 
-// (dq, dk, dv) of the forward: K6 (natural layout, h2 residuals, kHpb 2,
-// never causal) and K8 (batch = BH, one head, kHpb 1)
-template <bool kCausal, int kHpb>
-int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                    const void* delta, void* dq, void* dk, void* dv, const Shape& sh, void* stream) {
-  if (bad_shape(sh) || sh.hpb != kHpb || sh.n_head % kHpb) return (int)cudaErrorInvalidValue;
+// (dq, dk, dv) of the forward: K6 (natural layout, h2 residuals, kHpb =
+// 128 / kDh, never causal) and K8 (batch = BH, one head, kHpb 1)
+template <int kDh, bool kCausal, int kHpb>
+int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta, void* dq,
+        void* dk, void* dv, const Shape& sh, cudaStream_t s) {
+  if (bad_shape(sh, kDh) || sh.hpb != kHpb || sh.n_head % kHpb) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  auto s = (cudaStream_t)stream;
-  const int err = sh.tq <= sm90::kBM ? sm90::run_dq<1, 2, kCausal>(q, k, v, dout, lse, delta, dq, sh, s)
-                                     : sm90::run_dq<2, 4, kCausal>(q, k, v, dout, lse, delta, dq, sh, s);
+  const int err = sh.tq <= kBM ? run_dq<kDh, 1, 2, kCausal>(q, k, v, dout, lse, delta, dq, sh, s)
+                               : run_dq<kDh, 2, 4, kCausal>(q, k, v, dout, lse, delta, dq, sh, s);
   if (err != 0) return err;
-  return sh.tk <= sm90::kBM ? sm90::run_dkv<1, 2, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s)
-                            : sm90::run_dkv<2, 4, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s);
+  return sh.tk <= kBM ? run_dkv<kDh, 1, 2, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s)
+                      : run_dkv<kDh, 2, 4, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s);
 }
+
+}  // namespace sm90
+
+// the forward at head width dh (32, 64 or 128)
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, int dh,
+                    bool causal, void* stream) {
+  auto s = (cudaStream_t)stream;
+  switch (dh) {
+    case 32: return sm90::fwd<32>(q, k, v, out, lse, sh, causal, s);
+    case 64: return sm90::fwd<64>(q, k, v, out, lse, sh, causal, s);
+    case 128: return sm90::fwd<128>(q, k, v, out, lse, sh, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6 at head width dh: the h2 residuals hold hpb = 128 / dh heads a lane
+int launch_h2_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                       const void* delta, void* dq, void* dk, void* dv, const Shape& sh, int dh, void* stream) {
+  auto s = (cudaStream_t)stream;
+  switch (dh) {
+    case 32: return sm90::bwd<32, false, 4>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    case 64: return sm90::bwd<64, false, 2>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    case 128: return sm90::bwd<128, false, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K8 at head width dh, residuals (BH, Tq, 1)
+template <bool kCausal>
+int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* delta, void* dq, void* dk, void* dv, const Shape& sh, int dh, void* stream) {
+  auto s = (cudaStream_t)stream;
+  switch (dh) {
+    case 32: return sm90::bwd<32, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    case 64: return sm90::bwd<64, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    case 128: return sm90::bwd<128, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the h2 lane's head count, 128 / dh, for a head width that divides 128 (0 otherwise)
+int h2_hpb(int dh) { return dh > 0 && 128 % dh == 0 ? 128 / dh : 0; }
 
 // ------------------------------------------------- K5 at any head width
 
@@ -1176,6 +1391,7 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 namespace f32 {
 
+constexpr int kDh = 64;              // the head width the fp32 kernels take
 constexpr int kT = 64;               // rows of a tile: queries or keys
 constexpr int kLd = kDh + 1;         // fp32 row stride of a shared tile
 constexpr int kTileF = kT * kLd;     // floats of a shared tile
@@ -1490,14 +1706,14 @@ int run_bwd(const void* q, const void* k, const void* v, const void* dout, const
 
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
                void* stream) {
-  if (bad_shape(sh) || (lse != nullptr && sh.n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh, kDh) || (lse != nullptr && sh.n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   return causal ? run_fwd<true>(q, k, v, out, lse, sh, s) : run_fwd<false>(q, k, v, out, lse, sh, s);
 }
 
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
                void* dq, void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
-  if (bad_shape(sh) || sh.n_head % sh.hpb) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh, kDh) || sh.n_head % sh.hpb) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   return causal ? run_bwd<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s)
                 : run_bwd<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
@@ -1508,14 +1724,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // K5: natural (B, T, D) layout, non-causal, head width d / n_head any
-// multiple of 8 up to 768; no logsumexp
+// multiple of 8 up to 768 (32, 64 and 128 on the sm90 forward); no logsumexp
 extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
                                  int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  if (dh == kDh) {
+  if (dh == 32 || dh == 64 || dh == 128) {
     Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-    return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream);
+    return launch_fwd_sm90(q, k, v, out, nullptr, sh, dh, false, stream);
   }
   if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
     return (int)cudaErrorInvalidValue;
@@ -1530,45 +1746,52 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   return (int)cudaGetLastError();
 }
 
-// K3: natural (B, T, D) layout, non-causal; `lse` may be null, else it is
-// (D/128, B, Tq, 2) fp32
+// K3: natural (B, T, D) layout, non-causal, head width d / n_head 32, 64 or
+// 128; `lse` may be null, else it is (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                  int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_fwd_sm90(q, k, v, out, lse, sh, false, stream);
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
+  if (lse != nullptr && (sh.hpb < 1 || n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
+  return launch_fwd_sm90(q, k, v, out, lse, sh, dh, false, stream);
 }
 
-// K6: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 2) fp32
+// K6: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                  const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
                                  int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
-  return launch_bwd_sm90<false, 2>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
+  return launch_h2_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream);
 }
 
-// K7: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32
+// K7: head-split (BH, T, dh), dh 32, 64 or 128; `lse` may be null, else it
+// is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
-                              int tk, int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
-  return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
+                              int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
+  return launch_fwd_sm90(q, k, v, out, lse, sh, dh, causal != 0, stream);
 }
 
 // K8: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                              const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int kv_len,
-                              int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
-  return causal ? launch_bwd_sm90<true, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream)
-                : launch_bwd_sm90<false, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
+                              const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
+                              int kv_len, int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
+  return causal ? launch_bwd_sm90<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream)
+                : launch_bwd_sm90<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream);
 }
 
 // ------------------------------------------------------ fp32 entry points
-// The same arguments and layouts as the bf16 entries above, fp32 tensors.
+// The same arguments and layouts as the bf16 entries above, fp32 tensors,
+// at a head width of 64 only (f32::kDh).
 
 // K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 2) fp32
 extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                 int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
+  Shape sh{batch, tq, tk, d, n_head, 128 / f32::kDh, kv_len, 0, scale};
   return f32::launch_fwd(q, k, v, out, lse, sh, false, stream);
 }
 
@@ -1583,22 +1806,22 @@ extern "C" int flash_mh_fwd_f32(const void* q, const void* k, const void* v, voi
 extern "C" int flash_h2_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
                                 int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / kDh, kv_len, 0, scale};
+  Shape sh{batch, tq, tk, d, n_head, 128 / f32::kDh, kv_len, 0, scale};
   return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
 }
 
 // K7 at fp32: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
-                             int tk, int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
+                             int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
   return f32::launch_fwd(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
 // K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                             const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int kv_len,
-                             int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, kDh, 1, 1, kv_len, q_offset, scale};
+                             const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
+                             int kv_len, int causal, int q_offset, float scale, void* stream) {
+  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
   return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
 }
 

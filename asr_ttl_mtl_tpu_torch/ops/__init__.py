@@ -62,6 +62,22 @@ def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
     return _SUFFIX[tensors[0].dtype]
 
 
+# the head widths d / n_head that the bf16 attention kernels K1, K2, K3, K6,
+# K7 and K8 (and K5 on K3's forward) serve; the fp32 ones serve 64
+HEAD_WIDTHS = (32, 64, 128)
+HEAD_WIDTH_F32 = 64
+
+
+def check_head_width(name: str, dh: int, sfx: str) -> None:
+    """Raise unless the attention kernel `name` of dtype suffix `sfx` ("bf16"
+    or "f32") serves head width `dh`."""
+    if sfx == "f32" and dh != HEAD_WIDTH_F32:
+        raise ValueError(f"{name} fp32 kernel takes a head width of {HEAD_WIDTH_F32}, got {dh}")
+    if dh not in HEAD_WIDTHS:
+        raise ValueError(f"{name} kernel takes a head width of {', '.join(map(str, HEAD_WIDTHS))} in bf16 "
+                         f"({HEAD_WIDTH_F32} in fp32), got {dh}")
+
+
 def count_launch(name: str, sfx: str) -> None:
     """One launch of kernel `name`: an fp32 one counts under `<name>_f32`."""
     LAUNCHES[name if sfx == "bf16" else f"{name}_{sfx}"] += 1

@@ -49,17 +49,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_h2_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, dout, lse, delta, dq, dk, dv, batch, tq, tk, d, n_head, kv_len, scale, stream
         "flash_h2_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        # q, k, v, out, lse (or null), bh, tq, tk, kv_len, causal, q_offset, scale, stream
-        "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        # q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, kv_len, causal, q_offset, scale, stream
-        "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, out, lse (or null), bh, tq, tk, dh, kv_len, causal, q_offset, scale, stream
+        "flash_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, bh, tq, tk, dh, kv_len, causal, q_offset, scale, stream
+        "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, out, batch, tq, tk, d, n_head, kv_len, scale, stream
         "flash_mh_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        # the same five at fp32 (K5 at a head width of 64 only)
+        # the same five at fp32 (a head width of 64 only)
         "flash_h2_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_h2_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        "flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_mh_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "decode_attention": {

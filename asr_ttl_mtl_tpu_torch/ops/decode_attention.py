@@ -18,6 +18,10 @@ each CTA's keys.
 K2 splits the valid keys of each (cache row, head) across a thread-block
 cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
+
+Both kernels take head widths dh = d / n_head of 32, 64 and 128 with bf16
+q (`ops.HEAD_WIDTHS`), and 64 with fp32 q and caches; any other width
+raises on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, _cuda
+from . import LAUNCHES, _cuda, check_head_width
 
 _NEG_INF = -1e30
 # K1's p*v_scale/sp within this of a midpoint may round either way under
@@ -92,6 +96,13 @@ def _valid(valid_upto: Optional[int]) -> int:
     return -1 if valid_upto is None else int(valid_upto)
 
 
+def _head_width(name: str, d: int, n_head: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel serves d / n_head at q's dtype (bf16 or fp32)."""
+    if n_head < 1 or d % n_head:
+        raise ValueError(f"{name} kernel takes d split into equal heads, got d={d} n_head={n_head}")
+    check_head_width(name, d // n_head, "bf16" if dtype == torch.bfloat16 else "f32")
+
+
 # ------------------------------------------------------------------ K2 ----
 
 # K2's launch plan; the constants mirror `csrc/decode_attention.cu`
@@ -110,18 +121,19 @@ def k2_n_valid(tk: int, valid_upto: Optional[int]) -> int:
     return tk if v < 0 else min(v + 1, tk)
 
 
-def k2_smem_bytes(group: int, chunk: int, itemsize: int) -> int:
+def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
     """Shared memory of one K2 CTA (`k2_smem_bytes` in the source): the
-    ring of staged tiles, q, the chunk's scores, the P.V partials, the row
-    statistics and the reduction buffer."""
-    ring = (4 if itemsize == 2 else 2) * _K2_TILE * (64 * itemsize + 16)
+    ring of staged tiles (4 bf16 tiles at dh 32 and 64, 2 at dh 128, 2 of
+    fp32), q, the chunk's scores, the P.V partials, the row statistics and
+    the reduction buffer."""
+    ring = (2 if itemsize != 2 or dh == 128 else 4) * _K2_TILE * (dh * itemsize + 16)
     slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))
     stride = (chunk + 3) // 4 * 4
-    return ring + 4 * (group * 64 + group * stride + slices * group * 64 + 4 * group + _K2_THREADS)
+    return ring + 4 * (group * dh + group * stride + slices * group * dh + 4 * group + _K2_THREADS)
 
 
 @functools.lru_cache(maxsize=4096)  # a decode step asks the same few questions every call
-def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int = 2) -> int:
+def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int = 2, dh: int = 64) -> int:
     """S, the CTAs of K2's cluster for one (cache row, head) over `n_keys`
     valid keys: the largest S in K2_SPLITS that keeps batch x n_head x S
     within the card's resident CTAs (2 a streaming multiprocessor), but no
@@ -132,7 +144,7 @@ def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int 
     fill = max(s for s in K2_SPLITS if s == 1 or batch * n_head * s <= _RESIDENT)
     split = min(fill, by_keys)
     for s in K2_SPLITS:
-        if s >= split and k2_smem_bytes(group, -(-n_keys // s), itemsize) <= _K2_SMEM_LIMIT:
+        if s >= split and k2_smem_bytes(group, -(-n_keys // s), itemsize, dh) <= _K2_SMEM_LIMIT:
             return s
     raise ValueError(f"decode_attention: group {group} over {n_keys} keys needs more shared memory than a "
                      f"cluster of {K2_SPLITS[-1]} CTAs has")
@@ -182,8 +194,9 @@ def decode_attention(
     n_layer, b, tk, d = cache_k.shape
     if q.dtype != cache_k.dtype or cache_k.dtype != cache_v.dtype or q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"decode_attention kernel takes one of bf16/fp32 for q and caches, got {q.dtype}/{cache_k.dtype}")
-    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64 or group < 1:
+    if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or group < 1:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
+    _head_width("decode_attention", d, n_head, q.dtype)
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous")
     return _launch_k2(q.contiguous(), cache_k, cache_v, layer, n_head, scale, valid_upto, group)
@@ -191,7 +204,7 @@ def decode_attention(
 
 def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> torch.Tensor:
     n_layer, b, tk, d = cache_k.shape
-    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size())
+    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), d // n_head)
     out = torch.empty_like(q)
     fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(
@@ -318,9 +331,10 @@ def decode_attention_i8(
         raise TypeError(f"decode_attention_i8 kernel takes bf16/fp32 q and int8 caches, got {q.dtype}/{cache_k.dtype}")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("decode_attention_i8: row scales must be float32")
-    if (q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or d != n_head * 64
+    if (q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape
             or k_scale.shape != (n_layer, b, tk) or v_scale.shape != k_scale.shape):
         raise ValueError(f"decode_attention_i8: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)}")
+    _head_width("decode_attention_i8", d, n_head, q.dtype)
     if not all(t.is_contiguous() for t in (cache_k, cache_v, k_scale, v_scale)):
         raise ValueError("decode_attention_i8: caches and scales must be contiguous")
     return _launch_k1(q.contiguous(), cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, valid_upto, group,

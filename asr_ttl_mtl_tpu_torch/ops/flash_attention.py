@@ -27,9 +27,11 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
 The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
 count under their own keys, e.g. `flash_attention_h2_f32`). K3, K6, K7 and
-K8 take a head width of 64; K5 any multiple of 8 up to 768 in bf16, 64 in
-fp32. On the card fp32 never falls back to a plain version or to a bf16
-kernel: a shape or dtype no kernel serves raises.
+K8 take head widths 32, 64 and 128 in bf16 (`ops.HEAD_WIDTHS`) and 64 in fp32;
+K5 any multiple of 8 up to 768 in bf16 (32, 64 and 128 on K3's forward),
+64 in fp32. The h2 residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
+On the card nothing falls back to a plain version or to a kernel of another
+dtype: a shape, width or dtype no kernel serves raises.
 """
 
 from __future__ import annotations
@@ -38,10 +40,9 @@ from typing import Optional
 
 import torch
 
-from . import _cuda, count_launch, kernel_dtype, on_card
+from . import _cuda, check_head_width, count_launch, kernel_dtype, on_card
 
 _NEG_INF = -1e30
-_DH = 64  # the head width the CUDA kernels K3, K6, K7 and K8 serve
 _MH_MAX_D = 768  # the widest d (and head width) K5 serves
 
 
@@ -161,6 +162,17 @@ def _check(name: str, tensors, shapes) -> str:
     return sfx
 
 
+def _h2_width(name: str, d: int, n_head: int, sfx: str, lanes: bool) -> int:
+    """The head width of a natural-layout call that K3 / K6 serve: d split
+    into equal heads of a width in HEAD_WIDTHS and, with `lanes` (the h2
+    residuals), a multiple of 128."""
+    if n_head < 1 or d % n_head or (lanes and d % 128):
+        raise ValueError(f"{name} kernel takes d split into equal heads{' and a multiple of 128' if lanes else ''}, "
+                         f"got d={d} n_head={n_head}")
+    check_head_width(name, d // n_head, sfx)
+    return d // n_head
+
+
 def _check_res(name: str, tensors, shape) -> None:
     for t in tensors:
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
@@ -194,11 +206,10 @@ def flash_attention_h2(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
                                         scale=scale, return_lse=return_lse)
     b, tq, d = q.shape
     tk = k.shape[1]
-    if d != n_head * _DH:
-        raise ValueError(f"flash_attention_h2 kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
     sfx = _check("flash_attention_h2", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    dh = _h2_width("flash_attention_h2", d, n_head, sfx, return_lse)
     out = torch.empty_like(q)
-    lse = torch.empty((d // 128, b, tq, 128 // _DH), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = torch.empty((d // 128, b, tq, 128 // dh), dtype=torch.float32, device=q.device) if return_lse else None
     fn = f"flash_h2_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
@@ -229,10 +240,9 @@ def flash_attention_h2_bwd(q, k, v, lse, delta, g, *, n_head: int,
                                             kv_valid_len=kv_valid_len, scale=scale)
     b, tq, d = q.shape
     tk = k.shape[1]
-    if d != n_head * _DH:
-        raise ValueError(f"flash_attention_h2_bwd kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
     sfx = _check("flash_attention_h2_bwd", (q, k, v, g), ((b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d)))
-    _check_res("flash_attention_h2_bwd", (lse, delta), (d // 128, b, tq, 128 // _DH))
+    dh = _h2_width("flash_attention_h2_bwd", d, n_head, sfx, True)
+    _check_res("flash_attention_h2_bwd", (lse, delta), (d // 128, b, tq, 128 // dh))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = f"flash_h2_bwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
@@ -298,8 +308,8 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
         raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
                          f"{_MH_MAX_D}, got d={d} n_head={n_head}")
     sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
-    if sfx == "f32" and d != n_head * _DH:
-        raise ValueError(f"flash_attention_mh fp32 kernel takes a head width of {_DH}, got d={d} n_head={n_head}")
+    if sfx == "f32":  # the bf16 kernel serves any multiple of 8 up to 768
+        check_head_width("flash_attention_mh", d // n_head, sfx)
     out = torch.empty_like(q)
     fn = f"flash_mh_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
@@ -353,15 +363,16 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
     if not on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                      scale=scale, return_lse=return_lse)
-    bh, tq, d = q.shape
+    bh, tq, dh = q.shape
     tk = k.shape[1]
-    sfx = _check("flash_attention", (q, k, v), ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH)))
+    sfx = _check("flash_attention", (q, k, v), ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
+    check_head_width("flash_attention", dh, sfx)
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
     fn = f"flash_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-        bh, tq, tk, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
+        bh, tq, tk, dh, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
     _cuda.check("flash_attention", fn, code)
@@ -392,10 +403,11 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     if not on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, scale=scale)
-    bh, tq, _ = q.shape
+    bh, tq, dh = q.shape
     tk = k.shape[1]
     sfx = _check("flash_attention_bwd", (q, k, v, out, g),
-                 ((bh, tq, _DH), (bh, tk, _DH), (bh, tk, _DH), (bh, tq, _DH), (bh, tq, _DH)))
+                 ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), (bh, tq, dh)))
+    check_head_width("flash_attention_bwd", dh, sfx)
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -403,7 +415,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, tq, tk, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
+        bh, tq, tk, dh, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
     _cuda.check("flash_attention", fn, code)

@@ -131,6 +131,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      K14) against its plain version at the shapes those runs gave it,
      within 2e-5 of its largest output and bitwise on a second launch,
      timed beside SDPA at fp32 and its fp32 bound.
+ 21. head widths 128 and 32: base's depth and width with 4 heads of 128
+     and with 16 heads of 32 (HW_DIMS, random weights from seed 0). At
+     each, (a) K3 with and without lse and K6 at the encoder's (8, 1536,
+     512) keys valid to 1500, K7, K7-lse and K8 at the train bucket's
+     causal (8 x H, 48, dh) and at q_offset 48, K5 on K3's forward, and K2
+     and K1 on the 8 windows' cross cache and a 128-row self cache with
+     valid_upto 37 at groups 1 and 5, against their plain versions with
+     phases 3 and 8's bf16 tolerances, bitwise on a second launch, beside
+     their bounds and SDPA; then (b) the greedy window path on 8 windows
+     with phase 4's options and one batch with kv_quant=False, (c) beam 5
+     on 4 windows, (e) phase 5's check against the CPU on 2 windows, (d) 2
+     bf16 train steps at batch 8 and `evaluate` on 8 clips, each path's
+     launch counts reset before and read after: K1, K2, K3, K3-lse, K6,
+     K7, K7-lse and K8 each launch on them.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2665,6 +2679,310 @@ def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict):
         raise AssertionError("the card's fp32 train step disagrees with the CPU reference")
 
 
+# ------------------------------------------------------------------ phase 21
+
+# base's depth and width with the heads cut to 128 and to 32 columns, in
+# the encoder and the decoder alike (random weights from seed 0)
+HW_DIMS = {
+    f"dh{dh}": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=512, n_audio_head=512 // dh, n_audio_layer=6,
+                    n_vocab=51865, n_text_ctx=448, n_text_state=512, n_text_head=512 // dh, n_text_layer=6)
+    for dh in (128, 32)
+}
+HW_WINDOWS = 8  # the greedy window path's windows
+HW_BEAM_WINDOWS = 4
+HW_TRAIN_BATCH = 8
+HW_KERNELS = ("decode_attention_i8", "decode_attention", "flash_attention_h2", "flash_attention_h2_lse",
+              "flash_attention_h2_bwd", "flash_attention", "flash_attention_lse", "flash_attention_bwd")
+
+
+def check_head_width_kernels(card: str, geometry: str):
+    """Phase 21 (a): at one geometry of HW_DIMS (d 512, head width dh), each
+    attention kernel against its plain version at the paths' shapes, with
+    the bf16 tolerances of phases 3 and 8, bitwise on a second launch, and
+    timed beside its bound and SDPA on the same views: K3 with and without
+    lse and K6 at the encoder's (8, 1536, 512) with keys valid to 1500; K7,
+    K7 with lse and K8 at the train bucket's causal (8 x H, 48, dh) and at
+    q_offset 48 (48 queries over 96 keys); K5 (the K3 forward, which serves
+    dh 32 and 128) where `h2_eligible` would reject the shape; K2 and K1 on
+    the cross cache (8 windows x 1500, int8 padded to 1536 with valid_upto
+    1499) and on a 128-row self cache with valid_upto 37, at groups 1 and 5."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dims = HW_DIMS[geometry]
+    d, n_head = dims["n_audio_state"], dims["n_audio_head"]
+    dh = d // n_head
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = []
+    record = make_recorder(card, rows)
+    src, b = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", HW_TRAIN_BATCH
+    tag = f"{geometry} ({n_head} heads of {dh})"
+    scale = dh**-0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def rel_tol(x):
+        return 2.0**-6 * x.float().abs().max().item()
+
+    # K3 with and without lse, and K6: the encoder's self-attention
+    tq = tk = 1536
+    q, k, v, g = rnd(b, tq, d), rnd(b, tk, d), rnd(b, tk, d), rnd(b, tq, d)
+    kw = dict(n_head=n_head, kv_valid_len=1500, scale=scale)
+    case = f"{tag}: encoder q,k,v ({b}, {tq}, {d}) bf16, kv_valid_len 1500"
+    io = (2 * q.numel() + 2 * b * 1500 * d) * 2
+    qh = heads(q, n_head).detach().requires_grad_(True)
+    kh, vh = (heads(x, n_head, 1500).detach().requires_grad_(True) for x in (k, v))
+    pout, plse = FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    record("flash_attention_h2", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
+           FA.flash_attention_h2(q, k, v, **kw), pout, rel_tol(pout),
+           lambda: FA.flash_attention_h2(q, k, v, **kw), lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
+           bound=attn_bound(b * tq * 1500 * d, io), plain_iters=5,
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
+    out, lse = FA.flash_attention_h2(q, k, v, return_lse=True, **kw)
+    if tuple(lse.shape) != (d // 128, b, tq, 128 // dh):
+        raise AssertionError(f"K3 lse at {geometry}: shape {tuple(lse.shape)}")
+    record("flash_attention_h2_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:552",
+           [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
+           lambda: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
+           lambda: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw),
+           bound=attn_bound(b * tq * 1500 * d, io + lse.numel() * 4), plain_iters=5,
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
+    delta = FA.h2_delta(g, pout, n_head)
+    got = list(FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw))
+    want = list(FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    gh = heads(g, n_head)
+    record("flash_attention_h2_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:651,691",
+           got, want, [rel_tol(w) for w in want],
+           lambda: FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
+           lambda: FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw),
+           bound=attn_bound(b * tq * 1500 * d, 2 * io + 2 * lse.numel() * 4, mults=10), plain_iters=5,
+           library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), repeat=True)
+    del q, k, v, g, out, lse, pout, plse, delta, got, want, lib_out, qh, kh, vh, gh
+
+    # K5 where h2_eligible would not take the shape (d not a multiple of
+    # 128 at dh 32; tq below 16 is no flash shape, so one head of 128 over
+    # a ragged 200): K3's forward serves both widths
+    k5_d, k5_heads = (3 * dh, 3) if dh == 32 else (dh, 1)
+    q, k, v = rnd(2, 200, k5_d), rnd(2, 300, k5_d), rnd(2, 300, k5_d)
+    kw = dict(n_head=k5_heads, kv_valid_len=270, scale=scale)
+    want = FA.flash_attention_mh_plain(q, k, v, **kw)
+    qh, kh, vh = heads(q, k5_heads), heads(k, k5_heads, 270), heads(v, k5_heads, 270)
+    record("flash_attention_mh", f"{tag}: q (2, 200, {k5_d}), k (2, 300, {k5_d}) bf16, {k5_heads} heads of {dh}, "
+           "kv_valid_len 270", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+           FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
+           lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
+           bound=attn_bound(2 * 200 * 270 * k5_d, (2 * q.numel() + 2 * 2 * 270 * k5_d) * 2),
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False, repeat=True)
+    del q, k, v, want, qh, kh, vh
+
+    # K7 with and without lse and K8: the decoder's causal self-attention at
+    # the train bucket (48), and 48 queries at q_offset 48
+    bh = b * n_head
+    for tq, q_offset in ((48, 0), (48, 48)):
+        tk = tq + q_offset
+        q, k, v, g = rnd(bh, tq, dh), rnd(bh, tk, dh), rnd(bh, tk, dh), rnd(bh, tq, dh)
+        kw = dict(causal=True, q_offset=q_offset, scale=scale)
+        pairs = sum(min(tk, q_offset + i + 1) for i in range(tq))
+        io = (2 * q.numel() + 2 * k.numel()) * 2
+        if q_offset:
+            mask = torch.arange(tk, device=dev)[None, :] <= (q_offset + torch.arange(tq, device=dev))[:, None]
+            lib = dict(attn_mask=mask)
+        else:
+            lib = dict(is_causal=True)
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k, v))
+        case = (f"{tag}: causal ({bh}, {tq}, {dh})" + (f" x {tk} keys, q_offset {q_offset}" if q_offset
+                                                        else ", token bucket"))
+        main = not q_offset
+        out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        record("flash_attention_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+               [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
+               lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+               lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+               bound=attn_bound(bh * pairs * dh, io + lse.numel() * 4),
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=main,
+               repeat=True)
+        record("flash_attention", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+               FA.flash_attention(q, k, v, **kw), pout, rel_tol(pout),
+               lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
+               bound=attn_bound(bh * pairs * dh, io),
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=main,
+               repeat=True)
+        got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+        want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib)
+        record("flash_attention_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+               got, want, [rel_tol(w) for w in want],
+               lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+               lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+               bound=attn_bound(bh * pairs * dh, 2 * io + 2 * lse.numel() * 4, mults=10),
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=main,
+               repeat=True)
+        del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
+
+    # K2 and K1: the cross cache of 8 windows and a 128-row self cache, at
+    # groups 1 and 5 (the beams of a window share its rows)
+    src = "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu"
+    n_win = HW_WINDOWS
+    cross_k, cross_v = rnd(6, n_win, 1500, d), rnd(6, n_win, 1500, d)
+    self_k, self_v = rnd(6, n_win, 128, d), rnd(6, n_win, 128, d)
+    quant = {"cross": [DA.quantize_kv_rows(x) for x in (cross_k, cross_v)],
+             "self": [DA.quantize_kv_rows(x) for x in (self_k, self_v)]}
+    for what, ck, cv, valid in (("cross", cross_k, cross_v, None), ("self", self_k, self_v, 37)):
+        for group in (1, BEAM):
+            q = rnd(n_win * group, 1, d)
+            kw = dict(scale=scale, valid_upto=valid, group=group)
+            n_keys = ck.shape[2] if valid is None else valid + 1
+            main = what == "cross" and group == 1
+            want = DA.decode_attention_plain(q, ck, cv, 5, n_head, **kw)
+            qh = q.reshape(n_win, group, n_head, dh).transpose(1, 2)
+            kh, vh = heads(ck[5], n_head, n_keys), heads(cv[5], n_head, n_keys)
+            record("decode_attention", f"{tag}: {what} {tuple(ck.shape)} bf16, q ({n_win * group}, 1, {d}), group "
+                   f"{group}, valid_upto {valid}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+                   DA.decode_attention(q, ck, cv, 5, n_head, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+                   lambda: DA.decode_attention(q, ck, cv, 5, n_head, **kw),
+                   lambda: DA.decode_attention_plain(q, ck, cv, 5, n_head, **kw),
+                   bound=attn_bound(n_win * group * n_keys * d, 2 * n_win * n_keys * d * 2),
+                   library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=main, repeat=True)
+            (k8, ks), (v8, vs) = quant[what]
+            valid8 = 1499 if valid is None else valid
+            n_keys8 = valid8 + 1
+            kw8 = dict(scale=scale, valid_upto=valid8, group=group)
+            want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 5, n_head, return_flip_bound=True, **kw8)
+            ref = want.float().abs()
+            tk_blk = DA._i8_blocks(n_win, k8.shape[2], d)[1]
+            record("decode_attention_i8", f"{tag}: {what} {tuple(k8.shape)} int8, q ({n_win * group}, 1, {d}), "
+                   f"group {group}, valid_upto {valid8}, tk_blk {tk_blk}", src,
+                   "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+                   DA.decode_attention_i8(q, k8, ks, v8, vs, 5, n_head, **kw8), want,
+                   (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
+                   lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 5, n_head, **kw8),
+                   lambda: DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 5, n_head, **kw8),
+                   bound=bound(4 * n_win * group * n_keys8 * d, 2 * n_win * n_keys8 * (d + 4), "int8"), main=main,
+                   repeat=True)
+    return rows
+
+
+def run_head_width(card: str, geometry: str, workdir: str):
+    """Phase 21 (b)-(e) at one geometry of HW_DIMS, random weights from seed
+    0, through the entry points: (b) the greedy window path on HW_WINDOWS
+    seeded windows with phase 4's options (int8 KV, W8A8 encoder, 64
+    forced tokens), then one batch with kv_quant=False; (c) beam 5 on
+    HW_BEAM_WINDOWS windows; (d) 2 bf16 train steps of MultiTaskTrainer
+    with these dims as `debug_dims` at batch HW_TRAIN_BATCH, then
+    `evaluate` on HW_TRAIN_BATCH clips; (e) phase 5's check of the decode
+    against the CPU's fp32 plain path on 2 windows. Each path's launch
+    counts are reset just before it and read just after; every kernel of
+    HW_KERNELS must launch on them. Returns the counts of each path."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, from_random
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    dims = HW_DIMS[geometry]
+    tag = f"[hw {geometry}]"
+    n_layer = dims["n_audio_layer"]
+    model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.bfloat16)
+    paths = {}
+
+    def counted(name, fn):
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        paths[name] = dict(LAUNCHES)
+        return out, time.perf_counter() - t0
+
+    # (b) the greedy window path, then kv_quant=False
+    mel = log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0), device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS))
+    task.run(mel)  # warm-up, not counted
+    results, t_dec = counted("greedy", lambda: task.run(log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0),
+                                                                            device=DEVICE)))
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob), r
+    c = paths["greedy"]
+    assert c["flash_attention_h2"] == n_layer and c["decode_attention_i8"] > 0 and c["log_mel"] == 1, c
+    plain_task = DecodingTask(model, DecodingOptions(**{**BASE_OPTIONS, "kv_quant": False}))
+    bf16_results, t_bf16 = counted("kv_quant=False", lambda: plain_task.run(mel))
+    for r in bf16_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    c = paths["kv_quant=False"]
+    assert c["flash_attention_h2"] == n_layer and c["decode_attention"] > 0, c
+    print(f"{tag} greedy, {HW_WINDOWS} windows, kv_quant + int8_encoder, 64 tokens: {t_dec:.3f} s = "
+          f"{HW_WINDOWS * 30.0 / t_dec:.1f} audio-s/s (log-mel included); kv_quant=False: {t_bf16:.3f} s [{card}]; "
+          f"text[0]={results[0].text[:40]!r} avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+
+    # (c) beam 5
+    beam_mel = mel[:HW_BEAM_WINDOWS].contiguous()
+    beam_task = DecodingTask(model, DecodingOptions(**BEAM_OPTIONS))
+    beam_results, t_beam = counted("beam", lambda: beam_task.run(beam_mel))
+    for r in beam_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    c = paths["beam"]
+    assert c["topk_logprobs"] == 64 and c["decode_attention_i8"] > 0, c
+    print(f"{tag} beam {BEAM}, {HW_BEAM_WINDOWS} windows: {t_beam:.3f} s (the first call at this shape) [{card}]",
+          flush=True)
+
+    # (e) the decode against the CPU's fp32 plain path
+    check_against_cpu(model)
+    del task, plain_task, beam_task, mel, beam_mel, model
+    torch.cuda.empty_cache()
+
+    # (d) training, then evaluate
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=dims, batch_size=HW_TRAIN_BATCH,
+                         val_batch_size=HW_TRAIN_BATCH, compute_dtype="bfloat16", learning_rate=1e-5, seed=0,
+                         num_workers=4, epochs=1, save_dir=os.path.join(workdir, f"{geometry}_out"))
+    ds = MultiTaskSpeechDataset(write_clips(workdir, 2 * HW_TRAIN_BATCH, seed=21), cfg)
+    batches = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                              buckets=cfg.token_buckets))[:2]
+    val_batches = batches[:1]
+    trainer = MultiTaskTrainer(cfg, verbose=False)
+    per_step = {"log_mel": 1, "flash_attention_h2_lse": 2 * n_layer, "flash_attention_h2_bwd": 2 * n_layer,
+                "flash_attention_lse": n_layer, "flash_attention_bwd": n_layer}
+    losses, step_s = [], []
+    for i, batch in enumerate(batches):
+        (loss, _), dt = counted(f"train step {i + 1}", lambda: trainer.train_step(batch))
+        launched = {k: v for k, v in paths[f"train step {i + 1}"].items() if v}
+        if launched != per_step:
+            raise AssertionError(f"{geometry} train step {i + 1} launched {launched}, expected {per_step}")
+        losses.append(float(loss))
+        step_s.append(dt)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{geometry}: non-finite train loss {losses}")
+    metrics, t_eval = counted("evaluate", lambda: trainer.evaluate(val_batches))
+    expect = {"log_mel": 1, "flash_attention_h2": 2 * n_layer, "flash_attention": n_layer}
+    if {k: v for k, v in paths["evaluate"].items() if v} != expect:
+        raise AssertionError(f"{geometry} evaluate launched {paths['evaluate']}, expected {expect}")
+    for key in ("loss", "wer", "disease_acc"):
+        if not np.isfinite(metrics[key]):
+            raise AssertionError(f"{geometry} evaluate: {key} = {metrics[key]}")
+    print(f"{tag} train, batch {HW_TRAIN_BATCH}, bf16, token buckets "
+          f"{[bt['input_tokens'].shape[1] for bt in batches]}: 2 steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step s {', '.join(f'{x:.4f}' for x in step_s)} (the first has the set-up); evaluate on "
+          f"{HW_TRAIN_BATCH} clips {t_eval:.3f} s, loss {metrics['loss']:.4f}; launches per step "
+          f"{json.dumps(per_step)} [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    total = {name: sum(c.get(name, 0) for c in paths.values()) for name in HW_KERNELS}
+    missing = [name for name, n in total.items() if n == 0]
+    if missing:
+        raise AssertionError(f"{geometry}: no launch of {missing} on phase 21's paths: {total}")
+    print(f"{tag} launches over the paths {json.dumps(total)}", flush=True)
+    return list(paths.values())
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -2752,14 +3070,23 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # phase 21: head widths 128 and 32 at base's depth and width
+    hw_paths = []
+    for geometry in HW_DIMS:
+        rows += check_head_width_kernels(card, geometry)
+        with tempfile.TemporaryDirectory() as workdir:
+            hw_paths += run_head_width(card, geometry, workdir)
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
     # train steps, and phase 20's fp32 window paths, CLI run, train steps
-    # and evaluate), each counted from 0 just before it ran
+    # and evaluate, and phase 21's greedy, kv_quant=False, beam, train and
+    # evaluate runs at head widths 128 and 32), each counted from 0 just
+    # before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts)
+             fp32_eval_counts, *hw_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

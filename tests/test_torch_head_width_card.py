@@ -1,0 +1,181 @@
+"""The attention kernels at head widths 32 and 128 on the card, each against
+its plain version: K3 with and without lse, K5 (on K3's forward), K6, K7
+with and without lse and K8 over both tile plans, causal, q_offset and a
+ragged valid length; K2 and K1 over cross and self caches at groups 1, 5,
+16 and 20; every output bitwise on a second launch. A width no kernel
+serves, and fp32 at 32 or 128, raises on the card. Marked `cuda`: they
+skip where there is no card (`python -m pytest tests/test_torch_*.py -q -m
+cuda` on the machine with one). This file imports no JAX: the plain
+versions are the reference, and their own tests hold them to the JAX
+package (test_torch_head_width.py)."""
+
+import pytest
+import torch
+
+from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+from asr_ttl_mtl_tpu_torch.ops import decode_attention as PD
+from asr_ttl_mtl_tpu_torch.ops import flash_attention as PF
+
+REL = 2.0**-6  # of the largest output: bf16 rounds p, dS and the outputs at other places (as phase 8 holds them)
+
+
+@pytest.fixture
+def card():
+    """The card; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(card, seed, *shapes, dtype=torch.bfloat16):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card).to(dtype) for s in shapes]
+
+
+def _listed(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _close(got, want, tol):
+    for a, b in zip(_listed(got), _listed(want)):
+        assert (a.float() - b.float()).abs().max().item() <= tol(b), (a.float() - b.float()).abs().max().item()
+
+
+def _rel(x):
+    return REL * x.float().abs().max().item()
+
+
+def _same_bits(run, got):
+    assert all(torch.equal(a, b) for a, b in zip(_listed(run()), _listed(got)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("b,tq,tk,kv_len", [(2, 300, 300, 290), (3, 48, 1500, None), (1, 65, 200, 1)])
+def test_k3_and_k6_on_card(card, dh, b, tq, tk, kv_len):
+    """K3 with and without lse (hpb 4 at dh 32, 1 at dh 128) and K6: both
+    tile plans (tq <= 64 and above), a ragged key tail, a single valid key."""
+    d, n_head = 512, 512 // dh
+    q, k, v, g = _rnd(card, dh + tq, (b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d))
+    kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
+    want, want_lse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
+    reset_launch_counts()
+    got = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
+    assert tuple(got[1].shape) == (d // 128, b, tq, 128 // dh)
+    _close(got[0], want, _rel)
+    _close(got[1], want_lse, lambda w: 1e-4)
+    _same_bits(lambda: PF.flash_attention_h2(q, k, v, return_lse=True, **kw), got)
+    _close(PF.flash_attention_h2(q, k, v, **kw), want, _rel)
+    delta = PF.h2_delta(g, want, n_head)
+    grads = PF.flash_attention_h2_bwd(q, k, v, want_lse, delta, g, **kw)
+    want_grads = PF.flash_attention_h2_bwd_plain(q, k, v, want_lse, delta, g, **kw)
+    # of the largest gradient: with one valid key dq cancels to ~1e-7, where
+    # bf16's rounding of dS is the whole of it
+    scale = max(w.float().abs().max().item() for w in want_grads)
+    _close(grads, want_grads, lambda w: REL * scale)
+    _same_bits(lambda: PF.flash_attention_h2_bwd(q, k, v, want_lse, delta, g, **kw), grads)
+    assert {n: c for n, c in LAUNCHES.items() if c} == {"flash_attention_h2_lse": 2, "flash_attention_h2": 1,
+                                                        "flash_attention_h2_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("bh,tq,tk,causal,q_offset,kv_len",
+                         [(12, 130, 130, True, 0, None), (12, 48, 96, True, 48, None), (8, 37, 100, True, 7, 90),
+                          (8, 50, 257, False, 0, 200), (4, 1536, 1536, False, 0, 1500)])
+def test_k7_and_k8_on_card(card, dh, bh, tq, tk, causal, q_offset, kv_len):
+    """K7 with and without lse and K8: causal, q_offset, a ragged valid
+    length, odd tq, and the encoder's (B x H, 1536, dh) valid to 1500."""
+    q, k, v, g = _rnd(card, dh + tq, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh))
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+    want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = PF.flash_attention(q, k, v, return_lse=True, **kw)
+    _close(got[0], want, _rel)
+    _close(got[1], want_lse, lambda w: 1e-4)
+    _same_bits(lambda: PF.flash_attention(q, k, v, return_lse=True, **kw), got)
+    _close(PF.flash_attention(q, k, v, **kw), want, _rel)
+    grads = PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw)
+    want_grads = PF.flash_attention_bwd_plain(q, k, v, want, want_lse, g, **kw)
+    scale = max(w.float().abs().max().item() for w in want_grads)
+    _close(grads, want_grads, lambda w: REL * scale)
+    _same_bits(lambda: PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw), grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,n_head", [(32, 3), (128, 1), (32, 16)])
+def test_k5_on_card_takes_the_forward(card, dh, n_head):
+    """K5 at dh 32 and 128 runs K3's forward over any number of heads (d
+    need not be a multiple of 128)."""
+    d = dh * n_head
+    q, k, v = _rnd(card, 3, (2, 200, d), (2, 300, d), (2, 300, d))
+    kw = dict(n_head=n_head, kv_valid_len=270, scale=dh**-0.5)
+    got = PF.flash_attention_mh(q, k, v, **kw)
+    _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), _rel)
+    _same_bits(lambda: PF.flash_attention_mh(q, k, v, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("b,group,tk,valid", [(8, 1, 1500, None), (8, 5, 1500, None), (1, 5, 1500, None),
+                                              (4, 16, 448, 37), (8, 1, 128, 0), (3, 20, 1500, 1000)])
+def test_k2_on_card(card, dh, b, group, tk, valid):
+    """K2 over bf16 caches: cross and self, clusters of 1-8 CTAs, groups 1
+    to 20 in one launch; 2 bf16 steps of the largest output."""
+    d, n_head = 512, 512 // dh
+    q, ck, cv = _rnd(card, tk + group, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d))
+    kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+    reset_launch_counts()
+    got = PD.decode_attention(q, ck, cv, 1, n_head, **kw)
+    assert LAUNCHES["decode_attention"] == 1
+    _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: 2.0**-7 * w.float().abs().max())
+    _same_bits(lambda: PD.decode_attention(q, ck, cv, 1, n_head, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("b,group,tk,valid", [(8, 1, 1536, 1499), (8, 5, 1536, 1499), (1, 5, 1536, 1499),
+                                              (2, 20, 1536, 1000), (4, 1, 512, 37), (4, 5, 128, 70)])
+def test_k1_on_card(card, dh, b, group, tk, valid):
+    """K1 over int8 caches: the cluster split (batch 1: tk_blk 512, 3
+    CTAs), two row chunks (group 20), a self cache; within the plain
+    version's flip bound, one bf16 rounding and fp32 noise, as phase 3."""
+    d, n_head = 512, 512 // dh
+    q, ck, cv = _rnd(card, tk + group + 1, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d))
+    (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
+    kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+    want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, n_head, return_flip_bound=True, **kw)
+    got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw)
+    ref = want.float().abs()
+    assert ((got.float() - want.float()).abs() <= (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()).all()
+    _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dtype", [(80, torch.bfloat16), (16, torch.bfloat16), (32, torch.float32),
+                                      (128, torch.float32)])
+def test_other_widths_raise_on_card(card, dh, dtype):
+    """No fallback: a width no kernel of the dtype serves raises in K1, K2,
+    K3, K6, K7 and K8 (and K5 in fp32), and nothing launches."""
+    n_head = 2
+    d = dh * n_head
+    q, = _rnd(card, 0, (2, 64, d), dtype=dtype)
+    qs, = _rnd(card, 0, (4, 64, dh), dtype=dtype)
+    lse = torch.zeros((4, 64, 1), device=card)
+    qd, ck = _rnd(card, 0, (2, 1, d), (1, 2, 128, d), dtype=dtype)
+    ki, ks = PD.quantize_kv_rows(ck.float())
+    calls = [lambda: PF.flash_attention_h2(q, q, q, n_head=n_head),
+             lambda: PF.flash_attention(qs, qs, qs, causal=True),
+             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True),
+             lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0),
+             lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, n_head, scale=1.0)]
+    if d % 128 == 0:
+        res = torch.zeros((d // 128, 2, 64, max(1, 128 // dh)), device=card)
+        calls.append(lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head))
+    if dtype == torch.float32:
+        calls.append(lambda: PF.flash_attention_mh(q, q, q, n_head=n_head))
+    reset_launch_counts()
+    for call in calls:
+        with pytest.raises(ValueError, match="head width of"):
+            call()
+    assert sum(LAUNCHES.values()) == 0
