@@ -4,8 +4,8 @@
 // (BH, T, dh), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
 // accumulate, at head widths dh of 32, 64 and 128 (K5 at any); and the
-// same functions in fp32 at a head width of 64, on the CUDA cores
-// (namespace f32, its own note below).
+// same functions in fp32 at a head width of 64, fp32-accurate on the tensor
+// cores in 3xTF32 (namespace f32, its own note below).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -67,6 +67,7 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 using namespace nvcuda;
 
@@ -1356,50 +1357,102 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 // ------------------------------------------ fp32: K3, K5 at dh 64, K7, K6, K8
 //
-// fp32 in, fp32 out, every product in fp32 on the CUDA cores (FFMA): the
-// tensor cores take fp32 operands only as TF32, whose 10-bit mantissa moves
-// a score by ~5e-4 of its size. Serves `flash_h2_fwd_f32`,
-// `flash_mh_fwd_f32` (head width 64), `flash_fwd_f32`, `flash_h2_bwd_f32`
-// and `flash_bwd_f32` over the layouts, masks and residuals of the bf16
-// kernels (`Shape`, `res_index`), causal a template parameter; p and dS
-// stay fp32, as the JAX kernels keep them in v's (q's) dtype.
+// fp32 in, fp32 out, fp32-accurate products on the tensor cores in 3xTF32.
+// Serves `flash_h2_fwd_f32`, `flash_mh_fwd_f32` (head width 64),
+// `flash_fwd_f32`, `flash_h2_bwd_f32` and `flash_bwd_f32` over the layouts,
+// masks and residuals of the bf16 kernels (`Shape`, `res_index`), causal a
+// template parameter; p and dS stay fp32, as the JAX kernels keep them in
+// v's (q's) dtype.
 //
-// What bounds it on the H100: the FFMA rate (67 TFLOP/s dense fp32 at
-// 700 W). The encoder forward does 4 T^2 dh operations a head against
-// 16 T dh bytes, so memory is far off. The design is the simple one:
-//   - A CTA of 256 threads takes a tile of 64 rows (queries; keys in the
-//     dk/dv kernel) of one (batch row, head) and walks the other side in
-//     tiles of 64. Every product is a 64 x 64 x 64 block from shared
-//     memory: thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and
-//     columns tx + 16 j (i, j < 4), reading 4 + 4 values a step of the
-//     reduction for 16 FFMAs.
-//   - Tiles keep a row stride of 65 floats, so the 16 threads that read one
-//     column of 16 rows hit 16 banks; 4-byte cp.async fills them, rows past
-//     the end with zeros.
-//   - A row of the score tile lies in 16 lanes of one warp: the online
-//     softmax reduces with 4 shuffles, and the p (dS) tile that the next
-//     product reads as its A operand is written and read by that warp
-//     alone (a __syncwarp, no block barrier).
-//   - Forward: Q once, K and V double-buffered (6 tiles, 100 KB: 2 CTAs an
-//     SM). Backward as FA2 without atomics, so a second launch gives the
-//     same bits: a dq kernel over the key tiles (S, dP, then dQ += dS K)
-//     and a dk/dv kernel over the query tiles (S^T, dP^T, then
-//     dV += P^T dO, dK += dS^T Q), single-buffered in 5 and 6 tiles.
-// Rows and keys that no mask lets through follow the plain version: p 0,
-// an output row of 0 and lse -1e30 where a row sees no key, dk and dv 0 for
-// keys that no query sees.
+// What bounds it on the H100: the products. The encoder forward does
+// 4 T^2 dh FLOPs a head against 16 T dh bytes, so memory is far off. FFMA
+// on the CUDA cores peaks at 67 TFLOP/s. One TF32 pass on the tensor cores
+// keeps 11 significant bits of each operand and moves a score by ~5e-4 of
+// its size, 25x the 2e-5 these kernels are held to. Three passes reach fp32
+// accuracy: x = big + small with big = tf32(x), `cvt.rna.tf32.f32`'s
+// rounding (to nearest, ties away; done as two integer operations, for
+// finite x the same bits) and small = x - big, exact in fp32, of which the
+// tensor cores read the top 19 bits; a b = small_a big_b + big_a small_b +
+// big_a big_b; small_a small_b (~2^-22 of the product) is dropped. The
+// bound is then 3x the FLOPs over the 495 TFLOP/s of dense TF32 (165
+// TFLOP/s of fp32-accurate products, 2.5x the FFMA peak); in practice
+// mma.sync runs TF32 well below that peak (`tf32_mma_probe` measures it),
+// so the design keeps mma.sync fed and spends few other instructions:
+//   - mma.sync m16n8k8 tf32, fp32 accumulators in registers. wgmma takes
+//     tf32 operands only K-major from shared memory, and V in P V, K in
+//     dS K, and dO and Q in the dk/dv products are MN-major in these
+//     layouts: wgmma would need a transposing pass (later work).
+//   - The tensor cores' sums truncate: a long reduction into one
+//     accumulator drifts by ~2^-24 of its size a step, all one way (over
+//     1500 keys, most of the 2e-5 bound). So each n8 tile of a reduction
+//     over keys (queries) sums 16 of them into a zeroed accumulator, added
+//     to the running sum in fp32; and the two correction passes of a score
+//     go into their own accumulator, 2^-11 the size of the first's.
+//   - A CTA of 4 warps owns 64 rows (queries; keys in the dk/dv kernel), 16
+//     a warp, and walks the other side in tiles: 64 keys in the forward
+//     (scored 32 at a time), 32 keys in the dq kernel, 32 queries in the
+//     dk/dv kernel (16 at a time). Two CTAs an SM (96, 80 and 112.5 KB of
+//     shared memory, at most 255 registers a thread, no spill).
+//   - Q, which a warp of the forward or the dq kernel keeps for the whole
+//     walk, is read once from global memory as A fragments and split once,
+//     into registers. The other operands a warp keeps (dO in the dq kernel;
+//     K and V in the dk/dv kernel, whose two accumulators fill the
+//     registers) stay in split tiles of 64 rows.
+//   - A shared operand is split once a tile, not once a warp: the tile lands
+//     in a raw buffer by 16-byte cp.async (rows past the end zero-filled);
+//     one pass writes it as (big, small) pairs into a split tile of 512-byte
+//     rows whose 16-byte chunks (two columns each) are XOR-swizzled by the
+//     row (`swz`); then the next tile's copy starts into the raw buffer and
+//     overlaps this tile's products. Every fragment load of a split tile is
+//     free of bank conflicts: a B operand read along its rows (K in Q K^T,
+//     V in dO V^T, Q and dO in the dk/dv scores) and an A operand (dO in
+//     the dq kernel, K and V in the dk/dv kernel) as one 16-byte load a
+//     fragment row, a B operand summed over its rows (V in P V, K in dS K,
+//     dO in P^T dO, Q in dS^T Q) as two 8-byte loads.
+//   - Within each k8 step, A columns t and t + 4 stand for the adjacent
+//     columns 2t and 2t + 1 (a sum does not depend on its order). So the
+//     accumulator's p or dS (columns 2t, 2t + 1 of rows g and g + 8) is the
+//     A fragment of P V, dS K, P^T dO and dS^T Q as it stands, split in
+//     registers: no p, dS, p^T or dS^T tile passes through shared memory.
+//   - The forward skips the per-element mask on tiles that no mask cuts for
+//     any row of a warp; exp2 is ex2.approx (2 ulp).
+//   - Backward as FA2 without atomics, so a second launch gives the same
+//     bits: a dq kernel over the key tiles (S, dP, then dQ += dS K) and a
+//     dk/dv kernel over the query tiles (S^T, dP^T, then dV += P^T dO,
+//     dK += dS^T Q).
+// Scores are scaled into log2 units (exp2), which moves p by an fp32
+// rounding only. Rows and keys that no mask lets through follow the plain
+// version: p 0, an output row of 0 and lse -1e30 where a row sees no key,
+// dk and dv 0 for keys that no query sees.
 
 namespace f32 {
 
-constexpr int kDh = 64;              // the head width the fp32 kernels take
-constexpr int kT = 64;               // rows of a tile: queries or keys
-constexpr int kLd = kDh + 1;         // fp32 row stride of a shared tile
-constexpr int kTileF = kT * kLd;     // floats of a shared tile
-constexpr int kThreads = 256;        // 16 x 16 threads, a 4 x 4 block each
-constexpr int kFwdSmem = 6 * kTileF * 4;
-constexpr int kDqSmem = 5 * kTileF * 4;
-constexpr int kDkvSmem = 6 * kTileF * 4 + 2 * kT * 4;
+using sm90::key_limit;
+using sm90::key_tiles;
+using sm90::kLn2;
+using sm90::kLog2e;
 
+constexpr int kDh = 64;            // the head width the fp32 kernels take
+constexpr int kSteps = kDh / 8;    // k8 steps over a row
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kBM = 64;            // rows a CTA owns (16 a warp): queries, or keys in the dk/dv kernel
+constexpr int kFwdN = 64;          // keys of a forward tile
+constexpr int kFwdPart = 32;       // keys the forward scores at a time
+constexpr int kBwdN = 32;          // keys of a dq tile, queries of a dk/dv tile
+constexpr int kDkvPart = 16;       // queries the dk/dv kernel scores at a time
+constexpr int kRawF = kDh;         // floats of a raw row
+constexpr int kSplitF = 2 * kDh;   // floats of a split row: (big, small) a column
+constexpr int kFwdSmem = (2 * kFwdN * kRawF + 2 * kFwdN * kSplitF) * 4;
+constexpr int kDqSmem = (2 * kBwdN * kRawF + 2 * kBwdN * kSplitF + kBM * kSplitF) * 4;
+// + K's split tile, and lse and delta as copied and as read
+constexpr int kDkvSmem = kDqSmem + kBM * kSplitF * 4 + 4 * kBwdN * 4;
+static_assert(kBM * kRawF <= kBwdN * kSplitF, "the raw rows of one 64-row operand wait in one split tile's room");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
                "l"(src), "r"(in ? 4 : 0)
@@ -1411,138 +1464,343 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows row0 .. row0 + 63 of one (batch row, head) slice (row r at
-// src + r * d, 64 values) into a shared tile; rows at or past n_rows are zero
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int n_rows, int d) {
-  for (int i = threadIdx.x; i < kT * kDh; i += kThreads) {
-    const int r = i / kDh, c = i % kDh;
+// rows row0 .. row0 + kRows - 1 of one (batch row, head) slice (row r at
+// src + r * d, 64 values) into a raw tile; rows at or past n_rows are zero
+template <int kRows>
+__device__ __forceinline__ void load_raw(float* dst, const float* src, int row0, int n_rows, int d) {
+  static_assert(kRows * kDh / 4 % kThreads == 0, "whole 16-byte chunks a thread");
+#pragma unroll
+  for (int j = 0; j < kRows * kDh / 4 / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / (kDh / 4), c = i % (kDh / 4);
     const bool in = row0 + r < n_rows;
-    cp_async4(dst + r * kLd + c, src + (size_t)(in ? row0 + r : 0) * d + c, in);
+    cp_async16(dst + r * kRawF + 4 * c, src + (size_t)(in ? row0 + r : 0) * d + 4 * c, in);
   }
 }
 
-// acc[i][j] += sum_k a[ty + 16 i][k] B(k, tx + 16 j), k < 64, with `a` a
-// shared tile read along its rows and B(k, c) = b[c][k] (K in Q K^T) or,
-// with kBRows, b[k][c] (V in P V)
-template <bool kBRows>
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const float* a, const float* b) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 16
-  for (int k = 0; k < kT; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kLd + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = kBRows ? b[k * kLd + tx + 16 * j] : b[(tx + 16 * j) * kLd + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// lse and delta of query rows row0 .. row0 + kBwdN - 1 (zero past tq)
+__device__ __forceinline__ void load_res(float* lraw, float* draw, const float* lse, const float* delta,
+                                         const Shape& sh, int h, int b, int row0) {
+  const int i = threadIdx.x, r = i % kBwdN, row = row0 + r;
+  if (i < 2 * kBwdN) {
+    const bool in = row < sh.tq;
+    const size_t at = res_index(sh, h, b, in ? row : 0);
+    cp_async4((i < kBwdN ? lraw : draw) + r, (i < kBwdN ? lse : delta) + at, in);
   }
 }
 
-// over the 16 lanes that hold one row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// x = big + small: big is `cvt.rna.tf32.f32` of x (half a TF32 ulp added to
+// the bits, the 13 low bits cut: the same bits for finite x), small = x -
+// big exactly, whose 13 low bits the tensor cores do not read
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-using sm90::key_limit;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// the key tiles that queries q0 .. q0 + 63 see
-template <bool kCausal>
-__device__ __forceinline__ int key_tiles(const Shape& sh, int q0) {
-  const int n = (sh.kv_len + kT - 1) / kT;
-  return kCausal ? min(n, (sh.q_offset + min(q0 + kT, sh.tq) - 1) / kT + 1) : n;
+// the XOR swizzle of a split row's 16-byte chunks by the row: rows 2m and
+// 2m + 1 differ in bit 2, rows 0, 2, 4, 6 (and 1, 3, 5, 7) in bits 1-2
+__device__ __forceinline__ int swz(int r) { return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2); }
+
+// a raw tile into a split tile: columns 2c, 2c + 1 of row r as (big, small,
+// big, small) in chunk c ^ swz(r)
+template <int kRows>
+__device__ __forceinline__ void split_tile(float* dst, const float* raw) {
+#pragma unroll
+  for (int j = 0; j < kRows * kDh / 4 / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / (kDh / 4), c4 = i % (kDh / 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * kRawF + 4 * c4);
+    uint4 lo, hi;
+    split(x.x, lo.x, lo.y);
+    split(x.y, lo.z, lo.w);
+    split(x.z, hi.x, hi.y);
+    split(x.w, hi.z, hi.w);
+    // half the lanes of a row store their second chunk first: 8 lanes, 8 bank groups
+    const int first = (c4 >> 2) & 1, s = swz(r);
+    float* row = dst + r * kSplitF;
+    *reinterpret_cast<uint4*>(row + (((2 * c4 + first) ^ s) << 2)) = first ? hi : lo;
+    *reinterpret_cast<uint4*>(row + (((2 * c4 + 1 - first) ^ s) << 2)) = first ? lo : hi;
+  }
+}
+
+// a thread's float offsets into a split tile (g = lane / 4, t = lane % 4):
+// rows[e], row g's chunk of columns 2t, 2t + 1 in k8 step e (0 or 1; step
+// ks adds 32 (ks / 2) floats); cols[p][e], row 2t + p's column g in n8 tile
+// e (tile n adds 32 (n / 2))
+struct Lanes {
+  int rows[2];
+  int cols[2][2];
+};
+__device__ __forceinline__ Lanes lanes() {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  Lanes L;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    L.rows[e] = g * kSplitF + (((4 * e + t) ^ swz(g)) << 2);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      L.cols[p][e] = (2 * t + p) * kSplitF + (((4 * e + g / 2) ^ swz(2 * t + p)) << 2) + (g & 1) * 2;
+  }
+  return L;
+}
+
+// B fragment of n8 tile n, k8 step ks, of a product that reads the split
+// tile along its rows (K in Q K^T): (big, small) of b0, then of b1
+__device__ __forceinline__ uint4 frag_b_rows(const float* sp, const Lanes& L, int n, int ks) {
+  return *reinterpret_cast<const uint4*>(sp + L.rows[ks & 1] + 32 * (ks >> 1) + 8 * n * kSplitF);
+}
+
+// B fragment of k8 step j, n8 tile n, of a product summed over the split
+// tile's rows (V in P V): rows 8j + 2t and 8j + 2t + 1, A's columns t, t + 4
+__device__ __forceinline__ uint4 frag_b_cols(const float* sp, const Lanes& L, int j, int n) {
+  const float* base = sp + 32 * (n >> 1) + 8 * j * kSplitF;
+  const uint2 lo = *reinterpret_cast<const uint2*>(base + L.cols[0][n & 1]);
+  const uint2 hi = *reinterpret_cast<const uint2*>(base + L.cols[1][n & 1]);
+  return make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// A fragment (big a0..a3, then small a0..a3) of rows r0 + g and r0 + g + 8,
+// k8 step ks, from a split tile
+__device__ __forceinline__ void frag_a(uint32_t (&a)[8], const float* sp, const Lanes& L, int r0, int ks) {
+  const float* base = sp + L.rows[ks & 1] + 32 * (ks >> 1) + r0 * kSplitF;
+  const uint4 x = *reinterpret_cast<const uint4*>(base);                // row g: a0, a2
+  const uint4 y = *reinterpret_cast<const uint4*>(base + 8 * kSplitF);  // row g + 8: a1, a3
+  a[0] = x.x, a[1] = y.x, a[2] = x.z, a[3] = y.z;
+  a[4] = x.y, a[5] = y.y, a[6] = x.w, a[7] = y.w;
+}
+
+// Q's A fragments of rows row and row + 8 (zero at or past n_rows) for every
+// k8 step, from global memory, split once: columns 8 ks + 2t, 8 ks + 2t + 1
+__device__ __forceinline__ void load_a(uint32_t (&a)[kSteps][8], const float* src, int row, int n_rows, int d) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < n_rows;
+    const float* p = src + (size_t)(in ? row + 8 * r : 0) * d + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const float2 x = in ? *reinterpret_cast<const float2*>(p + 8 * ks) : make_float2(0.f, 0.f);
+      split(x.x, a[ks][r], a[ks][4 + r]);
+      split(x.y, a[ks][2 + r], a[ks][6 + r]);
+    }
+  }
+}
+
+// the A fragment of a product over the columns of accumulator tile c (P in
+// P V, dS in dS K, ...): a0 = c0 (row g, column 2t), a1 = c2, a2 = c1, a3 = c3
+__device__ __forceinline__ void split_acc(uint32_t (&a)[8], const float (&c)[4]) {
+  split(c[0], a[0], a[4]);
+  split(c[2], a[1], a[5]);
+  split(c[1], a[2], a[6]);
+  split(c[3], a[3], a[7]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32: the correction passes (small a big b, big a small b) into
+// c, big a big b into d
+__device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4], const uint32_t (&a)[8], uint4 b) {
+  mma_tf32(c, a[4], a[5], a[6], a[7], b.x, b.z);
+  mma_tf32(c, a[0], a[1], a[2], a[3], b.y, b.w);
+  mma_tf32(d, a[0], a[1], a[2], a[3], b.x, b.z);
+}
+
+// s[n] = A B_n^T for the kN n8 tiles of split tile sp read along its rows
+// (K in Q K^T), A's k8 steps in registers
+template <int kN>
+__device__ __forceinline__ void scores(float (&s)[kN][4], const uint32_t (&a)[kSteps][8], const float* sp,
+                                       const Lanes& L) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float c[4] = {};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) mma3(s[n], c, a[ks], frag_b_rows(sp, L, n, ks));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += c[e];
+  }
+}
+
+// s[n] = A B_n^T and u[n] = A2 B2_n^T for kN n8 tiles (S and dP): frag_a1(a,
+// ks) gives A's k8 step ks, A2 is rows a2_row .. a2_row + 15 of split tile
+// a2sp, B and B2 split tiles are read along their rows
+template <int kN, typename FragA1>
+__device__ __forceinline__ void scores2(float (&s)[kN][4], float (&u)[kN][4], FragA1 frag_a1, const float* bsp,
+                                        const float* a2sp, const float* b2sp, int a2_row, const Lanes& L) {
+  float cs[kN][4] = {}, cu[kN][4] = {};
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = u[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    uint32_t a[8], a2[8];
+    frag_a1(a, ks);
+    frag_a(a2, a2sp, L, a2_row, ks);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      mma3(s[n], cs[n], a, frag_b_rows(bsp, L, n, ks));
+      mma3(u[n], cu[n], a2, frag_b_rows(b2sp, L, n, ks));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += cs[n][e], u[n][e] += cu[n][e];
+}
+
+// acc[n] += P_0 B(0, n) + P_1 B(1, n) for the 8 n8 tiles of the 64 columns:
+// p0 and p1 accumulator tiles over 16 rows of split tile sp (V in P V), the
+// two k8 steps' three passes summed into a zeroed accumulator (6 truncating
+// sums from 0) and added to acc in fp32
+__device__ __forceinline__ void mma_rows16(float (&acc)[kDh / 8][4], const float (&p0)[4], const float (&p1)[4],
+                                           const float* sp, const Lanes& L) {
+  uint32_t a0[8], a1[8];
+  split_acc(a0, p0);
+  split_acc(a1, p1);
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n) {
+    float d[4] = {};
+    mma3(d, d, a0, frag_b_cols(sp, L, 0, n));
+    mma3(d, d, a1, frag_b_cols(sp, L, 1, n));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
+  }
+}
+
+// over the 4 lanes (a quad) that hold one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows row and row + 8 of an accumulator over 64 columns (8 n8 tiles) to
+// global memory at dst (row r at dst + r * d), rows at or past n_rows skipped
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 8][4], int row, int n_rows, int d) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= n_rows) continue;
+    float* p = dst + (size_t)(row + 8 * r) * d + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n)
+      *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// the forward's online softmax over one part's scores s (keys key0 + 8n + 2t
+// (+1) of rows row, row + 8, in log2 units after sl2): p replaces s, and m,
+// l and o move to the part; kMask applies the limits lim
+template <bool kMask>
+__device__ __forceinline__ void softmax_part(float (&s)[kFwdPart / 8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[kDh / 8][4], int key0, const int (&lim)[2], float sl2) {
+  float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kFwdPart / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = !kMask || key0 + 8 * n + (e & 1) < lim[e >> 1] ? s[n][e] * sl2 : kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r])), corr = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) o[n][2 * r] *= corr, o[n][2 * r + 1] *= corr;
+  }
+#pragma unroll
+  for (int n = 0; n < kFwdPart / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = !kMask || key0 + 8 * n + (e & 1) < lim[e >> 1];
+      s[n][e] = in ? exp2_approx(s[n][e] - m[e >> 1]) : 0.f;
+      sum[e >> 1] += s[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] += quad_sum(sum[r]);
 }
 
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            float* __restrict__ out, float* __restrict__ lse, Shape sh) {
-  extern __shared__ float fsm[];
-  float* qs = fsm;
-  float* ks = qs + kTileF;      // two buffers
-  float* vs = ks + 2 * kTileF;  // two buffers
-  float* ps = vs + 2 * kTileF;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qb = q + (size_t)b * sh.tq * sh.d + h * kDh;
-  const float* kb = k + (size_t)b * sh.tk * sh.d + h * kDh;
-  const float* vb = v + (size_t)b * sh.tk * sh.d + h * kDh;
-  const int n_tiles = key_tiles<kCausal>(sh, q0);
+  extern __shared__ __align__(16) float fsm[];
+  float* kraw = fsm;
+  float* vraw = kraw + kFwdN * kRawF;
+  float* ksp = vraw + kFwdN * kRawF;
+  float* vsp = ksp + kFwdN * kSplitF;
+  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const int n_tiles = key_tiles<kCausal, kFwdN>(sh, q0, q0 + kBM);
 
-  load_tile(qs, qb, q0, sh.tq, sh.d);
   if (n_tiles > 0) {
-    load_tile(ks, kb, 0, sh.tk, sh.d);
-    load_tile(vs, vb, 0, sh.tk, sh.d);
+    load_raw<kFwdN>(kraw, k + koff, 0, sh.tk, sh.d);
+    load_raw<kFwdN>(vraw, v + koff, 0, sh.tk, sh.d);
   }
   cp_commit();
-  float o[4][4] = {}, m[4], l[4];
-  int lim[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    lim[i] = key_limit<kCausal>(sh, q0 + ty + 16 * i);
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {  // the next tile into the other buffer, freed by the last iteration's barrier
-      const int nb = (t + 1) & 1;
-      load_tile(ks + nb * kTileF, kb, (t + 1) * kT, sh.tk, sh.d);
-      load_tile(vs + nb * kTileF, vb, (t + 1) * kT, sh.tk, sh.d);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;  // this thread's rows: row and row + 8
+  uint32_t qa[kSteps][8];
+  load_a(qa, q + qoff, row, sh.tq, sh.d);
+  const Lanes L = lanes();
+  const int lim[2] = {key_limit<kCausal>(sh, row), key_limit<kCausal>(sh, row + 8)};
+  const int warp_lim = key_limit<kCausal>(sh, q0 + 16 * warp);  // the warp's first row sees the fewest keys
+  const float sl2 = sh.scale * kLog2e;
+  float o[kDh / 8][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1's splits
+    split_tile<kFwdN>(ksp, kraw);
+    split_tile<kFwdN>(vsp, vraw);
+    __syncthreads();  // the splits are in; the raw buffers are free
+    if (kt + 1 < n_tiles) {
+      load_raw<kFwdN>(kraw, k + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
+      load_raw<kFwdN>(vraw, v + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
     }
-    __syncthreads();
-    const float* kt = ks + (t & 1) * kTileF;
-    const float* vt = vs + (t & 1) * kTileF;
-    float s[4][4] = {};
-    mma_tile<false>(s, qs, kt);
+    cp_commit();
+#pragma unroll 1  // one part's registers at a time
+    for (int part = 0; part < kFwdN / kFwdPart; ++part) {
+      const int key0 = kt * kFwdN + part * kFwdPart;
+      float s[kFwdPart / 8][4];
+      scores(s, qa, ksp + part * kFwdPart * kSplitF, L);
+      if (key0 + kFwdPart <= warp_lim)
+        softmax_part<false>(s, m, l, o, key0 + 2 * t, lim, sl2);
+      else
+        softmax_part<true>(s, m, l, o, key0 + 2 * t, lim, sl2);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = t * kT + tx + 16 * j < lim[i] ? s[i][j] * sh.scale : kNegInf;
-        tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(tile_max));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = t * kT + tx + 16 * j < lim[i] ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty + 16 * i) * kLd + tx + 16 * j] = p;
-        psum += p;
-      }
-      l[i] = l[i] * corr + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= corr;
+      for (int j = 0; j < kFwdPart / 8; j += 2)
+        mma_rows16(o, s[j], s[j + 1], vsp + (part * kFwdPart + 8 * j) * kSplitF, L);
     }
-    __syncwarp();
-    mma_tile<true>(o, ps, vt);
-    __syncthreads();  // every warp is done with this tile's buffers and its p rows
   }
 
-  float* ob = out + (size_t)b * sh.tq * sh.d + h * kDh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sh.tq) continue;
+  for (int r = 0; r < 2; ++r) {  // a row with no valid key (l == 0) writes 0
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ob[(size_t)row * sh.d + tx + 16 * j] = l[i] == 0.f ? 0.f : o[i][j] / l[i];
-    if (lse != nullptr && tx == 0) lse[res_index(sh, h, b, row)] = l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
+    for (int n = 0; n < kDh / 8; ++n) {
+      o[n][2 * r] = l[r] == 0.f ? 0.f : o[n][2 * r] / l[r];
+      o[n][2 * r + 1] = l[r] == 0.f ? 0.f : o[n][2 * r + 1] / l[r];
+    }
+    if (lse != nullptr && t == 0 && row + 8 * r < sh.tq)
+      lse[res_index(sh, h, b, row + 8 * r)] = l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
   }
+  store_rows(out + qoff, o, row, sh.tq, sh.d);
 }
 
 template <bool kCausal>
@@ -1550,57 +1808,72 @@ __global__ void __launch_bounds__(kThreads, 2)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
               const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, Shape sh) {
-  extern __shared__ float fsm[];
-  float* qs = fsm;
-  float* gs = qs + kTileF;
-  float* ks = gs + kTileF;
-  float* vs = ks + kTileF;
-  float* dss = vs + kTileF;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  extern __shared__ __align__(16) float fsm[];
+  float* kraw = fsm;
+  float* vraw = kraw + kBwdN * kRawF;
+  float* ksp = vraw + kBwdN * kRawF;
+  float* vsp = ksp + kBwdN * kSplitF;
+  float* gsp = vsp + kBwdN * kSplitF;  // dO of the CTA's rows
+  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
-  const int n_tiles = key_tiles<kCausal>(sh, q0);
+  const int n_tiles = key_tiles<kCausal, kBwdN>(sh, q0, q0 + kBM);
 
-  load_tile(qs, q + qoff, q0, sh.tq, sh.d);
-  load_tile(gs, dout + qoff, q0, sh.tq, sh.d);
+  load_raw<kBM>(ksp, dout + qoff, q0, sh.tq, sh.d);  // raw dO rows, in ksp's room until split
   cp_commit();
-  float lr[4], dr[4];
-  int lim[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lr[i] = row < sh.tq ? lse[res_index(sh, h, b, row)] : 0.f;
-    dr[i] = row < sh.tq ? delta[res_index(sh, h, b, row)] : 0.f;
-    lim[i] = key_limit<kCausal>(sh, row);
+  if (n_tiles > 0) {
+    load_raw<kBwdN>(kraw, k + koff, 0, sh.tk, sh.d);
+    load_raw<kBwdN>(vraw, v + koff, 0, sh.tk, sh.d);
   }
-  float acc[4][4] = {};
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t > 0) __syncthreads();  // the last tile's dQ product is done with ks
-    load_tile(ks, k + koff, t * kT, sh.tk, sh.d);
-    load_tile(vs, v + koff, t * kT, sh.tk, sh.d);
-    cp_commit();
+  cp_commit();
+  const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;
+  uint32_t qa[kSteps][8];
+  load_a(qa, q + qoff, row, sh.tq, sh.d);
+  const Lanes L = lanes();
+  float lr[2], dr[2];
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = row + 8 * r;
+    lr[r] = qr < sh.tq ? lse[res_index(sh, h, b, qr)] * kLog2e : 0.f;
+    dr[r] = qr < sh.tq ? delta[res_index(sh, h, b, qr)] : 0.f;
+    lim[r] = key_limit<kCausal>(sh, qr);
+  }
+  const float sl2 = sh.scale * kLog2e;
+  cp_wait<1>();
+  __syncthreads();
+  split_tile<kBM>(gsp, ksp);
+  float acc[kDh / 8][4] = {};
+  for (int kt = 0; kt < n_tiles; ++kt) {
     cp_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1's splits (and the raw dO)
+    split_tile<kBwdN>(ksp, kraw);
+    split_tile<kBwdN>(vsp, vraw);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mma_tile<false>(s, qs, ks);
-    mma_tile<false>(dp, gs, vs);
+    if (kt + 1 < n_tiles) {
+      load_raw<kBwdN>(kraw, k + koff, (kt + 1) * kBwdN, sh.tk, sh.d);
+      load_raw<kBwdN>(vraw, v + koff, (kt + 1) * kBwdN, sh.tk, sh.d);
+    }
+    cp_commit();
+
+    float s[kBwdN / 8][4], dp[kBwdN / 8][4];
+    scores2(s, dp, [&](uint32_t (&a)[8], int ks) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) a[i] = qa[ks][i];
+    }, ksp, gsp, vsp, 16 * warp, L);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = t * kT + tx + 16 * j < lim[i] ? expf(s[i][j] * sh.scale - lr[i]) : 0.f;
-        dss[(ty + 16 * i) * kLd + tx + 16 * j] = p * (dp[i][j] - dr[i]) * sh.scale;
+    for (int n = 0; n < kBwdN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // s becomes dS = p (dP - delta) scale
+        const int r = e >> 1;
+        const bool in = kt * kBwdN + 8 * n + 2 * t + (e & 1) < lim[r];
+        const float p = in ? exp2_approx(s[n][e] * sl2 - lr[r]) : 0.f;
+        s[n][e] = p * (dp[n][e] - dr[r]) * sh.scale;
       }
-    __syncwarp();
-    mma_tile<true>(acc, dss, ks);
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sh.tq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[qoff + (size_t)row * sh.d + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < kBwdN / 8; j += 2) mma_rows16(acc, s[j], s[j + 1], ksp + 8 * j * kSplitF, L);
   }
+  store_rows(dq + qoff, acc, row, sh.tq, sh.d);
 }
 
 template <bool kCausal>
@@ -1608,69 +1881,102 @@ __global__ void __launch_bounds__(kThreads, 2)
 bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, Shape sh) {
-  extern __shared__ float fsm[];
-  float* ks = fsm;
-  float* vs = ks + kTileF;
-  float* qs = vs + kTileF;
-  float* gs = qs + kTileF;
-  float* pts = gs + kTileF;   // p^T: key rows, query columns
-  float* dsts = pts + kTileF;  // dS^T
-  float* lse_s = dsts + kTileF;
-  float* dl_s = lse_s + kT;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  extern __shared__ __align__(16) float fsm[];
+  float* qraw = fsm;
+  float* graw = qraw + kBwdN * kRawF;
+  float* qsp = graw + kBwdN * kRawF;
+  float* gsp = qsp + kBwdN * kSplitF;
+  float* ksp = gsp + kBwdN * kSplitF;  // K and V of the CTA's keys
+  float* vsp = ksp + kBM * kSplitF;
+  float* lraw = vsp + kBM * kSplitF;   // lse and delta of the query tile as copied
+  float* draw = lraw + kBwdN;
+  float* ls = draw + kBwdN;  // lse in log2 units (+inf past tq: p = 0) and delta, as the products read them
+  float* ds = ls + kBwdN;
+  const int k0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
-  const int n_q = (sh.tq + kT - 1) / kT;
+  const int n_q = (sh.tq + kBwdN - 1) / kBwdN;
   // the first query tile that sees key k0 (none for keys past kv_len)
-  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kT : 0;
+  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kBwdN : 0;
+  const int key = k0 + 16 * warp + threadIdx.x % 32 / 4;  // this thread's keys: key and key + 8
+  float acc_k[kDh / 8][4] = {}, acc_v[kDh / 8][4] = {};
 
   if (first < n_q) {
-    load_tile(ks, k + koff, k0, sh.tk, sh.d);
-    load_tile(vs, v + koff, k0, sh.tk, sh.d);
+    load_raw<kBM>(qsp, k + koff, k0, sh.tk, sh.d);  // raw K and V rows, in qsp's and gsp's room until split
+    load_raw<kBM>(gsp, v + koff, k0, sh.tk, sh.d);
     cp_commit();
-  }
-  float acc_k[4][4] = {}, acc_v[4][4] = {};
-  for (int qt = first; qt < n_q; ++qt) {
-    __syncthreads();  // the last tile's products are done with qs, gs and the residuals
-    load_tile(qs, q + qoff, qt * kT, sh.tq, sh.d);
-    load_tile(gs, dout + qoff, qt * kT, sh.tq, sh.d);
+    load_raw<kBwdN>(qraw, q + qoff, first * kBwdN, sh.tq, sh.d);
+    load_raw<kBwdN>(graw, dout + qoff, first * kBwdN, sh.tq, sh.d);
+    load_res(lraw, draw, lse, delta, sh, h, b, first * kBwdN);
     cp_commit();
-    if (threadIdx.x < kT) {
-      const int row = qt * kT + threadIdx.x;
-      lse_s[threadIdx.x] = row < sh.tq ? lse[res_index(sh, h, b, row)] : 0.f;
-      dl_s[threadIdx.x] = row < sh.tq ? delta[res_index(sh, h, b, row)] : 0.f;
-    }
-    cp_wait<0>();
+    const Lanes L = lanes();
+    const float sl2 = sh.scale * kLog2e;
+    cp_wait<1>();
     __syncthreads();
-    float st[4][4] = {}, dpt[4][4] = {};
-    mma_tile<false>(st, ks, qs);
-    mma_tile<false>(dpt, vs, gs);
+    split_tile<kBM>(ksp, qsp);
+    split_tile<kBM>(vsp, gsp);
+    for (int qt = first; qt < n_q; ++qt) {
+      cp_wait<0>();
+      __syncthreads();  // tile qt landed; every warp is done with tile qt - 1's splits (and the raw K, V)
+      split_tile<kBwdN>(qsp, qraw);
+      split_tile<kBwdN>(gsp, graw);
+      if (threadIdx.x < kBwdN) {
+        const int i = threadIdx.x;
+        ls[i] = qt * kBwdN + i < sh.tq ? lraw[i] * kLog2e : INFINITY;
+        ds[i] = draw[i];
+      }
+      __syncthreads();
+      if (qt + 1 < n_q) {
+        load_raw<kBwdN>(qraw, q + qoff, (qt + 1) * kBwdN, sh.tq, sh.d);
+        load_raw<kBwdN>(graw, dout + qoff, (qt + 1) * kBwdN, sh.tq, sh.d);
+        load_res(lraw, draw, lse, delta, sh, h, b, (qt + 1) * kBwdN);
+      }
+      cp_commit();
+#pragma unroll 1  // one part's registers at a time
+      for (int part = 0; part < kBwdN / kDkvPart; ++part) {
+        const int c0 = part * kDkvPart;  // the part's first query in the tile
+        float st[kDkvPart / 8][4], dpt[kDkvPart / 8][4];
+        scores2(st, dpt, [&](uint32_t (&a)[8], int ks) { frag_a(a, ksp, L, 16 * warp, ks); }, qsp + c0 * kSplitF,
+                vsp, gsp + c0 * kSplitF, 16 * warp, L);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = qt * kT + tx + 16 * j;
-      const int lim = row < sh.tq ? key_limit<kCausal>(sh, row) : 0;
-      const float lr = lse_s[tx + 16 * j], dr = dl_s[tx + 16 * j];
+        for (int n = 0; n < kDkvPart / 8; ++n) {  // st becomes p^T, dpt dS^T; rows are keys, columns queries
+          const int c = c0 + 8 * n + 2 * t, qr = qt * kBwdN + c;
+          const float2 lq = *reinterpret_cast<const float2*>(ls + c), dq2 = *reinterpret_cast<const float2*>(ds + c);
+          const int lim[2] = {key_limit<kCausal>(sh, qr), key_limit<kCausal>(sh, qr + 1)};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = k0 + ty + 16 * i < lim ? expf(st[i][j] * sh.scale - lr) : 0.f;
-        pts[(ty + 16 * i) * kLd + tx + 16 * j] = p;
-        dsts[(ty + 16 * i) * kLd + tx + 16 * j] = p * (dpt[i][j] - dr) * sh.scale;
+          for (int e = 0; e < 4; ++e) {
+            const int cc = e & 1;
+            const bool in = key + 8 * (e >> 1) < lim[cc];
+            const float p = in ? exp2_approx(st[n][e] * sl2 - (cc ? lq.y : lq.x)) : 0.f;
+            dpt[n][e] = p * (dpt[n][e] - (cc ? dq2.y : dq2.x)) * sh.scale;
+            st[n][e] = p;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kDkvPart / 8; j += 2) {
+          mma_rows16(acc_v, st[j], st[j + 1], gsp + (c0 + 8 * j) * kSplitF, L);
+          mma_rows16(acc_k, dpt[j], dpt[j + 1], qsp + (c0 + 8 * j) * kSplitF, L);
+        }
       }
     }
-    __syncwarp();
-    mma_tile<true>(acc_v, pts, gs);
-    mma_tile<true>(acc_k, dsts, qs);
   }
+  store_rows(dk + koff, acc_k, key, sh.tk, sh.d);
+  store_rows(dv + koff, acc_v, key, sh.tk, sh.d);
+}
+
+// the rate of mma.sync m16n8k8 tf32 on the card, which these kernels run
+// on: `iters` rounds of 8 independent products a warp, 8 warps a CTA; every
+// thread writes its sum, so that no product is dead
+__global__ void __launch_bounds__(256) mma_probe_kernel(float* __restrict__ out, int iters) {
+  const uint32_t a = __float_as_uint(1.f + threadIdx.x * 0x1p-8f) & 0xffffe000u, b = __float_as_uint(0.5f);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= sh.tk) continue;
+    for (int c = 0; c < 8; ++c) mma_tf32(d[c], a, a, a, a, b, b);
+  float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dk[koff + (size_t)key * sh.d + tx + 16 * j] = acc_k[i][j];
-      dv[koff + (size_t)key * sh.d + tx + 16 * j] = acc_v[i][j];
-    }
-  }
+  for (int c = 0; c < 8; ++c) sum += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
 template <bool kCausal>
@@ -1678,7 +1984,7 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse, c
   static bool lifted[64] = {};
   const cudaError_t err = sm90::lift_smem(fwd_kernel<kCausal>, kFwdSmem, lifted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sh.tq + kT - 1) / kT, sh.n_head, sh.batch);
+  dim3 grid((sh.tq + kBM - 1) / kBM, sh.n_head, sh.batch);
   fwd_kernel<kCausal><<<grid, kThreads, kFwdSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), sh);
@@ -1695,18 +2001,26 @@ int run_bwd(const void* q, const void* k, const void* v, const void* dout, const
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
               *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
-  bwd_dq_kernel<kCausal><<<dim3((sh.tq + kT - 1) / kT, sh.n_head, sh.batch), kThreads, kDqSmem, stream>>>(
+  bwd_dq_kernel<kCausal><<<dim3((sh.tq + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, kDqSmem, stream>>>(
       qf, kf, vf, gf, lf, df, static_cast<float*>(dq), sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_kernel<kCausal><<<dim3((sh.tk + kT - 1) / kT, sh.n_head, sh.batch), kThreads, kDkvSmem, stream>>>(
+  bwd_dkv_kernel<kCausal><<<dim3((sh.tk + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, kDkvSmem, stream>>>(
       qf, kf, vf, gf, lf, df, static_cast<float*>(dk), static_cast<float*>(dv), sh);
   return (int)cudaGetLastError();
+}
+
+// rows are read by 16-byte copies and written 8 bytes at a time
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return false;
 }
 
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
                void* stream) {
   if (bad_shape(sh, kDh) || (lse != nullptr && sh.n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
+  if (misaligned({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
   auto s = (cudaStream_t)stream;
   return causal ? run_fwd<true>(q, k, v, out, lse, sh, s) : run_fwd<false>(q, k, v, out, lse, sh, s);
 }
@@ -1714,6 +2028,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
                void* dq, void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
   if (bad_shape(sh, kDh) || sh.n_head % sh.hpb) return (int)cudaErrorInvalidValue;
+  if (misaligned({q, k, v, dout, dq, dk, dv})) return (int)cudaErrorMisalignedAddress;
   auto s = (cudaStream_t)stream;
   return causal ? run_bwd<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s)
                 : run_bwd<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
@@ -1785,8 +2100,9 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
 }
 
 // ------------------------------------------------------ fp32 entry points
-// The same arguments and layouts as the bf16 entries above, fp32 tensors,
-// at a head width of 64 only (f32::kDh).
+// The same arguments and layouts as the bf16 entries above, fp32 tensors
+// on 16-byte boundaries (rows are copied 16 bytes at a time), at a head
+// width of 64 only (f32::kDh): namespace f32's 3xTF32 kernels.
 
 // K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 2) fp32
 extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
@@ -1825,4 +2141,12 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const 
   return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
 }
 
+// the mma.sync tf32 rate probe: `ctas` CTAs of 256 threads, out holds ctas * 256 floats
+extern "C" int tf32_mma_probe(void* out, int ctas, int iters, void* stream) {
+  if (ctas < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  f32::mma_probe_kernel<<<ctas, 256, 0, (cudaStream_t)stream>>>(static_cast<float*>(out), iters);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+

@@ -61,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_mh_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # out (ctas * 256 fp32), ctas, iters, stream: the mma.sync tf32 rate probe
+        "tf32_mma_probe": (_P, _I, _I, _P),
     },
     "decode_attention": {
         # q, cache_k, cache_v, out, layer, n_layer, batch, group, tk, d, n_head,

@@ -1,8 +1,10 @@
 """Where the time of a train step goes on the card.
 
     python -m asr_ttl_mtl_tpu_torch.scripts.profile_train_step [--model base] [--batch 16] [--steps 3]
+        [--compute_dtype bfloat16|float32]
 
-Builds `MultiTaskTrainer` with random weights from a seed (bf16), a seeded
+Builds `MultiTaskTrainer` with random weights from a seed (bf16 compute
+unless `--compute_dtype float32`), a seeded
 synthetic batch (noise waveforms of 2-10 s, transcripts of 5-30 words,
 token bucket 48), runs two warm-up steps, then `--steps` steps under
 `torch.profiler` and prints: the host-clock step time, the device's busy
@@ -22,7 +24,7 @@ from ..mtl import MultiTaskTrainer, TrainingConfig, collate
 from ..mtl.dataset import audio_buckets
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("flash attention (K3/K6/K7/K8)", ("flash_fwd", "flash_bwd")),
+    ("flash attention (K3/K6/K7/K8)", ("flash_fwd", "flash_bwd", "f32::fwd_kernel", "f32::bwd_")),
     ("log-mel (K4)", ("log_mel",)),
     ("GEMM", ("gemm", "cutlass", "xmma", "sm90_", "cublas", "nvjet")),
     ("optimizer foreach", ("foreach", "multi_tensor")),
@@ -68,11 +70,12 @@ def main(argv=None):
     p.add_argument("--model", default="base")
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--compute_dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = p.parse_args(argv)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = MultiTaskTrainer(TrainingConfig(model_size=args.model, pretrained="random", compute_dtype="bfloat16",
+    trainer = MultiTaskTrainer(TrainingConfig(model_size=args.model, pretrained="random", compute_dtype=args.compute_dtype,
                                               batch_size=args.batch, seed=0), verbose=False)
     batch = synthetic_batch(trainer, args.batch)
     for _ in range(2):
@@ -87,7 +90,7 @@ def main(argv=None):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     n = args.steps
     card = torch.cuda.get_device_name(0)
-    print(f"[profile] {args.model}, batch {args.batch}, token bucket {batch['input_tokens'].shape[1]}, "
+    print(f"[profile] {args.model} in {args.compute_dtype}, batch {args.batch}, token bucket {batch['input_tokens'].shape[1]}, "
           f"{n} steps on {card}: {wall_s / n * 1e3:.1f} ms a step (host clock, under the profiler)")
     if not kernels:
         print("[profile] the profiler recorded no device events; no breakdown")

@@ -182,7 +182,9 @@ DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2",
                 "flash_attention_h2_f32", "flash_attention_h2_lse_f32", "flash_attention_h2_bwd_f32",
                 "flash_attention_mh_f32", "flash_attention_f32", "flash_attention_lse_f32", "flash_attention_bwd_f32",
                 "int8_mlp_f32")
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}  # dense, H100 SXM at 700 W
+# dense, H100 SXM at 700 W; "3xtf32": fp32-accurate products as three TF32
+# passes on the tensor cores (495 TFLOP/s / 3), "fp32" FFMA on the CUDA cores
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "3xtf32": 495e12 / 3}
 
 
 def bound(flops: float, n_bytes: float, kind: str):
@@ -256,8 +258,9 @@ def heads(x, n_head: int, n_keys=None):
 def make_recorder(card: str, rows: list):
     """record(name, case, source, replaces, got, want, tol, run_kernel,
     run_plain, bound=(ms, by), library=None, main=True, plain_iters=20,
-    repeat=False): check and time one kernel (the plain version over
-    `plain_iters` calls). `got`/`want`/`tol` may be lists (one per output); a `tol` is
+    repeat=False, ffma_bound=None): check and time one kernel (the plain
+    version over `plain_iters` calls); `ffma_bound`, (ms, by) on the CUDA
+    cores, is printed and kept beside the bound. `got`/`want`/`tol` may be lists (one per output); a `tol` is
     one number or a tensor of per-output bounds on |kernel - plain|. With
     `repeat`, one more launch must give `got` bit for bit."""
     import torch
@@ -269,7 +272,7 @@ def make_recorder(card: str, rows: list):
         return t.view(ints[t.dtype]) if t.dtype in ints else t
 
     def record(name, case, source, replaces, got, want, tol, run_kernel, run_plain, *, bound, library=None,
-               main=True, plain_iters=20, repeat=False):
+               main=True, plain_iters=20, repeat=False, ffma_bound=None):
         torch.cuda.synchronize()
         gots, wants, tols = (x if isinstance(x, list) else [x] for x in (got, want, tol))
         if repeat:
@@ -301,9 +304,10 @@ def make_recorder(card: str, rows: list):
         lib_s = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         dev_s = f" (device {device_ms:.4f} ms)" if device_ms is not None else ""
         rep_s = ", bitwise on a second launch" if repeat else ""
+        ffma_s = f", FFMA bound {ffma_bound[0]:.4f} ms ({ffma_bound[1]})" if ffma_bound is not None else ""
         print(f"[kernel] {name} {case}: max_abs_err={err:.3e} (tol {tol_s}; max|ref| {ref:.3e}), "
               f"worst err/tol {worst:.3f}{rep_s}; kernel {ms:.4f} ms{dev_s}, plain {plain_ms:.4f} ms, library {lib_s}, "
-              f"bound {bound_ms:.4f} ms ({bound_by}) [{card}] {'OK' if ok else 'FAIL'}", flush=True)
+              f"bound {bound_ms:.4f} ms ({bound_by}){ffma_s} [{card}] {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {case}: max_abs_err {err}, worst err/tol {worst} (tol {tol_s})")
         row = dict(name=name, case=case, route="cuda", source=source, replaces=replaces, max_abs_err=err,
@@ -311,6 +315,8 @@ def make_recorder(card: str, rows: list):
                    library_ms=library_ms, main=main)
         if device_ms is not None:
             row["device_ms"] = device_ms
+        if ffma_bound is not None:
+            row["ffma_bound_ms"] = ffma_bound[0]
         rows.append(row)
 
     return record
@@ -2363,7 +2369,8 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
     576) and K7-lse/K8 at (72, 1536, 64) over 1536 keys valid to 1500, each
     within FP32_REL of its largest output per output (out, lse, dq, dk, dv)
     and bitwise on a second launch. Timed beside SDPA at fp32 on 4-D views
-    (its backward for K6 and K8) and the bound at 67 TFLOP/s. K14 at fp32:
+    (its backward for K6 and K8), the bound at 495 / 3 TFLOP/s (3xTF32 on
+    the tensor cores) and the FFMA bound at 67 TFLOP/s. K14 at fp32:
     the first int8 intermediate exact, the second only at rounding
     midpoints of g / sg, each output within one activation step per flip."""
     import torch
@@ -2385,8 +2392,10 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
     def tol(x):
         return FP32_REL * x.abs().max().item()
 
-    def fbound(macs, n_bytes, mults=4):
-        return attn_bound(macs, n_bytes, mults, "fp32")
+    def fbounds(macs, n_bytes, mults=4):
+        """The bound on the tensor cores in 3xTF32 and, beside it, on the CUDA cores (FFMA)."""
+        return dict(bound=attn_bound(macs, n_bytes, mults, "3xtf32"),
+                    ffma_bound=attn_bound(macs, n_bytes, mults, "fp32"))
 
     main_t, main_v = train_buckets[0], val_buckets[0]
     # K3: the window path's encoder (32, 1536, 512), keys valid to 1500; evaluate's cross
@@ -2401,7 +2410,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514", FA.flash_attention_h2(q, k, v, **kw), want,
                tol(want), lambda: FA.flash_attention_h2(q, k, v, **kw),
                lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
-               bound=fbound(b * tq * n_keys * 512, (2 * q.numel() + 2 * b * n_keys * 512) * 4),
+               **fbounds(b * tq * n_keys * 512, (2 * q.numel() + 2 * b * n_keys * 512) * 4),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
         del q, k, v, want, qh, kh, vh
 
@@ -2421,7 +2430,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                [out, lse], [pout, plse], [tol(pout), tol(plse)],
                lambda: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
                lambda: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw),
-               bound=fbound(b * tq * n_keys * 512, io + lse.numel() * 4),
+               **fbounds(b * tq * n_keys * 512, io + lse.numel() * 4),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
         delta = FA.h2_delta(g, pout, 8)
         got = list(FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw))
@@ -2432,7 +2441,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                got, want, [tol(w) for w in want],
                lambda: FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
                lambda: FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw),
-               bound=fbound(b * tq * n_keys * 512, 2 * io + 2 * lse.numel() * 4, mults=10),
+               **fbounds(b * tq * n_keys * 512, 2 * io + 2 * lse.numel() * 4, mults=10),
                library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), main=main,
                repeat=True)
         del q, k, v, g, out, lse, pout, plse, delta, got, want, lib_out, qh, kh, vh
@@ -2450,7 +2459,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
         if t == main_v:
             record("flash_attention_f32", case + " (evaluate)", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
                    FA.flash_attention(q, k, v, **kw), pout, tol(pout), lambda: FA.flash_attention(q, k, v, **kw),
-                   lambda: FA.flash_attention_plain(q, k, v, **kw), bound=fbound(128 * pairs * 64, io),
+                   lambda: FA.flash_attention_plain(q, k, v, **kw), **fbounds(128 * pairs * 64, io),
                    library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, is_causal=True),
                    main=True, repeat=True)
         if t == main_t:
@@ -2458,7 +2467,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                    [out, lse], [pout, plse], [tol(pout), tol(plse)],
                    lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
                    lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
-                   bound=fbound(128 * pairs * 64, io + lse.numel() * 4),
+                   **fbounds(128 * pairs * 64, io + lse.numel() * 4),
                    library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125, is_causal=True),
                    main=True, repeat=True)
             got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
@@ -2468,7 +2477,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                    "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030", got, want, [tol(w) for w in want],
                    lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
                    lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
-                   bound=fbound(128 * pairs * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
+                   **fbounds(128 * pairs * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
                    library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True),
                    main=True, repeat=True)
         del q, k, v, g, out, lse, pout, plse, ql, kl, vl
@@ -2485,7 +2494,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                f"64) fp32", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
                FA.flash_attention(q, k, v, **kw), want, tol(want), lambda: FA.flash_attention(q, k, v, **kw),
                lambda: FA.flash_attention_plain(q, k, v, **kw),
-               bound=fbound(bh * tq * (tq + 1) // 2 * 64, (2 * q.numel() + 2 * bh * seen * 64) * 4),
+               **fbounds(bh * tq * (tq + 1) // 2 * 64, (2 * q.numel() + 2 * bh * seen * 64) * 4),
                library=lambda: F.scaled_dot_product_attention(q[None], k[None, :, :seen], v[None, :, :seen],
                                                               is_causal=causal, scale=0.125),
                main=False, repeat=True)
@@ -2503,7 +2512,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
                f"64, kv_valid_len {kv}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
                FA.flash_attention_mh(q, k, v, **kw), want, tol(want), lambda: FA.flash_attention_mh(q, k, v, **kw),
                lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
-               bound=fbound(b * tq * n_keys * 576, (2 * q.numel() + 2 * b * n_keys * 576) * 4),
+               **fbounds(b * tq * n_keys * 576, (2 * q.numel() + 2 * b * n_keys * 576) * 4),
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), main=main, repeat=True)
         del q, k, v, want, qh, kh, vh
 
@@ -2520,7 +2529,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
            [out, lse], [pout, plse], [tol(pout), tol(plse)],
            lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
            lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
-           bound=fbound(bh * 1536 * 1500 * 64, io + lse.numel() * 4),
+           **fbounds(bh * 1536 * 1500 * 64, io + lse.numel() * 4),
            library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=0.125), main=False, repeat=True)
     got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
     want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
@@ -2529,7 +2538,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
            got, want, [tol(w) for w in want],
            lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
            lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
-           bound=fbound(bh * 1536 * 1500 * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
+           **fbounds(bh * 1536 * 1500 * 64, 2 * io + 2 * lse.numel() * 4, mults=10),
            library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=False,
            repeat=True)
     del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl

@@ -2,10 +2,12 @@
 dtype rule (bf16 and fp32 pick their C symbols and launch counts, fp16 and
 mixed dtypes raise) with the library and the card faked, and the conv
 stem's fp32 convolution under cuDNN without TF32, forward and backward,
-while the bf16 call is left as it was."""
+while the bf16 call is left as it was; and the precision argument of the
+fp32 flash kernels' 3xTF32 products, on an emulation of the TF32 rounding."""
 
 import types
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -181,3 +183,60 @@ def test_conv_stem_bf16_call_is_unchanged(conv_spy):
     assert conv_spy["forward"] == [True]
     raw = F.conv1d(x, conv.weight.bfloat16(), None, stride=1, padding=1)
     assert torch.equal(out, (raw.float() + conv.bias.float()[None, :, None]).bfloat16())
+
+
+# ------------------------------------------------------- 3xTF32 precision ---
+
+
+FP32_REL = 2e-5  # chip_smoke.py's gate on an fp32 kernel: a share of its plain version's largest output
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32` on fp32 values: a 10-bit mantissa, to nearest, ties
+    away from zero (half a TF32 ulp added to the magnitude's bits, then the
+    13 low bits cut)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value the tensor cores read from an fp32 register: the 13 low
+    mantissa bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b with TF32 operands and fp32 sums, as the kernels run it: one
+    pass (big a big b) or three (small a big b + big a small b + big a big
+    b), with x = big + small, big = tf32(x) rounded to nearest and small =
+    x - big, of which the tensor cores read the top 19 bits. A product of two
+    TF32 values is exact in fp32."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32_cut(a - a_big), _tf32_cut(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def test_tf32_rounding_emulation_is_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 2**-10, -3.0, 0.0])
+    assert _tf32_rna(x).tolist() == [1 + 2**-10, 1 + 2**-9, -(1 + 2**-10), 1.0, 1 + 2**-10, -3.0, 0.0]
+    assert _tf32_cut(x).tolist() == [1.0, 1 + 2**-10, -1.0, 1.0, 1 + 2**-10, -3.0, 0.0]
+
+
+def test_3xtf32_products_meet_the_fp32_gate_where_one_tf32_pass_does_not():
+    """The precision argument of the fp32 flash kernels (`csrc/flash_attention.cu`
+    namespace `f32`): on seeded (2, 128, 64) inputs, the scores q k^T * 0.125
+    and P V taken in 3xTF32 stay within FP32_REL of the float64 result's
+    largest entry; single-pass TF32 misses it."""
+    rng = np.random.RandomState(17)
+    q, k, v = (torch.from_numpy(rng.randn(2, 128, 64).astype(np.float32)) for _ in range(3))
+    s64 = (q.double() @ k.double().transpose(-1, -2)) * 0.125
+    p64 = torch.softmax(s64, dim=-1)
+    o64 = p64 @ v.double()
+    for passes in (3, 1):
+        s = _mm_tf32(q, k.transpose(-1, -2), passes) * 0.125
+        o = _mm_tf32(p64.float(), v, passes)
+        for what, got, want in (("scores", s, s64), ("P V", o, o64)):
+            share = (got.double() - want).abs().max().item() / (FP32_REL * want.abs().max().item())
+            assert (share <= 1.0) == (passes == 3), f"{what} in {passes} TF32 pass(es): {share:.3f} of the gate"

@@ -348,7 +348,8 @@ def test_k1_flip_bound_separates_block_sizes():
 
 # tolerance of a flash kernel's outputs against its plain version, a share
 # of the largest output: bf16 rounds p and the outputs at other places; fp32
-# sums in another order only (a TF32 product would miss it by ~25x)
+# sums in another order, its products in 3xTF32 (~2^-22 of each; one TF32
+# pass would miss the bound by ~25x)
 FLASH_REL = {torch.bfloat16: 2.0**-6, torch.float32: 2e-5}
 
 
