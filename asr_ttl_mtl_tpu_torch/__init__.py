@@ -11,7 +11,9 @@ cross-KV -> prefill -> greedy, best-of or beam decode -> text; long-form
 and the CLI (`python -m asr_ttl_mtl_tpu_torch`, `--batch_mode`);
 and the single-device multi-task fine-tune (`mtl/`: dataset, trainer,
 chunked CE, 4-group AdamW), whose attention trains through the flash
-kernels' backward passes.
+kernels' backward passes, with its report scripts (`scripts/`); file
+decoding on the host (the native C++ runtime in `runtime/` and `native/`,
+ffmpeg) and the text normalizers (`normalizers/`).
 """
 
 __version__ = "0.1.0"

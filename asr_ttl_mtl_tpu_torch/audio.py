@@ -1,15 +1,21 @@
-"""Audio frontend: WAV decode on the host, log-mel spectrogram on the device.
+"""Audio frontend: file decoding on the host, log-mel spectrogram on the device.
 
-Counterpart of `asr_ttl_mtl_tpu/audio.py` (constants, `_read_wav` :71,
+Counterpart of `asr_ttl_mtl_tpu/audio.py` (constants, `_load_audio_ffmpeg`
+:52, `_read_wav` :71, `load_audio` :144, `_read_wav_native` :162,
 `pad_or_trim` :172, `mel_filters` :218, `_stft_constants` :243,
+`log_mel_for_transfer` :302, `finish_transfer_mel` :342,
 `log_mel_spectrogram` :391). The spectrogram runs in kernel K4
 (`ops/mel.py`) for a CUDA tensor, whatever the frame count, and in its plain
-PyTorch version for a CPU tensor. Decoding goes through the stdlib `wave`
-reader only: ffmpeg and the native C++ decoder belong to a later slice.
+PyTorch version for a CPU tensor. Decoding stays on the host: a `.wav` (or
+any file, when ffmpeg is not on PATH) through the native C++ reader
+(`runtime/wav.py`, the stdlib `wave` reader where no compiler is present),
+every other file through ffmpeg, with the JAX package's command line.
 """
 
 from __future__ import annotations
 
+import shutil
+import subprocess
 from functools import lru_cache
 from typing import Optional, Union
 
@@ -30,6 +36,26 @@ N_FRAMES = exact_div(N_SAMPLES, HOP_LENGTH)  # 3000 frames in a mel spectrogram 
 N_SAMPLES_PER_TOKEN = HOP_LENGTH * 2  # the initial convolutions have stride 2
 FRAMES_PER_SECOND = exact_div(SAMPLE_RATE, HOP_LENGTH)  # 10ms per audio frame
 TOKENS_PER_SECOND = exact_div(SAMPLE_RATE, N_SAMPLES_PER_TOKEN)  # 20ms per audio token
+
+
+def _load_audio_ffmpeg(file: str, sr: int) -> np.ndarray:
+    """Decode any file ffmpeg reads to mono 16-bit PCM at `sr`, as float32."""
+    cmd = [
+        "ffmpeg",
+        "-nostdin",
+        "-threads", "0",
+        "-i", file,
+        "-f", "s16le",
+        "-ac", "1",
+        "-acodec", "pcm_s16le",
+        "-ar", str(sr),
+        "-",
+    ]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"Failed to load audio: {e.stderr.decode()}") from e
+    return np.frombuffer(out, np.int16).flatten().astype(np.float32) / 32768.0
 
 
 def _read_wav(file: str) -> tuple[np.ndarray, int]:
@@ -111,9 +137,28 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
-    """Read a WAV file as a mono float32 waveform at `sr` Hz."""
-    data, orig_sr = _read_wav(file)
-    return resample(data, orig_sr, sr)
+    """Read an audio file as a mono float32 waveform at `sr` Hz: a `.wav`,
+    or any file when ffmpeg is not on PATH, through the native reader;
+    anything else, or a `.wav` the reader refuses, through ffmpeg."""
+    if file.lower().endswith(".wav") or not shutil.which("ffmpeg"):
+        try:
+            data, orig_sr = _read_wav_native(file)
+            return resample(data, orig_sr, sr)
+        except Exception:
+            if not shutil.which("ffmpeg"):
+                raise
+    return _load_audio_ffmpeg(file, sr)
+
+
+def _read_wav_native(file: str) -> tuple[np.ndarray, int]:
+    """WAV decode through the C++ runtime, or the Python reader where it
+    cannot be built (no compiler)."""
+    from .runtime import wav as native
+
+    try:
+        return native.read(file)
+    except ImportError:
+        return _read_wav(file)
 
 
 def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
@@ -200,6 +245,46 @@ def _log_mel(audio: torch.Tensor, n_mels: int, padding: int) -> torch.Tensor:
     log_spec = torch.maximum(log_spec, global_max - 8.0)
     out = (log_spec + 4.0) / 4.0
     return out.reshape(*lead, n_mels, n_frames)
+
+
+def log_mel_for_transfer(wave: np.ndarray, n_mels: int = 80, full_samples: Optional[int] = None) -> np.ndarray:
+    """Host half of the training pipeline's `mel_fp16` transfer: the
+    normalized log-mel of bucket-length waveforms (..., L), as fp16.
+
+    For a clip zero-padded to L samples, the frames of the full-window mel
+    whose windows reach samples < L are the first L // HOP + 2 (frames L //
+    HOP and L // HOP + 1 still reach into the last N_FFT / 2 samples);
+    every later frame is padding, whose value after the dynamic-range clip
+    the device rebuilds from these (`finish_transfer_mel`). So the mel of
+    wave || 0^N_FFT is computed here with the port's plain log-mel on the
+    CPU (a CPU tensor never reaches K4), and its first L // HOP + 2 frames
+    are kept. A clip that fills the window (L >= full_samples) has no zero
+    region: the device's mel reflects its tail, so the full-window mel is
+    computed as it is."""
+    wave = np.asarray(wave, np.float32)
+    lead, length = wave.shape[:-1], wave.shape[-1]
+    flat = torch.from_numpy(np.ascontiguousarray(wave.reshape(-1, length)))
+    if full_samples is not None and length >= full_samples:
+        mel = _log_mel(flat, n_mels, 0)
+    else:
+        mel = _log_mel(flat, n_mels, N_FFT)[..., : length // HOP_LENGTH + 2]
+    mel = mel.numpy().astype(np.float16)
+    return mel.reshape(*lead, n_mels, mel.shape[-1])
+
+
+def finish_transfer_mel(mel: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Device half of `log_mel_for_transfer`, on the tensor's own device:
+    fp16 -> fp32, extended to the window's n_samples // HOP frames with each
+    sample's dynamic-range floor (its max - 2.0, the normalized max - 8 dB,
+    never below the log10 clamp's -1.5), or truncated where a full-window
+    clip shipped two frames more."""
+    mel = mel.float()
+    target = n_samples // HOP_LENGTH
+    short = target - mel.shape[-1]
+    if short <= 0:
+        return mel[..., :target].contiguous()
+    floor = torch.clamp(mel.amax(dim=(-2, -1), keepdim=True) - 2.0, min=-1.5)
+    return torch.cat([mel, floor.expand(*mel.shape[:-1], short)], dim=-1)
 
 
 def log_mel_spectrogram(

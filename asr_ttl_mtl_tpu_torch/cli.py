@@ -3,8 +3,10 @@
     python -m asr_ttl_mtl_tpu_torch audio.wav --model base.pt [--device cpu] ...
 
 The flags, defaults and their rules are the JAX package's. `--model` names
-a reference-layout `.pt` file, or a preset name whose `<name>.pt` lies in
-`--model_dir`: nothing is downloaded. A preset name also sets that preset's
+a reference-layout `.pt` file, a preset name whose `<name>.pt` lies in
+`--model_dir`, or an official checkpoint (`models.available_models()`,
+JAX `cli.py:23-29`) found where the JAX package keeps them: nothing is
+downloaded. A preset name also sets that preset's
 alignment heads for `--word_timestamps`, as the JAX `load_model` does
 (when the checkpoint has the preset's decoder layers and heads). `--device` is a torch device, the
 card by default. `--batch_mode True` decodes every window of every file
@@ -32,12 +34,12 @@ from .utils.writers import get_writer
 def build_parser() -> argparse.ArgumentParser:
     """The transcription flag surface, separate from `cli` so that it can be
     tested."""
-    from .models.dims import PRESET_DIMS
+    from .models import PRESET_DIMS, available_models
 
     def valid_model_name(name):
-        if name in PRESET_DIMS or os.path.exists(name):
+        if name in available_models() or name in PRESET_DIMS or os.path.exists(name):
             return name
-        raise ValueError(f"model should be one of {sorted(PRESET_DIMS)} or path to a model checkpoint")
+        raise ValueError(f"model should be one of {available_models()} or path to a model checkpoint")
 
     # fmt: off
     parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -90,15 +92,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _checkpoint_path(parser: argparse.ArgumentParser, model_name: str, model_dir: Optional[str]) -> str:
+    """A file, <model_dir>/<name>.pt, or an official checkpoint found where
+    the JAX package keeps them; else the parser's error (an official name
+    with the JAX package's "not found" message)."""
+    from .models import available_models
+    from .models.registry import _find_cached_checkpoint, default_download_root
+
     if os.path.isfile(model_name):
         return model_name
     path = os.path.join(model_dir, f"{model_name}.pt") if model_dir else None
-    if path is None or not os.path.isfile(path):
-        parser.error(
-            f"--model {model_name}: a checkpoint file is needed (a reference-layout .pt path, or "
-            f"{model_name}.pt in --model_dir); nothing is downloaded"
-        )
-    return path
+    if path is not None and os.path.isfile(path):
+        return path
+    if model_name in available_models():
+        found = _find_cached_checkpoint(model_name, default_download_root())
+        if found is None:
+            parser.error(f"Model {model_name} not found; available models = {available_models()}")
+        return found
+    parser.error(
+        f"--model {model_name}: a checkpoint file is needed (a reference-layout .pt path, or "
+        f"{model_name}.pt in --model_dir); nothing is downloaded"
+    )
 
 
 # sequential-only options that the independent windows of --batch_mode

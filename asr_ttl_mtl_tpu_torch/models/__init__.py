@@ -1,6 +1,7 @@
 from .dims import PRESET_DIMS, ModelDimensions  # noqa: F401
 from .registry import (  # noqa: F401
     WhisperModel,
+    available_models,
     checkpoint_dict,
     from_random,
     load_model,

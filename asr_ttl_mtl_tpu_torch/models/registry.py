@@ -5,15 +5,20 @@ Counterpart of `asr_ttl_mtl_tpu/models/registry.py`. The `.pt` layout is
 the reference's (`{"dims": {...}, "model_state_dict": {...}}`), and
 `state_dict_from_jax_params` gives exactly the keys, transposes and shapes
 of the JAX package's `export_torch_state_dict` (:168-223) from a tree of
-numpy arrays, without importing jax. Downloading official checkpoints is
-not ported: `load_model` reads local files. The alignment-head masks of the
-official checkpoints (`_ALIGNMENT_HEADS`, for word timestamps) are data
-kept here.
+numpy arrays, without importing jax. `available_models()` (JAX :73) names
+the official checkpoints, and `load_model(name)` finds one on the disk by
+the JAX package's search (`_find_cached_checkpoint`, :364: the same file
+names, places and SHA-256 check); nothing is downloaded, so a name whose
+file is absent raises the JAX package's "not found" message. The
+alignment-head masks of the official checkpoints (`_ALIGNMENT_HEADS`, for
+word timestamps) and their hashes are data kept here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+import hashlib
+import os
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -22,6 +27,60 @@ from torch import nn
 from ..utils import resolve_device
 from .dims import PRESET_DIMS, ModelDimensions
 from .whisper import AudioEncoder, TextDecoder, decode_alignment_heads_dump, default_alignment_heads, sinusoids
+
+# SHA-256 of the official checkpoints, by name (the JAX package's
+# `models/registry.py:30-45`, public registry data); "large" and "turbo"
+# name the files of large-v3 and large-v3-turbo
+_CHECKPOINT_SHAS = {
+    "tiny.en": "d3dd57d32accea0b295c96e26691aa14d8822fac7d9d27d5dc00b4ca2826dd03",
+    "tiny": "65147644a518d12f04e32d6f3b26facc3f8dd46e5390956a9424a650c0ce22b9",
+    "base.en": "25a8566e1d0c1e2231d1c762132cd20e0f96a85d16145c3a00adf5d1ac670ead",
+    "base": "ed3a0b6b1c0edf879ad9b11b1af5a0e6ab5db9205f891f668f8b0e6c6326e34e",
+    "small.en": "f953ad0fd29cacd07d5a9eda5624af0f6bcf2258be67c92b79389873d91e0872",
+    "small": "9ecf779972d90ba49c06d968637d720dd632c55bbf19d441fb42bf17a411e794",
+    "medium.en": "d7440d1dc186f76616474e0ff0b3b6b879abc9d1a4926b7adfa41db2d497ab4f",
+    "medium": "345ae4da62f9b3d59415adc60127b97c714f32e89e936602e85993674d08dcb1",
+    "large-v1": "e4b87e7e0bf463eb8e6956e646f1e277e901512310def2c24bf0e11bd3c28e9a",
+    "large-v2": "81f7c96c852ee8fc832187b0132e569d6c3065a3252ed18e56effd0b6a73e524",
+    "large-v3": "e5b1a55b89c1367dacf97e3e19bfd829a01529dbfdeefa8caeb59b3f1b81dadb",
+    "large": "e5b1a55b89c1367dacf97e3e19bfd829a01529dbfdeefa8caeb59b3f1b81dadb",
+    "large-v3-turbo": "aff26ae408abcba5fbf8813c21e62b0941638c5f6eebfb145be0c9839262a19a",
+    "turbo": "aff26ae408abcba5fbf8813c21e62b0941638c5f6eebfb145be0c9839262a19a",
+}
+_ALIASES = {"large": "large-v3", "turbo": "large-v3-turbo"}
+_FILE_NAMES = {name: _ALIASES.get(name, name) + ".pt" for name in _CHECKPOINT_SHAS}
+
+
+def available_models() -> List[str]:
+    """Names of the official checkpoints (JAX `available_models`); the
+    port finds them on the disk and downloads none."""
+    return list(_CHECKPOINT_SHAS)
+
+
+def default_download_root() -> str:
+    """The JAX package's checkpoint directory: $XDG_CACHE_HOME (or
+    ~/.cache)/asr_ttl_mtl_tpu."""
+    default = os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(os.getenv("XDG_CACHE_HOME", default), "asr_ttl_mtl_tpu")
+
+
+def _find_cached_checkpoint(name: str, download_root: str) -> Optional[str]:
+    """The first of $ASRMTL_CHECKPOINT_DIR/<file>, <download_root>/<file>
+    and ~/.cache/whisper/<file> whose SHA-256 is the official one."""
+    fname = _FILE_NAMES[name]
+    candidates = [
+        os.path.join(download_root, fname),
+        os.path.join(os.path.expanduser("~"), ".cache", "whisper", fname),
+    ]
+    if os.environ.get("ASRMTL_CHECKPOINT_DIR"):
+        candidates.insert(0, os.path.join(os.environ["ASRMTL_CHECKPOINT_DIR"], fname))
+    for c in candidates:
+        if os.path.isfile(c):
+            with open(c, "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() == _CHECKPOINT_SHAS[name]:
+                    return c
+    return None
+
 
 # base85/gzip-encoded (n_text_layer, n_text_head) bool masks of the
 # cross-attention heads that word timestamps read, per official checkpoint
@@ -163,19 +222,33 @@ def load_model(
     checkpoint: Union[str, Dict[str, Any]],
     device: Union[str, torch.device] = "cuda",
     compute_dtype: Optional[torch.dtype] = None,
+    download_root: Optional[str] = None,
 ) -> WhisperModel:
-    """Load a reference-layout checkpoint (a local `.pt` path or the loaded
-    dict), on the card unless `device="cpu"`."""
+    """Load a reference-layout checkpoint, on the card unless
+    `device="cpu"`: a local `.pt` path, the loaded dict, or the name of an
+    official checkpoint found on the disk (`_find_cached_checkpoint`, which
+    also sets its alignment heads)."""
     device = resolve_device(device)
     ckpt = checkpoint
+    alignment_dump = None
     if isinstance(checkpoint, str):
-        ckpt = torch.load(checkpoint, map_location="cpu", weights_only=False)
+        path = checkpoint
+        if checkpoint in _CHECKPOINT_SHAS:
+            path = _find_cached_checkpoint(checkpoint, download_root or default_download_root())
+            if path is None:
+                raise RuntimeError(f"Model {checkpoint} not found; available models = {available_models()}")
+            alignment_dump = _ALIGNMENT_HEADS[checkpoint]
+        elif not os.path.isfile(checkpoint):
+            raise RuntimeError(f"Model {checkpoint} not found; available models = {available_models()}")
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
     dims = ckpt["dims"]
     dims = ModelDimensions(**dims) if isinstance(dims, dict) else dims
     if compute_dtype is None:
         compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = WhisperModel(dims, compute_dtype=compute_dtype)
     model.load_state_dict({k: v.float() for k, v in ckpt["model_state_dict"].items()})
+    if alignment_dump is not None:
+        model.set_alignment_heads(alignment_dump)
     return model.to(device).eval().requires_grad_(False)
 
 

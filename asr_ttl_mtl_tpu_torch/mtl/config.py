@@ -2,10 +2,10 @@
 
 Counterpart of `asr_ttl_mtl_tpu/mtl/config.py`: the same fields and
 defaults, so a checkpoint's config moves between the two packages. The
-port trains on one device. The fields for meshes, multi-step dispatch,
-packed state, host-computed mels and profiling stay for that exchange;
-the trainer raises `NotImplementedError` when one of them asks for
-something the port does not serve (see `MultiTaskTrainer`).
+port trains on one device. The fields for meshes, multi-step dispatch
+and packed state stay for that exchange; the trainer raises
+`NotImplementedError` when one of them asks for something the port does
+not serve (see `MultiTaskTrainer`).
 """
 
 from __future__ import annotations
@@ -75,10 +75,11 @@ class TrainingConfig:
     # host -> device waveform length buckets; the step zero-pads to
     # audio_samples on the device. None = (audio_samples // 4, audio_samples)
     audio_length_buckets: Optional[Tuple[int, ...]] = None
-    profile_dir: Optional[str] = None  # not served by the port
+    # a torch.profiler trace of epoch 0 goes here, and the step timer's summary is printed
+    profile_dir: Optional[str] = None
     steps_per_call: int = 0  # 0 or 1: one optimizer step per call in the port
-    # waveform transfer: "int16" (exact for 16-bit PCM), "float32"; the
-    # JAX package's "mel_fp16" is not served by the port
+    # audio transfer: "int16" waveforms (exact for 16-bit PCM), "float32"
+    # waveforms, or "mel_fp16" host-computed log-mels (audio.log_mel_for_transfer)
     audio_transfer_dtype: str = "int16"
     packed_dispatch: Optional[bool] = None  # not served by the port
     dp_shard_map: object = True  # a mesh setting; one device needs none

@@ -5,9 +5,13 @@ Counterpart of `asr_ttl_mtl_tpu/mtl/dataset.py`: the CSV schema
 en-only, 2 multilingual), EOT/-100 padding to token buckets, waveforms
 carried at their true length and zero-padded to an audio length bucket
 (the train step pads the rest on the device), and zero audio for a file
-that does not load. The CSV is read with the stdlib `csv` module and the
-WAVs with the port's reader (`audio.load_audio`) in worker threads; the JAX
-package's native C++ batch decoder is not ported.
+that does not load. The CSV is read with the stdlib `csv` module. A batch
+of WAVs is decoded, resampled and padded by one call into the native
+runtime's thread pool (`runtime/wav.py::load_batch`, JAX `:208-257`); a
+batch with another file, or where the runtime cannot be built, goes item
+by item through `audio.load_audio` (ffmpeg for non-WAV files) in worker
+threads. With `audio_transfer_dtype="mel_fp16"` the producer thread turns
+each batch into host-computed fp16 log-mels (JAX `:298-311`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..audio import N_SAMPLES, load_audio
+from ..audio import N_SAMPLES, SAMPLE_RATE, load_audio, log_mel_for_transfer
 from ..tokenizer import Tokenizer, get_tokenizer
 from .config import TrainingConfig
 
@@ -74,10 +78,15 @@ class MultiTaskSpeechDataset:
             print(f"Error loading audio {audio_path}: {e}")
             return np.zeros((1,), dtype=np.float32)
 
-    def __getitem__(self, idx: int) -> Dict:
+    def sample(self, idx: int, audio: Optional[np.ndarray] = None) -> Dict:
+        """Row `idx` as a sample, its waveform loaded here unless given (the
+        native batch path gives it); a row that does not parse becomes the
+        dummy sample (zero audio, class 0, empty text), as the reference
+        does."""
         row = self.rows[idx]
         try:
-            audio = self._load_waveform(row["file"])
+            if audio is None:
+                audio = self._load_waveform(row["file"])
             text = str(row["text"])
             class_id = int(row["class"])
             seq = self.create_sequence_with_disease_context(text, class_id)
@@ -89,7 +98,7 @@ class MultiTaskSpeechDataset:
                 "text": text,
                 "path": row["file"],
             }
-        except Exception as e:  # a dummy sample, as the reference does
+        except Exception as e:
             print(f"Error loading sample {idx}: {e}")
             seq = self.create_sequence_with_disease_context("", 0)
             return {
@@ -100,6 +109,21 @@ class MultiTaskSpeechDataset:
                 "text": "",
                 "path": row.get("file", "unknown"),
             }
+
+    def __getitem__(self, idx: int) -> Dict:
+        return self.sample(idx)
+
+
+def _config_n_mels(config) -> int:
+    """Mel bands of the model the trainer builds from `config`: the debug
+    dims', else the size preset's (128 for large-v3)."""
+    dd = getattr(config, "debug_dims", None)
+    if dd:
+        return int(dd.get("n_mels", 80))
+    from ..models.dims import PRESET_DIMS
+
+    size = getattr(config, "model_size", "tiny")
+    return PRESET_DIMS[size].n_mels if size in PRESET_DIMS else 80
 
 
 def bucket_length(n: int, buckets) -> int:
@@ -175,11 +199,41 @@ class DataLoader:
         self.audio_len_buckets = audio_buckets(dataset.config)
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Shuffle the next pass as epoch `epoch` (a resumed run's loader)."""
+        self._epoch = epoch
+
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def _native_batch(self, idxs):
+        """A batch of WAVs through one `load_batch` call into the native
+        runtime's thread pool: true lengths from its status, a zero row and
+        an error line for a file that does not decode. None when the batch
+        holds another file or the runtime cannot be built (then the per-item
+        path, with ffmpeg, takes it)."""
+        from ..runtime import wav as native
+
+        ds = self.dataset
+        paths = [str(ds.rows[int(i)].get("file", "")) for i in idxs]
+        if not all(p.lower().endswith(".wav") for p in paths):
+            return None
+        n_samples = getattr(ds.config, "audio_samples", N_SAMPLES)
+        try:
+            audio, status = native.load_batch(paths, SAMPLE_RATE, n_samples, n_threads=self.num_workers)
+        except ImportError:
+            return None
+        items = []
+        for i, idx in enumerate(idxs):
+            if status[i] < 0:
+                print(f"Error loading audio {paths[i]}: native decode {status[i]}")
+            # only the decoded samples, so that collate can take a small bucket
+            true_len = min(max(int(status[i]), 1), n_samples)
+            items.append(ds.sample(int(idx), audio[i, :true_len]))
+        return items
 
     def __iter__(self):
         order = np.arange(len(self.dataset))
@@ -212,8 +266,16 @@ class DataLoader:
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        items = list(pool.map(self.dataset.__getitem__, idxs))
+                        items = self._native_batch(idxs)
+                        if items is None:
+                            items = list(pool.map(self.dataset.__getitem__, idxs))
                         batch = collate(items, self.dataset.tokenizer, self.buckets, self.audio_len_buckets)
+                        config = self.dataset.config
+                        if getattr(config, "audio_transfer_dtype", None) == "mel_fp16":
+                            # the host mel here, so that it overlaps the train
+                            # steps (the trainer passes fp16 batches through)
+                            batch["audio"] = log_mel_for_transfer(batch["audio"], _config_n_mels(config),
+                                                                  full_samples=config.audio_samples)
                         if not put_or_stop(batch):
                             return
             except BaseException as e:  # noqa: BLE001

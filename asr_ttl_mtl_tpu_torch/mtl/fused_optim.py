@@ -104,6 +104,17 @@ class MultiGroupAdamW:
             "v": {g: [x.detach().cpu() for x in xs] for g, xs in self.v.items()},
         }
 
+    @torch.no_grad()
+    def load_state(self, state: Dict) -> None:
+        """Restore what `state()` returned, into the moments in place."""
+        self.count = int(state["count"])
+        for key, dst in (("m", self.m), ("v", self.v)):
+            if set(state[key]) != set(dst) or any(len(state[key][g]) != len(dst[g]) for g in dst):
+                raise ValueError(f"optimizer state {key}: groups {sorted(state[key])} do not match {sorted(dst)}")
+            for g, xs in dst.items():
+                for x, y in zip(xs, state[key][g]):
+                    x.copy_(y)
+
 
 def optimizer_hparams(learning_rate: float, weight_decay: float) -> Dict[str, Tuple[float, float]]:
     """encoder 0.1 lr, decoder 0.3 lr, embeddings 1.0 lr without decay,

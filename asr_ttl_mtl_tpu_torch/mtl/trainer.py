@@ -2,11 +2,15 @@
 
 Counterpart of the single-device path of `asr_ttl_mtl_tpu/mtl/trainer.py`
 (`MultiTaskTrainer.__init__` :144, `_forward` :413, the train step :625,
-`train_epoch`'s single-step loop :972, `evaluate` :1110, `train` :1171,
-`save_checkpoint` :1282, `load_from_checkpoint` :1451). One step:
+`_audio_for_transfer` :891, `train_epoch`'s single-step loop :972,
+`evaluate` :1110, `train` :1171, `save_checkpoint` :1282,
+`save_resume_state` / `restore_resume_state` :1313 / :1420,
+`load_from_checkpoint` :1451). One step:
 
   int16 waveforms / 32768, zero-padded to the window on the device ->
-  log-mel (K4) -> encoder (self-attention through K3 with lse, backward K6)
+  log-mel (K4) [or, with audio_transfer_dtype="mel_fp16", host-computed
+  fp16 log-mels extended to the window by `audio.finish_transfer_mel`,
+  no K4] -> encoder (self-attention through K3 with lse, backward K6)
   -> mean-pooled features -> classifier (Linear -> ReLU -> Dropout ->
   Linear) -> class CE; teacher-forced decoder (causal self-attention through
   K7 with lse, backward K8; cross-attention through K3/K6) -> chunked
@@ -15,11 +19,15 @@ Counterpart of the single-device path of `asr_ttl_mtl_tpu/mtl/trainer.py`
 
 Evaluation is teacher-forced with materialized fp32 logits. Checkpoints are
 the reference `.pt` layout, readable by the JAX package's trainer and the
-other way round. Not served here, and raising `NotImplementedError` when
-asked for: meshes / tp / ZeRO-1, `steps_per_call > 1` and packed dispatch,
-the orbax `resume_dir`, `audio_transfer_dtype="mel_fp16"` and
-`profile_dir`. `compute_dtype` "bfloat16" or "float32" runs on the card
-through the kernels of that dtype.
+other way round. `train(resume_dir=...)` writes the full training state
+after every epoch and resumes from it (`save_resume_state`); the state is
+the port's own `torch.save` file, since the JAX package's orbax format
+cannot be read without JAX. `profile_dir` traces epoch 0 with
+torch.profiler and prints the step timer's summary
+(`utils/profiling.py`). Not served here, and raising `NotImplementedError`
+when asked for: meshes / tp / ZeRO-1, `steps_per_call > 1` and packed
+dispatch. `compute_dtype` "bfloat16" or "float32" runs on the card through
+the kernels of that dtype.
 """
 
 from __future__ import annotations
@@ -37,13 +45,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..audio import log_mel_spectrogram
+from ..audio import finish_transfer_mel, log_mel_for_transfer, log_mel_spectrogram
 from ..models import whisper as W
 from ..models.dims import ModelDimensions
 from ..models.registry import WhisperModel, from_random, load_model
 from ..ops.chunked_xent import chunked_softmax_xent
 from ..tokenizer import Tokenizer
 from ..utils import resolve_device
+from ..utils.profiling import StepTimer, trace
 from .config import TrainingConfig
 from .dataset import build_mtl_tokenizer
 from .fused_optim import MultiGroupAdamW, group_of, optimizer_hparams
@@ -152,10 +161,6 @@ class MultiTaskTrainer:
             unsupported.append(f"steps_per_call={cfg.steps_per_call}")
         if cfg.packed_dispatch:
             unsupported.append("packed_dispatch=True")
-        if cfg.audio_transfer_dtype == "mel_fp16":
-            unsupported.append("audio_transfer_dtype='mel_fp16'")
-        if cfg.profile_dir:
-            unsupported.append("profile_dir")
         if unsupported:
             raise NotImplementedError(
                 "not served by the PyTorch port (see ROADMAP.md): " + ", ".join(unsupported)
@@ -228,13 +233,25 @@ class MultiTaskTrainer:
 
     # --- the step ------------------------------------------------------------
 
+    def _audio_for_transfer(self, audio: np.ndarray) -> np.ndarray:
+        """The audio as it crosses to the device (audio_transfer_dtype):
+        "int16" waveforms (exact for 16-bit PCM), "mel_fp16" host-computed
+        log-mels (`audio.log_mel_for_transfer`), else float32 waveforms. An
+        fp16 batch is a mel batch already (the loader's producer thread
+        computes it) and passes through."""
+        audio = np.asarray(audio)
+        if audio.dtype == np.float16:
+            return audio
+        mode = self.config.audio_transfer_dtype
+        if mode == "mel_fp16":
+            return log_mel_for_transfer(audio, self.model.dims.n_mels, full_samples=self.config.audio_samples)
+        if mode != "int16":
+            return audio
+        return np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+
     def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """A host batch on the device; waveforms travel as int16 (exact for
-        16-bit PCM) unless audio_transfer_dtype is "float32"."""
-        audio = np.asarray(batch["audio"])
-        if self.config.audio_transfer_dtype == "int16":
-            audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
-        dev = {"audio": torch.from_numpy(audio)}
+        """A host batch on the device, its audio as `_audio_for_transfer` gives it."""
+        dev = {"audio": torch.from_numpy(np.ascontiguousarray(self._audio_for_transfer(batch["audio"])))}
         for k in ("input_tokens", "target_tokens", "classes"):
             dev[k] = torch.from_numpy(np.asarray(batch[k]).astype(np.int64))
         return {k: v.to(self.device, non_blocking=True) for k, v in dev.items()}
@@ -242,11 +259,14 @@ class MultiTaskTrainer:
     def _forward(self, dev: Dict[str, torch.Tensor], train: bool, keep: Optional[torch.Tensor] = None):
         dims = self.model.dims
         audio = dev["audio"]
-        if audio.dtype == torch.int16:
-            audio = audio.float() / 32768.0
-        if audio.shape[-1] < self.config.audio_samples:
-            audio = F.pad(audio, (0, self.config.audio_samples - audio.shape[-1]))
-        mels = log_mel_spectrogram(audio, n_mels=dims.n_mels)
+        if audio.dtype == torch.float16:  # host-computed mels: extend to the window, no K4
+            mels = finish_transfer_mel(audio, self.config.audio_samples)
+        else:
+            if audio.dtype == torch.int16:
+                audio = audio.float() / 32768.0
+            if audio.shape[-1] < self.config.audio_samples:
+                audio = F.pad(audio, (0, self.config.audio_samples - audio.shape[-1]))
+            mels = log_mel_spectrogram(audio, n_mels=dims.n_mels)
         feats = W.encoder_apply(self.model.encoder, mels, self.compute_dtype,
                                 remat=train and self._use_remat())
         pooled = feats.mean(dim=1)
@@ -339,20 +359,34 @@ class MultiTaskTrainer:
     # --- epochs --------------------------------------------------------------
 
     def train_epoch(self, dataloader, epoch: int) -> Dict:
+        """One pass over `dataloader`. The step timer is always on; with
+        `profile_dir`, epoch 0 runs under a torch.profiler trace written
+        there, and the timer's summary is printed (JAX :940-944, :1077)."""
         totals = {"loss": 0.0, "cls_loss": 0.0, "trans_loss": 0.0}
         all_preds, all_labels, all_pred_texts, all_ref_texts = [], [], [], []
         n_batches = 0
         t0 = time.time()
-        for batch in dataloader:
-            loss, aux = self.train_step(batch)
-            n_batches += 1
-            totals["loss"] += float(loss)
-            totals["cls_loss"] += float(aux["cls_loss"])
-            totals["trans_loss"] += float(aux["trans_loss"])
-            all_preds.extend(aux["disease_preds"].cpu().numpy())
-            all_labels.extend(batch["classes"])
-            all_pred_texts.extend(self.decode_predictions(aux["pred_tokens"].cpu().numpy()))
-            all_ref_texts.extend(batch["texts"])
+        timer = StepTimer(device=self.device)
+        with trace(self.config.profile_dir if epoch == 0 else None):
+            for batch in dataloader:
+                n = len(batch["classes"])
+                with timer.step(samples=n, audio_seconds=n * self.config.audio_samples / 16000.0):
+                    loss, aux = self.train_step(batch)
+                n_batches += 1
+                totals["loss"] += float(loss)
+                totals["cls_loss"] += float(aux["cls_loss"])
+                totals["trans_loss"] += float(aux["trans_loss"])
+                all_preds.extend(aux["disease_preds"].cpu().numpy())
+                all_labels.extend(batch["classes"])
+                all_pred_texts.extend(self.decode_predictions(aux["pred_tokens"].cpu().numpy()))
+                all_ref_texts.extend(batch["texts"])
+        if self.config.profile_dir and timer.steps:
+            summary = timer.summary()
+            self._log(
+                f"  profile: mean step {summary['mean_step_s'] * 1e3:.1f} ms, "
+                f"p50 {summary['p50_step_s'] * 1e3:.1f} ms, "
+                f"audio-sec/sec/chip {summary.get('audio_sec_per_sec_per_chip', 0):.1f}"
+            )
 
         metrics = detailed_metrics(all_pred_texts, all_ref_texts, all_preds, all_labels)
         n_batches = max(n_batches, 1)
@@ -416,13 +450,25 @@ class MultiTaskTrainer:
 
     def train(self, train_loader, val_loader, resume_dir: Optional[str] = None) -> Dict:
         """Best-val-loss checkpointing and early stopping (reference
-        trainer.py:541-612); the history JSON goes to save_dir."""
-        if resume_dir:
-            raise NotImplementedError("resume_dir (orbax full-state resume) is not served by the PyTorch port")
+        trainer.py:541-612); the history JSON goes to save_dir. With
+        `resume_dir`, the full training state is written there after every
+        epoch (`save_resume_state`), and a run that finds it resumes at the
+        next epoch; a loader with `set_epoch` then shuffles as the
+        interrupted run would have."""
         best_loss = float("inf")
         patience_counter = 0
         training_history = []
-        for epoch in range(self.config.epochs):
+        start_epoch = 0
+        if resume_dir and os.path.exists(os.path.join(resume_dir, "meta.json")):
+            meta = self.restore_resume_state(resume_dir)
+            start_epoch = meta["epoch"] + 1
+            best_loss = meta["best_loss"]
+            patience_counter = meta["patience_counter"]
+            training_history = meta.get("training_history", [])
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(start_epoch)
+            self._log(f"resumed from {resume_dir} at epoch {start_epoch}")
+        for epoch in range(start_epoch, self.config.epochs):
             train_metrics = self.train_epoch(train_loader, epoch)
             val_metrics = self.evaluate(val_loader)
             current_loss = val_metrics["loss"]
@@ -439,6 +485,9 @@ class MultiTaskTrainer:
                     break
             training_history.append({"epoch": epoch + 1, "train_metrics": train_metrics,
                                      "val_metrics": val_metrics})
+            if resume_dir:
+                self.save_resume_state(resume_dir, epoch=epoch, best_loss=best_loss,
+                                       patience_counter=patience_counter, training_history=training_history)
 
         if self.config.save_dir:
             hist_path = os.path.join(self.config.save_dir, f"training_history_{self.config.model_size}.json")
@@ -479,6 +528,60 @@ class MultiTaskTrainer:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         torch.save(ckpt, path)
         self._log(f"  best model saved: {path}")
+
+    # --- epoch-level resume --------------------------------------------------
+
+    def save_resume_state(self, directory: str, *, epoch: int, best_loss: float, patience_counter: int,
+                          training_history=None) -> None:
+        """Write the full training state so that a killed run restarts where
+        it stopped: `state.pt` (the model's and the classifier's weights, the
+        optimizer's step and moments, the CPU generator's and the dropout
+        generator's states) with `torch.save`, then `meta.json` (the epoch,
+        the frozen alpha/beta, the best loss, the patience counter, the
+        history), each by an atomic rename, `meta.json` last. The JAX
+        package's contract (`trainer.py:1313`); its orbax state cannot be read
+        without JAX, so `state.pt` is the port's own format."""
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        state = {
+            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "classifier": {k: v.detach().cpu() for k, v in self.classifier.state_dict().items()},
+            "optimizer": self.optimizer.state(),
+            "cpu_rng": torch.get_rng_state(),
+            "dropout_rng": self._dropout_gen.get_state(),
+        }
+        tmp = os.path.join(directory, "state.pt.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(directory, "state.pt"))
+        meta = {
+            "epoch": epoch,
+            "best_loss": best_loss,
+            "patience_counter": patience_counter,
+            "alpha": self.alpha,
+            "beta": self.beta,
+            "training_history": _to_jsonable(training_history or []),
+        }
+        tmp = os.path.join(directory, "meta.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(directory, "meta.json"))
+
+    def restore_resume_state(self, directory: str) -> Dict:
+        """Restore what `save_resume_state` wrote, into this trainer's
+        weights, optimizer and generators in place. Returns the meta dict."""
+        directory = os.path.abspath(directory)
+        state = torch.load(os.path.join(directory, "state.pt"), map_location="cpu", weights_only=False)
+        with torch.no_grad():
+            self.model.load_state_dict(state["model"])
+            self.classifier.load_state_dict(state["classifier"])
+        self.optimizer.load_state(state["optimizer"])
+        torch.set_rng_state(state["cpu_rng"])
+        self._dropout_gen.set_state(state["dropout_rng"])
+        with open(os.path.join(directory, "meta.json")) as f:
+            meta = json.load(f)
+        self.alpha = float(meta["alpha"])
+        self.beta = float(meta["beta"])
+        return meta
 
     @classmethod
     def load_from_checkpoint(cls, checkpoint_path: str, verbose: bool = True,

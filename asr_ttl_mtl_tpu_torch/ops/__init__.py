@@ -32,6 +32,8 @@ LAUNCHES: Dict[str, int] = {
     "dtw_paths_batch": 0,  # K12, ops/dtw.py
     "int8_mlp": 0,  # K14, ops/int8_mlp.py
     # the fp32 kernels (bf16 launches count under the names above)
+    "decode_attention_i8_f32": 0,  # K1 with fp32 queries
+    "decode_attention_f32": 0,  # K2 at fp32
     "flash_attention_h2_f32": 0,  # K3 at fp32
     "flash_attention_h2_lse_f32": 0,
     "flash_attention_h2_bwd_f32": 0,  # K6 at fp32

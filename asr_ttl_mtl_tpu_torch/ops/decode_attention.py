@@ -21,7 +21,7 @@ as the kernel cuts them.
 
 Both kernels take head widths dh = d / n_head of 32, 64 and 128 with bf16
 q (`ops.HEAD_WIDTHS`), and 64 with fp32 q and caches; any other width
-raises on the card.
+raises on the card. A launch with fp32 q counts under `<name>_f32`.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import LAUNCHES, _cuda, check_head_width
+from . import _cuda, check_head_width, count_launch
 
 _NEG_INF = -1e30
 # K1's p*v_scale/sp within this of a midpoint may round either way under
@@ -213,7 +213,7 @@ def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> 
         _cuda.stream_handle(q.device),
     )
     _cuda.check("decode_attention", fn, code)
-    LAUNCHES["decode_attention"] += 1
+    count_launch("decode_attention", "bf16" if q.dtype == torch.bfloat16 else "f32")
     return out
 
 
@@ -352,5 +352,5 @@ def _launch_k1(q, cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, vali
         float(scale), _cuda.stream_handle(q.device),
     )
     _cuda.check("decode_attention", fn, code)
-    LAUNCHES["decode_attention_i8"] += 1
+    count_launch("decode_attention_i8", "bf16" if q.dtype == torch.bfloat16 else "f32")
     return out

@@ -4,9 +4,11 @@
         --pretrained random --train_csv train.csv --val_csv val.csv --save_dir out
 
 Counterpart of `scripts/train_disease.py`, with the same flags. Training
-runs on the card unless `--device cpu`. Flags asking for what the port does
-not serve (meshes, `--zero1`, `--steps_per_call` > 1, `--packed_dispatch
-True`, `--resume_dir`, `--audio_transfer_dtype mel_fp16`) raise
+runs on the card unless `--device cpu`. `--resume_dir` resumes from the
+full training state written there after every epoch, and
+`--audio_transfer_dtype mel_fp16` ships host-computed fp16 log-mels. Flags
+asking for what the port does not serve (meshes, `--zero1`,
+`--steps_per_call` > 1, `--packed_dispatch True`) raise
 `NotImplementedError`. `--compute_dtype float32` trains in fp32, on the
 card through its fp32 kernels. Writes
 `best_multitask_model_<size>.pt`, `training_history_<size>.json` and
@@ -52,8 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--audio_transfer_dtype", type=str, default="int16",
                    choices=["float32", "int16", "mel_fp16"],
                    help="audio host->device transfer: int16 waveforms (exact "
-                        "for PCM) or float32 waveforms; mel_fp16 is not served "
-                        "by the port")
+                        "for PCM), mel_fp16 host-computed log-mels (2x fewer "
+                        "bytes), or float32 waveforms")
     p.add_argument("--dp", type=int, default=0, help="data-parallel mesh size (the port: 0 or 1)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (the port: 1)")
     p.add_argument("--steps_per_call", type=int, default=0,
@@ -89,7 +91,8 @@ def parse_args(argv=None):
                         "the (B, T, vocab) logits (default auto: on)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume_dir", type=str, default=None,
-                   help="full-state epoch resume of the JAX package; not served by the port")
+                   help="directory of the full training state, written after every epoch "
+                        "and resumed from when present (the port's own torch.save format)")
     p.add_argument("--debug_dims", type=str, default=None, metavar="JSON",
                    help="ModelDimensions overrides as a JSON dict (pairs with "
                         "--pretrained random; scaled-down smoke runs)")

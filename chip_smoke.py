@@ -145,6 +145,27 @@ Phases, each of which raises (exit code != 0) when it fails:
      bf16 train steps at batch 8 and `evaluate` on 8 clips, each path's
      launch counts reset before and read after: K1, K2, K3, K3-lse, K6,
      K7, K7-lse and K8 each launch on them.
+ 22. files in, reports out, at base: (a) phase 6's 32 clips, a 44.1 kHz
+     WAV, a 24-bit WAV and a file that ends in `.wav` but is none, in one
+     batch through the loader's native route (one `runtime.wav.load_batch`
+     call) against the Python route within 2e-6, the broken file a zero
+     row and its error line; (b) the same weights and 2 batches at batch
+     16 through 2 train steps with int16 waveforms and 2 with `mel_fp16`
+     (host fp16 log-mels: phase 6's flash kernels a step and no log_mel),
+     the transfer mels within 3e-3 of K4's; (c) that trainer's checkpoint
+     through the inference and evaluate twins on phase 6's 16 val clips
+     (their files, finite metrics, the same accuracy and corpus WER as
+     `evaluate`, K3 and K7 alone launched); (d) one epoch of 2 steps with
+     `profile_dir` (the trace file, the step timer's line); (e)
+     `resume_dir`: 1 epoch, then a new trainer resumed for a 2nd, against
+     one 2-epoch run from the same seed, bit for bit; (f) where ffmpeg is
+     on PATH, phase 12's WAV as FLAC through the CLI, the WAV's text; each
+     path with the launch counts reset before and read after.
+Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
+fp32 queries (the fp32 window path's cross) against their plain versions;
+their launches count under `decode_attention_f32` and
+`decode_attention_i8_f32`, and phase 20 refuses a bf16 K1 or K2 on its
+fp32 paths.
 It prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -176,7 +197,8 @@ BEAM_OPTIONS = dict(BASE_OPTIONS, beam_size=BEAM)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # kernels whose calls at small shapes are mostly the host's launch cost: their
 # device time alone is measured too, as one call's share of a CUDA graph
-DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
+DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "decode_attention_f32", "decode_attention_i8_f32",
+                "flash_attention_h2", "flash_attention_h2_lse",
                 "flash_attention_h2_bwd", "flash_attention_mh", "flash_attention", "flash_attention_lse",
                 "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp", "median_filter",
                 "flash_attention_h2_f32", "flash_attention_h2_lse_f32", "flash_attention_h2_bwd_f32",
@@ -574,7 +596,7 @@ def check_kernels(card: str):
     qf = qd.float()
     ckf, cvf = self_k.float(), self_v.float()
     qh, kh, vh = heads(qf, 8), heads(ckf[5], 8, 71), heads(cvf[5], 8, 71)
-    record("decode_attention", "self (6,32,128,512) f32, valid_upto 70",
+    record("decode_attention_f32", "self (6,32,128,512) f32, valid_upto 70",
            "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
            DA.decode_attention(qf, ckf, cvf, 5, 8, scale=scale, valid_upto=70),
            DA.decode_attention_plain(qf, ckf, cvf, 5, 8, scale=scale, valid_upto=70), 1e-5,
@@ -2208,12 +2230,13 @@ FP32_REL = 2e-5  # an fp32 kernel against its plain version, a share of the larg
 FP32_GATE_OPTIONS = dict(BASE_OPTIONS, fp16=False, kv_quant=False, int8_encoder=False)
 FP32_LOGIT_TOL = 5e-3  # 100x tighter than the bf16 decode gate's 0.5
 FP32_TRAIN_TOL = 2e-4  # 100x tighter than the bf16 train gate's 2%
-BF16_KERNELS = ("flash_attention_h2", "flash_attention_h2_lse", "flash_attention_h2_bwd", "flash_attention_mh",
-                "flash_attention", "flash_attention_lse", "flash_attention_bwd", "int8_mlp")
+BF16_KERNELS = ("decode_attention", "decode_attention_i8", "flash_attention_h2", "flash_attention_h2_lse",
+                "flash_attention_h2_bwd", "flash_attention_mh", "flash_attention", "flash_attention_lse",
+                "flash_attention_bwd", "int8_mlp")
 
 
 def no_bf16_kernel(counts: dict, what: str) -> None:
-    """An fp32 run launches no bf16 flash or K14 kernel."""
+    """An fp32 run launches no bf16 K1, K2, flash or K14 kernel."""
     launched = {k: counts[k] for k in BF16_KERNELS if counts[k]}
     if launched:
         raise AssertionError(f"{what} launched bf16 kernels: {launched}")
@@ -2255,7 +2278,7 @@ def run_fp32_slice(card: str, slice_rate: float):
             for r in results:
                 assert len(r.tokens) == BASE_OPTIONS["sample_len"] and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
             want = {"flash_attention_h2_f32": n_layer * N_BATCHES, "int8_mlp_f32": n_layer * N_BATCHES * (mode == "auto")}
-            if any(counts[k] != n for k, n in want.items()) or counts["decode_attention_i8"] <= 0:
+            if any(counts[k] != n for k, n in want.items()) or counts["decode_attention_i8_f32"] <= 0:
                 raise AssertionError(f"the fp32 window path (K14 switch {mode}) launched {counts}, expected {want}")
             no_bf16_kernel(counts, f"the fp32 window path (K14 switch {mode})")
             for k, v in counts.items():
@@ -2291,7 +2314,7 @@ def run_fp32_slice(card: str, slice_rate: float):
         probe.close()
     for r in results:
         assert len(r.tokens) == BASE_OPTIONS["sample_len"] and np.isfinite(r.avg_logprob), (len(r.tokens), r.avg_logprob)
-    if counts["flash_attention_mh_f32"] != dims.n_audio_layer or counts["decode_attention_i8"] <= 0:
+    if counts["flash_attention_mh_f32"] != dims.n_audio_layer or counts["decode_attention_i8_f32"] <= 0:
         raise AssertionError(f"the fp32 d=576 window path launched {counts}")
     no_bf16_kernel(counts, "the fp32 d=576 window path")
     for k, v in counts.items():
@@ -2351,10 +2374,12 @@ def run_fp32_cli(card: str, model, workdir: str):
     words = [w for s in segments for w in s.get("words", [])]
     if not words or not all(w["start"] <= w["end"] for w in words):
         raise AssertionError(f"the fp32 words run gave {len(words)} words")
-    for name in ("flash_attention_h2_f32", "flash_attention_f32", "topk_logprobs", "decode_attention", "log_mel",
+    for name in ("flash_attention_h2_f32", "flash_attention_f32", "topk_logprobs", "decode_attention_f32", "log_mel",
                  "median_filter", "dtw_trace"):
         if counts[name] <= 0:
             raise AssertionError(f"the fp32 CLI run launched no {name}: {counts}")
+    if counts["decode_attention"] or counts["decode_attention_i8"]:
+        raise AssertionError(f"the fp32 CLI run's decode launched bf16 K1 / K2: {counts}")
     print(f"[fp32] CLI --fp16 False --word_timestamps True, the 19-token prompt, one rung: {wall:.1f} s wall for "
           f"70 s of audio; {len(segments)} segments, {len(words)} words; fp32 K7 shapes (q, k, kv_valid_len, causal) "
           f"{sorted(probe.shapes)} [{card}]", flush=True)
@@ -2377,6 +2402,7 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
     import torch.nn.functional as F
 
     from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
     from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
     from asr_ttl_mtl_tpu_torch.ops import int8_mlp as M
 
@@ -2543,6 +2569,42 @@ def check_fp32_kernels(card: str, train_buckets, val_buckets, cli_k7_shapes, k5_
            repeat=True)
     del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
 
+    # K2 at fp32: the fp32 words CLI's beam step, q (5, 1, 512) over one
+    # window's (6, 1, 1500, 512) fp32 cross cache, group 5
+    qf = rnd(BEAM, 1, 512)
+    ck, cv = rnd(6, 1, 1500, 512), rnd(6, 1, 1500, 512)
+    kw = dict(scale=0.125, group=BEAM)
+    want = DA.decode_attention_plain(qf, ck, cv, 5, 8, **kw)
+    qh = qf.reshape(1, BEAM, 8, 64).transpose(1, 2)
+    kh, vh = heads(ck[5], 8), heads(cv[5], 8)
+    record("decode_attention_f32", f"the fp32 CLI's beam step: q ({BEAM}, 1, 512) over one window's (6, 1, 1500, "
+           f"512) fp32 cross cache, group {BEAM}", "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu",
+           "asr_ttl_mtl_tpu/ops/decode_attention.py:39", DA.decode_attention(qf, ck, cv, 5, 8, **kw), want,
+           tol(want), lambda: DA.decode_attention(qf, ck, cv, 5, 8, **kw),
+           lambda: DA.decode_attention_plain(qf, ck, cv, 5, 8, **kw),
+           bound=attn_bound(BEAM * 1500 * 512, (qf.numel() * 2 + 2 * 1500 * 512) * 4, kind="fp32"),
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), repeat=True)
+    del qf, ck, cv, want, qh, kh, vh
+
+    # K1 with fp32 queries: the fp32 window path's cross, q (32, 1, 512) over
+    # the int8 store (6, 32, 1536, 512) valid to 1499; the flip bound of the
+    # plain version and fp32 noise (no bf16 rounding of the output)
+    qf = rnd(N_WINDOWS, 1, 512)
+    k8, ks = DA.quantize_kv_rows(rnd(6, N_WINDOWS, 1536, 512))
+    v8, vs = DA.quantize_kv_rows(rnd(6, N_WINDOWS, 1536, 512))
+    kw = dict(scale=0.125, valid_upto=1499)
+    want, flip = DA.decode_attention_i8_plain(qf, k8, ks, v8, vs, 5, 8, return_flip_bound=True, **kw)
+    tk_blk = DA._i8_blocks(N_WINDOWS, 1536, 512)[1]
+    record("decode_attention_i8_f32", f"the fp32 window path's cross: q ({N_WINDOWS}, 1, 512) fp32 over "
+           f"(6, {N_WINDOWS}, 1536, 512) int8, valid_upto 1499, tk_blk {tk_blk}",
+           "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu", "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+           DA.decode_attention_i8(qf, k8, ks, v8, vs, 5, 8, **kw), want, flip + tol(want),
+           lambda: DA.decode_attention_i8(qf, k8, ks, v8, vs, 5, 8, **kw),
+           lambda: DA.decode_attention_i8_plain(qf, k8, ks, v8, vs, 5, 8, **kw),
+           bound=bound(4 * N_WINDOWS * 1500 * 512, 2 * N_WINDOWS * 1500 * (512 + 4) + 2 * qf.numel() * 4, "int8"),
+           repeat=True)
+    del qf, k8, ks, v8, vs, want, flip
+
     # K14 at fp32 through base's first encoder MLP at the window path's (32 x 1536, 512) rows
     fc1, fc2 = model.encoder.blocks[0].mlp[0], model.encoder.blocks[0].mlp[2]
     d, hidden = fc1.in_features, fc1.out_features
@@ -2629,7 +2691,7 @@ def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1):
     reset_launch_counts()
     card_res = DecodingTask(model, DecodingOptions(**FP32_GATE_OPTIONS)).run(mel)
     counts = dict(LAUNCHES)
-    if counts["flash_attention_h2_f32"] != model.dims.n_audio_layer or counts["decode_attention"] <= 0:
+    if counts["flash_attention_h2_f32"] != model.dims.n_audio_layer or counts["decode_attention_f32"] <= 0:
         raise AssertionError(f"the fp32 gate's decode launched {counts}")
     no_bf16_kernel(counts, "the fp32 gate's decode")
     toks = torch.tensor([r.tokens for r in card_res])
@@ -2992,6 +3054,408 @@ def run_head_width(card: str, geometry: str, workdir: str):
     return list(paths.values())
 
 
+# ------------------------------------------------------------------ phase 22
+
+FILES_BATCH = 16  # phase 6's batch
+
+
+def expect_launches(counts: dict, want: dict, what: str) -> None:
+    """The kernels a run launched are exactly `want` (name -> launches)."""
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != want:
+        raise AssertionError(f"{what} launched {launched}, expected {want}")
+
+
+def expect_launched(counts: dict, names, what: str) -> None:
+    """A run launched each kernel of `names` at least once."""
+    missing = [name for name in names if counts[name] <= 0]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}: {counts}")
+
+
+def counted(fn):
+    """(fn(), its launch counts): the counts reset just before and read just after."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    sync()
+    reset_launch_counts()
+    out = fn()
+    sync()
+    return out, dict(LAUNCHES)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def write_odd_files(directory: str):
+    """A 44.1 kHz WAV, a 24-bit WAV (3-7 s of tones and noise, seeded) and a
+    file that ends in `.wav` but holds no RIFF header."""
+    import numpy as np
+
+    rng = np.random.RandomState(5)
+    paths = []
+    for name, sr, width in (("cd44100.wav", 44100, 2), ("pcm24.wav", 16000, 3)):
+        t = np.arange(int(sr * rng.uniform(3.0, 7.0))) / sr
+        x = np.clip(0.3 * np.sin(2 * np.pi * rng.uniform(100, 3000) * t) + 0.03 * rng.randn(t.size), -1, 1)
+        if width == 2:
+            raw = (x * 32767).astype("<i2").tobytes()
+        else:
+            i32 = (x * ((1 << 23) - 1)).astype(np.int32)
+            raw = np.stack([i32 & 0xFF, (i32 >> 8) & 0xFF, (i32 >> 16) & 0xFF], 1).astype(np.uint8).tobytes()
+        path = os.path.join(directory, name)
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(width)
+            w.setframerate(sr)
+            w.writeframes(raw)
+        paths.append(path)
+    broken = os.path.join(directory, "not_audio.wav")
+    with open(broken, "wb") as f:
+        f.write(b"ID3\x04\x00" + bytes(rng.randint(0, 256, 4096, dtype=np.uint8)))
+    return paths + [broken]
+
+
+def check_file_loading(card: str, workdir: str):
+    """Phase 22 (a): phase 6's 32 clips, the 44.1 kHz and 24-bit WAVs and the
+    broken file, in one batch through the loader's native route (one
+    `runtime.wav.load_batch` call) against the Python route (the stdlib
+    reader and scipy's resample_poly) within 2e-6; the broken file gives a
+    zero row and the error line."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from asr_ttl_mtl_tpu_torch import audio as A
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, TrainingConfig
+    from asr_ttl_mtl_tpu_torch.runtime import wav as native
+
+    with open(write_clips(workdir, 32, seed=0)) as f:
+        rows = f.read().splitlines()
+    odd = write_odd_files(workdir)
+    csv_path = os.path.join(workdir, "files.csv")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(rows + [f"{p},the patient said hello,{i}" for i, p in enumerate(odd)]) + "\n")
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", device=DEVICE)
+    ds = MultiTaskSpeechDataset(csv_path, cfg)
+    before = native.CALLS["load_batch"]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        (batch,) = list(DataLoader(ds, len(ds), num_workers=4, buckets=cfg.token_buckets))
+    wall = time.perf_counter() - t0
+    if native.CALLS["load_batch"] != before + 1:
+        raise AssertionError(f"the native route ran {native.CALLS['load_batch'] - before} times, expected once")
+    error_line = f"Error loading audio {odd[-1]}: native decode -4"
+    if error_line not in printed.getvalue():
+        raise AssertionError(f"no error line for the broken file: {printed.getvalue()!r}")
+    err = 0.0
+    for i, row in enumerate(ds.rows):
+        got = batch["audio"][i]
+        if row["file"] == odd[-1]:
+            if got.any():
+                raise AssertionError("the broken file's row is not zero")
+            continue
+        data, sr = A._read_wav(row["file"])
+        want = A.resample(data, sr, A.SAMPLE_RATE)[: cfg.audio_samples]
+        err = max(err, float(np.abs(got[: want.size] - want).max()))
+        if got[want.size:].any():
+            raise AssertionError(f"{row['file']}: samples past its length")
+    ok = err <= 2e-6
+    print(f"[files] (a) {len(ds)} files (phase 6's 32 clips, 44.1 kHz, 24-bit, one not a WAV) in one native "
+          f"load_batch call, {wall:.3f} s; native vs Python route (stdlib reader + scipy resample_poly) max |diff| "
+          f"{err:.2e} (tol 2e-6); the broken file: a zero row and {error_line!r} {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the native and Python routes disagree")
+
+
+def files_config(workdir: str, tag: str, **kw):
+    from asr_ttl_mtl_tpu_torch.mtl import TrainingConfig
+
+    return TrainingConfig(**{**dict(model_size=MODEL, pretrained="random", batch_size=FILES_BATCH,
+                                    val_batch_size=FILES_BATCH, compute_dtype="bfloat16", learning_rate=1e-5,
+                                    seed=0, num_workers=4, epochs=1, device=DEVICE,
+                                    save_dir=os.path.join(workdir, tag)), **kw})
+
+
+def run_transfer_steps(card: str, workdir: str, total: dict):
+    """Phase 22 (b): the same seeded weights and the same 2 batches of
+    phase 6's clips at batch 16: 2 train steps with int16 waveforms (K4 in
+    the step) and 2 with `mel_fp16` (the loader's producer thread computes
+    fp16 log-mels on the host; the step extends them to the window with
+    `finish_transfer_mel`, no K4). Both launch phase 6's flash kernels per
+    step; the transfer mels lie within 3e-3 of K4's mels of the same batch.
+    Returns the mel_fp16 trainer."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.audio import finish_transfer_mel, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer
+
+    csv_path = os.path.join(workdir, "clips0.csv")
+    out = {}
+    for mode in ("int16", "mel_fp16"):
+        cfg = files_config(workdir, mode, audio_transfer_dtype=mode)
+        loader = DataLoader(MultiTaskSpeechDataset(csv_path, cfg), FILES_BATCH, shuffle=True, num_workers=4,
+                            drop_last=True, seed=0, buckets=cfg.token_buckets)
+        batches = list(loader)[:2]
+        trainer = MultiTaskTrainer(cfg, verbose=False)
+        dims = trainer.model.dims
+        n_h2, n_k7 = dims.n_audio_layer + dims.n_text_layer, dims.n_text_layer
+        per_step = {"flash_attention_h2_lse": n_h2, "flash_attention_h2_bwd": n_h2, "flash_attention_lse": n_k7,
+                    "flash_attention_bwd": n_k7, **({"log_mel": 1} if mode == "int16" else {})}
+        losses, step_s = [], []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            (loss, _), counts = counted(lambda: trainer.train_step(batch))
+            step_s.append(time.perf_counter() - t0)
+            expect_launches(counts, per_step, f"the {mode} train step {i + 1}")
+            add_counts(total, counts)
+            losses.append(float(loss))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{mode}: non-finite train loss {losses}")
+        out[mode] = (batches, losses, step_s, per_step)
+        if mode == "int16":
+            del trainer
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    (int_batches, int_losses, int_s, _), (mel_batches, mel_losses, mel_s, per_step) = out["int16"], out["mel_fp16"]
+    if [b["paths"] for b in int_batches] != [b["paths"] for b in mel_batches]:
+        raise AssertionError("the two loaders gave other batches")
+    err = 0.0
+    with torch.no_grad():
+        for wb, mb in zip(int_batches, mel_batches):
+            audio = torch.from_numpy(wb["audio"]).to(DEVICE)
+            audio = torch.nn.functional.pad(audio, (0, trainer.config.audio_samples - audio.shape[-1]))
+            k4 = log_mel_spectrogram(audio, n_mels=trainer.model.dims.n_mels)
+            moved = finish_transfer_mel(torch.from_numpy(mb["audio"]).to(DEVICE), trainer.config.audio_samples)
+            err = max(err, (moved - k4).abs().max().item())
+    ok = err <= 3e-3
+
+    def fmt(xs, k=1.0):
+        return ", ".join(f"{x * k:.4f}" for x in xs)
+
+    print(f"[files] (b) base, batch {FILES_BATCH}, the same weights and 2 batches (mel bytes a batch "
+          f"{mel_batches[0]['audio'].nbytes}, int16 waveforms {int_batches[0]['audio'].size * 2}): int16 losses "
+          f"{fmt(int_losses)}, step ms {fmt(int_s, 1e3)}; mel_fp16 losses {fmt(mel_losses)}, step ms "
+          f"{fmt(mel_s, 1e3)} (the first steps carry the set-up); mel_fp16 launches per step {json.dumps(per_step)}, "
+          f"no log_mel; finish_transfer_mel vs K4's mels max |diff| {err:.2e} (tol 3e-3) [{card}] "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the transfer mels disagree with K4's")
+    return trainer, mel_batches
+
+
+def run_twins(card: str, workdir: str, trainer, total: dict):
+    """Phase 22 (c): the mel_fp16 trainer's checkpoint through the
+    inference and evaluate twins on phase 6's 16 val clips, in process
+    through their `main`: the files appear, every metric is finite, the
+    inference twin's accuracy and the corpus WER of its per-sample texts
+    equal the evaluate twin's (`trainer.evaluate` on the same batches), and
+    the launches are K3 and K7 only (the mels come from the host)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from asr_ttl_mtl_tpu_torch.mtl import metrics as M
+    from asr_ttl_mtl_tpu_torch.scripts import evaluate_disease, inference_disease
+
+    trainer.save_checkpoint(epoch=0, best_loss=1.0)
+    ckpt = trainer.checkpoint_path()
+    val_csv = write_clips(workdir, FILES_BATCH, seed=1)
+    dims = trainer.model.dims
+    n_h2, n_k7 = dims.n_audio_layer + dims.n_text_layer, dims.n_text_layer
+    want = {"flash_attention_h2": n_h2, "flash_attention": n_k7}
+    report_dir = os.path.join(workdir, "report")
+    os.makedirs(report_dir)
+    printed = io.StringIO()
+    runs = {}
+    for name, fn in (
+        ("inference", lambda: inference_disease.main(["--model_path", ckpt, "--test_csv", val_csv, "--batch_size",
+                                                      str(FILES_BATCH), "--device", DEVICE, "--save_results",
+                                                      os.path.join(report_dir, "results.csv")])),
+        ("evaluate", lambda: evaluate_disease.main(["--model_path", ckpt, "--csv", val_csv, "--batch_size",
+                                                    str(FILES_BATCH), "--device", DEVICE, "--output_json",
+                                                    os.path.join(report_dir, "report.json")])),
+    ):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result, counts = counted(fn)
+        runs[name] = (result, time.perf_counter() - t0)
+        expect_launches(counts, want, f"the {name} twin")
+        add_counts(total, counts)
+    (results, extra), t_inf = runs["inference"]
+    metrics, t_eval = runs["evaluate"]
+    files = sorted(os.listdir(report_dir))
+    if len(files) != 3 or not (files[0] == "report.json" and files[2].endswith("_summary.json")):
+        raise AssertionError(f"the twins wrote {files}")
+    numbers = [results["overall_wer"], results["overall_cer"], results["disease_accuracy"]]
+    numbers += [r[k] for r in results["inference_results"] for k in ("wer", "cer", "disease_confidence")]
+    numbers += [v for k, v in extra.items() if not k.startswith("per_class")]
+    numbers += [metrics[k] for k in ("loss", "cls_loss", "trans_loss", "wer", "cer", "disease_acc", "macro_f1")]
+    if not all(np.isfinite(numbers)):
+        raise AssertionError("a twin's metric is not finite")
+    data = results["inference_results"]
+    corpus_wer = M.wer([r["original_text_normalized"] for r in data], [r["predicted_text_normalized"] for r in data])
+    if results["disease_accuracy"] != metrics["disease_acc"] or corpus_wer != metrics["wer"]:
+        raise AssertionError(f"inference twin acc {results['disease_accuracy']} wer {corpus_wer} against evaluate's "
+                             f"{metrics['disease_acc']} {metrics['wer']}")
+    print(f"[files] (c) the inference twin on {results['total_samples']} val clips: {t_inf:.2f} s wall; mean WER "
+          f"{results['overall_wer']:.4f} (corpus {corpus_wer:.4f}), CER {results['overall_cer']:.4f}, accuracy "
+          f"{results['disease_accuracy']:.4f}, macro F1 {extra['macro_f1']:.4f}; the evaluate twin {t_eval:.2f} s "
+          f"wall, loss {metrics['loss']:.4f}, WER {metrics['wer']:.4f}, accuracy {metrics['disease_acc']:.4f}: "
+          f"equal; files {files}; launches each {json.dumps(want)} [{card}]", flush=True)
+
+
+def run_profiled_epoch(card: str, workdir: str, trainer, batches, total: dict):
+    """Phase 22 (d): one epoch of the 2 mel_fp16 batches with `profile_dir`:
+    a torch.profiler trace written there and the step timer's line."""
+    import contextlib
+    import io
+
+    prof_dir = os.path.join(workdir, "profile")
+    trainer.config.profile_dir = prof_dir
+    trainer.verbose = True
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            _, counts = counted(lambda: trainer.train_epoch(batches, 0))
+    finally:
+        trainer.config.profile_dir, trainer.verbose = None, False
+    wall = time.perf_counter() - t0
+    add_counts(total, counts)
+    traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+    timer = [line for line in printed.getvalue().splitlines() if line.startswith("  profile: ")]
+    if len(traces) != 1 or not timer:
+        raise AssertionError(f"profile_dir: traces {traces}, printed {printed.getvalue()!r}")
+    size = os.path.getsize(os.path.join(prof_dir, traces[0]))
+    print(f"[files] (d) one epoch of {len(batches)} mel_fp16 steps with profile_dir: {wall:.2f} s wall with the "
+          f"trace and its export; {traces[0]} ({size / 1e6:.1f} MB); the step timer:{timer[0][len('  profile:'):]} "
+          f"[{card}]", flush=True)
+
+
+def run_resume(card: str, workdir: str, total: dict):
+    """Phase 22 (e): `resume_dir` at base, int16 transfer, one shuffled step
+    of 16 an epoch and `evaluate` on 16 clips after it: 1 epoch, then a new
+    trainer resumed from the directory for the 2nd, against one 2-epoch run
+    from the same seed: the weights and the optimizer's moments bit for bit
+    (else, printed, within 1e-6 of the largest value)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer
+
+    train_csv = write_clips(workdir, FILES_BATCH, seed=1)  # phase 6's 16 val clips: one step an epoch
+
+    def run(tag, epochs, resume_dir=None):
+        cfg = files_config(workdir, tag, epochs=epochs)
+        ds = MultiTaskSpeechDataset(train_csv, cfg)
+        train = DataLoader(ds, FILES_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                           buckets=cfg.token_buckets)
+        val = DataLoader(ds, FILES_BATCH, num_workers=4, buckets=cfg.token_buckets)
+        trainer = MultiTaskTrainer(cfg, verbose=False)
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: trainer.train(train, val, resume_dir=resume_dir))
+        add_counts(total, counts)
+        state = {n: p.detach().clone() for n, p in trainer.named_trainable()}
+        for g in trainer.optimizer.m:
+            for i, (m, v) in enumerate(zip(trainer.optimizer.m[g], trainer.optimizer.v[g])):
+                state[f"m.{g}.{i}"], state[f"v.{g}.{i}"] = m.clone(), v.clone()
+        result = (state, trainer.optimizer.count, (trainer.alpha, trainer.beta), out, time.perf_counter() - t0)
+        del trainer
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        return result
+
+    whole = run("whole", 2)
+    resume_dir = os.path.join(workdir, "resume")
+    first = run("first", 1, resume_dir)
+    second = run("second", 2, resume_dir)
+    if (whole[1], second[1]) != (2, 2) or whole[2] != second[2]:
+        raise AssertionError(f"steps {whole[1]} / {second[1]}, alpha/beta {whole[2]} / {second[2]}")
+    same = [k for k in whole[0] if torch.equal(whole[0][k], second[0][k])]
+    worst = max(((whole[0][k].float() - second[0][k].float()).abs().max()
+                 / whole[0][k].float().abs().max().clamp(min=1e-30)).item() for k in whole[0])
+    if len(same) != len(whole[0]) and worst > 1e-6:
+        raise AssertionError(f"resumed run: {len(whole[0]) - len(same)} tensors differ, worst {worst:.3e} relative")
+    losses = [h["train_metrics"]["loss"] for h in second[3]["training_history"]]
+    print(f"[files] (e) resume_dir at base: 2 epochs of 1 step + evaluate {whole[4]:.2f} s; 1 epoch {first[4]:.2f} s, "
+          f"then a new trainer resumed for the 2nd {second[4]:.2f} s; train losses {losses} against "
+          f"{[h['train_metrics']['loss'] for h in whole[3]['training_history']]}; {len(same)} of {len(whole[0])} "
+          f"weight and moment tensors bit for bit equal"
+          + ("" if len(same) == len(whole[0]) else f", the rest within {worst:.3e} of their largest value (tol 1e-6)")
+          + f" [{card}]", flush=True)
+
+
+def run_flac_cli(card: str, workdir: str, total: dict):
+    """Phase 22 (f): where ffmpeg is on PATH, phase 12's 70 s WAV converted
+    to FLAC with it and transcribed through the CLI at base (one rung,
+    `--language en`), as the WAV is with the same options: the same text."""
+    import contextlib
+    import io
+    import shutil
+    import subprocess
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import from_random
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.models import checkpoint_dict
+
+    if not shutil.which("ffmpeg"):
+        print("[files] (f) ffmpeg: absent on this machine", flush=True)
+        return
+    clip = os.path.join(workdir, "clip70.wav")
+    write_long_wav(clip, 70.0, seed=0)
+    flac = os.path.join(workdir, "clip70.flac")
+    subprocess.run(["ffmpeg", "-nostdin", "-y", "-i", clip, flac], capture_output=True, check=True)
+    ckpt = os.path.join(workdir, "base.pt")
+    torch.save(checkpoint_dict(from_random(MODEL, seed=0, device="cpu")), ckpt)
+    texts = {}
+    for path in (clip, flac):
+        out = os.path.join(workdir, "cli_" + os.path.splitext(path)[1][1:])
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            _, counts = counted(lambda: cli([path, "--model", ckpt, "--device", DEVICE, "--output_dir", out,
+                                             "--language", "en", "--temperature_increment_on_fallback", "None"]))
+        wall = time.perf_counter() - t0
+        if "Skipping" in printed.getvalue():
+            raise AssertionError(f"the CLI skipped {path}:\n{printed.getvalue()[-3000:]}")
+        expect_launched(counts, ("log_mel", "flash_attention_h2", "decode_attention", "topk_logprobs"),
+                        f"the CLI on {path}")
+        add_counts(total, counts)
+        with open(os.path.join(out, "clip70.txt")) as f:
+            texts[path] = f.read()
+        print(f"[files] (f) the CLI on {os.path.basename(path)} ({'ffmpeg' if path == flac else 'native'} decode), "
+              f"one rung: {wall:.1f} s wall; launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]",
+              flush=True)
+    if texts[clip] != texts[flac]:
+        raise AssertionError("the FLAC's text differs from the WAV's")
+    print(f"[files] (f) ffmpeg: the FLAC's text equals the WAV's ({len(texts[clip])} characters)", flush=True)
+
+
+def run_files(card: str):
+    """Phase 22: files in, reports out, at base. Returns the summed launch counts of its paths."""
+    total = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        check_file_loading(card, workdir)
+        trainer, mel_batches = run_transfer_steps(card, workdir, total)
+        run_twins(card, workdir, trainer, total)
+        run_profiled_epoch(card, workdir, trainer, mel_batches, total)
+        del trainer, mel_batches
+        run_resume(card, workdir, total)
+        run_flac_cli(card, workdir, total)
+    print(f"[files] phase 22: {time.perf_counter() - t0:.1f} s wall; launches over the phase "
+          f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -3086,16 +3550,20 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             hw_paths += run_head_width(card, geometry, workdir)
 
+    # phase 22: files in, reports out, at base
+    files_counts = run_files(card)
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
     # train steps, and phase 20's fp32 window paths, CLI run, train steps
     # and evaluate, and phase 21's greedy, kv_quant=False, beam, train and
-    # evaluate runs at head widths 128 and 32), each counted from 0 just
-    # before it ran
+    # evaluate runs at head widths 128 and 32, and phase 22's train steps,
+    # twins, profiled epoch, resumed runs and CLI runs), each counted from 0
+    # just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths)
+             fp32_eval_counts, *hw_paths, files_counts)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

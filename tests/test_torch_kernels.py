@@ -143,6 +143,31 @@ def test_k2_one_launch_at_any_group(monkeypatch, group, valid):
                           PD.k2_plan(b, 8, PD.k2_n_valid(tk, valid), group))
 
 
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_attention_i8"])
+def test_fp32_decode_launches_count_under_their_own_names(monkeypatch, kernel):
+    """K2 and K1 with fp32 queries call the `_f32` C entry and count under
+    `<name>_f32`, so that a run can tell an fp32 launch from a bf16 one."""
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES
+
+    fake = _FakeK2Lib()
+    monkeypatch.setattr(PD._cuda, "lib", lambda name: fake)
+    monkeypatch.setattr(PD._cuda, "stream_handle", lambda device: 0)
+    b, tk = 2, 1536
+    q = torch.zeros((b * 5, 1, 512), dtype=torch.float32)
+    before = dict(LAUNCHES)
+    if kernel == "decode_attention":
+        ck = torch.zeros((2, b, tk, 512), dtype=torch.float32)
+        PD._launch_k2(q, ck, ck, 1, 8, 0.125, None, 5)
+        entry = "decode_attn_f32"
+    else:
+        ck, sc = torch.zeros((2, b, tk, 512), dtype=torch.int8), torch.zeros((2, b, tk))
+        PD._launch_k1(q, ck, sc, ck, sc, 1, 8, 0.125, 1499, 5, PD._i8_blocks(b, tk, 512)[1])
+        entry = "decode_attn_i8_f32"
+    assert [name for name, _ in fake.calls] == [entry]
+    changed = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert changed == {f"{kernel}_f32": 1}
+
+
 # ---------------------------------------------------------------- K1 ------
 
 

@@ -285,8 +285,7 @@ def test_train_disease_twin_refuses_what_the_port_does_not_serve(tmp_path):
     base = ["--pretrained", "random", "--train_csv", csv_path, "--val_csv", csv_path, "--device", "cpu",
             "--save_dir", str(tmp_path / "out"), "--debug_dims", json.dumps(TRAIN_CONFIG["debug_dims"]),
             "--audio_samples", "20480", "--compute_dtype", "float32"]
-    for extra in (["--zero1"], ["--steps_per_call", "4"], ["--audio_transfer_dtype", "mel_fp16"],
-                  ["--dp", "2"], ["--resume_dir", str(tmp_path / "r")]):
+    for extra in (["--zero1"], ["--steps_per_call", "4"], ["--dp", "2"], ["--packed_dispatch", "True"]):
         with pytest.raises(NotImplementedError):
             train_disease.main(base + extra)
 

@@ -148,3 +148,34 @@ def test_checkpoints_cross_load(pair, tmp_path):
         assert got[key] == pytest.approx(want[key], rel=REL), key
     assert got["wer"] == want["wer"] and got["disease_acc"] == want["disease_acc"]
     assert (p_from_jax.alpha, p_from_jax.beta) == (jtr.alpha, jtr.beta)
+
+
+def test_mel_fp16_step_is_the_step_on_its_mels(pair, tmp_path, monkeypatch):
+    """A `mel_fp16` train step (host fp16 mels, `finish_transfer_mel` on the
+    device, no K4) equals, bit for bit, the port's int16 step with its
+    log-mel replaced by those float mels; that step from mels is the one
+    test_evaluate_and_train_steps_match_jax holds against JAX."""
+    from asr_ttl_mtl_tpu_torch.audio import finish_transfer_mel, log_mel_for_transfer
+    from asr_ttl_mtl_tpu_torch.mtl import trainer as T
+
+    _, ptr, _ = pair
+    (batch,) = _batches(tmp_path, seed=14, n_batches=1)
+    keep = torch.from_numpy(np.random.RandomState(2).rand(4, 64) < 0.9)
+    model_sd = {k: v.clone() for k, v in ptr.model.state_dict().items()}
+    head_sd = {k: v.clone() for k, v in ptr.classifier.state_dict().items()}
+    results = {}
+    for mode in ("mel_fp16", "int16"):
+        tr = MultiTaskTrainer(TrainingConfig(**TRAIN_CONFIG, device="cpu", audio_transfer_dtype=mode), verbose=False)
+        tr.load_state(model_sd, head_sd)
+        tr.alpha, tr.beta = 0.5, 0.5
+        if mode == "int16":
+            shipped = log_mel_for_transfer(batch["audio"], 80, full_samples=TRAIN_CONFIG["audio_samples"])
+            mels = finish_transfer_mel(torch.from_numpy(shipped), TRAIN_CONFIG["audio_samples"])
+            assert tuple(mels.shape) == (4, 80, 128)
+            monkeypatch.setattr(T, "log_mel_spectrogram", lambda audio, n_mels: mels)
+        loss, aux = tr.train_step(batch, keep=keep)
+        results[mode] = (loss, aux, {n: p.detach().clone() for n, p in tr.named_trainable()})
+    (la, aa, pa), (lb, ab, pb) = results["mel_fp16"], results["int16"]
+    assert torch.equal(la, lb) and torch.equal(aa["pred_tokens"], ab["pred_tokens"])
+    for name in pa:
+        assert torch.equal(pa[name], pb[name]), name

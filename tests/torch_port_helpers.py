@@ -22,6 +22,14 @@ from asr_ttl_mtl_tpu.models.registry import WhisperModel as JaxWhisperModel
 from asr_ttl_mtl_tpu_torch.models import ModelDimensions as TorchDims
 from asr_ttl_mtl_tpu_torch.models import WhisperModel, state_dict_from_jax_params
 
+# The suite runs one worker process per core (pytest-xdist, -n 6 on 8
+# cores). Torch's default pool of one thread per core in each worker
+# oversubscribes the cores about sixfold, and its OpenMP threads then spend
+# most of the run waiting for each other (the port's test files took 1081 s
+# of wall time at 8 threads a worker and 322 s at one, on the same
+# machine). Every worker imports this module when it collects the tests.
+torch.set_num_threads(1)
+
 SMALL = dict(
     n_mels=80, n_audio_ctx=96, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
     n_vocab=51865, n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2,
