@@ -9,11 +9,13 @@ Ported so far: the 30 s window path, waveform -> log-mel -> encoder ->
 cross-KV -> prefill -> greedy, best-of or beam decode -> text; long-form
 `transcribe` with word timestamps, batched `transcribe_batch`, the writers
 and the CLI (`python -m asr_ttl_mtl_tpu_torch`, `--batch_mode`);
-and the single-device multi-task fine-tune (`mtl/`: dataset, trainer,
-chunked CE, 4-group AdamW), whose attention trains through the flash
-kernels' backward passes, with its report scripts (`scripts/`); file
-decoding on the host (the native C++ runtime in `runtime/` and `native/`,
-ffmpeg) and the text normalizers (`normalizers/`).
+and the multi-task fine-tune (`mtl/`: dataset, trainer, chunked CE,
+4-group AdamW), whose attention trains through the flash kernels'
+backward passes, with its report scripts (`scripts/`); file decoding on
+the host (the native C++ runtime in `runtime/` and `native/`, ffmpeg) and
+the text normalizers (`normalizers/`); and the multi-device paths on
+`torch.distributed` (`parallel/`: dp and tp batched decoding, the
+trainer's dp, tp and ZeRO-1), one process per rank.
 """
 
 __version__ = "0.1.0"

@@ -63,10 +63,11 @@ def dispatch_beam(task, cross_kv, cross_prefill, initial: np.ndarray):
     if dev.type == "cuda":  # pinned: the copy does not wait for the stream
         tokens = tokens.pin_memory()
     tokens = tokens.to(dev, non_blocking=True)
+    width = W.cache_width(model.decoder)
     if "k_scale" in cross_kv:  # kv_quant: int8 self cache too
-        cache = W.init_kv_cache_i8(dims, B, ctx=cache_len, device=dev)
+        cache = W.init_kv_cache_i8(dims, B, ctx=cache_len, device=dev, width=width)
     else:
-        cache = W.init_kv_cache(dims, B, dtype, ctx=cache_len, device=dev)
+        cache = W.init_kv_cache(dims, B, dtype, ctx=cache_len, device=dev, width=width)
     prefill_logits, cache = W.decoder_apply(
         model.decoder, tokens, cross_kv=cross_prefill, kv_cache=cache, pos_offset=0, compute_dtype=dtype,
     )  # (B, bucket, V) fp32

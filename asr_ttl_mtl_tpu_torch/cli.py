@@ -11,8 +11,16 @@ alignment heads for `--word_timestamps`, as the JAX `load_model` does
 (when the checkpoint has the preset's decoder layers and heads). `--device` is a torch device, the
 card by default. `--batch_mode True` decodes every window of every file
 in batches through `transcribe_batch`; its options are routed as in JAX
-`cli.py:141-202`. The multi-device flags (`--dp`, `--tp`) are not ported
-yet and are refused.
+`cli.py:141-202`. With `--batch_mode`, `--dp` and `--tp` decode over a
+("dp", "tp") mesh of ranks, one process per rank, as torchrun starts them:
+
+    torchrun --nproc_per_node 2 -m asr_ttl_mtl_tpu_torch a.wav b.wav --model base.pt \
+        --batch_mode True --dp 2
+
+Each rank takes the card of its LOCAL_RANK and joins the process group
+from torchrun's environment (NCCL on the card, gloo on the CPU), or the
+one its caller initialized; rank 0 alone writes the outputs. Without
+`--batch_mode` the two flags are ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -70,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--int8_encoder", type=str2bool, default=False, help="run the encoder block projections as dynamically-quantized int8 matmuls: faster encoding, approximately identical output")
     parser.add_argument("--fuse_encoder", type=str2bool, default=True, help="with --kv_int8, let the prompt prefill read the float cross K/V (the JAX package's fused window program); False reads the dequantized int8 store")
     parser.add_argument("--batch_mode", type=str2bool, default=False, help="decode every 30s window of every input file in device-wide batches (throughput mode; windows are decoded independently)")
-    parser.add_argument("--dp", type=optional_int, default=None, help="with --batch_mode: data-parallel devices (not ported yet)")
-    parser.add_argument("--tp", type=optional_int, default=None, help="with --batch_mode: tensor-parallel devices per dp replica (not ported yet)")
+    parser.add_argument("--dp", type=optional_int, default=None, help="with --batch_mode: shard window batches data-parallel over this many ranks (0: all the ranks tp leaves); default: one process")
+    parser.add_argument("--tp", type=optional_int, default=None, help="with --batch_mode: additionally shard the model weights tensor-parallel over this many ranks per dp replica (Megatron layout)")
 
     parser.add_argument("--temperature_increment_on_fallback", type=optional_float, default=0.2, help="temperature increment on decode-quality fallback")
     parser.add_argument("--compression_ratio_threshold", type=optional_float, default=2.4, help="gzip compression ratio above which a decode is treated as failed")
@@ -149,9 +157,21 @@ def cli(argv: Optional[List[str]] = None) -> None:
     output_format: str = args.pop("output_format")
     device: str = args.pop("device")
 
-    for flag in ("dp", "tp"):
-        if args.pop(flag) is not None:
-            parser.error(f"--{flag} is not ported yet (ROADMAP: the multi-device paths)")
+    dp, tp = args.pop("dp"), args.pop("tp")
+    mesh = None
+    if args["batch_mode"] and (dp is not None or (tp or 1) > 1):
+        from .parallel import create_mesh
+
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            device = str(dev)
+        try:
+            mesh = create_mesh((dp or 0, tp or 1), device=device)
+        except ValueError as e:  # a shape the world's ranks do not fill
+            parser.error(f"--dp {dp} --tp {tp}: {e}")
+    writes = mesh is None or torch.distributed.get_rank() == 0
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -201,9 +221,11 @@ def cli(argv: Optional[List[str]] = None) -> None:
             parser.error(f"option(s) {unroutable} are not routable to --batch_mode: add them to "
                          "transcribe_batch's signature or to the CLI's dropped table")
         try:
-            results = transcribe_batch(model, list(audio_paths), temperature=tuple(temperature), **batch_args)
+            results = transcribe_batch(model, list(audio_paths), mesh=mesh, temperature=tuple(temperature),
+                                       **batch_args)
             for audio_path, result in zip(audio_paths, results):
-                writer(result, audio_path, **writer_args)
+                if writes:
+                    writer(result, audio_path, **writer_args)
         except Exception as e:
             traceback.print_exc()
             print(f"Batch transcription failed: {type(e).__name__}: {str(e)}")

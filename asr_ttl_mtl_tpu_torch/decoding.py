@@ -312,13 +312,19 @@ class DecodingTask:
             )
         if fused and self.kv_quant:
             cross_f = W.precompute_cross_kv(dec, feats, stack=False)
-            return feats, W.quantize_cross_kv(cross_f), cross_f
+            return feats, W.quantize_cross_kv(cross_f, W.tp_kv_group(dec, "cross_attn")), cross_f
         cross_kv = W.precompute_cross_kv(dec, feats, quantize=self.kv_quant)
         return feats, cross_kv, cross_kv
 
-    def submit(self, mel, rng_seed: int = 0, feature_sink=None):
+    def submit(self, mel, rng_seed: int = 0, feature_sink=None, rows: Optional[Tuple[int, int]] = None):
         """Enqueue one batch of windows on the current stream; returns a
         handle for `collect`.
+
+        `rows` = (first, total): these windows are rows [first, first + B)
+        of a batch of `total` windows that data-parallel ranks decode in
+        blocks (`parallel/serving.py`); sampling then draws its noise for
+        the whole batch and takes these rows, so that every window samples
+        what it samples in one process.
 
         `feature_sink`: with `fuse_encoder=False` and a known language, called
         with this batch's encoder features (B, n_audio_ctx, D) on the device,
@@ -354,7 +360,7 @@ class DecodingTask:
                 arrays, meta = dispatch_beam(self, cross_kv, cross_prefill, initial)
                 assemble = partial(collect_beam, arrays, meta, self.tokenizer.eot)
             else:
-                arrays, meta = self._greedy(cross_kv, cross_prefill, initial, rng_seed)
+                arrays, meta = self._greedy(cross_kv, cross_prefill, initial, rng_seed, rows)
                 assemble = partial(self._assemble_greedy, *arrays, *meta)
         feats_out = feats if self.options.return_audio_features else None
         return (assemble, languages, feats_out)
@@ -375,7 +381,8 @@ class DecodingTask:
         """Decode one batch of 30 s windows."""
         return self.collect(self.submit(mel, rng_seed))
 
-    def _greedy(self, cross_kv, cross_prefill, initial: np.ndarray, rng_seed: int):
+    def _greedy(self, cross_kv, cross_prefill, initial: np.ndarray, rng_seed: int,
+                rows: Optional[Tuple[int, int]] = None):
         """Prefill + greedy (or sampled) decode steps; device tensors out.
 
         The JAX package runs this as a while_loop on the device. Here the
@@ -385,7 +392,11 @@ class DecodingTask:
         sampled token. Neither changes a result: finished rows only append
         EOT, and the last step's logits are never read. Without the check
         nothing here waits for the device, so `submit` returns while the
-        batch still runs."""
+        batch still runs.
+
+        A sampled step draws one uniform number per row of the whole batch
+        (`rows`, in windows; this batch alone by default) and takes each
+        row's token by inverse CDF from its probabilities."""
         model, dims, cfg = self.model, self.model.dims, self.filter_cfg
         dev = model.device
         n_audio = initial.shape[0]
@@ -401,10 +412,13 @@ class DecodingTask:
 
         # cache bounded to the decode horizon, a multiple of 128
         cache_len = min(dims.n_text_ctx, ((bucket + sample_len + 127) // 128) * 128)
+        width = W.cache_width(model.decoder)
         if "k_scale" in cross_kv:  # kv_quant: int8 self cache too
-            cache = W.init_kv_cache_i8(dims, n_rows, ctx=cache_len, device=dev)
+            cache = W.init_kv_cache_i8(dims, n_rows, ctx=cache_len, device=dev, width=width)
         else:
-            cache = W.init_kv_cache(dims, n_rows, self.compute_dtype, ctx=cache_len, device=dev)
+            cache = W.init_kv_cache(dims, n_rows, self.compute_dtype, ctx=cache_len, device=dev, width=width)
+        first, total = rows if rows is not None else (0, n_audio)
+        noise_rows = slice(first * n_group, first * n_group + n_rows)
 
         tokens = torch.from_numpy(padded)
         if dev.type == "cuda":  # pinned: the copy does not wait for the stream
@@ -434,7 +448,9 @@ class DecodingTask:
                 next_tok = logits.argmax(dim=-1)
             else:
                 probs = torch.softmax(logits.float() / max(temperature, 1e-6), dim=-1)
-                next_tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+                u = torch.rand(total * n_group, generator=gen, device=dev)[noise_rows]
+                u = torch.cat([u, u.new_zeros(n_rows - u.numel())])  # pad windows past the batch
+                next_tok = sample_rows(probs, u)
             # chosen-token logprob: logits[next] - logsumexp(logits)
             lse = torch.logsumexp(logits.float(), dim=-1)
             chosen = logits.gather(1, next_tok[:, None])[:, 0]
@@ -500,6 +516,15 @@ class DecodingTask:
             )
             for i in range(len(tokens))
         ]
+
+
+def sample_rows(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One token per row of probs (B, V) by inverse CDF: the first index
+    whose cumulative probability exceeds u * the row's total, u (B,) in
+    [0, 1); a token of probability 0 is never taken."""
+    cdf = probs.cumsum(dim=-1)
+    idx = torch.searchsorted(cdf, (u * cdf[:, -1]).unsqueeze(-1), right=True)[:, 0]
+    return idx.clamp(max=probs.shape[-1] - 1)
 
 
 def decode(

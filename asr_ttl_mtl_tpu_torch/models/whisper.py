@@ -23,7 +23,13 @@ rounding points:
 * under `set_int8_mlp_kernel("auto")` the W8A8 encoder's MLP is the fused
   kernel K14 on the card, where the JAX package takes its TPU kernel;
 * autograd flows through every function here (training), with the flash
-  kernels' backward passes as `torch.autograd.Function`s.
+  kernels' backward passes as `torch.autograd.Function`s;
+* a model sharded over tp (`parallel.mesh.shard_params`) runs the same
+  functions at its local widths: its sharded linears carry `tp = ("col" |
+  "row", group)`, attention runs its local heads, a row-parallel product is
+  summed over the group before its bias, and every int8 scale whose row
+  spans the full width takes its absmax over the group first, so a tp run
+  computes what one device computes.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..ops.decode_attention import (
 )
 from ..ops.flash_attention import flash_attention_mh_vjp, flash_attention_vjp, h2_eligible, mh_flash_eligible
 from ..ops.int8_mlp import int8_mlp, int8_mlp_supported
+from ..parallel.comm import all_reduce_max, all_reduce_sum, copy_to_tp, reduce_from_tp
 from .dims import ModelDimensions
 
 F32 = torch.float32
@@ -180,17 +187,41 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
+def _tp_group(lin: nn.Module, kind: str):
+    """The tp group of a linear sharded as `kind` ("col" or "row"), else None."""
+    tp = getattr(lin, "tp", None)
+    return tp[1] if tp is not None and tp[0] == kind else None
+
+
+def tp_input(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    """Megatron's f in front of a column-parallel projection: identity
+    forward, and the input's gradient summed over tp backward. Identity
+    for an unsharded layer."""
+    group = _tp_group(lin, "col")
+    return x if group is None else copy_to_tp(x, group)
+
+
+def local_heads(attn: nn.Module, n_head: int, n_state: int) -> int:
+    """The heads this rank computes: all of them, or its tp share."""
+    return n_head * attn.query.weight.shape[0] // n_state
+
+
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T (+ b): fp32 accumulation, bias added in fp32, then rounded."""
+    """x @ W^T (+ b): fp32 accumulation, bias added in fp32, then rounded.
+    A row-parallel layer sums its partial product over tp first."""
     out = _matmul_f32(x, lin.weight)
+    group = _tp_group(lin, "row")
+    if group is not None:
+        out = reduce_from_tp(out, group)
     if lin.bias is not None:
         out = out + lin.bias.float()
     return out.to(x.dtype)
 
 
-def _quant_rowwise_sym(x32: torch.Tensor):
-    """Symmetric int8 quantization with one scale per last-dim row."""
-    absmax = x32.abs().amax(dim=-1, keepdim=True)
+def _quant_rowwise_sym(x32: torch.Tensor, group=None):
+    """Symmetric int8 quantization with one scale per last-dim row; a row
+    split over tp (`group`) takes its absmax over the group."""
+    absmax = all_reduce_max(x32.abs().amax(dim=-1, keepdim=True), group)
     scale = int8_step(absmax, 1e-30)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -199,14 +230,19 @@ def _quant_rowwise_sym(x32: torch.Tensor):
 def linear_i8(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """W8A8 linear: per-token activation scales, per-output-column weight
     scales, int8 x int8 -> int32 product (`torch._int_mm`; on CUDA it needs
-    more than 16 rows and in/out widths that are multiples of 8)."""
-    xq, sx = _quant_rowwise_sym(x.float().reshape(-1, x.shape[-1]))
-    wq, sw = _quant_rowwise_sym(lin.weight.float())  # (out, in): a scale per output column
+    more than 16 rows and in/out widths that are multiples of 8). A
+    row-parallel layer scales by the absmax over tp and sums the int32
+    products over tp, exactly."""
+    group = _tp_group(lin, "row")
+    xq, sx = _quant_rowwise_sym(x.float().reshape(-1, x.shape[-1]), group)
+    wq, sw = _quant_rowwise_sym(lin.weight.float(), group)  # (out, in): a scale per output column
     acc = torch._int_mm(xq, wq.t())
+    if group is not None:
+        acc = all_reduce_sum(acc, group)
     out = acc.float() * (sx * sw.t())
     if lin.bias is not None:
         out = out + lin.bias.float()
-    return out.to(x.dtype).reshape(*x.shape[:-1], lin.out_features)
+    return out.to(x.dtype).reshape(*x.shape[:-1], lin.weight.shape[0])
 
 
 def _no_tf32():
@@ -348,7 +384,11 @@ def encoder_apply(
     # switch on, the card, and the gate at B x n_audio_ctx rounded up to 128
     d_enc = dims.n_audio_state
     n_tok = mel.shape[0] * (-(-dims.n_audio_ctx // 128) * 128)
+    # not under tp: K14 quantizes the GELU rows over the whole hidden width,
+    # which a tp rank splits (JAX gates its kernel off there too); the
+    # linear_i8 composition takes the absmax over tp instead
     use_mlp_kernel = (int8_linears and _INT8_MLP["mode"] == "auto" and mel.is_cuda
+                      and not any(getattr(b.mlp[0], "tp", None) for b in enc.blocks)
                       and int8_mlp_supported(n_tok, d_enc, 4 * d_enc))
     x = mel.to(compute_dtype)
     x = gelu(conv1d(enc.conv1, x, stride=1))
@@ -366,14 +406,15 @@ def encoder_apply(
 
     def one_block(x, block):
         res = x
-        h = layer_norm(block.attn_ln, x)
+        h = tp_input(layer_norm(block.attn_ln, x), block.attn.query)
         q, k, v = lin(block.attn.query, h), lin(block.attn.key, h), lin(block.attn.value, h)
         att = qkv_attention(
-            q, k, v, dims.n_audio_head, kv_valid_len=t_valid if t_run != t_valid else None
+            q, k, v, local_heads(block.attn, dims.n_audio_head, d_enc),
+            kv_valid_len=t_valid if t_run != t_valid else None,
         )
         x = res + lin(block.attn.out, att)
         res = x
-        h = layer_norm(block.mlp_ln, x)
+        h = tp_input(layer_norm(block.mlp_ln, x), block.mlp[0])
         if use_mlp_kernel:  # weights quantized on each call, as in the JAX package
             fc1, fc2 = block.mlp[0], block.mlp[2]
             w1q, s1 = _quant_rowwise_sym(fc1.weight.float())
@@ -400,20 +441,22 @@ def encoder_apply(
 
 def init_kv_cache(
     dims: ModelDimensions, batch: int, compute_dtype: torch.dtype = F32,
-    ctx: Optional[int] = None, device=None,
+    ctx: Optional[int] = None, device=None, width: Optional[int] = None,
 ) -> Cache:
     """Static self-attention cache (L, B, ctx, D) for all decoder layers;
-    `ctx` bounds it to the decode horizon."""
-    shape = (dims.n_text_layer, batch, ctx or dims.n_text_ctx, dims.n_text_state)
+    `ctx` bounds it to the decode horizon, `width` (`cache_width`) is the
+    local D of a tp shard."""
+    shape = (dims.n_text_layer, batch, ctx or dims.n_text_ctx, width or dims.n_text_state)
     return {
         "k": torch.zeros(shape, dtype=compute_dtype, device=device),
         "v": torch.zeros(shape, dtype=compute_dtype, device=device),
     }
 
 
-def init_kv_cache_i8(dims: ModelDimensions, batch: int, ctx: Optional[int] = None, device=None) -> Cache:
+def init_kv_cache_i8(dims: ModelDimensions, batch: int, ctx: Optional[int] = None, device=None,
+                     width: Optional[int] = None) -> Cache:
     """int8 self-attention cache with fp32 row scales per (layer, batch, position)."""
-    shape = (dims.n_text_layer, batch, ctx or dims.n_text_ctx, dims.n_text_state)
+    shape = (dims.n_text_layer, batch, ctx or dims.n_text_ctx, width or dims.n_text_state)
     return {
         "k": torch.zeros(shape, dtype=torch.int8, device=device),
         "k_scale": torch.ones(shape[:-1], dtype=F32, device=device),
@@ -422,10 +465,21 @@ def init_kv_cache_i8(dims: ModelDimensions, batch: int, ctx: Optional[int] = Non
     }
 
 
-def _quant_rows(x: torch.Tensor):
+def cache_width(dec: TextDecoder) -> int:
+    """The width of the decoder's K/V rows on this rank (D, or its tp share)."""
+    return dec.blocks[0].attn.key.weight.shape[0] if len(dec.blocks) else dec.dims.n_text_state
+
+
+def tp_kv_group(dec: TextDecoder, attn: str):
+    """The tp group that splits the rows of a K/V cache, or None."""
+    return _tp_group(getattr(dec.blocks[0], attn).key, "col") if len(dec.blocks) else None
+
+
+def _quant_rows(x: torch.Tensor, group=None):
     """(B, T, D) float -> ((B, T, D) int8, (B, T) fp32) per-row abs-max
-    quantization, without the T padding of quantize_kv_rows."""
-    m = x.abs().amax(dim=-1).float()
+    quantization, without the T padding of quantize_kv_rows; a row split
+    over tp takes its absmax over the group."""
+    m = all_reduce_max(x.abs().amax(dim=-1).float(), group)
     scale = int8_step(m, 1e-20)
     return torch.round(x.float() / scale[..., None]).to(torch.int8), scale
 
@@ -436,30 +490,33 @@ def precompute_cross_kv(
     """Cross-attention K/V projected once per audio window: stacked
     (L, B, Ta, D), or per-layer tuples with stack=False (the prefill's float
     K/V under kv_quant), or int8 with fp32 row scales with quantize=True."""
+    if len(dec.blocks):  # one f for every layer's column-parallel K/V
+        audio_features = tp_input(audio_features, dec.blocks[0].cross_attn.key)
     ks = [linear(block.cross_attn.key, audio_features) for block in dec.blocks]
     vs = [linear(block.cross_attn.value, audio_features) for block in dec.blocks]
     if not stack:
         assert not quantize, "quantize_cross_kv stacks; use stack=True"
         return {"k": tuple(ks), "v": tuple(vs)}
     cross = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return quantize_cross_kv(cross) if quantize else cross
+    return quantize_cross_kv(cross, tp_kv_group(dec, "cross_attn")) if quantize else cross
 
 
-def quantize_cross_kv(cross_kv) -> Cache:
+def quantize_cross_kv(cross_kv, group=None) -> Cache:
     """Float cross-KV (stacked or per-layer tuples) -> int8 K/V with fp32 row
     scales, T padded to a multiple of 128. Rows quantize independently, so
-    both forms give the same values."""
+    both forms give the same values; rows split over tp (`group`) take
+    their absmax over the group."""
     if isinstance(cross_kv["k"], (tuple, list)):
-        kq = [quantize_kv_rows(k) for k in cross_kv["k"]]
-        vq = [quantize_kv_rows(v) for v in cross_kv["v"]]
+        kq = [quantize_kv_rows(k, group) for k in cross_kv["k"]]
+        vq = [quantize_kv_rows(v, group) for v in cross_kv["v"]]
         return {
             "k": torch.stack([q for q, _ in kq]),
             "k_scale": torch.stack([s for _, s in kq]),
             "v": torch.stack([q for q, _ in vq]),
             "v_scale": torch.stack([s for _, s in vq]),
         }
-    ki, ksc = quantize_kv_rows(cross_kv["k"])
-    vi, vsc = quantize_kv_rows(cross_kv["v"])
+    ki, ksc = quantize_kv_rows(cross_kv["k"], group)
+    vi, vsc = quantize_kv_rows(cross_kv["v"], group)
     return {"k": ki, "k_scale": ksc, "v": vi, "v_scale": vsc}
 
 
@@ -512,8 +569,9 @@ def decoder_apply(
     """
     dims = dec.dims
     B, T = tokens.shape
-    D = dims.n_text_state
-    H = dims.n_text_head
+    D = cache_width(dec)  # this rank's width and heads (tp shares them out)
+    H = local_heads(dec.blocks[0].attn, dims.n_text_head, dims.n_text_state) if len(dec.blocks) else dims.n_text_head
+    self_group = tp_kv_group(dec, "attn")
     dev = tokens.device
 
     x = dec.token_embedding.weight[tokens].to(compute_dtype)
@@ -550,11 +608,11 @@ def decoder_apply(
     for li, block in enumerate(dec.blocks):
         # --- causal self-attention ---
         res = x
-        h = layer_norm(block.attn_ln, x)
+        h = tp_input(layer_norm(block.attn_ln, x), block.attn.query)
         q, k, v = linear(block.attn.query, h), linear(block.attn.key, h), linear(block.attn.value, h)
         if self_quant:
-            ki, ksc = _quant_rows(k)
-            vi, vsc = _quant_rows(v)
+            ki, ksc = _quant_rows(k, self_group)
+            vi, vsc = _quant_rows(v, self_group)
             kv_cache["k"][li, :, sl] = ki
             kv_cache["k_scale"][li, :, sl] = ksc
             kv_cache["v"][li, :, sl] = vi
@@ -580,7 +638,7 @@ def decoder_apply(
 
         # --- cross-attention ---
         res = x
-        h = layer_norm(block.cross_attn_ln, x)
+        h = tp_input(layer_norm(block.cross_attn_ln, x), block.cross_attn.query)
         qc = linear(block.cross_attn.query, h)
         if fast_step and kv_quantized and i8_cross_ok:
             # the int8 store pads T to 128; mask the padded tail
@@ -608,7 +666,7 @@ def decoder_apply(
 
         # --- mlp ---
         res = x
-        h = layer_norm(block.mlp_ln, x)
+        h = tp_input(layer_norm(block.mlp_ln, x), block.mlp[0])
         h = gelu(linear(block.mlp[0], h))
         x = res + linear(block.mlp[2], h)
 

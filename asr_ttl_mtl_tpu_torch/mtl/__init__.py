@@ -1,5 +1,5 @@
-"""The multi-task fine-tune (ASR + speech-disorder classification) on one
-device: counterpart of `asr_ttl_mtl_tpu/mtl/`."""
+"""The multi-task fine-tune (ASR + speech-disorder classification), on one
+device or over a ("dp", "tp") mesh: counterpart of `asr_ttl_mtl_tpu/mtl/`."""
 
 from .config import DISORDER_TYPE, TrainingConfig  # noqa: F401
 from .dataset import DataLoader, MultiTaskSpeechDataset, build_mtl_tokenizer, collate  # noqa: F401

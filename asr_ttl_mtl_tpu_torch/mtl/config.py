@@ -2,10 +2,9 @@
 
 Counterpart of `asr_ttl_mtl_tpu/mtl/config.py`: the same fields and
 defaults, so a checkpoint's config moves between the two packages. The
-port trains on one device. The fields for meshes, multi-step dispatch
-and packed state stay for that exchange; the trainer raises
-`NotImplementedError` when one of them asks for something the port does
-not serve (see `MultiTaskTrainer`).
+fields for multi-step dispatch and packed state stay for that exchange;
+the trainer raises `NotImplementedError` when one of them asks for
+something the port does not serve (see `MultiTaskTrainer`).
 """
 
 from __future__ import annotations
@@ -61,7 +60,8 @@ class TrainingConfig:
     compute_dtype: str = "bfloat16"  # forward/backward compute dtype
     # token sequences are padded up to one of these bucket lengths
     token_buckets: Tuple[int, ...] = (48, 64, 96, 128, 192, 448)
-    # (data, model) mesh sizes of the JAX package; the port takes (0, 1) or (1, 1)
+    # (dp, tp) mesh over the world's ranks (dp 0: all the ranks tp leaves);
+    # (0, 1) or (1, 1) in a world of one rank trains on one device
     mesh_shape: Tuple[int, int] = (0, 1)
     num_workers: int = 8  # host-side audio decode threads
     mel_on_device: bool = True  # log-mel inside the train step
@@ -82,7 +82,10 @@ class TrainingConfig:
     # waveforms, or "mel_fp16" host-computed log-mels (audio.log_mel_for_transfer)
     audio_transfer_dtype: str = "int16"
     packed_dispatch: Optional[bool] = None  # not served by the port
-    dp_shard_map: object = True  # a mesh setting; one device needs none
+    # the JAX package's dp route (True/"force": shard_map, False: pjit); the
+    # port has one per-rank route for all three, and "force" takes it on a
+    # mesh of one rank too
+    dp_shard_map: object = True
     # checkpoint each encoder block (torch.utils.checkpoint); "auto" keeps
     # the JAX package's rule, which is on only on a TPU
     remat: object = "auto"
@@ -97,7 +100,7 @@ class TrainingConfig:
     # storage dtype of the AdamW moments: "float32" or "bfloat16" (the
     # update math runs in fp32 from upcast moments, only the store rounds)
     optimizer_moment_dtype: str = "float32"
-    zero1: bool = False  # optimizer-state sharding over dp: not served by the port
+    zero1: bool = False  # ZeRO-1: the AdamW moments shared out over dp (needs dp > 1)
 
 
 DISORDER_TYPE = {0: "Normal", 1: "Dysphonia", 2: "Dysarthria"}

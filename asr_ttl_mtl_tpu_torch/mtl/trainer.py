@@ -25,9 +25,24 @@ the port's own `torch.save` file, since the JAX package's orbax format
 cannot be read without JAX. `profile_dir` traces epoch 0 with
 torch.profiler and prints the step timer's summary
 (`utils/profiling.py`). Not served here, and raising `NotImplementedError`
-when asked for: meshes / tp / ZeRO-1, `steps_per_call > 1` and packed
-dispatch. `compute_dtype` "bfloat16" or "float32" runs on the card through
-the kernels of that dtype.
+when asked for: `steps_per_call > 1` and packed dispatch. `compute_dtype`
+"bfloat16" or "float32" runs on the card through the kernels of that dtype.
+
+Over a ("dp", "tp") mesh (`mesh_shape`; JAX :171-307, :413-525, :625-700,
+:840-889) every rank runs the same trainer on the same host batches, one
+process per rank. The batch is padded to a multiple of dp by repeating its
+last row, and each dp rank takes its row block; the loss means are global
+(their value summed over dp, their gradient local, JAX
+`_global_sum_local_grad`) over the first `n_valid` rows, so the pad rows
+weigh nothing; the gradients are summed over dp, and alpha and beta come
+from the global losses. The dropout keep-mask is drawn for the whole batch
+and sliced. Under tp each rank holds its Megatron shard of the model
+(`parallel.mesh`); `zero1` shares the AdamW moments out over dp. The JAX
+package's two dp routes (`dp_shard_map` True or "force": shard_map; False:
+pjit) compute the same function, and every setting takes this one per-rank
+route here. Every rank ends each step with the same weights; rank 0 alone
+writes the checkpoints, the history and the resume state, which hold the
+whole model and moments, so a run resumes on another world size.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,6 +66,8 @@ from ..models import whisper as W
 from ..models.dims import ModelDimensions
 from ..models.registry import WhisperModel, from_random, load_model
 from ..ops.chunked_xent import chunked_softmax_xent
+from ..parallel import comm
+from ..parallel.mesh import axis, create_mesh, make_shard, pad_rows, row_block, tp_dim
 from ..tokenizer import Tokenizer
 from ..utils import resolve_device
 from ..utils.profiling import StepTimer, trace
@@ -122,6 +140,7 @@ class MultiTaskTrainer:
         self.verbose = verbose
         self._check_supported(config)
         self.device = resolve_device("cuda" if config.device in (None, "auto") else config.device)
+        self.mesh = self._make_mesh(config)
         self._log(f"=== Multi-Task Learning Trainer (PyTorch, {self.device}) ===")
 
         self.is_english_only = ".en" in config.model_size
@@ -136,6 +155,7 @@ class MultiTaskTrainer:
         self.compute_dtype = _DTYPES[config.compute_dtype]
         self.model = self._load_base_model()
         self._expand_vocabulary()
+        self.model = self._shard(self.model)
         self.model.requires_grad_(True)
         gen = torch.Generator().manual_seed(config.seed)
         self.classifier = make_classifier(self.model.dims.n_audio_state, gen).to(self.device)
@@ -143,20 +163,15 @@ class MultiTaskTrainer:
         self.optimizer = self._build_optimizer()
         self.alpha = float(config.alpha)
         self.beta = float(config.beta)
-        self._log(f"Trainer ready: dims={self.model.dims}, compute={self.compute_dtype}")
+        mesh = dict(zip(("dp", "tp"), self.mesh.shape)) if self.mesh is not None else None
+        self._log(f"Trainer ready: dims={self.model.dims}, mesh={mesh}, compute={self.compute_dtype}")
 
     # --- setup -------------------------------------------------------------
 
     @staticmethod
     def _check_supported(cfg: TrainingConfig) -> None:
-        """Raise for what the port does not serve (single device only)."""
+        """Raise for what the port does not serve."""
         unsupported = []
-        if tuple(cfg.mesh_shape) not in ((0, 1), (1, 1)):
-            unsupported.append(f"mesh_shape={tuple(cfg.mesh_shape)} (meshes, dp, tp)")
-        if cfg.dp_shard_map == "force":
-            unsupported.append("dp_shard_map='force'")
-        if cfg.zero1:
-            unsupported.append("zero1=True")
         if cfg.steps_per_call and cfg.steps_per_call > 1:
             unsupported.append(f"steps_per_call={cfg.steps_per_call}")
         if cfg.packed_dispatch:
@@ -167,8 +182,58 @@ class MultiTaskTrainer:
             )
 
     def _log(self, *args):
-        if self.verbose:
+        if self.verbose and self.writes:
             print(*args, flush=True)
+
+    def _make_mesh(self, cfg: TrainingConfig):
+        """The ("dp", "tp") mesh, or None for one device: mesh_shape (0, 1)
+        or (1, 1) in a world of one rank, unless dp_shard_map is "force"."""
+        shape = tuple(cfg.mesh_shape)
+        world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+        if shape in ((0, 1), (1, 1)) and world == 1 and cfg.dp_shard_map != "force":
+            return None
+        return create_mesh(shape, device=str(self.device))
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes files (rank 0, or no mesh)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _axis(self, name: str):
+        return axis(self.mesh, name) if self.mesh is not None else (0, 1, None)
+
+    def _shard(self, model: WhisperModel) -> WhisperModel:
+        """This rank's tp shard of a whole model (the model itself at tp 1)."""
+        rank, tp, group = self._axis("tp")
+        return make_shard(model, rank, tp, group) if tp > 1 else model
+
+    def _use_zero1(self) -> bool:
+        """ZeRO-1 needs a dp axis of more than one rank (JAX `_use_zero1`)."""
+        return bool(self.config.zero1) and self._axis("dp")[1] > 1
+
+    def _tp_split_dim(self, name: str) -> Optional[int]:
+        """The dim that tp splits of the trainable `name` on this rank, or None."""
+        if self._axis("tp")[1] == 1 or not name.startswith("model."):
+            return None
+        sub = name[len("model."):]
+        index = self.__dict__.get("_module_index")
+        if index is None or index[0] is not self.model:
+            index = self._module_index = (self.model, dict(self.model.named_modules()))
+        dim = tp_dim(sub)
+        return dim if dim is not None and getattr(index[1].get(sub.rsplit(".", 1)[0]), "tp", None) else None
+
+    def _tp_local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole parameter-shaped tensor (moments, weights)."""
+        dim = self._tp_split_dim(name)
+        if dim is None:
+            return full
+        rank, tp, _ = self._axis("tp")
+        return full.chunk(tp, dim=dim)[rank]
+
+    def _tp_whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """A parameter-shaped tensor made whole over tp (a collective)."""
+        dim = self._tp_split_dim(name)
+        return local if dim is None else comm.gather_dim(local, dim, self._axis("tp")[2])
 
     def _load_base_model(self) -> WhisperModel:
         cfg = self.config
@@ -201,12 +266,51 @@ class MultiTaskTrainer:
     def _build_optimizer(self) -> MultiGroupAdamW:
         cfg = self.config
         groups: Dict[str, List[nn.Parameter]] = {}
+        self._group_names: Dict[str, List[str]] = {}
         for name, p in self.named_trainable():
-            groups.setdefault(group_of(name, cfg.freeze_encoder), []).append(p)
+            g = group_of(name, cfg.freeze_encoder)
+            groups.setdefault(g, []).append(p)
+            self._group_names.setdefault(g, []).append(name)
+        _, tp, tp_group = self._axis("tp")
+        sharded = [id(p) for name, p in self.named_trainable() if self._tp_split_dim(name) is not None]
         return MultiGroupAdamW(
             groups, optimizer_hparams(cfg.learning_rate, cfg.weight_decay), cfg.gradient_clip_norm,
             moment_dtype=_DTYPES[cfg.optimizer_moment_dtype],
+            dp_group=self._axis("dp")[2], zero1=self._use_zero1(),
+            tp_group=tp_group if tp > 1 else None, tp_sharded=sharded,
         )
+
+    def full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state dict on every rank (gathered over tp: a
+        collective under a mesh)."""
+        return {k: self._tp_whole(f"model.{k}", v.detach()) for k, v in self.model.state_dict().items()}
+
+    def full_optimizer_state(self) -> Dict:
+        """The optimizer's step and whole moments, one CPU tensor per
+        parameter (gathered over dp under ZeRO-1 and over tp: a collective
+        under a mesh)."""
+        state = self.optimizer.state()
+        if self._axis("tp")[1] > 1:
+            for key in ("m", "v"):
+                state[key] = {g: [self._tp_whole(name, x.to(self.device)).cpu()
+                                  for name, x in zip(self._group_names[g], xs)]
+                              for g, xs in state[key].items()}
+        return state
+
+    def _load_optimizer_state(self, state: Dict) -> None:
+        """Whole moments (`full_optimizer_state`) into this rank's optimizer."""
+        if self._axis("tp")[1] > 1:
+            state = dict(state)
+            for key in ("m", "v"):
+                state[key] = {g: [self._tp_local(name, x) for name, x in zip(self._group_names[g], xs)]
+                              for g, xs in state[key].items()}
+        self.optimizer.load_state(state)
+
+    def _load_model_state_(self, model_state: Dict[str, torch.Tensor]) -> None:
+        """Whole weights into this rank's model (its tp shares), in place."""
+        with torch.no_grad():
+            for name, p in self.model.state_dict().items():
+                p.copy_(self._tp_local(f"model.{name}", model_state[name].to(p.dtype)))
 
     def load_state(self, model_state: Dict[str, torch.Tensor], classifier_state: Dict[str, torch.Tensor]):
         """Start from given weights: the model's and the classifier's
@@ -214,10 +318,10 @@ class MultiTaskTrainer:
         package's parameters through `models.state_dict_from_jax_params` and
         `classifier_state_from_jax`). The optimizer state restarts at zero."""
         n_vocab = int(model_state["decoder.token_embedding.weight"].shape[0])
-        if n_vocab != self.model.dims.n_vocab:
-            self.model = WhisperModel(self.model.dims.replace(n_vocab=n_vocab), self.compute_dtype,
-                                      self.model.name).to(self.device)
-        self.model.load_state_dict({k: v.float() for k, v in model_state.items()})
+        model = WhisperModel(self.model.dims.replace(n_vocab=n_vocab), self.compute_dtype,
+                             self.model.name).to(self.device)
+        model.load_state_dict({k: v.float() for k, v in model_state.items()})
+        self.model = self._shard(model)
         self.model.requires_grad_(True)
         self.classifier.load_state_dict({k: v.float() for k, v in classifier_state.items()})
         self.optimizer = self._build_optimizer()
@@ -250,13 +354,51 @@ class MultiTaskTrainer:
         return np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
 
     def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """A host batch on the device, its audio as `_audio_for_transfer` gives it."""
-        dev = {"audio": torch.from_numpy(np.ascontiguousarray(self._audio_for_transfer(batch["audio"])))}
+        """A host batch on the device, its audio as `_audio_for_transfer`
+        gives it. Over a mesh: this dp rank's row block of the batch padded
+        to a multiple of dp with copies of its last row (JAX `_device_batch`)."""
+        arrays = {"audio": np.asarray(batch["audio"])}
         for k in ("input_tokens", "target_tokens", "classes"):
-            dev[k] = torch.from_numpy(np.asarray(batch[k]).astype(np.int64))
-        return {k: v.to(self.device, non_blocking=True) for k, v in dev.items()}
+            arrays[k] = np.asarray(batch[k]).astype(np.int64)
+        if self.mesh is not None:
+            arrays = {k: self._rank_rows(v) for k, v in arrays.items()}
+        arrays["audio"] = np.ascontiguousarray(self._audio_for_transfer(arrays["audio"]))
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True) for k, v in arrays.items()}
 
-    def _forward(self, dev: Dict[str, torch.Tensor], train: bool, keep: Optional[torch.Tensor] = None):
+    def _rank_rows(self, x):
+        """This dp rank's row block of x padded to a multiple of dp with
+        copies of its last row."""
+        return row_block(pad_rows(x, self._axis("dp")[1], repeat_last=True), self.mesh)
+
+    def _global_means(self, n_valid: int, cls_per_row, trans_row_sum, trans_row_cnt):
+        """The class and token loss means over the batch's first `n_valid`
+        rows, their values summed over dp and their gradients local."""
+        rank, dp, group = self._axis("dp")
+        b_local = cls_per_row.shape[0]
+        valid = torch.arange(rank * b_local, (rank + 1) * b_local, device=cls_per_row.device) < n_valid
+        cls_sum = (cls_per_row * valid).sum()
+        t_sum = torch.where(valid, trans_row_sum, 0.0).sum()
+        t_cnt = torch.where(valid, trans_row_cnt, 0).sum()
+        if dp > 1:
+            cls_sum = comm.global_sum_local_grad(cls_sum, group)
+            t_sum = comm.global_sum_local_grad(t_sum, group)
+            t_cnt = comm.all_reduce_sum(t_cnt, group)
+        return cls_sum / max(n_valid, 1), t_sum / t_cnt.clamp(min=1)
+
+    _AUX_ROW_KEYS = ("cls_per_row", "trans_row_sum", "trans_row_count", "disease_preds", "disease_probs",
+                     "pred_tokens")
+
+    def _whole_batch_aux(self, aux: Dict, n_valid: int) -> Dict:
+        """The per-row outputs of every dp rank, the pad rows dropped."""
+        group = self._axis("dp")[2]
+        rows = [aux[k] for k in self._AUX_ROW_KEYS]
+        if self._axis("dp")[1] > 1:
+            rows = comm.gather_rows(rows, group)
+        aux.update({k: v[:n_valid] for k, v in zip(self._AUX_ROW_KEYS, rows)})
+        return aux
+
+    def _forward(self, dev: Dict[str, torch.Tensor], train: bool, keep: Optional[torch.Tensor] = None,
+                 n_valid: Optional[int] = None):
         dims = self.model.dims
         audio = dev["audio"]
         if audio.dtype == torch.float16:  # host-computed mels: extend to the window, no K4
@@ -291,6 +433,8 @@ class MultiTaskTrainer:
                                         compute_dtype=self.compute_dtype, logits_dtype=logits_dtype)
             trans_loss, trans_row_sum, trans_row_cnt = cross_entropy_ignore_index(logits, targets)
             pred_tokens = logits.argmax(dim=-1)
+        if self.mesh is not None:
+            cls_loss, trans_loss = self._global_means(n_valid, cls_per_row, trans_row_sum, trans_row_cnt)
 
         aux = {
             "cls_loss": cls_loss,
@@ -314,8 +458,9 @@ class MultiTaskTrainer:
         return (1.0 / c) / (1.0 / c + 1.0 / t), (1.0 / t) / (1.0 / c + 1.0 / t)
 
     def draw_keep_mask(self, batch_size: int) -> torch.Tensor:
-        """The classifier's dropout keep-mask (p = 0.9), from the trainer's
-        own generator on the device."""
+        """The classifier's dropout keep-mask (p = 0.9) for the whole batch,
+        from the trainer's own generator on the device (the same on every
+        rank)."""
         shape = (batch_size, self.model.dims.n_audio_state // 2)
         return torch.rand(shape, generator=self._dropout_gen, device=self.device) < 0.9
 
@@ -323,21 +468,42 @@ class MultiTaskTrainer:
         """One optimizer step on a host batch; `keep` overrides the dropout
         keep-mask. Returns (combined loss, aux) as device tensors; freezes
         alpha/beta after the first batch as the reference does."""
+        n_valid = len(batch["classes"])
         dev = self._device_batch(batch)
         if keep is None:
-            keep = self.draw_keep_mask(dev["classes"].shape[0])
+            keep = self.draw_keep_mask(n_valid)
         keep = keep.to(self.device)
-        cls_loss, trans_loss, aux = self._forward(dev, train=True, keep=keep)
+        if self.mesh is not None:  # drawn for the whole batch
+            keep = self._rank_rows(keep)
+        cls_loss, trans_loss, aux = self._forward(dev, train=True, keep=keep, n_valid=n_valid)
         a, b = self._effective_weights(cls_loss, trans_loss)
         loss = a * cls_loss + b * trans_loss
         aux.update(alpha_eff=a, beta_eff=b)
         self.optimizer.zero_grad()
         loss.backward()
+        self._sum_grads_over_dp()
         self.optimizer.step()  # leaves the step's gradients in .grad
         # one-shot dynamic weight freeze (reference trainer.py:412-413)
         if (self.alpha == 0.0 or self.beta == 0.0) and not self.config.true_dynamic_weights:
             self.alpha, self.beta = float(a), float(b)
+        if self.mesh is not None:
+            aux = self._whole_batch_aux(aux, n_valid)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def _sum_grads_over_dp(self) -> None:
+        """Every gradient summed over dp, in one all-reduce of them laid end
+        to end (the grads of the local rows' share of the global loss)."""
+        _, dp, group = self._axis("dp")
+        if dp == 1:
+            return
+        params = [p for _, p in self.named_trainable()]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        at = 0
+        for p in params:
+            p.grad = flat[at : at + p.numel()].view(p.shape).clone()
+            at += p.numel()
 
     # --- prediction decoding -------------------------------------------------
 
@@ -411,11 +577,13 @@ class MultiTaskTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict) -> Dict:
-        """Teacher-forced forward with materialized fp32 logits."""
-        cls_loss, trans_loss, aux = self._forward(self._device_batch(batch), train=False)
+        """Teacher-forced forward with materialized fp32 logits (over a mesh,
+        the whole batch's per-row outputs on every rank)."""
+        n_valid = len(batch["classes"])
+        cls_loss, trans_loss, aux = self._forward(self._device_batch(batch), train=False, n_valid=n_valid)
         a, b = self._effective_weights(cls_loss, trans_loss)
         aux.update(alpha_eff=a, beta_eff=b, combined=a * cls_loss + b * trans_loss)
-        return aux
+        return self._whole_batch_aux(aux, n_valid) if self.mesh is not None else aux
 
     def evaluate(self, dataloader) -> Dict:
         loss_sums = {"combined": 0.0, "cls": 0.0, "trans": 0.0}
@@ -489,7 +657,7 @@ class MultiTaskTrainer:
                 self.save_resume_state(resume_dir, epoch=epoch, best_loss=best_loss,
                                        patience_counter=patience_counter, training_history=training_history)
 
-        if self.config.save_dir:
+        if self.config.save_dir and self.writes:
             hist_path = os.path.join(self.config.save_dir, f"training_history_{self.config.model_size}.json")
             with open(hist_path, "w") as f:
                 json.dump(_to_jsonable(training_history), f, indent=2)
@@ -502,12 +670,17 @@ class MultiTaskTrainer:
         return os.path.join(self.config.save_dir or ".", f"best_multitask_model_{self.config.model_size}.pt")
 
     def save_checkpoint(self, epoch: int, best_loss: float, val_metrics=None, train_metrics=None):
-        """Write the reference `.pt` checkpoint (trainer.py:568-586 keys)."""
+        """Write the reference `.pt` checkpoint (trainer.py:568-586 keys);
+        over a mesh every rank calls it and rank 0 writes the whole model."""
+        model_state = self.full_model_state()
+        optimizer_state = self.full_optimizer_state()
+        if not self.writes:
+            return
         ckpt = {
-            "model_state_dict": {k: v.detach().float().cpu() for k, v in self.model.state_dict().items()},
+            "model_state_dict": {k: v.float().cpu() for k, v in model_state.items()},
             "disease_classifier_state_dict": {k: v.detach().float().cpu()
                                               for k, v in self.classifier.state_dict().items()},
-            "optimizer_state_dict": self.optimizer.state(),
+            "optimizer_state_dict": optimizer_state,
             "config": asdict(self.config),
             "dims": self.model.dims.__dict__,
             "epoch": epoch,
@@ -540,13 +713,19 @@ class MultiTaskTrainer:
         the frozen alpha/beta, the best loss, the patience counter, the
         history), each by an atomic rename, `meta.json` last. The JAX
         package's contract (`trainer.py:1313`); its orbax state cannot be read
-        without JAX, so `state.pt` is the port's own format."""
+        without JAX, so `state.pt` is the port's own format. Over a mesh
+        every rank calls it and rank 0 writes the whole model and moments,
+        so the state resumes on any world size."""
         directory = os.path.abspath(directory)
+        model_state = self.full_model_state()
+        optimizer_state = self.full_optimizer_state()
+        if not self.writes:
+            return
         os.makedirs(directory, exist_ok=True)
         state = {
-            "model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "model": {k: v.cpu() for k, v in model_state.items()},
             "classifier": {k: v.detach().cpu() for k, v in self.classifier.state_dict().items()},
-            "optimizer": self.optimizer.state(),
+            "optimizer": optimizer_state,
             "cpu_rng": torch.get_rng_state(),
             "dropout_rng": self._dropout_gen.get_state(),
         }
@@ -571,10 +750,10 @@ class MultiTaskTrainer:
         weights, optimizer and generators in place. Returns the meta dict."""
         directory = os.path.abspath(directory)
         state = torch.load(os.path.join(directory, "state.pt"), map_location="cpu", weights_only=False)
+        self._load_model_state_(state["model"])
         with torch.no_grad():
-            self.model.load_state_dict(state["model"])
             self.classifier.load_state_dict(state["classifier"])
-        self.optimizer.load_state(state["optimizer"])
+        self._load_optimizer_state(state["optimizer"])
         torch.set_rng_state(state["cpu_rng"])
         self._dropout_gen.set_state(state["dropout_rng"])
         with open(os.path.join(directory, "meta.json")) as f:

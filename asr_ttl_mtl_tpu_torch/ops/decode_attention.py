@@ -49,15 +49,18 @@ def int8_step(absmax: torch.Tensor, floor: float) -> torch.Tensor:
     return m / torch.full((), 127.0, device=m.device)
 
 
-def quantize_kv_rows(x: torch.Tensor):
+def quantize_kv_rows(x: torch.Tensor, group=None):
     """(..., T, D) float -> ((..., T_pad, D) int8, (..., T_pad) fp32 scale),
     per-row abs-max scaling, T padded to a multiple of 128. The padded keys
-    must be masked by the consumer (decode_attention_i8's valid_upto)."""
+    must be masked by the consumer (decode_attention_i8's valid_upto). Rows
+    split over tp (`group`, a process group) take their absmax over it."""
+    from ..parallel.comm import all_reduce_max
+
     t = x.shape[-2]
     t_pad = ((t + 127) // 128) * 128
     if t_pad != t:
         x = torch.nn.functional.pad(x, (0, 0, 0, t_pad - t))
-    m = x.abs().amax(dim=-1).float()
+    m = all_reduce_max(x.abs().amax(dim=-1).float(), group)
     scale = int8_step(m, 1e-20)
     xi = torch.round(x.float() / scale[..., None]).to(torch.int8)
     return xi, scale

@@ -6,10 +6,16 @@
 Counterpart of `scripts/train_disease.py`, with the same flags. Training
 runs on the card unless `--device cpu`. `--resume_dir` resumes from the
 full training state written there after every epoch, and
-`--audio_transfer_dtype mel_fp16` ships host-computed fp16 log-mels. Flags
-asking for what the port does not serve (meshes, `--zero1`,
-`--steps_per_call` > 1, `--packed_dispatch True`) raise
-`NotImplementedError`. `--compute_dtype float32` trains in fp32, on the
+`--audio_transfer_dtype mel_fp16` ships host-computed fp16 log-mels.
+`--dp`, `--tp` and `--zero1` train over a mesh of ranks, one process per
+rank as torchrun starts them (each on the card of its LOCAL_RANK; rank 0
+writes the files):
+
+    torchrun --nproc_per_node 2 -m asr_ttl_mtl_tpu_torch.scripts.train_disease \
+        --dp 2 --zero1 --pretrained random --train_csv train.csv --val_csv val.csv --save_dir out
+
+Flags asking for what the port does not serve (`--steps_per_call` > 1,
+`--packed_dispatch True`) raise `NotImplementedError`. `--compute_dtype float32` trains in fp32, on the
 card through its fp32 kernels. Writes
 `best_multitask_model_<size>.pt`, `training_history_<size>.json` and
 `training_config_<size>.json` into `--save_dir`.
@@ -56,8 +62,8 @@ def parse_args(argv=None):
                    help="audio host->device transfer: int16 waveforms (exact "
                         "for PCM), mel_fp16 host-computed log-mels (2x fewer "
                         "bytes), or float32 waveforms")
-    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh size (the port: 0 or 1)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size (the port: 1)")
+    p.add_argument("--dp", type=int, default=0, help="data-parallel mesh size (0 = all the ranks tp leaves)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size")
     p.add_argument("--steps_per_call", type=int, default=0,
                    help="optimizer steps per call (the port: 0 or 1)")
     def strict_bool(v: str) -> bool:
@@ -77,14 +83,15 @@ def parse_args(argv=None):
 
     p.add_argument("--dp_shard_map", type=shard_map_mode, default=True,
                    metavar="True/False/force",
-                   help="a mesh setting of the JAX package; one device needs "
-                        "none ('force' is not served by the port)")
+                   help="the JAX package's choice of dp route (shard_map or "
+                        "pjit); every value takes the port's one per-rank route, "
+                        "and 'force' takes it on a mesh of one rank too")
     p.add_argument("--optimizer_moment_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage dtype of the AdamW moments; bfloat16 halves "
                         "their memory (the update math stays fp32)")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 over dp; not served by the port")
+                   help="ZeRO-1: share the AdamW moments out over dp (dp > 1)")
     p.add_argument("--chunked_ce", type=str, default="auto",
                    metavar="auto/True/False",
                    help="chunked training cross-entropy: never materializes "
@@ -106,6 +113,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.device != "cpu" and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        import torch
+
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
     config = TrainingConfig(
         model_size=args.model_size,
         device=args.device,
@@ -158,6 +169,8 @@ def main(argv=None):
         trainer = MultiTaskTrainer(config)
         result = trainer.train(train_loader, val_loader, resume_dir=args.resume_dir)
 
+        if not trainer.writes:
+            return
         config_path = os.path.join(args.save_dir, f"training_config_{args.model_size}.json")
         with open(config_path, "w") as f:
             json.dump(

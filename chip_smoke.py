@@ -161,6 +161,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      one 2-epoch run from the same seed, bit for bit; (f) where ffmpeg is
      on PATH, phase 12's WAV as FLAC through the CLI, the WAV's text; each
      path with the launch counts reset before and read after.
+ 23. multi-device at base (`asr_ttl_mtl_tpu_torch/parallel/`): (a) phase
+     15's `transcribe_batch` run (c) over `create_mesh((1, 1))`, NCCL at
+     world size 1, giving phase 15's outputs exactly; (b) the single-process
+     runs here, then two ranks spawned on cuda:0 over gloo
+     (`parallel.launch.run_ranks`): dp 2 greedy over 32 windows (16 a rank)
+     with phase 4's options and `set_int8_mlp_kernel("auto")` (K14 on), dp
+     2 beam 5 over 8 windows, tp 2 greedy over 8 windows (K14 off: its
+     hidden rows are split; held against one process with the switch off),
+     3 train steps at batch 16 over dp 2 with ZeRO-1 and 2 at batch 8 over
+     tp 2; each held to its single-device phase's tolerance: the mesh
+     run's tokens, forced through the fp32 plain path on the card, trail
+     the argmax (beam: the 6th largest logit) by less than 0.5 and its
+     avg_logprob lies within 0.1 (phases 5 and 11; how many windows kept
+     the single-process tokens is printed); train losses within phase 7's
+     2% of one process's and the first step's gradient at cosine >= 0.99
+     per group; both ranks the same results and weights. Each rank's launch counts, reset before and read after each
+     run, go into the kernels line.
 Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
 fp32 queries (the fp32 window path's cross) against their plain versions;
 their launches count under `decode_attention_f32` and
@@ -1777,7 +1794,7 @@ def run_batch(card: str, model, workdir: str):
            wall, outs, probe, counts)
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
-    return total, probe_b
+    return total, probe_b, (waves, options, outs)
 
 
 def k12_raw(x, n, m):
@@ -3456,6 +3473,276 @@ def run_files(card: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 23: multi-device
+# ---------------------------------------------------------------------------
+
+MESH_GREEDY_WINDOWS = 32  # dp 2: 16 a rank
+MESH_BEAM_WINDOWS = 8
+MESH_TP_WINDOWS = 8
+MESH_TRAIN = {  # case -> (mesh_shape, zero1, steps, batch)
+    "dp2-zero1": ((2, 1), True, 3, 16),
+    "tp2": ((1, 2), False, 2, 8),
+}
+MESH_GAP_TOL = 0.5  # phases 5 and 11: a chosen token trails the fp32 argmax (beam: the K+1-th) by < 0.5
+MESH_LP_TOL = 0.1  # and avg_logprob within 0.1 of the fp32 plain path forced to the tokens
+# phase 7's, which holds one step from the same weights: losses within 2%,
+# and the first step's gradient (the same weights on both sides) at cosine
+# >= 0.99 in every group; later steps start from weights that bf16 sums
+# and Adam's normalized updates have moved apart
+MESH_LOSS_TOL = 2e-2
+MESH_COS_TOL = 0.99
+
+
+def run_mesh_world1(card: str, waves, options, want):
+    """Phase 23 (a): phase 15's `transcribe_batch` over a mesh of one rank,
+    NCCL at world size 1, must give phase 15's outputs exactly."""
+    import torch
+    import torch.distributed as dist
+
+    from asr_ttl_mtl_tpu_torch import from_random, transcribe_batch
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.parallel import create_mesh
+
+    W.set_int8_mlp_kernel("off")  # as phase 15 ran
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda:0"))
+    try:
+        mesh = create_mesh((1, 1), device="cuda")
+        t0 = time.perf_counter()
+        outs, counts = counted(lambda: transcribe_batch(model, waves, batch_size=32, temperature=0.0, mesh=mesh,
+                                                        **options))
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    key = [[(s["tokens"], s["start"], s["end"], s["avg_logprob"], s["no_speech_prob"]) for s in o["segments"]]
+           for o in outs]
+    want_key = [[(s["tokens"], s["start"], s["end"], s["avg_logprob"], s["no_speech_prob"]) for s in o["segments"]]
+                for o in want]
+    same = key == want_key and [o["text"] for o in outs] == [o["text"] for o in want]
+    expect_launched(counts, ("log_mel", "flash_attention_h2", "decode_attention_i8"), "phase 23 (a)")
+    print(f"[mesh] (a) transcribe_batch over create_mesh((1, 1)), NCCL world 1, phase 15's nine WAVs (32 windows): "
+          f"{wall:.1f} s wall; the same outputs as phase 15, exactly: {same}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}] {'OK' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("transcribe_batch over a mesh of one rank differs from phase 15")
+    return counts
+
+
+def mesh_train_batches(workdir: str, batch: int, steps: int):
+    """The training batches of phase 23, the same on every rank: phase 6's
+    32 clips through the loader, the first `steps` batches cut to `batch` rows."""
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, TrainingConfig
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", batch_size=TRAIN_BATCH)
+    ds = MultiTaskSpeechDataset(os.path.join(workdir, "clips0.csv"), cfg)
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=2, drop_last=True, seed=0,
+                        buckets=cfg.token_buckets)
+    batches = []  # each pass over the loader is an epoch
+    while len(batches) < steps:
+        batches.extend(list(loader)[: steps - len(batches)])
+    rows = ("audio", "input_tokens", "target_tokens", "classes", "texts", "paths")
+    return [{k: (v[:batch] if k in rows else v) for k, v in b.items()} for b in batches]
+
+
+def mesh_trainer(mesh_shape, zero1: bool):
+    from asr_ttl_mtl_tpu_torch.mtl import MultiTaskTrainer, TrainingConfig
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                         learning_rate=1e-5, seed=0, mesh_shape=mesh_shape, zero1=zero1)
+    return MultiTaskTrainer(cfg, verbose=False)
+
+
+def mesh_group_grads(trainer):
+    """Each optimizer group's gradient laid end to end, fp32, whole (tp shards gathered)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.mtl.fused_optim import group_of
+
+    out = {}
+    for name, p in trainer.named_trainable():
+        out.setdefault(group_of(name), []).append(trainer._tp_whole(name, p.grad).float().flatten())
+    return {g: torch.cat(v) for g, v in out.items()}
+
+
+def mesh_summary(results):
+    return [(r.tokens, r.avg_logprob) for r in results]
+
+
+def mesh_compare(label: str, got, want, model, n: int, options: dict, card: str) -> None:
+    """A mesh run's decode held to the single-process phase's tolerance
+    (phases 5 and 11): its tokens, forced through the fp32 plain path on the
+    card, each trail the argmax (beam: the K+1-th largest filtered logit) by
+    less than 0.5, and its avg_logprob lies within 0.1 of that path's. The
+    single-process run at another batch size rounds its bf16 sums
+    otherwise, so with random weights' near-tied logits some windows take
+    other tokens; how many is printed."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+
+    same = sum(g[0] == w[0] for g, w in zip(got, want))
+    toks = torch.tensor([g[0] for g in got])
+    W.set_int8_mlp_kernel("off")
+    _, steps = forced_steps(model, make_waves(n, seed=23), toks, options, device=DEVICE)
+    k = options.get("beam_size")
+    rank = (lambda lg: lg.topk(k + 1, dim=-1).values[:, -1]) if k else (lambda lg: lg.amax(-1))
+    gap = max((rank(lg) - lg.gather(1, tok[:, None])[:, 0]).max().item() for lg, tok in steps)
+    avg = sum(lg.gather(1, tok[:, None])[:, 0] - torch.logsumexp(lg, -1) for lg, tok in steps) / (toks.shape[1] + 1)
+    lp_err = max(abs(avg[r].item() - got[r][1]) for r in range(len(got)))
+    ok = len(got) == len(want) and gap < MESH_GAP_TOL and lp_err <= MESH_LP_TOL
+    print(f"[mesh] {label}: {same} of {len(want)} windows with the single-process tokens; forced through the fp32 "
+          f"plain path on the card, its tokens trail the {'fp32 argmax' if not k else f'{k + 1}-th largest logit'} "
+          f"by at most {gap:.3f} (tol {MESH_GAP_TOL}), |avg_logprob diff| {lp_err:.4f} (tol {MESH_LP_TOL}) "
+          f"[{card}] {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees with the single-process tolerance")
+
+
+def mesh_rank(rank: int, payload: dict) -> dict:
+    """Phase 23 (b), one rank of two on the card over gloo: the mesh paths,
+    each with its launch counts (reset before, read after) and wall time."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, from_random, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.parallel import create_mesh
+    from asr_ttl_mtl_tpu_torch.parallel.serving import decode_batched_dp
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {"dp": create_mesh((2, 1), device="cuda"), "tp": create_mesh((1, 2), device="cuda")}
+    out = {}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res, counts = counted(fn)
+        return res, counts, time.perf_counter() - t0
+
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    W.set_int8_mlp_kernel("auto")
+    runs = (("dp2-greedy", "dp", MESH_GREEDY_WINDOWS, BASE_OPTIONS), ("dp2-beam5", "dp", MESH_BEAM_WINDOWS, BEAM_OPTIONS),
+            ("tp2-greedy", "tp", MESH_TP_WINDOWS, BASE_OPTIONS))
+    for name, mesh, n, options in runs:
+        waves, opts = make_waves(n, seed=23), DecodingOptions(**options)
+
+        def run():  # the windows' log-mel (K4) and the mesh decode
+            return decode_batched_dp(model, log_mel_spectrogram(waves, device=DEVICE), opts, mesh=meshes[mesh])
+
+        if name == "dp2-greedy":  # warm-up (cuBLAS handles, allocator), not counted
+            run()
+        res, counts, wall = timed(run)
+        out[name] = dict(results=mesh_summary(res), counts=counts, wall=wall, windows=n)
+    W.set_int8_mlp_kernel("off")
+    del model
+    torch.cuda.empty_cache()
+
+    for name, (shape, zero1, steps, batch) in MESH_TRAIN.items():
+        trainer = mesh_trainer(shape, zero1)
+        batches = mesh_train_batches(payload["workdir"], batch, steps)
+        losses, walls, counts, cos = [], [], {}, None
+        for b in batches:
+            (loss, _), c, wall = timed(lambda: trainer.train_step(b))
+            losses.append(float(loss))
+            walls.append(wall)
+            add_counts(counts, c)
+            if cos is None:  # the first step's gradient, from the same weights as one process
+                ref = torch.load(os.path.join(payload["workdir"], f"{name}.pt"), map_location=DEVICE)
+                grads = mesh_group_grads(trainer)
+                cos = {g: float(torch.nn.functional.cosine_similarity(grads[g].double(), ref[g].double(), dim=0))
+                       for g in ref}
+                del ref, grads
+        checksum = float(sum(v.double().sum() for v in trainer.full_model_state().values()))
+        out[name] = dict(losses=losses, walls=walls, counts=counts, cos=cos, checksum=checksum,
+                         zero1=trainer.optimizer.zero1, alpha=trainer.alpha)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_multi_device(card: str, workdir: str):
+    """Phase 23 (b): the single-process runs here, then two ranks spawned on
+    the card over gloo run the same paths over meshes, each held against
+    its single-process run; returns each rank's launch counts per path."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, from_random, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.parallel.launch import run_ranks
+
+    write_clips(workdir, 32, seed=0)
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    want = {}
+    for name, n, options, k14 in (("dp2-greedy", MESH_GREEDY_WINDOWS, BASE_OPTIONS, "auto"),
+                                  ("dp2-beam5", MESH_BEAM_WINDOWS, BEAM_OPTIONS, "auto"),
+                                  # tp runs K14's unfused composition (its hidden rows are split)
+                                  ("tp2-greedy", MESH_TP_WINDOWS, BASE_OPTIONS, "off")):
+        W.set_int8_mlp_kernel(k14)
+        mel = log_mel_spectrogram(make_waves(n, seed=23), device=DEVICE)
+        want[name] = mesh_summary(DecodingTask(model, DecodingOptions(**options)).run(mel))
+    W.set_int8_mlp_kernel("off")
+    del model
+    losses = {}
+    for name, (_, _, steps, batch) in MESH_TRAIN.items():
+        trainer = mesh_trainer((1, 1), False)
+        losses[name] = []
+        for b in mesh_train_batches(workdir, batch, steps):
+            losses[name].append(float(trainer.train_step(b)[0]))
+            if len(losses[name]) == 1:
+                torch.save({g: v.cpu() for g, v in mesh_group_grads(trainer).items()},
+                           os.path.join(workdir, f"{name}.pt"))
+        del trainer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, dict(workdir=workdir), backend="gloo", timeout=900)
+    print(f"[mesh] (b) 2 ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s from spawn to the last result "
+          f"[{card}]", flush=True)
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    options = {"dp2-greedy": BASE_OPTIONS, "dp2-beam5": BEAM_OPTIONS, "tp2-greedy": BASE_OPTIONS}
+    paths = []
+    for name in ("dp2-greedy", "dp2-beam5", "tp2-greedy"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if r0["results"] != r1["results"]:
+            raise AssertionError(f"{name}: the ranks' results differ")
+        n = r0["windows"]
+        print(f"[mesh] {name}: {n} windows, {r0['wall']:.2f} s on rank 0 = {n * 30.0 / r0['wall']:.1f} audio-s/s "
+              f"(2 ranks sharing one card); launches rank 0 {json.dumps({k: v for k, v in r0['counts'].items() if v})}, "
+              f"rank 1 {json.dumps({k: v for k, v in r1['counts'].items() if v})} [{card}]", flush=True)
+        mesh_compare(name, r0["results"], want[name], model, n, options[name], card)
+        expect_launched(r0["counts"], ("log_mel", "flash_attention_h2", "decode_attention_i8"), name)
+        k14 = r0["counts"]["int8_mlp"] + r1["counts"]["int8_mlp"]
+        if (k14 > 0) != name.startswith("dp"):  # K14 on under dp, off under tp (its rows split)
+            raise AssertionError(f"{name}: {k14} K14 launches")
+        if name == "dp2-beam5":
+            expect_launched(r0["counts"], ("topk_logprobs",), name)
+        paths += [r0["counts"], r1["counts"]]
+    for name, (shape, zero1, steps, batch) in MESH_TRAIN.items():
+        r0, r1 = ranks[0][name], ranks[1][name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses[name]))
+        worst = min(r0["cos"], key=r0["cos"].get)
+        ok = (rel <= MESH_LOSS_TOL and r0["cos"][worst] >= MESH_COS_TOL and r0["losses"] == r1["losses"]
+              and r0["checksum"] == r1["checksum"] and r0["zero1"] == zero1)
+        print(f"[mesh] {name} train, mesh {shape}{' with ZeRO-1' if zero1 else ''}, {steps} steps at batch {batch}: "
+              f"losses {', '.join(f'{x:.5f}' for x in r0['losses'])} vs one process "
+              f"{', '.join(f'{x:.5f}' for x in losses[name])}, max rel diff {rel:.2e} (tol {MESH_LOSS_TOL}); first "
+              f"step's gradient cosine {', '.join(f'{g} {c:.5f}' for g, c in r0['cos'].items())} (tol "
+              f"{MESH_COS_TOL}); step s {', '.join(f'{x:.3f}' for x in r0['walls'])} (the first has the set-up); "
+              f"the ranks' weights agree: {r0['checksum'] == r1['checksum']}; launches rank 0 "
+              f"{json.dumps({k: v for k, v in r0['counts'].items() if v})} [{card}] {'OK' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: the mesh train steps disagree with one process")
+        expect_launched(r0["counts"], ("log_mel", "flash_attention_h2_lse", "flash_attention_h2_bwd",
+                                       "flash_attention_lse", "flash_attention_bwd"), name)
+        paths += [r0["counts"], r1["counts"]]
+    if not np.isfinite([x for r in losses.values() for x in r]).all():
+        raise AssertionError("a non-finite loss")
+    return paths
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -3509,7 +3796,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         cli_counts, prefill = run_cli(card, model, workdir)
         words_counts, probes = run_words_cli(card, workdir)
-        batch_counts, batch_probe = run_batch(card, model, workdir)
+        batch_counts, batch_probe, batch_c = run_batch(card, model, workdir)
     rows += check_prefill_kernels(card, *prefill)
     rows += check_words_kernels(card, probes)
     rows += check_batch_kernels(card, batch_probe)
@@ -3553,17 +3840,22 @@ def main() -> int:
     # phase 22: files in, reports out, at base
     files_counts = run_files(card)
 
+    # phase 23: multi-device at base, NCCL at world size 1 and 2 ranks on the card over gloo
+    mesh_paths = [run_mesh_world1(card, *batch_c)]
+    with tempfile.TemporaryDirectory() as workdir:
+        mesh_paths += run_multi_device(card, workdir)
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
     # train steps, and phase 20's fp32 window paths, CLI run, train steps
     # and evaluate, and phase 21's greedy, kv_quant=False, beam, train and
     # evaluate runs at head widths 128 and 32, and phase 22's train steps,
-    # twins, profiled epoch, resumed runs and CLI runs), each counted from 0
-    # just before it ran
+    # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
+    # runs, each rank's counts), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths, files_counts)
+             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

@@ -311,9 +311,25 @@ def test_transcribe_batch_ladder_matches_jax(batch_setup, monkeypatch):
 
 
 def test_transcribe_batch_refuses_a_mesh(batch_setup):
+    """What the mesh path refuses, in a world of one rank: a mesh larger
+    than the world, and a mesh decode without a known language (as JAX
+    `dispatch_batched_dp`). tests/test_torch_parallel.py drives the mesh
+    path itself on 2 ranks."""
+    import torch.distributed as dist
+
+    from asr_ttl_mtl_tpu_torch.parallel import create_mesh
+    from asr_ttl_mtl_tpu_torch.parallel.serving import decode_batched_dp
+
     _, tmodel, audios = batch_setup
-    with pytest.raises(NotImplementedError):
-        PT.transcribe_batch(tmodel, audios, mesh=object())
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks, but the world has 1"):
+            PT.transcribe_batch(tmodel, audios, mesh=create_mesh((2, 1), device="cpu"))
+        mel = torch.zeros(1, 80, 3000)
+        with pytest.raises(ValueError, match="needs a known language"):
+            decode_batched_dp(tmodel, mel, DecodingOptions(language=None), mesh=create_mesh((1, 1), device="cpu"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ------------------------------------------------------- --batch_mode -----
@@ -381,8 +397,14 @@ def test_cli_batch_mode_refusals(doll, monkeypatch, capsys):
     base = paths[:1] + ["--model", ckpt, "--batch_mode", "True", "--device", "cpu", "--output_dir", str(tmp / "r")]
     with pytest.raises(SystemExit):  # needs the sequential seek loop, as in JAX
         PC.cli(base + ["--word_timestamps", "True", "--hallucination_silence_threshold", "2"])
-    with pytest.raises(SystemExit):  # not ported yet
-        PC.cli(base + ["--dp", "2"])
+    import torch.distributed as dist
+
+    try:
+        with pytest.raises(SystemExit):  # a mesh of 2 ranks in a world of 1
+            PC.cli(base + ["--dp", "2"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     def narrow(model, audios, batch_size=16, mesh=None, **kw):
         raise AssertionError("not reached")

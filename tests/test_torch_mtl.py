@@ -285,9 +285,16 @@ def test_train_disease_twin_refuses_what_the_port_does_not_serve(tmp_path):
     base = ["--pretrained", "random", "--train_csv", csv_path, "--val_csv", csv_path, "--device", "cpu",
             "--save_dir", str(tmp_path / "out"), "--debug_dims", json.dumps(TRAIN_CONFIG["debug_dims"]),
             "--audio_samples", "20480", "--compute_dtype", "float32"]
-    for extra in (["--zero1"], ["--steps_per_call", "4"], ["--dp", "2"], ["--packed_dispatch", "True"]):
-        with pytest.raises(NotImplementedError):
-            train_disease.main(base + extra)
+    import torch.distributed as dist
+
+    try:
+        for extra, error in ((["--dp", "2", "--zero1"], ValueError), (["--steps_per_call", "4"], NotImplementedError),
+                             (["--tp", "2"], ValueError), (["--packed_dispatch", "True"], NotImplementedError)):
+            with pytest.raises(error):  # a mesh larger than the world of 1 rank; what the port does not serve
+                train_disease.main(base + extra)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ------------------------------------------- entry points run on the card ---
