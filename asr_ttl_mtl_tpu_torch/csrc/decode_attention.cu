@@ -1,7 +1,7 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
 // (L, B, Tk, D) KV caches, for Hopper (sm_90a), at head widths dh = D /
-// n_head of 32, 64 and 128 with bf16 q (a template parameter of both
-// kernels), and 64 with fp32 q.
+// n_head of 32, 64 and 128 with bf16 or fp32 q (the width and q's type
+// template parameters of both kernels).
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
@@ -51,9 +51,11 @@
 //     the CUDA cores the FMAs of a group of 5 to 16 rows took longer than
 //     the bytes (group 16 over 32 windows took 0.21-0.32 ms on an H100).
 //     fp32 caches (the fp16=False option): the CUDA cores, a thread per
-//     (row, key) with the row's 64 q values in registers and four FMA
-//     chains, and for P.V a thread per (row, 8 columns, slice of keys);
-//     exact fp32 throughout, which tf32 mma would not be.
+//     (row, key) with the row's dh q values in registers (128 of them at
+//     dh 128) and four FMA chains, and for P.V 8 threads a row, each over
+//     dh / 8 columns (the 16-byte chunks c, c + 8, ... of the row, so that
+//     a row's 8 threads read 128 contiguous bytes at a time) and a slice
+//     of the keys; exact fp32 throughout, which tf32 mma would not be.
 //   - Softmax across the cluster, through distributed shared memory: each
 //     CTA's row maxima -> cluster barrier -> every CTA reads its peers' and
 //     takes the global max m; p = exp(s - m) and its partial row sums ->
@@ -134,7 +136,7 @@ constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
 constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// kDh: the head width, 32, 64 or 128 for bf16 caches and 64 for fp32
+// kDh: the head width, 32, 64 or 128
 template <typename T, int kDh>
 struct K2Cfg {
   static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
@@ -145,7 +147,7 @@ struct K2Cfg {
 };
 
 __host__ __device__ __forceinline__ int k2_rows(int group) { return group < kK2RowChunk ? group : kK2RowChunk; }
-// P.V: a thread takes 8 columns of a row; the threads left over take slices of the keys
+// P.V: 8 threads take a row; the threads left over take slices of the keys
 __host__ __device__ __forceinline__ int k2_slices(int group) { return kK2Threads / (8 * k2_rows(group)); }
 __host__ __device__ __forceinline__ int k2_stride(int chunk) { return (chunk + 3) & ~3; }
 
@@ -307,38 +309,40 @@ __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, con
   }
 }
 
-// fp32 (and any type): thread (8 columns col8, row rr of a pass, key slice
-// ks); each key slice sums into its own part[ks] (slices x G x 64); a head
-// width of 64 only (8 threads a row)
+// fp32 (and any type): thread (chunk column cc, row rr of a pass, key
+// slice ks), 8 threads a row, each over the row's 16-byte chunks cc, cc +
+// 8, ... (kDh / 8 columns); each key slice sums into its own part[ks]
+// (slices x G x kDh)
 template <typename T, int kDh>
 __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
-  static_assert(kDh == 64, "the fp32 P.V takes a head width of 64");
   using C = K2Cfg<T, kDh>;
+  constexpr int kChunks = kDh / C::kVec / 8;  // 16-byte chunks a thread
+  static_assert(kDh % (8 * C::kVec) == 0, "whole chunks a thread");
   const int RC = k2_rows(G), KS = k2_slices(G);
-  const int col8 = threadIdx.x % 8, rr = (threadIdx.x / 8) % RC, ks = threadIdx.x / (8 * RC);
+  const int cc = threadIdx.x % 8, rr = (threadIdx.x / 8) % RC, ks = threadIdx.x / (8 * RC);
   if (ks >= KS) return;
   for (int g0 = 0; g0 < G; g0 += RC) {
     const int gg = g0 + rr;
     if (gg >= G) continue;
     const float* prow = sc + gg * cs + j0;
-    float acc[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    float acc[kChunks][C::kVec] = {};
     for (int j = ks; j < nk; j += KS) {
       const float p = prow[j];
-      const unsigned char* vr = tile + j * C::kRowBytes + col8 * 8 * sizeof(T);
+      const unsigned char* vr = tile + j * C::kRowBytes + cc * 16;
 #pragma unroll
-      for (int c0 = 0; c0 < 8; c0 += C::kVec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(vr + c0 * sizeof(T));
+      for (int i = 0; i < kChunks; ++i) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(vr + i * 128);
         const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int c = 0; c < C::kVec; ++c) acc[c0 + c] = fmaf(p, to_f(e[c]), acc[c0 + c]);
+        for (int c = 0; c < C::kVec; ++c) acc[i][c] = fmaf(p, to_f(e[c]), acc[i][c]);
       }
     }
-    float* dst = part + ((size_t)ks * G + gg) * kDh + col8 * 8;
+    float* dst = part + ((size_t)ks * G + gg) * kDh;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dst[c] += acc[c];
+    for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+      for (int c = 0; c < C::kVec; ++c) dst[(cc + 8 * i) * C::kVec + c] += acc[i][c];
   }
 }
 
@@ -601,7 +605,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   float* corr_s = l_s + kK1Rows;
   float* sp_s = corr_s + kK1Rows;
   float* qsc = sp_s + kK1Rows;
-  float* part = sc;  // the partial outputs (RC x 64) once the scores are done
+  float* part = sc;  // the partial outputs (RC x dh) once the scores are done
 
   const int n_blocks = (n_valid + tk_blk - 1) / tk_blk;
   const int blk_lo = rank * n_blocks / split, blk_hi = (rank + 1) * n_blocks / split;
@@ -944,16 +948,27 @@ extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, voi
   }
 }
 
-// fp32 caches: a head width of 64 only
+// fp32 caches: head widths 32, 64 and 128
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                float scale, void* stream) {
-  return launch_decode<float, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
-                                  scale, stream);
+  switch (head_width(d, n_head)) {
+    case 32:
+      return launch_decode<float, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                      scale, stream);
+    case 64:
+      return launch_decode<float, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                      scale, stream);
+    case 128:
+      return launch_decode<float, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
+                                       split, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// `split` is the cluster size S (1-8; `k1_plan`); bf16 q at head widths 32,
-// 64 and 128, fp32 q at 64
+// `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at head
+// widths 32, 64 and 128
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                    int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
@@ -975,8 +990,19 @@ extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks,
 extern "C" int decode_attn_i8_f32(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                   void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                   int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
-  return launch_decode_i8<float, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
-                                     valid_upto, split, scale, stream);
+  switch (head_width(d, n_head)) {
+    case 32:
+      return launch_decode_i8<float, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                         valid_upto, split, scale, stream);
+    case 64:
+      return launch_decode_i8<float, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                         valid_upto, split, scale, stream);
+    case 128:
+      return launch_decode_i8<float, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
+                                          tk_blk, valid_upto, split, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -4,8 +4,8 @@
 // (BH, T, dh), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
 // accumulate, at head widths dh of 32, 64 and 128 (K5 at any); and the
-// same functions in fp32 at a head width of 64, fp32-accurate on the tensor
-// cores in 3xTF32 (namespace f32, its own note below).
+// same functions in fp32 at head widths 32, 64 and 128, fp32-accurate on
+// the tensor cores in 3xTF32 (namespace f32, its own note below).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -1355,14 +1355,15 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// ------------------------------------------ fp32: K3, K5 at dh 64, K7, K6, K8
+// ------------------------------------ fp32: K3, K5, K7, K6, K8 at dh 32-128
 //
 // fp32 in, fp32 out, fp32-accurate products on the tensor cores in 3xTF32.
-// Serves `flash_h2_fwd_f32`, `flash_mh_fwd_f32` (head width 64),
-// `flash_fwd_f32`, `flash_h2_bwd_f32` and `flash_bwd_f32` over the layouts,
-// masks and residuals of the bf16 kernels (`Shape`, `res_index`), causal a
-// template parameter; p and dS stay fp32, as the JAX kernels keep them in
-// v's (q's) dtype.
+// Serves `flash_h2_fwd_f32`, `flash_mh_fwd_f32`, `flash_fwd_f32`,
+// `flash_h2_bwd_f32` and `flash_bwd_f32` at head widths 32, 64 and 128 (the
+// width a template parameter of every kernel and helper below) over the
+// layouts, masks and residuals of the bf16 kernels (`Shape`, `res_index`),
+// causal a template parameter; p and dS stay fp32, as the JAX kernels keep
+// them in v's (q's) dtype.
 //
 // What bounds it on the H100: the products. The encoder forward does
 // 4 T^2 dh FLOPs a head against 16 T dh bytes, so memory is far off. FFMA
@@ -1389,26 +1390,51 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 //     to the running sum in fp32; and the two correction passes of a score
 //     go into their own accumulator, 2^-11 the size of the first's.
 //   - A CTA of 4 warps owns 64 rows (queries; keys in the dk/dv kernel), 16
-//     a warp, and walks the other side in tiles: 64 keys in the forward
-//     (scored 32 at a time), 32 keys in the dq kernel, 32 queries in the
-//     dk/dv kernel (16 at a time). Two CTAs an SM (96, 80 and 112.5 KB of
-//     shared memory, at most 255 registers a thread, no spill).
+//     a warp, and walks the other side in tiles (`Cfg`): keys in the
+//     forward (64 a tile, 32 at dh 128; scored 32 at a time) and the dq
+//     kernel (32, 16 at dh 128), queries in the dk/dv kernel (32, 16 at dh
+//     128; 16 at a time). Shared memory a CTA: forward 24 x tile x dh
+//     bytes (48, 96 and 96 KB at dh 32, 64 and 128), dq 40, 80 and 112 KB,
+//     dk/dv 56.5, 112.5 and 112.25 KB: two CTAs an SM at every width.
 //   - Q, which a warp of the forward or the dq kernel keeps for the whole
-//     walk, is read once from global memory as A fragments and split once,
-//     into registers. The other operands a warp keeps (dO in the dq kernel;
-//     K and V in the dk/dv kernel, whose two accumulators fill the
-//     registers) stay in split tiles of 64 rows.
+//     walk, is read once from global memory as A fragments into registers:
+//     split once at dh 32 and 64 (dh registers a thread), raw at dh 128
+//     (64 registers, split a k8 step at a time), where the split Q and the
+//     output accumulator (dh / 2) would take 192 of the 255 registers. The
+//     other operands a warp keeps (dO in the dq kernel; K and V in the
+//     dk/dv kernel, whose two accumulators take dh registers) stay in split
+//     tiles of 64 rows, but for K and V at dh 128: split tiles of both
+//     would take 128 KB and leave one CTA an SM, so they stay raw (64 KB,
+//     rows swizzled by `swz_raw`) and each A fragment is split as it is
+//     read, once a k8 step a query part. dh 32 and 64 run at 174-250
+//     registers a thread with no spill; dh 128's three kernels take all
+//     255 and spill some (`-Xptxas -v`), 16-key forward parts spilled less
+//     and ran slower.
 //   - A shared operand is split once a tile, not once a warp: the tile lands
 //     in a raw buffer by 16-byte cp.async (rows past the end zero-filled);
-//     one pass writes it as (big, small) pairs into a split tile of 512-byte
+//     one pass writes it as (big, small) pairs into a split tile of 8 dh-byte
 //     rows whose 16-byte chunks (two columns each) are XOR-swizzled by the
 //     row (`swz`); then the next tile's copy starts into the raw buffer and
 //     overlaps this tile's products. Every fragment load of a split tile is
-//     free of bank conflicts: a B operand read along its rows (K in Q K^T,
-//     V in dO V^T, Q and dO in the dk/dv scores) and an A operand (dO in
-//     the dq kernel, K and V in the dk/dv kernel) as one 16-byte load a
-//     fragment row, a B operand summed over its rows (V in P V, K in dS K,
-//     dO in P^T dO, Q in dS^T Q) as two 8-byte loads.
+//     free of bank conflicts at every width: a B operand read along its rows
+//     (K in Q K^T, V in dO V^T, Q and dO in the dk/dv scores) and an A
+//     operand (dO in the dq kernel, K and V in the dk/dv kernel) as one
+//     16-byte load a fragment row, a B operand summed over its rows (V in
+//     P V, K in dS K, dO in P^T dO, Q in dS^T Q) as two 8-byte loads. Why at
+//     every width: a split row is 256, 512 or 1024 bytes, a whole number of
+//     the 128-byte rows of the 32 banks, so a chunk's banks are those of its
+//     position mod 8, and the swizzle moves only those 3 bits; each load
+//     reads chunks 8 m + i (i < 8) of a row, the same 8 positions whatever
+//     the width. A 16-byte load serves 8 lanes at a time: rows g and g + 1
+//     (swz differs by 4) and 4 chunks t each, 8 positions; an 8-byte load
+//     16 lanes: rows 2t + p (swz 0, 2, 4, 6 in some order) and 2 chunks,
+//     8 positions, two lanes to a chunk on its two halves. The split pass's
+//     stores, 8 lanes on one row, alternate which half of their float4 goes
+//     first, so that they too hit 8 positions. A raw K (V) row at dh 128
+//     (512 bytes) moves its chunks by swz_raw(r) = 2 (r & 3): a
+//     `frag_a_raw` float2 load's half-warp reads rows g (4 of them) at 2
+//     chunks each, 8 positions. tests/test_torch_fp32_head_width.py models
+//     these formulas and checks both claims at each width.
 //   - Within each k8 step, A columns t and t + 4 stand for the adjacent
 //     columns 2t and 2t + 1 (a sum does not depend on its order). So the
 //     accumulator's p or dS (columns 2t, 2t + 1 of rows g and g + 8) is the
@@ -1432,21 +1458,42 @@ using sm90::key_tiles;
 using sm90::kLn2;
 using sm90::kLog2e;
 
-constexpr int kDh = 64;            // the head width the fp32 kernels take
-constexpr int kSteps = kDh / 8;    // k8 steps over a row
-constexpr int kThreads = 128;      // 4 warps
-constexpr int kBM = 64;            // rows a CTA owns (16 a warp): queries, or keys in the dk/dv kernel
-constexpr int kFwdN = 64;          // keys of a forward tile
-constexpr int kFwdPart = 32;       // keys the forward scores at a time
-constexpr int kBwdN = 32;          // keys of a dq tile, queries of a dk/dv tile
-constexpr int kDkvPart = 16;       // queries the dk/dv kernel scores at a time
-constexpr int kRawF = kDh;         // floats of a raw row
-constexpr int kSplitF = 2 * kDh;   // floats of a split row: (big, small) a column
-constexpr int kFwdSmem = (2 * kFwdN * kRawF + 2 * kFwdN * kSplitF) * 4;
-constexpr int kDqSmem = (2 * kBwdN * kRawF + 2 * kBwdN * kSplitF + kBM * kSplitF) * 4;
-// + K's split tile, and lse and delta as copied and as read
-constexpr int kDkvSmem = kDqSmem + kBM * kSplitF * 4 + 4 * kBwdN * 4;
-static_assert(kBM * kRawF <= kBwdN * kSplitF, "the raw rows of one 64-row operand wait in one split tile's room");
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kBM = 64;        // rows a CTA owns (16 a warp): queries, or keys in the dk/dv kernel
+constexpr int kFwdPart = 32;   // keys the forward scores at a time
+constexpr int kDkvPart = 16;   // queries the dk/dv kernel scores at a time
+// two CTAs of `bytes` of dynamic shared memory fit an SM's 228 KB (each also takes 1 KB)
+constexpr bool two_an_sm(int bytes) { return 2 * (bytes + 1024) <= 228 * 1024; }
+
+// the plan at head width kDh (32, 64 or 128)
+template <int kDh>
+struct Cfg {
+  static constexpr int kSteps = kDh / 8;   // k8 steps over a row
+  static constexpr int kRawF = kDh;        // floats of a raw row
+  static constexpr int kSplitF = 2 * kDh;  // floats of a split row: (big, small) a column
+  // Q in registers split (kDh registers) or raw (kDh / 2), split a step at a time
+  static constexpr bool kQSplit = kDh <= 64;
+  static constexpr int kFwdN = kDh <= 64 ? 64 : 32;  // keys of a forward tile
+  static constexpr int kDqN = kDh <= 64 ? 32 : 16;   // keys of a dq tile
+  // the dk/dv kernel's K and V: split tiles, or at dh 128 raw tiles (rows
+  // swizzled by `swz_raw`), split a k8 step at a time, beside 16-query
+  // tiles, so that two CTAs fit an SM
+  static constexpr bool kKvRaw = kDh == 128;
+  static constexpr int kDkvN = kKvRaw ? 16 : 32;     // queries of a dk/dv tile
+  static constexpr int kKvF = kKvRaw ? kRawF : kSplitF;  // floats of a K (V) row
+  static constexpr int kFwdSmem = (2 * kFwdN * kRawF + 2 * kFwdN * kSplitF) * 4;
+  static constexpr int kDqSmem = (2 * kDqN * kRawF + 2 * kDqN * kSplitF + kBM * kSplitF) * 4;
+  // the raw and split Q and dO tiles, K's and V's tiles, and lse and delta
+  // as copied and as read
+  static constexpr int kDkvSmem = (2 * kDkvN * kRawF + 2 * kDkvN * kSplitF + 2 * kBM * kKvF + 4 * kDkvN) * 4;
+  static_assert(kDh == 32 || kDh == 64 || kDh == 128, "the fp32 kernels take head widths 32, 64 and 128");
+  static_assert(kFwdN % kFwdPart == 0 && kDqN % 16 == 0 && kDkvN % kDkvPart == 0,
+                "whole parts a tile, 16 keys an accumulation");
+  static_assert(kBM * kRawF <= 2 * kDqN * kSplitF, "the raw dO rows wait in the dq kernel's K and V split tiles");
+  static_assert(kKvRaw || kBM * kRawF <= kDkvN * kSplitF,
+                "the raw K (V) rows wait in the dk/dv kernel's Q (dO) split tile");
+  static_assert(two_an_sm(kFwdSmem) && two_an_sm(kDqSmem) && two_an_sm(kDkvSmem), "two CTAs an SM");
+};
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
@@ -1464,27 +1511,36 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the XOR swizzle of a raw K (V) row's 16-byte chunks in the dk/dv kernel
+// at dh 128: rows 4m .. 4m + 3 move their chunks by 0, 2, 4 and 6 within
+// each 8, so that the 4 rows of a `frag_a_raw` load's half-warp, 2 chunks
+// each, meet 8 bank groups
+__device__ __forceinline__ int swz_raw(int r) { return (r & 3) << 1; }
+
 // rows row0 .. row0 + kRows - 1 of one (batch row, head) slice (row r at
-// src + r * d, 64 values) into a raw tile; rows at or past n_rows are zero
-template <int kRows>
+// src + r * d, kDh values) into a raw tile, with kSwz its chunks at
+// c ^ swz_raw(r); rows at or past n_rows are zero
+template <int kDh, int kRows, bool kSwz = false>
 __device__ __forceinline__ void load_raw(float* dst, const float* src, int row0, int n_rows, int d) {
   static_assert(kRows * kDh / 4 % kThreads == 0, "whole 16-byte chunks a thread");
 #pragma unroll
   for (int j = 0; j < kRows * kDh / 4 / kThreads; ++j) {
     const int i = threadIdx.x + j * kThreads, r = i / (kDh / 4), c = i % (kDh / 4);
     const bool in = row0 + r < n_rows;
-    cp_async16(dst + r * kRawF + 4 * c, src + (size_t)(in ? row0 + r : 0) * d + 4 * c, in);
+    cp_async16(dst + r * Cfg<kDh>::kRawF + 4 * (kSwz ? c ^ swz_raw(r) : c),
+               src + (size_t)(in ? row0 + r : 0) * d + 4 * c, in);
   }
 }
 
-// lse and delta of query rows row0 .. row0 + kBwdN - 1 (zero past tq)
+// lse and delta of query rows row0 .. row0 + kN - 1 (zero past tq)
+template <int kN>
 __device__ __forceinline__ void load_res(float* lraw, float* draw, const float* lse, const float* delta,
                                          const Shape& sh, int h, int b, int row0) {
-  const int i = threadIdx.x, r = i % kBwdN, row = row0 + r;
-  if (i < 2 * kBwdN) {
+  const int i = threadIdx.x, r = i % kN, row = row0 + r;
+  if (i < 2 * kN) {
     const bool in = row < sh.tq;
     const size_t at = res_index(sh, h, b, in ? row : 0);
-    cp_async4((i < kBwdN ? lraw : draw) + r, (i < kBwdN ? lse : delta) + at, in);
+    cp_async4((i < kN ? lraw : draw) + r, (i < kN ? lse : delta) + at, in);
   }
 }
 
@@ -1508,12 +1564,12 @@ __device__ __forceinline__ int swz(int r) { return (((r >> 1) & 3) << 1) ^ ((r &
 
 // a raw tile into a split tile: columns 2c, 2c + 1 of row r as (big, small,
 // big, small) in chunk c ^ swz(r)
-template <int kRows>
+template <int kDh, int kRows>
 __device__ __forceinline__ void split_tile(float* dst, const float* raw) {
 #pragma unroll
   for (int j = 0; j < kRows * kDh / 4 / kThreads; ++j) {
     const int i = threadIdx.x + j * kThreads, r = i / (kDh / 4), c4 = i % (kDh / 4);
-    const float4 x = *reinterpret_cast<const float4*>(raw + r * kRawF + 4 * c4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * Cfg<kDh>::kRawF + 4 * c4);
     uint4 lo, hi;
     split(x.x, lo.x, lo.y);
     split(x.y, lo.z, lo.w);
@@ -1521,7 +1577,7 @@ __device__ __forceinline__ void split_tile(float* dst, const float* raw) {
     split(x.w, hi.z, hi.w);
     // half the lanes of a row store their second chunk first: 8 lanes, 8 bank groups
     const int first = (c4 >> 2) & 1, s = swz(r);
-    float* row = dst + r * kSplitF;
+    float* row = dst + r * Cfg<kDh>::kSplitF;
     *reinterpret_cast<uint4*>(row + (((2 * c4 + first) ^ s) << 2)) = first ? hi : lo;
     *reinterpret_cast<uint4*>(row + (((2 * c4 + 1 - first) ^ s) << 2)) = first ? lo : hi;
   }
@@ -1535,7 +1591,9 @@ struct Lanes {
   int rows[2];
   int cols[2][2];
 };
+template <int kDh>
 __device__ __forceinline__ Lanes lanes() {
+  constexpr int kSplitF = Cfg<kDh>::kSplitF;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   Lanes L;
 #pragma unroll
@@ -1550,14 +1608,16 @@ __device__ __forceinline__ Lanes lanes() {
 
 // B fragment of n8 tile n, k8 step ks, of a product that reads the split
 // tile along its rows (K in Q K^T): (big, small) of b0, then of b1
+template <int kDh>
 __device__ __forceinline__ uint4 frag_b_rows(const float* sp, const Lanes& L, int n, int ks) {
-  return *reinterpret_cast<const uint4*>(sp + L.rows[ks & 1] + 32 * (ks >> 1) + 8 * n * kSplitF);
+  return *reinterpret_cast<const uint4*>(sp + L.rows[ks & 1] + 32 * (ks >> 1) + 8 * n * Cfg<kDh>::kSplitF);
 }
 
 // B fragment of k8 step j, n8 tile n, of a product summed over the split
 // tile's rows (V in P V): rows 8j + 2t and 8j + 2t + 1, A's columns t, t + 4
+template <int kDh>
 __device__ __forceinline__ uint4 frag_b_cols(const float* sp, const Lanes& L, int j, int n) {
-  const float* base = sp + 32 * (n >> 1) + 8 * j * kSplitF;
+  const float* base = sp + 32 * (n >> 1) + 8 * j * Cfg<kDh>::kSplitF;
   const uint2 lo = *reinterpret_cast<const uint2*>(base + L.cols[0][n & 1]);
   const uint2 hi = *reinterpret_cast<const uint2*>(base + L.cols[1][n & 1]);
   return make_uint4(lo.x, lo.y, hi.x, hi.y);
@@ -1565,7 +1625,9 @@ __device__ __forceinline__ uint4 frag_b_cols(const float* sp, const Lanes& L, in
 
 // A fragment (big a0..a3, then small a0..a3) of rows r0 + g and r0 + g + 8,
 // k8 step ks, from a split tile
+template <int kDh>
 __device__ __forceinline__ void frag_a(uint32_t (&a)[8], const float* sp, const Lanes& L, int r0, int ks) {
+  constexpr int kSplitF = Cfg<kDh>::kSplitF;
   const float* base = sp + L.rows[ks & 1] + 32 * (ks >> 1) + r0 * kSplitF;
   const uint4 x = *reinterpret_cast<const uint4*>(base);                // row g: a0, a2
   const uint4 y = *reinterpret_cast<const uint4*>(base + 8 * kSplitF);  // row g + 8: a1, a3
@@ -1573,22 +1635,72 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[8], const float* sp, const 
   a[4] = x.y, a[5] = y.y, a[6] = x.w, a[7] = y.w;
 }
 
-// Q's A fragments of rows row and row + 8 (zero at or past n_rows) for every
-// k8 step, from global memory, split once: columns 8 ks + 2t, 8 ks + 2t + 1
-__device__ __forceinline__ void load_a(uint32_t (&a)[kSteps][8], const float* src, int row, int n_rows, int d) {
-  const int t = threadIdx.x % 4;
+// the same A fragment from a raw tile swizzled by `swz_raw` (r0 a multiple
+// of 4), split here: columns 8 ks + 2t, + 1 are floats 2 (t & 1), + 1 of
+// chunk 2 ks + t / 2
+template <int kDh>
+__device__ __forceinline__ void frag_a_raw(uint32_t (&a)[8], const float* raw, int r0, int ks) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const bool in = row + 8 * r < n_rows;
-    const float* p = src + (size_t)(in ? row + 8 * r : 0) * d + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const float2 x = in ? *reinterpret_cast<const float2*>(p + 8 * ks) : make_float2(0.f, 0.f);
-      split(x.x, a[ks][r], a[ks][4 + r]);
-      split(x.y, a[ks][2 + r], a[ks][6 + r]);
-    }
+    const int row = r0 + g + 8 * r;
+    const float2 x = *reinterpret_cast<const float2*>(raw + row * Cfg<kDh>::kRawF +
+                                                      4 * ((2 * ks + t / 2) ^ swz_raw(row)) + 2 * (t & 1));
+    split(x.x, a[r], a[4 + r]);
+    split(x.y, a[2 + r], a[6 + r]);
   }
 }
+
+// the dk/dv kernel's A fragment of its K (V) tile: split, or raw (Cfg::kKvRaw)
+template <int kDh>
+__device__ __forceinline__ void frag_kv(uint32_t (&a)[8], const float* tile, const Lanes& L, int r0, int ks) {
+  if constexpr (Cfg<kDh>::kKvRaw)
+    frag_a_raw<kDh>(a, tile, r0, ks);
+  else
+    frag_a<kDh>(a, tile, L, r0, ks);
+}
+
+// Q's A fragments of a warp's rows row and row + 8 for every k8 step, kept
+// in registers for the whole walk: split (big a0..a3, small a0..a3) where
+// Cfg::kQSplit, else raw (a0..a3), split a step at a time by `get`
+template <int kDh>
+struct QFrags {
+  static constexpr bool kSplit = Cfg<kDh>::kQSplit;
+  uint32_t a[Cfg<kDh>::kSteps][kSplit ? 8 : 4];
+
+  // from global memory (zero at or past n_rows): columns 8 ks + 2t, 8 ks + 2t + 1
+  __device__ __forceinline__ void load(const float* src, int row, int n_rows, int d) {
+    const int t = threadIdx.x % 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row + 8 * r < n_rows;
+      const float* p = src + (size_t)(in ? row + 8 * r : 0) * d + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < Cfg<kDh>::kSteps; ++ks) {
+        const float2 x = in ? *reinterpret_cast<const float2*>(p + 8 * ks) : make_float2(0.f, 0.f);
+        if constexpr (kSplit) {
+          split(x.x, a[ks][r], a[ks][4 + r]);
+          split(x.y, a[ks][2 + r], a[ks][6 + r]);
+        } else {
+          a[ks][r] = __float_as_uint(x.x);
+          a[ks][2 + r] = __float_as_uint(x.y);
+        }
+      }
+    }
+  }
+
+  // the split A fragment of k8 step ks
+  __device__ __forceinline__ void get(uint32_t (&f)[8], int ks) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kSplit) {
+        f[i] = a[ks][i], f[4 + i] = a[ks][4 + i];
+      } else {
+        split(__uint_as_float(a[ks][i]), f[i], f[4 + i]);
+      }
+    }
+  }
+};
 
 // the A fragment of a product over the columns of accumulator tile c (P in
 // P V, dS in dS K, ...): a0 = c0 (row g, column 2t), a1 = c2, a2 = c1, a3 = c3
@@ -1615,43 +1727,62 @@ __device__ __forceinline__ void mma3(float (&d)[4], float (&c)[4], const uint32_
   mma_tf32(d, a[0], a[1], a[2], a[3], b.x, b.z);
 }
 
-// s[n] = A B_n^T for the kN n8 tiles of split tile sp read along its rows
-// (K in Q K^T), A's k8 steps in registers
-template <int kN>
-__device__ __forceinline__ void scores(float (&s)[kN][4], const uint32_t (&a)[kSteps][8], const float* sp,
-                                       const Lanes& L) {
+// s[n] = Q B_n^T for the kN n8 tiles of split tile sp read along its rows
+// (K in Q K^T), Q's k8 steps in registers. With Q split, an n8 tile at a
+// time (one correction accumulator); with Q raw, a k8 step at a time, so
+// that each step is split once (kN correction accumulators). The sums are
+// the same either way.
+template <int kDh, int kN>
+__device__ __forceinline__ void scores(float (&s)[kN][4], const QFrags<kDh>& q, const float* sp, const Lanes& L) {
 #pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    float c[4] = {};
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  if constexpr (QFrags<kDh>::kSplit) {
 #pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) mma3(s[n], c, a[ks], frag_b_rows(sp, L, n, ks));
+    for (int n = 0; n < kN; ++n) {
+      float c[4] = {};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] += c[e];
+      for (int ks = 0; ks < Cfg<kDh>::kSteps; ++ks) mma3(s[n], c, q.a[ks], frag_b_rows<kDh>(sp, L, n, ks));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += c[e];
+    }
+  } else {
+    float c[kN][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < Cfg<kDh>::kSteps; ++ks) {
+      uint32_t a[8];
+      q.get(a, ks);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) mma3(s[n], c[n], a, frag_b_rows<kDh>(sp, L, n, ks));
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += c[n][e];
   }
 }
 
-// s[n] = A B_n^T and u[n] = A2 B2_n^T for kN n8 tiles (S and dP): frag_a1(a,
-// ks) gives A's k8 step ks, A2 is rows a2_row .. a2_row + 15 of split tile
-// a2sp, B and B2 split tiles are read along their rows
-template <int kN, typename FragA1>
-__device__ __forceinline__ void scores2(float (&s)[kN][4], float (&u)[kN][4], FragA1 frag_a1, const float* bsp,
-                                        const float* a2sp, const float* b2sp, int a2_row, const Lanes& L) {
+// s[n] = A B_n^T and u[n] = A2 B2_n^T for kN n8 tiles (S and dP):
+// frag_a1(a, ks) and frag_a2(a, ks) give A's and A2's k8 step ks, B and B2
+// split tiles are read along their rows
+template <int kDh, int kN, typename FragA1, typename FragA2>
+__device__ __forceinline__ void scores2(float (&s)[kN][4], float (&u)[kN][4], FragA1 frag_a1, FragA2 frag_a2,
+                                        const float* bsp, const float* b2sp, const Lanes& L) {
   float cs[kN][4] = {}, cu[kN][4] = {};
 #pragma unroll
   for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = u[n][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
+  for (int ks = 0; ks < Cfg<kDh>::kSteps; ++ks) {
     uint32_t a[8], a2[8];
     frag_a1(a, ks);
-    frag_a(a2, a2sp, L, a2_row, ks);
+    frag_a2(a2, ks);
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
-      mma3(s[n], cs[n], a, frag_b_rows(bsp, L, n, ks));
-      mma3(u[n], cu[n], a2, frag_b_rows(b2sp, L, n, ks));
+      mma3(s[n], cs[n], a, frag_b_rows<kDh>(bsp, L, n, ks));
+      mma3(u[n], cu[n], a2, frag_b_rows<kDh>(b2sp, L, n, ks));
     }
   }
 #pragma unroll
@@ -1660,10 +1791,11 @@ __device__ __forceinline__ void scores2(float (&s)[kN][4], float (&u)[kN][4], Fr
     for (int e = 0; e < 4; ++e) s[n][e] += cs[n][e], u[n][e] += cu[n][e];
 }
 
-// acc[n] += P_0 B(0, n) + P_1 B(1, n) for the 8 n8 tiles of the 64 columns:
-// p0 and p1 accumulator tiles over 16 rows of split tile sp (V in P V), the
-// two k8 steps' three passes summed into a zeroed accumulator (6 truncating
-// sums from 0) and added to acc in fp32
+// acc[n] += P_0 B(0, n) + P_1 B(1, n) for the kDh / 8 n8 tiles of the
+// columns: p0 and p1 accumulator tiles over 16 rows of split tile sp (V in
+// P V), the two k8 steps' three passes summed into a zeroed accumulator (6
+// truncating sums from 0) and added to acc in fp32
+template <int kDh>
 __device__ __forceinline__ void mma_rows16(float (&acc)[kDh / 8][4], const float (&p0)[4], const float (&p1)[4],
                                            const float* sp, const Lanes& L) {
   uint32_t a0[8], a1[8];
@@ -1672,8 +1804,8 @@ __device__ __forceinline__ void mma_rows16(float (&acc)[kDh / 8][4], const float
 #pragma unroll
   for (int n = 0; n < kDh / 8; ++n) {
     float d[4] = {};
-    mma3(d, d, a0, frag_b_cols(sp, L, 0, n));
-    mma3(d, d, a1, frag_b_cols(sp, L, 1, n));
+    mma3(d, d, a0, frag_b_cols<kDh>(sp, L, 0, n));
+    mma3(d, d, a1, frag_b_cols<kDh>(sp, L, 1, n));
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
   }
@@ -1689,8 +1821,10 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows row and row + 8 of an accumulator over 64 columns (8 n8 tiles) to
-// global memory at dst (row r at dst + r * d), rows at or past n_rows skipped
+// rows row and row + 8 of an accumulator over kDh columns (kDh / 8 n8
+// tiles) to global memory at dst (row r at dst + r * d), rows at or past
+// n_rows skipped
+template <int kDh>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 8][4], int row, int n_rows, int d) {
   const int t = threadIdx.x % 4;
 #pragma unroll
@@ -1706,7 +1840,7 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 
 // the forward's online softmax over one part's scores s (keys key0 + 8n + 2t
 // (+1) of rows row, row + 8, in log2 units after sl2): p replaces s, and m,
 // l and o move to the part; kMask applies the limits lim
-template <bool kMask>
+template <int kDh, bool kMask>
 __device__ __forceinline__ void softmax_part(float (&s)[kFwdPart / 8][4], float (&m)[2], float (&l)[2],
                                              float (&o)[kDh / 8][4], int key0, const int (&lim)[2], float sl2) {
   float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
@@ -1737,14 +1871,16 @@ __device__ __forceinline__ void softmax_part(float (&s)[kFwdPart / 8][4], float 
   for (int r = 0; r < 2; ++r) l[r] += quad_sum(sum[r]);
 }
 
-template <bool kCausal>
+template <int kDh, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            float* __restrict__ out, float* __restrict__ lse, Shape sh) {
+  using C = Cfg<kDh>;
+  constexpr int kFwdN = C::kFwdN, kSplitF = C::kSplitF;
   extern __shared__ __align__(16) float fsm[];
   float* kraw = fsm;
-  float* vraw = kraw + kFwdN * kRawF;
-  float* ksp = vraw + kFwdN * kRawF;
+  float* vraw = kraw + kFwdN * C::kRawF;
+  float* ksp = vraw + kFwdN * C::kRawF;
   float* vsp = ksp + kFwdN * kSplitF;
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
@@ -1752,14 +1888,14 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const int n_tiles = key_tiles<kCausal, kFwdN>(sh, q0, q0 + kBM);
 
   if (n_tiles > 0) {
-    load_raw<kFwdN>(kraw, k + koff, 0, sh.tk, sh.d);
-    load_raw<kFwdN>(vraw, v + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kFwdN>(kraw, k + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kFwdN>(vraw, v + koff, 0, sh.tk, sh.d);
   }
   cp_commit();
   const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;  // this thread's rows: row and row + 8
-  uint32_t qa[kSteps][8];
-  load_a(qa, q + qoff, row, sh.tq, sh.d);
-  const Lanes L = lanes();
+  QFrags<kDh> qa;
+  qa.load(q + qoff, row, sh.tq, sh.d);
+  const Lanes L = lanes<kDh>();
   const int lim[2] = {key_limit<kCausal>(sh, row), key_limit<kCausal>(sh, row + 8)};
   const int warp_lim = key_limit<kCausal>(sh, q0 + 16 * warp);  // the warp's first row sees the fewest keys
   const float sl2 = sh.scale * kLog2e;
@@ -1767,26 +1903,26 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_wait<0>();
     __syncthreads();  // tile kt landed; every warp is done with tile kt - 1's splits
-    split_tile<kFwdN>(ksp, kraw);
-    split_tile<kFwdN>(vsp, vraw);
+    split_tile<kDh, kFwdN>(ksp, kraw);
+    split_tile<kDh, kFwdN>(vsp, vraw);
     __syncthreads();  // the splits are in; the raw buffers are free
     if (kt + 1 < n_tiles) {
-      load_raw<kFwdN>(kraw, k + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
-      load_raw<kFwdN>(vraw, v + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
+      load_raw<kDh, kFwdN>(kraw, k + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
+      load_raw<kDh, kFwdN>(vraw, v + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
     }
     cp_commit();
 #pragma unroll 1  // one part's registers at a time
     for (int part = 0; part < kFwdN / kFwdPart; ++part) {
       const int key0 = kt * kFwdN + part * kFwdPart;
       float s[kFwdPart / 8][4];
-      scores(s, qa, ksp + part * kFwdPart * kSplitF, L);
+      scores<kDh>(s, qa, ksp + part * kFwdPart * kSplitF, L);
       if (key0 + kFwdPart <= warp_lim)
-        softmax_part<false>(s, m, l, o, key0 + 2 * t, lim, sl2);
+        softmax_part<kDh, false>(s, m, l, o, key0 + 2 * t, lim, sl2);
       else
-        softmax_part<true>(s, m, l, o, key0 + 2 * t, lim, sl2);
+        softmax_part<kDh, true>(s, m, l, o, key0 + 2 * t, lim, sl2);
 #pragma unroll
       for (int j = 0; j < kFwdPart / 8; j += 2)
-        mma_rows16(o, s[j], s[j + 1], vsp + (part * kFwdPart + 8 * j) * kSplitF, L);
+        mma_rows16<kDh>(o, s[j], s[j + 1], vsp + (part * kFwdPart + 8 * j) * kSplitF, L);
     }
   }
 
@@ -1800,36 +1936,38 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     if (lse != nullptr && t == 0 && row + 8 * r < sh.tq)
       lse[res_index(sh, h, b, row + 8 * r)] = l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
   }
-  store_rows(out + qoff, o, row, sh.tq, sh.d);
+  store_rows<kDh>(out + qoff, o, row, sh.tq, sh.d);
 }
 
-template <bool kCausal>
+template <int kDh, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
               const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, Shape sh) {
+  using C = Cfg<kDh>;
+  constexpr int kDqN = C::kDqN, kSplitF = C::kSplitF;
   extern __shared__ __align__(16) float fsm[];
   float* kraw = fsm;
-  float* vraw = kraw + kBwdN * kRawF;
-  float* ksp = vraw + kBwdN * kRawF;
-  float* vsp = ksp + kBwdN * kSplitF;
-  float* gsp = vsp + kBwdN * kSplitF;  // dO of the CTA's rows
+  float* vraw = kraw + kDqN * C::kRawF;
+  float* ksp = vraw + kDqN * C::kRawF;
+  float* vsp = ksp + kDqN * kSplitF;
+  float* gsp = vsp + kDqN * kSplitF;  // dO of the CTA's rows
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
-  const int n_tiles = key_tiles<kCausal, kBwdN>(sh, q0, q0 + kBM);
+  const int n_tiles = key_tiles<kCausal, kDqN>(sh, q0, q0 + kBM);
 
-  load_raw<kBM>(ksp, dout + qoff, q0, sh.tq, sh.d);  // raw dO rows, in ksp's room until split
+  load_raw<kDh, kBM>(ksp, dout + qoff, q0, sh.tq, sh.d);  // raw dO rows, in ksp's (and vsp's) room until split
   cp_commit();
   if (n_tiles > 0) {
-    load_raw<kBwdN>(kraw, k + koff, 0, sh.tk, sh.d);
-    load_raw<kBwdN>(vraw, v + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kDqN>(kraw, k + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kDqN>(vraw, v + koff, 0, sh.tk, sh.d);
   }
   cp_commit();
   const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;
-  uint32_t qa[kSteps][8];
-  load_a(qa, q + qoff, row, sh.tq, sh.d);
-  const Lanes L = lanes();
+  QFrags<kDh> qa;
+  qa.load(q + qoff, row, sh.tq, sh.d);
+  const Lanes L = lanes<kDh>();
   float lr[2], dr[2];
   int lim[2];
 #pragma unroll
@@ -1842,105 +1980,115 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const fl
   const float sl2 = sh.scale * kLog2e;
   cp_wait<1>();
   __syncthreads();
-  split_tile<kBM>(gsp, ksp);
+  split_tile<kDh, kBM>(gsp, ksp);
   float acc[kDh / 8][4] = {};
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_wait<0>();
     __syncthreads();  // tile kt landed; every warp is done with tile kt - 1's splits (and the raw dO)
-    split_tile<kBwdN>(ksp, kraw);
-    split_tile<kBwdN>(vsp, vraw);
+    split_tile<kDh, kDqN>(ksp, kraw);
+    split_tile<kDh, kDqN>(vsp, vraw);
     __syncthreads();
     if (kt + 1 < n_tiles) {
-      load_raw<kBwdN>(kraw, k + koff, (kt + 1) * kBwdN, sh.tk, sh.d);
-      load_raw<kBwdN>(vraw, v + koff, (kt + 1) * kBwdN, sh.tk, sh.d);
+      load_raw<kDh, kDqN>(kraw, k + koff, (kt + 1) * kDqN, sh.tk, sh.d);
+      load_raw<kDh, kDqN>(vraw, v + koff, (kt + 1) * kDqN, sh.tk, sh.d);
     }
     cp_commit();
 
-    float s[kBwdN / 8][4], dp[kBwdN / 8][4];
-    scores2(s, dp, [&](uint32_t (&a)[8], int ks) {
+    float s[kDqN / 8][4], dp[kDqN / 8][4];
+    scores2<kDh>(
+        s, dp, [&](uint32_t (&a)[8], int ks) { qa.get(a, ks); },
+        [&](uint32_t (&a)[8], int ks) { frag_a<kDh>(a, gsp, L, 16 * warp, ks); }, ksp, vsp, L);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = qa[ks][i];
-    }, ksp, gsp, vsp, 16 * warp, L);
-#pragma unroll
-    for (int n = 0; n < kBwdN / 8; ++n)
+    for (int n = 0; n < kDqN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {  // s becomes dS = p (dP - delta) scale
         const int r = e >> 1;
-        const bool in = kt * kBwdN + 8 * n + 2 * t + (e & 1) < lim[r];
+        const bool in = kt * kDqN + 8 * n + 2 * t + (e & 1) < lim[r];
         const float p = in ? exp2_approx(s[n][e] * sl2 - lr[r]) : 0.f;
         s[n][e] = p * (dp[n][e] - dr[r]) * sh.scale;
       }
 #pragma unroll
-    for (int j = 0; j < kBwdN / 8; j += 2) mma_rows16(acc, s[j], s[j + 1], ksp + 8 * j * kSplitF, L);
+    for (int j = 0; j < kDqN / 8; j += 2) mma_rows16<kDh>(acc, s[j], s[j + 1], ksp + 8 * j * kSplitF, L);
   }
-  store_rows(dq + qoff, acc, row, sh.tq, sh.d);
+  store_rows<kDh>(dq + qoff, acc, row, sh.tq, sh.d);
 }
 
-template <bool kCausal>
+template <int kDh, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, Shape sh) {
+  using C = Cfg<kDh>;
+  constexpr int kSplitF = C::kSplitF, kDkvN = C::kDkvN;
   extern __shared__ __align__(16) float fsm[];
   float* qraw = fsm;
-  float* graw = qraw + kBwdN * kRawF;
-  float* qsp = graw + kBwdN * kRawF;
-  float* gsp = qsp + kBwdN * kSplitF;
-  float* ksp = gsp + kBwdN * kSplitF;  // K and V of the CTA's keys
-  float* vsp = ksp + kBM * kSplitF;
-  float* lraw = vsp + kBM * kSplitF;   // lse and delta of the query tile as copied
-  float* draw = lraw + kBwdN;
-  float* ls = draw + kBwdN;  // lse in log2 units (+inf past tq: p = 0) and delta, as the products read them
-  float* ds = ls + kBwdN;
+  float* graw = qraw + kDkvN * C::kRawF;
+  float* qsp = graw + kDkvN * C::kRawF;
+  float* gsp = qsp + kDkvN * kSplitF;
+  float* ksp = gsp + kDkvN * kSplitF;  // K and V of the CTA's keys: split, or raw (Cfg::kKvRaw)
+  float* vsp = ksp + kBM * C::kKvF;
+  float* lraw = vsp + kBM * C::kKvF;   // lse and delta of the query tile as copied
+  float* draw = lraw + kDkvN;
+  float* ls = draw + kDkvN;  // lse in log2 units (+inf past tq: p = 0) and delta, as the products read them
+  float* ds = ls + kDkvN;
   const int k0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
-  const int n_q = (sh.tq + kBwdN - 1) / kBwdN;
+  const int n_q = (sh.tq + kDkvN - 1) / kDkvN;
   // the first query tile that sees key k0 (none for keys past kv_len)
-  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kBwdN : 0;
+  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kDkvN : 0;
   const int key = k0 + 16 * warp + threadIdx.x % 32 / 4;  // this thread's keys: key and key + 8
   float acc_k[kDh / 8][4] = {}, acc_v[kDh / 8][4] = {};
 
   if (first < n_q) {
-    load_raw<kBM>(qsp, k + koff, k0, sh.tk, sh.d);  // raw K and V rows, in qsp's and gsp's room until split
-    load_raw<kBM>(gsp, v + koff, k0, sh.tk, sh.d);
+    if constexpr (C::kKvRaw) {
+      load_raw<kDh, kBM, true>(ksp, k + koff, k0, sh.tk, sh.d);
+      load_raw<kDh, kBM, true>(vsp, v + koff, k0, sh.tk, sh.d);
+    } else {
+      load_raw<kDh, kBM>(qsp, k + koff, k0, sh.tk, sh.d);  // raw K and V rows, in qsp's and gsp's room until split
+      load_raw<kDh, kBM>(gsp, v + koff, k0, sh.tk, sh.d);
+    }
     cp_commit();
-    load_raw<kBwdN>(qraw, q + qoff, first * kBwdN, sh.tq, sh.d);
-    load_raw<kBwdN>(graw, dout + qoff, first * kBwdN, sh.tq, sh.d);
-    load_res(lraw, draw, lse, delta, sh, h, b, first * kBwdN);
+    load_raw<kDh, kDkvN>(qraw, q + qoff, first * kDkvN, sh.tq, sh.d);
+    load_raw<kDh, kDkvN>(graw, dout + qoff, first * kDkvN, sh.tq, sh.d);
+    load_res<kDkvN>(lraw, draw, lse, delta, sh, h, b, first * kDkvN);
     cp_commit();
-    const Lanes L = lanes();
+    const Lanes L = lanes<kDh>();
     const float sl2 = sh.scale * kLog2e;
     cp_wait<1>();
     __syncthreads();
-    split_tile<kBM>(ksp, qsp);
-    split_tile<kBM>(vsp, gsp);
+    if constexpr (!C::kKvRaw) {
+      split_tile<kDh, kBM>(ksp, qsp);
+      split_tile<kDh, kBM>(vsp, gsp);
+    }
     for (int qt = first; qt < n_q; ++qt) {
       cp_wait<0>();
       __syncthreads();  // tile qt landed; every warp is done with tile qt - 1's splits (and the raw K, V)
-      split_tile<kBwdN>(qsp, qraw);
-      split_tile<kBwdN>(gsp, graw);
-      if (threadIdx.x < kBwdN) {
+      split_tile<kDh, kDkvN>(qsp, qraw);
+      split_tile<kDh, kDkvN>(gsp, graw);
+      if (threadIdx.x < kDkvN) {
         const int i = threadIdx.x;
-        ls[i] = qt * kBwdN + i < sh.tq ? lraw[i] * kLog2e : INFINITY;
+        ls[i] = qt * kDkvN + i < sh.tq ? lraw[i] * kLog2e : INFINITY;
         ds[i] = draw[i];
       }
       __syncthreads();
       if (qt + 1 < n_q) {
-        load_raw<kBwdN>(qraw, q + qoff, (qt + 1) * kBwdN, sh.tq, sh.d);
-        load_raw<kBwdN>(graw, dout + qoff, (qt + 1) * kBwdN, sh.tq, sh.d);
-        load_res(lraw, draw, lse, delta, sh, h, b, (qt + 1) * kBwdN);
+        load_raw<kDh, kDkvN>(qraw, q + qoff, (qt + 1) * kDkvN, sh.tq, sh.d);
+        load_raw<kDh, kDkvN>(graw, dout + qoff, (qt + 1) * kDkvN, sh.tq, sh.d);
+        load_res<kDkvN>(lraw, draw, lse, delta, sh, h, b, (qt + 1) * kDkvN);
       }
       cp_commit();
 #pragma unroll 1  // one part's registers at a time
-      for (int part = 0; part < kBwdN / kDkvPart; ++part) {
+      for (int part = 0; part < kDkvN / kDkvPart; ++part) {
         const int c0 = part * kDkvPart;  // the part's first query in the tile
         float st[kDkvPart / 8][4], dpt[kDkvPart / 8][4];
-        scores2(st, dpt, [&](uint32_t (&a)[8], int ks) { frag_a(a, ksp, L, 16 * warp, ks); }, qsp + c0 * kSplitF,
-                vsp, gsp + c0 * kSplitF, 16 * warp, L);
+        scores2<kDh>(
+            st, dpt, [&](uint32_t (&a)[8], int ks) { frag_kv<kDh>(a, ksp, L, 16 * warp, ks); },
+            [&](uint32_t (&a)[8], int ks) { frag_kv<kDh>(a, vsp, L, 16 * warp, ks); }, qsp + c0 * kSplitF,
+            gsp + c0 * kSplitF, L);
 #pragma unroll
         for (int n = 0; n < kDkvPart / 8; ++n) {  // st becomes p^T, dpt dS^T; rows are keys, columns queries
-          const int c = c0 + 8 * n + 2 * t, qr = qt * kBwdN + c;
+          const int c = c0 + 8 * n + 2 * t, qr = qt * kDkvN + c;
           const float2 lq = *reinterpret_cast<const float2*>(ls + c), dq2 = *reinterpret_cast<const float2*>(ds + c);
           const int lim[2] = {key_limit<kCausal>(sh, qr), key_limit<kCausal>(sh, qr + 1)};
 #pragma unroll
@@ -1954,14 +2102,14 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
         }
 #pragma unroll
         for (int j = 0; j < kDkvPart / 8; j += 2) {
-          mma_rows16(acc_v, st[j], st[j + 1], gsp + (c0 + 8 * j) * kSplitF, L);
-          mma_rows16(acc_k, dpt[j], dpt[j + 1], qsp + (c0 + 8 * j) * kSplitF, L);
+          mma_rows16<kDh>(acc_v, st[j], st[j + 1], gsp + (c0 + 8 * j) * kSplitF, L);
+          mma_rows16<kDh>(acc_k, dpt[j], dpt[j + 1], qsp + (c0 + 8 * j) * kSplitF, L);
         }
       }
     }
   }
-  store_rows(dk + koff, acc_k, key, sh.tk, sh.d);
-  store_rows(dv + koff, acc_v, key, sh.tk, sh.d);
+  store_rows<kDh>(dk + koff, acc_k, key, sh.tk, sh.d);
+  store_rows<kDh>(dv + koff, acc_v, key, sh.tk, sh.d);
 }
 
 // the rate of mma.sync m16n8k8 tf32 on the card, which these kernels run
@@ -1979,34 +2127,39 @@ __global__ void __launch_bounds__(256) mma_probe_kernel(float* __restrict__ out,
   out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
-template <bool kCausal>
+// each instance lifts its own shared-memory limit (one record per kernel
+// instance: a record per kernel type would skip a second width's)
+template <int kDh, bool kCausal>
 int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
+  constexpr int kSmem = Cfg<kDh>::kFwdSmem;
   static bool lifted[64] = {};
-  const cudaError_t err = sm90::lift_smem(fwd_kernel<kCausal>, kFwdSmem, lifted);
+  const cudaError_t err = sm90::lift_smem(fwd_kernel<kDh, kCausal>, kSmem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kBM - 1) / kBM, sh.n_head, sh.batch);
-  fwd_kernel<kCausal><<<grid, kThreads, kFwdSmem, stream>>>(
+  fwd_kernel<kDh, kCausal><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
-template <bool kCausal>
+template <int kDh, bool kCausal>
 int run_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
             void* dq, void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
+  using C = Cfg<kDh>;
   static bool lifted_dq[64] = {}, lifted_dkv[64] = {};
-  cudaError_t err = sm90::lift_smem(bwd_dq_kernel<kCausal>, kDqSmem, lifted_dq);
-  if (err == cudaSuccess) err = sm90::lift_smem(bwd_dkv_kernel<kCausal>, kDkvSmem, lifted_dkv);
+  cudaError_t err = sm90::lift_smem(bwd_dq_kernel<kDh, kCausal>, C::kDqSmem, lifted_dq);
+  if (err == cudaSuccess) err = sm90::lift_smem(bwd_dkv_kernel<kDh, kCausal>, C::kDkvSmem, lifted_dkv);
   if (err != cudaSuccess) return (int)err;
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
               *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
-  bwd_dq_kernel<kCausal><<<dim3((sh.tq + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, kDqSmem, stream>>>(
+  bwd_dq_kernel<kDh, kCausal><<<dim3((sh.tq + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, C::kDqSmem, stream>>>(
       qf, kf, vf, gf, lf, df, static_cast<float*>(dq), sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_kernel<kCausal><<<dim3((sh.tk + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, kDkvSmem, stream>>>(
-      qf, kf, vf, gf, lf, df, static_cast<float*>(dk), static_cast<float*>(dv), sh);
+  bwd_dkv_kernel<kDh, kCausal><<<dim3((sh.tk + kBM - 1) / kBM, sh.n_head, sh.batch), kThreads, C::kDkvSmem,
+                                  stream>>>(qf, kf, vf, gf, lf, df, static_cast<float*>(dk), static_cast<float*>(dv),
+                                            sh);
   return (int)cudaGetLastError();
 }
 
@@ -2017,21 +2170,45 @@ bool misaligned(std::initializer_list<const void*> ptrs) {
   return false;
 }
 
+template <int kDh>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
-               void* stream) {
+               cudaStream_t s) {
   if (bad_shape(sh, kDh) || (lse != nullptr && sh.n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
   if (misaligned({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
-  auto s = (cudaStream_t)stream;
-  return causal ? run_fwd<true>(q, k, v, out, lse, sh, s) : run_fwd<false>(q, k, v, out, lse, sh, s);
+  return causal ? run_fwd<kDh, true>(q, k, v, out, lse, sh, s) : run_fwd<kDh, false>(q, k, v, out, lse, sh, s);
 }
 
+template <int kDh>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
-               void* dq, void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
+               void* dq, void* dk, void* dv, const Shape& sh, bool causal, cudaStream_t s) {
   if (bad_shape(sh, kDh) || sh.n_head % sh.hpb) return (int)cudaErrorInvalidValue;
   if (misaligned({q, k, v, dout, dq, dk, dv})) return (int)cudaErrorMisalignedAddress;
+  return causal ? run_bwd<kDh, true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s)
+                : run_bwd<kDh, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+}
+
+// the forward at head width dh (32, 64 or 128)
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, int dh, bool causal,
+        void* stream) {
   auto s = (cudaStream_t)stream;
-  return causal ? run_bwd<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s)
-                : run_bwd<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
+  switch (dh) {
+    case 32: return launch_fwd<32>(q, k, v, out, lse, sh, causal, s);
+    case 64: return launch_fwd<64>(q, k, v, out, lse, sh, causal, s);
+    case 128: return launch_fwd<128>(q, k, v, out, lse, sh, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the backward at head width dh (32, 64 or 128)
+int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta, void* dq,
+        void* dk, void* dv, const Shape& sh, int dh, bool causal, void* stream) {
+  auto s = (cudaStream_t)stream;
+  switch (dh) {
+    case 32: return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
+    case 64: return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
+    case 128: return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace f32
@@ -2101,36 +2278,41 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
 
 // ------------------------------------------------------ fp32 entry points
 // The same arguments and layouts as the bf16 entries above, fp32 tensors
-// on 16-byte boundaries (rows are copied 16 bytes at a time), at a head
-// width of 64 only (f32::kDh): namespace f32's 3xTF32 kernels.
+// on 16-byte boundaries (rows are copied 16 bytes at a time), at head
+// widths 32, 64 and 128: namespace f32's 3xTF32 kernels.
 
-// K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 2) fp32
+// K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                 int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / f32::kDh, kv_len, 0, scale};
-  return f32::launch_fwd(q, k, v, out, lse, sh, false, stream);
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
+  return f32::fwd(q, k, v, out, lse, sh, dh, false, stream);
 }
 
-// K5 at fp32, a head width of 64 only (d = 64 * n_head); no logsumexp
+// K5 at fp32, head widths 32, 64 and 128 over any number of heads; no logsumexp
 extern "C" int flash_mh_fwd_f32(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
                                 int d, int n_head, int kv_len, float scale, void* stream) {
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-  return f32::launch_fwd(q, k, v, out, nullptr, sh, false, stream);
+  return f32::fwd(q, k, v, out, nullptr, sh, d / n_head, false, stream);
 }
 
-// K6 at fp32: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 2) fp32
+// K6 at fp32: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                 const void* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk, int d,
                                 int n_head, int kv_len, float scale, void* stream) {
-  Shape sh{batch, tq, tk, d, n_head, 128 / f32::kDh, kv_len, 0, scale};
-  return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
+  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, false, stream);
 }
 
-// K7 at fp32: head-split (BH, T, 64); `lse` may be null, else it is (BH, Tq, 1) fp32
+// K7 at fp32: head-split (BH, T, dh), dh 32, 64 or 128; `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                              int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return f32::launch_fwd(q, k, v, out, lse, sh, causal != 0, stream);
+  return f32::fwd(q, k, v, out, lse, sh, dh, causal != 0, stream);
 }
 
 // K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
@@ -2138,7 +2320,7 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const 
                              const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
                              int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return f32::launch_bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
+  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, causal != 0, stream);
 }
 
 // the mma.sync tf32 rate probe: `ctas` CTAs of 256 threads, out holds ctas * 256 floats

@@ -37,7 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_h2_f32": 0,  # K3 at fp32
     "flash_attention_h2_lse_f32": 0,
     "flash_attention_h2_bwd_f32": 0,  # K6 at fp32
-    "flash_attention_mh_f32": 0,  # K5 at fp32, head width 64
+    "flash_attention_mh_f32": 0,  # K5 at fp32 (head widths 32, 64 and 128)
     "flash_attention_f32": 0,  # K7 at fp32
     "flash_attention_lse_f32": 0,
     "flash_attention_bwd_f32": 0,  # K8 at fp32
@@ -64,20 +64,17 @@ def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
     return _SUFFIX[tensors[0].dtype]
 
 
-# the head widths d / n_head that the bf16 attention kernels K1, K2, K3, K6,
-# K7 and K8 (and K5 on K3's forward) serve; the fp32 ones serve 64
+# the head widths d / n_head that the attention kernels K1, K2, K3, K6, K7
+# and K8 (and K5 on K3's forward) serve, in bf16 and in fp32
 HEAD_WIDTHS = (32, 64, 128)
-HEAD_WIDTH_F32 = 64
 
 
 def check_head_width(name: str, dh: int, sfx: str) -> None:
     """Raise unless the attention kernel `name` of dtype suffix `sfx` ("bf16"
-    or "f32") serves head width `dh`."""
-    if sfx == "f32" and dh != HEAD_WIDTH_F32:
-        raise ValueError(f"{name} fp32 kernel takes a head width of {HEAD_WIDTH_F32}, got {dh}")
+    or "f32") serves head width `dh`: HEAD_WIDTHS in either dtype."""
     if dh not in HEAD_WIDTHS:
-        raise ValueError(f"{name} kernel takes a head width of {', '.join(map(str, HEAD_WIDTHS))} in bf16 "
-                         f"({HEAD_WIDTH_F32} in fp32), got {dh}")
+        raise ValueError(f"{name} {'fp32' if sfx == 'f32' else sfx} kernel takes a head width of "
+                         f"{', '.join(map(str, HEAD_WIDTHS))}, got {dh}")
 
 
 def count_launch(name: str, sfx: str) -> None:

@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, out, batch, tq, tk, d, n_head, kv_len, scale, stream
         "flash_mh_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        # the same five at fp32 (a head width of 64 only)
+        # the same five at fp32 (head widths 32, 64 and 128)
         "flash_h2_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_h2_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),

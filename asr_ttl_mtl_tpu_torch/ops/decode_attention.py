@@ -20,8 +20,8 @@ cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
 
 Both kernels take head widths dh = d / n_head of 32, 64 and 128 with bf16
-q (`ops.HEAD_WIDTHS`), and 64 with fp32 q and caches; any other width
-raises on the card. A launch with fp32 q counts under `<name>_f32`.
+or fp32 q (and caches of q's dtype for K2; `ops.HEAD_WIDTHS`); any other
+width raises on the card. A launch with fp32 q counts under `<name>_f32`.
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
     fp32), q, the chunk's scores, the P.V partials, the row statistics and
     the reduction buffer."""
     ring = (2 if itemsize != 2 or dh == 128 else 4) * _K2_TILE * (dh * itemsize + 16)
-    slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))
+    slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))  # P.V: 8 threads a row, dh / 8 columns each
     stride = (chunk + 3) // 4 * 4
     return ring + 4 * (group * dh + group * stride + slices * group * dh + 4 * group + _K2_THREADS)
 

@@ -27,9 +27,10 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
 The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
 count under their own keys, e.g. `flash_attention_h2_f32`). K3, K6, K7 and
-K8 take head widths 32, 64 and 128 in bf16 (`ops.HEAD_WIDTHS`) and 64 in fp32;
+K8 take head widths 32, 64 and 128 in bf16 and in fp32 (`ops.HEAD_WIDTHS`);
 K5 any multiple of 8 up to 768 in bf16 (32, 64 and 128 on K3's forward),
-64 in fp32. The h2 residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
+32, 64 and 128 in fp32. The h2 residuals hold 128 // dh heads a lane: hpb
+4, 2 and 1.
 On the card nothing falls back to a plain version or to a kernel of another
 dtype: a shape, width or dtype no kernel serves raises.
 """
@@ -308,7 +309,7 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
         raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
                          f"{_MH_MAX_D}, got d={d} n_head={n_head}")
     sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
-    if sfx == "f32":  # the bf16 kernel serves any multiple of 8 up to 768
+    if sfx == "f32":  # the fp32 kernel serves HEAD_WIDTHS; the bf16 one any multiple of 8 up to 768
         check_head_width("flash_attention_mh", d // n_head, sfx)
     out = torch.empty_like(q)
     fn = f"flash_mh_fwd_{sfx}"

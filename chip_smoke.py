@@ -144,7 +144,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      on 4 windows, (e) phase 5's check against the CPU on 2 windows, (d) 2
      bf16 train steps at batch 8 and `evaluate` on 8 clips, each path's
      launch counts reset before and read after: K1, K2, K3, K3-lse, K6,
-     K7, K7-lse and K8 each launch on them.
+     K7, K7-lse and K8 each launch on them. Then the same in fp32 at the
+     same width and depth: (f) the fp32 kernels (K3, K3-lse, K6, K5, K7,
+     K7-lse, K8, K2 over fp32 caches, K1 with fp32 queries) at those
+     shapes within 2e-5 of their plain versions' largest outputs, bitwise
+     on a second launch, beside SDPA at fp32 and their 3xTF32 and FFMA
+     bounds; (g) the greedy window path with fp16=False and one batch with
+     kv_quant=False, beam 5 with fp16=False, 2 train steps with
+     compute_dtype="float32" and `evaluate`, each path's counts reset
+     before and read after, no bf16 attention or K14 kernel on any, each
+     `_f32` kernel launching; (h) phase 20's gates at this width: the fp32
+     decode of 2 windows against the CPU's fp32 plain path (5e-3 logits)
+     and one fp32 train step against the CPU's (2e-4).
  22. files in, reports out, at base: (a) phase 6's 32 clips, a 44.1 kHz
      WAV, a 24-bit WAV and a file that ends in `.wav` but is none, in one
      batch through the loader's native route (one `runtime.wav.load_batch`
@@ -1036,11 +1047,12 @@ def grads_by_group(trainer):
     return {g: torch.cat(v) for g, v in out.items()}
 
 
-def check_train_step_against_cpu(card: str, trainer, batch):
-    """Phase 7: the same weights, 2-clip batch and dropout mask through one
-    bf16 step on the card and one fp32 step on the CPU (plain path): the
-    losses within 2% and each group's gradient at cosine >= 0.99. Returns
-    the CPU step's inputs and results for phase 20's fp32 step."""
+def cpu_reference_step(trainer, batch):
+    """The weights of `trainer` (copied: a step updates them in place), the
+    first 2 clips of `batch` and a seeded dropout mask through one fp32
+    step of the plain path on the CPU, at the trainer's dims (phases 7 and
+    21): the step's inputs, the copies, and the CPU's loss, gradients per
+    group and seconds."""
     import numpy as np
     import torch
 
@@ -1049,33 +1061,42 @@ def check_train_step_against_cpu(card: str, trainer, batch):
     small = {k: (v[:2] if k in ("audio", "input_tokens", "target_tokens", "classes", "texts", "paths") else v)
              for k, v in batch.items()}
     keep = torch.from_numpy(np.random.RandomState(3).rand(2, trainer.model.dims.n_audio_state // 2) < 0.9)
-    # copies (the step below updates the trainer's weights in place), for phase 20's fp32 step too
     model_sd = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
     head_sd = {k: v.detach().cpu().clone() for k, v in trainer.classifier.state_dict().items()}
-    cpu = MultiTaskTrainer(TrainingConfig(model_size=MODEL, pretrained="random", compute_dtype="float32",
+    cpu = MultiTaskTrainer(TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=trainer.config.debug_dims,
+                                          audio_samples=trainer.config.audio_samples, compute_dtype="float32",
                                           device="cpu", seed=0), verbose=False)
     cpu.load_state(model_sd, head_sd)
     cpu.alpha, cpu.beta = trainer.alpha, trainer.beta
-
-    card_loss, _ = trainer.train_step(small, keep=keep)
-    card_g = grads_by_group(trainer)
     t0 = time.perf_counter()
     cpu_loss, _ = cpu.train_step(small, keep=keep)
     t_cpu = time.perf_counter() - t0
-    cpu_g = grads_by_group(cpu)
-    rel = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    return dict(batch=small, keep=keep, model_sd=model_sd, head_sd=head_sd, alpha=trainer.alpha, beta=trainer.beta,
+                cpu_loss=float(cpu_loss), cpu_grads=grads_by_group(cpu), cpu_s=t_cpu)
+
+
+def check_train_step_against_cpu(card: str, trainer, batch):
+    """Phase 7: the same weights, 2-clip batch and dropout mask through one
+    bf16 step on the card and one fp32 step on the CPU (plain path): the
+    losses within 2% and each group's gradient at cosine >= 0.99. Returns
+    the CPU step's inputs and results for phase 20's fp32 step."""
+    import torch
+
+    ref = cpu_reference_step(trainer, batch)
+    card_loss, _ = trainer.train_step(ref["batch"], keep=ref["keep"])
+    card_g, cpu_g = grads_by_group(trainer), ref["cpu_grads"]
+    rel = abs(float(card_loss) - ref["cpu_loss"]) / abs(ref["cpu_loss"])
     cos = {g: float(torch.nn.functional.cosine_similarity(card_g[g].double(), cpu_g[g].double(), dim=0))
            for g in cpu_g}
     worst = min(cos, key=cos.get)
     ok = rel <= 0.02 and cos[worst] >= 0.99
     print(f"[check] train step, card bf16 vs CPU fp32 plain path (2 clips, same weights and dropout): loss "
-          f"{float(card_loss):.5f} vs {float(cpu_loss):.5f}, rel diff {rel:.2e} (tol 2e-2); gradient cosine "
+          f"{float(card_loss):.5f} vs {ref['cpu_loss']:.5f}, rel diff {rel:.2e} (tol 2e-2); gradient cosine "
           f"{', '.join(f'{g} {c:.5f}' for g, c in cos.items())}, worst {worst} {cos[worst]:.5f} (tol 0.99); "
-          f"CPU step {t_cpu:.1f} s {'OK' if ok else 'FAIL'}", flush=True)
+          f"CPU step {ref['cpu_s']:.1f} s {'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("the card's train step disagrees with the CPU reference")
-    return dict(batch=small, keep=keep, model_sd=model_sd, head_sd=head_sd, alpha=trainer.alpha, beta=trainer.beta,
-                cpu_loss=float(cpu_loss), cpu_grads=cpu_g)
+    return ref
 
 
 def check_topk_kernels(card: str, filter_cfg):
@@ -2692,7 +2713,7 @@ def check_conv_stem_fp32(card: str, model):
         raise AssertionError("the fp32 conv stem is not fp32 on the card")
 
 
-def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1):
+def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1, what: str = ""):
     """Phase 20 (e): the card's fp32 decode of 2 windows (FP32_GATE_OPTIONS)
     against the plain path on the CPU in fp32: teacher-forced to the card's
     tokens on both, the card's tokens are the CPU's argmax (up to ties
@@ -2725,7 +2746,7 @@ def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1):
         same_mask = same_mask and torch.equal(torch.isfinite(lc), fin)
         logit_err = max(logit_err, (lc - lp)[fin].abs().max().item())
     ok = mel_err < 1e-3 and same_mask and logit_err <= FP32_LOGIT_TOL and worst_gap <= FP32_LOGIT_TOL
-    print(f"[check] fp32 decode, card vs CPU fp32 plain path, 2 windows x {toks.shape[1]} tokens (fp16=False, float "
+    print(f"[check] fp32 decode{what}, card vs CPU fp32 plain path, 2 windows x {toks.shape[1]} tokens (fp16=False, float "
           f"caches and linears): {not_argmax} card tokens are not the CPU's argmax, trailing it by at most "
           f"{worst_gap:.2e} (tol {FP32_LOGIT_TOL}); filtered logits max |card - CPU| {logit_err:.2e} (tol "
           f"{FP32_LOGIT_TOL}, 100x the bf16 gate's 0.5), -inf at the same places {same_mask}; log-mel max err "
@@ -2734,10 +2755,11 @@ def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1):
         raise AssertionError("the card's fp32 decode disagrees with the CPU reference")
 
 
-def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict):
+def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict, what: str = "phase 7's weights"):
     """Phase 20 (e): one fp32 train step on the card from phase 7's weights,
     2-clip batch and dropout mask against phase 7's fp32 CPU step: the loss
-    and every group's gradient norm within FP32_TRAIN_TOL (relative)."""
+    and every group's gradient norm within FP32_TRAIN_TOL (relative).
+    Phase 21 (h) holds its fp32 trainer to `cpu_reference_step` the same way."""
     import torch
 
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
@@ -2757,7 +2779,7 @@ def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict):
            for g in cpu_g}
     worst = max(norm_rel, key=norm_rel.get)
     ok = rel <= FP32_TRAIN_TOL and norm_rel[worst] <= FP32_TRAIN_TOL
-    print(f"[check] train step, card fp32 vs CPU fp32 plain path (phase 7's weights, 2 clips, dropout mask): loss "
+    print(f"[check] train step, card fp32 vs CPU fp32 plain path ({what}, 2 clips, dropout mask): loss "
           f"{float(loss):.7f} vs {ref['cpu_loss']:.7f}, rel diff {rel:.2e} (tol {FP32_TRAIN_TOL}, 100x tighter than "
           f"the bf16 gate's 2%); gradient norm rel diff {', '.join(f'{g} {r:.2e}' for g, r in norm_rel.items())}, "
           f"worst {worst} (tol {FP32_TRAIN_TOL}); cosine {', '.join(f'{g} {c:.7f}' for g, c in cos.items())}; "
@@ -2783,17 +2805,20 @@ HW_KERNELS = ("decode_attention_i8", "decode_attention", "flash_attention_h2", "
               "flash_attention_h2_bwd", "flash_attention", "flash_attention_lse", "flash_attention_bwd")
 
 
-def check_head_width_kernels(card: str, geometry: str):
-    """Phase 21 (a): at one geometry of HW_DIMS (d 512, head width dh), each
-    attention kernel against its plain version at the paths' shapes, with
-    the bf16 tolerances of phases 3 and 8, bitwise on a second launch, and
-    timed beside its bound and SDPA on the same views: K3 with and without
-    lse and K6 at the encoder's (8, 1536, 512) with keys valid to 1500; K7,
-    K7 with lse and K8 at the train bucket's causal (8 x H, 48, dh) and at
+def check_head_width_kernels(card: str, geometry: str, fp32: bool = False):
+    """Phase 21 (a), with `fp32` (f): at one geometry of HW_DIMS (d 512,
+    head width dh), each attention kernel of the dtype against its plain
+    version at the paths' shapes, bitwise on a second launch, and timed
+    beside its bound and SDPA on the same views: K3 with and without lse
+    and K6 at the encoder's (8, 1536, 512) with keys valid to 1500; K7, K7
+    with lse and K8 at the train bucket's causal (8 x H, 48, dh) and at
     q_offset 48 (48 queries over 96 keys); K5 (the K3 forward, which serves
     dh 32 and 128) where `h2_eligible` would reject the shape; K2 and K1 on
     the cross cache (8 windows x 1500, int8 padded to 1536 with valid_upto
-    1499) and on a 128-row self cache with valid_upto 37, at groups 1 and 5."""
+    1499) and on a 128-row self cache with valid_upto 37, at groups 1 and
+    5. bf16 at phases 3 and 8's tolerances; fp32 (K2 over fp32 caches, K1
+    with fp32 queries) within FP32_REL of the largest output (K1 the flip
+    bound beside it), the bound over 3xTF32 and over FFMA."""
     import torch
     import torch.nn.functional as F
 
@@ -2810,46 +2835,56 @@ def check_head_width_kernels(card: str, geometry: str):
     src, b = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", HW_TRAIN_BATCH
     tag = f"{geometry} ({n_head} heads of {dh})"
     scale = dh**-0.5
+    dtype, dt, sfx, esz = (torch.float32, "fp32", "_f32", 4) if fp32 else (torch.bfloat16, "bf16", "", 2)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def rel_tol(x):
-        return 2.0**-6 * x.float().abs().max().item()
+        return (FP32_REL if fp32 else 2.0**-6) * x.float().abs().max().item()
+
+    def lse_tol(x):
+        return FP32_REL * x.abs().max().item() if fp32 else 1e-4
+
+    def bounds(macs, n_bytes, mults=4):
+        if fp32:  # over 3xTF32 on the tensor cores, and FFMA beside it
+            return dict(bound=attn_bound(macs, n_bytes, mults, "3xtf32"),
+                        ffma_bound=attn_bound(macs, n_bytes, mults, "fp32"))
+        return dict(bound=attn_bound(macs, n_bytes, mults))
 
     # K3 with and without lse, and K6: the encoder's self-attention
     tq = tk = 1536
     q, k, v, g = rnd(b, tq, d), rnd(b, tk, d), rnd(b, tk, d), rnd(b, tq, d)
     kw = dict(n_head=n_head, kv_valid_len=1500, scale=scale)
-    case = f"{tag}: encoder q,k,v ({b}, {tq}, {d}) bf16, kv_valid_len 1500"
-    io = (2 * q.numel() + 2 * b * 1500 * d) * 2
+    case = f"{tag}: encoder q,k,v ({b}, {tq}, {d}) {dt}, kv_valid_len 1500"
+    io = (2 * q.numel() + 2 * b * 1500 * d) * esz
     qh = heads(q, n_head).detach().requires_grad_(True)
     kh, vh = (heads(x, n_head, 1500).detach().requires_grad_(True) for x in (k, v))
     pout, plse = FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
-    record("flash_attention_h2", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
+    record("flash_attention_h2" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:514",
            FA.flash_attention_h2(q, k, v, **kw), pout, rel_tol(pout),
            lambda: FA.flash_attention_h2(q, k, v, **kw), lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
-           bound=attn_bound(b * tq * 1500 * d, io), plain_iters=5,
+           **bounds(b * tq * 1500 * d, io), plain_iters=5,
            library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
     out, lse = FA.flash_attention_h2(q, k, v, return_lse=True, **kw)
     if tuple(lse.shape) != (d // 128, b, tq, 128 // dh):
-        raise AssertionError(f"K3 lse at {geometry}: shape {tuple(lse.shape)}")
-    record("flash_attention_h2_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:552",
-           [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
+        raise AssertionError(f"K3 lse at {geometry} {dt}: shape {tuple(lse.shape)}")
+    record("flash_attention_h2_lse" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:552",
+           [out, lse], [pout, plse], [rel_tol(pout), lse_tol(plse)],
            lambda: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
            lambda: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw),
-           bound=attn_bound(b * tq * 1500 * d, io + lse.numel() * 4), plain_iters=5,
+           **bounds(b * tq * 1500 * d, io + lse.numel() * 4), plain_iters=5,
            library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
     delta = FA.h2_delta(g, pout, n_head)
     got = list(FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw))
     want = list(FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw))
     lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
     gh = heads(g, n_head)
-    record("flash_attention_h2_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:651,691",
+    record("flash_attention_h2_bwd" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:651,691",
            got, want, [rel_tol(w) for w in want],
            lambda: FA.flash_attention_h2_bwd(q, k, v, plse, delta, g, **kw),
            lambda: FA.flash_attention_h2_bwd_plain(q, k, v, plse, delta, g, **kw),
-           bound=attn_bound(b * tq * 1500 * d, 2 * io + 2 * lse.numel() * 4, mults=10), plain_iters=5,
+           **bounds(b * tq * 1500 * d, 2 * io + 2 * lse.numel() * 4, mults=10), plain_iters=5,
            library=lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True), repeat=True)
     del q, k, v, g, out, lse, pout, plse, delta, got, want, lib_out, qh, kh, vh, gh
 
@@ -2861,11 +2896,11 @@ def check_head_width_kernels(card: str, geometry: str):
     kw = dict(n_head=k5_heads, kv_valid_len=270, scale=scale)
     want = FA.flash_attention_mh_plain(q, k, v, **kw)
     qh, kh, vh = heads(q, k5_heads), heads(k, k5_heads, 270), heads(v, k5_heads, 270)
-    record("flash_attention_mh", f"{tag}: q (2, 200, {k5_d}), k (2, 300, {k5_d}) bf16, {k5_heads} heads of {dh}, "
-           "kv_valid_len 270", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+    record("flash_attention_mh" + sfx, f"{tag}: q (2, 200, {k5_d}), k (2, 300, {k5_d}) {dt}, {k5_heads} heads of "
+           f"{dh}, kv_valid_len 270", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
            FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
            lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
-           bound=attn_bound(2 * 200 * 270 * k5_d, (2 * q.numel() + 2 * 2 * 270 * k5_d) * 2),
+           **bounds(2 * 200 * 270 * k5_d, (2 * q.numel() + 2 * 2 * 270 * k5_d) * esz),
            library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False, repeat=True)
     del q, k, v, want, qh, kh, vh
 
@@ -2877,7 +2912,7 @@ def check_head_width_kernels(card: str, geometry: str):
         q, k, v, g = rnd(bh, tq, dh), rnd(bh, tk, dh), rnd(bh, tk, dh), rnd(bh, tq, dh)
         kw = dict(causal=True, q_offset=q_offset, scale=scale)
         pairs = sum(min(tk, q_offset + i + 1) for i in range(tq))
-        io = (2 * q.numel() + 2 * k.numel()) * 2
+        io = (2 * q.numel() + 2 * k.numel()) * esz
         if q_offset:
             mask = torch.arange(tk, device=dev)[None, :] <= (q_offset + torch.arange(tq, device=dev))[:, None]
             lib = dict(attn_mask=mask)
@@ -2889,27 +2924,27 @@ def check_head_width_kernels(card: str, geometry: str):
         main = not q_offset
         out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
         pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
-        record("flash_attention_lse", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
-               [out, lse], [pout, plse], [rel_tol(pout), 1e-4],
+        record("flash_attention_lse" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+               [out, lse], [pout, plse], [rel_tol(pout), lse_tol(plse)],
                lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
                lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
-               bound=attn_bound(bh * pairs * dh, io + lse.numel() * 4),
+               **bounds(bh * pairs * dh, io + lse.numel() * 4),
                library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=main,
                repeat=True)
-        record("flash_attention", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+        record("flash_attention" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
                FA.flash_attention(q, k, v, **kw), pout, rel_tol(pout),
                lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
-               bound=attn_bound(bh * pairs * dh, io),
+               **bounds(bh * pairs * dh, io),
                library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=main,
                repeat=True)
         got = list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
         want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib)
-        record("flash_attention_bwd", case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+        record("flash_attention_bwd" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
                got, want, [rel_tol(w) for w in want],
                lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
                lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
-               bound=attn_bound(bh * pairs * dh, 2 * io + 2 * lse.numel() * 4, mults=10),
+               **bounds(bh * pairs * dh, 2 * io + 2 * lse.numel() * 4, mults=10),
                library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=main,
                repeat=True)
         del q, k, v, g, out, lse, pout, plse, got, want, lib_out, ql, kl, vl
@@ -2931,12 +2966,14 @@ def check_head_width_kernels(card: str, geometry: str):
             want = DA.decode_attention_plain(q, ck, cv, 5, n_head, **kw)
             qh = q.reshape(n_win, group, n_head, dh).transpose(1, 2)
             kh, vh = heads(ck[5], n_head, n_keys), heads(cv[5], n_head, n_keys)
-            record("decode_attention", f"{tag}: {what} {tuple(ck.shape)} bf16, q ({n_win * group}, 1, {d}), group "
-                   f"{group}, valid_upto {valid}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
-                   DA.decode_attention(q, ck, cv, 5, n_head, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+            record("decode_attention" + sfx, f"{tag}: {what} {tuple(ck.shape)} {dt}, q ({n_win * group}, 1, {d}), "
+                   f"group {group}, valid_upto {valid}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+                   DA.decode_attention(q, ck, cv, 5, n_head, **kw), want,
+                   (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
                    lambda: DA.decode_attention(q, ck, cv, 5, n_head, **kw),
                    lambda: DA.decode_attention_plain(q, ck, cv, 5, n_head, **kw),
-                   bound=attn_bound(n_win * group * n_keys * d, 2 * n_win * n_keys * d * 2),
+                   bound=attn_bound(n_win * group * n_keys * d, (2 * q.numel() + 2 * n_win * n_keys * d) * esz,
+                                    kind="fp32" if fp32 else "bf16"),
                    library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=main, repeat=True)
             (k8, ks), (v8, vs) = quant[what]
             valid8 = 1499 if valid is None else valid
@@ -2944,30 +2981,36 @@ def check_head_width_kernels(card: str, geometry: str):
             kw8 = dict(scale=scale, valid_upto=valid8, group=group)
             want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 5, n_head, return_flip_bound=True, **kw8)
             ref = want.float().abs()
+            # the plain version's flip bound, and fp32 noise or one bf16 rounding
+            tol = flip + FP32_REL * ref.max() if fp32 else (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
             tk_blk = DA._i8_blocks(n_win, k8.shape[2], d)[1]
-            record("decode_attention_i8", f"{tag}: {what} {tuple(k8.shape)} int8, q ({n_win * group}, 1, {d}), "
-                   f"group {group}, valid_upto {valid8}, tk_blk {tk_blk}", src,
+            record("decode_attention_i8" + sfx, f"{tag}: {what} {tuple(k8.shape)} int8, q ({n_win * group}, 1, "
+                   f"{d}) {dt}, group {group}, valid_upto {valid8}, tk_blk {tk_blk}", src,
                    "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
-                   DA.decode_attention_i8(q, k8, ks, v8, vs, 5, n_head, **kw8), want,
-                   (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
+                   DA.decode_attention_i8(q, k8, ks, v8, vs, 5, n_head, **kw8), want, tol,
                    lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 5, n_head, **kw8),
                    lambda: DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 5, n_head, **kw8),
-                   bound=bound(4 * n_win * group * n_keys8 * d, 2 * n_win * n_keys8 * (d + 4), "int8"), main=main,
-                   repeat=True)
+                   bound=bound(4 * n_win * group * n_keys8 * d, 2 * n_win * n_keys8 * (d + 4) + 2 * q.numel() * esz,
+                               "int8"), main=main, repeat=True)
     return rows
 
 
-def run_head_width(card: str, geometry: str, workdir: str):
-    """Phase 21 (b)-(e) at one geometry of HW_DIMS, random weights from seed
-    0, through the entry points: (b) the greedy window path on HW_WINDOWS
-    seeded windows with phase 4's options (int8 KV, W8A8 encoder, 64
-    forced tokens), then one batch with kv_quant=False; (c) beam 5 on
-    HW_BEAM_WINDOWS windows; (d) 2 bf16 train steps of MultiTaskTrainer
-    with these dims as `debug_dims` at batch HW_TRAIN_BATCH, then
-    `evaluate` on HW_TRAIN_BATCH clips; (e) phase 5's check of the decode
-    against the CPU's fp32 plain path on 2 windows. Each path's launch
-    counts are reset just before it and read just after; every kernel of
-    HW_KERNELS must launch on them. Returns the counts of each path."""
+def run_head_width(card: str, geometry: str, workdir: str, fp32: bool = False):
+    """Phase 21 (b)-(e), with `fp32` (g) and (h), at one geometry of
+    HW_DIMS, random weights from seed 0, through the entry points: (b) the
+    greedy window path on HW_WINDOWS seeded windows with phase 4's options
+    (int8 KV, W8A8 encoder, 64 forced tokens; fp32: fp16=False), then one
+    batch with kv_quant=False; (c) beam 5 on HW_BEAM_WINDOWS windows; (d) 2
+    train steps of MultiTaskTrainer with these dims as `debug_dims` at
+    batch HW_TRAIN_BATCH (fp32: compute_dtype="float32"), then `evaluate`
+    on HW_TRAIN_BATCH clips; (e) phase 5's check of the bf16 decode against
+    the CPU's fp32 plain path on 2 windows, or (h) phase 20's gates: the
+    fp32 decode of 2 windows against the CPU's fp32 plain path and one fp32
+    train step against the CPU's from the same weights, clips and dropout
+    mask. Each path's launch counts are reset just before it and read just
+    after; every kernel of HW_KERNELS (fp32: its `_f32` name) must launch on
+    them, and an fp32 path launches no bf16 attention or K14 kernel.
+    Returns the counts of each path."""
     import numpy as np
     import torch
 
@@ -2977,7 +3020,8 @@ def run_head_width(card: str, geometry: str, workdir: str):
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     dims = HW_DIMS[geometry]
-    tag = f"[hw {geometry}]"
+    sfx, dt = ("_f32", "fp32") if fp32 else ("", "bf16")
+    tag = f"[hw {geometry}{' fp32' if fp32 else ''}]"
     n_layer = dims["n_audio_layer"]
     model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.bfloat16)
     paths = {}
@@ -2989,84 +3033,99 @@ def run_head_width(card: str, geometry: str, workdir: str):
         out = fn()
         sync()
         paths[name] = dict(LAUNCHES)
+        if fp32:
+            no_bf16_kernel(paths[name], f"{tag} {name}")
         return out, time.perf_counter() - t0
 
     # (b) the greedy window path, then kv_quant=False
+    options = {**BASE_OPTIONS, "fp16": not fp32}
     mel = log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0), device=DEVICE)
-    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS))
+    task = DecodingTask(model, DecodingOptions(**options))
+    if task.compute_dtype != (torch.float32 if fp32 else torch.bfloat16):
+        raise AssertionError(f"fp16={options['fp16']} computes in {task.compute_dtype}")
     task.run(mel)  # warm-up, not counted
     results, t_dec = counted("greedy", lambda: task.run(log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0),
                                                                             device=DEVICE)))
     for r in results:
         assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob), r
     c = paths["greedy"]
-    assert c["flash_attention_h2"] == n_layer and c["decode_attention_i8"] > 0 and c["log_mel"] == 1, c
-    plain_task = DecodingTask(model, DecodingOptions(**{**BASE_OPTIONS, "kv_quant": False}))
-    bf16_results, t_bf16 = counted("kv_quant=False", lambda: plain_task.run(mel))
-    for r in bf16_results:
+    assert c["flash_attention_h2" + sfx] == n_layer and c["decode_attention_i8" + sfx] > 0 and c["log_mel"] == 1, c
+    plain_task = DecodingTask(model, DecodingOptions(**{**options, "kv_quant": False}))
+    float_results, t_float = counted("kv_quant=False", lambda: plain_task.run(mel))
+    for r in float_results:
         assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
     c = paths["kv_quant=False"]
-    assert c["flash_attention_h2"] == n_layer and c["decode_attention"] > 0, c
-    print(f"{tag} greedy, {HW_WINDOWS} windows, kv_quant + int8_encoder, 64 tokens: {t_dec:.3f} s = "
-          f"{HW_WINDOWS * 30.0 / t_dec:.1f} audio-s/s (log-mel included); kv_quant=False: {t_bf16:.3f} s [{card}]; "
-          f"text[0]={results[0].text[:40]!r} avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+    assert c["flash_attention_h2" + sfx] == n_layer and c["decode_attention" + sfx] > 0, c
+    print(f"{tag} greedy, {HW_WINDOWS} windows, {'fp16=False, ' if fp32 else ''}kv_quant + int8_encoder, 64 tokens: "
+          f"{t_dec:.3f} s = {HW_WINDOWS * 30.0 / t_dec:.1f} audio-s/s (log-mel included); kv_quant=False: "
+          f"{t_float:.3f} s [{card}]; text[0]={results[0].text[:40]!r} avg_logprob[0]={results[0].avg_logprob:.4f}",
+          flush=True)
 
     # (c) beam 5
     beam_mel = mel[:HW_BEAM_WINDOWS].contiguous()
-    beam_task = DecodingTask(model, DecodingOptions(**BEAM_OPTIONS))
+    beam_task = DecodingTask(model, DecodingOptions(**{**BEAM_OPTIONS, "fp16": not fp32}))
     beam_results, t_beam = counted("beam", lambda: beam_task.run(beam_mel))
     for r in beam_results:
         assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
     c = paths["beam"]
-    assert c["topk_logprobs"] == 64 and c["decode_attention_i8"] > 0, c
+    assert c["topk_logprobs"] == 64 and c["decode_attention_i8" + sfx] > 0, c
     print(f"{tag} beam {BEAM}, {HW_BEAM_WINDOWS} windows: {t_beam:.3f} s (the first call at this shape) [{card}]",
           flush=True)
 
-    # (e) the decode against the CPU's fp32 plain path
-    check_against_cpu(model)
+    # (e) the bf16 decode against the CPU's fp32 plain path, or (h) phase 20's fp32 gate
+    if fp32:
+        check_fp32_decode_against_cpu(card, model, what=f" at {geometry}")
+    else:
+        check_against_cpu(model)
     del task, plain_task, beam_task, mel, beam_mel, model
     torch.cuda.empty_cache()
 
     # (d) training, then evaluate
     cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=dims, batch_size=HW_TRAIN_BATCH,
-                         val_batch_size=HW_TRAIN_BATCH, compute_dtype="bfloat16", learning_rate=1e-5, seed=0,
-                         num_workers=4, epochs=1, save_dir=os.path.join(workdir, f"{geometry}_out"))
+                         val_batch_size=HW_TRAIN_BATCH, compute_dtype="float32" if fp32 else "bfloat16",
+                         learning_rate=1e-5, seed=0, num_workers=4, epochs=1,
+                         save_dir=os.path.join(workdir, f"{geometry}{sfx}_out"))
     ds = MultiTaskSpeechDataset(write_clips(workdir, 2 * HW_TRAIN_BATCH, seed=21), cfg)
     batches = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
                               buckets=cfg.token_buckets))[:2]
     val_batches = batches[:1]
     trainer = MultiTaskTrainer(cfg, verbose=False)
-    per_step = {"log_mel": 1, "flash_attention_h2_lse": 2 * n_layer, "flash_attention_h2_bwd": 2 * n_layer,
-                "flash_attention_lse": n_layer, "flash_attention_bwd": n_layer}
+    per_step = {"log_mel": 1, f"flash_attention_h2_lse{sfx}": 2 * n_layer, f"flash_attention_h2_bwd{sfx}": 2 * n_layer,
+                f"flash_attention_lse{sfx}": n_layer, f"flash_attention_bwd{sfx}": n_layer}
     losses, step_s = [], []
     for i, batch in enumerate(batches):
-        (loss, _), dt = counted(f"train step {i + 1}", lambda: trainer.train_step(batch))
+        (loss, _), dt_s = counted(f"train step {i + 1}", lambda: trainer.train_step(batch))
         launched = {k: v for k, v in paths[f"train step {i + 1}"].items() if v}
         if launched != per_step:
-            raise AssertionError(f"{geometry} train step {i + 1} launched {launched}, expected {per_step}")
+            raise AssertionError(f"{geometry} {dt} train step {i + 1} launched {launched}, expected {per_step}")
         losses.append(float(loss))
-        step_s.append(dt)
+        step_s.append(dt_s)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"{geometry}: non-finite train loss {losses}")
+        raise AssertionError(f"{geometry}: non-finite {dt} train loss {losses}")
     metrics, t_eval = counted("evaluate", lambda: trainer.evaluate(val_batches))
-    expect = {"log_mel": 1, "flash_attention_h2": 2 * n_layer, "flash_attention": n_layer}
+    expect = {"log_mel": 1, f"flash_attention_h2{sfx}": 2 * n_layer, f"flash_attention{sfx}": n_layer}
     if {k: v for k, v in paths["evaluate"].items() if v} != expect:
-        raise AssertionError(f"{geometry} evaluate launched {paths['evaluate']}, expected {expect}")
+        raise AssertionError(f"{geometry} {dt} evaluate launched {paths['evaluate']}, expected {expect}")
     for key in ("loss", "wer", "disease_acc"):
         if not np.isfinite(metrics[key]):
-            raise AssertionError(f"{geometry} evaluate: {key} = {metrics[key]}")
-    print(f"{tag} train, batch {HW_TRAIN_BATCH}, bf16, token buckets "
+            raise AssertionError(f"{geometry} {dt} evaluate: {key} = {metrics[key]}")
+    print(f"{tag} train, batch {HW_TRAIN_BATCH}, {dt}, token buckets "
           f"{[bt['input_tokens'].shape[1] for bt in batches]}: 2 steps, losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; step s {', '.join(f'{x:.4f}' for x in step_s)} (the first has the set-up); evaluate on "
           f"{HW_TRAIN_BATCH} clips {t_eval:.3f} s, loss {metrics['loss']:.4f}; launches per step "
           f"{json.dumps(per_step)} [{card}]", flush=True)
+    if fp32:  # (h) one fp32 step against the CPU's from the same weights, clips and dropout mask
+        ref = cpu_reference_step(trainer, batches[0])
+        check_fp32_train_step_against_cpu(card, trainer, ref,
+                                          what=f"{geometry}'s trained weights, CPU step {ref['cpu_s']:.1f} s")
+        del ref
     del trainer
     torch.cuda.empty_cache()
 
-    total = {name: sum(c.get(name, 0) for c in paths.values()) for name in HW_KERNELS}
+    total = {name + sfx: sum(c.get(name + sfx, 0) for c in paths.values()) for name in HW_KERNELS}
     missing = [name for name, n in total.items() if n == 0]
     if missing:
-        raise AssertionError(f"{geometry}: no launch of {missing} on phase 21's paths: {total}")
+        raise AssertionError(f"{geometry}: no launch of {missing} on phase 21's {dt} paths: {total}")
     print(f"{tag} launches over the paths {json.dumps(total)}", flush=True)
     return list(paths.values())
 
@@ -3759,6 +3818,11 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"[time] {what} at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} devices {torch.cuda.device_count()}",
           flush=True)
 
@@ -3811,6 +3875,7 @@ def main() -> int:
         mh_train_counts, mh_train_shapes = run_mh_training(card, workdir)
     rows += check_mh_kernels(card, mh_shapes, mh_train_shapes)
 
+    stamp("phase 20 starts")
     # phase 20, fp32 on the card, with cuDNN's default allow_tf32=True back:
     # the conv stem's own guard is what keeps it in fp32
     torch.backends.cudnn.allow_tf32 = True
@@ -3830,17 +3895,23 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # phase 21: head widths 128 and 32 at base's depth and width
+    # phase 21: head widths 128 and 32 at base's depth and width, bf16 then fp32
+    stamp("phase 21 starts")
     hw_paths = []
     for geometry in HW_DIMS:
         rows += check_head_width_kernels(card, geometry)
         with tempfile.TemporaryDirectory() as workdir:
             hw_paths += run_head_width(card, geometry, workdir)
+        rows += check_head_width_kernels(card, geometry, fp32=True)
+        with tempfile.TemporaryDirectory() as workdir:
+            hw_paths += run_head_width(card, geometry, workdir, fp32=True)
 
     # phase 22: files in, reports out, at base
+    stamp("phase 22 starts")
     files_counts = run_files(card)
 
     # phase 23: multi-device at base, NCCL at world size 1 and 2 ranks on the card over gloo
+    stamp("phase 23 starts")
     mesh_paths = [run_mesh_world1(card, *batch_c)]
     with tempfile.TemporaryDirectory() as workdir:
         mesh_paths += run_multi_device(card, workdir)
@@ -3850,7 +3921,7 @@ def main() -> int:
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
     # train steps, and phase 20's fp32 window paths, CLI run, train steps
     # and evaluate, and phase 21's greedy, kv_quant=False, beam, train and
-    # evaluate runs at head widths 128 and 32, and phase 22's train steps,
+    # evaluate runs at head widths 128 and 32 in bf16 and in fp32, and phase 22's train steps,
     # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
     # runs, each rank's counts), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
@@ -3874,6 +3945,7 @@ def main() -> int:
     missing = [name for name, n in launches.items() if n == 0 and name != "topk"]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
+    stamp("the phases end")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -97,9 +97,9 @@ def test_flash_wrappers_refuse_fp16_and_mixed_dtypes(fake_card, kernel):
     assert fake_card.called == [] and sum(LAUNCHES.values()) == 0
 
 
-def test_k5_fp32_serves_a_head_width_of_64_only(fake_card):
+def test_k5_fp32_serves_head_widths_32_64_and_128(fake_card):
     q = torch.zeros((2, 20, 160))
-    with pytest.raises(ValueError, match="head width of 64"):
+    with pytest.raises(ValueError, match="head width of 32, 64, 128, got 80"):
         PF.flash_attention_mh(q, q, q, n_head=2)
     assert PF.flash_attention_mh(q.bfloat16(), q.bfloat16(), q.bfloat16(), n_head=2).dtype == torch.bfloat16
     assert fake_card.called == ["flash_mh_fwd_bf16"]

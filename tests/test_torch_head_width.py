@@ -236,10 +236,10 @@ def test_flash_wrappers_take_the_head_widths(fake_card, dh):
 
 
 @pytest.mark.parametrize("dh,dtype", [(16, torch.bfloat16), (80, torch.bfloat16), (96, torch.bfloat16),
-                                      (256, torch.bfloat16), (32, torch.float32), (128, torch.float32)])
+                                      (256, torch.bfloat16), (16, torch.float32), (80, torch.float32)])
 def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
     """A width no kernel of the dtype serves raises before any launch: bf16
-    serves 32, 64 and 128, fp32 64 only."""
+    and fp32 serve 32, 64 and 128."""
     n_head = 2
     d = n_head * dh
     q = torch.zeros((2, 20, d), dtype=dtype)
@@ -254,26 +254,26 @@ def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
     for call in calls:
         with pytest.raises(ValueError, match="head width of"):
             call()
-    if dtype == torch.float32:  # K5 in fp32 serves 64 alone; in bf16 any multiple of 8 up to 768
-        with pytest.raises(ValueError, match="head width of 64"):
+    if dtype == torch.float32:  # K5 in fp32 serves 32, 64 and 128; in bf16 any multiple of 8 up to 768
+        with pytest.raises(ValueError, match="head width of 32, 64, 128"):
             PF.flash_attention_mh(q, q, q, n_head=n_head)
     assert fake_card.calls == [] and sum(LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["K2", "K1"])
 def test_decode_wrappers_take_the_head_widths(fake_decode_card, int8):
-    """K1 and K2 take dh 32, 64 and 128 with bf16 q and 64 with fp32 q;
+    """K1 and K2 take dh 32, 64 and 128 with bf16 and with fp32 q;
     another width raises before any launch."""
     for dh in (32, 64, 128):
         _decode_call(dh, torch.bfloat16, int8=int8)()
-    _decode_call(64, torch.float32, int8=int8)()
-    assert len(fake_decode_card) == 4
-    for dh, dtype in ((80, torch.bfloat16), (16, torch.bfloat16), (32, torch.float32), (128, torch.float32)):
+        _decode_call(dh, torch.float32, int8=int8)()
+    assert len(fake_decode_card) == 6
+    for dh, dtype in ((80, torch.bfloat16), (16, torch.bfloat16), (16, torch.float32), (80, torch.float32)):
         with pytest.raises(ValueError, match="head width of"):
             _decode_call(dh, dtype, int8=int8)()
     with pytest.raises(ValueError, match="equal heads"):
         _decode_call(64, torch.bfloat16, d=200, n_head=3, int8=int8)()
-    assert len(fake_decode_card) == 4
+    assert len(fake_decode_card) == 6
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])

@@ -2,8 +2,9 @@
 its plain version: K3 with and without lse, K5 (on K3's forward), K6, K7
 with and without lse and K8 over both tile plans, causal, q_offset and a
 ragged valid length; K2 and K1 over cross and self caches at groups 1, 5,
-16 and 20; every output bitwise on a second launch. A width no kernel
-serves, and fp32 at 32 or 128, raises on the card. Marked `cuda`: they
+16 and 20; each in bf16 and in fp32 (the 3xTF32 flash kernels, K2 over
+fp32 caches, K1 with fp32 queries), every output bitwise on a second
+launch. A width no kernel serves raises on the card. Marked `cuda`: they
 skip where there is no card (`python -m pytest tests/test_torch_*.py -q -m
 cuda` on the machine with one). This file imports no JAX: the plain
 versions are the reference, and their own tests hold them to the JAX
@@ -17,6 +18,8 @@ from asr_ttl_mtl_tpu_torch.ops import decode_attention as PD
 from asr_ttl_mtl_tpu_torch.ops import flash_attention as PF
 
 REL = 2.0**-6  # of the largest output: bf16 rounds p, dS and the outputs at other places (as phase 8 holds them)
+FP32_REL = 2e-5  # fp32: the sum order alone (chip_smoke.py's FP32_REL)
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.fixture
@@ -46,114 +49,140 @@ def _rel(x):
     return REL * x.float().abs().max().item()
 
 
+def _share(dtype):
+    """The tolerance of a dtype, a share of the largest output."""
+    return REL if dtype == torch.bfloat16 else FP32_REL
+
+
 def _same_bits(run, got):
     assert all(torch.equal(a, b) for a, b in zip(_listed(run()), _listed(got)))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("b,tq,tk,kv_len", [(2, 300, 300, 290), (3, 48, 1500, None), (1, 65, 200, 1)])
-def test_k3_and_k6_on_card(card, dh, b, tq, tk, kv_len):
+def test_k3_and_k6_on_card(card, dh, b, tq, tk, kv_len, dtype):
     """K3 with and without lse (hpb 4 at dh 32, 1 at dh 128) and K6: both
-    tile plans (tq <= 64 and above), a ragged key tail, a single valid key."""
+    tile plans (tq <= 64 and above), a ragged key tail, a single valid key;
+    fp32 launches count under the `_f32` names."""
     d, n_head = 512, 512 // dh
-    q, k, v, g = _rnd(card, dh + tq, (b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d))
+    q, k, v, g = _rnd(card, dh + tq, (b, tq, d), (b, tk, d), (b, tk, d), (b, tq, d), dtype=dtype)
     kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
+    rel = _share(dtype)
     want, want_lse = PF.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
     reset_launch_counts()
     got = PF.flash_attention_h2(q, k, v, return_lse=True, **kw)
     assert tuple(got[1].shape) == (d // 128, b, tq, 128 // dh)
-    _close(got[0], want, _rel)
-    _close(got[1], want_lse, lambda w: 1e-4)
+    _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+    _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
     _same_bits(lambda: PF.flash_attention_h2(q, k, v, return_lse=True, **kw), got)
-    _close(PF.flash_attention_h2(q, k, v, **kw), want, _rel)
+    _close(PF.flash_attention_h2(q, k, v, **kw), want, lambda w: rel * w.float().abs().max().item())
     delta = PF.h2_delta(g, want, n_head)
     grads = PF.flash_attention_h2_bwd(q, k, v, want_lse, delta, g, **kw)
     want_grads = PF.flash_attention_h2_bwd_plain(q, k, v, want_lse, delta, g, **kw)
     # of the largest gradient: with one valid key dq cancels to ~1e-7, where
-    # bf16's rounding of dS is the whole of it
+    # bf16's rounding of dS (fp32's of dP - delta) is the whole of it
     scale = max(w.float().abs().max().item() for w in want_grads)
-    _close(grads, want_grads, lambda w: REL * scale)
+    _close(grads, want_grads, lambda w: rel * scale)
     _same_bits(lambda: PF.flash_attention_h2_bwd(q, k, v, want_lse, delta, g, **kw), grads)
-    assert {n: c for n, c in LAUNCHES.items() if c} == {"flash_attention_h2_lse": 2, "flash_attention_h2": 1,
-                                                        "flash_attention_h2_bwd": 2}
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    assert {n: c for n, c in LAUNCHES.items() if c} == {f"flash_attention_h2_lse{sfx}": 2, f"flash_attention_h2{sfx}": 1,
+                                                        f"flash_attention_h2_bwd{sfx}": 2}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("bh,tq,tk,causal,q_offset,kv_len",
                          [(12, 130, 130, True, 0, None), (12, 48, 96, True, 48, None), (8, 37, 100, True, 7, 90),
                           (8, 50, 257, False, 0, 200), (4, 1536, 1536, False, 0, 1500)])
-def test_k7_and_k8_on_card(card, dh, bh, tq, tk, causal, q_offset, kv_len):
+def test_k7_and_k8_on_card(card, dh, bh, tq, tk, causal, q_offset, kv_len, dtype):
     """K7 with and without lse and K8: causal, q_offset, a ragged valid
     length, odd tq, and the encoder's (B x H, 1536, dh) valid to 1500."""
-    q, k, v, g = _rnd(card, dh + tq, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh))
+    q, k, v, g = _rnd(card, dh + tq, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), dtype=dtype)
     kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+    rel = _share(dtype)
     want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
     got = PF.flash_attention(q, k, v, return_lse=True, **kw)
-    _close(got[0], want, _rel)
-    _close(got[1], want_lse, lambda w: 1e-4)
+    _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+    _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
     _same_bits(lambda: PF.flash_attention(q, k, v, return_lse=True, **kw), got)
-    _close(PF.flash_attention(q, k, v, **kw), want, _rel)
+    _close(PF.flash_attention(q, k, v, **kw), want, lambda w: rel * w.float().abs().max().item())
     grads = PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw)
     want_grads = PF.flash_attention_bwd_plain(q, k, v, want, want_lse, g, **kw)
     scale = max(w.float().abs().max().item() for w in want_grads)
-    _close(grads, want_grads, lambda w: REL * scale)
+    _close(grads, want_grads, lambda w: rel * scale)
     _same_bits(lambda: PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw), grads)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh,n_head", [(32, 3), (128, 1), (32, 16)])
-def test_k5_on_card_takes_the_forward(card, dh, n_head):
+def test_k5_on_card_takes_the_forward(card, dh, n_head, dtype):
     """K5 at dh 32 and 128 runs K3's forward over any number of heads (d
-    need not be a multiple of 128)."""
+    need not be a multiple of 128), in bf16 and in fp32."""
     d = dh * n_head
-    q, k, v = _rnd(card, 3, (2, 200, d), (2, 300, d), (2, 300, d))
+    q, k, v = _rnd(card, 3, (2, 200, d), (2, 300, d), (2, 300, d), dtype=dtype)
     kw = dict(n_head=n_head, kv_valid_len=270, scale=dh**-0.5)
+    reset_launch_counts()
     got = PF.flash_attention_mh(q, k, v, **kw)
-    _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), _rel)
+    _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), lambda w: _share(dtype) * w.float().abs().max().item())
     _same_bits(lambda: PF.flash_attention_mh(q, k, v, **kw), got)
+    assert LAUNCHES["flash_attention_mh" if dtype == torch.bfloat16 else "flash_attention_mh_f32"] == 2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("b,group,tk,valid", [(8, 1, 1500, None), (8, 5, 1500, None), (1, 5, 1500, None),
                                               (4, 16, 448, 37), (8, 1, 128, 0), (3, 20, 1500, 1000)])
-def test_k2_on_card(card, dh, b, group, tk, valid):
-    """K2 over bf16 caches: cross and self, clusters of 1-8 CTAs, groups 1
-    to 20 in one launch; 2 bf16 steps of the largest output."""
+def test_k2_on_card(card, dh, b, group, tk, valid, dtype):
+    """K2 over bf16 caches (2 bf16 steps of the largest output) and over
+    fp32 caches (FP32_REL of it): cross and self, clusters of 1-8 CTAs,
+    groups 1 to 20 in one launch."""
     d, n_head = 512, 512 // dh
-    q, ck, cv = _rnd(card, tk + group, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d))
+    q, ck, cv = _rnd(card, tk + group, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d), dtype=dtype)
     kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+    share = 2.0**-7 if dtype == torch.bfloat16 else FP32_REL
     reset_launch_counts()
     got = PD.decode_attention(q, ck, cv, 1, n_head, **kw)
-    assert LAUNCHES["decode_attention"] == 1
-    _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: 2.0**-7 * w.float().abs().max())
+    assert LAUNCHES["decode_attention" if dtype == torch.bfloat16 else "decode_attention_f32"] == 1
+    _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: share * w.float().abs().max())
     _same_bits(lambda: PD.decode_attention(q, ck, cv, 1, n_head, **kw), got)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("b,group,tk,valid", [(8, 1, 1536, 1499), (8, 5, 1536, 1499), (1, 5, 1536, 1499),
                                               (2, 20, 1536, 1000), (4, 1, 512, 37), (4, 5, 128, 70)])
-def test_k1_on_card(card, dh, b, group, tk, valid):
+def test_k1_on_card(card, dh, b, group, tk, valid, dtype):
     """K1 over int8 caches: the cluster split (batch 1: tk_blk 512, 3
     CTAs), two row chunks (group 20), a self cache; within the plain
-    version's flip bound, one bf16 rounding and fp32 noise, as phase 3."""
+    version's flip bound, one bf16 rounding and fp32 noise, as phase 3
+    (fp32 q: the flip bound and FP32_REL of the largest output, as phase
+    20)."""
     d, n_head = 512, 512 // dh
-    q, ck, cv = _rnd(card, tk + group + 1, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d))
+    q, ck, cv = _rnd(card, tk + group + 1, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d), dtype=dtype)
     (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
     kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
     want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, n_head, return_flip_bound=True, **kw)
+    reset_launch_counts()
     got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw)
+    assert LAUNCHES["decode_attention_i8" if dtype == torch.bfloat16 else "decode_attention_i8_f32"] == 1
     ref = want.float().abs()
-    assert ((got.float() - want.float()).abs() <= (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()).all()
+    if dtype == torch.bfloat16:
+        tol = (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+    else:
+        tol = flip + FP32_REL * ref.max()
+    assert ((got.float() - want.float()).abs() <= tol).all()
     _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,dtype", [(80, torch.bfloat16), (16, torch.bfloat16), (32, torch.float32),
-                                      (128, torch.float32)])
+@pytest.mark.parametrize("dh,dtype", [(80, torch.bfloat16), (16, torch.bfloat16), (16, torch.float32),
+                                      (80, torch.float32)])
 def test_other_widths_raise_on_card(card, dh, dtype):
     """No fallback: a width no kernel of the dtype serves raises in K1, K2,
     K3, K6, K7 and K8 (and K5 in fp32), and nothing launches."""
