@@ -1,7 +1,17 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
-// (L, B, Tk, D) KV caches, for Hopper (sm_90a), at head widths dh = D /
-// n_head of 32, 64 and 128 with bf16 or fp32 q (the width and q's type
-// template parameters of both kernels).
+// (L, B, Tk, D) KV caches, for Hopper (sm_90a), at every head width dh = D /
+// n_head that is a multiple of 8 from 8 to 128, with bf16 or fp32 q. Both
+// kernels are built for the width classes 32, 64 and 128 (a template
+// parameter, as is q's type); a width dh runs in the smallest class kDh >=
+// dh (`width_class`). A CTA reads only a head's dh real columns from device
+// memory (the bytes stay dh's: both kernels are bound by them) and fills
+// columns [dh, kDh) of its staged rows and of q with zeros, which add
+// nothing to q.k; the output columns they give are never written. Head h
+// starts at column h dh: K2's 16-byte copies stay aligned at every width
+// (dh * sizeof(T) is a multiple of 16), K1's int8 rows take 16-byte copies
+// where dh is a multiple of 16 and 8-byte ones elsewhere (h dh then lies 8
+// bytes off a 16-byte boundary for odd h). The compute is the class's: 80
+// columns run at 128's tensor-core work.
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
@@ -136,7 +146,7 @@ constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
 constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// kDh: the head width, 32, 64 or 128
+// kDh: the width class, 32, 64 or 128 (a head width dh <= kDh runs in it)
 template <typename T, int kDh>
 struct K2Cfg {
   static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
@@ -351,8 +361,8 @@ __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, con
 template <typename T, int kDh>
 __global__ void __launch_bounds__(kK2Threads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
-                   T* __restrict__ out, int layer, int batch, int group, int tk, int d, int n_valid, int chunk,
-                   float scale) {
+                   T* __restrict__ out, int layer, int batch, int group, int tk, int d, int dh, int n_valid,
+                   int chunk, float scale) {
   using C = K2Cfg<T, kDh>;
   constexpr bool kMma = sizeof(T) == 2;  // bf16 caches: both products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
@@ -374,8 +384,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   const int k_lo = min(n_valid, rank * chunk), n_c = min(n_valid, k_lo + chunk) - k_lo;
   const int n_tiles = (n_c + kK2Tile - 1) / kK2Tile;
   const size_t row = (size_t)layer * batch + b;
-  const T* kb = cache_k + (row * tk + k_lo) * d + (size_t)h * kDh;
-  const T* vb = cache_v + (row * tk + k_lo) * d + (size_t)h * kDh;
+  const T* kb = cache_k + (row * tk + k_lo) * d + (size_t)h * dh;
+  const T* vb = cache_v + (row * tk + k_lo) * d + (size_t)h * dh;
+  const int per_row = dh / C::kVec;  // 16-byte copies a row reads (dh * sizeof(T) is a multiple of 16)
 
   // the loads in order: K tiles 0 .. n_tiles-1, then V tiles; item i goes
   // to ring slot i % kRing, and every item commits one group (empty past
@@ -386,8 +397,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
       const int j0 = (i < n_tiles ? i : i - n_tiles) * kK2Tile, nk = min(kK2Tile, n_c - j0);
       unsigned char* dst = ring + (size_t)(i % C::kRing) * kK2Tile * C::kRowBytes;
       constexpr int kPerRow = kDh / C::kVec;
-      for (int e = tid; e < nk * kPerRow; e += kK2Threads) {
-        const int r = e / kPerRow, c = e % kPerRow;
+      for (int e = tid; e < nk * per_row; e += kK2Threads) {
+        const int r = e / per_row, c = e % per_row;
         cp_async16(dst + r * C::kRowBytes + c * 16, src + (size_t)(j0 + r) * d + c * C::kVec);
       }
       // the mma path takes V 16 keys at a time: rows past the chunk are zero
@@ -398,11 +409,16 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     }
     cp_async_commit();
   };
+  // the columns past dh of every staged row are zeros: no copy writes them
+  const int pad = kDh / C::kVec - per_row;
+  for (int e = tid; e < C::kRing * kK2Tile * pad; e += kK2Threads)
+    *reinterpret_cast<uint4*>(ring + (size_t)(e / pad) * C::kRowBytes + (per_row + e % pad) * 16) =
+        make_uint4(0, 0, 0, 0);
 #pragma unroll
   for (int i = 0; i < C::kRing; ++i) load_item(i);
 
   for (int i = tid; i < G * kDh; i += kK2Threads)
-    qs[i] = to_f(q[((size_t)b * G + i / kDh) * d + (size_t)h * kDh + i % kDh]);
+    qs[i] = i % kDh < dh ? to_f(q[((size_t)b * G + i / kDh) * d + (size_t)h * dh + i % kDh]) : 0.f;
   for (int i = tid; i < KS * G * kDh; i += kK2Threads) part[i] = 0.f;
 
   int item = 0;
@@ -499,10 +515,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     part[e] = s;
   }
   cluster.sync();
-  for (int e = rank * kK2Threads + tid; e < G * kDh; e += split * kK2Threads) {
+  for (int e = rank * kK2Threads + tid; e < G * dh; e += split * kK2Threads) {  // the dh real columns only
+    const int g = e / dh, c = e % dh;
     float s = 0.f;
-    for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[e];
-    out[((size_t)b * G + e / kDh) * d + (size_t)h * kDh + e % kDh] = from_f<T>(s);
+    for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[g * kDh + c];
+    out[((size_t)b * G + g) * d + (size_t)h * dh + c] = from_f<T>(s);
   }
   cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
@@ -519,7 +536,7 @@ constexpr int kK1Rows = 16;                  // query rows a CTA takes: the M of
 constexpr int kK1MaxSplit = 8;               // CTAs a cluster: the portable limit
 constexpr int kK1VtRow = kK1Tile + 16;       // 144 bytes: a column of the transposed V tile
 
-// K1 at head width kDh (32, 64 or 128): the staged rows and how the 8 warps
+// K1 at width class kDh (32, 64 or 128): the staged rows and how the 8 warps
 // share the P.V products. The output's kDh / 8 column blocks go round the
 // warps, kColBlocks a warp; at dh 32 its 4 blocks take 4 warps, so two
 // warps share each block (kKSplit 2) and take alternate 32-key steps, and
@@ -528,7 +545,6 @@ template <int kDh>
 struct K1Cfg {
   static constexpr int kRow = kDh + 16;                           // a staged int8 row, off the banks
   static constexpr int kSlot = kK1Tile * kRow + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
-  static constexpr int kChunks = kDh / 16;                        // 16-byte copies a row
   static constexpr int kColBlocks = kDh / 8 > kK1Warps ? kDh / 8 / kK1Warps : 1;  // 8-column blocks a warp owns
   static constexpr int kColWarps = kDh / 8 / kColBlocks;          // warps over the columns
   static constexpr int kKSplit = kK1Warps / kColWarps;            // warps that share a column block
@@ -556,6 +572,10 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
                : "memory");
@@ -580,7 +600,7 @@ __global__ void __launch_bounds__(kK1Threads)
 decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache_k,
                       const float* __restrict__ k_scale, const int8_t* __restrict__ cache_v,
                       const float* __restrict__ v_scale, TQ* __restrict__ out, int layer, int batch, int group,
-                      int tk, int d, int tk_blk, int n_valid, float scale) {
+                      int tk, int d, int dh, int tk_blk, int n_valid, float scale) {
   using C = K1Cfg<kDh>;
   constexpr int kK1Row = C::kRow, kK1Slot = C::kSlot, kK1ColBlocks = C::kColBlocks;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -614,8 +634,12 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   const int t_last = blk_hi > blk_lo ? (key_hi - (blk_hi - 1) * tk_blk + kK1Tile - 1) / kK1Tile : 0;
   const int n_items = blk_hi > blk_lo ? 2 * T * (blk_hi - blk_lo - 1) + 2 * t_last : 0;
   const size_t row = (size_t)layer * batch + b;
-  const int8_t* kb = cache_k + row * tk * d + (size_t)h * kDh;
-  const int8_t* vb = cache_v + row * tk * d + (size_t)h * kDh;
+  const int8_t* kb = cache_k + row * tk * d + (size_t)h * dh;
+  const int8_t* vb = cache_v + row * tk * d + (size_t)h * dh;
+  // a row's dh bytes by 16-byte copies where dh is a multiple of 16, else by
+  // 8-byte ones (head h then starts 8 bytes off a 16-byte boundary for odd h)
+  const bool wide = dh % 16 == 0;
+  const int per_row = wide ? dh / 16 : dh / 8;
   const float* ksb = k_scale + row * tk;
   const float* vsg = v_scale + row * tk;
 
@@ -638,9 +662,14 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       item_at(i, j0, nk, is_v);
       unsigned char* dst = ring + (size_t)(i % kK1Ring) * kK1Slot;
       const int8_t* src = (is_v ? vb : kb) + (size_t)j0 * d;
-      for (int e = tid; e < nk * C::kChunks; e += kK1Threads)
-        cp_async16(dst + (e / C::kChunks) * kK1Row + (e % C::kChunks) * 16,
-                   src + (size_t)(e / C::kChunks) * d + (e % C::kChunks) * 16);
+      if (wide)
+        for (int e = tid; e < nk * per_row; e += kK1Threads)
+          cp_async16(dst + (e / per_row) * kK1Row + (e % per_row) * 16,
+                     src + (size_t)(e / per_row) * d + (e % per_row) * 16);
+      else
+        for (int e = tid; e < nk * per_row; e += kK1Threads)
+          cp_async8(dst + (e / per_row) * kK1Row + (e % per_row) * 8,
+                    src + (size_t)(e / per_row) * d + (e % per_row) * 8);
       if (!is_v) {
         float* dsc = reinterpret_cast<float*>(dst + kK1Tile * kK1Row);
         for (int e = tid; e < 2 * nk; e += kK1Threads) {  // 4 bytes a key: no scale past n_valid is read
@@ -651,16 +680,24 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     }
     cp_async_commit();
   };
+  // the columns past dh of every staged row are zeros: no copy writes them
+  const int pad = (kDh - dh) / 8;
+  for (int e = tid; e < kK1Ring * kK1Tile * pad; e += kK1Threads) {
+    const int r = e / pad;
+    *reinterpret_cast<uint2*>(ring + (size_t)(r / kK1Tile) * kK1Slot + (r % kK1Tile) * kK1Row + dh + 8 * (e % pad)) =
+        make_uint2(0, 0);
+  }
 #pragma unroll
   for (int i = 0; i < kK1Ring; ++i) load_item(i);
 
-  // quantize q per (row, head): abs-max step, round half to even
+  // quantize q per (row, head): abs-max step, round half to even (columns
+  // past dh are zero)
   for (int r = warp; r < RC; r += kK1Warps) {
-    const TQ* qr = q + ((size_t)b * group + g0 + r) * d + (size_t)h * kDh;
+    const TQ* qr = q + ((size_t)b * group + g0 + r) * d + (size_t)h * dh;
     float x[kDh / 32], amax = 0.f;
 #pragma unroll
     for (int i = 0; i < kDh / 32; ++i) {
-      x[i] = to_f(qr[lane + 32 * i]);
+      x[i] = lane + 32 * i < dh ? to_f(qr[lane + 32 * i]) : 0.f;
       amax = fmaxf(amax, fabsf(x[i]));
     }
     const float sq = fmaxf(warp_reduce<true>(amax), 1e-20f) / 127.f;
@@ -829,17 +866,17 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         if (r < RC) part[r * kDh + (kK1ColBlocks * cw + n) * 8 + 2 * t4 + (e & 1)] = acc[n][e];
       }
   cluster.sync();
-  for (int e = rank * kK1Threads + tid; e < RC * kDh; e += split * kK1Threads) {
-    const int r = e / kDh;
+  for (int e = rank * kK1Threads + tid; e < RC * dh; e += split * kK1Threads) {  // the dh real columns only
+    const int r = e / dh, col = e % dh;
     float m = kNegInf;
     for (int c = 0; c < split; ++c) m = fmaxf(m, cluster.map_shared_rank(m_s, c)[r]);
     float l = 0.f, a = 0.f;
     for (int c = 0; c < split; ++c) {
       const float f = expf(cluster.map_shared_rank(m_s, c)[r] - m);
       l += cluster.map_shared_rank(l_s, c)[r] * f;
-      a += cluster.map_shared_rank(part, c)[e] * f;
+      a += cluster.map_shared_rank(part, c)[r * kDh + col] * f;
     }
-    out[((size_t)b * group + g0 + r) * d + (size_t)h * kDh + e % kDh] = from_f<TQ>(a / (l == 0.f ? 1.f : l));
+    out[((size_t)b * group + g0 + r) * d + (size_t)h * dh + col] = from_f<TQ>(a / (l == 0.f ? 1.f : l));
   }
   cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
@@ -861,10 +898,18 @@ cudaError_t raise_smem_limit(size_t bytes) {
   return err;
 }
 
+// the width class a head width runs in (`ops.width_class`): the smallest of
+// 32, 64 and 128 that is >= dh, for a multiple of 8 from 8 to 128; else 0
+int width_class(int dh) { return dh < 8 || dh > 128 || dh % 8 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+
+// the head width of a call: d / n_head, or 0 where n_head does not divide d
+int head_width(int d, int n_head) { return n_head > 0 && d % n_head == 0 ? d / n_head : 0; }
+
 template <typename T, int kDh>
 int launch_decode(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
                   int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
-  if (d != n_head * kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
+  const int dh = head_width(d, n_head);
+  if (width_class(dh) != kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
       split > kK2MaxSplit)
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
@@ -886,7 +931,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, kDh>, static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), static_cast<T*>(out), layer, batch, group, tk, d, n_valid,
+                           static_cast<const T*>(v), static_cast<T*>(out), layer, batch, group, tk, d, dh, n_valid,
                            chunk, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -896,7 +941,8 @@ template <typename TQ, int kDh>
 int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* out,
                      int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
                      int valid_upto, int split, float scale, void* stream) {
-  if (d != n_head * kDh || group < 1 || tk_blk < kK1Tile || tk_blk > kMaxBlock || tk_blk % kK1Tile != 0 ||
+  const int dh = head_width(d, n_head);
+  if (width_class(dh) != kDh || group < 1 || tk_blk < kK1Tile || tk_blk > kMaxBlock || tk_blk % kK1Tile != 0 ||
       tk % tk_blk != 0 || layer < 0 || layer >= n_layer || batch < 1 || split < 1 || split > kK1MaxSplit)
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
@@ -917,92 +963,84 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, decode_attn_i8_kernel<TQ, kDh>, static_cast<const TQ*>(q),
                            static_cast<const int8_t*>(k), static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-                           static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group, tk, d, tk_blk,
-                           n_valid, scale);
+                           static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group, tk, d, dh,
+                           tk_blk, n_valid, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// the head width of a call: d / n_head, or 0 where n_head does not divide d
-int head_width(int d, int n_head) { return n_head > 0 && d % n_head == 0 ? d / n_head : 0; }
+// K2 at the width class of d / n_head, caches and q of type T
+template <typename T>
+int decode_by_class(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
+                    int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
+  switch (width_class(head_width(d, n_head))) {
+    case 32:
+      return launch_decode<T, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
+                                  stream);
+    case 64:
+      return launch_decode<T, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
+                                  stream);
+    case 128:
+      return launch_decode<T, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                   scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K1 at the width class of d / n_head, q of type TQ
+template <typename TQ>
+int decode_i8_by_class(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* out,
+                       int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
+                       int valid_upto, int split, float scale, void* stream) {
+  switch (width_class(head_width(d, n_head))) {
+    case 32:
+      return launch_decode_i8<TQ, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                      valid_upto, split, scale, stream);
+    case 64:
+      return launch_decode_i8<TQ, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                      valid_upto, split, scale, stream);
+    case 128:
+      return launch_decode_i8<TQ, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                       valid_upto, split, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
-// `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`); head widths 32,
-// 64 and 128 (d = dh * n_head)
+// `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`); a head width d /
+// n_head that is a multiple of 8 from 8 to 128 (d = dh * n_head)
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                 int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                 float scale, void* stream) {
-  switch (head_width(d, n_head)) {
-    case 32:
-      return launch_decode<__nv_bfloat16, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
-                                              split, scale, stream);
-    case 64:
-      return launch_decode<__nv_bfloat16, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
-                                              split, scale, stream);
-    case 128:
-      return launch_decode<__nv_bfloat16, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head,
-                                               valid_upto, split, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return decode_by_class<__nv_bfloat16>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                        scale, stream);
 }
 
-// fp32 caches: head widths 32, 64 and 128
+// fp32 caches, the same head widths
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                float scale, void* stream) {
-  switch (head_width(d, n_head)) {
-    case 32:
-      return launch_decode<float, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
-                                      scale, stream);
-    case 64:
-      return launch_decode<float, 64>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
-                                      scale, stream);
-    case 128:
-      return launch_decode<float, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto,
-                                       split, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return decode_by_class<float>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
+                                stream);
 }
 
-// `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at head
-// widths 32, 64 and 128
+// `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at a head
+// width that is a multiple of 8 from 8 to 128
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                    int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
-  switch (head_width(d, n_head)) {
-    case 32:
-      return launch_decode_i8<__nv_bfloat16, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
-                                                 tk_blk, valid_upto, split, scale, stream);
-    case 64:
-      return launch_decode_i8<__nv_bfloat16, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
-                                                 tk_blk, valid_upto, split, scale, stream);
-    case 128:
-      return launch_decode_i8<__nv_bfloat16, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d,
-                                                  n_head, tk_blk, valid_upto, split, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return decode_i8_by_class<__nv_bfloat16>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                           valid_upto, split, scale, stream);
 }
 
 extern "C" int decode_attn_i8_f32(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                   void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                   int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
-  switch (head_width(d, n_head)) {
-    case 32:
-      return launch_decode_i8<float, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
-                                         valid_upto, split, scale, stream);
-    case 64:
-      return launch_decode_i8<float, 64>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
-                                         valid_upto, split, scale, stream);
-    case 128:
-      return launch_decode_i8<float, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head,
-                                          tk_blk, valid_upto, split, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return decode_i8_by_class<float>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                   valid_upto, split, scale, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

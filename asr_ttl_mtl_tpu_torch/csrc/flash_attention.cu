@@ -3,9 +3,18 @@
 // any head width that is a multiple of 8 up to 768) and K7 (head-split
 // (BH, T, dh), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
-// accumulate, at head widths dh of 32, 64 and 128 (K5 at any); and the
-// same functions in fp32 at head widths 32, 64 and 128, fp32-accurate on
-// the tensor cores in 3xTF32 (namespace f32, its own note below).
+// accumulate; and the same functions in fp32, fp32-accurate on the tensor
+// cores in 3xTF32 (namespace f32, its own note below). Every kernel is
+// built for the width classes 32, 64 and 128 (a template parameter). K3
+// and K6 take those widths alone, as the JAX package's h2 kernels do; K7,
+// K7-lse, K8 and the fp32 K5 take every multiple of 8 from 8 to 128 in the
+// smallest class at or above it (`width_class`; Shape::dh is the true
+// width): the columns past dh load as zeros (TMA fills a box past the
+// tensor's dh columns with them; the fp32 copies are predicated on the
+// column), add nothing to q k^T, and give output columns that are never
+// written. The compute is the class's (80 columns at 128's work); the
+// bytes read and written are dh's. The bf16 K5 takes any multiple of 8 up
+// to 768 (`flash_mh_kernel` below, K3's forward at 32, 64 and 128).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -82,8 +91,10 @@ using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::c
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// dh: the head width, a multiple of 8 from 8 to 128; the kernels run at
+// its width class (`width_class`), columns [dh, class) zeros
 struct Shape {
-  int batch, tq, tk, d, n_head, hpb, kv_len, q_offset;
+  int batch, tq, tk, d, dh, n_head, hpb, kv_len, q_offset;
   float scale;
 };
 
@@ -91,10 +102,14 @@ __device__ __forceinline__ size_t res_index(const Shape& sh, int h, int b, int t
   return ((size_t)(h / sh.hpb) * sh.batch + b) * (size_t)sh.tq * sh.hpb + (size_t)t * sh.hpb + h % sh.hpb;
 }
 
-// a shape the kernels take at head width dh (d = dh * n_head)
-bool bad_shape(const Shape& sh, int dh) {
-  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * dh ||
-         sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
+// the width class a head width runs in (`ops.width_class`): the smallest of
+// 32, 64 and 128 that is >= dh, for a multiple of 8 from 8 to 128; else 0
+int width_class(int dh) { return dh < 8 || dh > 128 || dh % 8 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+
+// a shape the kernels of width class kDh take (d = dh * n_head)
+bool bad_shape(const Shape& sh, int kDh) {
+  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh ||
+         width_class(sh.dh) != kDh || sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
 }
 
 // ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
@@ -495,14 +510,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   if (warp == kWG * 4) {  // the producer warp: one thread starts every load
     if (lane == 0) {
       mbar_expect_tx(&s.q_full, kWG * kBM * G::kRowB);
-      tma_tile<kDh>(s.q, &tm_q, &s.q_full, h * kDh, q0, b, kWG * kBM);
+      tma_tile<kDh>(s.q, &tm_q, &s.q_full, h * sh.dh, q0, b, kWG * kBM);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
         mbar_expect_tx(&s.k_full[st], kN * G::kRowB);
-        tma_tile<kDh>(s.k[st], &tm_k, &s.k_full[st], h * kDh, t * kN, b, kN);
+        tma_tile<kDh>(s.k[st], &tm_k, &s.k_full[st], h * sh.dh, t * kN, b, kN);
         mbar_expect_tx(&s.v_full[st], kN * G::kRowB);
-        tma_tile<kDh>(s.v[st], &tm_v, &s.v_full[st], h * kDh, t * kN, b, kN);
+        tma_tile<kDh>(s.v[st], &tm_v, &s.v_full[st], h * sh.dh, t * kN, b, kN);
       }
     }
     return;
@@ -578,11 +593,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     if (qrow >= sh.tq) continue;
     // a row with no valid key (l == 0) writes 0, and lse -1e30
     const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
-    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * kDh + 2 * t4;
+    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < kDh / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    for (int j = 0; j < kDh / 8; ++j)  // the dh real columns only
+      if (8 * j < sh.dh)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (lse != nullptr && t4 == 0)
       lse[res_index(sh, h, b, qrow)] = l_run[r] == 0.f ? kNegInf : m_run[r] * kLn2 + logf(l_run[r]);
   }
@@ -721,17 +737,21 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //     Tq, 1) (hpb 1, where b * tq + t * kQ need not be a multiple of 4).
 //   - Scores in log2 units (ex2), which moves p by an fp32 rounding only.
 
-// a thread's accumulator rows (g, g + 8 of its warp's 16) as bf16, rows < n_rows
+// a thread's accumulator rows (g, g + 8 of its warp's 16) as bf16, rows <
+// n_rows, columns < cols (the head width: the class's columns past it are
+// never written)
 template <int N>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* base, const float (&x)[N], int row0, int n_rows, int d,
-                                          int t4) {
+                                          int cols, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row0 + 8 * r >= n_rows) continue;
     __nv_bfloat16* dst = base + (size_t)(row0 + 8 * r) * d + 2 * t4;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+      if (8 * j < cols)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
   }
 }
 
@@ -796,14 +816,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
     reg_dealloc<kProducerRegs>();
     if (warp == kWG * 4 && lane == 0) {
       mbar_expect_tx(&s.qg_full, 2 * kWG * kBM * G::kRowB);
-      tma_tile<kDh>(s.q, &tm_q, &s.qg_full, h * kDh, q0, b, kWG * kBM);
-      tma_tile<kDh>(s.g, &tm_g, &s.qg_full, h * kDh, q0, b, kWG * kBM);
+      tma_tile<kDh>(s.q, &tm_q, &s.qg_full, h * sh.dh, q0, b, kWG * kBM);
+      tma_tile<kDh>(s.g, &tm_g, &s.qg_full, h * sh.dh, q0, b, kWG * kBM);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
         mbar_expect_tx(&s.full[st], 2 * kN * G::kRowB);
-        tma_tile<kDh>(s.k[st], &tm_k, &s.full[st], h * kDh, t * kN, b, kN);
-        tma_tile<kDh>(s.v[st], &tm_v, &s.full[st], h * kDh, t * kN, b, kN);
+        tma_tile<kDh>(s.k[st], &tm_k, &s.full[st], h * sh.dh, t * kN, b, kN);
+        tma_tile<kDh>(s.v[st], &tm_v, &s.full[st], h * sh.dh, t * kN, b, kN);
       }
     }
     return;
@@ -879,7 +899,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_
   wg_wait<0>();
   reg_fence(acc);
   mbar_arrive(&s.empty[(n_tiles - 1) % kStages]);
-  store_acc(dq + (size_t)b * sh.tq * sh.d + (size_t)h * kDh, acc, row0, sh.tq, sh.d, t4);
+  store_acc(dq + (size_t)b * sh.tq * sh.d + (size_t)h * sh.dh, acc, row0, sh.tq, sh.d, sh.dh, t4);
 }
 
 // queries a Q / dO tile of the dkv kernel holds
@@ -957,8 +977,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     reg_dealloc<kProducerRegs>();
     if (warp == kWG * 4 && lane == 0 && n_tiles > 0) {
       mbar_expect_tx(&s.kv_full, 2 * kWG * kBM * G::kRowB);
-      tma_tile<kDh>(s.k, &tm_k, &s.kv_full, h * kDh, k0, b, kWG * kBM);
-      tma_tile<kDh>(s.v, &tm_v, &s.kv_full, h * kDh, k0, b, kWG * kBM);
+      tma_tile<kDh>(s.k, &tm_k, &s.kv_full, h * sh.dh, k0, b, kWG * kBM);
+      tma_tile<kDh>(s.v, &tm_v, &s.kv_full, h * sh.dh, k0, b, kWG * kBM);
       // a box past tq reads the next lane's residuals (masked below) or
       // zeros past the end
       for (int t = 0; t < n_tiles; ++t) {
@@ -966,8 +986,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
         constexpr int kPieces = kResPieces<kHpb, kQ>, kBox = kResBox<kHpb, kQ>;
         mbar_expect_tx(&s.full[st], 2 * kQ * G::kRowB + 2 * kPieces * kBox * 4);
-        tma_tile<kDh>(s.q[st], &tm_q, &s.full[st], h * kDh, (qt0 + t) * kQ, b, kQ);
-        tma_tile<kDh>(s.g[st], &tm_g, &s.full[st], h * kDh, (qt0 + t) * kQ, b, kQ);
+        tma_tile<kDh>(s.q[st], &tm_q, &s.full[st], h * sh.dh, (qt0 + t) * kQ, b, kQ);
+        tma_tile<kDh>(s.g[st], &tm_g, &s.full[st], h * sh.dh, (qt0 + t) * kQ, b, kQ);
 #pragma unroll
         for (int pc = 0; pc < kPieces; ++pc) {
           tma_load_1d(s.lse[st] + pc * kBox, &tm_lse, &s.full[st], (first & ~3) + pc * kBox);
@@ -1083,9 +1103,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     reg_fence(acc_k);
     mbar_arrive(&s.empty[(n_tiles - 1) % kStages]);
   }
-  const size_t off = (size_t)b * sh.tk * sh.d + (size_t)h * kDh;
-  store_acc(dk + off, acc_k, key0, sh.tk, sh.d, t4);
-  store_acc(dv + off, acc_v, key0, sh.tk, sh.d, t4);
+  const size_t off = (size_t)b * sh.tk * sh.d + (size_t)h * sh.dh;
+  store_acc(dk + off, acc_k, key0, sh.tk, sh.d, sh.dh, t4);
+  store_acc(dv + off, acc_v, key0, sh.tk, sh.d, sh.dh, t4);
 }
 
 template <int kDh, int kWG, int kStages, bool kCausal>
@@ -1151,8 +1171,10 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout, const
 template <int kDh>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
         cudaStream_t s) {
-  if (bad_shape(sh, kDh)) return (int)cudaErrorInvalidValue;
-  // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = kDh * n_head)
+  // below its class, a head's boxes would take its neighbour's columns: one
+  // head a row (K7), whose boxes TMA fills with zeros past dh
+  if (bad_shape(sh, kDh) || (sh.dh != kDh && sh.n_head != 1)) return (int)cudaErrorInvalidValue;
+  // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = dh * n_head)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
   if (sh.tq <= kBM)
@@ -1165,7 +1187,8 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const
 template <int kDh, bool kCausal, int kHpb>
 int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta, void* dq,
         void* dk, void* dv, const Shape& sh, cudaStream_t s) {
-  if (bad_shape(sh, kDh) || sh.hpb != kHpb || sh.n_head % kHpb) return (int)cudaErrorInvalidValue;
+  if (bad_shape(sh, kDh) || (sh.dh != kDh && sh.n_head != 1) || sh.hpb != kHpb || sh.n_head % kHpb)
+    return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)) % 16)
     return (int)cudaErrorMisalignedAddress;
@@ -1178,11 +1201,12 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
 
 }  // namespace sm90
 
-// the forward at head width dh (32, 64 or 128)
-int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, int dh,
+// the forward at the width class of sh.dh (below the class only with one
+// head a row: K7)
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
                     bool causal, void* stream) {
   auto s = (cudaStream_t)stream;
-  switch (dh) {
+  switch (width_class(sh.dh)) {
     case 32: return sm90::fwd<32>(q, k, v, out, lse, sh, causal, s);
     case 64: return sm90::fwd<64>(q, k, v, out, lse, sh, causal, s);
     case 128: return sm90::fwd<128>(q, k, v, out, lse, sh, causal, s);
@@ -1190,11 +1214,12 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void
   }
 }
 
-// K6 at head width dh: the h2 residuals hold hpb = 128 / dh heads a lane
+// K6 at head width sh.dh (32, 64 or 128): the h2 residuals hold hpb = 128 /
+// dh heads a lane
 int launch_h2_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                       const void* delta, void* dq, void* dk, void* dv, const Shape& sh, int dh, void* stream) {
+                       const void* delta, void* dq, void* dk, void* dv, const Shape& sh, void* stream) {
   auto s = (cudaStream_t)stream;
-  switch (dh) {
+  switch (sh.dh) {
     case 32: return sm90::bwd<32, false, 4>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
     case 64: return sm90::bwd<64, false, 2>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
     case 128: return sm90::bwd<128, false, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
@@ -1202,12 +1227,12 @@ int launch_h2_bwd_sm90(const void* q, const void* k, const void* v, const void* 
   }
 }
 
-// K8 at head width dh, residuals (BH, Tq, 1)
+// K8 at the width class of sh.dh, residuals (BH, Tq, 1)
 template <bool kCausal>
 int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                    const void* delta, void* dq, void* dk, void* dv, const Shape& sh, int dh, void* stream) {
+                    const void* delta, void* dq, void* dk, void* dv, const Shape& sh, void* stream) {
   auto s = (cudaStream_t)stream;
-  switch (dh) {
+  switch (width_class(sh.dh)) {
     case 32: return sm90::bwd<32, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
     case 64: return sm90::bwd<64, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
     case 128: return sm90::bwd<128, kCausal, 1>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
@@ -1215,8 +1240,9 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dou
   }
 }
 
-// the h2 lane's head count, 128 / dh, for a head width that divides 128 (0 otherwise)
-int h2_hpb(int dh) { return dh > 0 && 128 % dh == 0 ? 128 / dh : 0; }
+// the h2 lane's head count, 128 / dh, for a head width K3 and K6 serve (a
+// width class; 0 otherwise)
+int h2_hpb(int dh) { return dh == 32 || dh == 64 || dh == 128 ? 128 / dh : 0; }
 
 // ------------------------------------------------- K5 at any head width
 
@@ -1518,17 +1544,18 @@ __device__ __forceinline__ void cp_wait() {
 __device__ __forceinline__ int swz_raw(int r) { return (r & 3) << 1; }
 
 // rows row0 .. row0 + kRows - 1 of one (batch row, head) slice (row r at
-// src + r * d, kDh values) into a raw tile, with kSwz its chunks at
-// c ^ swz_raw(r); rows at or past n_rows are zero
+// src + r * d, dh values) into a raw tile of kDh columns, with kSwz its
+// chunks at c ^ swz_raw(r); rows at or past n_rows and columns at or past dh
+// are zero
 template <int kDh, int kRows, bool kSwz = false>
-__device__ __forceinline__ void load_raw(float* dst, const float* src, int row0, int n_rows, int d) {
+__device__ __forceinline__ void load_raw(float* dst, const float* src, int row0, int n_rows, int d, int dh) {
   static_assert(kRows * kDh / 4 % kThreads == 0, "whole 16-byte chunks a thread");
 #pragma unroll
   for (int j = 0; j < kRows * kDh / 4 / kThreads; ++j) {
     const int i = threadIdx.x + j * kThreads, r = i / (kDh / 4), c = i % (kDh / 4);
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && 4 * c < dh;
     cp_async16(dst + r * Cfg<kDh>::kRawF + 4 * (kSwz ? c ^ swz_raw(r) : c),
-               src + (size_t)(in ? row0 + r : 0) * d + 4 * c, in);
+               src + (in ? (size_t)(row0 + r) * d + 4 * c : 0), in);
   }
 }
 
@@ -1668,8 +1695,9 @@ struct QFrags {
   static constexpr bool kSplit = Cfg<kDh>::kQSplit;
   uint32_t a[Cfg<kDh>::kSteps][kSplit ? 8 : 4];
 
-  // from global memory (zero at or past n_rows): columns 8 ks + 2t, 8 ks + 2t + 1
-  __device__ __forceinline__ void load(const float* src, int row, int n_rows, int d) {
+  // from global memory (zero at or past n_rows, and in the columns at or
+  // past dh): columns 8 ks + 2t, 8 ks + 2t + 1
+  __device__ __forceinline__ void load(const float* src, int row, int n_rows, int d, int dh) {
     const int t = threadIdx.x % 4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1677,7 +1705,7 @@ struct QFrags {
       const float* p = src + (size_t)(in ? row + 8 * r : 0) * d + 2 * t;
 #pragma unroll
       for (int ks = 0; ks < Cfg<kDh>::kSteps; ++ks) {
-        const float2 x = in ? *reinterpret_cast<const float2*>(p + 8 * ks) : make_float2(0.f, 0.f);
+        const float2 x = in && 8 * ks < dh ? *reinterpret_cast<const float2*>(p + 8 * ks) : make_float2(0.f, 0.f);
         if constexpr (kSplit) {
           split(x.x, a[ks][r], a[ks][4 + r]);
           split(x.y, a[ks][2 + r], a[ks][6 + r]);
@@ -1823,9 +1851,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // rows row and row + 8 of an accumulator over kDh columns (kDh / 8 n8
 // tiles) to global memory at dst (row r at dst + r * d), rows at or past
-// n_rows skipped
+// n_rows and columns at or past dh skipped
 template <int kDh>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 8][4], int row, int n_rows, int d) {
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 8][4], int row, int n_rows, int d,
+                                           int dh) {
   const int t = threadIdx.x % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1833,7 +1862,7 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 
     float* p = dst + (size_t)(row + 8 * r) * d + 2 * t;
 #pragma unroll
     for (int n = 0; n < kDh / 8; ++n)
-      *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      if (8 * n < dh) *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
@@ -1884,17 +1913,17 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   float* vsp = ksp + kFwdN * kSplitF;
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
-  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * sh.dh, koff = (size_t)b * sh.tk * sh.d + h * sh.dh;
   const int n_tiles = key_tiles<kCausal, kFwdN>(sh, q0, q0 + kBM);
 
   if (n_tiles > 0) {
-    load_raw<kDh, kFwdN>(kraw, k + koff, 0, sh.tk, sh.d);
-    load_raw<kDh, kFwdN>(vraw, v + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kFwdN>(kraw, k + koff, 0, sh.tk, sh.d, sh.dh);
+    load_raw<kDh, kFwdN>(vraw, v + koff, 0, sh.tk, sh.d, sh.dh);
   }
   cp_commit();
   const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;  // this thread's rows: row and row + 8
   QFrags<kDh> qa;
-  qa.load(q + qoff, row, sh.tq, sh.d);
+  qa.load(q + qoff, row, sh.tq, sh.d, sh.dh);
   const Lanes L = lanes<kDh>();
   const int lim[2] = {key_limit<kCausal>(sh, row), key_limit<kCausal>(sh, row + 8)};
   const int warp_lim = key_limit<kCausal>(sh, q0 + 16 * warp);  // the warp's first row sees the fewest keys
@@ -1907,8 +1936,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     split_tile<kDh, kFwdN>(vsp, vraw);
     __syncthreads();  // the splits are in; the raw buffers are free
     if (kt + 1 < n_tiles) {
-      load_raw<kDh, kFwdN>(kraw, k + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
-      load_raw<kDh, kFwdN>(vraw, v + koff, (kt + 1) * kFwdN, sh.tk, sh.d);
+      load_raw<kDh, kFwdN>(kraw, k + koff, (kt + 1) * kFwdN, sh.tk, sh.d, sh.dh);
+      load_raw<kDh, kFwdN>(vraw, v + koff, (kt + 1) * kFwdN, sh.tk, sh.d, sh.dh);
     }
     cp_commit();
 #pragma unroll 1  // one part's registers at a time
@@ -1936,7 +1965,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     if (lse != nullptr && t == 0 && row + 8 * r < sh.tq)
       lse[res_index(sh, h, b, row + 8 * r)] = l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
   }
-  store_rows<kDh>(out + qoff, o, row, sh.tq, sh.d);
+  store_rows<kDh>(out + qoff, o, row, sh.tq, sh.d, sh.dh);
 }
 
 template <int kDh, bool kCausal>
@@ -1954,19 +1983,19 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const fl
   float* gsp = vsp + kDqN * kSplitF;  // dO of the CTA's rows
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
-  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * sh.dh, koff = (size_t)b * sh.tk * sh.d + h * sh.dh;
   const int n_tiles = key_tiles<kCausal, kDqN>(sh, q0, q0 + kBM);
 
-  load_raw<kDh, kBM>(ksp, dout + qoff, q0, sh.tq, sh.d);  // raw dO rows, in ksp's (and vsp's) room until split
+  load_raw<kDh, kBM>(ksp, dout + qoff, q0, sh.tq, sh.d, sh.dh);  // raw dO rows, in ksp's (and vsp's) room until split
   cp_commit();
   if (n_tiles > 0) {
-    load_raw<kDh, kDqN>(kraw, k + koff, 0, sh.tk, sh.d);
-    load_raw<kDh, kDqN>(vraw, v + koff, 0, sh.tk, sh.d);
+    load_raw<kDh, kDqN>(kraw, k + koff, 0, sh.tk, sh.d, sh.dh);
+    load_raw<kDh, kDqN>(vraw, v + koff, 0, sh.tk, sh.d, sh.dh);
   }
   cp_commit();
   const int row = q0 + 16 * warp + threadIdx.x % 32 / 4;
   QFrags<kDh> qa;
-  qa.load(q + qoff, row, sh.tq, sh.d);
+  qa.load(q + qoff, row, sh.tq, sh.d, sh.dh);
   const Lanes L = lanes<kDh>();
   float lr[2], dr[2];
   int lim[2];
@@ -1989,8 +2018,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const fl
     split_tile<kDh, kDqN>(vsp, vraw);
     __syncthreads();
     if (kt + 1 < n_tiles) {
-      load_raw<kDh, kDqN>(kraw, k + koff, (kt + 1) * kDqN, sh.tk, sh.d);
-      load_raw<kDh, kDqN>(vraw, v + koff, (kt + 1) * kDqN, sh.tk, sh.d);
+      load_raw<kDh, kDqN>(kraw, k + koff, (kt + 1) * kDqN, sh.tk, sh.d, sh.dh);
+      load_raw<kDh, kDqN>(vraw, v + koff, (kt + 1) * kDqN, sh.tk, sh.d, sh.dh);
     }
     cp_commit();
 
@@ -2010,7 +2039,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const fl
 #pragma unroll
     for (int j = 0; j < kDqN / 8; j += 2) mma_rows16<kDh>(acc, s[j], s[j + 1], ksp + 8 * j * kSplitF, L);
   }
-  store_rows<kDh>(dq + qoff, acc, row, sh.tq, sh.d);
+  store_rows<kDh>(dq + qoff, acc, row, sh.tq, sh.d, sh.dh);
 }
 
 template <int kDh, bool kCausal>
@@ -2033,7 +2062,7 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
   float* ds = ls + kDkvN;
   const int k0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
-  const size_t qoff = (size_t)b * sh.tq * sh.d + h * kDh, koff = (size_t)b * sh.tk * sh.d + h * kDh;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + h * sh.dh, koff = (size_t)b * sh.tk * sh.d + h * sh.dh;
   const int n_q = (sh.tq + kDkvN - 1) / kDkvN;
   // the first query tile that sees key k0 (none for keys past kv_len)
   const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kDkvN : 0;
@@ -2042,15 +2071,16 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
 
   if (first < n_q) {
     if constexpr (C::kKvRaw) {
-      load_raw<kDh, kBM, true>(ksp, k + koff, k0, sh.tk, sh.d);
-      load_raw<kDh, kBM, true>(vsp, v + koff, k0, sh.tk, sh.d);
+      load_raw<kDh, kBM, true>(ksp, k + koff, k0, sh.tk, sh.d, sh.dh);
+      load_raw<kDh, kBM, true>(vsp, v + koff, k0, sh.tk, sh.d, sh.dh);
     } else {
-      load_raw<kDh, kBM>(qsp, k + koff, k0, sh.tk, sh.d);  // raw K and V rows, in qsp's and gsp's room until split
-      load_raw<kDh, kBM>(gsp, v + koff, k0, sh.tk, sh.d);
+      // raw K and V rows, in qsp's and gsp's room until split
+      load_raw<kDh, kBM>(qsp, k + koff, k0, sh.tk, sh.d, sh.dh);
+      load_raw<kDh, kBM>(gsp, v + koff, k0, sh.tk, sh.d, sh.dh);
     }
     cp_commit();
-    load_raw<kDh, kDkvN>(qraw, q + qoff, first * kDkvN, sh.tq, sh.d);
-    load_raw<kDh, kDkvN>(graw, dout + qoff, first * kDkvN, sh.tq, sh.d);
+    load_raw<kDh, kDkvN>(qraw, q + qoff, first * kDkvN, sh.tq, sh.d, sh.dh);
+    load_raw<kDh, kDkvN>(graw, dout + qoff, first * kDkvN, sh.tq, sh.d, sh.dh);
     load_res<kDkvN>(lraw, draw, lse, delta, sh, h, b, first * kDkvN);
     cp_commit();
     const Lanes L = lanes<kDh>();
@@ -2073,8 +2103,8 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
       }
       __syncthreads();
       if (qt + 1 < n_q) {
-        load_raw<kDh, kDkvN>(qraw, q + qoff, (qt + 1) * kDkvN, sh.tq, sh.d);
-        load_raw<kDh, kDkvN>(graw, dout + qoff, (qt + 1) * kDkvN, sh.tq, sh.d);
+        load_raw<kDh, kDkvN>(qraw, q + qoff, (qt + 1) * kDkvN, sh.tq, sh.d, sh.dh);
+        load_raw<kDh, kDkvN>(graw, dout + qoff, (qt + 1) * kDkvN, sh.tq, sh.d, sh.dh);
         load_res<kDkvN>(lraw, draw, lse, delta, sh, h, b, (qt + 1) * kDkvN);
       }
       cp_commit();
@@ -2108,8 +2138,8 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
       }
     }
   }
-  store_rows<kDh>(dk + koff, acc_k, key, sh.tk, sh.d);
-  store_rows<kDh>(dv + koff, acc_v, key, sh.tk, sh.d);
+  store_rows<kDh>(dk + koff, acc_k, key, sh.tk, sh.d, sh.dh);
+  store_rows<kDh>(dv + koff, acc_v, key, sh.tk, sh.d, sh.dh);
 }
 
 // the rate of mma.sync m16n8k8 tf32 on the card, which these kernels run
@@ -2187,11 +2217,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
                 : run_bwd<kDh, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
 }
 
-// the forward at head width dh (32, 64 or 128)
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, int dh, bool causal,
+// the forward at the width class of sh.dh
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
         void* stream) {
   auto s = (cudaStream_t)stream;
-  switch (dh) {
+  switch (width_class(sh.dh)) {
     case 32: return launch_fwd<32>(q, k, v, out, lse, sh, causal, s);
     case 64: return launch_fwd<64>(q, k, v, out, lse, sh, causal, s);
     case 128: return launch_fwd<128>(q, k, v, out, lse, sh, causal, s);
@@ -2199,11 +2229,11 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const
   }
 }
 
-// the backward at head width dh (32, 64 or 128)
+// the backward at the width class of sh.dh
 int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta, void* dq,
-        void* dk, void* dv, const Shape& sh, int dh, bool causal, void* stream) {
+        void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
   auto s = (cudaStream_t)stream;
-  switch (dh) {
+  switch (width_class(sh.dh)) {
     case 32: return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
     case 64: return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
     case 128: return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
@@ -2222,8 +2252,8 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
   if (dh == 32 || dh == 64 || dh == 128) {
-    Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-    return launch_fwd_sm90(q, k, v, out, nullptr, sh, dh, false, stream);
+    Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
+    return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream);
   }
   if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
     return (int)cudaErrorInvalidValue;
@@ -2244,9 +2274,9 @@ extern "C" int flash_h2_fwd_bf16(const void* q, const void* k, const void* v, vo
                                  int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
-  if (lse != nullptr && (sh.hpb < 1 || n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
-  return launch_fwd_sm90(q, k, v, out, lse, sh, dh, false, stream);
+  Shape sh{batch, tq, tk, d, dh, n_head, h2_hpb(dh), kv_len, 0, scale};
+  if (sh.hpb < 1 || (lse != nullptr && n_head % sh.hpb)) return (int)cudaErrorInvalidValue;
+  return launch_fwd_sm90(q, k, v, out, lse, sh, false, stream);
 }
 
 // K6: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 128 / dh) fp32
@@ -2255,47 +2285,50 @@ extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, co
                                  int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
-  return launch_h2_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream);
+  Shape sh{batch, tq, tk, d, dh, n_head, h2_hpb(dh), kv_len, 0, scale};
+  return launch_h2_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
-// K7: head-split (BH, T, dh), dh 32, 64 or 128; `lse` may be null, else it
-// is (BH, Tq, 1) fp32
+// K7: head-split (BH, T, dh), dh a multiple of 8 from 8 to 128; `lse` may be
+// null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                               int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return launch_fwd_sm90(q, k, v, out, lse, sh, dh, causal != 0, stream);
+  Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
 // K8: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                               const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
                               int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return causal ? launch_bwd_sm90<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream)
-                : launch_bwd_sm90<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, stream);
+  Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  return causal ? launch_bwd_sm90<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream)
+                : launch_bwd_sm90<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
 // ------------------------------------------------------ fp32 entry points
 // The same arguments and layouts as the bf16 entries above, fp32 tensors
-// on 16-byte boundaries (rows are copied 16 bytes at a time), at head
-// widths 32, 64 and 128: namespace f32's 3xTF32 kernels.
+// on 16-byte boundaries (rows are copied 16 bytes at a time), at the head
+// widths of their bf16 twins (K5 every multiple of 8 up to 128, where a
+// head's columns past dh load as zeros): namespace f32's 3xTF32 kernels.
 
 // K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                 int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
-  return f32::fwd(q, k, v, out, lse, sh, dh, false, stream);
+  Shape sh{batch, tq, tk, d, dh, n_head, h2_hpb(dh), kv_len, 0, scale};
+  if (sh.hpb < 1) return (int)cudaErrorInvalidValue;
+  return f32::fwd(q, k, v, out, lse, sh, false, stream);
 }
 
-// K5 at fp32, head widths 32, 64 and 128 over any number of heads; no logsumexp
+// K5 at fp32, a head width that is a multiple of 8 from 8 to 128 over any
+// number of heads; no logsumexp
 extern "C" int flash_mh_fwd_f32(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
                                 int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
-  Shape sh{batch, tq, tk, d, n_head, 1, kv_len, 0, scale};
-  return f32::fwd(q, k, v, out, nullptr, sh, d / n_head, false, stream);
+  Shape sh{batch, tq, tk, d, d / n_head, n_head, 1, kv_len, 0, scale};
+  return f32::fwd(q, k, v, out, nullptr, sh, false, stream);
 }
 
 // K6 at fp32: (dq, dk, dv) of K3 from lse and delta, both (D/128, B, Tq, 128 / dh) fp32
@@ -2304,23 +2337,25 @@ extern "C" int flash_h2_bwd_f32(const void* q, const void* k, const void* v, con
                                 int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  Shape sh{batch, tq, tk, d, n_head, h2_hpb(dh), kv_len, 0, scale};
-  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, false, stream);
+  Shape sh{batch, tq, tk, d, dh, n_head, h2_hpb(dh), kv_len, 0, scale};
+  if (sh.hpb < 1) return (int)cudaErrorInvalidValue;
+  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
 }
 
-// K7 at fp32: head-split (BH, T, dh), dh 32, 64 or 128; `lse` may be null, else it is (BH, Tq, 1) fp32
+// K7 at fp32: head-split (BH, T, dh), dh a multiple of 8 from 8 to 128;
+// `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                              int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return f32::fwd(q, k, v, out, lse, sh, dh, causal != 0, stream);
+  Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  return f32::fwd(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
 // K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
                              int kv_len, int causal, int q_offset, float scale, void* stream) {
-  Shape sh{bh, tq, tk, dh, 1, 1, kv_len, q_offset, scale};
-  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, dh, causal != 0, stream);
+  Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
 }
 
 // the mma.sync tf32 rate probe: `ctas` CTAs of 256 threads, out holds ctas * 256 floats

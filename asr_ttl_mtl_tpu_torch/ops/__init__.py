@@ -64,17 +64,34 @@ def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
     return _SUFFIX[tensors[0].dtype]
 
 
-# the head widths d / n_head that the attention kernels K1, K2, K3, K6, K7
-# and K8 (and K5 on K3's forward) serve, in bf16 and in fp32
-HEAD_WIDTHS = (32, 64, 128)
+# the width classes of the attention kernels: each kernel is built for
+# these head widths, and a head width dh runs in the smallest class >= dh,
+# its columns [dh, class) zeros that no output column is written from. K3
+# and K6 (and K5 on K3's forward) serve the classes themselves, as the JAX
+# package's `h2_eligible` does
+WIDTH_CLASSES = (32, 64, 128)
+# the head widths K1, K2, K7, K7-lse, K8 and the fp32 K5 serve: every
+# multiple of 8 from 8 to 128, in bf16 and in fp32
+MIN_HEAD_WIDTH, MAX_HEAD_WIDTH = 8, WIDTH_CLASSES[-1]
 
 
-def check_head_width(name: str, dh: int, sfx: str) -> None:
-    """Raise unless the attention kernel `name` of dtype suffix `sfx` ("bf16"
-    or "f32") serves head width `dh`: HEAD_WIDTHS in either dtype."""
-    if dh not in HEAD_WIDTHS:
+def width_class(dh: int, name: str = "attention") -> int:
+    """The width class (32, 64 or 128) a head width dh runs in: the smallest
+    of WIDTH_CLASSES that is >= dh. Raises for a width no kernel serves: 0,
+    one that is not a multiple of 8, or one above 128."""
+    if dh < MIN_HEAD_WIDTH or dh > MAX_HEAD_WIDTH or dh % 8:
+        raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
+                         f"{MAX_HEAD_WIDTH}, got {dh}")
+    return next(c for c in WIDTH_CLASSES if c >= dh)
+
+
+def check_class_width(name: str, dh: int, sfx: str) -> None:
+    """Raise unless dh is a width class itself: what K3 and K6 (the h2
+    kernels, whose residuals hold 128 // dh heads a lane) serve, in either
+    dtype (`sfx`, "bf16" or "f32")."""
+    if dh not in WIDTH_CLASSES:
         raise ValueError(f"{name} {'fp32' if sfx == 'f32' else sfx} kernel takes a head width of "
-                         f"{', '.join(map(str, HEAD_WIDTHS))}, got {dh}")
+                         f"{', '.join(map(str, WIDTH_CLASSES))}, got {dh}")
 
 
 def count_launch(name: str, sfx: str) -> None:

@@ -19,8 +19,10 @@ K2 splits the valid keys of each (cache row, head) across a thread-block
 cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
 
-Both kernels take head widths dh = d / n_head of 32, 64 and 128 with bf16
-or fp32 q (and caches of q's dtype for K2; `ops.HEAD_WIDTHS`); any other
+Both kernels take every head width dh = d / n_head that is a multiple of
+8 from 8 to 128, with bf16 or fp32 q (and caches of q's dtype for K2): the
+kernel of width class `ops.width_class(dh)` (32, 64 or 128) reads the dh
+real columns of a head and zero-fills the rest in shared memory. Any other
 width raises on the card. A launch with fp32 q counts under `<name>_f32`.
 """
 
@@ -31,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from . import _cuda, check_head_width, count_launch
+from . import _cuda, count_launch, width_class
 
 _NEG_INF = -1e30
 # K1's p*v_scale/sp within this of a midpoint may round either way under
@@ -99,11 +101,11 @@ def _valid(valid_upto: Optional[int]) -> int:
     return -1 if valid_upto is None else int(valid_upto)
 
 
-def _head_width(name: str, d: int, n_head: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernel serves d / n_head at q's dtype (bf16 or fp32)."""
+def _head_width(name: str, d: int, n_head: int) -> int:
+    """The width class of d / n_head; raises unless the kernel serves it."""
     if n_head < 1 or d % n_head:
         raise ValueError(f"{name} kernel takes d split into equal heads, got d={d} n_head={n_head}")
-    check_head_width(name, d // n_head, "bf16" if dtype == torch.bfloat16 else "f32")
+    return width_class(d // n_head, name)
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -125,8 +127,8 @@ def k2_n_valid(tk: int, valid_upto: Optional[int]) -> int:
 
 
 def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
-    """Shared memory of one K2 CTA (`k2_smem_bytes` in the source): the
-    ring of staged tiles (4 bf16 tiles at dh 32 and 64, 2 at dh 128, 2 of
+    """Shared memory of one K2 CTA (`k2_smem_bytes` in the source) of width
+    class dh (32, 64 or 128, `ops.width_class`): the ring of staged tiles (4 bf16 tiles at dh 32 and 64, 2 at dh 128, 2 of
     fp32), q, the chunk's scores, the P.V partials, the row statistics and
     the reduction buffer."""
     ring = (2 if itemsize != 2 or dh == 128 else 4) * _K2_TILE * (dh * itemsize + 16)
@@ -142,7 +144,7 @@ def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int 
     within the card's resident CTAs (2 a streaming multiprocessor), but no
     larger than keeps n_keys // S >= K2_MIN_KEYS; raised further only while
     the chunk's scores do not fit in shared memory. Raises when no S fits
-    (a group of ~125 rows over 1500 keys)."""
+    (a group of ~125 rows over 1500 keys). `dh` is the width class."""
     by_keys = max(s for s in K2_SPLITS if s == 1 or n_keys // s >= K2_MIN_KEYS)
     fill = max(s for s in K2_SPLITS if s == 1 or batch * n_head * s <= _RESIDENT)
     split = min(fill, by_keys)
@@ -199,7 +201,7 @@ def decode_attention(
         raise TypeError(f"decode_attention kernel takes one of bf16/fp32 for q and caches, got {q.dtype}/{cache_k.dtype}")
     if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or group < 1:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
-    _head_width("decode_attention", d, n_head, q.dtype)
+    _head_width("decode_attention", d, n_head)
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous")
     return _launch_k2(q.contiguous(), cache_k, cache_v, layer, n_head, scale, valid_upto, group)
@@ -207,7 +209,7 @@ def decode_attention(
 
 def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> torch.Tensor:
     n_layer, b, tk, d = cache_k.shape
-    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), d // n_head)
+    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), width_class(d // n_head))
     out = torch.empty_like(q)
     fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(
@@ -337,7 +339,7 @@ def decode_attention_i8(
     if (q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape
             or k_scale.shape != (n_layer, b, tk) or v_scale.shape != k_scale.shape):
         raise ValueError(f"decode_attention_i8: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)}")
-    _head_width("decode_attention_i8", d, n_head, q.dtype)
+    _head_width("decode_attention_i8", d, n_head)
     if not all(t.is_contiguous() for t in (cache_k, cache_v, k_scale, v_scale)):
         raise ValueError("decode_attention_i8: caches and scales must be contiguous")
     return _launch_k1(q.contiguous(), cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, valid_upto, group,

@@ -26,11 +26,13 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
 
 The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
-count under their own keys, e.g. `flash_attention_h2_f32`). K3, K6, K7 and
-K8 take head widths 32, 64 and 128 in bf16 and in fp32 (`ops.HEAD_WIDTHS`);
-K5 any multiple of 8 up to 768 in bf16 (32, 64 and 128 on K3's forward),
-32, 64 and 128 in fp32. The h2 residuals hold 128 // dh heads a lane: hpb
-4, 2 and 1.
+count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
+head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
+the JAX package's `h2_eligible`); K7, K7-lse and K8 every multiple of 8
+from 8 to 128 in both, run at the width class `ops.width_class(dh)` with
+the columns past dh zeros; K5 any multiple of 8 up to 768 in bf16 (32, 64
+and 128 on K3's forward), up to 128 in fp32 (at the width class). The h2
+residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
 On the card nothing falls back to a plain version or to a kernel of another
 dtype: a shape, width or dtype no kernel serves raises.
 """
@@ -41,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from . import _cuda, check_head_width, count_launch, kernel_dtype, on_card
+from . import _cuda, check_class_width, count_launch, kernel_dtype, on_card, width_class
 
 _NEG_INF = -1e30
 _MH_MAX_D = 768  # the widest d (and head width) K5 serves
@@ -165,12 +167,12 @@ def _check(name: str, tensors, shapes) -> str:
 
 def _h2_width(name: str, d: int, n_head: int, sfx: str, lanes: bool) -> int:
     """The head width of a natural-layout call that K3 / K6 serve: d split
-    into equal heads of a width in HEAD_WIDTHS and, with `lanes` (the h2
+    into equal heads of a width in WIDTH_CLASSES and, with `lanes` (the h2
     residuals), a multiple of 128."""
     if n_head < 1 or d % n_head or (lanes and d % 128):
         raise ValueError(f"{name} kernel takes d split into equal heads{' and a multiple of 128' if lanes else ''}, "
                          f"got d={d} n_head={n_head}")
-    check_head_width(name, d // n_head, sfx)
+    check_class_width(name, d // n_head, sfx)
     return d // n_head
 
 
@@ -305,12 +307,14 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
         return flash_attention_mh_plain(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len, scale=scale)
     b, tq, d = q.shape
     tk = k.shape[1]
-    if n_head < 1 or d % n_head or (d // n_head) % 8 or d // n_head > _MH_MAX_D:
+    sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    if n_head < 1 or d % n_head:
+        raise ValueError(f"flash_attention_mh kernel takes d split into equal heads, got d={d} n_head={n_head}")
+    if sfx == "f32":  # the fp32 kernel serves multiples of 8 up to 128; the bf16 one up to 768
+        width_class(d // n_head, "flash_attention_mh fp32")
+    elif (d // n_head) % 8 or d // n_head > _MH_MAX_D:
         raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
                          f"{_MH_MAX_D}, got d={d} n_head={n_head}")
-    sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
-    if sfx == "f32":  # the fp32 kernel serves HEAD_WIDTHS; the bf16 one any multiple of 8 up to 768
-        check_head_width("flash_attention_mh", d // n_head, sfx)
     out = torch.empty_like(q)
     fn = f"flash_mh_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
@@ -367,7 +371,7 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
     bh, tq, dh = q.shape
     tk = k.shape[1]
     sfx = _check("flash_attention", (q, k, v), ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
-    check_head_width("flash_attention", dh, sfx)
+    width_class(dh, f"flash_attention {'fp32' if sfx == 'f32' else sfx}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
     fn = f"flash_fwd_{sfx}"
@@ -408,7 +412,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     tk = k.shape[1]
     sfx = _check("flash_attention_bwd", (q, k, v, out, g),
                  ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), (bh, tq, dh)))
-    check_head_width("flash_attention_bwd", dh, sfx)
+    width_class(dh, f"flash_attention_bwd {'fp32' if sfx == 'f32' else sfx}")
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -21,12 +21,13 @@ concatenation has the lowest rank until none merges).
 from __future__ import annotations
 
 import base64
-import os
 import string
 import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
 from typing import Dict, List, Optional, Tuple
+
+from .utils.assets import find_asset
 
 # fmt: off
 # ISO language codes recognized by Whisper checkpoints, in vocabulary order
@@ -73,9 +74,6 @@ TO_LANGUAGE_CODE = {
     **_ALT_LANGUAGE_NAMES,
 }
 
-ASSET_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "asr_ttl_mtl_tpu", "assets"
-)
 
 # Tokenizer attribute name -> special-token marker text
 _MARKERS = {
@@ -124,7 +122,7 @@ def _build_special_tokens(num_languages: int, include_diseases: bool) -> List[st
 def load_ranks(name: str) -> Dict[bytes, int]:
     """base64 token -> rank, one pair per line of `<name>.tiktoken`."""
     ranks: Dict[bytes, int] = {}
-    with open(os.path.join(ASSET_DIR, f"{name}.tiktoken")) as f:
+    with open(find_asset(f"{name}.tiktoken")) as f:
         for line in f:
             if not line.strip():
                 continue

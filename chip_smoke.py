@@ -131,8 +131,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      K14) against its plain version at the shapes those runs gave it,
      within 2e-5 of its largest output and bitwise on a second launch,
      timed beside SDPA at fp32 and its fp32 bound.
- 21. head widths 128 and 32: base's depth and width with 4 heads of 128
-     and with 16 heads of 32 (HW_DIMS, random weights from seed 0). At
+ 21. head widths 128 and 32: base's width, 2 + 2 layers, with 4 heads of
+     128 and with 16 heads of 32 (HW_DIMS, random weights from seed 0). At
      each, (a) K3 with and without lse and K6 at the encoder's (8, 1536,
      512) keys valid to 1500, K7, K7-lse and K8 at the train bucket's
      causal (8 x H, 48, dh) and at q_offset 48, K5 on K3's forward, and K2
@@ -189,6 +189,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      2% of one process's and the first step's gradient at cosine >= 0.99
      per group; both ranks the same results and weights. Each rank's launch counts, reset before and read after each
      run, go into the kernels line.
+ 24. every head width that is a multiple of 8 up to 128 (K1, K2, K7,
+     K7-lse, K8 and the fp32 K5 run a width in the smallest of 32, 64 and
+     128 above it): (a) at each of 8, 16, 24, 40, 48, 56, 72, 80, 88, 96,
+     104, 112 and 120, in bf16 and fp32, K7, K7-lse and K8 (causal,
+     q_offset 48, non-causal with keys valid short of tk), K2 and K1 at
+     groups 1 and 5 and the fp32 K5 against their plain versions at phase
+     21's tolerances, bitwise on a second launch; then at two geometries,
+     16 heads of 80 at large-v3's widths (d 1280, 128 mels, vocab 51866)
+     and 8 heads of 96 at small's (d 768), 2 + 2 layers, random weights
+     from seed 0 (AW_DIMS), each in bf16 and fp32: (b) each kernel at its
+     paths' shapes, timed beside its bound at the true head width and SDPA;
+     (c) the greedy window path on 8 windows with and without kv_quant,
+     beam 5 on 4, 3 train steps at batch 8 and `evaluate`, phase 5's (bf16)
+     or phase 20's (fp32) decode check against the CPU, each path's counts
+     reset before and read after; (d) the CLI at 16 heads of 80, bf16, on
+     a 30 s WAV. K1, K2, K7, K7-lse, K8 (each dtype) and K5 (both) launch
+     on (c) and (d); K3 and K6 launch on none.
 Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
 fp32 queries (the fp32 window path's cross) against their plain versions;
 their launches count under `decode_attention_f32` and
@@ -856,7 +873,7 @@ def forced_steps(model, waves, toks, options, device: str = "cpu"):
 
     ref = copy.deepcopy(model).to(device)
     ref.compute_dtype = torch.float32
-    mel = log_mel_spectrogram(waves, device=device)
+    mel = log_mel_spectrogram(waves, n_mels=ref.dims.n_mels, device=device)
     rows = toks.shape[0]
     toks = toks.to(device)
     steps = []
@@ -901,7 +918,7 @@ def check_against_cpu(model, waves_seed: int = 1):
     from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
 
     waves = make_waves(2, seed=waves_seed)
-    mel = log_mel_spectrogram(waves, device=DEVICE)
+    mel = log_mel_spectrogram(waves, n_mels=model.dims.n_mels, device=DEVICE)
     card = DecodingTask(model, DecodingOptions(**BASE_OPTIONS)).run(mel)
     toks = torch.tensor([r.tokens for r in card])  # (2, 64)
     mel_err, steps = forced_on_cpu(model, waves, mel, toks, BASE_OPTIONS)
@@ -2713,23 +2730,25 @@ def check_conv_stem_fp32(card: str, model):
         raise AssertionError("the fp32 conv stem is not fp32 on the card")
 
 
-def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1, what: str = ""):
+def check_fp32_decode_against_cpu(card: str, model, waves_seed: int = 1, what: str = "",
+                                  encoder_kernel: str = "flash_attention_h2_f32"):
     """Phase 20 (e): the card's fp32 decode of 2 windows (FP32_GATE_OPTIONS)
     against the plain path on the CPU in fp32: teacher-forced to the card's
     tokens on both, the card's tokens are the CPU's argmax (up to ties
     within the tolerance), and every filtered logit of the card's forced run
-    is within FP32_LOGIT_TOL of the CPU's."""
+    is within FP32_LOGIT_TOL of the CPU's. `encoder_kernel` launches once an
+    encoder layer."""
     import torch
 
     from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     waves = make_waves(2, seed=waves_seed)
-    mel = log_mel_spectrogram(waves, device=DEVICE)
+    mel = log_mel_spectrogram(waves, n_mels=model.dims.n_mels, device=DEVICE)
     reset_launch_counts()
     card_res = DecodingTask(model, DecodingOptions(**FP32_GATE_OPTIONS)).run(mel)
     counts = dict(LAUNCHES)
-    if counts["flash_attention_h2_f32"] != model.dims.n_audio_layer or counts["decode_attention_f32"] <= 0:
+    if counts[encoder_kernel] != model.dims.n_audio_layer or counts["decode_attention_f32"] <= 0:
         raise AssertionError(f"the fp32 gate's decode launched {counts}")
     no_bf16_kernel(counts, "the fp32 gate's decode")
     toks = torch.tensor([r.tokens for r in card_res])
@@ -2791,11 +2810,12 @@ def check_fp32_train_step_against_cpu(card: str, trainer, ref: dict, what: str =
 
 # ------------------------------------------------------------------ phase 21
 
-# base's depth and width with the heads cut to 128 and to 32 columns, in
-# the encoder and the decoder alike (random weights from seed 0)
+# base's width with the heads cut to 128 and to 32 columns, in the encoder
+# and the decoder alike, and its depth cut to 2 + 2 layers (random weights
+# from seed 0)
 HW_DIMS = {
-    f"dh{dh}": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=512, n_audio_head=512 // dh, n_audio_layer=6,
-                    n_vocab=51865, n_text_ctx=448, n_text_state=512, n_text_head=512 // dh, n_text_layer=6)
+    f"dh{dh}": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=512, n_audio_head=512 // dh, n_audio_layer=2,
+                    n_vocab=51865, n_text_ctx=448, n_text_state=512, n_text_head=512 // dh, n_text_layer=2)
     for dh in (128, 32)
 }
 HW_WINDOWS = 8  # the greedy window path's windows
@@ -3802,6 +3822,432 @@ def run_multi_device(card: str, workdir: str):
     return paths
 
 
+# ------------------------------------------------------------------ phase 24
+
+# every head width that is a multiple of 8 up to 128 and not a class width:
+# K1, K2, K7, K7-lse, K8 and the fp32 K5 run it in the smallest class of 32,
+# 64 and 128 above it (`ops.width_class`), columns past dh zeros
+AW_WIDTHS = (8, 16, 24, 40, 48, 56, 72, 80, 88, 96, 104, 112, 120)
+# two published widths at other head counts, depth cut to 2 + 2 layers
+# (random weights from seed 0): large-v3's (d 1280, 128 mels, vocab 51866)
+# at 16 heads of 80, and small's (d 768) at 8 heads of 96
+AW_DIMS = {
+    "dh80": dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=16, n_audio_layer=2, n_vocab=51866,
+                 n_text_ctx=448, n_text_state=1280, n_text_head=16, n_text_layer=2),
+    "dh96": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=768, n_audio_head=8, n_audio_layer=2, n_vocab=51865,
+                 n_text_ctx=448, n_text_state=768, n_text_head=8, n_text_layer=2),
+}
+AW_TRAIN_STEPS = 3
+# the kernels every dtype's phase-24 paths must launch (`_f32` in fp32),
+# and the fp32 K5, which the dh96 encoder's fp32 passes launch
+AW_KERNELS = ("decode_attention_i8", "decode_attention", "flash_attention", "flash_attention_lse",
+              "flash_attention_bwd")
+
+
+def check_any_width_kernels(card: str):
+    """Phase 24 (a): at every width of AW_WIDTHS, in bf16 and in fp32, K7
+    and K7-lse and K8 (causal (12, 48, dh); 48 queries at q_offset 48 over
+    96 keys; non-causal (8, 130, dh) over 300 keys valid to 270), K2 and K1
+    (5 heads of dh, so that odd heads start off a 16-byte boundary, over 4
+    cache rows of 1536 keys valid to 1499, groups 1 and 5) and the fp32 K5
+    (3 heads of dh, (2, 200) over 300 keys valid to 270) against their
+    plain versions at phase 21's tolerances, each the same bits on a second
+    launch. Not timed: the paths' shapes are timed in (b)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    t0 = time.perf_counter()
+    worst, n_checks = {}, 0
+
+    def listed(x):
+        return list(x) if isinstance(x, (tuple, list)) else [x]
+
+    def held(name, what, got, want, tol, run):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        for g, w, t in zip(listed(got), listed(want), listed(tol)):
+            ratio = ((g.float() - w.float()).abs() / t).max().item()
+            if not (ratio <= 1.0 and bool(torch.isfinite(g.float()).all())):
+                raise AssertionError(f"{name} {what}: worst err/tol {ratio}")
+            worst[name] = max(worst.get(name, 0.0), ratio)
+        if not all(torch.equal(a, b) for a, b in zip(listed(run()), listed(got))):
+            raise AssertionError(f"{name} {what}: a second launch gave other bits")
+        n_checks += 1
+
+    for fp32 in (False, True):
+        dtype, sfx = (torch.float32, "_f32") if fp32 else (torch.bfloat16, "")
+        rel = FP32_REL if fp32 else 2.0**-6
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        for dh in AW_WIDTHS:
+            for bh, tq, tk, causal, q_offset, kv in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                     (8, 130, 300, False, 0, 270)):
+                q, k, v, g = rnd(bh, tq, dh), rnd(bh, tk, dh), rnd(bh, tk, dh), rnd(bh, tq, dh)
+                kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv, scale=dh**-0.5)
+                what = f"dh {dh} ({bh}, {tq}, {dh}) x {tk} keys, causal {causal}, q_offset {q_offset}, valid {kv}"
+                pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+                out_tol = rel * pout.float().abs().max().item()
+                lse_tol = FP32_REL * plse.abs().max().item() if fp32 else 1e-4
+                held("flash_attention_lse" + sfx, what, FA.flash_attention(q, k, v, return_lse=True, **kw),
+                     [pout, plse], [out_tol, lse_tol], lambda: FA.flash_attention(q, k, v, return_lse=True, **kw))
+                held("flash_attention" + sfx, what, FA.flash_attention(q, k, v, **kw), pout, out_tol,
+                     lambda: FA.flash_attention(q, k, v, **kw))
+                want = FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)
+                held("flash_attention_bwd" + sfx, what, FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw), want,
+                     [rel * w.float().abs().max().item() for w in want],
+                     lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+            n_head, rows = 5, 4
+            d = n_head * dh
+            ck, cv = rnd(2, rows, 1536, d), rnd(2, rows, 1536, d)
+            (k8, ks), (v8, vs) = DA.quantize_kv_rows(ck.float()), DA.quantize_kv_rows(cv.float())
+            for group in (1, BEAM):
+                q = rnd(rows * group, 1, d)
+                kw = dict(scale=dh**-0.5, valid_upto=1499, group=group)
+                what = f"dh {dh}, 5 heads, ({rows}, 1536) cache to 1499, group {group}"
+                want = DA.decode_attention_plain(q, ck, cv, 1, n_head, **kw)
+                held("decode_attention" + sfx, what, DA.decode_attention(q, ck, cv, 1, n_head, **kw), want,
+                     (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
+                     lambda: DA.decode_attention(q, ck, cv, 1, n_head, **kw))
+                want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, return_flip_bound=True, **kw)
+                ref = want.float().abs()
+                tol = flip + FP32_REL * ref.max() if fp32 else (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+                held("decode_attention_i8" + sfx, what, DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw),
+                     want, tol, lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw))
+            if fp32:
+                q, k, v = rnd(2, 200, 3 * dh), rnd(2, 300, 3 * dh), rnd(2, 300, 3 * dh)
+                kw = dict(n_head=3, kv_valid_len=270, scale=dh**-0.5)
+                want = FA.flash_attention_mh_plain(q, k, v, **kw)
+                held("flash_attention_mh_f32", f"dh {dh}, 3 heads, (2, 200) x 300 keys to 270",
+                     FA.flash_attention_mh(q, k, v, **kw), want, FP32_REL * want.abs().max().item(),
+                     lambda: FA.flash_attention_mh(q, k, v, **kw))
+    print(f"[any] (a) {n_checks} kernel calls at head widths {list(AW_WIDTHS)} in bf16 and fp32 against their plain "
+          f"versions (phase 21's tolerances), each bitwise on a second launch: worst err/tol "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(worst.items())})}; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def check_any_width_path_kernels(card: str, geometry: str, fp32: bool = False):
+    """Phase 24 (b): at one geometry of AW_DIMS and dtype, each attention
+    kernel its paths run, at their shapes, against its plain version,
+    bitwise on a second launch, timed beside its bound at the true head
+    width (bytes and products of dh columns) and SDPA on the same views: K2
+    and K1 over the greedy path's cross cache (2 layers x 8 windows x 1500
+    keys, int8 padded to 1536 with valid_upto 1499) at group 1 and over the
+    beam's 4 windows at group 5; K7-lse and K8 at the train bucket, causal
+    (8 x H, 48, dh); K7 at the encoder's (8 x H, 1536, dh) keys valid to
+    1500 (dh80: d 1280 is no K5 shape), with lse and K8 there too; K5 at the
+    encoder's (8, 1536, 768) (dh96), and K7 at the eval bucket."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dims = AW_DIMS[geometry]
+    d, n_head = dims["n_audio_state"], dims["n_audio_head"]
+    dh = d // n_head
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = []
+    record = make_recorder(card, rows)
+    src, b = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", HW_TRAIN_BATCH
+    tag = f"{geometry} ({n_head} heads of {dh})"
+    scale = dh**-0.5
+    dtype, dt, sfx, esz = (torch.float32, "fp32", "_f32", 4) if fp32 else (torch.bfloat16, "bf16", "", 2)
+    rel = FP32_REL if fp32 else 2.0**-6
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def bounds(macs, n_bytes, mults=4):
+        if fp32:
+            return dict(bound=attn_bound(macs, n_bytes, mults, "3xtf32"),
+                        ffma_bound=attn_bound(macs, n_bytes, mults, "fp32"))
+        return dict(bound=attn_bound(macs, n_bytes, mults))
+
+    def k7_rows(q, k, v, g, kw, lib, case, plain_iters):
+        bh, tq, _ = q.shape
+        tk = k.shape[1]
+        n_keys = kw.get("kv_valid_len") or tk
+        if kw.get("causal"):
+            pairs = sum(min(n_keys, kw.get("q_offset", 0) + i + 1) for i in range(tq))
+        else:
+            pairs = tq * n_keys
+        io = (2 * q.numel() + 2 * bh * n_keys * dh) * esz
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k[:, :n_keys], v[:, :n_keys]))
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        out_tol = rel * pout.float().abs().max().item()
+        record("flash_attention" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+               FA.flash_attention(q, k, v, **kw), pout, out_tol,
+               lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
+               **bounds(bh * pairs * dh, io), plain_iters=plain_iters,
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=False,
+               repeat=True)
+        record("flash_attention_lse" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+               list(FA.flash_attention(q, k, v, return_lse=True, **kw)), [pout, plse],
+               [out_tol, FP32_REL * plse.abs().max().item() if fp32 else 1e-4],
+               lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+               lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+               **bounds(bh * pairs * dh, io + plse.numel() * 4), plain_iters=plain_iters,
+               library=lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib), main=False,
+               repeat=True)
+        want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale, **lib)
+        record("flash_attention_bwd" + sfx, case, src, "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+               list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw)), want,
+               [rel * w.float().abs().max().item() for w in want],
+               lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+               lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+               **bounds(bh * pairs * dh, 2 * io + 2 * plse.numel() * 4, mults=10), plain_iters=plain_iters,
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), main=False,
+               repeat=True)
+
+    # the decoder's causal self-attention at the train (and eval) bucket 48
+    bh = b * n_head
+    q, k, v, g = rnd(bh, 48, dh), rnd(bh, 48, dh), rnd(bh, 48, dh), rnd(bh, 48, dh)
+    k7_rows(q, k, v, g, dict(causal=True, scale=scale), dict(is_causal=True),
+            f"{tag}: causal ({bh}, 48, {dh}) {dt}, the train bucket", 20)
+    del q, k, v, g
+    # the encoder's self-attention, 8 windows, keys valid to 1500
+    if geometry == "dh80":  # d 1280: K7 over split heads (and K7-lse, K8 under autograd)
+        q, k, v, g = rnd(bh, 1536, dh), rnd(bh, 1536, dh), rnd(bh, 1536, dh), rnd(bh, 1536, dh)
+        k7_rows(q, k, v, g, dict(kv_valid_len=1500, scale=scale), {},
+                f"{tag}: encoder ({bh}, 1536, {dh}) {dt}, kv_valid_len 1500", 1)
+        del q, k, v, g
+    else:  # d 768: K5 over the natural layout
+        q, k, v = rnd(b, 1536, d), rnd(b, 1536, d), rnd(b, 1536, d)
+        kw = dict(n_head=n_head, kv_valid_len=1500, scale=scale)
+        want = FA.flash_attention_mh_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, n_head), heads(k, n_head, 1500), heads(v, n_head, 1500)
+        record("flash_attention_mh" + sfx, f"{tag}: encoder q,k,v ({b}, 1536, {d}) {dt}, kv_valid_len 1500", src,
+               "asr_ttl_mtl_tpu/ops/flash_attention.py:346", FA.flash_attention_mh(q, k, v, **kw), want,
+               rel * want.float().abs().max().item(), lambda: FA.flash_attention_mh(q, k, v, **kw),
+               lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
+               **bounds(b * 1536 * 1500 * d, (2 * q.numel() + 2 * b * 1500 * d) * esz), plain_iters=1,
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False, repeat=True)
+        del q, k, v, want, qh, kh, vh
+
+    # K2 and K1 over the cross cache: 8 windows at group 1, the beam's 4 at group 5
+    src = "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu"
+    n_layer = dims["n_text_layer"]
+    ck, cv = rnd(n_layer, HW_WINDOWS, 1500, d), rnd(n_layer, HW_WINDOWS, 1500, d)
+    for n_win, group in ((HW_WINDOWS, 1), (HW_BEAM_WINDOWS, BEAM)):
+        ckw, cvw = ck[:, :n_win].contiguous(), cv[:, :n_win].contiguous()
+        (k8, ks), (v8, vs) = DA.quantize_kv_rows(ckw.float()), DA.quantize_kv_rows(cvw.float())
+        q = rnd(n_win * group, 1, d)
+        qh = q.reshape(n_win, group, n_head, dh).transpose(1, 2)
+        kh, vh = heads(ckw[1], n_head), heads(cvw[1], n_head)
+        kw = dict(scale=scale, group=group)
+        want = DA.decode_attention_plain(q, ckw, cvw, 1, n_head, **kw)
+        record("decode_attention" + sfx, f"{tag}: cross {tuple(ckw.shape)} {dt}, q ({n_win * group}, 1, {d}), "
+               f"group {group}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               DA.decode_attention(q, ckw, cvw, 1, n_head, **kw), want,
+               (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ckw, cvw, 1, n_head, **kw),
+               lambda: DA.decode_attention_plain(q, ckw, cvw, 1, n_head, **kw),
+               bound=attn_bound(n_win * group * 1500 * d, (2 * q.numel() + 2 * n_win * 1500 * d) * esz,
+                                kind="fp32" if fp32 else "bf16"),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=False, repeat=True)
+        kw8 = dict(scale=scale, valid_upto=1499, group=group)
+        want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, return_flip_bound=True, **kw8)
+        ref = want.float().abs()
+        tol = flip + FP32_REL * ref.max() if fp32 else (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        tk_blk = DA._i8_blocks(n_win, k8.shape[2], d)[1]
+        record("decode_attention_i8" + sfx, f"{tag}: cross {tuple(k8.shape)} int8, q ({n_win * group}, 1, {d}) "
+               f"{dt}, group {group}, valid_upto 1499, tk_blk {tk_blk}", src,
+               "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+               DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8), want, tol,
+               lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8),
+               lambda: DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, **kw8),
+               bound=bound(4 * n_win * group * 1500 * d, 2 * n_win * 1500 * (d + 4) + 2 * q.numel() * esz, "int8"),
+               main=False, repeat=True)
+    del ck, cv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_any_width(card: str, geometry: str, workdir: str, fp32: bool = False):
+    """Phase 24 (c): at one geometry of AW_DIMS, random weights from seed 0,
+    through the entry points: the greedy window path on HW_WINDOWS seeded
+    windows with phase 4's options (int8 KV: K1; fp32: fp16=False), then
+    kv_quant=False (K2); beam 5 on HW_BEAM_WINDOWS windows; AW_TRAIN_STEPS
+    train steps at batch HW_TRAIN_BATCH and `evaluate`; then phase 5's
+    check of the bf16 decode against the CPU's fp32 plain path on 2
+    windows, or phase 20's fp32 decode gate. Each path's launch counts are
+    reset just before it and read just after; no K3 or K6 (the h2 kernels
+    serve 32, 64 and 128 only), in fp32 no bf16 kernel. Returns the counts
+    of each path."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, from_random
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    dims = AW_DIMS[geometry]
+    sfx, dt = ("_f32", "fp32") if fp32 else ("", "bf16")
+    tag = f"[any {geometry}{' fp32' if fp32 else ''}]"
+    n_layer, n_mels = dims["n_audio_layer"], dims["n_mels"]
+    encoder_kernel = ("flash_attention" if geometry == "dh80" else "flash_attention_mh") + sfx
+    model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.bfloat16)
+    paths = {}
+
+    def counted(name, fn):
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        paths[name] = dict(LAUNCHES)
+        if fp32:
+            no_bf16_kernel(paths[name], f"{tag} {name}")
+        h2 = {k: v for k, v in paths[name].items() if k.startswith("flash_attention_h2") and v}
+        if h2:
+            raise AssertionError(f"{tag} {name} launched the h2 kernels, which serve 32, 64 and 128 only: {h2}")
+        return out, time.perf_counter() - t0
+
+    options = {**BASE_OPTIONS, "fp16": not fp32}
+    mel = log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0), n_mels=n_mels, device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**options))
+    task.run(mel)  # warm-up, not counted
+    results, t_dec = counted("greedy", lambda: task.run(log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0),
+                                                                            n_mels=n_mels, device=DEVICE)))
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob), r
+    c = paths["greedy"]
+    assert c[encoder_kernel] == n_layer and c["decode_attention_i8" + sfx] > 0 and c["log_mel"] == 1, c
+    plain_task = DecodingTask(model, DecodingOptions(**{**options, "kv_quant": False}))
+    float_results, t_float = counted("kv_quant=False", lambda: plain_task.run(mel))
+    for r in float_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    assert paths["kv_quant=False"]["decode_attention" + sfx] > 0, paths["kv_quant=False"]
+    beam_task = DecodingTask(model, DecodingOptions(**{**BEAM_OPTIONS, "fp16": not fp32}))
+    beam_results, t_beam = counted("beam", lambda: beam_task.run(mel[:HW_BEAM_WINDOWS].contiguous()))
+    for r in beam_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    c = paths["beam"]
+    assert c["topk_logprobs"] == 64 and c["decode_attention_i8" + sfx] > 0, c
+    print(f"{tag} greedy, {HW_WINDOWS} windows, {'fp16=False, ' if fp32 else ''}kv_quant + int8_encoder, 64 tokens: "
+          f"{t_dec:.3f} s = {HW_WINDOWS * 30.0 / t_dec:.1f} audio-s/s (log-mel included); kv_quant=False: "
+          f"{t_float:.3f} s; beam {BEAM} on {HW_BEAM_WINDOWS} windows {t_beam:.3f} s (its first call at this shape) "
+          f"[{card}]; text[0]={results[0].text[:40]!r} avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+    if fp32:
+        check_fp32_decode_against_cpu(card, model, what=f" at {geometry}", encoder_kernel=encoder_kernel)
+    else:
+        check_against_cpu(model)
+    del task, plain_task, beam_task, mel, model
+    torch.cuda.empty_cache()
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=dims, batch_size=HW_TRAIN_BATCH,
+                         val_batch_size=HW_TRAIN_BATCH, compute_dtype="float32" if fp32 else "bfloat16",
+                         learning_rate=1e-5, seed=0, num_workers=4, epochs=1,
+                         save_dir=os.path.join(workdir, f"{geometry}{sfx}_out"))
+    ds = MultiTaskSpeechDataset(write_clips(workdir, AW_TRAIN_STEPS * HW_TRAIN_BATCH, seed=24), cfg)
+    batches = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                              buckets=cfg.token_buckets))[:AW_TRAIN_STEPS]
+    trainer = MultiTaskTrainer(cfg, verbose=False)
+    losses, step_s = [], []
+    for i, batch in enumerate(batches):
+        (loss, _), dt_s = counted(f"train step {i + 1}", lambda: trainer.train_step(batch))
+        c = paths[f"train step {i + 1}"]
+        if not (c["log_mel"] == 1 and c["flash_attention_lse" + sfx] > 0 and c["flash_attention_bwd" + sfx] > 0):
+            raise AssertionError(f"{tag} train step {i + 1} launched {c}")
+        losses.append(float(loss))
+        step_s.append(dt_s)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite train loss {losses}")
+    metrics, t_eval = counted("evaluate", lambda: trainer.evaluate(batches[:1]))
+    if paths["evaluate"]["flash_attention" + sfx] <= 0:
+        raise AssertionError(f"{tag} evaluate launched {paths['evaluate']}")
+    for key in ("loss", "wer", "disease_acc"):
+        if not np.isfinite(metrics[key]):
+            raise AssertionError(f"{tag} evaluate: {key} = {metrics[key]}")
+    step = {k: v for k, v in paths["train step 2"].items() if v}
+    print(f"{tag} train, batch {HW_TRAIN_BATCH}, {dt}, token buckets {[bt['input_tokens'].shape[1] for bt in batches]}: "
+          f"{AW_TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; step s "
+          f"{', '.join(f'{x:.4f}' for x in step_s)} (the first has the set-up); evaluate {t_eval:.3f} s, loss "
+          f"{metrics['loss']:.4f}; launches in step 2 {json.dumps(step)} [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return list(paths.values())
+
+
+def run_any_width_cli(card: str, workdir: str):
+    """Phase 24 (d): random weights from seed 0 at AW_DIMS["dh80"] (bf16)
+    written to a `.pt`, and a seeded 30 s WAV through the CLI at one rung
+    (beam 5 at t=0): K4 at 128 mels, K7 in the encoder, K2 at group 5 in
+    the beam steps, K9. Returns the launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, checkpoint_dict, from_random
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    ckpt, clip = os.path.join(workdir, "dh80.pt"), os.path.join(workdir, "clip30.wav")
+    torch.save(checkpoint_dict(from_random(ModelDimensions(**AW_DIMS["dh80"]), seed=0, device=DEVICE,
+                                           dtype=torch.bfloat16)), ckpt)
+    write_long_wav(clip, 30.0, seed=24)
+    torch.cuda.empty_cache()
+    out = os.path.join(workdir, "dh80_cli")
+    printed = io.StringIO()
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli([clip, "--model", ckpt, "--output_dir", out, "--language", "en",
+             "--temperature_increment_on_fallback", "None"])
+    sync()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    text = printed.getvalue()
+    if "Skipping" in text:
+        raise AssertionError(f"the dh80 CLI skipped the file:\n{text[-3000:]}")
+    files = sorted(os.listdir(out))
+    if files != [f"clip30.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
+        raise AssertionError(f"the dh80 CLI wrote {files}")
+    for name in ("log_mel", "flash_attention", "decode_attention", "topk_logprobs"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the dh80 CLI run launched no {name}: {counts}")
+    print(f"[any] (d) CLI at dh80 (large-v3's widths, 16 heads of 80, 2 + 2 layers), bf16, 30 s WAV at one rung: "
+          f"{wall:.1f} s wall; launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    return counts
+
+
+def run_any_widths(card: str):
+    """Phase 24: (a), then (b) and (c) at each geometry and dtype, then (d);
+    every kernel of AW_KERNELS in each dtype and the fp32 K5 must launch on
+    (c) and (d). Returns (the timed rows, the paths' counts)."""
+    import torch
+
+    check_any_width_kernels(card)
+    rows, paths = [], []
+    for geometry in AW_DIMS:
+        for fp32 in (False, True):
+            rows += check_any_width_path_kernels(card, geometry, fp32)
+            with tempfile.TemporaryDirectory() as workdir:
+                paths += run_any_width(card, geometry, workdir, fp32)
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        paths.append(run_any_width_cli(card, workdir))
+    names = [n + s for n in AW_KERNELS for s in ("", "_f32")] + ["flash_attention_mh", "flash_attention_mh_f32"]
+    total = {name: sum(c.get(name, 0) for c in paths) for name in names}
+    missing = [name for name, n in total.items() if n == 0]
+    if missing:
+        raise AssertionError(f"no launch of {missing} on phase 24's paths: {total}")
+    print(f"[any] launches over phase 24's paths {json.dumps(total)}", flush=True)
+    return rows, paths
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -3916,6 +4362,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         mesh_paths += run_multi_device(card, workdir)
 
+    # phase 24: every head width that is a multiple of 8 up to 128, at 16
+    # heads of 80 (large-v3's widths) and 8 of 96 (small's), bf16 and fp32
+    stamp("phase 24 starts")
+    aw_rows, aw_paths = run_any_widths(card)
+    rows += aw_rows
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
@@ -3923,10 +4375,11 @@ def main() -> int:
     # and evaluate, and phase 21's greedy, kv_quant=False, beam, train and
     # evaluate runs at head widths 128 and 32 in bf16 and in fp32, and phase 22's train steps,
     # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
-    # runs, each rank's counts), each counted from 0 just before it ran
+    # runs, each rank's counts, and phase 24's runs at 16 heads of 80 and 8
+    # of 96 and its CLI run), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths)
+             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

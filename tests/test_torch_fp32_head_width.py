@@ -157,27 +157,38 @@ def test_decode_wrappers_call_the_f32_symbol_at_the_width(fake_card, int8, dh):
     assert _launched() == {key: 1}
 
 
+# a width each fp32 kernel still refuses: K3 and K6 serve 32, 64 and 128,
+# the others every multiple of 8 from 8 to 128 (dh -> their refused width)
+REFUSED = {16: 20, 80: 136, 96: 20, 256: 256}
+
+
 @pytest.mark.parametrize("dh", [16, 80, 96, 256])
 def test_other_widths_still_raise_in_fp32(fake_card, dh):
-    """A width no kernel serves raises in fp32 before any launch: K3, K5,
-    K6 (where d is a multiple of 128), K7, K8, K2 and K1."""
+    """A width no kernel serves raises in fp32 before any launch: K3 and K6
+    (where d is a multiple of 128) at dh; K5, K7, K8, K2 and K1 at a width
+    outside 8-128 or not a multiple of 8 (REFUSED[dh])."""
     n_head = 2
     d = n_head * dh
-    q, qs, lse7 = torch.zeros((2, 20, d)), torch.zeros((4, 20, dh)), torch.zeros((4, 20, 1))
-    qd = torch.zeros((2, 1, d), device="meta")
-    ck, ck8 = torch.zeros((1, 2, 128, d), device="meta"), torch.zeros((1, 2, 128, d), dtype=torch.int8, device="meta")
-    sc = torch.ones((1, 2, 128), device="meta")
-    calls = [lambda: PF.flash_attention_h2(q, q, q, n_head=n_head),
-             lambda: PF.flash_attention_mh(q, q, q, n_head=n_head),
-             lambda: PF.flash_attention(qs, qs, qs, causal=True),
-             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True),
-             lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0),
-             lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0)]
+    q = torch.zeros((2, 20, d))
+    calls = [(lambda: PF.flash_attention_h2(q, q, q, n_head=n_head), "fp32 kernel takes a head width of 32, 64, 128")]
     if d % 128 == 0:
         res = torch.zeros((d // 128, 2, 20, max(1, 128 // dh)))
-        calls.append(lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head))
-    for call in calls:
-        with pytest.raises(ValueError, match="fp32 kernel takes a head width of 32, 64, 128"):
+        calls.append((lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head),
+                      "fp32 kernel takes a head width of 32, 64, 128"))
+    wo = REFUSED[dh]
+    dw = n_head * wo
+    qw, qs, lse7 = torch.zeros((2, 20, dw)), torch.zeros((4, 20, wo)), torch.zeros((4, 20, 1))
+    qd = torch.zeros((2, 1, dw), device="meta")
+    ck, ck8 = torch.zeros((1, 2, 128, dw), device="meta"), torch.zeros((1, 2, 128, dw), dtype=torch.int8, device="meta")
+    sc = torch.ones((1, 2, 128), device="meta")
+    rng = "multiple of 8 from 8 to 128"
+    calls += [(lambda: PF.flash_attention_mh(qw, qw, qw, n_head=n_head), rng),
+              (lambda: PF.flash_attention(qs, qs, qs, causal=True), rng),
+              (lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True), rng),
+              (lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0), rng),
+              (lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0), rng)]
+    for call, message in calls:
+        with pytest.raises(ValueError, match=message):
             call()
     assert fake_card.calls == [] and sum(LAUNCHES.values()) == 0
 

@@ -28,7 +28,7 @@ from torch_port_helpers import SMALL, jax_dims
 
 ATOL = 1e-5  # fp32 both sides; only the order of the sums differs
 # head width -> (d, n_head) at the small size
-WIDTHS = {32: (128, 4), 128: (256, 2)}
+WIDTHS = {32: (128, 4), 128: (256, 2), 80: (160, 2), 96: (192, 2)}
 
 
 def _t(a):
@@ -129,7 +129,7 @@ def test_k2_and_k1_plain_match_jax(dh, group, valid):
 # ------------------------------------------------- weights carried across ------
 
 
-@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("dh", [32, 128, 80, 96])
 def test_state_dict_from_jax_params_matches_export(dh):
     """The port's carrier gives the JAX package's own export, key for key
     and value for value, and loads into the port's model at this width."""
@@ -235,45 +235,53 @@ def test_flash_wrappers_take_the_head_widths(fake_card, dh):
                                                         "flash_attention_lse": 1, "flash_attention_bwd": 1}
 
 
-@pytest.mark.parametrize("dh,dtype", [(16, torch.bfloat16), (80, torch.bfloat16), (96, torch.bfloat16),
-                                      (256, torch.bfloat16), (16, torch.float32), (80, torch.float32)])
+@pytest.mark.parametrize("dh,dtype", [(136, torch.bfloat16), (20, torch.bfloat16), (256, torch.bfloat16),
+                                      (136, torch.float32), (20, torch.float32), (256, torch.float32)])
 def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
-    """A width no kernel of the dtype serves raises before any launch: bf16
-    and fp32 serve 32, 64 and 128."""
+    """A width no kernel of the dtype serves raises before any launch: K7
+    and K8 (and K5 in fp32) serve every multiple of 8 from 8 to 128, so 136,
+    20 and 256 raise with that range; K3 and K6 serve 32, 64 and 128 only,
+    so 80 and 96 (and this width) raise there."""
     n_head = 2
-    d = n_head * dh
-    q = torch.zeros((2, 20, d), dtype=dtype)
     qs = torch.zeros((4, 20, dh), dtype=dtype)
     lse7 = torch.zeros((4, 20, 1))
+    q = torch.zeros((2, 20, n_head * dh), dtype=dtype)
     calls = [lambda: PF.flash_attention(qs, qs, qs, causal=True),
-             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True),
-             lambda: PF.flash_attention_h2(q, q, q, n_head=n_head)]
-    if d % 128 == 0:
-        res = torch.zeros((d // 128, 2, 20, max(1, 128 // dh)))
-        calls.append(lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head))
+             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True)]
+    if dtype == torch.float32:  # K5 in fp32 serves multiples of 8 up to 128; in bf16 up to 768
+        calls.append(lambda: PF.flash_attention_mh(q, q, q, n_head=n_head))
     for call in calls:
-        with pytest.raises(ValueError, match="head width of"):
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
             call()
-    if dtype == torch.float32:  # K5 in fp32 serves 32, 64 and 128; in bf16 any multiple of 8 up to 768
-        with pytest.raises(ValueError, match="head width of 32, 64, 128"):
-            PF.flash_attention_mh(q, q, q, n_head=n_head)
+    for width in (80, 96, dh):
+        h2_heads = 8 if width == 80 else 4 if width == 96 else n_head
+        d = h2_heads * width
+        qn = torch.zeros((2, 20, d), dtype=dtype)
+        h2_calls = [lambda: PF.flash_attention_h2(qn, qn, qn, n_head=h2_heads)]
+        if d % 128 == 0:
+            res = torch.zeros((d // 128, 2, 20, max(1, 128 // width)))
+            h2_calls.append(lambda: PF.flash_attention_h2_bwd(qn, qn, qn, res, res, qn, n_head=h2_heads))
+        for call in h2_calls:
+            with pytest.raises(ValueError, match="head width of 32, 64, 128"):
+                call()
     assert fake_card.calls == [] and sum(LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["K2", "K1"])
 def test_decode_wrappers_take_the_head_widths(fake_decode_card, int8):
-    """K1 and K2 take dh 32, 64 and 128 with bf16 and with fp32 q;
-    another width raises before any launch."""
-    for dh in (32, 64, 128):
+    """K1 and K2 take every multiple of 8 from 8 to 128 with bf16 and with
+    fp32 q; 136, 20 and 256 raise before any launch."""
+    widths = range(8, 129, 8)
+    for dh in widths:
         _decode_call(dh, torch.bfloat16, int8=int8)()
         _decode_call(dh, torch.float32, int8=int8)()
-    assert len(fake_decode_card) == 6
-    for dh, dtype in ((80, torch.bfloat16), (16, torch.bfloat16), (16, torch.float32), (80, torch.float32)):
-        with pytest.raises(ValueError, match="head width of"):
+    assert len(fake_decode_card) == 2 * len(widths)
+    for dh, dtype in ((136, torch.bfloat16), (20, torch.bfloat16), (20, torch.float32), (256, torch.float32)):
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
             _decode_call(dh, dtype, int8=int8)()
     with pytest.raises(ValueError, match="equal heads"):
         _decode_call(64, torch.bfloat16, d=200, n_head=3, int8=int8)()
-    assert len(fake_decode_card) == 6
+    assert len(fake_decode_card) == 2 * len(widths)
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])

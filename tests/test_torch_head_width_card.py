@@ -1,14 +1,16 @@
-"""The attention kernels at head widths 32 and 128 on the card, each against
-its plain version: K3 with and without lse, K5 (on K3's forward), K6, K7
-with and without lse and K8 over both tile plans, causal, q_offset and a
-ragged valid length; K2 and K1 over cross and self caches at groups 1, 5,
-16 and 20; each in bf16 and in fp32 (the 3xTF32 flash kernels, K2 over
-fp32 caches, K1 with fp32 queries), every output bitwise on a second
-launch. A width no kernel serves raises on the card. Marked `cuda`: they
-skip where there is no card (`python -m pytest tests/test_torch_*.py -q -m
-cuda` on the machine with one). This file imports no JAX: the plain
-versions are the reference, and their own tests hold them to the JAX
-package (test_torch_head_width.py)."""
+"""The attention kernels on the card, each against its plain version, in
+bf16 and in fp32 (the 3xTF32 flash kernels, K2 over fp32 caches, K1 with
+fp32 queries), every output bitwise on a second launch. At head widths 32
+and 128: K3 with and without lse, K5 (on K3's forward), K6, K7 with and
+without lse and K8 over both tile plans, causal, q_offset and a ragged
+valid length; K2 and K1 over cross and self caches at groups 1, 5, 16 and
+20. At widths below their class (8, 40, 80, 96, 120): K7, K7-lse, K8, the
+fp32 K5, K2 and K1. A width no kernel serves raises on the card. Marked
+`cuda`: they skip where there is no card (`python -m pytest
+tests/test_torch_*.py -q -m cuda` on the machine with one). This file
+imports no JAX: the plain versions are the reference, and their own tests
+hold them to the JAX package (test_torch_head_width.py,
+test_torch_head_width_any.py)."""
 
 import pytest
 import torch
@@ -181,30 +183,116 @@ def test_k1_on_card(card, dh, b, group, tk, valid, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,dtype", [(80, torch.bfloat16), (16, torch.bfloat16), (16, torch.float32),
-                                      (80, torch.float32)])
-def test_other_widths_raise_on_card(card, dh, dtype):
-    """No fallback: a width no kernel of the dtype serves raises in K1, K2,
-    K3, K6, K7 and K8 (and K5 in fp32), and nothing launches."""
-    n_head = 2
-    d = dh * n_head
+@pytest.mark.parametrize("h2_dh,dtype", [(80, torch.bfloat16), (96, torch.bfloat16), (80, torch.float32),
+                                         (96, torch.float32)])
+def test_other_widths_raise_on_card(card, h2_dh, dtype):
+    """No fallback: K3 and K6 refuse 80 and 96 (they serve 32, 64 and 128,
+    as the JAX package's h2 kernels); K1, K2, K7, K8 (and K5 in fp32)
+    refuse 136, 20 and 256 with the range they serve; nothing launches."""
+    n_head = 1280 // h2_dh if h2_dh == 80 else 768 // h2_dh
+    d = h2_dh * n_head
     q, = _rnd(card, 0, (2, 64, d), dtype=dtype)
-    qs, = _rnd(card, 0, (4, 64, dh), dtype=dtype)
-    lse = torch.zeros((4, 64, 1), device=card)
-    qd, ck = _rnd(card, 0, (2, 1, d), (1, 2, 128, d), dtype=dtype)
-    ki, ks = PD.quantize_kv_rows(ck.float())
-    calls = [lambda: PF.flash_attention_h2(q, q, q, n_head=n_head),
-             lambda: PF.flash_attention(qs, qs, qs, causal=True),
-             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True),
-             lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0),
-             lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, n_head, scale=1.0)]
-    if d % 128 == 0:
-        res = torch.zeros((d // 128, 2, 64, max(1, 128 // dh)), device=card)
-        calls.append(lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head))
-    if dtype == torch.float32:
-        calls.append(lambda: PF.flash_attention_mh(q, q, q, n_head=n_head))
+    res = torch.zeros((d // 128, 2, 64, 1), device=card)
     reset_launch_counts()
-    for call in calls:
-        with pytest.raises(ValueError, match="head width of"):
+    for call in (lambda: PF.flash_attention_h2(q, q, q, n_head=n_head),
+                 lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head)):
+        with pytest.raises(ValueError, match="head width of 32, 64, 128"):
             call()
+    for dh in (136, 20, 256):
+        qs, = _rnd(card, 0, (4, 64, dh), dtype=dtype)
+        lse = torch.zeros((4, 64, 1), device=card)
+        qd, ck = _rnd(card, 0, (2, 1, 2 * dh), (1, 2, 128, 2 * dh), dtype=dtype)
+        ki, ks = PD.quantize_kv_rows(ck.float())
+        qn, = _rnd(card, 0, (2, 64, 2 * dh), dtype=dtype)
+        calls = [lambda: PF.flash_attention(qs, qs, qs, causal=True),
+                 lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True),
+                 lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0),
+                 lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0)]
+        if dtype == torch.float32:
+            calls.append(lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2))
+        for call in calls:
+            with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+                call()
     assert sum(LAUNCHES.values()) == 0
+
+
+# ------------------------------------ every multiple of 8 up to 128 ------
+
+ANY_WIDTHS = [8, 40, 80, 96, 120]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", ANY_WIDTHS)
+def test_k7_and_k8_at_any_width_on_card(card, dh, dtype):
+    """K7 with and without lse and K8 at a width below its class (columns
+    past dh zeros in the class's tiles): causal, q_offset 48, and
+    non-causal with keys valid short of tk, over both tile plans."""
+    rel = _share(dtype)
+    for bh, tq, tk, causal, q_offset, kv_len in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                 (8, 130, 300, False, 0, 270)):
+        q, k, v, g = _rnd(card, dh + tq + tk, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), dtype=dtype)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+        want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        reset_launch_counts()
+        got = PF.flash_attention(q, k, v, return_lse=True, **kw)
+        _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+        _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
+        _same_bits(lambda: PF.flash_attention(q, k, v, return_lse=True, **kw), got)
+        _close(PF.flash_attention(q, k, v, **kw), want, lambda w: rel * w.float().abs().max().item())
+        grads = PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw)
+        want_grads = PF.flash_attention_bwd_plain(q, k, v, want, want_lse, g, **kw)
+        scale = max(w.float().abs().max().item() for w in want_grads)
+        _close(grads, want_grads, lambda w: rel * scale)
+        _same_bits(lambda: PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw), grads)
+        sfx = "" if dtype == torch.bfloat16 else "_f32"
+        assert {n: c for n, c in LAUNCHES.items() if c} == {f"flash_attention_lse{sfx}": 2,
+                                                            f"flash_attention{sfx}": 1,
+                                                            f"flash_attention_bwd{sfx}": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", ANY_WIDTHS)
+def test_k5_fp32_at_any_width_on_card(card, dh):
+    """The fp32 K5 over the natural layout at 3 heads of dh (head h at
+    column h dh), keys valid to 270 of 300."""
+    d = 3 * dh
+    q, k, v = _rnd(card, dh, (2, 200, d), (2, 300, d), (2, 300, d), dtype=torch.float32)
+    kw = dict(n_head=3, kv_valid_len=270, scale=dh**-0.5)
+    reset_launch_counts()
+    got = PF.flash_attention_mh(q, k, v, **kw)
+    _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), lambda w: FP32_REL * w.float().abs().max().item())
+    _same_bits(lambda: PF.flash_attention_mh(q, k, v, **kw), got)
+    assert LAUNCHES["flash_attention_mh_f32"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", ANY_WIDTHS)
+def test_k2_and_k1_at_any_width_on_card(card, dh, dtype):
+    """K2 and K1 at 5 heads of dh (an odd head count: at dh 40 and 120 K1's
+    odd heads start 8 bytes off a 16-byte boundary) over a cross cache and
+    a self cache, groups 1 and 5; K2 at phase 3's bf16 tolerance or
+    FP32_REL, K1 within the flip bound."""
+    n_head = 5
+    d = n_head * dh
+    for b, group, tk, valid in ((8, 1, 1536, 1499), (4, 5, 1536, 1499), (8, 5, 448, 37)):
+        q, ck, cv = _rnd(card, tk + group + dh, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d), dtype=dtype)
+        kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+        share = 2.0**-7 if dtype == torch.bfloat16 else FP32_REL
+        reset_launch_counts()
+        got = PD.decode_attention(q, ck, cv, 1, n_head, **kw)
+        _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: share * w.float().abs().max())
+        _same_bits(lambda: PD.decode_attention(q, ck, cv, 1, n_head, **kw), got)
+        (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
+        want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, n_head, return_flip_bound=True, **kw)
+        got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw)
+        ref = want.float().abs()
+        if dtype == torch.bfloat16:
+            tol = (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        else:
+            tol = flip + FP32_REL * ref.max()
+        assert ((got.float() - want.float()).abs() <= tol).all()
+        _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
+        sfx = "" if dtype == torch.bfloat16 else "_f32"
+        assert LAUNCHES[f"decode_attention{sfx}"] == 2 and LAUNCHES[f"decode_attention_i8{sfx}"] == 2
