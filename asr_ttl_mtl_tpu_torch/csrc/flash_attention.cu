@@ -14,7 +14,8 @@
 // column), add nothing to q k^T, and give output columns that are never
 // written. The compute is the class's (80 columns at 128's work); the
 // bytes read and written are dh's. The bf16 K5 takes any multiple of 8 up
-// to 768 (`flash_mh_kernel` below, K3's forward at 32, 64 and 128).
+// to 768: K3's forward at its class up to 128 (over per-head tensor maps
+// below a class: route A), the wide forward from 136 (route B).
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -59,37 +60,27 @@
 // last query reaches its first key), and masks per row inside the tiles it
 // walks. K7/K8 read (BH, T, dh) as the natural layout with batch = BH and
 // one head, and their residuals through `res_index` with hpb = 1.
-// K5 at those widths is the K3 forward without the logsumexp, over any
-// number of heads (its device code reads the natural layout at dh columns
-// a head and never assumes d % 128 == 0; the lse layout is the only part
-// that does). Other widths take `flash_mh_kernel`: 4 warps over 16
-// queries of one head, 64-key tiles, the head slice zero-padded to a
-// multiple of 16 columns in shared memory (q, k then v over the same
-// buffer, the fp32 output accumulator), WMMA for S = Q K^T and O += P V,
-// and the same online softmax with p rounded to bf16 before P V. The TPU
-// kernel holds the whole key range of a row block in VMEM and takes one
-// softmax per head; on Hopper the keys go by tiles.
+// K5 is the K3 forward without the logsumexp, over any number of heads
+// (its device code reads the natural layout at dh columns a head and never
+// assumes d % 128 == 0; the lse layout is the only part that does): at 32,
+// 64 and 128 over K3's 3-D maps, at the other widths up to 120 at their
+// class over 4-D maps of (dh, n_head, T, B), whose boxes TMA fills with
+// zeros past the head's dh columns (route A: the class's compute, dh's
+// bytes). From 136 to 768 it is `flash_fwd_wide_sm90_kernel` (route B, its
+// own note), which owns 128 output columns of a head a CTA. Both keep p
+// and O in registers, as the TPU kernel keeps its row block in VMEM; on
+// Hopper the keys go by tiles.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <initializer_list>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kWarps = 4;          // flash_mh_kernel's warps
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // dh: the head width, a multiple of 8 from 8 to 128; the kernels run at
 // its width class (`width_class`), columns [dh, class) zeros
@@ -115,7 +106,7 @@ bool bad_shape(const Shape& sh, int kDh) {
 // ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
 //
 // Serves K3 (`flash_h2_fwd_bf16`, with and without the logsumexp), K5 at a
-// head width of 32, 64 or 128 (`flash_mh_fwd_bf16`) and K7
+// head width up to 128 (`flash_mh_fwd_bf16`; kHeads: the head maps) and K7
 // (`flash_fwd_bf16`: causal or not, any q_offset, with and without the
 // logsumexp), each at head widths 32, 64 and 128 (a template parameter).
 //
@@ -137,7 +128,8 @@ bool bad_shape(const Shape& sh, int kDh) {
 //     finite from tile 0 on and p is exactly 0 there.
 //   - One producer warp starts the TMA loads: Q once, then K and V tiles of
 //     kN keys x dh columns from 3-D tensor maps over the natural (B, T, D)
-//     layout at column h * dh, into a ring of stages with full and empty
+//     layout at column h * dh (kHeads: 4-D maps over (dh, n_head, T, B) at
+//     column 0 of head h), into a ring of stages with full and empty
 //     mbarriers (4 stages with two consumer warpgroups, 2 with one). A tile
 //     lies in shared memory as
 //     `Geo`'s swizzled boxes: one box of 64-byte rows at dh 32 (64-byte
@@ -242,6 +234,26 @@ __device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* 
 #pragma unroll
   for (int j = 0; j < G::kBoxes; ++j)
     tma_load_3d(dst + j * rows * G::kBoxCols, map, bar, col + j * G::kBoxCols, row, b);
+}
+
+// a box of the 4-D head map (`encode_heads`) at (column of the head, head,
+// row, batch) into shared memory; completion counts its bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_tile from the head map: head h's columns 0 .. kDh, those past dh zeros
+template <int kDh>
+__device__ __forceinline__ void tma_head_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                              int row, int b, int rows) {
+  using G = Geo<kDh>;
+#pragma unroll
+  for (int j = 0; j < G::kBoxes; ++j) tma_load_4d(dst + j * rows * G::kBoxCols, map, bar, j * G::kBoxCols, h, row, b);
 }
 
 // wgmma shared-memory descriptor of a tile of kSwB-byte box rows in the
@@ -482,7 +494,7 @@ __device__ __forceinline__ int key_limit(const Shape& sh, int row) {
   return kCausal ? min(sh.kv_len, sh.q_offset + row + 1) : sh.kv_len;
 }
 
-template <int kDh, int kWG, int kStages, bool kCausal>
+template <int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
@@ -508,16 +520,24 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   __syncthreads();
 
   if (warp == kWG * 4) {  // the producer warp: one thread starts every load
+    // head h's tile of `rows` rows from `row`: the 3-D maps at column h * dh,
+    // or with kHeads the head maps at (0, h)
+    auto load = [&](__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row, int rows) {
+      if constexpr (kHeads)
+        tma_head_tile<kDh>(dst, map, bar, h, row, b, rows);
+      else
+        tma_tile<kDh>(dst, map, bar, h * sh.dh, row, b, rows);
+    };
     if (lane == 0) {
       mbar_expect_tx(&s.q_full, kWG * kBM * G::kRowB);
-      tma_tile<kDh>(s.q, &tm_q, &s.q_full, h * sh.dh, q0, b, kWG * kBM);
+      load(s.q, &tm_q, &s.q_full, q0, kWG * kBM);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&s.empty[st], (t / kStages - 1) & 1);
         mbar_expect_tx(&s.k_full[st], kN * G::kRowB);
-        tma_tile<kDh>(s.k[st], &tm_k, &s.k_full[st], h * sh.dh, t * kN, b, kN);
+        load(s.k[st], &tm_k, &s.k_full[st], t * kN, kN);
         mbar_expect_tx(&s.v_full[st], kN * G::kRowB);
-        tma_tile<kDh>(s.v[st], &tm_v, &s.v_full[st], h * sh.dh, t * kN, b, kN);
+        load(s.v[st], &tm_v, &s.v_full[st], t * kN, kN);
       }
     }
     return;
@@ -640,6 +660,23 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch, int t
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a (B, T, n_head * dh) bf16 tensor as a 4-D map (dh, n_head, T, B), boxes
+// of kBoxCols columns of one head x `rows` rows in the kSwB-byte swizzle:
+// a box's columns past dh are zeros (out of the map's bounds), not the next
+// head's, and a box wholly past dh is all zeros. The head stride, dh * 2
+// bytes, is a multiple of 16 as TMA needs: dh is a multiple of 8
+template <int kDh>
+bool encode_heads(EncodeTiled enc, CUtensorMap* map, const void* ptr, const Shape& sh, int t, int rows) {
+  constexpr int kSwB = Geo<kDh>::kSwB;
+  const cuuint64_t dims[4] = {(cuuint64_t)sh.dh, (cuuint64_t)sh.n_head, (cuuint64_t)t, (cuuint64_t)sh.batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh.dh * 2, (cuuint64_t)sh.d * 2, (cuuint64_t)t * sh.d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Geo<kDh>::kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, kSwB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // the shared-memory limit of `kernel` lifted to `bytes` once a device, not on
 // every launch
 template <typename Kernel>
@@ -653,21 +690,29 @@ cudaError_t lift_smem(Kernel kernel, int bytes, bool (&lifted)[64]) {
   return err;
 }
 
-template <int kDh, int kWG, int kStages, bool kCausal>
+// the forward's shared bytes at a width class and tile plan, the alignment slack included
+template <int kDh, int kWG, int kStages>
+constexpr int kFwdSmem = (int)sizeof(Smem<kDh, kWG, kStages>) + 1024;
+
+template <int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
+  constexpr int kN = kFwdKeys<kDh>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) ||
-      !encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kFwdKeys<kDh>) ||
-      !encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kFwdKeys<kDh>))
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem<kDh, kWG, kStages>) + 1024;  // + the alignment slack
+  const bool encoded =
+      kHeads ? encode_heads<kDh>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) &&
+                   encode_heads<kDh>(enc, &tm_k, k, sh, sh.tk, kN) && encode_heads<kDh>(enc, &tm_v, v, sh, sh.tk, kN)
+             : encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) &&
+                   encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kN) &&
+                   encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kN);
+  if (!encoded) return (int)cudaErrorInvalidValue;
+  constexpr int kSmem = kFwdSmem<kDh, kWG, kStages>;
   static bool lifted[64] = {};
-  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal>, smem, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal, kHeads>, kSmem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal><<<grid, kWG * 128 + 32, smem, stream>>>(
+  flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal, kHeads><<<grid, kWG * 128 + 32, kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
@@ -1166,20 +1211,36 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout, const
   return (int)cudaGetLastError();
 }
 
-// the forward over the natural layout (K3, K5 at a head width of kDh, and K7
-// as batch = BH, one head)
+// plan[1..5] of `flash_mh_plan_bf16` for the forward at width class kDh
 template <int kDh>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
+void fwd_plan(int tq, int* plan) {
+  const bool one = tq <= kBM;  // `fwd`'s choice
+  const int vals[5] = {kDh, one ? kBM : 2 * kBM, kFwdKeys<kDh>, one ? 2 : 4,
+                       one ? kFwdSmem<kDh, 1, 2> : kFwdSmem<kDh, 2, 4>};
+  for (int i = 0; i < 5; ++i) plan[1 + i] = vals[i];
+}
+
+// the forward over the natural layout (K3, K5 at a head width of kDh or,
+// with `heads`, below it, and K7 as batch = BH, one head)
+template <int kDh>
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal, bool heads,
         cudaStream_t s) {
-  // below its class, a head's boxes would take its neighbour's columns: one
-  // head a row (K7), whose boxes TMA fills with zeros past dh
-  if (bad_shape(sh, kDh) || (sh.dh != kDh && sh.n_head != 1)) return (int)cudaErrorInvalidValue;
+  // below its class, a head's boxes of the 3-D maps would take its
+  // neighbour's columns: one head a row (K7), whose boxes TMA fills with
+  // zeros past dh, or the head maps (K5, never causal, no lse)
+  if (bad_shape(sh, kDh) || (sh.dh != kDh && sh.n_head != 1 && !heads) || (heads && (causal || lse != nullptr)))
+    return (int)cudaErrorInvalidValue;
   // TMA needs 16-byte aligned bases and row strides (d % 8 == 0 holds: d = dh * n_head)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
+  if (heads)
+    return sh.tq <= kBM ? run<kDh, 1, 2, false, true>(q, k, v, out, lse, sh, s)
+                        : run<kDh, 2, 4, false, true>(q, k, v, out, lse, sh, s);
   if (sh.tq <= kBM)
-    return causal ? run<kDh, 1, 2, true>(q, k, v, out, lse, sh, s) : run<kDh, 1, 2, false>(q, k, v, out, lse, sh, s);
-  return causal ? run<kDh, 2, 4, true>(q, k, v, out, lse, sh, s) : run<kDh, 2, 4, false>(q, k, v, out, lse, sh, s);
+    return causal ? run<kDh, 1, 2, true, false>(q, k, v, out, lse, sh, s)
+                  : run<kDh, 1, 2, false, false>(q, k, v, out, lse, sh, s);
+  return causal ? run<kDh, 2, 4, true, false>(q, k, v, out, lse, sh, s)
+                : run<kDh, 2, 4, false, false>(q, k, v, out, lse, sh, s);
 }
 
 // (dq, dk, dv) of the forward: K6 (natural layout, h2 residuals, kHpb =
@@ -1199,17 +1260,236 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
                       : run_dkv<kDh, 2, 4, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s);
 }
 
+// ---------------------------------- K5 at head widths 136-768: route B
+//
+// Serves `flash_mh_fwd_bf16` at a head width above 128 (a multiple of 8 up
+// to 768, so at most 5 heads: d <= 768). The output of 64 rows at dh 768
+// is 192 KB of fp32, which no warpgroup's registers hold, so a CTA owns one
+// slab of up to kSlab output columns of its (query rows, head, batch row),
+// and the grid has ceil(dh / kSlab) slabs a head:
+//   - The Q tile (64 or 128 rows x the head's columns, in 64-column boxes
+//     of the 128-byte swizzle) is loaded once; K tiles (kN keys x the
+//     head's columns) and V slabs (kN keys x kSlab columns from the slab's
+//     first) stream through a ring of stages with full and empty
+//     mbarriers, all by TMA from one producer thread, through the head maps
+//     (`encode_heads`): the last 64-column box of a head and a V box past
+//     dh are filled with zeros (a V box wholly past dh is not loaded at
+//     all: it feeds output columns that are never written).
+//   - S = Q K^T runs on wgmma m64n{kN}k16 over the whole head width (4 k16
+//     steps a box), the online softmax on its accumulator registers as in
+//     K3's forward, p rounded to bf16 in registers is the A operand of O +=
+//     P V_slab (m64n128k16, V an MN-major B over two boxes), and O (64
+//     registers a thread) stays in registers until the epilogue writes O /
+//     l for the slab's columns below dh.
+//   - Each slab computes S again: ceil(dh / 128) products Q K^T and one P V
+//     where the bound counts one and one (3.5x the bound's products at dh
+//     768, 1.5x at 256).
+//   - The plan (`wide_plan`, mirrored by `ops.flash_attention.k5_plan`):
+//     two consumer warpgroups (128 rows) where the head fits in 4 boxes
+//     (dh <= 256) and tq > 64, else one; 64-key tiles up to 6 boxes (dh <=
+//     384), else 32; as many stages, up to 4, as 227 KB holds (2 at dh
+//     768: Q 96 KB and two stages of 48 KB of K and 8 KB of V).
+
+constexpr int kSlab = 128;           // output columns a CTA owns
+constexpr int kWideMaxDh = 768;      // the widest head K5 serves
+constexpr int kSmemMax = 232448;     // a block's shared memory on the H100 (227 KB)
+
+struct WidePlan {
+  int boxes;   // 64-column boxes of a head's Q and K rows
+  int slabs;   // output slabs a head, ceil(dh / kSlab)
+  int wg;      // consumer warpgroups, 64 query rows each
+  int keys;    // keys a K / V tile
+  int stages;  // K / V stages in the ring
+  int smem;    // shared bytes, the alignment slack included
+};
+
+inline WidePlan wide_plan(int dh, int tq) {
+  WidePlan p;
+  p.boxes = (dh + 63) / 64;
+  p.slabs = (dh + kSlab - 1) / kSlab;
+  p.wg = p.boxes <= 4 && tq > kBM ? 2 : 1;
+  p.keys = p.boxes <= 6 ? 64 : 32;
+  const int q = p.wg * kBM * p.boxes * 128, stage = p.keys * (p.boxes + kSlab / 64) * 128;
+  const int barriers = 8 * (1 + 3 * 4);  // at the most stages
+  const int fit = (kSmemMax - 1024 - barriers - q) / stage;
+  p.stages = fit < 4 ? fit : 4;
+  p.smem = 1024 + q + p.stages * stage + 8 * (1 + 3 * p.stages);
+  return p;
+}
+
+template <int kWG, int kN>
+__global__ void __launch_bounds__(kWG * 128 + 32, 1)
+flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, Shape sh,
+                           int boxes, int stages) {
+  constexpr int kRows = kWG * kBM;
+  constexpr int kQBox = kRows * 128, kKBox = kN * 128;  // bytes of a 64-column box of the Q and K / V tiles
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  // Q, then the K tiles, then the V slabs, each box 1024-byte aligned (the
+  // boxes are multiples of 4 KB), then the mbarriers
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* sk = sq + kRows * 64 * boxes;
+  __nv_bfloat16* sv = sk + stages * kN * 64 * boxes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + stages * kN * kSlab);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + stages;
+  uint64_t* empty = v_full + stages;
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (sh.kv_len + kN - 1) / kN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&empty[st], kWG * 128);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWG * 4) {  // the producer warp: one thread starts every load
+    if (lane == 0) {
+      const int v_boxes = c0 + 64 < sh.dh ? 2 : 1;
+      mbar_expect_tx(q_full, boxes * kQBox);
+      for (int j = 0; j < boxes; ++j) tma_load_4d(sq + j * kRows * 64, &tm_q, q_full, 64 * j, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % stages;
+        if (t >= stages) mbar_wait(&empty[st], (t / stages - 1) & 1);
+        __nv_bfloat16* kt = sk + st * kN * 64 * boxes;
+        mbar_expect_tx(&k_full[st], boxes * kKBox);
+        for (int j = 0; j < boxes; ++j) tma_load_4d(kt + j * kN * 64, &tm_k, &k_full[st], 64 * j, h, t * kN, b);
+        __nv_bfloat16* vt = sv + st * kN * kSlab;
+        mbar_expect_tx(&v_full[st], v_boxes * kKBox);
+        for (int j = 0; j < v_boxes; ++j)
+          tma_load_4d(vt + j * kN * 64, &tm_v, &v_full[st], c0 + 64 * j, h, t * kN, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup, as in K3's forward: rows wg * 64 + wq * 16 + {g,
+  // g + 8} of the CTA's tile in this thread, slab columns 2 * t4 + {0, 1}
+  // of every 8; S of tile t and P V of tile t - 1 on the tensor cores together
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + wg * kBM + wq * 16;  // the warp's first row
+  const int lim[2] = {sh.kv_len, sh.kv_len};
+  const float sl2 = sh.scale * kLog2e;
+  float o[kSlab / 2], sc[kN / 2], corr[2];
+  uint32_t pa[kN / 16][4];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  const uint64_t dq = desc<128>(sq + wg * kBM * 64, kQBox);  // this warpgroup's rows of each box
+  // S = Q K^T of tile t: 4 k16 steps of 32 bytes in each 64-column box
+  auto start_s = [&](int t) {
+    const int st = t % stages;
+    mbar_wait(&k_full[st], (t / stages) & 1);
+    const uint64_t dk = desc<128>(sk + st * kN * 64 * boxes, kKBox);
+    for (int j = 0; j < boxes; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<kN>(sc, dq + (uint64_t)((j * kQBox + kk * 32) >> 4), dk + (uint64_t)((j * kKBox + kk * 32) >> 4),
+                     j + kk);
+    }
+    wg_commit();
+  };
+  // O += P V_slab of tile t: kN / 16 steps of 16 keys
+  auto start_pv = [&](int t) {
+    const int st = t % stages;
+    mbar_wait(&v_full[st], (t / stages) & 1);
+    const uint64_t dv = desc<128>(sv + st * kN * kSlab, kKBox);
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kSlab>(o, pa[kk], dv + mnstep<128>(kk));
+    wg_commit();
+  };
+
+  wg_fence();
+  start_s(0);
+  wg_wait<0>();
+  reg_fence(sc);
+  softmax_tile(sc, m_run, l_run, corr, 0, lim, sh.kv_len, t4, sl2);
+  pack_p(sc, pa);
+  for (int t = 1; t < n_tiles; ++t) {
+    wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
+    start_s(t);
+    start_pv(t - 1);
+    wg_wait<1>();  // S(t) is done; P V of t - 1 may still run
+    reg_fence(sc);
+    softmax_tile(sc, m_run, l_run, corr, t * kN, lim, sh.kv_len, t4, sl2);
+    wg_wait<0>();
+    reg_fence(o);
+    mbar_arrive(&empty[(t - 1) % stages]);
+#pragma unroll
+    for (int i = 0; i < kSlab / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p(sc, pa);
+  }
+  wg_fence();
+  start_pv(n_tiles - 1);
+  wg_wait<0>();
+  reg_fence(o);
+
+  // o[4j + e]: row g (e < 2) or g + 8, slab column 8j + 2 * t4 + (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qrow = row0 + g + 8 * r;
+    if (qrow >= sh.tq) continue;
+    const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
+    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + c0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kSlab / 8; ++j)  // the slab's columns below dh only
+      if (c0 + 8 * j < sh.dh)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int kWG, int kN>
+int run_wide(const void* q, const void* k, const void* v, void* out, const Shape& sh, const WidePlan& p,
+             cudaStream_t stream) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v;  // 64-column boxes in the 128-byte swizzle: the class 128's
+  if (!encode_heads<128>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) || !encode_heads<128>(enc, &tm_k, k, sh, sh.tk, kN) ||
+      !encode_heads<128>(enc, &tm_v, v, sh, sh.tk, kN))
+    return (int)cudaErrorInvalidValue;
+  static bool lifted[64] = {};  // to the most any plan takes, once
+  const cudaError_t err = lift_smem(flash_fwd_wide_sm90_kernel<kWG, kN>, kSmemMax, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head * p.slabs, sh.batch);
+  flash_fwd_wide_sm90_kernel<kWG, kN><<<grid, kWG * 128 + 32, p.smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), sh, p.boxes, p.stages);
+  return (int)cudaGetLastError();
+}
+
+// K5 at a head width from 136 to 768 (route B)
+int fwd_wide(const void* q, const void* k, const void* v, void* out, const Shape& sh, cudaStream_t s) {
+  if (sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh || sh.dh % 8 ||
+      sh.dh <= 128 || sh.dh > kWideMaxDh || sh.kv_len < 1 || sh.kv_len > sh.tk)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const WidePlan p = wide_plan(sh.dh, sh.tq);
+  if (p.wg == 2) return run_wide<2, 64>(q, k, v, out, sh, p, s);
+  return p.keys == 64 ? run_wide<1, 64>(q, k, v, out, sh, p, s) : run_wide<1, 32>(q, k, v, out, sh, p, s);
+}
+
 }  // namespace sm90
 
 // the forward at the width class of sh.dh (below the class only with one
-// head a row: K7)
+// head a row, K7, or over the head maps, K5's route A)
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
-                    bool causal, void* stream) {
+                    bool causal, void* stream, bool heads = false) {
   auto s = (cudaStream_t)stream;
   switch (width_class(sh.dh)) {
-    case 32: return sm90::fwd<32>(q, k, v, out, lse, sh, causal, s);
-    case 64: return sm90::fwd<64>(q, k, v, out, lse, sh, causal, s);
-    case 128: return sm90::fwd<128>(q, k, v, out, lse, sh, causal, s);
+    case 32: return sm90::fwd<32>(q, k, v, out, lse, sh, causal, heads, s);
+    case 64: return sm90::fwd<64>(q, k, v, out, lse, sh, causal, heads, s);
+    case 128: return sm90::fwd<128>(q, k, v, out, lse, sh, causal, heads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1244,143 +1524,6 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dou
 // width class; 0 otherwise)
 int h2_hpb(int dh) { return dh == 32 || dh == 64 || dh == 128 ? 128 / dh : 0; }
 
-// ------------------------------------------------- K5 at any head width
-
-constexpr int kMhRows = 16;   // queries per block
-constexpr int kMhKeys = 64;   // keys per tile
-constexpr int kMhMaxDh = 768;
-constexpr int kMhLds = kMhKeys + 8;   // fp32 row stride of the score tile
-constexpr int kMhLdp = kMhKeys + 16;  // bf16 row stride of the p tile
-
-struct MhShape {
-  int batch, tq, tk, d, n_head, dh, dhp, kv_len;
-  float scale;
-};
-
-// bf16 row stride of the q and k/v tiles and fp32 row stride of the output
-// accumulator: multiples of 32 bytes, so every WMMA pointer is 256-bit aligned
-__host__ __device__ __forceinline__ int mh_ldh(int dhp) { return dhp + 16; }
-__host__ __device__ __forceinline__ int mh_ldo(int dhp) { return dhp + 8; }
-
-__host__ __device__ __forceinline__ size_t mh_smem_bytes(int dhp) {
-  return (size_t)(kMhRows + kMhKeys) * mh_ldh(dhp) * 2 + (size_t)kMhRows * mh_ldo(dhp) * 4 +
-         (size_t)kMhRows * kMhLds * 4 + (size_t)kMhRows * kMhLdp * 2;
-}
-
-// `rows` rows from row0 of one head's slice (dh of every d values) into a
-// shared tile of dhp columns; columns dh.. and rows at or past n_rows are zero
-__device__ __forceinline__ void load_head_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
-                                               int rows, int n_rows, const MhShape& sh) {
-  const int chunks = sh.dhp / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows && c < sh.dh) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * sh.d + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, MhShape sh) {
-  extern __shared__ __align__(32) unsigned char mh_smem[];
-  const int ldh = mh_ldh(sh.dhp), ldo = mh_ldo(sh.dhp);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mh_smem);
-  __nv_bfloat16* kv = qs + kMhRows * ldh;  // the k tile, then the v tile
-  float* os = reinterpret_cast<float*>(kv + kMhKeys * ldh);
-  float* ss = os + kMhRows * ldo;
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ss + kMhRows * kMhLds);
-
-  const int q0 = blockIdx.x * kMhRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const size_t hoff = (size_t)h * sh.dh;
-  const __nv_bfloat16* kb = k + (size_t)b * sh.tk * sh.d + hoff;
-  const __nv_bfloat16* vb = v + (size_t)b * sh.tk * sh.d + hoff;
-
-  load_head_rows(qs, ldh, q + (size_t)b * sh.tq * sh.d + hoff, q0, kMhRows, sh.tq, sh);
-  for (int i = threadIdx.x; i < kMhRows * ldo; i += kThreads) os[i] = 0.f;
-
-  // the softmax: 8 threads per query row (neighbouring lanes), 8 keys each
-  const int row = threadIdx.x / 8, part = threadIdx.x % 8;
-  float m_run = kNegInf, l_run = 0.f;
-
-  const int n_tiles = (sh.kv_len + kMhKeys - 1) / kMhKeys;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kMhKeys;
-    __syncthreads();  // the previous tile's P V is done with the v tile
-    load_head_rows(kv, ldh, kb, k0, kMhKeys, sh.tk, sh);
-    __syncthreads();
-
-    {  // S = Q K^T: warp w takes keys k0 + 16w ..
-      FragC c;
-      wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < sh.dhp; kk += 16) {
-        FragA a;
-        FragBc bk;
-        wmma::load_matrix_sync(a, qs + kk, ldh);
-        wmma::load_matrix_sync(bk, kv + warp * 16 * ldh + kk, ldh);
-        wmma::mma_sync(c, a, bk, c);
-      }
-      wmma::store_matrix_sync(ss + warp * 16, c, kMhLds, wmma::mem_row_major);
-    }
-    __syncthreads();
-    load_head_rows(kv, ldh, vb, k0, kMhKeys, sh.tk, sh);  // the k tile is no longer read
-
-    float s[8];
-    bool valid[8];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      valid[i] = k0 + part * 8 + i < sh.kv_len;
-      s[i] = valid[i] ? ss[row * kMhLds + part * 8 + i] * sh.scale : kNegInf;
-      tile_max = fmaxf(tile_max, s[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-    const float m_new = fmaxf(m_run, tile_max);
-    const float corr = expf(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float p = valid[i] ? expf(s[i] - m_new) : 0.f;
-      psum += p;
-      ps[row * kMhLdp + part * 8 + i] = __float2bfloat16(p);
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    for (int c = part; c < sh.dhp; c += 8) os[row * ldo + c] *= corr;
-    __syncthreads();
-
-    // O += P V: warp w takes the output column tiles w, w + 4, ...
-    for (int nt = warp; nt < sh.dhp / 16; nt += kWarps) {
-      FragC c;
-      wmma::load_matrix_sync(c, os + nt * 16, ldo, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kMhKeys / 16; ++kk) {
-        FragA a;
-        FragBr bv;
-        wmma::load_matrix_sync(a, ps + kk * 16, kMhLdp);
-        wmma::load_matrix_sync(bv, kv + kk * 16 * ldh + nt * 16, ldh);
-        wmma::mma_sync(c, a, bv, c);
-      }
-      wmma::store_matrix_sync(os + nt * 16, c, ldo, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  const int qrow = q0 + row;
-  if (qrow < sh.tq) {  // a row with no valid key (l == 0) writes 0
-    __nv_bfloat16* dst = out + (size_t)b * sh.tq * sh.d + (size_t)qrow * sh.d + hoff;
-    for (int c = part * 2; c < sh.dh; c += 16) {
-      const float o0 = l_run == 0.f ? 0.f : os[row * ldo + c] / l_run;
-      const float o1 = l_run == 0.f ? 0.f : os[row * ldo + c + 1] / l_run;
-      *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(o0, o1);
-    }
-  }
-}
-
 // ------------------------------------ fp32: K3, K5, K7, K6, K8 at dh 32-128
 //
 // fp32 in, fp32 out, fp32-accurate products on the tensor cores in 3xTF32.
@@ -1403,8 +1546,9 @@ flash_mh_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 // big_a big_b; small_a small_b (~2^-22 of the product) is dropped. The
 // bound is then 3x the FLOPs over the 495 TFLOP/s of dense TF32 (165
 // TFLOP/s of fp32-accurate products, 2.5x the FFMA peak); in practice
-// mma.sync runs TF32 well below that peak (`tf32_mma_probe` measures it),
-// so the design keeps mma.sync fed and spends few other instructions:
+// mma.sync runs TF32 well below that peak (a probe of 8 independent
+// products a warp measured it), so the design keeps mma.sync fed and
+// spends few other instructions:
 //   - mma.sync m16n8k8 tf32, fp32 accumulators in registers. wgmma takes
 //     tf32 operands only K-major from shared memory, and V in P V, K in
 //     dS K, and dO and Q in the dk/dv products are MN-major in these
@@ -2142,21 +2286,6 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
   store_rows<kDh>(dv + koff, acc_v, key, sh.tk, sh.d, sh.dh);
 }
 
-// the rate of mma.sync m16n8k8 tf32 on the card, which these kernels run
-// on: `iters` rounds of 8 independent products a warp, 8 warps a CTA; every
-// thread writes its sum, so that no product is dead
-__global__ void __launch_bounds__(256) mma_probe_kernel(float* __restrict__ out, int iters) {
-  const uint32_t a = __float_as_uint(1.f + threadIdx.x * 0x1p-8f) & 0xffffe000u, b = __float_as_uint(0.5f);
-  float d[8][4] = {};
-  for (int it = 0; it < iters; ++it)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) mma_tf32(d[c], a, a, a, a, b, b);
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) sum += d[c][0] + d[c][1] + d[c][2] + d[c][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
-}
-
 // each instance lifts its own shared-memory limit (one record per kernel
 // instance: a record per kernel type would skip a second width's)
 template <int kDh, bool kCausal>
@@ -2246,26 +2375,39 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
 }  // namespace
 
 // K5: natural (B, T, D) layout, non-causal, head width d / n_head any
-// multiple of 8 up to 768 (32, 64 and 128 on the sm90 forward); no logsumexp
+// multiple of 8 up to 768; no logsumexp. The width classes 32, 64 and 128
+// take the sm90 forward over the 3-D maps (K3's), the other widths up to
+// 120 the same kernel at their class over the head maps (route A), and
+// 136-768 the wide forward (route B)
 extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
                                  int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
   const int dh = d / n_head;
-  if (dh == 32 || dh == 64 || dh == 128) {
-    Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
-    return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream);
+  Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
+  if (dh <= 128) return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream, width_class(dh) != dh);
+  return sm90::fwd_wide(q, k, v, out, sh, (cudaStream_t)stream);
+}
+
+// K5's plan at head width dh and tq queries, as `flash_mh_fwd_bf16` takes
+// it (`ops.flash_attention.k5_plan`): plan[0..5] = the route (0: a width
+// class on the 3-D maps, 1: route A, 2: route B), the width class (route B:
+// the slabs), query rows a CTA, keys a tile, stages, shared bytes. Returns
+// cudaErrorInvalidValue for a width no route serves
+extern "C" int flash_mh_plan_bf16(int dh, int tq, void* plan) {
+  int* p = static_cast<int*>(plan);
+  const int cls = width_class(dh);
+  if (cls != 0) {
+    p[0] = cls == dh ? 0 : 1;
+    if (cls == 32) sm90::fwd_plan<32>(tq, p);
+    if (cls == 64) sm90::fwd_plan<64>(tq, p);
+    if (cls == 128) sm90::fwd_plan<128>(tq, p);
+    return 0;
   }
-  if (batch < 1 || tq < 1 || tk < 1 || dh % 8 || dh > kMhMaxDh || kv_len < 1 || kv_len > tk)
-    return (int)cudaErrorInvalidValue;
-  MhShape sh{batch, tq, tk, d, n_head, dh, (dh + 15) / 16 * 16, kv_len, scale};
-  const size_t smem = mh_smem_bytes(sh.dhp);
-  cudaError_t err = cudaFuncSetAttribute(flash_mh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + kMhRows - 1) / kMhRows, n_head, batch);
-  flash_mh_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), sh);
-  return (int)cudaGetLastError();
+  if (dh <= 128 || dh > sm90::kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
+  const sm90::WidePlan w = sm90::wide_plan(dh, tq);
+  const int vals[6] = {2, w.slabs, w.wg * sm90::kBM, w.keys, w.stages, w.smem};
+  for (int i = 0; i < 6; ++i) p[i] = vals[i];
+  return 0;
 }
 
 // K3: natural (B, T, D) layout, non-causal, head width d / n_head 32, 64 or
@@ -2356,13 +2498,6 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const 
                              int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
   return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
-}
-
-// the mma.sync tf32 rate probe: `ctas` CTAs of 256 threads, out holds ctas * 256 floats
-extern "C" int tf32_mma_probe(void* out, int ctas, int iters, void* stream) {
-  if (ctas < 1 || iters < 1) return (int)cudaErrorInvalidValue;
-  f32::mma_probe_kernel<<<ctas, 256, 0, (cudaStream_t)stream>>>(static_cast<float*>(out), iters);
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -55,14 +55,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         # q, k, v, out, batch, tq, tk, d, n_head, kv_len, scale, stream
         "flash_mh_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # dh, tq, out (6 int32): the bf16 K5's plan (`flash_attention.k5_plan`)
+        "flash_mh_plan_bf16": (_I, _I, _P),
         # the same five at fp32 (head widths 32, 64 and 128)
         "flash_h2_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_h2_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_mh_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-        # out (ctas * 256 fp32), ctas, iters, stream: the mma.sync tf32 rate probe
-        "tf32_mma_probe": (_P, _I, _I, _P),
     },
     "decode_attention": {
         # q, cache_k, cache_v, out, layer, n_layer, batch, group, tk, d, n_head,

@@ -30,23 +30,28 @@ count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
 head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
 the JAX package's `h2_eligible`); K7, K7-lse and K8 every multiple of 8
 from 8 to 128 in both, run at the width class `ops.width_class(dh)` with
-the columns past dh zeros; K5 any multiple of 8 up to 768 in bf16 (32, 64
-and 128 on K3's forward), up to 128 in fp32 (at the width class). The h2
-residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
+the columns past dh zeros; K5 any multiple of 8 up to 768 in bf16, on the
+route `k5_plan` gives (K3's forward at 32, 64 and 128 and, over per-head
+tensor maps, at the class of the other widths up to 120; the wide forward,
+128 output columns a CTA, from 136), up to 128 in fp32 (at the width
+class). The h2 residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
 On the card nothing falls back to a plain version or to a kernel of another
 dtype: a shape, width or dtype no kernel serves raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _cuda, check_class_width, count_launch, kernel_dtype, on_card, width_class
+from . import WIDTH_CLASSES, _cuda, check_class_width, count_launch, kernel_dtype, on_card, width_class
 
 _NEG_INF = -1e30
 _MH_MAX_D = 768  # the widest d (and head width) K5 serves
+K5_SMEM_MAX = 232448  # a block's shared memory on the H100 (227 KB)
+_BM = 64  # query rows a consumer warpgroup owns
+_SLAB = 128  # output columns a route-B CTA owns
 
 
 def h2_eligible(tq: int, tk: int, d: int, n_head: int) -> bool:
@@ -68,6 +73,49 @@ def mh_flash_eligible(tq: int, tk: int, d: int, n_head: int, causal: bool) -> bo
         and tq >= 16
         and tk <= 2048
     )
+
+
+class K5Plan(NamedTuple):
+    route: str  # "class" (K3's forward over its 3-D maps), "A" (K3's at the class, head maps) or "B" (wide)
+    width: int  # the width class the forward runs at; route B: the output slabs a head, ceil(dh / 128)
+    rows: int  # query rows a CTA
+    keys: int  # keys a K / V tile
+    stages: int  # K / V stages in the ring
+    smem: int  # shared bytes a CTA, the 1024-byte alignment slack included
+
+
+def _fwd_smem(cls: int, wg: int, stages: int, keys: int) -> int:
+    """sizeof(Smem<cls, wg, stages>) + 1024 in `csrc/flash_attention.cu`:
+    Q, the K and V stages (each 1024-byte aligned), the mbarriers, the whole
+    rounded up to 1024 bytes."""
+    raw = wg * _BM * cls * 2 + 2 * stages * keys * cls * 2 + 8 * (1 + 3 * stages)
+    return -(-raw // 1024) * 1024 + 1024
+
+
+def k5_plan(dh: int, tq: int) -> K5Plan:
+    """The bf16 K5's route at head width dh and tq queries, as
+    `flash_mh_fwd_bf16` takes it (`flash_mh_plan_bf16` in C gives the same).
+    Up to 128: K3's forward at the width class, 64 query rows a CTA where
+    tq <= 64 (2 stages) else 128 (4), keys a tile 64 at class 128 else 128;
+    over the 3-D maps at a class itself, over the head maps below one
+    (route A). From 136 to 768 (route B): the head's Q and K rows in
+    64-column boxes, 128 rows a CTA where they fit in 4 boxes and tq > 64
+    else 64, 64-key tiles up to 6 boxes else 32, and as many stages, up to
+    4, as K5_SMEM_MAX holds beside Q. Raises for any other width."""
+    if dh < 8 or dh > _MH_MAX_D or dh % 8:
+        raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
+                         f"{_MH_MAX_D}, got {dh}")
+    if dh <= WIDTH_CLASSES[-1]:
+        cls = width_class(dh)
+        wg, stages = (1, 2) if tq <= _BM else (2, 4)
+        keys = 64 if cls == 128 else 128
+        return K5Plan("class" if cls == dh else "A", cls, wg * _BM, keys, stages, _fwd_smem(cls, wg, stages, keys))
+    boxes = -(-dh // 64)
+    wg = 2 if boxes <= 4 and tq > _BM else 1
+    keys = 64 if boxes <= 6 else 32
+    q_bytes, stage = wg * _BM * boxes * 128, keys * (boxes + _SLAB // 64) * 128
+    stages = min(4, (K5_SMEM_MAX - 1024 - 8 * (1 + 3 * 4) - q_bytes) // stage)
+    return K5Plan("B", -(-dh // _SLAB), wg * _BM, keys, stages, 1024 + q_bytes + stages * stage + 8 * (1 + 3 * stages))
 
 
 def _kv_len(tk: int, kv_valid_len: Optional[int]) -> int:
@@ -312,9 +360,8 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
         raise ValueError(f"flash_attention_mh kernel takes d split into equal heads, got d={d} n_head={n_head}")
     if sfx == "f32":  # the fp32 kernel serves multiples of 8 up to 128; the bf16 one up to 768
         width_class(d // n_head, "flash_attention_mh fp32")
-    elif (d // n_head) % 8 or d // n_head > _MH_MAX_D:
-        raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
-                         f"{_MH_MAX_D}, got d={d} n_head={n_head}")
+    else:
+        k5_plan(d // n_head, tq)
     out = torch.empty_like(q)
     fn = f"flash_mh_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(

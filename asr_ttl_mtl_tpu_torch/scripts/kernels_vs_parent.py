@@ -1,24 +1,19 @@
-"""The fp32 flash kernels' device times on the card against an earlier checkout's.
+"""The bf16 K5's device times on the card against an earlier checkout's.
 
     python -m asr_ttl_mtl_tpu_torch.scripts.kernels_vs_parent --parent DIR
 
 `DIR` holds an earlier checkout's `asr_ttl_mtl_tpu_torch/csrc`. The parent's
 `flash_attention.cu` is built beside the current one and loaded with the
-same C signatures; the port's wrappers launch from either library. At each
-of `chip_smoke.py` phase 20's shapes, K3, K3-lse, K5, K6, K7, K7-lse and K8
-in fp32 (`flash_h2_fwd_f32`, `flash_mh_fwd_f32`, `flash_h2_bwd_f32`,
-`flash_fwd_f32` causal and not, `flash_bwd_f32`) from both libraries are
-held to their plain version within 2e-5 of its largest output, output by
-output (out, lse, dq, dk, dv), their largest difference from each other is
-printed, and both are timed in turns (parent, change, change, parent):
-device time, one call's share of a CUDA graph of 10 calls.
-
-Then, at the encoder shapes, `scaled_dot_product_attention` in fp32 and its
-backward under `torch.profiler`: the kernels that serve them (the backend
-is in their names) and their device time a call; the card's rate of
-mma.sync m16n8k8 tf32 (`tf32_mma_probe`); last, the current library's fp32
-flash kernels in `cuobjdump -sass`: TF32 HMMA, FFMA and shared-memory load
-instructions, and ptxas's registers and spills. Needs a CUDA device.
+same C signatures; the port's wrappers launch from either library. At
+`chip_smoke.py` phase 24's dh96 encoder ((8, 1536, 768), 8 heads, keys to
+1500) and phase 19's (2, 200, 300) shapes (4 heads of 8 and of 80, 1 of
+768; 2 of 136, 3 of 256, 2 of 384), K5 in bf16 (`flash_mh_fwd_bf16`) from
+both libraries is held to its plain version within 2^-6 of its largest
+output, their largest difference from each other is printed, and both
+are timed in turns (parent, change, change, parent): device time, one
+call's share of a CUDA graph of 10 calls; then SDPA over the valid keys on
+the same views, and a call of each (CUDA events). Last, ptxas's registers
+and spills for the K5 kernels of both builds. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,8 +21,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import re
-import shutil
+import statistics
 import subprocess
 
 import torch
@@ -39,7 +33,7 @@ from .card_timing import card_line, graph_ms
 
 SOURCES = ("flash_attention",)
 FP32_REL = 2e-5  # as chip_smoke.py: a share of the plain version's largest output
-SCALE = 0.125
+BF16_REL = 2.0**-6  # bf16 rounds p and the output at other places (chip_smoke's K5 tolerance)
 
 
 def build_parent(parent: str, names=SOURCES) -> dict:
@@ -97,156 +91,70 @@ def turns(card, label, old, new) -> None:
           f"[{card}]", flush=True)
 
 
-def compare(label, parent_run, change_run, plain_run) -> None:
-    """Both libraries within FP32_REL of the plain version's largest output, output by output."""
+def compare(label, parent_run, change_run, plain_run, rel: float = FP32_REL) -> None:
+    """Both libraries within `rel` of the plain version's largest output, output by output."""
     want = outputs(plain_run())
     got = {who: outputs(run()) for who, run in (("parent", parent_run), ("change", change_run))}
     torch.cuda.synchronize()
     worst = {}
     for who, outs in got.items():
-        worst[who] = max(((o - w).abs().max() / (FP32_REL * w.abs().max())).item() for o, w in zip(outs, want))
+        worst[who] = max(((o.float() - w.float()).abs().max() / (rel * w.float().abs().max())).item()
+                         for o, w in zip(outs, want))
         if worst[who] > 1.0:
             raise AssertionError(f"{label}: the {who}'s kernel is {worst[who]:.3f} x its tolerance from the plain version")
-    apart = max((a - b).abs().max().item() for a, b in zip(got["parent"], got["change"]))
+    apart = max((a.float() - b.float()).abs().max().item() for a, b in zip(got["parent"], got["change"]))
     print(f"[{label}] worst err / tol: parent {worst['parent']:.4f}, change {worst['change']:.4f}; "
           f"max |parent - change| {apart:.3e}", flush=True)
 
 
+def call_ms(fn, iters: int = 20) -> float:
+    """Median of per-call CUDA-event timings (chip_smoke's `timed_ms`)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def cases(dev):
-    """(label, kernel call, plain call) at phase 20's shapes."""
-    gen = torch.Generator(device=dev).manual_seed(6)
+    """(label, K5 call, plain call, SDPA call) at phase 24's dh96 encoder and phase 19's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(22)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
     out = []
-    for b, tq, tk, kv, what in [(32, 1536, 1536, 1500, "encoder, the fp32 window path"),
-                                (16, 48, 1500, None, "cross, evaluate's token bucket")]:
-        q, k, v = rnd(b, tq, 512), rnd(b, tk, 512), rnd(b, tk, 512)
-        kw = dict(n_head=8, kv_valid_len=kv, scale=SCALE)
-        out.append((f"K3 {what} ({b}, {tq}, 512) x {tk}, keys to {kv}",
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_h2(q, k, v, **kw),
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_h2_plain(q, k, v, **kw)))
-    for b, tq, tk, kv, what in [(16, 1536, 1536, 1500, "encoder, the fp32 train step"),
-                                (16, 48, 1500, None, "cross, the train step's token bucket")]:
-        q, k, v, g = rnd(b, tq, 512), rnd(b, tk, 512), rnd(b, tk, 512), rnd(b, tq, 512)
-        kw = dict(n_head=8, kv_valid_len=kv, scale=SCALE)
-        pout, plse = FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)
-        delta = FA.h2_delta(g, pout, 8)
-        shape = f"({b}, {tq}, 512) x {tk}, keys to {kv}"
-        out.append((f"K3-lse {what} {shape}",
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_h2(q, k, v, return_lse=True, **kw),
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_h2_plain(q, k, v, return_lse=True, **kw)))
-        out.append((f"K6 {what} {shape}",
-                    lambda q=q, k=k, v=v, g=g, l=plse, dl=delta, kw=kw: FA.flash_attention_h2_bwd(q, k, v, l, dl, g,
-                                                                                                 **kw),
-                    lambda q=q, k=k, v=v, g=g, l=plse, dl=delta, kw=kw: FA.flash_attention_h2_bwd_plain(
-                        q, k, v, l, dl, g, **kw)))
-    for b, kv in [(8, 1500), (1, 1500)]:
-        q, k, v = rnd(b, 1536, 576), rnd(b, 1536, 576), rnd(b, 1536, 576)
-        kw = dict(n_head=9, kv_valid_len=kv, scale=SCALE)
-        out.append((f"K5 d=576 encoder ({b}, 1536, 576), 9 heads, keys to {kv}",
+    for b, tq, tk, dh, n_head, kv, what in [(8, 1536, 1536, 96, 8, 1500, "phase 24's dh96 encoder"),
+                                            (2, 200, 300, 8, 4, 270, "phase 19"), (2, 200, 300, 80, 4, 270, "phase 19"),
+                                            (2, 200, 300, 768, 1, 270, "phase 19"),
+                                            (2, 200, 300, 136, 2, 270, "phase 19"),
+                                            (2, 200, 300, 256, 3, 270, "phase 19"),
+                                            (2, 200, 300, 384, 2, 270, "phase 19")]:
+        d = dh * n_head
+        q, k, v = rnd(b, tq, d), rnd(b, tk, d), rnd(b, tk, d)
+        kw = dict(n_head=n_head, kv_valid_len=kv, scale=dh**-0.5)
+        qh, kh, vh = (x[:, :t].reshape(b, t, n_head, dh).transpose(1, 2) for x, t in ((q, tq), (k, kv), (v, kv)))
+        plan = FA.k5_plan(dh, tq)
+        out.append((f"K5 {what} ({b}, {tq}, {d}) x {tk}, {n_head} heads of {dh}, keys to {kv}, route {plan.route}",
                     lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_mh(q, k, v, **kw),
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_mh_plain(q, k, v, **kw)))
-    for bh, tq, tk, causal, kv, what in [(128, 48, 48, True, None, "the token bucket, causal"),
-                                         (8, 32, 256, True, None, "the CLI's prompted prefill, causal"),
-                                         (72, 1536, 1536, False, 1500, "the d=576 encoder, keys to 1500")]:
-        q, k, v, g = rnd(bh, tq, 64), rnd(bh, tk, 64), rnd(bh, tk, 64), rnd(bh, tq, 64)
-        kw = dict(causal=causal, kv_valid_len=kv, scale=SCALE)
-        shape = f"({bh}, {tq}, 64) x {tk}"
-        out.append((f"K7 {what} {shape}",
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(q, k, v, **kw),
-                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_plain(q, k, v, **kw)))
-        if tq == tk:
-            pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
-            out.append((f"K7-lse {what} {shape}",
-                        lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(q, k, v, return_lse=True, **kw),
-                        lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_plain(q, k, v, return_lse=True, **kw)))
-            out.append((f"K8 {what} {shape}",
-                        lambda q=q, k=k, v=v, g=g, o=pout, l=plse, kw=kw: FA.flash_attention_bwd(q, k, v, o, l, g,
-                                                                                                  **kw),
-                        lambda q=q, k=k, v=v, g=g, o=pout, l=plse, kw=kw: FA.flash_attention_bwd_plain(
-                            q, k, v, o, l, g, **kw)))
+                    lambda q=q, k=k, v=v, kw=kw: FA.flash_attention_mh_plain(q, k, v, **kw),
+                    lambda qh=qh, kh=kh, vh=vh, s=dh**-0.5: F.scaled_dot_product_attention(qh, kh, vh, scale=s)))
     return out
 
 
-def sdpa_kernels(card, dev) -> None:
-    """Which kernels serve SDPA's fp32 forward and backward at the encoder
-    shapes, and their device time a call (torch.profiler, 5 calls)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for what, b, n_head, dh, tq, n_keys in [("K3 / K6 encoder", 16, 8, 64, 1536, 1500),
-                                            ("K7 / K8 d=576 encoder", 8, 9, 64, 1536, 1500)]:
-        q = torch.randn((b, n_head, tq, dh), generator=gen, device=dev).requires_grad_(True)
-        k, v = (torch.randn((b, n_head, n_keys, dh), generator=gen, device=dev).requires_grad_(True) for _ in "kv")
-        g = torch.randn((b, n_head, tq, dh), generator=gen, device=dev)
-        for phase in ("forward", "backward"):
-            out = F.scaled_dot_product_attention(q, k, v, scale=SCALE)
-
-            def call():
-                if phase == "forward":
-                    return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
-                return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
-
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    call()
-                torch.cuda.synchronize()
-            for ev in sorted(prof.key_averages(), key=lambda e: -e.device_time_total):
-                if ev.device_time_total > 0:
-                    print(f"[sdpa fp32 {what} ({b}, {n_head}, {tq}, {dh}) x {n_keys} {phase}] {ev.key}: "
-                          f"{ev.count // 5} a call, {ev.device_time_total / 5e3:.4f} ms a call (device) [{card}]",
-                          flush=True)
-
-
-def mma_rate(card) -> None:
-    """mma.sync m16n8k8 tf32's rate on the card (`tf32_mma_probe`: two CTAs
-    of 8 warps an SM, 8 independent products a warp), timed by CUDA events
-    at 20000 and 10000 rounds and differenced, so that the launch cancels;
-    the best of three."""
-    lib = _cuda.lib("flash_attention")
-    ctas = 2 * torch.cuda.get_device_properties(0).multi_processor_count
-    out = torch.empty(ctas * 256, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run_ms(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        _cuda.check("flash_attention", "tf32_mma_probe", lib.tf32_mma_probe(out.data_ptr(), ctas, iters, stream))
-        start.record()
-        _cuda.check("flash_attention", "tf32_mma_probe", lib.tf32_mma_probe(out.data_ptr(), ctas, iters, stream))
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    ms = min(run_ms(20000) - run_ms(10000) for _ in range(3))
-    flops = ctas * 8 * 10000 * 8 * (2 * 16 * 8 * 8)
-    print(f"[mma.sync m16n8k8 tf32] {flops / ms / 1e9:.1f} TFLOP/s ({ctas} CTAs of 8 warps, 8 independent "
-          f"products a warp; dense TF32 peak 495) [{card}]", flush=True)
-
-
-def sass_counts() -> None:
-    """TF32 HMMA, FFMA and LDS instructions of each fp32 flash kernel in the
-    current library, and ptxas's registers and spills for them."""
-    lib = _cuda._lib_path("flash_attention")
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_cuda.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
-    for block in sass.split("Function : ")[1:]:
-        name = block.split("\n", 1)[0].strip()
-        if "3f32" not in name:  # namespace f32
-            continue
-        lines = block.splitlines()
-        hmma = sum("HMMA" in x and "TF32" in x for x in lines)
-        print(f"[sass] {name}: {hmma} TF32 HMMA, {sum(' FFMA' in x for x in lines)} FFMA, "
-              f"{sum(re.search(r' LDS', x) is not None for x in lines)} LDS", flush=True)
+def ptxas_lines(log_text: str, keys) -> None:
+    """ptxas's registers and spills of the kernels whose mangled names hold one of `keys`."""
     entry = "?"
-    for line in _cuda.ptxas_report("flash_attention").splitlines():
+    for line in log_text.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line.strip()
-        elif "3f32" in entry and ("registers" in line or "spill" in line):
+        elif any(k in entry for k in keys) and ("registers" in line or "spill" in line):
             print(f"[ptxas] {entry}: {line.strip()}", flush=True)
 
 
@@ -256,18 +164,21 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernels_vs_parent needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true fp32
     card = card_line()
     print(card, flush=True)
     parent = build_parent(args.parent)["flash_attention"]
     dev = torch.device("cuda")
-    for label, run, plain in cases(dev):
+    for label, run, plain, sdpa in cases(dev):
         old = through(parent, "flash_attention", run)
-        compare(label, old, run, plain)
+        compare(label, old, run, plain, BF16_REL)
         turns(card, label, old, run)
-    sdpa_kernels(card, dev)
-    mma_rate(card)
-    sass_counts()
+        print(f"[{label}] a call: change {call_ms(run):.4f}, parent {call_ms(old):.4f}; SDPA over the valid keys "
+              f"{call_ms(sdpa):.4f}, device {graph_ms(sdpa):.4f} ms [{card}]", flush=True)
+    # the K5 kernels: route A (the forward's head-map instances, template flag
+    # kHeads, `ELb0ELb1E`), route B (`flash_fwd_wide`) and the parent's WMMA kernel
+    ptxas_lines(_cuda.ptxas_report("flash_attention"), ("ELb0ELb1E", "flash_fwd_wide"))
+    with open(os.path.join(_cuda.BUILD_DIR, "parent_flash_attention.so.log")) as f:
+        ptxas_lines(f.read(), ("flash_mh_kernel",))
 
 
 if __name__ == "__main__":

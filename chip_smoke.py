@@ -110,7 +110,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      with these dims as `debug_dims` (non-causal K7 with lse and K8 over
      split heads), counts reset and read around each;
  19. K5 against its plain version at (32, 1536, 576), at the CLI's shapes
-     and at head widths 8, 80 and 768, and K7 with lse and K8 at the shapes
+     and at head widths 8 and 80 (route A: K3's forward at the class over
+     head maps) and 768, 136, 256 and 384 (route B: the wide forward in
+     slabs of 128 output columns), each row with its `k5_plan`, the route
+     B rows bitwise on a second launch, and K7 with lse and K8 at the shapes
      the d=576 train steps gave them (the encoder's (72, 1536, 64) is their
      row of the `kernels` line). Every K7 and K8 row (phases 8, 12, 19)
      gives the same bits on a second launch and prints its device time.
@@ -320,6 +323,16 @@ def heads(x, n_head: int, n_keys=None):
         x = x[:, :n_keys]
     b, t, d = x.shape
     return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def k5_route(dh: int, tq: int) -> str:
+    """The bf16 K5's plan at a head width, for its rows' cases."""
+    from asr_ttl_mtl_tpu_torch.ops.flash_attention import k5_plan
+
+    p = k5_plan(dh, tq)
+    route = {"class": f"K3's forward at {p.width}", "A": f"route A at class {p.width}",
+             "B": f"route B in {p.width} slabs"}[p.route]
+    return f"{route} ({p.rows} rows a CTA, {p.keys}-key tiles, {p.stages} stages, {p.smem} B shared)"
 
 
 def make_recorder(card: str, rows: list):
@@ -2199,8 +2212,10 @@ def run_mh_training(card: str, workdir: str):
 def check_mh_kernels(card: str, cli_shapes, train_shapes):
     """Phase 19: K5 against its plain version at the path's encoder shape
     (32, 1536, 576), 9 heads, keys valid to 1500; at the shapes phase 18's
-    CLI run gave it; and at head widths 8, 80 and 768 (one head) with an
-    unaligned Tq and a masked key tail. Tolerance as K3's: p and the output
+    CLI run gave it; and at head widths 8, 80 (route A), 768 (one head),
+    136, 256 and 384 (route B) with an unaligned Tq and a masked key tail,
+    the route B rows bitwise on a second launch. Each case names its
+    `k5_plan`. Tolerance as K3's: p and the output
     round to bf16 at other places, 2^-6 of the largest output. Then K7 with
     lse and K8, non-causal, at the shapes phase 18's train steps gave them
     (as phase 8 holds them), each bitwise on a second launch; the encoder's
@@ -2226,7 +2241,8 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
     cases = [(N_WINDOWS, 1536, 1536, 576, 9, 1500, "encoder", True)]
     cases += [(q[0], q[1], k[1], q[2], 9, n, "CLI", False) for q, k, n, _ in sorted(cli_shapes)]
     cases += [(2, 200, 300, 8 * 4, 4, 270, "dh 8", False), (2, 200, 300, 80 * 4, 4, 270, "dh 80", False),
-              (2, 200, 300, 768, 1, 270, "dh 768", False)]
+              (2, 200, 300, 768, 1, 270, "dh 768", False), (2, 200, 300, 136 * 2, 2, 270, "dh 136", False),
+              (2, 200, 300, 256 * 3, 3, 270, "dh 256", False), (2, 200, 300, 384 * 2, 2, 270, "dh 384", False)]
     for b, tq, tk, d, n_head, kv_len, what, main in cases:
         q, k, v = rnd(b, tq, d), rnd(b, tk, d), rnd(b, tk, d)
         dh = d // n_head
@@ -2235,11 +2251,12 @@ def check_mh_kernels(card: str, cli_shapes, train_shapes):
         want = FA.flash_attention_mh_plain(q, k, v, **kw)
         qh, kh, vh = heads(q, n_head), heads(k, n_head, n_keys), heads(v, n_head, n_keys)
         record("flash_attention_mh", f"{what}: q ({b}, {tq}, {d}), k ({b}, {tk}, {d}) bf16, {n_head} heads of {dh}"
-               f", kv_valid_len {kv_len}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+               f", kv_valid_len {kv_len}, {k5_route(dh, tq)}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
                FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
                lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
                bound=attn_bound(b * tq * n_keys * d, (2 * q.numel() + 2 * b * n_keys * d) * 2),
-               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh**-0.5), main=main)
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh**-0.5), main=main,
+               repeat=dh > 128)
         del q, k, v, want, qh, kh, vh
 
     # K7 with lse and K8, non-causal over split heads (B x 9, T, 64)
@@ -2916,8 +2933,9 @@ def check_head_width_kernels(card: str, geometry: str, fp32: bool = False):
     kw = dict(n_head=k5_heads, kv_valid_len=270, scale=scale)
     want = FA.flash_attention_mh_plain(q, k, v, **kw)
     qh, kh, vh = heads(q, k5_heads), heads(k, k5_heads, 270), heads(v, k5_heads, 270)
+    route = "" if fp32 else f", {k5_route(dh, 200)}"
     record("flash_attention_mh" + sfx, f"{tag}: q (2, 200, {k5_d}), k (2, 300, {k5_d}) {dt}, {k5_heads} heads of "
-           f"{dh}, kv_valid_len 270", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
+           f"{dh}, kv_valid_len 270{route}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346",
            FA.flash_attention_mh(q, k, v, **kw), want, rel_tol(want),
            lambda: FA.flash_attention_mh(q, k, v, **kw), lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
            **bounds(2 * 200 * 270 * k5_d, (2 * q.numel() + 2 * 2 * 270 * k5_d) * esz),
@@ -4025,7 +4043,8 @@ def check_any_width_path_kernels(card: str, geometry: str, fp32: bool = False):
         kw = dict(n_head=n_head, kv_valid_len=1500, scale=scale)
         want = FA.flash_attention_mh_plain(q, k, v, **kw)
         qh, kh, vh = heads(q, n_head), heads(k, n_head, 1500), heads(v, n_head, 1500)
-        record("flash_attention_mh" + sfx, f"{tag}: encoder q,k,v ({b}, 1536, {d}) {dt}, kv_valid_len 1500", src,
+        route = "" if fp32 else f", {k5_route(dh, 1536)}"
+        record("flash_attention_mh" + sfx, f"{tag}: encoder q,k,v ({b}, 1536, {d}) {dt}, kv_valid_len 1500{route}", src,
                "asr_ttl_mtl_tpu/ops/flash_attention.py:346", FA.flash_attention_mh(q, k, v, **kw), want,
                rel * want.float().abs().max().item(), lambda: FA.flash_attention_mh(q, k, v, **kw),
                lambda: FA.flash_attention_mh_plain(q, k, v, **kw),

@@ -1,7 +1,8 @@
 """K5, the per-head natural-layout attention, and the attention dispatch at
 the shapes `h2_eligible` rejects: the port's plain K5 against the Pallas
-kernel (interpret mode on the CPU), `mh_flash_eligible` against the JAX
-rule, the route `qkv_attention` picks against the JAX one, and the encoder,
+kernel (interpret mode on the CPU) up to one head of 768, `k5_plan` at
+every head width K5 serves, `mh_flash_eligible` against the JAX rule, the
+route `qkv_attention` picks against the JAX one, and the encoder,
 decoder and a train step at a 2-layer d=192, 3-head geometry (head width
 64, 192 % 128 != 0) against the JAX package."""
 
@@ -36,7 +37,10 @@ def _inputs(b, tq, tk, d, seed):
 @pytest.mark.parametrize(
     "dh,n_head,tq,tk,kv_valid_len,dtype",
     [(8, 2, 37, 100, 90, "f32"), (64, 3, 130, 200, 150, "f32"), (80, 2, 20, 130, None, "f32"),
-     (64, 3, 48, 96, 80, "bf16"), (80, 2, 37, 100, 90, "bf16"), (8, 2, 16, 40, None, "bf16")],
+     (64, 3, 48, 96, 80, "bf16"), (80, 2, 37, 100, 90, "bf16"), (8, 2, 16, 40, None, "bf16"),
+     # route B's widths: slabs of 128 output columns, the last one ragged
+     (136, 2, 37, 100, 90, "f32"), (256, 3, 20, 64, 50, "f32"), (768, 1, 40, 130, 101, "f32"),
+     (136, 2, 37, 100, 90, "bf16"), (256, 3, 20, 64, 50, "bf16"), (768, 1, 40, 130, 101, "bf16")],
 )
 def test_k5_plain_matches_pallas(dh, n_head, tq, tk, kv_valid_len, dtype):
     """fp32 at 2e-5; bf16 at 3e-2, the JAX test's own bounds
@@ -57,6 +61,35 @@ def test_k5_plain_matches_pallas(dh, n_head, tq, tk, kv_valid_len, dtype):
     got = PF.flash_attention_mh(tq_, tk_, tv_, **kw)
     assert got.dtype == tv_.dtype and tuple(got.shape) == (2, tq, d)
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dh", range(8, 769, 8))
+def test_k5_plan_at_every_width(dh):
+    """k5_plan at each head width K5 serves (d = dh x n_head <= 768): the
+    width classes on K3's 3-D maps, the other widths up to 120 on route A
+    at their class, 136-768 on route B with slabs x 128 >= dh; every plan
+    within a block's 227 KB and at least 2 stages, route B's bytes at least
+    its Q tile and stages of K tiles and V slabs."""
+    for tq in (16, 64, 65, 200, 1536):
+        plan = PF.k5_plan(dh, tq)
+        assert plan.rows == (64 if tq <= 64 or (dh > 128 and -(-dh // 64) > 4) else 128), plan
+        assert 2 <= plan.stages <= 4 and plan.smem <= 227 * 1024, plan
+        if dh in (32, 64, 128):
+            assert plan.route == "class" and plan.width == dh, plan
+        elif dh <= 128:
+            assert plan.route == "A" and plan.width == min(c for c in (32, 64, 128) if c >= dh), plan
+            assert plan.keys == (64 if plan.width == 128 else 128), plan
+        else:
+            boxes = -(-dh // 64)
+            assert plan.route == "B" and plan.width * 128 >= dh > (plan.width - 1) * 128, plan
+            assert plan.keys == (64 if boxes <= 6 else 32), plan
+            assert plan.smem >= plan.rows * boxes * 128 + plan.stages * plan.keys * (boxes + 2) * 128, plan
+
+
+@pytest.mark.parametrize("dh", [0, 4, 20, 132, 770, 776, 1024])
+def test_k5_plan_refuses_other_widths(dh):
+    with pytest.raises(ValueError, match="multiple of 8 up to 768"):
+        PF.k5_plan(dh, 200)
 
 
 def test_mh_flash_eligible_same_rule():

@@ -3,8 +3,9 @@ and K2's shared-memory plan at each; the plain K7 with lse, K8 (through
 `jax.vjp` of `flash_attention_vjp`), K2, K1 and K5 against the JAX
 functions in interpret mode at dh 24, 40 and 80; and the slice at d 160, 2
 heads of 80: `DecodingTask.run` greedy with float and int8 KV and beam 3,
-and one train step, against the JAX package on the same carried weights.
-The kernels at these widths on the card are in
+and one train step, against the JAX package on the same carried weights;
+and at d 384, 2 heads of 192 (K5's route B on the card), greedy with float
+KV. The kernels at these widths on the card are in
 test_torch_head_width_card.py."""
 
 import jax
@@ -42,6 +43,8 @@ REL = 1e-4  # the loss and gradient norms (as test_torch_head_width_train.py)
 WIDTHS = [24, 40, 80]  # classes 32, 64 and 128, each below its class
 # the slice: 2 heads of 80 (class 128), 2 + 2 layers, fp32
 D80 = dict(n_audio_state=160, n_audio_head=2, n_text_state=160, n_text_head=2)
+# 2 heads of 192 (d 384: no h2 shape, K5 above 128), 2 + 2 layers, fp32
+D192 = dict(n_audio_state=384, n_audio_head=2, n_text_state=384, n_text_head=2)
 
 
 def _t(a):
@@ -171,6 +174,29 @@ def test_decoding_task_matches_jax_at_dh80(window80, opts):
         JW.set_decode_kernel("auto")
     tres = PDec.DecodingTask(tmodel, PDec.DecodingOptions(**opts)).run(torch.from_numpy(mel.copy()))
     assert len(jres) == len(tres) == 2
+    for j, t in zip(jres, tres):
+        assert t.tokens == j.tokens and t.text == j.text
+        assert abs(t.avg_logprob - j.avg_logprob) <= LP_TOL
+        assert abs(t.no_speech_prob - j.no_speech_prob) <= LP_TOL
+
+
+def test_decoding_task_matches_jax_at_dh192(monkeypatch):
+    """2 heads of 192, greedy with float KV: the encoder runs K5 (its plain
+    version here) at a width above 128, and gives the JAX package's tokens
+    and text, avg_logprob and no_speech_prob within 1e-4."""
+    jmodel, tmodel = model_pair(seed=4, **D192)
+    mel = np.asarray(JA.log_mel_spectrogram(waveforms(2, 2 * 96, seed=9), use_pallas=False))
+    k5 = []
+    real = PF.flash_attention_mh
+    monkeypatch.setattr(PF, "flash_attention_mh", lambda *a, **kw: (k5.append(kw["n_head"]), real(*a, **kw))[1])
+    opts = dict(BENCH, kv_quant=False)
+    JW.set_decode_kernel("interpret")
+    try:
+        jres = JTask(jmodel, JOptions(**opts)).run(jnp.asarray(mel))
+    finally:
+        JW.set_decode_kernel("auto")
+    tres = PDec.DecodingTask(tmodel, PDec.DecodingOptions(**opts)).run(torch.from_numpy(mel.copy()))
+    assert len(jres) == len(tres) == 2 and k5 and set(k5) == {2}
     for j, t in zip(jres, tres):
         assert t.tokens == j.tokens and t.text == j.text
         assert abs(t.avg_logprob - j.avg_logprob) <= LP_TOL

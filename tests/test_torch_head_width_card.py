@@ -5,7 +5,9 @@ and 128: K3 with and without lse, K5 (on K3's forward), K6, K7 with and
 without lse and K8 over both tile plans, causal, q_offset and a ragged
 valid length; K2 and K1 over cross and self caches at groups 1, 5, 16 and
 20. At widths below their class (8, 40, 80, 96, 120): K7, K7-lse, K8, the
-fp32 K5, K2 and K1. A width no kernel serves raises on the card. Marked
+fp32 K5, K2 and K1. The bf16 K5 on both of its routes (8-120 on K3's
+forward over head maps, 136-768 on the wide forward) and its C plan
+against `k5_plan`. A width no kernel serves raises on the card. Marked
 `cuda`: they skip where there is no card (`python -m pytest
 tests/test_torch_*.py -q -m cuda` on the machine with one). This file
 imports no JAX: the plain versions are the reference, and their own tests
@@ -118,20 +120,51 @@ def test_k7_and_k8_on_card(card, dh, bh, tq, tk, causal, q_offset, kv_len, dtype
     _same_bits(lambda: PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw), grads)
 
 
+# K5: the class widths in both dtypes; in bf16 the widths route A (8-120)
+# and route B (136-768) serve, several heads each where d allows
+K5_CASES = [(dh, n_head, dtype) for dh, n_head in [(32, 3), (128, 1), (32, 16)] for dtype in DTYPES] + [
+    (dh, n_head, torch.bfloat16) for dh, n_head in [(8, 4), (24, 5), (40, 3), (80, 9), (96, 8), (120, 3), (136, 2),
+                                                    (256, 3), (768, 1)]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("dh,n_head", [(32, 3), (128, 1), (32, 16)])
+@pytest.mark.parametrize("dh,n_head,dtype", K5_CASES)
 def test_k5_on_card_takes_the_forward(card, dh, n_head, dtype):
-    """K5 at dh 32 and 128 runs K3's forward over any number of heads (d
-    need not be a multiple of 128), in bf16 and in fp32."""
+    """K5 runs K3's forward at dh 32 and 128 over any number of heads (d
+    need not be a multiple of 128), in bf16 and in fp32; in bf16 at the
+    other widths up to 120 at their class over head maps, and at 136-768 on
+    the wide forward. Both tile plans (tq 200 and 40), keys valid short of
+    tk and all valid."""
     d = dh * n_head
-    q, k, v = _rnd(card, 3, (2, 200, d), (2, 300, d), (2, 300, d), dtype=dtype)
-    kw = dict(n_head=n_head, kv_valid_len=270, scale=dh**-0.5)
     reset_launch_counts()
-    got = PF.flash_attention_mh(q, k, v, **kw)
-    _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), lambda w: _share(dtype) * w.float().abs().max().item())
-    _same_bits(lambda: PF.flash_attention_mh(q, k, v, **kw), got)
-    assert LAUNCHES["flash_attention_mh" if dtype == torch.bfloat16 else "flash_attention_mh_f32"] == 2
+    for b, tq, tk, kv_len in ((2, 200, 300, 270), (3, 40, 129, None)):
+        q, k, v = _rnd(card, 3 + dh, (b, tq, d), (b, tk, d), (b, tk, d), dtype=dtype)
+        kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
+        got = PF.flash_attention_mh(q, k, v, **kw)
+        _close(got, PF.flash_attention_mh_plain(q, k, v, **kw), lambda w: _share(dtype) * w.float().abs().max().item())
+        _same_bits(lambda: PF.flash_attention_mh(q, k, v, **kw), got)
+    assert LAUNCHES["flash_attention_mh" if dtype == torch.bfloat16 else "flash_attention_mh_f32"] == 4
+
+
+@pytest.mark.cuda
+def test_k5_plan_matches_the_c_dispatch(card):
+    """`flash_mh_plan_bf16`, the plan the bf16 K5's C dispatch takes, equals
+    `k5_plan` at every multiple of 8 up to 768 and both tile plans; widths
+    no route serves give an error there too."""
+    import ctypes
+
+    from asr_ttl_mtl_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib("flash_attention")
+    out = (ctypes.c_int * 6)()
+    routes = {"class": 0, "A": 1, "B": 2}
+    for dh in range(8, 769, 8):
+        for tq in (1, 64, 65, 1536):
+            assert lib.flash_mh_plan_bf16(dh, tq, ctypes.addressof(out)) == 0
+            plan = PF.k5_plan(dh, tq)
+            assert tuple(out) == (routes[plan.route], *plan[1:]), (dh, tq)
+    for dh in (0, 4, 20, 132, 776):
+        assert lib.flash_mh_plan_bf16(dh, 64, ctypes.addressof(out)) != 0
 
 
 @pytest.mark.cuda
