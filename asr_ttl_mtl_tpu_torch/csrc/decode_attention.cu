@@ -1,9 +1,9 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
 // (L, B, Tk, D) KV caches, for Hopper (sm_90a), at every head width dh = D /
-// n_head that is a multiple of 8 from 8 to 128, with bf16 or fp32 q. Both
-// kernels are built for the width classes 32, 64 and 128 (a template
+// n_head that is a multiple of 8 from 8 to 256, with bf16 or fp32 q. Both
+// kernels are built for the width classes 32, 64, 128 and 256 (a template
 // parameter, as is q's type); a width dh runs in the smallest class kDh >=
-// dh (`width_class`). A CTA reads only a head's dh real columns from device
+// dh (`decode_class`). A CTA reads only a head's dh real columns from device
 // memory (the bytes stay dh's: both kernels are bound by them) and fills
 // columns [dh, kDh) of its staged rows and of q with zeros, which add
 // nothing to q.k; the output columns they give are never written. Head h
@@ -11,7 +11,9 @@
 // (dh * sizeof(T) is a multiple of 16), K1's int8 rows take 16-byte copies
 // where dh is a multiple of 16 and 8-byte ones elsewhere (h dh then lies 8
 // bytes off a 16-byte boundary for odd h). The compute is the class's: 80
-// columns run at 128's tensor-core work.
+// columns run at 128's tensor-core work, 136 at 256's. At the class of 256
+// the staged tiles are twice as wide, so fewer are in flight (`K2Cfg`,
+// `K1Cfg`), and K2's fp32 scores keep q in registers 128 columns at a time.
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
@@ -56,13 +58,14 @@
 //     (dh / 16 steps for the scores; P.V's dh / 8 column blocks round the
 //     4 warps) with the group's rows padded to 16 (rows beyond 16 in
 //     further passes over the tile already staged) and fp32 accumulation;
-//     the ring holds 4 tiles of 128 keys, 2 at dh 128; a bf16 x bf16
+//     the ring holds 4 tiles of 128 keys, 2 at 128 and 256; a bf16 x bf16
 //     product is exact in fp32, as in the plain version's fp32 einsum. On
 //     the CUDA cores the FMAs of a group of 5 to 16 rows took longer than
 //     the bytes (group 16 over 32 windows took 0.21-0.32 ms on an H100).
 //     fp32 caches (the fp16=False option): the CUDA cores, a thread per
 //     (row, key) with the row's dh q values in registers (128 of them at
-//     dh 128) and four FMA chains, and for P.V 8 threads a row, each over
+//     dh 128; at 256 the row in two halves, the second's sums added to the
+//     first's score) and four FMA chains, and for P.V 8 threads a row, each over
 //     dh / 8 columns (the 16-byte chunks c, c + 8, ... of the row, so that
 //     a row's 8 threads read 128 contiguous bytes at a time) and a slice
 //     of the keys; exact fp32 throughout, which tf32 mma would not be.
@@ -103,7 +106,7 @@
 //     tile is transposed in shared memory (byte permutes, 4 keys x 4
 //     columns a thread) so that four keys of a column form one word of B.
 //     The output's dh / 8 column blocks go round the 8 warps (`K1Cfg`): one
-//     a warp at dh 64, two at dh 128, and at dh 32 two warps to a block,
+//     a warp at dh 64, two at dh 128, four at 256, and at dh 32 two warps to a block,
 //     each over alternate 32-key steps, their exact int32 sums added once a
 //     key block.
 //   - The softmax of a row is one warp's: block max, sum, p max and the p
@@ -146,14 +149,20 @@ constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
 constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// kDh: the width class, 32, 64 or 128 (a head width dh <= kDh runs in it)
+// kDh: the width class, 32, 64, 128 or 256 (a head width dh <= kDh runs in it)
 template <typename T, int kDh>
 struct K2Cfg {
   static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
   static constexpr int kRowBytes = kDh * (int)sizeof(T) + 16;             // a staged key row, padded off the banks
-  // tiles in flight: ~70 KB of bf16 rows at every width, 2 of fp32
-  static constexpr int kRing = sizeof(T) == 2 ? (kDh == 128 ? 2 : 4) : 2;
-  static constexpr int kRingBytes = kRing * kK2Tile * kRowBytes;
+  // keys a staged tile holds: kK2Tile, but 64 of fp32 rows at 256 (1 KB a row)
+  static constexpr int kTile = sizeof(T) == 4 && kDh == 256 ? 64 : kK2Tile;
+  // tiles in flight: ~70 KB of bf16 rows at 32-128 (2 tiles at 128), 2 of
+  // fp32, and 2 of ~67 KB at 256 in either dtype
+  static constexpr int kRing = sizeof(T) == 2 ? (kDh >= 128 ? 2 : 4) : 2;
+  static constexpr int kRingBytes = kRing * kTile * kRowBytes;
+  // the q values a thread of the fp32 scores keeps in registers: the whole
+  // row up to 128, else 128 at a time
+  static constexpr int kQRegs = kDh < 128 ? kDh : 128;
 };
 
 __host__ __device__ __forceinline__ int k2_rows(int group) { return group < kK2RowChunk ? group : kK2RowChunk; }
@@ -251,27 +260,34 @@ template <typename T, int kDh>
 __device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
                                            int j0, int G, float scale) {
   using C = K2Cfg<T, kDh>;
+  constexpr int kQ = C::kQRegs;
   const int RC = k2_rows(G), slot = threadIdx.x / RC, n_slots = kK2Threads / RC;
   for (int g0 = 0; g0 < G; g0 += RC) {
     const int gg = g0 + threadIdx.x % RC;
     if (slot >= n_slots || gg >= G) continue;
-    float qr[kDh];
+    // the row's columns kQ at a time (once up to 128): a part's score adds
+    // to the parts before it, which this thread wrote
+    for (int q0 = 0; q0 < kDh; q0 += kQ) {
+      float qr[kQ];
 #pragma unroll
-    for (int c = 0; c < kDh; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(qs + gg * kDh + c);
-      qr[c] = x.x, qr[c + 1] = x.y, qr[c + 2] = x.z, qr[c + 3] = x.w;
-    }
-    for (int j = slot; j < nk; j += n_slots) {
-      const unsigned char* kr = tile + j * C::kRowBytes;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains keep the FMA pipe busy
-#pragma unroll
-      for (int c0 = 0; c0 < kDh; c0 += C::kVec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kr + c0 * sizeof(T));
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int c = 0; c < C::kVec; ++c) acc[c % 4] = fmaf(qr[c0 + c], to_f(e[c]), acc[c % 4]);
+      for (int c = 0; c < kQ; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(qs + gg * kDh + q0 + c);
+        qr[c] = x.x, qr[c + 1] = x.y, qr[c + 2] = x.z, qr[c + 3] = x.w;
       }
-      sc[gg * cs + j0 + j] = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * scale;
+      for (int j = slot; j < nk; j += n_slots) {
+        const unsigned char* kr = tile + j * C::kRowBytes + q0 * sizeof(T);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains keep the FMA pipe busy
+#pragma unroll
+        for (int c0 = 0; c0 < kQ; c0 += C::kVec) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(kr + c0 * sizeof(T));
+          const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int c = 0; c < C::kVec; ++c) acc[c % 4] = fmaf(qr[c0 + c], to_f(e[c]), acc[c % 4]);
+        }
+        const float s = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * scale;
+        float* dst = sc + gg * cs + j0 + j;
+        *dst = q0 == 0 ? s : *dst + s;
+      }
     }
   }
 }
@@ -382,7 +398,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   float* red = lg + G;
 
   const int k_lo = min(n_valid, rank * chunk), n_c = min(n_valid, k_lo + chunk) - k_lo;
-  const int n_tiles = (n_c + kK2Tile - 1) / kK2Tile;
+  const int n_tiles = (n_c + C::kTile - 1) / C::kTile;
   const size_t row = (size_t)layer * batch + b;
   const T* kb = cache_k + (row * tk + k_lo) * d + (size_t)h * dh;
   const T* vb = cache_v + (row * tk + k_lo) * d + (size_t)h * dh;
@@ -394,8 +410,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   auto load_item = [&](int i) {
     if (i < 2 * n_tiles) {
       const T* src = i < n_tiles ? kb : vb;
-      const int j0 = (i < n_tiles ? i : i - n_tiles) * kK2Tile, nk = min(kK2Tile, n_c - j0);
-      unsigned char* dst = ring + (size_t)(i % C::kRing) * kK2Tile * C::kRowBytes;
+      const int j0 = (i < n_tiles ? i : i - n_tiles) * C::kTile, nk = min(C::kTile, n_c - j0);
+      unsigned char* dst = ring + (size_t)(i % C::kRing) * C::kTile * C::kRowBytes;
       constexpr int kPerRow = kDh / C::kVec;
       for (int e = tid; e < nk * per_row; e += kK2Threads) {
         const int r = e / per_row, c = e % per_row;
@@ -411,7 +427,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   };
   // the columns past dh of every staged row are zeros: no copy writes them
   const int pad = kDh / C::kVec - per_row;
-  for (int e = tid; e < C::kRing * kK2Tile * pad; e += kK2Threads)
+  for (int e = tid; e < C::kRing * C::kTile * pad; e += kK2Threads)
     *reinterpret_cast<uint4*>(ring + (size_t)(e / pad) * C::kRowBytes + (per_row + e % pad) * 16) =
         make_uint4(0, 0, 0, 0);
 #pragma unroll
@@ -426,12 +442,12 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   for (int t = 0; t < n_tiles; ++t, ++item) {
     cp_async_wait<C::kRing - 1>();
     __syncthreads();
-    const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
-    const int nk = min(kK2Tile, n_c - t * kK2Tile);
+    const unsigned char* tile = ring + (size_t)(item % C::kRing) * C::kTile * C::kRowBytes;
+    const int nk = min(C::kTile, n_c - t * C::kTile);
     if constexpr (kMma)
-      scores_mma<kDh>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+      scores_mma<kDh>(sc, cs, qs, tile, nk, t * C::kTile, G, scale);
     else
-      scores_fma<T, kDh>(sc, cs, qs, tile, nk, t * kK2Tile, G, scale);
+      scores_fma<T, kDh>(sc, cs, qs, tile, nk, t * C::kTile, G, scale);
     __syncthreads();  // the slot is free again
     load_item(item + C::kRing);
   }
@@ -496,12 +512,12 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   for (int t = 0; t < n_tiles; ++t, ++item) {
     cp_async_wait<C::kRing - 1>();
     __syncthreads();  // also orders the p rounding above before the first tile
-    const unsigned char* tile = ring + (size_t)(item % C::kRing) * kK2Tile * C::kRowBytes;
-    const int nk = min(kK2Tile, n_c - t * kK2Tile);
+    const unsigned char* tile = ring + (size_t)(item % C::kRing) * C::kTile * C::kRowBytes;
+    const int nk = min(C::kTile, n_c - t * C::kTile);
     if constexpr (kMma)
-      pv_mma<kDh>(part, sc, cs, tile, nk, t * kK2Tile, G);
+      pv_mma<kDh>(part, sc, cs, tile, nk, t * C::kTile, G);
     else
-      pv_fma<T, kDh>(part, sc, cs, tile, nk, t * kK2Tile, G);
+      pv_fma<T, kDh>(part, sc, cs, tile, nk, t * C::kTile, G);
     __syncthreads();
     load_item(item + C::kRing);
   }
@@ -531,18 +547,21 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
 constexpr int kK1Threads = 256;
 constexpr int kK1Warps = kK1Threads / 32;
 constexpr int kK1Tile = 128;                 // keys a staged tile holds
-constexpr int kK1Ring = 4;                   // tiles in flight
 constexpr int kK1Rows = 16;                  // query rows a CTA takes: the M of an mma
 constexpr int kK1MaxSplit = 8;               // CTAs a cluster: the portable limit
 constexpr int kK1VtRow = kK1Tile + 16;       // 144 bytes: a column of the transposed V tile
 
-// K1 at width class kDh (32, 64 or 128): the staged rows and how the 8 warps
-// share the P.V products. The output's kDh / 8 column blocks go round the
-// warps, kColBlocks a warp; at dh 32 its 4 blocks take 4 warps, so two
-// warps share each block (kKSplit 2) and take alternate 32-key steps, and
-// their int32 sums, exact in any order, meet after the block's last tile.
+// K1 at width class kDh (32, 64, 128 or 256): the staged rows and how the
+// 8 warps share the P.V products. The output's kDh / 8 column blocks go
+// round the warps, kColBlocks a warp (4 at 256); at dh 32 its 4 blocks take
+// 4 warps, so two warps share each block (kKSplit 2) and take alternate
+// 32-key steps, and their int32 sums, exact in any order, meet after the
+// block's last tile.
 template <int kDh>
 struct K1Cfg {
+  // tiles in flight: 4, but 2 of the 272-byte rows at 256, so that the
+  // scores of a block of 1024 keys still fit beside them
+  static constexpr int kRing = kDh == 256 ? 2 : 4;
   static constexpr int kRow = kDh + 16;                           // a staged int8 row, off the banks
   static constexpr int kSlot = kK1Tile * kRow + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
   static constexpr int kColBlocks = kDh / 8 > kK1Warps ? kDh / 8 / kK1Warps : 1;  // 8-column blocks a warp owns
@@ -552,13 +571,14 @@ struct K1Cfg {
 
 // shared memory of a K1 CTA: the ring, the transposed V tile, q in int8,
 // the scores of a block (fp32), its int8 p (16 rows, padded), the block's
-// v scales and the row statistics (m, l, correction, p step, q step)
+// v scales and the row statistics (m, l, correction, p step, q step); the
+// ring holds the partial outputs at the end (`ops.decode_attention.k1_smem_bytes`)
 __host__ __device__ __forceinline__ int k1_score_stride(int tk_blk) { return tk_blk + 4; }
 __host__ __device__ __forceinline__ int k1_p_stride(int tk_blk) { return tk_blk + 16; }
 template <int kDh>
 size_t k1_smem_bytes(int rows, int tk_blk) {
   using C = K1Cfg<kDh>;
-  return (size_t)kK1Ring * C::kSlot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * C::kRow +
+  return (size_t)C::kRing * C::kSlot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * C::kRow +
          4 * (size_t)rows * k1_score_stride(tk_blk) + (size_t)kK1Rows * k1_p_stride(tk_blk) + 4 * (size_t)tk_blk +
          4 * 5 * kK1Rows;
 }
@@ -615,7 +635,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   const int scs = k1_score_stride(tk_blk), pis = k1_p_stride(tk_blk);
 
   unsigned char* ring = smem;
-  int8_t* vt = reinterpret_cast<int8_t*>(ring + kK1Ring * kK1Slot);
+  int8_t* vt = reinterpret_cast<int8_t*>(ring + C::kRing * kK1Slot);
   int8_t* qi = vt + kDh * kK1VtRow;
   float* sc = reinterpret_cast<float*>(qi + kK1Rows * kK1Row);
   int8_t* pi = reinterpret_cast<int8_t*>(sc + RC * scs);
@@ -625,7 +645,9 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   float* corr_s = l_s + kK1Rows;
   float* sp_s = corr_s + kK1Rows;
   float* qsc = sp_s + kK1Rows;
-  float* part = sc;  // the partial outputs (RC x dh) once the scores are done
+  // the partial outputs (RC x kDh) once every tile is done: the ring holds
+  // them at every class (at 256 they outgrow a block of 128 keys' scores)
+  float* part = reinterpret_cast<float*>(ring);
 
   const int n_blocks = (n_valid + tk_blk - 1) / tk_blk;
   const int blk_lo = rank * n_blocks / split, blk_hi = (rank + 1) * n_blocks / split;
@@ -644,7 +666,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   const float* vsg = v_scale + row * tk;
 
   // the loads in order: per block its K tiles (with the k and v scales),
-  // then its V tiles; item i goes to ring slot i % kK1Ring, and every item
+  // then its V tiles; item i goes to ring slot i % C::kRing, and every item
   // commits one group (empty past the end) so that wait_group counts stay
   // fixed. Keys at or past n_valid are never read.
   auto item_at = [&](int i, int& j0, int& nk, bool& is_v) {
@@ -660,7 +682,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       int j0, nk;
       bool is_v;
       item_at(i, j0, nk, is_v);
-      unsigned char* dst = ring + (size_t)(i % kK1Ring) * kK1Slot;
+      unsigned char* dst = ring + (size_t)(i % C::kRing) * kK1Slot;
       const int8_t* src = (is_v ? vb : kb) + (size_t)j0 * d;
       if (wide)
         for (int e = tid; e < nk * per_row; e += kK1Threads)
@@ -682,13 +704,13 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   };
   // the columns past dh of every staged row are zeros: no copy writes them
   const int pad = (kDh - dh) / 8;
-  for (int e = tid; e < kK1Ring * kK1Tile * pad; e += kK1Threads) {
+  for (int e = tid; e < C::kRing * kK1Tile * pad; e += kK1Threads) {
     const int r = e / pad;
     *reinterpret_cast<uint2*>(ring + (size_t)(r / kK1Tile) * kK1Slot + (r % kK1Tile) * kK1Row + dh + 8 * (e % pad)) =
         make_uint2(0, 0);
   }
 #pragma unroll
-  for (int i = 0; i < kK1Ring; ++i) load_item(i);
+  for (int i = 0; i < C::kRing; ++i) load_item(i);
 
   // quantize q per (row, head): abs-max step, round half to even (columns
   // past dh are zero)
@@ -728,9 +750,9 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     const int nt = (n_k + kK1Tile - 1) / kK1Tile;
     // ---- scores s = (s32 x q step x scale) x k scale of the block's keys, all rows
     for (int t = 0; t < nt; ++t, ++item) {
-      cp_async_wait<kK1Ring - 1>();
+      cp_async_wait<C::kRing - 1>();
       __syncthreads();
-      const unsigned char* slot = ring + (size_t)(item % kK1Ring) * kK1Slot;
+      const unsigned char* slot = ring + (size_t)(item % C::kRing) * kK1Slot;
       const float* ks_t = reinterpret_cast<const float*>(slot + kK1Tile * kK1Row);
       const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
       for (int n8 = warp; n8 * 8 < nk; n8 += kK1Warps) {
@@ -746,7 +768,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       }
       for (int j = tid; j < nk; j += kK1Threads) vsb[j0 + j] = ks_t[kK1Tile + j];
       __syncthreads();  // the slot is free again
-      load_item(item + kK1Ring);
+      load_item(item + C::kRing);
     }
 
     // ---- the block's softmax and p quantization, a warp per row (the V
@@ -785,9 +807,9 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     // that four keys of a column form one word of an mma's B
     int o[kK1ColBlocks][4] = {};
     for (int t = 0; t < nt; ++t, ++item) {
-      cp_async_wait<kK1Ring - 1>();
+      cp_async_wait<C::kRing - 1>();
       __syncthreads();  // also orders the softmax above before the first tile
-      const unsigned char* slot = ring + (size_t)(item % kK1Ring) * kK1Slot;
+      const unsigned char* slot = ring + (size_t)(item % C::kRing) * kK1Slot;
       const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
       for (int e = tid; e < ((nk + 3) / 4) * (kDh / 4); e += kK1Threads) {
         const int k4 = e / (kDh / 4), c4 = e % (kDh / 4);
@@ -819,7 +841,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         }
       }
       __syncthreads();
-      load_item(item + kK1Ring);
+      load_item(item + C::kRing);
     }
     if constexpr (C::kKSplit > 1) {
       // the later key parts hand their int32 sums to the first through the
@@ -898,9 +920,12 @@ cudaError_t raise_smem_limit(size_t bytes) {
   return err;
 }
 
-// the width class a head width runs in (`ops.width_class`): the smallest of
-// 32, 64 and 128 that is >= dh, for a multiple of 8 from 8 to 128; else 0
-int width_class(int dh) { return dh < 8 || dh > 128 || dh % 8 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+// the width class a head width runs in (`ops.decode_class`): the smallest
+// of 32, 64, 128 and 256 that is >= dh, for a multiple of 8 from 8 to 256;
+// else 0
+int decode_class(int dh) {
+  return dh < 8 || dh > 256 || dh % 8 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
 
 // the head width of a call: d / n_head, or 0 where n_head does not divide d
 int head_width(int d, int n_head) { return n_head > 0 && d % n_head == 0 ? d / n_head : 0; }
@@ -909,7 +934,7 @@ template <typename T, int kDh>
 int launch_decode(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
                   int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
   const int dh = head_width(d, n_head);
-  if (width_class(dh) != kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
+  if (decode_class(dh) != kDh || tk < 1 || layer < 0 || layer >= n_layer || batch < 1 || group < 1 || split < 1 ||
       split > kK2MaxSplit)
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
@@ -942,11 +967,12 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
                      int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
                      int valid_upto, int split, float scale, void* stream) {
   const int dh = head_width(d, n_head);
-  if (width_class(dh) != kDh || group < 1 || tk_blk < kK1Tile || tk_blk > kMaxBlock || tk_blk % kK1Tile != 0 ||
+  if (decode_class(dh) != kDh || group < 1 || tk_blk < kK1Tile || tk_blk > kMaxBlock || tk_blk % kK1Tile != 0 ||
       tk % tk_blk != 0 || layer < 0 || layer >= n_layer || batch < 1 || split < 1 || split > kK1MaxSplit)
     return (int)cudaErrorInvalidValue;
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
   const size_t smem = k1_smem_bytes<kDh>(min(group, kK1Rows), tk_blk);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t err = raise_smem_limit<decode_attn_i8_kernel<TQ, kDh>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -973,7 +999,7 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
 template <typename T>
 int decode_by_class(const void* q, const void* k, const void* v, void* out, int layer, int n_layer, int batch,
                     int group, int tk, int d, int n_head, int valid_upto, int split, float scale, void* stream) {
-  switch (width_class(head_width(d, n_head))) {
+  switch (decode_class(head_width(d, n_head))) {
     case 32:
       return launch_decode<T, 32>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
                                   stream);
@@ -982,6 +1008,9 @@ int decode_by_class(const void* q, const void* k, const void* v, void* out, int 
                                   stream);
     case 128:
       return launch_decode<T, 128>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                   scale, stream);
+    case 256:
+      return launch_decode<T, 256>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
                                    scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -993,7 +1022,7 @@ template <typename TQ>
 int decode_i8_by_class(const void* q, const void* k, const void* ks, const void* v, const void* vs, void* out,
                        int layer, int n_layer, int batch, int group, int tk, int d, int n_head, int tk_blk,
                        int valid_upto, int split, float scale, void* stream) {
-  switch (width_class(head_width(d, n_head))) {
+  switch (decode_class(head_width(d, n_head))) {
     case 32:
       return launch_decode_i8<TQ, 32>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
                                       valid_upto, split, scale, stream);
@@ -1003,6 +1032,9 @@ int decode_i8_by_class(const void* q, const void* k, const void* ks, const void*
     case 128:
       return launch_decode_i8<TQ, 128>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
                                        valid_upto, split, scale, stream);
+    case 256:
+      return launch_decode_i8<TQ, 256>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                       valid_upto, split, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1011,7 +1043,7 @@ int decode_i8_by_class(const void* q, const void* k, const void* ks, const void*
 }  // namespace
 
 // `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`); a head width d /
-// n_head that is a multiple of 8 from 8 to 128 (d = dh * n_head)
+// n_head that is a multiple of 8 from 8 to 256 (d = dh * n_head)
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                 int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                 float scale, void* stream) {
@@ -1028,7 +1060,7 @@ extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void
 }
 
 // `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at a head
-// width that is a multiple of 8 from 8 to 128
+// width that is a multiple of 8 from 8 to 256
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                    int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {

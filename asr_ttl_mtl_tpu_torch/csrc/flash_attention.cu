@@ -4,18 +4,21 @@
 // (BH, T, dh), causal / q_offset / kv_len, optional logsumexp), and the
 // FlashAttention-2 backward K6 (of K3) and K8 (of K7), bf16 in, fp32
 // accumulate; and the same functions in fp32, fp32-accurate on the tensor
-// cores in 3xTF32 (namespace f32, its own note below). Every kernel is
-// built for the width classes 32, 64 and 128 (a template parameter). K3
-// and K6 take those widths alone, as the JAX package's h2 kernels do; K7,
-// K7-lse, K8 and the fp32 K5 take every multiple of 8 from 8 to 128 in the
-// smallest class at or above it (`width_class`; Shape::dh is the true
-// width): the columns past dh load as zeros (TMA fills a box past the
-// tensor's dh columns with them; the fp32 copies are predicated on the
-// column), add nothing to q k^T, and give output columns that are never
-// written. The compute is the class's (80 columns at 128's work); the
-// bytes read and written are dh's. The bf16 K5 takes any multiple of 8 up
-// to 768: K3's forward at its class up to 128 (over per-head tensor maps
-// below a class: route A), the wide forward from 136 (route B).
+// cores in 3xTF32 (namespace f32, its own note below). The kernels up to
+// a head width of 128 are built for the width classes 32, 64 and 128 (a
+// template parameter). K3 and K6 take those widths alone, as the JAX
+// package's h2 kernels do; K7, K7-lse, K8 and the fp32 K5 take every
+// multiple of 8 from 8 to 128 in the smallest class at or above it
+// (`width_class`; Shape::dh is the true width): the columns past dh load
+// as zeros (TMA fills a box past the tensor's dh columns with them; the
+// fp32 copies are predicated on the column), add nothing to q k^T, and
+// give output columns that are never written. The compute is the class's
+// (80 columns at 128's work); the bytes read and written are dh's. The bf16
+// K5 takes any multiple of 8 up to 768: K3's forward at its class up to 128
+// (over per-head tensor maps below a class: route A), the wide forward
+// from 136 (route B). K7 and K7-lse take 136-768 on the wide forward of
+// their dtype (bf16: route B's kernel; fp32: `f32::fwd_wide_kernel`, which
+// the fp32 K5 takes there too); K8 stops at 128.
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -101,6 +104,15 @@ int width_class(int dh) { return dh < 8 || dh > 128 || dh % 8 ? 0 : dh <= 32 ? 3
 bool bad_shape(const Shape& sh, int kDh) {
   return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh ||
          width_class(sh.dh) != kDh || sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
+}
+
+constexpr int kWideMaxDh = 768;  // the widest head the wide forwards serve
+
+// a shape the wide forwards of either dtype take: a head width that is a
+// multiple of 8 from 136 to 768, residuals (BH, Tq, 1)
+bool bad_wide_shape(const Shape& sh) {
+  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh || sh.dh % 8 ||
+         sh.dh <= 128 || sh.dh > kWideMaxDh || sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb != 1;
 }
 
 // ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
@@ -1260,13 +1272,15 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
                       : run_dkv<kDh, 2, 4, kCausal, kHpb>(q, k, v, dout, lse, delta, dk, dv, sh, s);
 }
 
-// ---------------------------------- K5 at head widths 136-768: route B
+// ------------------------ K5, K7 and K7-lse at head widths 136-768: route B
 //
-// Serves `flash_mh_fwd_bf16` at a head width above 128 (a multiple of 8 up
-// to 768, so at most 5 heads: d <= 768). The output of 64 rows at dh 768
-// is 192 KB of fp32, which no warpgroup's registers hold, so a CTA owns one
-// slab of up to kSlab output columns of its (query rows, head, batch row),
-// and the grid has ceil(dh / kSlab) slabs a head:
+// Serves `flash_mh_fwd_bf16` (K5: natural layout, non-causal, no lse) and
+// `flash_fwd_bf16` (K7: (BH, T, dh) as BH batch rows of one head, causal or
+// not, any q_offset and kv_len, with and without the logsumexp) at a head
+// width above 128 (a multiple of 8 up to 768). The output of 64 rows at dh
+// 768 is 192 KB of fp32, which no warpgroup's registers hold, so a CTA owns
+// one slab of up to kSlab output columns of its (query rows, head, batch
+// row), and the grid has ceil(dh / kSlab) slabs a head:
 //   - The Q tile (64 or 128 rows x the head's columns, in 64-column boxes
 //     of the 128-byte swizzle) is loaded once; K tiles (kN keys x the
 //     head's columns) and V slabs (kN keys x kSlab columns from the slab's
@@ -1283,15 +1297,21 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
 //     l for the slab's columns below dh.
 //   - Each slab computes S again: ceil(dh / 128) products Q K^T and one P V
 //     where the bound counts one and one (3.5x the bound's products at dh
-//     768, 1.5x at 256).
+//     768, 1.5x at 256). Every slab computes the same m and l, so slab 0
+//     alone writes the logsumexp.
+//   - Causal (a template parameter) as in K3's forward: the walk stops at
+//     the tile that holds the diagonal of the CTA's last live query, and a
+//     tile that reaches past a warp's first row's limit is masked per row
+//     (key >= kv_len or key > q_offset + query). Non-causal, the tile that
+//     holds kv_len is masked.
 //   - The plan (`wide_plan`, mirrored by `ops.flash_attention.k5_plan`):
 //     two consumer warpgroups (128 rows) where the head fits in 4 boxes
-//     (dh <= 256) and tq > 64, else one; 64-key tiles up to 6 boxes (dh <=
-//     384), else 32; as many stages, up to 4, as 227 KB holds (2 at dh
-//     768: Q 96 KB and two stages of 48 KB of K and 8 KB of V).
+//     (dh <= 256) and tq > 64, else one (the decoder's prefill, tq 16-64);
+//     64-key tiles up to 6 boxes (dh <= 384), else 32; as many stages, up
+//     to 4, as 227 KB holds (2 at dh 768: Q 96 KB and two stages of 48 KB
+//     of K and 8 KB of V).
 
 constexpr int kSlab = 128;           // output columns a CTA owns
-constexpr int kWideMaxDh = 768;      // the widest head K5 serves
 constexpr int kSmemMax = 232448;     // a block's shared memory on the H100 (227 KB)
 
 struct WidePlan {
@@ -1317,11 +1337,11 @@ inline WidePlan wide_plan(int dh, int tq) {
   return p;
 }
 
-template <int kWG, int kN>
+template <int kWG, int kN, bool kCausal>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, Shape sh,
-                           int boxes, int stages) {
+                           const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, Shape sh, int boxes, int stages) {
   constexpr int kRows = kWG * kBM;
   constexpr int kQBox = kRows * 128, kKBox = kN * 128;  // bytes of a 64-column box of the Q and K / V tiles
   extern __shared__ unsigned char smem_raw[];
@@ -1338,7 +1358,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   const int n_slab = (sh.dh + kSlab - 1) / kSlab;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_tiles = (sh.kv_len + kN - 1) / kN;
+  const int n_tiles = key_tiles<kCausal, kN>(sh, q0, q0 + kRows);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -1376,7 +1396,8 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   // of every 8; S of tile t and P V of tile t - 1 on the tensor cores together
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
   const int row0 = q0 + wg * kBM + wq * 16;  // the warp's first row
-  const int lim[2] = {sh.kv_len, sh.kv_len};
+  const int lim[2] = {key_limit<kCausal>(sh, row0 + g), key_limit<kCausal>(sh, row0 + g + 8)};
+  const int warp_lim = key_limit<kCausal>(sh, row0);
   const float sl2 = sh.scale * kLog2e;
   float o[kSlab / 2], sc[kN / 2], corr[2];
   uint32_t pa[kN / 16][4];
@@ -1413,7 +1434,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   start_s(0);
   wg_wait<0>();
   reg_fence(sc);
-  softmax_tile(sc, m_run, l_run, corr, 0, lim, sh.kv_len, t4, sl2);
+  softmax_tile(sc, m_run, l_run, corr, 0, lim, warp_lim, t4, sl2);
   pack_p(sc, pa);
   for (int t = 1; t < n_tiles; ++t) {
     wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
@@ -1421,7 +1442,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     start_pv(t - 1);
     wg_wait<1>();  // S(t) is done; P V of t - 1 may still run
     reg_fence(sc);
-    softmax_tile(sc, m_run, l_run, corr, t * kN, lim, sh.kv_len, t4, sl2);
+    softmax_tile(sc, m_run, l_run, corr, t * kN, lim, warp_lim, t4, sl2);
     wg_wait<0>();
     reg_fence(o);
     mbar_arrive(&empty[(t - 1) % stages]);
@@ -1446,11 +1467,14 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
       if (c0 + 8 * j < sh.dh)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // a row with no valid key writes 0, and lse -1e30
+    if (lse != nullptr && c0 == 0 && t4 == 0)
+      lse[res_index(sh, h, b, qrow)] = l_run[r] == 0.f ? kNegInf : m_run[r] * kLn2 + logf(l_run[r]);
   }
 }
 
-template <int kWG, int kN>
-int run_wide(const void* q, const void* k, const void* v, void* out, const Shape& sh, const WidePlan& p,
+template <int kWG, int kN, bool kCausal>
+int run_wide(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, const WidePlan& p,
              cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -1459,24 +1483,32 @@ int run_wide(const void* q, const void* k, const void* v, void* out, const Shape
       !encode_heads<128>(enc, &tm_v, v, sh, sh.tk, kN))
     return (int)cudaErrorInvalidValue;
   static bool lifted[64] = {};  // to the most any plan takes, once
-  const cudaError_t err = lift_smem(flash_fwd_wide_sm90_kernel<kWG, kN>, kSmemMax, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_wide_sm90_kernel<kWG, kN, kCausal>, kSmemMax, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head * p.slabs, sh.batch);
-  flash_fwd_wide_sm90_kernel<kWG, kN><<<grid, kWG * 128 + 32, p.smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), sh, p.boxes, p.stages);
+  flash_fwd_wide_sm90_kernel<kWG, kN, kCausal><<<grid, kWG * 128 + 32, p.smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh, p.boxes, p.stages);
   return (int)cudaGetLastError();
 }
 
-// K5 at a head width from 136 to 768 (route B)
-int fwd_wide(const void* q, const void* k, const void* v, void* out, const Shape& sh, cudaStream_t s) {
-  if (sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh || sh.dh % 8 ||
-      sh.dh <= 128 || sh.dh > kWideMaxDh || sh.kv_len < 1 || sh.kv_len > sh.tk)
-    return (int)cudaErrorInvalidValue;
+template <bool kCausal>
+int run_wide_plan(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
+                  const WidePlan& p, cudaStream_t s) {
+  if (p.wg == 2) return run_wide<2, 64, kCausal>(q, k, v, out, lse, sh, p, s);
+  return p.keys == 64 ? run_wide<1, 64, kCausal>(q, k, v, out, lse, sh, p, s)
+                      : run_wide<1, 32, kCausal>(q, k, v, out, lse, sh, p, s);
+}
+
+// the wide forward at a head width from 136 to 768: K5 (route B; natural
+// layout, no lse) and K7 (batch = BH, one head; causal, lse), residuals
+// through `res_index`
+int fwd_wide(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
+             cudaStream_t s) {
+  if (bad_wide_shape(sh)) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const WidePlan p = wide_plan(sh.dh, sh.tq);
-  if (p.wg == 2) return run_wide<2, 64>(q, k, v, out, sh, p, s);
-  return p.keys == 64 ? run_wide<1, 64>(q, k, v, out, sh, p, s) : run_wide<1, 32>(q, k, v, out, sh, p, s);
+  return causal ? run_wide_plan<true>(q, k, v, out, lse, sh, p, s) : run_wide_plan<false>(q, k, v, out, lse, sh, p, s);
 }
 
 }  // namespace sm90
@@ -2010,15 +2042,16 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kDh / 
   }
 }
 
-// the forward's online softmax over one part's scores s (keys key0 + 8n + 2t
-// (+1) of rows row, row + 8, in log2 units after sl2): p replaces s, and m,
-// l and o move to the part; kMask applies the limits lim
-template <int kDh, bool kMask>
-__device__ __forceinline__ void softmax_part(float (&s)[kFwdPart / 8][4], float (&m)[2], float (&l)[2],
-                                             float (&o)[kDh / 8][4], int key0, const int (&lim)[2], float sl2) {
+// the forward's online softmax over one part's scores s (kS n8 tiles: keys
+// key0 + 8n + 2t (+1) of rows row, row + 8, in log2 units after sl2): p
+// replaces s, and m, l and o (kO n8 tiles of output columns) move to the
+// part; kMask applies the limits lim
+template <bool kMask, int kS, int kO>
+__device__ __forceinline__ void softmax_part(float (&s)[kS][4], float (&m)[2], float (&l)[2], float (&o)[kO][4],
+                                             int key0, const int (&lim)[2], float sl2) {
   float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < kFwdPart / 8; ++n)
+  for (int n = 0; n < kS; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[n][e] = !kMask || key0 + 8 * n + (e & 1) < lim[e >> 1] ? s[n][e] * sl2 : kNegInf;
@@ -2030,10 +2063,10 @@ __device__ __forceinline__ void softmax_part(float (&s)[kFwdPart / 8][4], float 
     m[r] = m_new;
     l[r] *= corr;
 #pragma unroll
-    for (int n = 0; n < kDh / 8; ++n) o[n][2 * r] *= corr, o[n][2 * r + 1] *= corr;
+    for (int n = 0; n < kO; ++n) o[n][2 * r] *= corr, o[n][2 * r + 1] *= corr;
   }
 #pragma unroll
-  for (int n = 0; n < kFwdPart / 8; ++n)
+  for (int n = 0; n < kS; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool in = !kMask || key0 + 8 * n + (e & 1) < lim[e >> 1];
@@ -2090,9 +2123,9 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
       float s[kFwdPart / 8][4];
       scores<kDh>(s, qa, ksp + part * kFwdPart * kSplitF, L);
       if (key0 + kFwdPart <= warp_lim)
-        softmax_part<kDh, false>(s, m, l, o, key0 + 2 * t, lim, sl2);
+        softmax_part<false>(s, m, l, o, key0 + 2 * t, lim, sl2);
       else
-        softmax_part<kDh, true>(s, m, l, o, key0 + 2 * t, lim, sl2);
+        softmax_part<true>(s, m, l, o, key0 + 2 * t, lim, sl2);
 #pragma unroll
       for (int j = 0; j < kFwdPart / 8; j += 2)
         mma_rows16<kDh>(o, s[j], s[j + 1], vsp + (part * kFwdPart + 8 * j) * kSplitF, L);
@@ -2286,6 +2319,192 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const f
   store_rows<kDh>(dv + koff, acc_v, key, sh.tk, sh.d, sh.dh);
 }
 
+// ---- the fp32 wide forward: K5, K7 and K7-lse at head widths 136-768
+//
+// Serves `flash_mh_fwd_f32` (natural layout, head h at column h dh, no lse)
+// and `flash_fwd_f32` ((BH, T, dh) as BH batch rows of one head: causal or
+// not, any q_offset, with and without the logsumexp) above 128: one kernel
+// over `Shape`'s addressing, causal a template parameter (and the rows a
+// CTA, below). What bounds it: the products, as the kernels above. What
+// does not fit: Q of 64 rows at dh 768 is 192 KB of fp32, and a warp's
+// output of 16 rows x 768 would take 384 registers a thread. So:
+//   - A CTA owns kSlab = 128 output columns of a head (the grid has
+//     ceil(dh / 128) slabs a head, as the bf16 route B; O 64 registers a
+//     thread) and 16 query rows a warp: 64 rows (4 warps) where Q and two
+//     K / V stages fit in 227 KB (dh <= 544), else 32 (2 warps) (`wide_cfg`,
+//     mirrored by `ops.flash_attention.f32_wide_plan`). Each slab computes S
+//     again: ceil(dh / 128) products Q K^T where the bound counts one.
+//   - Q lies raw in shared memory for the whole walk, its rows dh rounded up
+//     to 32 plus 8 floats apart (`stride`): a float2 A-fragment load's
+//     half-warp, rows g .. g + 3 at columns 2t, meets 16 distinct bank
+//     pairs. K tiles of kWideKeys = 16 keys (rows `stride` apart, read as B
+//     along their rows the same way) and V slabs of 16 keys x 128 columns
+//     (rows of 132 floats: a B fragment's rows 2t and 2t + 1 at column g
+//     meet 32 banks) stream through two stages by 16-byte cp.async, rows
+//     past tk and columns past dh zero-filled; the next tile's copy overlaps
+//     this tile's products.
+//   - Every operand fragment is split into (big, small) as it is read, in
+//     registers: split tiles would double Q's and K's bytes.
+//   - 3xTF32 on mma.sync m16n8k8 as above. A tile's 16 keys are one P V
+//     accumulation into a zeroed accumulator (the truncation rule), and a
+//     score's correction passes go into their own accumulator. P V skips
+//     the n8 tiles of a slab past dh.
+//   - The masks, the causal walk and the online softmax are `fwd_kernel`'s;
+//     p and O stay in registers; slab 0 writes the logsumexp.
+using sm90::kSlab;                  // output columns a CTA owns
+constexpr int kWideKeys = 16;       // keys a K / V tile: one P V accumulation
+constexpr int kWideVF = kSlab + 4;  // floats of a staged V slab row
+
+struct WideCfg {
+  int rows;    // query rows a CTA, 16 a warp
+  int stride;  // floats of a staged Q or K row
+  int slabs;   // output slabs a head
+  int smem;    // dynamic shared bytes
+};
+
+inline WideCfg wide_cfg(int dh) {
+  WideCfg c;
+  c.stride = (dh + 31) / 32 * 32 + 8;
+  c.slabs = (dh + kSlab - 1) / kSlab;
+  const int stages = 2 * kWideKeys * (c.stride + kWideVF) * 4;
+  c.rows = 64 * c.stride * 4 + stages <= sm90::kSmemMax ? 64 : 32;
+  c.smem = c.rows * c.stride * 4 + stages;
+  return c;
+}
+
+template <int kRows, bool kCausal>
+__global__ void __launch_bounds__(kRows * 2, 1)
+fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ out, float* __restrict__ lse, Shape sh, int stride) {
+  constexpr int kThr = kRows * 2;  // a warp a 16 rows
+  constexpr int kOut = kSlab / 8;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* ks = qs + kRows * stride;          // two stages of kWideKeys rows
+  float* vs = ks + 2 * kWideKeys * stride;  // two stages of kWideKeys x kWideVF
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab;
+  const int b = blockIdx.z, warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + (size_t)h * sh.dh;
+  const size_t koff = (size_t)b * sh.tk * sh.d + (size_t)h * sh.dh;
+  const int n_tiles = key_tiles<kCausal, kWideKeys>(sh, q0, q0 + kRows);
+  const int chunks = sh.dh / 4;                  // 16-byte chunks of a Q or K row
+  const int vcols = min(kSlab, sh.dh - c0);  // the slab's real columns, a multiple of 8
+
+  for (int i = threadIdx.x; i < kRows * chunks; i += kThr) {  // Q, zero past tq
+    const int r = i / chunks, c = i % chunks;
+    const bool in = q0 + r < sh.tq;
+    cp_async16(qs + r * stride + 4 * c, q + qoff + (in ? (size_t)(q0 + r) * sh.d + 4 * c : 0), in);
+  }
+  // the K rows and V slab of key tile kt into stage st, zero past tk and dh
+  auto load_kv = [&](int kt, int st) {
+    float* kd = ks + st * kWideKeys * stride;
+    float* vd = vs + st * kWideKeys * kWideVF;
+    const int key0 = kt * kWideKeys;
+    for (int i = threadIdx.x; i < kWideKeys * chunks; i += kThr) {
+      const int r = i / chunks, c = i % chunks;
+      const bool in = key0 + r < sh.tk;
+      cp_async16(kd + r * stride + 4 * c, k + koff + (in ? (size_t)(key0 + r) * sh.d + 4 * c : 0), in);
+    }
+    for (int i = threadIdx.x; i < kWideKeys * kSlab / 4; i += kThr) {
+      const int r = i / (kSlab / 4), c = i % (kSlab / 4);
+      const bool in = key0 + r < sh.tk && 4 * c < vcols;
+      cp_async16(vd + r * kWideVF + 4 * c, v + koff + (in ? (size_t)(key0 + r) * sh.d + c0 + 4 * c : 0), in);
+    }
+  };
+  load_kv(0, 0);
+  cp_commit();
+
+  const int row = q0 + 16 * warp + g;  // this thread's rows: row and row + 8
+  const int lim[2] = {key_limit<kCausal>(sh, row), key_limit<kCausal>(sh, row + 8)};
+  const int warp_lim = key_limit<kCausal>(sh, q0 + 16 * warp);  // the warp's first row sees the fewest keys
+  const float sl2 = sh.scale * kLog2e;
+  const int steps = sh.dh / 8, n_out = vcols / 8;
+  const float* qa = qs + (16 * warp + g) * stride + 2 * t;  // rows g, g + 8: columns 2t, 2t + 1 of each k8 step
+  float o[kOut][4] = {}, m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait<0>();
+    __syncthreads();  // tile kt (and Q) landed; every warp is done with tile kt - 1
+    if (kt + 1 < n_tiles) load_kv(kt + 1, (kt + 1) & 1);
+    cp_commit();
+    const float* kb = ks + (kt & 1) * kWideKeys * stride + g * stride + 2 * t;
+    const float* vb = vs + (kt & 1) * kWideKeys * kWideVF + 2 * t * kWideVF + g;
+    // S = Q K^T of the tile's two n8 tiles of keys, the whole head width
+    float s[2][4] = {}, cs[2][4] = {};
+#pragma unroll 2
+    for (int st = 0; st < steps; ++st) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * st);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * stride + 8 * st);
+      uint32_t a[8];
+      split(x0.x, a[0], a[4]);
+      split(x1.x, a[1], a[5]);
+      split(x0.y, a[2], a[6]);
+      split(x1.y, a[3], a[7]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(kb + 8 * n * stride + 8 * st);
+        uint4 bf;
+        split(y.x, bf.x, bf.y);
+        split(y.y, bf.z, bf.w);
+        mma3(s[n], cs[n], a, bf);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] += cs[n][i];
+    const int key0 = kt * kWideKeys;
+    if (key0 + kWideKeys <= warp_lim)
+      softmax_part<false>(s, m, l, o, key0 + 2 * t, lim, sl2);
+    else
+      softmax_part<true>(s, m, l, o, key0 + 2 * t, lim, sl2);
+    // O += P V_slab: keys 8j + 2t, + 1 of the tile (A's columns t, t + 4), column 8n + g
+    uint32_t p0[8], p1[8];
+    split_acc(p0, s[0]);
+    split_acc(p1, s[1]);
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) {
+      if (n >= n_out) continue;
+      const float* vp = vb + 8 * n;
+      uint4 b0, b1;  // keys 2t, 2t + 1, then 8 + 2t, 9 + 2t
+      split(vp[0], b0.x, b0.y);
+      split(vp[kWideVF], b0.z, b0.w);
+      split(vp[8 * kWideVF], b1.x, b1.y);
+      split(vp[9 * kWideVF], b1.z, b1.w);
+      float d[4] = {};
+      mma3(d, d, p0, b0);
+      mma3(d, d, p1, b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] += d[i];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a row with no valid key (l == 0) writes 0, and lse -1e30
+    if (row + 8 * r >= sh.tq) continue;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+    if (lse != nullptr && c0 == 0 && t == 0)
+      lse[res_index(sh, h, b, row + 8 * r)] = l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
+    float* dst = out + qoff + (size_t)(row + 8 * r) * sh.d + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kOut; ++n)
+      if (n < n_out) *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+template <int kRows, bool kCausal>
+int run_fwd_wide(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
+                 const WideCfg& c, cudaStream_t stream) {
+  static bool lifted[64] = {};  // to the most any plan takes, once
+  const cudaError_t err = sm90::lift_smem(fwd_wide_kernel<kRows, kCausal>, sm90::kSmemMax, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tq + kRows - 1) / kRows, sh.n_head * c.slabs, sh.batch);
+  fwd_wide_kernel<kRows, kCausal><<<grid, kRows * 2, c.smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), sh, c.stride);
+  return (int)cudaGetLastError();
+}
+
 // each instance lifts its own shared-memory limit (one record per kernel
 // instance: a record per kernel type would skip a second width's)
 template <int kDh, bool kCausal>
@@ -2346,10 +2565,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
                 : run_bwd<kDh, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
 }
 
-// the forward at the width class of sh.dh
+// the forward at the width class of sh.dh, or the wide forward from 136 to 768
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
         void* stream) {
   auto s = (cudaStream_t)stream;
+  if (sh.dh > 128) {
+    if (bad_wide_shape(sh)) return (int)cudaErrorInvalidValue;
+    if (misaligned({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
+    const WideCfg c = wide_cfg(sh.dh);
+    if (c.rows == 64)
+      return causal ? run_fwd_wide<64, true>(q, k, v, out, lse, sh, c, s)
+                    : run_fwd_wide<64, false>(q, k, v, out, lse, sh, c, s);
+    return causal ? run_fwd_wide<32, true>(q, k, v, out, lse, sh, c, s)
+                  : run_fwd_wide<32, false>(q, k, v, out, lse, sh, c, s);
+  }
   switch (width_class(sh.dh)) {
     case 32: return launch_fwd<32>(q, k, v, out, lse, sh, causal, s);
     case 64: return launch_fwd<64>(q, k, v, out, lse, sh, causal, s);
@@ -2385,7 +2614,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   const int dh = d / n_head;
   Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
   if (dh <= 128) return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream, width_class(dh) != dh);
-  return sm90::fwd_wide(q, k, v, out, sh, (cudaStream_t)stream);
+  return sm90::fwd_wide(q, k, v, out, nullptr, sh, false, (cudaStream_t)stream);
 }
 
 // K5's plan at head width dh and tq queries, as `flash_mh_fwd_bf16` takes
@@ -2403,7 +2632,7 @@ extern "C" int flash_mh_plan_bf16(int dh, int tq, void* plan) {
     if (cls == 128) sm90::fwd_plan<128>(tq, p);
     return 0;
   }
-  if (dh <= 128 || dh > sm90::kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
+  if (dh <= 128 || dh > kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
   const sm90::WidePlan w = sm90::wide_plan(dh, tq);
   const int vals[6] = {2, w.slabs, w.wg * sm90::kBM, w.keys, w.stages, w.smem};
   for (int i = 0; i < 6; ++i) p[i] = vals[i];
@@ -2431,11 +2660,12 @@ extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, co
   return launch_h2_bwd_sm90(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
 
-// K7: head-split (BH, T, dh), dh a multiple of 8 from 8 to 128; `lse` may be
-// null, else it is (BH, Tq, 1) fp32
+// K7: head-split (BH, T, dh), dh a multiple of 8 from 8 to 768 (the wide
+// forward above 128); `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                               int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  if (dh > 128) return sm90::fwd_wide(q, k, v, out, lse, sh, causal != 0, (cudaStream_t)stream);
   return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
@@ -2451,8 +2681,9 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
 // ------------------------------------------------------ fp32 entry points
 // The same arguments and layouts as the bf16 entries above, fp32 tensors
 // on 16-byte boundaries (rows are copied 16 bytes at a time), at the head
-// widths of their bf16 twins (K5 every multiple of 8 up to 128, where a
-// head's columns past dh load as zeros): namespace f32's 3xTF32 kernels.
+// widths of their bf16 twins (K5 and K7 every multiple of 8 up to 768, a
+// head's columns past dh loading as zeros up to 128 and the wide forward
+// above): namespace f32's 3xTF32 kernels.
 
 // K3 at fp32; `lse` may be null, else it is (D/128, B, Tq, 128 / dh) fp32
 extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
@@ -2464,8 +2695,8 @@ extern "C" int flash_h2_fwd_f32(const void* q, const void* k, const void* v, voi
   return f32::fwd(q, k, v, out, lse, sh, false, stream);
 }
 
-// K5 at fp32, a head width that is a multiple of 8 from 8 to 128 over any
-// number of heads; no logsumexp
+// K5 at fp32, a head width that is a multiple of 8 from 8 to 768 over any
+// number of heads (the wide forward above 128); no logsumexp
 extern "C" int flash_mh_fwd_f32(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
                                 int d, int n_head, int kv_len, float scale, void* stream) {
   if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
@@ -2484,8 +2715,8 @@ extern "C" int flash_h2_bwd_f32(const void* q, const void* k, const void* v, con
   return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, false, stream);
 }
 
-// K7 at fp32: head-split (BH, T, dh), dh a multiple of 8 from 8 to 128;
-// `lse` may be null, else it is (BH, Tq, 1) fp32
+// K7 at fp32: head-split (BH, T, dh), dh a multiple of 8 from 8 to 768 (the
+// wide forward above 128); `lse` may be null, else it is (BH, Tq, 1) fp32
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                              int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
@@ -2498,6 +2729,19 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const 
                              int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
   return f32::bwd(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal != 0, stream);
+}
+
+// the fp32 wide forward's plan at head width dh (`ops.flash_attention.
+// f32_wide_plan`): plan[0..3] = query rows a CTA, keys a tile, output slabs
+// a head, shared bytes. Returns cudaErrorInvalidValue for a width it does
+// not serve (a multiple of 8 from 136 to 768)
+extern "C" int flash_wide_plan_f32(int dh, void* plan) {
+  if (dh <= 128 || dh > kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
+  const f32::WideCfg c = f32::wide_cfg(dh);
+  const int vals[4] = {c.rows, f32::kWideKeys, c.slabs, c.smem};
+  int* p = static_cast<int*>(plan);
+  for (int i = 0; i < 4; ++i) p[i] = vals[i];
+  return 0;
 }
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

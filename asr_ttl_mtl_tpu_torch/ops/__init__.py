@@ -37,7 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_h2_f32": 0,  # K3 at fp32
     "flash_attention_h2_lse_f32": 0,
     "flash_attention_h2_bwd_f32": 0,  # K6 at fp32
-    "flash_attention_mh_f32": 0,  # K5 at fp32 (head widths 32, 64 and 128)
+    "flash_attention_mh_f32": 0,  # K5 at fp32
     "flash_attention_f32": 0,  # K7 at fp32
     "flash_attention_lse_f32": 0,
     "flash_attention_bwd_f32": 0,  # K8 at fp32
@@ -83,6 +83,35 @@ def width_class(dh: int, name: str = "attention") -> int:
         raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
                          f"{MAX_HEAD_WIDTH}, got {dh}")
     return next(c for c in WIDTH_CLASSES if c >= dh)
+
+
+# the width classes of K1 and K2: WIDTH_CLASSES and 256, so that every
+# multiple of 8 from 136 to 256 runs in the class of 256
+DECODE_CLASSES = WIDTH_CLASSES + (256,)
+# the head widths of the wide forwards (the bf16 one of K5, K7 and K7-lse,
+# and the fp32 one of K5, K7 and K7-lse): every multiple of 8 from 136 to 768
+WIDE_MAX_HEAD_WIDTH = 768
+
+
+def decode_class(dh: int, name: str = "decode attention") -> int:
+    """The width class (32, 64, 128 or 256) K1 and K2 run a head width dh
+    in: the smallest of DECODE_CLASSES that is >= dh. Raises for a width
+    they do not serve: 0, one that is not a multiple of 8, or one above 256."""
+    if dh < MIN_HEAD_WIDTH or dh > DECODE_CLASSES[-1] or dh % 8:
+        raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
+                         f"{DECODE_CLASSES[-1]}, got {dh}")
+    return next(c for c in DECODE_CLASSES if c >= dh)
+
+
+def forward_width(dh: int, name: str = "flash attention") -> int:
+    """The width class a flash forward (K7, K7-lse, the fp32 K5) runs a head
+    width dh in: `width_class(dh)` up to 128, and 0 from 136 to 768 (the
+    wide forwards, which take the head's true width). Raises for any other
+    width: 0, one that is not a multiple of 8, or one above 768."""
+    if dh < MIN_HEAD_WIDTH or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
+        raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
+                         f"{WIDE_MAX_HEAD_WIDTH}, got {dh}")
+    return width_class(dh, name) if dh <= MAX_HEAD_WIDTH else 0
 
 
 def check_class_width(name: str, dh: int, sfx: str) -> None:

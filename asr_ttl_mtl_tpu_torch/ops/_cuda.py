@@ -57,7 +57,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_mh_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         # dh, tq, out (6 int32): the bf16 K5's plan (`flash_attention.k5_plan`)
         "flash_mh_plan_bf16": (_I, _I, _P),
-        # the same five at fp32 (head widths 32, 64 and 128)
+        # dh, out (4 int32): the fp32 wide forward's plan (`flash_attention.f32_wide_plan`)
+        "flash_wide_plan_f32": (_I, _P),
+        # the same five at fp32
         "flash_h2_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_h2_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -20,10 +20,12 @@ cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
 
 Both kernels take every head width dh = d / n_head that is a multiple of
-8 from 8 to 128, with bf16 or fp32 q (and caches of q's dtype for K2): the
-kernel of width class `ops.width_class(dh)` (32, 64 or 128) reads the dh
-real columns of a head and zero-fills the rest in shared memory. Any other
-width raises on the card. A launch with fp32 q counts under `<name>_f32`.
+8 from 8 to 256, with bf16 or fp32 q (and caches of q's dtype for K2): the
+kernel of width class `ops.decode_class(dh)` (32, 64, 128 or 256) reads the
+dh real columns of a head and zero-fills the rest in shared memory. Any
+other width raises on the card. A launch with fp32 q counts under
+`<name>_f32`. `k2_smem_bytes` and `k1_smem_bytes` mirror the kernels'
+shared memory at each class.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from . import _cuda, count_launch, width_class
+from . import _cuda, count_launch, decode_class
 
 _NEG_INF = -1e30
 # K1's p*v_scale/sp within this of a midpoint may round either way under
@@ -105,7 +107,7 @@ def _head_width(name: str, d: int, n_head: int) -> int:
     """The width class of d / n_head; raises unless the kernel serves it."""
     if n_head < 1 or d % n_head:
         raise ValueError(f"{name} kernel takes d split into equal heads, got d={d} n_head={n_head}")
-    return width_class(d // n_head, name)
+    return decode_class(d // n_head, name)
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -128,10 +130,12 @@ def k2_n_valid(tk: int, valid_upto: Optional[int]) -> int:
 
 def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
     """Shared memory of one K2 CTA (`k2_smem_bytes` in the source) of width
-    class dh (32, 64 or 128, `ops.width_class`): the ring of staged tiles (4 bf16 tiles at dh 32 and 64, 2 at dh 128, 2 of
-    fp32), q, the chunk's scores, the P.V partials, the row statistics and
-    the reduction buffer."""
-    ring = (2 if itemsize != 2 or dh == 128 else 4) * _K2_TILE * (dh * itemsize + 16)
+    class dh (32, 64, 128 or 256, `ops.decode_class`): the ring of staged
+    tiles (4 bf16 tiles at dh 32 and 64, 2 at 128 and 256, 2 of fp32; 64-key
+    tiles of fp32 at 256), q, the chunk's scores, the P.V partials, the row
+    statistics and the reduction buffer."""
+    tile = 64 if itemsize == 4 and dh == 256 else _K2_TILE
+    ring = (2 if itemsize != 2 or dh >= 128 else 4) * tile * (dh * itemsize + 16)
     slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))  # P.V: 8 threads a row, dh / 8 columns each
     stride = (chunk + 3) // 4 * 4
     return ring + 4 * (group * dh + group * stride + slices * group * dh + 4 * group + _K2_THREADS)
@@ -144,7 +148,8 @@ def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int 
     within the card's resident CTAs (2 a streaming multiprocessor), but no
     larger than keeps n_keys // S >= K2_MIN_KEYS; raised further only while
     the chunk's scores do not fit in shared memory. Raises when no S fits
-    (a group of ~125 rows over 1500 keys). `dh` is the width class."""
+    (a group of ~125 rows over 1500 keys). `dh` is the width class
+    (`ops.decode_class`)."""
     by_keys = max(s for s in K2_SPLITS if s == 1 or n_keys // s >= K2_MIN_KEYS)
     fill = max(s for s in K2_SPLITS if s == 1 or batch * n_head * s <= _RESIDENT)
     split = min(fill, by_keys)
@@ -209,7 +214,7 @@ def decode_attention(
 
 def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> torch.Tensor:
     n_layer, b, tk, d = cache_k.shape
-    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), width_class(d // n_head))
+    split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), decode_class(d // n_head))
     out = torch.empty_like(q)
     fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
     code = getattr(_cuda.lib("decode_attention"), fn)(
@@ -288,6 +293,19 @@ def decode_attention_i8_plain(
 _K1_RESIDENT = 2 * 132  # K1 CTAs in one wave: 2 on each of an H100's 132 streaming multiprocessors
 K1_MAX_SPLIT = 8  # CTAs a cluster: the portable limit
 K1_ROWS = 16  # query rows a CTA takes; a larger group takes more clusters
+_K1_TILE = 128  # keys a staged tile holds
+
+
+def k1_smem_bytes(rows: int, tk_blk: int, dh: int = 64) -> int:
+    """Shared memory of one K1 CTA (`k1_smem_bytes` in the source) of width
+    class dh (`ops.decode_class`) over `rows` query rows (at most K1_ROWS)
+    and key blocks of tk_blk: the ring of staged int8 tiles with their k and
+    v scales (4, 2 at 256), the transposed V tile, q in int8, a block's
+    fp32 scores and int8 p, its v scales and the row statistics."""
+    row = dh + 16
+    ring = 2 if dh == 256 else 4
+    return (ring * (_K1_TILE * row + 2 * _K1_TILE * 4) + dh * (_K1_TILE + 16) + K1_ROWS * row
+            + 4 * rows * (tk_blk + 4) + K1_ROWS * (tk_blk + 16) + 4 * tk_blk + 4 * 5 * K1_ROWS)
 
 
 def k1_n_blocks(tk: int, tk_blk: int, valid_upto: Optional[int]) -> int:

@@ -28,13 +28,15 @@ The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
 count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
 head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
-the JAX package's `h2_eligible`); K7, K7-lse and K8 every multiple of 8
-from 8 to 128 in both, run at the width class `ops.width_class(dh)` with
-the columns past dh zeros; K5 any multiple of 8 up to 768 in bf16, on the
-route `k5_plan` gives (K3's forward at 32, 64 and 128 and, over per-head
-tensor maps, at the class of the other widths up to 120; the wide forward,
-128 output columns a CTA, from 136), up to 128 in fp32 (at the width
-class). The h2 residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
+the JAX package's `h2_eligible`); K8 every multiple of 8 from 8 to 128 in
+both, run at the width class `ops.width_class(dh)` with the columns past
+dh zeros; K7, K7-lse and K5 every multiple of 8 up to 768 in both
+(`ops.forward_width`): up to 128 at the width class (the bf16 K5 on the
+route `k5_plan` gives: K3's forward at 32, 64 and 128 and, over per-head
+tensor maps, at the class of the other widths up to 120), and from 136 on
+the wide forwards, 128 output columns a CTA (bf16: route B, whose plan
+`k5_plan` mirrors for K5 and K7 alike; fp32: `f32_wide_plan`). The h2
+residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
 On the card nothing falls back to a plain version or to a kernel of another
 dtype: a shape, width or dtype no kernel serves raises.
 """
@@ -45,10 +47,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import WIDTH_CLASSES, _cuda, check_class_width, count_launch, kernel_dtype, on_card, width_class
+from . import (WIDE_MAX_HEAD_WIDTH, WIDTH_CLASSES, _cuda, check_class_width, count_launch, forward_width,
+               kernel_dtype, on_card, width_class)
 
 _NEG_INF = -1e30
-_MH_MAX_D = 768  # the widest d (and head width) K5 serves
+_MH_MAX_D = WIDE_MAX_HEAD_WIDTH  # the widest d (and head width) K5 serves
 K5_SMEM_MAX = 232448  # a block's shared memory on the H100 (227 KB)
 _BM = 64  # query rows a consumer warpgroup owns
 _SLAB = 128  # output columns a route-B CTA owns
@@ -100,7 +103,8 @@ def k5_plan(dh: int, tq: int) -> K5Plan:
     over the 3-D maps at a class itself, over the head maps below one
     (route A). From 136 to 768 (route B): the head's Q and K rows in
     64-column boxes, 128 rows a CTA where they fit in 4 boxes and tq > 64
-    else 64, 64-key tiles up to 6 boxes else 32, and as many stages, up to
+    else 64, 64-key tiles up to 6 boxes else 32 (K7's bf16 forward takes
+    the same plan above 128), and as many stages, up to
     4, as K5_SMEM_MAX holds beside Q. Raises for any other width."""
     if dh < 8 or dh > _MH_MAX_D or dh % 8:
         raise ValueError(f"flash_attention_mh kernel takes a head width that is a multiple of 8 up to "
@@ -116,6 +120,31 @@ def k5_plan(dh: int, tq: int) -> K5Plan:
     q_bytes, stage = wg * _BM * boxes * 128, keys * (boxes + _SLAB // 64) * 128
     stages = min(4, (K5_SMEM_MAX - 1024 - 8 * (1 + 3 * 4) - q_bytes) // stage)
     return K5Plan("B", -(-dh // _SLAB), wg * _BM, keys, stages, 1024 + q_bytes + stages * stage + 8 * (1 + 3 * stages))
+
+
+class F32WidePlan(NamedTuple):
+    rows: int  # query rows a CTA, 16 a warp
+    keys: int  # keys a K / V tile
+    slabs: int  # output slabs of 128 columns a head
+    smem: int  # dynamic shared bytes a CTA
+
+
+_F32_WIDE_KEYS = 16
+
+
+def f32_wide_plan(dh: int) -> F32WidePlan:
+    """The fp32 wide forward's plan at head width dh (136-768), as
+    `flash_wide_plan_f32` in C gives it: Q of the CTA's rows and two stages
+    of 16 keys (K over the head's columns, V over the slab's 128) in shared
+    memory, rows dh rounded up to 32 plus 8 floats apart (V 132); 64 rows
+    where that fits in K5_SMEM_MAX, else 32. Raises for any other width."""
+    if dh <= WIDTH_CLASSES[-1] or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
+        raise ValueError(f"the fp32 wide forward takes a head width that is a multiple of 8 from "
+                         f"{WIDTH_CLASSES[-1] + 8} to {WIDE_MAX_HEAD_WIDTH}, got {dh}")
+    stride = -(-dh // 32) * 32 + 8
+    stages = 2 * _F32_WIDE_KEYS * (stride + _SLAB + 4) * 4
+    rows = 64 if 64 * stride * 4 + stages <= K5_SMEM_MAX else 32
+    return F32WidePlan(rows, _F32_WIDE_KEYS, -(-dh // _SLAB), rows * stride * 4 + stages)
 
 
 def _kv_len(tk: int, kv_valid_len: Optional[int]) -> int:
@@ -358,8 +387,8 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
     sfx = _check("flash_attention_mh", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
     if n_head < 1 or d % n_head:
         raise ValueError(f"flash_attention_mh kernel takes d split into equal heads, got d={d} n_head={n_head}")
-    if sfx == "f32":  # the fp32 kernel serves multiples of 8 up to 128; the bf16 one up to 768
-        width_class(d // n_head, "flash_attention_mh fp32")
+    if sfx == "f32":  # multiples of 8 up to 768: the class up to 128, the wide forward above
+        forward_width(d // n_head, "flash_attention_mh fp32")
     else:
         k5_plan(d // n_head, tq)
     out = torch.empty_like(q)
@@ -411,14 +440,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, q_offset: int = 0,
 def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                     kv_valid_len: Optional[int] = None, scale: float = 1.0, return_lse: bool = False):
     """K7 wrapper: softmax(scale q k^T + mask) v over flattened (batch*heads),
-    plus lse (BH, Tq, 1) fp32 with return_lse."""
+    plus lse (BH, Tq, 1) fp32 with return_lse. Head widths up to 128 run at
+    their width class, 136-768 on the wide forward of q's dtype."""
     if not on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                      scale=scale, return_lse=return_lse)
     bh, tq, dh = q.shape
     tk = k.shape[1]
     sfx = _check("flash_attention", (q, k, v), ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
-    width_class(dh, f"flash_attention {'fp32' if sfx == 'f32' else sfx}")
+    forward_width(dh, f"flash_attention {'fp32' if sfx == 'f32' else sfx}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
     fn = f"flash_fwd_{sfx}"

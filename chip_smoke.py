@@ -54,7 +54,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      over 3 batches, launch counts reset before and read after;
  11. checks the card's beam against the plain path on the CPU (fp32) on 2
      windows, teacher-forced to the card's best sequences;
- 12. writes base's random weights to a `.pt` and a seeded 70 s WAV, and
+ 12. writes base's random weights to a `.pt` (and, for this phase's runs,
+     base's widths at 2 + 2 layers: CLI_DEPTH) and a seeded 70 s WAV, and
      transcribes it through the CLI in process (`cli.cli`, its defaults:
      beam 5 at t=0, best-of 5 up the fallback ladder), with `--language
      en`, detecting the language, and with a 19-token prompt carried into
@@ -103,7 +104,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      intermediates that differ, its device time and the same bits on a
      second launch;
  18. K5 through the CLI and the trainer at a geometry `h2_eligible`
-     rejects: random weights at base's depth with d 576 and 9 heads (head
+     rejects: random weights at 2 + 2 layers with d 576 and 9 heads (head
      width 64) to a `.pt`, phase 12's 70 s WAV through the CLI with
      `--word_timestamps True` at one rung (K5 in the encoder and the beam
      prefill's cross-attention), and 2 train steps at batch 8 in bf16
@@ -1282,6 +1283,10 @@ def write_long_wav(path: str, seconds: float, seed: int) -> None:
         w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
 
 
+# phase 12's CLI runs take base's widths at this depth (its host-bound
+# decode launches a sequence of kernels a layer); phases 13 and 15 keep
+# base's 6 + 6 layers, whose alignment heads the `--model base` preset names
+CLI_DEPTH = dict(n_audio_layer=2, n_text_layer=2)
 CLI_PROMPT = "The patient reports a dry cough, a mild fever and shortness of breath since Tuesday morning."
 CLI_RUNS = (
     ["--language", "en"],
@@ -1297,9 +1302,12 @@ CLI_RUNS = (
 def run_cli(card: str, model, workdir: str):
     """Phase 12: long-form transcription of a 70 s WAV through the CLI, in
     process, with its defaults: with --language en, detecting the language,
-    and with a prompt carried into every window. Returns the summed launch
-    counts and the prompted prefill's (bucket, self-cache length)."""
+    and with a prompt carried into every window, at base's widths and
+    CLI_DEPTH's layers; `model`'s checkpoint is written beside it for
+    phases 13 and 15. Returns the summed launch counts and the prompted
+    prefill's (bucket, self-cache length)."""
     import contextlib
+    import dataclasses
     import io
 
     import torch
@@ -1307,7 +1315,7 @@ def run_cli(card: str, model, workdir: str):
     from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask
     from asr_ttl_mtl_tpu_torch.cli import cli
     from asr_ttl_mtl_tpu_torch.decode_steps import _bucket
-    from asr_ttl_mtl_tpu_torch.models import checkpoint_dict
+    from asr_ttl_mtl_tpu_torch.models import checkpoint_dict, from_random
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     # the prompted windows' prefill, as `_greedy` and `dispatch_beam` size it
@@ -1318,8 +1326,11 @@ def run_cli(card: str, model, workdir: str):
     bucket = _bucket(len(task.initial_tokens))
     cache_len = min(task.n_ctx, ((bucket + min(task.sample_len, task.n_ctx) + 127) // 128) * 128)
 
-    ckpt, clip = os.path.join(workdir, "base.pt"), os.path.join(workdir, "clip70.wav")
-    torch.save(checkpoint_dict(model), ckpt)
+    ckpt, clip = os.path.join(workdir, "base_cli.pt"), os.path.join(workdir, "clip70.wav")
+    torch.save(checkpoint_dict(model), os.path.join(workdir, "base.pt"))
+    torch.save(checkpoint_dict(from_random(dataclasses.replace(model.dims, **CLI_DEPTH), seed=0, device=DEVICE,
+                                           dtype=torch.bfloat16)), ckpt)
+    torch.cuda.empty_cache()
     write_long_wav(clip, 70.0, seed=0)
     total = {}
     for n, extra in enumerate(CLI_RUNS):
@@ -1354,7 +1365,8 @@ def run_cli(card: str, model, workdir: str):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         label = ' '.join(extra).replace(CLI_PROMPT, f"<{n_prompt} tokens>") or "language detected"
-        print(f"[cli] {label}: {wall:.1f} s wall for 70 s of audio; "
+        print(f"[cli] {label}, base's widths at {CLI_DEPTH['n_audio_layer']} + {CLI_DEPTH['n_text_layer']} layers: "
+              f"{wall:.1f} s wall for 70 s of audio; "
               f"language {result['language']}; {len(result['segments'])} segments from windows at seek "
               f"{seeks}; accepted rung's temperature per window {json.dumps(rungs)}; "
               f"{len(text.splitlines())} lines printed [{card}]", flush=True)
@@ -2068,8 +2080,11 @@ def check_int8_mlp(card: str, model):
     return rows
 
 
-MH_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=576, n_audio_head=9, n_audio_layer=6, n_vocab=51865,
-               n_text_ctx=448, n_text_state=576, n_text_head=9, n_text_layer=6)  # base's depth, 9 heads of 64
+# 9 heads of 64 at 2 + 2 layers: the depth is cut so that the whole run
+# stays well inside its time limit (the CLI's decode is host-bound, a
+# launch sequence a layer)
+MH_DIMS = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=576, n_audio_head=9, n_audio_layer=2, n_vocab=51865,
+               n_text_ctx=448, n_text_state=576, n_text_head=9, n_text_layer=2)
 MH_TRAIN_BATCH = 8
 
 
@@ -4267,6 +4282,476 @@ def run_any_widths(card: str):
     return rows, paths
 
 
+# ------------------------------------------------------------------ phase 25
+
+# head widths above 128 for serving: K1 and K2 run 136-256 in the class of
+# 256 (`ops.decode_class`), K7, K7-lse and the fp32 K5 136-768 on the wide
+# forwards (`ops.forward_width`); K8 still stops at 128
+WW_WIDTHS = (136, 200, 256, 384, 768)
+WW_DECODE_WIDTHS = (136, 200, 256)
+# two published widths at other head counts, depth cut to 2 + 2 layers
+# (random weights from seed 0): large-v3's (d 1280, 128 mels, vocab 51866)
+# at 5 heads of 256, and small's (d 768) at 4 of 192
+WW_DIMS = {
+    "dh256": dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=5, n_audio_layer=2, n_vocab=51866,
+                  n_text_ctx=448, n_text_state=1280, n_text_head=5, n_text_layer=2),
+    "dh192": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=768, n_audio_head=4, n_audio_layer=2, n_vocab=51865,
+                  n_text_ctx=448, n_text_state=768, n_text_head=4, n_text_layer=2),
+}
+
+
+def check_wide_kernels(card: str):
+    """Phase 25 (a): in bf16 and in fp32, K2 and K1 at head widths 136, 200
+    and 256 (5 heads, so that odd heads start off a 16-byte boundary; 2
+    cache rows of 1536 keys valid to 1499 at groups 1, 5 and 16, and one row
+    at group 1, whose int8 key blocks are 512), K7 and K7-lse at 136, 200,
+    256, 384 and 768 (causal (12, 48) at q_offset 0 and over 96 keys at
+    q_offset 48, causal (4, 160) (two warpgroups in bf16 up to 256), and
+    non-causal (8, 130) over 300 keys valid to 270) and the fp32 K5 at the
+    same widths (768 // dh heads, at least one; (2, 200) over 300 keys
+    valid to 270) against their plain versions at phase 21's tolerances,
+    each the same bits on a second launch; K8 at 136 and K1 / K2 at 264
+    must raise naming the widths they serve. Not timed: the paths' shapes
+    are timed in (b)."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t0 = time.perf_counter()
+    worst, n_checks = {}, 0
+
+    def listed(x):
+        return list(x) if isinstance(x, (tuple, list)) else [x]
+
+    def held(name, what, got, want, tol, run):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        for g, w, t in zip(listed(got), listed(want), listed(tol)):
+            ratio = ((g.float() - w.float()).abs() / t).max().item()
+            if not (ratio <= 1.0 and bool(torch.isfinite(g.float()).all())):
+                raise AssertionError(f"{name} {what}: worst err/tol {ratio}")
+            worst[name] = max(worst.get(name, 0.0), ratio)
+        if not all(torch.equal(a, b) for a, b in zip(listed(run()), listed(got))):
+            raise AssertionError(f"{name} {what}: a second launch gave other bits")
+        n_checks += 1
+
+    def refused(what, fn, served):
+        try:
+            fn()
+        except ValueError as err:
+            if served not in str(err):
+                raise AssertionError(f"{what} raised without naming the widths served ({served}): {err}")
+            return
+        raise AssertionError(f"{what} did not raise")
+
+    for fp32 in (False, True):
+        dtype, sfx = (torch.float32, "_f32") if fp32 else (torch.bfloat16, "")
+        rel = FP32_REL if fp32 else 2.0**-6
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        for dh in WW_WIDTHS:
+            for bh, tq, tk, causal, q_offset, kv in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                     (4, 160, 160, True, 0, None), (8, 130, 300, False, 0, 270)):
+                q, k, v = rnd(bh, tq, dh), rnd(bh, tk, dh), rnd(bh, tk, dh)
+                kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv, scale=dh**-0.5)
+                what = f"dh {dh} ({bh}, {tq}, {dh}) x {tk} keys, causal {causal}, q_offset {q_offset}, valid {kv}"
+                pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+                out_tol = rel * pout.float().abs().max().item()
+                lse_tol = FP32_REL * plse.abs().max().item() if fp32 else 1e-4
+                held("flash_attention_lse" + sfx, what, FA.flash_attention(q, k, v, return_lse=True, **kw),
+                     [pout, plse], [out_tol, lse_tol], lambda: FA.flash_attention(q, k, v, return_lse=True, **kw))
+                held("flash_attention" + sfx, what, FA.flash_attention(q, k, v, **kw), pout, out_tol,
+                     lambda: FA.flash_attention(q, k, v, **kw))
+            n_head = max(1, 768 // dh)
+            q, k, v = rnd(2, 200, n_head * dh), rnd(2, 300, n_head * dh), rnd(2, 300, n_head * dh)
+            kw = dict(n_head=n_head, kv_valid_len=270, scale=dh**-0.5)
+            want = FA.flash_attention_mh_plain(q, k, v, **kw)
+            held("flash_attention_mh" + sfx, f"dh {dh}, {n_head} heads, (2, 200) x 300 keys to 270",
+                 FA.flash_attention_mh(q, k, v, **kw), want, rel * want.float().abs().max().item(),
+                 lambda: FA.flash_attention_mh(q, k, v, **kw))
+        n_head = 5
+        for dh in WW_DECODE_WIDTHS:
+            d = n_head * dh
+            for rows, groups in ((2, (1, BEAM, 16)), (1, (1,))):
+                ck, cv = rnd(2, rows, 1536, d), rnd(2, rows, 1536, d)
+                (k8, ks), (v8, vs) = DA.quantize_kv_rows(ck.float()), DA.quantize_kv_rows(cv.float())
+                for group in groups:
+                    q = rnd(rows * group, 1, d)
+                    kw = dict(scale=dh**-0.5, valid_upto=1499, group=group)
+                    what = (f"dh {dh}, 5 heads, ({rows}, 1536) cache to 1499, group {group}, tk_blk "
+                            f"{DA._i8_blocks(rows, 1536, d)[1]}")
+                    want = DA.decode_attention_plain(q, ck, cv, 1, n_head, **kw)
+                    held("decode_attention" + sfx, what, DA.decode_attention(q, ck, cv, 1, n_head, **kw), want,
+                         (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
+                         lambda: DA.decode_attention(q, ck, cv, 1, n_head, **kw))
+                    want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, return_flip_bound=True,
+                                                              **kw)
+                    ref = want.float().abs()
+                    tol = (flip + FP32_REL * ref.max() if fp32 else
+                           (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max())
+                    held("decode_attention_i8" + sfx, what,
+                         DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw), want, tol,
+                         lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw))
+        # the widths past what each kernel serves raise, naming them
+        q, k, v = rnd(4, 48, 136), rnd(4, 48, 136), rnd(4, 48, 136)
+        pout, plse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        refused(f"K8 {dtype} at 136", lambda: FA.flash_attention_bwd(q, k, v, pout, plse, q, causal=True),
+                "from 8 to 128")
+        q, k, v = rnd(4, 48, 776), rnd(4, 48, 776), rnd(4, 48, 776)
+        refused(f"K7 {dtype} at 776", lambda: FA.flash_attention(q, k, v), "from 8 to 768")
+        ck = rnd(1, 1, 1536, 264)
+        (k8, ks) = DA.quantize_kv_rows(ck.float())
+        q = rnd(1, 1, 264)
+        refused(f"K2 {dtype} at 264", lambda: DA.decode_attention(q, ck, ck, 0, 1, scale=1.0), "from 8 to 256")
+        refused(f"K1 {dtype} at 264", lambda: DA.decode_attention_i8(q, k8, ks, k8, ks, 0, 1, scale=1.0),
+                "from 8 to 256")
+    torch.cuda.empty_cache()
+    print(f"[wide] (a) {n_checks} kernel calls at head widths {list(WW_WIDTHS)} (K1 / K2 at "
+          f"{list(WW_DECODE_WIDTHS)}) in bf16 and fp32 against their plain versions (phase 21's tolerances), each "
+          f"bitwise on a second launch, K8 at 136, K7 at 776 and K1 / K2 at 264 refused: worst err/tol "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(worst.items())})}; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=()):
+    """Phase 25 (b): at one geometry of WW_DIMS and dtype, each attention
+    kernel its serving paths run, at their shapes, against its plain
+    version, bitwise on a second launch, timed beside its bound at the true
+    head width and SDPA on the same views (no library call for K1): K7 and
+    K7-lse at the dh256 encoder's (8 x 5, 1536, 256) keys valid to 1500 (d
+    1280 is no K5 shape), and K7 at the shapes the dh256 CLI run gave it
+    (`cli_shapes`: the prompted prefill's causal self-attention and its
+    cross-attention over 1500 keys); K5 at the dh192 encoder's (8, 1536,
+    768) (bf16: route B; fp32: the fp32 wide forward); K2 and K1 over the
+    greedy path's cross cache (2 layers x 8 windows x 1500 keys, int8
+    padded to 1536 with valid_upto 1499) at group 1 and over the beam's 4
+    windows at group 5. Rows for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dims = WW_DIMS[geometry]
+    d, n_head = dims["n_audio_state"], dims["n_audio_head"]
+    dh = d // n_head
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rows = []
+    record = make_recorder(card, rows)
+    src, b = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", HW_WINDOWS
+    tag = f"{geometry} ({n_head} heads of {dh})"
+    scale = dh**-0.5
+    dtype, dt, sfx, esz = (torch.float32, "fp32", "_f32", 4) if fp32 else (torch.bfloat16, "bf16", "", 2)
+    rel = FP32_REL if fp32 else 2.0**-6
+    fwd = f"fp32 wide forward {FA.f32_wide_plan(dh)}" if fp32 else f"route B {FA.k5_plan(dh, 1536)}"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def bounds(macs, n_bytes):
+        if fp32:
+            return dict(bound=attn_bound(macs, n_bytes, 4, "3xtf32"), ffma_bound=attn_bound(macs, n_bytes, 4, "fp32"))
+        return dict(bound=attn_bound(macs, n_bytes))
+
+    def k7_rows(q, k, v, kw, case, lse, plain_iters):
+        bh, tq, _ = q.shape
+        n_keys = kw.get("kv_valid_len") or k.shape[1]
+        causal = kw.get("causal", False)
+        pairs = sum(min(n_keys, i + 1) for i in range(tq)) if causal else tq * n_keys
+        seen = min(n_keys, tq) if causal else n_keys
+        io = (2 * q.numel() + 2 * bh * seen * dh) * esz
+        ql, kl, vl = q[None], k[None, :, :seen], v[None, :, :seen]
+        lib = lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale, is_causal=causal)
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        out_tol = rel * pout.float().abs().max().item()
+        record("flash_attention" + sfx, f"{case}, {fwd}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:165",
+               FA.flash_attention(q, k, v, **kw), pout, out_tol,
+               lambda: FA.flash_attention(q, k, v, **kw), lambda: FA.flash_attention_plain(q, k, v, **kw),
+               **bounds(bh * pairs * dh, io), plain_iters=plain_iters, library=lib, repeat=True)
+        if lse:
+            record("flash_attention_lse" + sfx, f"{case}, {fwd}", src, "asr_ttl_mtl_tpu/ops/flash_attention.py:169",
+                   list(FA.flash_attention(q, k, v, return_lse=True, **kw)), [pout, plse],
+                   [out_tol, FP32_REL * plse.abs().max().item() if fp32 else 1e-4],
+                   lambda: FA.flash_attention(q, k, v, return_lse=True, **kw),
+                   lambda: FA.flash_attention_plain(q, k, v, return_lse=True, **kw),
+                   **bounds(bh * pairs * dh, io + plse.numel() * 4), plain_iters=plain_iters, library=lib,
+                   repeat=True)
+
+    if geometry == "dh256":  # d 1280: the encoder on K7 over split heads
+        bh = b * n_head
+        q, k, v = rnd(bh, 1536, dh), rnd(bh, 1536, dh), rnd(bh, 1536, dh)
+        k7_rows(q, k, v, dict(kv_valid_len=1500, scale=scale), f"{tag}: encoder ({bh}, 1536, {dh}) {dt}, "
+                f"kv_valid_len 1500", True, 1)
+        del q, k, v
+        for (qs, ks, kv, causal) in sorted(cli_shapes, key=str):
+            q, k, v = rnd(*qs), rnd(*ks), rnd(*ks)
+            what = "causal self" if causal else "cross"
+            k7_rows(q, k, v, dict(causal=causal, kv_valid_len=kv, scale=scale),
+                    f"{tag}: the CLI's prompted prefill, {what} {qs} x {ks} {dt}", False, 20)
+    else:  # d 768: the encoder on K5 over the natural layout
+        q, k, v = rnd(b, 1536, d), rnd(b, 1536, d), rnd(b, 1536, d)
+        kw = dict(n_head=n_head, kv_valid_len=1500, scale=scale)
+        want = FA.flash_attention_mh_plain(q, k, v, **kw)
+        qh, kh, vh = heads(q, n_head), heads(k, n_head, 1500), heads(v, n_head, 1500)
+        record("flash_attention_mh" + sfx, f"{tag}: encoder q,k,v ({b}, 1536, {d}) {dt}, kv_valid_len 1500, {fwd}",
+               src, "asr_ttl_mtl_tpu/ops/flash_attention.py:346", FA.flash_attention_mh(q, k, v, **kw), want,
+               rel * want.float().abs().max().item(), lambda: FA.flash_attention_mh(q, k, v, **kw),
+               lambda: FA.flash_attention_mh_plain(q, k, v, **kw),
+               **bounds(b * 1536 * 1500 * d, (2 * q.numel() + 2 * b * 1500 * d) * esz), plain_iters=1,
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
+        del q, k, v, want, qh, kh, vh
+
+    # K2 and K1 over the cross cache: 8 windows at group 1, the beam's 4 at group 5
+    src = "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu"
+    n_layer = dims["n_text_layer"]
+    ck, cv = rnd(n_layer, HW_WINDOWS, 1500, d), rnd(n_layer, HW_WINDOWS, 1500, d)
+    for n_win, group in ((HW_WINDOWS, 1), (HW_BEAM_WINDOWS, BEAM)):
+        ckw, cvw = ck[:, :n_win].contiguous(), cv[:, :n_win].contiguous()
+        (k8, ks), (v8, vs) = DA.quantize_kv_rows(ckw.float()), DA.quantize_kv_rows(cvw.float())
+        q = rnd(n_win * group, 1, d)
+        qh = q.reshape(n_win, group, n_head, dh).transpose(1, 2)
+        kh, vh = heads(ckw[1], n_head), heads(cvw[1], n_head)
+        kw = dict(scale=scale, group=group)
+        want = DA.decode_attention_plain(q, ckw, cvw, 1, n_head, **kw)
+        split = DA.k2_plan(n_win, n_head, 1500, group, esz, 256)
+        record("decode_attention" + sfx, f"{tag}: cross {tuple(ckw.shape)} {dt}, q ({n_win * group}, 1, {d}), "
+               f"group {group}, class 256, cluster of {split}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               DA.decode_attention(q, ckw, cvw, 1, n_head, **kw), want,
+               (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ckw, cvw, 1, n_head, **kw),
+               lambda: DA.decode_attention_plain(q, ckw, cvw, 1, n_head, **kw),
+               bound=attn_bound(n_win * group * 1500 * d, (2 * q.numel() + 2 * n_win * 1500 * d) * esz,
+                                kind="fp32" if fp32 else "bf16"),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
+        kw8 = dict(scale=scale, valid_upto=1499, group=group)
+        want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, return_flip_bound=True, **kw8)
+        ref = want.float().abs()
+        tol = flip + FP32_REL * ref.max() if fp32 else (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        tk_blk = DA._i8_blocks(n_win, k8.shape[2], d)[1]
+        record("decode_attention_i8" + sfx, f"{tag}: cross {tuple(k8.shape)} int8, q ({n_win * group}, 1, {d}) "
+               f"{dt}, group {group}, valid_upto 1499, tk_blk {tk_blk}, class 256", src,
+               "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+               DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8), want, tol,
+               lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8),
+               lambda: DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, **kw8),
+               bound=bound(4 * n_win * group * 1500 * d, 2 * n_win * 1500 * (d + 4) + 2 * q.numel() * esz, "int8"),
+               repeat=True)
+    del ck, cv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_wide_width(card: str, geometry: str, workdir: str, fp32: bool = False):
+    """Phase 25 (c): at one geometry of WW_DIMS, random weights from seed 0,
+    through the entry points: the greedy window path on HW_WINDOWS seeded
+    windows with phase 4's options (int8 KV: K1; fp32: fp16=False), then
+    kv_quant=False (K2); beam 5 on HW_BEAM_WINDOWS windows (K1 at group 5);
+    then phase 5's check of the bf16 decode against the CPU's fp32 plain
+    path on 2 windows, or phase 20's fp32 decode gate. Each path's launch
+    counts are reset just before it and read just after; no K3 or K6, in
+    fp32 no bf16 kernel. At dh256 in bf16, a train step must raise at K8,
+    naming the widths it serves (a check, not a path). Returns the counts
+    of each path."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, from_random
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    dims = WW_DIMS[geometry]
+    sfx = "_f32" if fp32 else ""
+    tag = f"[wide {geometry}{' fp32' if fp32 else ''}]"
+    n_layer, n_mels = dims["n_audio_layer"], dims["n_mels"]
+    encoder_kernel = ("flash_attention" if geometry == "dh256" else "flash_attention_mh") + sfx
+    model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.bfloat16)
+    paths = {}
+
+    def counted(name, fn):
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        paths[name] = dict(LAUNCHES)
+        if fp32:
+            no_bf16_kernel(paths[name], f"{tag} {name}")
+        h2 = {k: v for k, v in paths[name].items() if k.startswith("flash_attention_h2") and v}
+        if h2:
+            raise AssertionError(f"{tag} {name} launched the h2 kernels, which serve 32, 64 and 128 only: {h2}")
+        return out, time.perf_counter() - t0
+
+    options = {**BASE_OPTIONS, "fp16": not fp32}
+    mel = log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0), n_mels=n_mels, device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**options))
+    task.run(mel)  # warm-up, not counted
+    results, t_dec = counted("greedy", lambda: task.run(log_mel_spectrogram(make_waves(HW_WINDOWS, seed=0),
+                                                                            n_mels=n_mels, device=DEVICE)))
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob), r
+    c = paths["greedy"]
+    assert c[encoder_kernel] == n_layer and c["decode_attention_i8" + sfx] > 0 and c["log_mel"] == 1, c
+    plain_task = DecodingTask(model, DecodingOptions(**{**options, "kv_quant": False}))
+    float_results, t_float = counted("kv_quant=False", lambda: plain_task.run(mel))
+    for r in float_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    assert paths["kv_quant=False"]["decode_attention" + sfx] > 0, paths["kv_quant=False"]
+    beam_task = DecodingTask(model, DecodingOptions(**{**BEAM_OPTIONS, "fp16": not fp32}))
+    beam_results, t_beam = counted("beam", lambda: beam_task.run(mel[:HW_BEAM_WINDOWS].contiguous()))
+    for r in beam_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    c = paths["beam"]
+    assert c["topk_logprobs"] == 64 and c["decode_attention_i8" + sfx] > 0, c
+    print(f"{tag} greedy, {HW_WINDOWS} windows, {'fp16=False, ' if fp32 else ''}kv_quant + int8_encoder, 64 tokens: "
+          f"{t_dec:.3f} s = {HW_WINDOWS * 30.0 / t_dec:.1f} audio-s/s (log-mel included); kv_quant=False: "
+          f"{t_float:.3f} s; beam {BEAM} on {HW_BEAM_WINDOWS} windows {t_beam:.3f} s (its first call at this shape) "
+          f"[{card}]; text[0]={results[0].text[:40]!r} avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+    if fp32:
+        check_fp32_decode_against_cpu(card, model, what=f" at {geometry}", encoder_kernel=encoder_kernel)
+    else:
+        check_against_cpu(model)
+    del task, plain_task, beam_task, mel, model
+    torch.cuda.empty_cache()
+    if geometry == "dh256" and not fp32:
+        check_train_step_refused(card, workdir)
+    return list(paths.values())
+
+
+def check_train_step_refused(card: str, workdir: str):
+    """Phase 25 (c), the training backward: one train step at 5 heads of 256
+    (WW_DIMS["dh256"], batch HW_TRAIN_BATCH, bf16) runs the forward (K7-lse
+    on the wide forward) and must raise at K8, which serves 8-128."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=WW_DIMS["dh256"],
+                         batch_size=HW_TRAIN_BATCH, val_batch_size=HW_TRAIN_BATCH, compute_dtype="bfloat16",
+                         learning_rate=1e-5, seed=0, num_workers=4, epochs=1, save_dir=os.path.join(workdir, "dh256_out"))
+    ds = MultiTaskSpeechDataset(write_clips(workdir, HW_TRAIN_BATCH, seed=25), cfg)
+    batch = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                            buckets=cfg.token_buckets))[0]
+    trainer = MultiTaskTrainer(cfg, verbose=False)
+    reset_launch_counts()
+    try:
+        trainer.train_step(batch)
+    except ValueError as err:
+        if "flash_attention_bwd" not in str(err) or "from 8 to 128" not in str(err):
+            raise AssertionError(f"the dh256 train step raised without naming K8's widths: {err}")
+        message = str(err)
+    else:
+        raise AssertionError("a train step at 5 heads of 256 ran: K8 serves 8-128")
+    sync()
+    if LAUNCHES["flash_attention_lse"] <= 0 or LAUNCHES["flash_attention_bwd"]:
+        raise AssertionError(f"the dh256 train step launched {dict(LAUNCHES)}")
+    print(f"[wide dh256] a train step at batch {HW_TRAIN_BATCH} ran K7-lse {LAUNCHES['flash_attention_lse']} times "
+          f"and stopped at K8: {message!r} [{card}]", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def run_wide_cli(card: str, workdir: str, fp32: bool):
+    """Phase 25 (d): random weights from seed 0 at WW_DIMS["dh256"] (bf16)
+    written to a `.pt`, and a seeded 30 s WAV through the CLI at one rung
+    (beam 5 at t=0) with phase 12's 19-token prompt carried into every
+    window (fp32: `--fp16 False`): K4 at 128 mels, K7 in the encoder and
+    the prompted prefill (its causal self-attention and its cross over one
+    window), K2 at group 5 in the beam steps, K9. Returns the launch counts
+    and the prefill's K7 shapes (q, k, kv_valid_len, causal) in the run's
+    dtype, the encoder's taken out."""
+    import contextlib
+    import io
+
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.cli import cli
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, checkpoint_dict, from_random
+    from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    sfx, dt = ("_f32", torch.float32) if fp32 else ("", torch.bfloat16)
+    ckpt, clip = os.path.join(workdir, "dh256.pt"), os.path.join(workdir, "clip30.wav")
+    if not os.path.exists(ckpt):
+        torch.save(checkpoint_dict(from_random(ModelDimensions(**WW_DIMS["dh256"]), seed=0, device=DEVICE,
+                                               dtype=torch.bfloat16)), ckpt)
+        write_long_wav(clip, 30.0, seed=25)
+    torch.cuda.empty_cache()
+    out = os.path.join(workdir, f"dh256_cli{sfx}")
+    printed = io.StringIO()
+    probe = ShapeProbe("flash_attention", dt)
+    try:
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli([clip, "--model", ckpt, "--output_dir", out, "--language", "en", "--fp16", str(not fp32),
+                 "--temperature_increment_on_fallback", "None", "--initial_prompt", CLI_PROMPT,
+                 "--carry_initial_prompt", "True", "--condition_on_previous_text", "False"])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        probe.close()
+    text = printed.getvalue()
+    if "Skipping" in text:
+        raise AssertionError(f"the dh256 CLI skipped the file:\n{text[-3000:]}")
+    files = sorted(os.listdir(out))
+    if files != [f"clip30.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
+        raise AssertionError(f"the dh256 CLI wrote {files}")
+    if fp32:
+        no_bf16_kernel(counts, "[wide] (d) the fp32 CLI")
+    prefill = {s for s in probe.shapes if s[0][1] < 1500}
+    if not any(s[3] for s in prefill) or not any(not s[3] for s in prefill):
+        raise AssertionError(f"the dh256 CLI's prefill ran no causal or no cross K7: {sorted(probe.shapes)}")
+    for name in ("log_mel", "flash_attention" + sfx, "decode_attention" + sfx, "topk_logprobs"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the dh256 CLI run launched no {name}: {counts}")
+    print(f"[wide] (d) CLI at dh256 (large-v3's widths, 5 heads of 256, 2 + 2 layers), {'fp32' if fp32 else 'bf16'}, "
+          f"30 s WAV at one rung, the 19-token prompt: {wall:.1f} s wall; K7 shapes (q, k, kv_valid_len, causal) "
+          f"{sorted(probe.shapes)}; launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]",
+          flush=True)
+    return counts, prefill
+
+
+def run_wide_widths(card: str):
+    """Phase 25: (a), then at each geometry and dtype (c), at dh256 (d), and
+    (b) at the shapes they ran; every kernel of phase 25 must launch on its
+    paths: K1 and K2 at both geometries, K7 at dh256 (the encoder and the
+    CLI's prefill), K5 at dh192, in both dtypes. Returns (the timed rows,
+    the paths' counts)."""
+    import torch
+
+    check_wide_kernels(card)
+    rows, paths = [], []
+    with tempfile.TemporaryDirectory() as workdir:
+        for geometry in WW_DIMS:
+            for fp32 in (False, True):
+                got = run_wide_width(card, geometry, workdir, fp32)
+                cli_shapes = ()
+                if geometry == "dh256":
+                    counts, cli_shapes = run_wide_cli(card, workdir, fp32)
+                    got.append(counts)
+                torch.cuda.empty_cache()
+                rows += check_wide_path_kernels(card, geometry, fp32, cli_shapes)
+                sfx = "_f32" if fp32 else ""
+                names = ["decode_attention_i8" + sfx, "decode_attention" + sfx,
+                         ("flash_attention" if geometry == "dh256" else "flash_attention_mh") + sfx]
+                total = {name: sum(c.get(name, 0) for c in got) for name in names}
+                if not all(total.values()):
+                    raise AssertionError(f"no launch of a phase-25 kernel on the {geometry} "
+                                         f"{'fp32' if fp32 else 'bf16'} paths: {total}")
+                print(f"[wide] launches over the {geometry} {'fp32' if fp32 else 'bf16'} paths {json.dumps(total)}",
+                      flush=True)
+                paths += got
+    return rows, paths
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -4387,6 +4872,12 @@ def main() -> int:
     aw_rows, aw_paths = run_any_widths(card)
     rows += aw_rows
 
+    # phase 25: head widths above 128 for serving, at 5 heads of 256
+    # (large-v3's widths) and 4 of 192 (small's), bf16 and fp32
+    stamp("phase 25 starts")
+    ww_rows, ww_paths = run_wide_widths(card)
+    rows += ww_rows
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
@@ -4395,10 +4886,11 @@ def main() -> int:
     # evaluate runs at head widths 128 and 32 in bf16 and in fp32, and phase 22's train steps,
     # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
     # runs, each rank's counts, and phase 24's runs at 16 heads of 80 and 8
-    # of 96 and its CLI run), each counted from 0 just before it ran
+    # of 96 and its CLI run, and phase 25's serving runs at 5 heads of 256
+    # and 4 of 192 and its CLI runs), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths)
+             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

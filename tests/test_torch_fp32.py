@@ -98,16 +98,21 @@ def test_flash_wrappers_refuse_fp16_and_mixed_dtypes(fake_card, kernel):
 
 
 def test_k5_fp32_serves_head_widths_32_64_and_128(fake_card):
-    """The fp32 K5 serves the widths of its classes 32, 64 and 128 and every
-    multiple of 8 below 128 (80 here, in class 128); 136 raises in fp32,
-    while the bf16 K5 serves it (any multiple of 8 up to 768)."""
+    """The fp32 K5 serves the widths of its classes 32, 64 and 128, every
+    multiple of 8 below 128 (80 here, in class 128) and, on the fp32 wide
+    forward, every multiple of 8 from 136 to 768 (136 here), as the bf16 K5
+    does; 776 raises in both dtypes, naming the widths served."""
     q = torch.zeros((2, 20, 160))
     assert PF.flash_attention_mh(q, q, q, n_head=2).dtype == torch.float32
     wide = torch.zeros((2, 20, 272))
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128, got 136"):
-        PF.flash_attention_mh(wide, wide, wide, n_head=2)
+    assert PF.flash_attention_mh(wide, wide, wide, n_head=2).dtype == torch.float32
     assert PF.flash_attention_mh(wide.bfloat16(), wide.bfloat16(), wide.bfloat16(), n_head=2).dtype == torch.bfloat16
-    assert fake_card.called == ["flash_mh_fwd_f32", "flash_mh_fwd_bf16"]
+    past = torch.zeros((2, 20, 1552))
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 768, got 776"):
+        PF.flash_attention_mh(past, past, past, n_head=2)
+    with pytest.raises(ValueError, match="multiple of 8 up to 768, got 776"):
+        PF.flash_attention_mh(past.bfloat16(), past.bfloat16(), past.bfloat16(), n_head=2)
+    assert fake_card.called == ["flash_mh_fwd_f32", "flash_mh_fwd_f32", "flash_mh_fwd_bf16"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])

@@ -157,16 +157,18 @@ def test_decode_wrappers_call_the_f32_symbol_at_the_width(fake_card, int8, dh):
     assert _launched() == {key: 1}
 
 
-# a width each fp32 kernel still refuses: K3 and K6 serve 32, 64 and 128,
-# the others every multiple of 8 from 8 to 128 (dh -> their refused width)
-REFUSED = {16: 20, 80: 136, 96: 20, 256: 256}
+# a width each fp32 kernel still refuses (dh -> (K8's, K1's and K2's, K5's
+# and K7's)): K3 and K6 serve 32, 64 and 128; K8 every multiple of 8 from 8
+# to 128, K1 and K2 from 8 to 256, K5 and K7 from 8 to 768
+REFUSED = {16: (20, 20, 20), 80: (136, 264, 776), 96: (20, 20, 20), 256: (256, 264, 776)}
 
 
 @pytest.mark.parametrize("dh", [16, 80, 96, 256])
 def test_other_widths_still_raise_in_fp32(fake_card, dh):
-    """A width no kernel serves raises in fp32 before any launch: K3 and K6
-    (where d is a multiple of 128) at dh; K5, K7, K8, K2 and K1 at a width
-    outside 8-128 or not a multiple of 8 (REFUSED[dh])."""
+    """A width no kernel serves raises in fp32 before any launch, naming the
+    widths served: K3 and K6 (where d is a multiple of 128) at dh; K8, K2
+    and K1, K5 and K7 at a width outside 8-128, 8-256 and 8-768 or not a
+    multiple of 8 (REFUSED[dh])."""
     n_head = 2
     d = n_head * dh
     q = torch.zeros((2, 20, d))
@@ -175,18 +177,19 @@ def test_other_widths_still_raise_in_fp32(fake_card, dh):
         res = torch.zeros((d // 128, 2, 20, max(1, 128 // dh)))
         calls.append((lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head),
                       "fp32 kernel takes a head width of 32, 64, 128"))
-    wo = REFUSED[dh]
-    dw = n_head * wo
-    qw, qs, lse7 = torch.zeros((2, 20, dw)), torch.zeros((4, 20, wo)), torch.zeros((4, 20, 1))
-    qd = torch.zeros((2, 1, dw), device="meta")
-    ck, ck8 = torch.zeros((1, 2, 128, dw), device="meta"), torch.zeros((1, 2, 128, dw), dtype=torch.int8, device="meta")
+    w8, wd, wf = REFUSED[dh]
+    q8, lse7 = torch.zeros((4, 20, w8)), torch.zeros((4, 20, 1))
+    qd = torch.zeros((2, 1, n_head * wd), device="meta")
+    ck = torch.zeros((1, 2, 128, n_head * wd), device="meta")
+    ck8 = torch.zeros((1, 2, 128, n_head * wd), dtype=torch.int8, device="meta")
     sc = torch.ones((1, 2, 128), device="meta")
-    rng = "multiple of 8 from 8 to 128"
-    calls += [(lambda: PF.flash_attention_mh(qw, qw, qw, n_head=n_head), rng),
-              (lambda: PF.flash_attention(qs, qs, qs, causal=True), rng),
-              (lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True), rng),
-              (lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0), rng),
-              (lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0), rng)]
+    qw, qs = torch.zeros((2, 20, n_head * wf)), torch.zeros((4, 20, wf))
+    calls += [(lambda: PF.flash_attention_mh(qw, qw, qw, n_head=n_head), "multiple of 8 from 8 to 768"),
+              (lambda: PF.flash_attention(qs, qs, qs, causal=True), "multiple of 8 from 8 to 768"),
+              (lambda: PF.flash_attention_bwd(q8, q8, q8, q8, lse7, q8, causal=True), "multiple of 8 from 8 to 128"),
+              (lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0), "multiple of 8 from 8 to 256"),
+              (lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0),
+               "multiple of 8 from 8 to 256")]
     for call, message in calls:
         with pytest.raises(ValueError, match=message):
             call()

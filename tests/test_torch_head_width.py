@@ -238,20 +238,22 @@ def test_flash_wrappers_take_the_head_widths(fake_card, dh):
 @pytest.mark.parametrize("dh,dtype", [(136, torch.bfloat16), (20, torch.bfloat16), (256, torch.bfloat16),
                                       (136, torch.float32), (20, torch.float32), (256, torch.float32)])
 def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
-    """A width no kernel of the dtype serves raises before any launch: K7
-    and K8 (and K5 in fp32) serve every multiple of 8 from 8 to 128, so 136,
-    20 and 256 raise with that range; K3 and K6 serve 32, 64 and 128 only,
-    so 80 and 96 (and this width) raise there."""
+    """A width no kernel of the dtype serves raises before any launch,
+    naming the widths served: K8 serves every multiple of 8 from 8 to 128,
+    so 136, 20 and 256 raise there; K7 (and K5 in fp32) every multiple of 8
+    up to 768, so 20 (or, past 128, 776) raises there; K3 and K6 serve 32,
+    64 and 128 only, so 80 and 96 (and this width) raise there."""
     n_head = 2
-    qs = torch.zeros((4, 20, dh), dtype=dtype)
+    wide = dh if dh % 8 else 776  # a width K7 and the fp32 K5 refuse
+    qs, qw = torch.zeros((4, 20, dh), dtype=dtype), torch.zeros((4, 20, wide), dtype=dtype)
     lse7 = torch.zeros((4, 20, 1))
-    q = torch.zeros((2, 20, n_head * dh), dtype=dtype)
-    calls = [lambda: PF.flash_attention(qs, qs, qs, causal=True),
-             lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True)]
-    if dtype == torch.float32:  # K5 in fp32 serves multiples of 8 up to 128; in bf16 up to 768
-        calls.append(lambda: PF.flash_attention_mh(q, q, q, n_head=n_head))
-    for call in calls:
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+    q = torch.zeros((2, 20, n_head * wide), dtype=dtype)
+    calls = [(lambda: PF.flash_attention(qw, qw, qw, causal=True), "multiple of 8 from 8 to 768"),
+             (lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True), "multiple of 8 from 8 to 128")]
+    if dtype == torch.float32:  # the bf16 K5's own check names its range (`k5_plan`)
+        calls.append((lambda: PF.flash_attention_mh(q, q, q, n_head=n_head), "multiple of 8 from 8 to 768"))
+    for call, served in calls:
+        with pytest.raises(ValueError, match=served):
             call()
     for width in (80, 96, dh):
         h2_heads = 8 if width == 80 else 4 if width == 96 else n_head
@@ -269,15 +271,15 @@ def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["K2", "K1"])
 def test_decode_wrappers_take_the_head_widths(fake_decode_card, int8):
-    """K1 and K2 take every multiple of 8 from 8 to 128 with bf16 and with
-    fp32 q; 136, 20 and 256 raise before any launch."""
-    widths = range(8, 129, 8)
+    """K1 and K2 take every multiple of 8 from 8 to 256 with bf16 and with
+    fp32 q; 264, 20 and 272 raise before any launch, naming that range."""
+    widths = range(8, 257, 8)
     for dh in widths:
         _decode_call(dh, torch.bfloat16, int8=int8)()
         _decode_call(dh, torch.float32, int8=int8)()
     assert len(fake_decode_card) == 2 * len(widths)
-    for dh, dtype in ((136, torch.bfloat16), (20, torch.bfloat16), (20, torch.float32), (256, torch.float32)):
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+    for dh, dtype in ((264, torch.bfloat16), (20, torch.bfloat16), (20, torch.float32), (272, torch.float32)):
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
             _decode_call(dh, dtype, int8=int8)()
     with pytest.raises(ValueError, match="equal heads"):
         _decode_call(64, torch.bfloat16, d=200, n_head=3, int8=int8)()

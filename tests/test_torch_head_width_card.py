@@ -7,7 +7,10 @@ valid length; K2 and K1 over cross and self caches at groups 1, 5, 16 and
 20. At widths below their class (8, 40, 80, 96, 120): K7, K7-lse, K8, the
 fp32 K5, K2 and K1. The bf16 K5 on both of its routes (8-120 on K3's
 forward over head maps, 136-768 on the wide forward) and its C plan
-against `k5_plan`. A width no kernel serves raises on the card. Marked
+against `k5_plan`. Above 128 for serving: K7, K7-lse and the fp32 K5 at
+136, 200, 256, 384 and 768 on the wide forwards, K2 and K1 at 136, 200 and
+256 in the class of 256, and the fp32 wide forward's C plan against
+`f32_wide_plan`. A width no kernel serves raises on the card. Marked
 `cuda`: they skip where there is no card (`python -m pytest
 tests/test_torch_*.py -q -m cuda` on the machine with one). This file
 imports no JAX: the plain versions are the reference, and their own tests
@@ -124,7 +127,8 @@ def test_k7_and_k8_on_card(card, dh, bh, tq, tk, causal, q_offset, kv_len, dtype
 # and route B (136-768) serve, several heads each where d allows
 K5_CASES = [(dh, n_head, dtype) for dh, n_head in [(32, 3), (128, 1), (32, 16)] for dtype in DTYPES] + [
     (dh, n_head, torch.bfloat16) for dh, n_head in [(8, 4), (24, 5), (40, 3), (80, 9), (96, 8), (120, 3), (136, 2),
-                                                    (256, 3), (768, 1)]]
+                                                    (256, 3), (768, 1)]] + [
+    (dh, n_head, torch.float32) for dh, n_head in [(136, 5), (200, 3), (256, 3), (384, 2), (768, 1)]]
 
 
 @pytest.mark.cuda
@@ -133,8 +137,8 @@ def test_k5_on_card_takes_the_forward(card, dh, n_head, dtype):
     """K5 runs K3's forward at dh 32 and 128 over any number of heads (d
     need not be a multiple of 128), in bf16 and in fp32; in bf16 at the
     other widths up to 120 at their class over head maps, and at 136-768 on
-    the wide forward. Both tile plans (tq 200 and 40), keys valid short of
-    tk and all valid."""
+    the wide forward (fp32: the fp32 wide forward). Both tile plans (tq 200
+    and 40), keys valid short of tk and all valid."""
     d = dh * n_head
     reset_launch_counts()
     for b, tq, tk, kv_len in ((2, 200, 300, 270), (3, 40, 129, None)):
@@ -165,6 +169,24 @@ def test_k5_plan_matches_the_c_dispatch(card):
             assert tuple(out) == (routes[plan.route], *plan[1:]), (dh, tq)
     for dh in (0, 4, 20, 132, 776):
         assert lib.flash_mh_plan_bf16(dh, 64, ctypes.addressof(out)) != 0
+
+
+@pytest.mark.cuda
+def test_f32_wide_plan_matches_the_c_dispatch(card):
+    """`flash_wide_plan_f32`, the plan the fp32 wide forward's C dispatch
+    takes, equals `f32_wide_plan` at every multiple of 8 from 136 to 768;
+    widths it does not serve give an error there too."""
+    import ctypes
+
+    from asr_ttl_mtl_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib("flash_attention")
+    out = (ctypes.c_int * 4)()
+    for dh in range(136, 769, 8):
+        assert lib.flash_wide_plan_f32(dh, ctypes.addressof(out)) == 0
+        assert tuple(out) == tuple(PF.f32_wide_plan(dh)), dh
+    for dh in (0, 64, 128, 132, 776):
+        assert lib.flash_wide_plan_f32(dh, ctypes.addressof(out)) != 0
 
 
 @pytest.mark.cuda
@@ -220,8 +242,9 @@ def test_k1_on_card(card, dh, b, group, tk, valid, dtype):
                                          (96, torch.float32)])
 def test_other_widths_raise_on_card(card, h2_dh, dtype):
     """No fallback: K3 and K6 refuse 80 and 96 (they serve 32, 64 and 128,
-    as the JAX package's h2 kernels); K1, K2, K7, K8 (and K5 in fp32)
-    refuse 136, 20 and 256 with the range they serve; nothing launches."""
+    as the JAX package's h2 kernels); K8 refuses 136, 20 and 256 (8-128),
+    K1 and K2 20 and 264 (8-256), K7 (and K5 in fp32) 20 and 776 (8-768),
+    each naming the range it serves; nothing launches."""
     n_head = 1280 // h2_dh if h2_dh == 80 else 768 // h2_dh
     d = h2_dh * n_head
     q, = _rnd(card, 0, (2, 64, d), dtype=dtype)
@@ -231,20 +254,24 @@ def test_other_widths_raise_on_card(card, h2_dh, dtype):
                  lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head)):
         with pytest.raises(ValueError, match="head width of 32, 64, 128"):
             call()
-    for dh in (136, 20, 256):
+    for dh in (136, 20, 256, 264, 776):
         qs, = _rnd(card, 0, (4, 64, dh), dtype=dtype)
         lse = torch.zeros((4, 64, 1), device=card)
         qd, ck = _rnd(card, 0, (2, 1, 2 * dh), (1, 2, 128, 2 * dh), dtype=dtype)
         ki, ks = PD.quantize_kv_rows(ck.float())
         qn, = _rnd(card, 0, (2, 64, 2 * dh), dtype=dtype)
-        calls = [lambda: PF.flash_attention(qs, qs, qs, causal=True),
-                 lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True),
-                 lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0),
-                 lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0)]
-        if dtype == torch.float32:
-            calls.append(lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2))
-        for call in calls:
-            with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+        calls = []  # (the range the refusal names, the call)
+        if dh in (136, 20, 256):
+            calls.append(("8 to 128", lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True)))
+        if dh in (20, 264):
+            calls += [("8 to 256", lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0)),
+                      ("8 to 256", lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0))]
+        if dh in (20, 776):
+            calls.append(("8 to 768", lambda: PF.flash_attention(qs, qs, qs, causal=True)))
+            if dtype == torch.float32:
+                calls.append(("8 to 768", lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2)))
+        for served, call in calls:
+            with pytest.raises(ValueError, match=f"multiple of 8 from {served}"):
                 call()
     assert sum(LAUNCHES.values()) == 0
 
@@ -329,3 +356,117 @@ def test_k2_and_k1_at_any_width_on_card(card, dh, dtype):
         _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
         sfx = "" if dtype == torch.bfloat16 else "_f32"
         assert LAUNCHES[f"decode_attention{sfx}"] == 2 and LAUNCHES[f"decode_attention_i8{sfx}"] == 2
+
+
+# ---------------------------------- above 128 for serving (136-768) ------
+
+WIDE_WIDTHS = [136, 200, 256, 384, 768]
+DECODE_WIDE_WIDTHS = [136, 200, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+def test_k7_wide_on_card(card, dh, dtype):
+    """K7 with and without lse on the wide forwards (bf16: route B's kernel;
+    fp32: the fp32 wide forward): causal at q_offset 0 and over 96 keys at
+    q_offset 48, causal over 160 queries (two warpgroups in bf16 up to
+    256), non-causal with keys valid short of tk."""
+    rel = _share(dtype)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    for bh, tq, tk, causal, q_offset, kv_len in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                 (4, 160, 160, True, 0, None), (8, 130, 300, False, 0, 270)):
+        q, k, v = _rnd(card, dh + tq + tk, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), dtype=dtype)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+        want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        reset_launch_counts()
+        got = PF.flash_attention(q, k, v, return_lse=True, **kw)
+        _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+        _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
+        _same_bits(lambda: PF.flash_attention(q, k, v, return_lse=True, **kw), got)
+        out = PF.flash_attention(q, k, v, **kw)
+        _close(out, want, lambda w: rel * w.float().abs().max().item())
+        _same_bits(lambda: PF.flash_attention(q, k, v, **kw), out)
+        assert {n: c for n, c in LAUNCHES.items() if c} == {f"flash_attention_lse{sfx}": 2,
+                                                            f"flash_attention{sfx}": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", DECODE_WIDE_WIDTHS)
+def test_k2_and_k1_at_the_class_of_256_on_card(card, dh, dtype):
+    """K2 and K1 at 5 heads of dh in the class of 256 (at 136 and 200 K1's
+    odd heads start 8 bytes off a 16-byte boundary) over cross caches of
+    1536 keys valid to 1499 at groups 1, 5 and 16 (one cache row: int8 key
+    blocks of 512) and a self cache; K2 at phase 3's bf16 tolerance or
+    FP32_REL, K1 within the flip bound."""
+    n_head = 5
+    d = n_head * dh
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    for b, group, tk, valid in ((2, 1, 1536, 1499), (2, 5, 1536, 1499), (2, 16, 1536, 1499), (1, 1, 1536, 1499),
+                                (8, 5, 448, 37)):
+        q, ck, cv = _rnd(card, tk + group + dh, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d), dtype=dtype)
+        kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+        share = 2.0**-7 if dtype == torch.bfloat16 else FP32_REL
+        reset_launch_counts()
+        got = PD.decode_attention(q, ck, cv, 1, n_head, **kw)
+        _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: share * w.float().abs().max())
+        _same_bits(lambda: PD.decode_attention(q, ck, cv, 1, n_head, **kw), got)
+        (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
+        want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, n_head, return_flip_bound=True, **kw)
+        got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw)
+        ref = want.float().abs()
+        if dtype == torch.bfloat16:
+            tol = (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        else:
+            tol = flip + FP32_REL * ref.max()
+        assert ((got.float() - want.float()).abs() <= tol).all()
+        _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
+        assert LAUNCHES[f"decode_attention{sfx}"] == 2 and LAUNCHES[f"decode_attention_i8{sfx}"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_wide_width_on_card(card, dtype):
+    """Every multiple of 8 the wide forwards serve (136-768): K7 with lse,
+    causal at q_offset 30 over 70 keys, and the fp32 K5 (768 // dh heads,
+    keys valid to 60); every multiple of 8 from 136 to 256 in K2 and K1 at
+    5 heads over a 1536-key cross cache valid to 1499, group 5. Each
+    against its plain version at the dtype's tolerance."""
+    rel = _share(dtype)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    reset_launch_counts()
+    for dh in range(136, 769, 8):
+        q, k, v = _rnd(card, dh, (2, 40, dh), (2, 70, dh), (2, 70, dh), dtype=dtype)
+        kw = dict(causal=True, q_offset=30, scale=dh**-0.5)
+        want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        got = PF.flash_attention(q, k, v, return_lse=True, **kw)
+        _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+        _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
+        if dtype == torch.float32:
+            n_head = max(1, 768 // dh)
+            q, k, v = _rnd(card, dh + 1, (2, 40, n_head * dh), (2, 70, n_head * dh), (2, 70, n_head * dh),
+                           dtype=dtype)
+            kw = dict(n_head=n_head, kv_valid_len=60, scale=dh**-0.5)
+            _close(PF.flash_attention_mh(q, k, v, **kw), PF.flash_attention_mh_plain(q, k, v, **kw),
+                   lambda w: FP32_REL * w.float().abs().max().item())
+    for dh in range(136, 257, 8):
+        d = 5 * dh
+        q, ck, cv = _rnd(card, dh + 2, (2 * 5, 1, d), (2, 2, 1536, d), (2, 2, 1536, d), dtype=dtype)
+        kw = dict(scale=dh**-0.5, valid_upto=1499, group=5)
+        share = 2.0**-7 if dtype == torch.bfloat16 else FP32_REL
+        _close(PD.decode_attention(q, ck, cv, 1, 5, **kw), PD.decode_attention_plain(q, ck, cv, 1, 5, **kw),
+               lambda w: share * w.float().abs().max())
+        (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
+        want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, 5, return_flip_bound=True, **kw)
+        got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, 5, **kw)
+        ref = want.float().abs()
+        if dtype == torch.bfloat16:
+            tol = (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        else:
+            tol = flip + FP32_REL * ref.max()
+        assert ((got.float() - want.float()).abs() <= tol).all(), dh
+    n_wide, n_decode = len(range(136, 769, 8)), len(range(136, 257, 8))
+    assert LAUNCHES[f"flash_attention_lse{sfx}"] == n_wide
+    assert LAUNCHES[f"decode_attention{sfx}"] == LAUNCHES[f"decode_attention_i8{sfx}"] == n_decode
+    assert LAUNCHES["flash_attention_mh_f32"] == (n_wide if dtype == torch.float32 else 0)
