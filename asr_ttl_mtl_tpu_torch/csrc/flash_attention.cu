@@ -18,7 +18,10 @@
 // (over per-head tensor maps below a class: route A), the wide forward
 // from 136 (route B). K7 and K7-lse take 136-768 on the wide forward of
 // their dtype (bf16: route B's kernel; fp32: `f32::fwd_wide_kernel`, which
-// the fp32 K5 takes there too); K8 stops at 128.
+// the fp32 K5 takes there too), and K8 on the wide backward of its dtype
+// (bf16: `flash_bwd_dq_wide_sm90_kernel` + `flash_bwd_dkv_wide_sm90_kernel`;
+// fp32: `f32::bwd_dq_wide_kernel` + `f32::bwd_dkv_wide_kernel`), each CTA
+// a 128-column slab of its outputs.
 //
 // Replaces these TPU kernels of asr_ttl_mtl_tpu/ops/flash_attention.py:
 //   K5  `_flash_mh_kernel` :346 (entry `flash_attention_mh` :401)
@@ -106,13 +109,16 @@ bool bad_shape(const Shape& sh, int kDh) {
          width_class(sh.dh) != kDh || sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb < 1;
 }
 
-constexpr int kWideMaxDh = 768;  // the widest head the wide forwards serve
+constexpr int kWideMaxDh = 768;  // the widest head the wide kernels serve
 
-// a shape the wide forwards of either dtype take: a head width that is a
-// multiple of 8 from 136 to 768, residuals (BH, Tq, 1)
+// a head width the wide kernels do not serve: they take the multiples of 8 from 136 to 768
+bool bad_wide_dh(int dh) { return dh <= 128 || dh > kWideMaxDh || dh % 8; }
+
+// a shape the wide kernels of either dtype take: a wide head width,
+// residuals (BH, Tq, 1)
 bool bad_wide_shape(const Shape& sh) {
-  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh || sh.dh % 8 ||
-         sh.dh <= 128 || sh.dh > kWideMaxDh || sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb != 1;
+  return sh.batch < 1 || sh.tq < 1 || sh.tk < 1 || sh.n_head < 1 || sh.d != sh.n_head * sh.dh || bad_wide_dh(sh.dh) ||
+         sh.kv_len < 1 || sh.kv_len > sh.tk || sh.q_offset < 0 || sh.hpb != 1;
 }
 
 // ------------------------------ K3 and K7 forward on Hopper: TMA + wgmma
@@ -733,7 +739,8 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse, const
 //
 // Serves K6 (`flash_h2_bwd_bf16`) and K8 (`flash_bwd_bf16`: causal or not,
 // any q_offset, residuals at hpb = 1), each at head widths 32, 64 and 128
-// (a template parameter; the tiles lie in shared memory as the forward's).
+// (a template parameter; the tiles lie in shared memory as the forward's);
+// K8 above 128 takes the wide backward after route B, with its own note.
 //
 // What bounds it on the H100: the tensor cores and the exps between the
 // products. The backward does 10 T Tk dh FLOPs a head (S, dP, dQ, dK, dV)
@@ -1511,6 +1518,453 @@ int fwd_wide(const void* q, const void* k, const void* v, void* out, void* lse, 
   return causal ? run_wide_plan<true>(q, k, v, out, lse, sh, p, s) : run_wide_plan<false>(q, k, v, out, lse, sh, p, s);
 }
 
+// -------------------------------------- K8 at head widths 136-768: route B's cut
+//
+// Serves `flash_bwd_bf16` above 128 ((BH, T, dh) as BH batch rows of one
+// head, causal or not, any q_offset and kv_len, residuals (BH, Tq, 1)). The
+// outputs outgrow the registers as route B's O did (dq for 64 rows at dh
+// 768 is 192 KB of fp32), so each kernel's CTA owns one slab of kSlab
+// output columns and recomputes S and dP over the whole head width, as
+// route B recomputes S:
+//   - dq (`flash_bwd_dq_wide_sm90_kernel`): 64 queries of a (batch row,
+//     head) and a slab of dq. Q and dO stay in shared memory for the walk
+//     (64-column boxes of the 128-byte swizzle through the head maps, the
+//     last box past dh zero-filled); the key tiles stream by boxes: K box j
+//     and V box j of kN keys in a ring stage, S += Q_j K_j^T and dP += dO_j
+//     V_j^T on wgmma m64n{kN}k16, the stage released as the next box's
+//     products start. Then dS = p (dP - delta) scale, rounded to bf16 in
+//     registers, is the A operand of dQ += dS K_slab (m64n128k16; the K
+//     slab, its kN keys x the slab's columns, a single buffer of its own,
+//     which the producer fills while the consumers walk the next tile's
+//     boxes). dQ (64 registers a thread) stays in registers.
+//   - dk/dv (`flash_bwd_dkv_wide_sm90_kernel`): 64 keys and a slab of dk
+//     and dv. K and V stay resident, Q and dO boxes of kWideDkvQ = 32
+//     queries stream; S^T += K_j Q_j^T, dP^T += V_j dO_j^T, then dV +=
+//     bf16(P)^T dO_slab and dK += bf16(dS)^T Q_slab from a slab buffer that
+//     also holds the tile's lse and delta (1-D maps, as the dh <= 128
+//     kernel). dK and dV take 64 registers each, S^T and dP^T 16: the dh
+//     128 kernel's 64 + 64 + 16 + 16.
+//   - Products: each slab recomputes S and dP over the head, so the two
+//     kernels do (2n + 1) + (2n + 2) full-width products where the bound
+//     counts 5 (n = ceil(dh / 128): 2.2x at 256, 5.4x at 768).
+//   - The rules of the dh <= 128 kernels: the masks are selects on p (per
+//     row key limits for causal and kv_len; dk/dv: the columns past tq and
+//     above a key's diagonal), the causal dq walk stops at the diagonal of
+//     its last live query, a dk/dv CTA whose keys no query sees writes zeros
+//     without loading, and a slab box wholly past dh is not loaded (it feeds
+//     output columns that are never written). No atomics: each output is
+//     written once, the same bits on every launch.
+//   - The plan (`wide_bwd_plan`, mirrored by `ops.flash_attention.
+//     k8_wide_plan`): one consumer warpgroup; dq's key tiles of 64 where two
+//     stages fit beside Q and dO (dh <= 704), else 32; as many stages, up to
+//     4, as 227 KB holds (dh 768: Q and dO 192 KB, 3 stages of 8 KB and an
+//     8 KB slab; dk/dv: K and V 192 KB, 2 stages of 8 KB, a 16.5 KB slab).
+
+constexpr int kWideDkvQ = 32;           // queries a Q / dO box of the wide dk/dv kernel
+constexpr int kWideBwdStagesMax = 4;    // stages the mbarriers are laid out for
+constexpr int kWideBwdBars = 8 * (1 + 2 * kWideBwdStagesMax + 2);  // own_full, full/empty, slab full/empty
+
+struct WideBwdPlan {
+  int boxes;       // 64-column boxes of a head
+  int slabs;       // output slabs a head, ceil(dh / kSlab)
+  int dq_keys;     // keys a K / V box of the dq kernel
+  int dq_stages;   // K / V box stages of the dq kernel
+  int dq_smem;     // shared bytes, the alignment slack included
+  int dkv_stages;  // Q / dO box stages of the dk/dv kernel (kWideDkvQ queries)
+  int dkv_smem;
+};
+
+// shared bytes of a wide backward kernel: the resident boxes, the stages, the slab buffer
+inline int wide_bwd_smem(int own, int stage, int stages, int slab) {
+  return 1024 + own + stages * stage + slab + kWideBwdBars;
+}
+// the stages that fit beside the rest, up to kWideBwdStagesMax
+inline int wide_bwd_stages(int own, int stage, int slab) {
+  const int fit = (kSmemMax - wide_bwd_smem(own, 0, 0, slab)) / stage;
+  return fit < kWideBwdStagesMax ? fit : kWideBwdStagesMax;
+}
+
+inline WideBwdPlan wide_bwd_plan(int dh) {
+  WideBwdPlan p;
+  p.boxes = (dh + 63) / 64;
+  p.slabs = (dh + kSlab - 1) / kSlab;
+  const int own = 2 * p.boxes * kBM * 128;  // Q and dO (dk/dv: K and V) of the CTA's 64 rows
+  // dq: a stage is a K and a V box of kN keys, the slab two K boxes
+  p.dq_keys = wide_bwd_stages(own, 2 * 64 * 128, 2 * 64 * 128) >= 2 ? 64 : 32;
+  const int kv = 2 * p.dq_keys * 128;
+  p.dq_stages = wide_bwd_stages(own, kv, kv);
+  p.dq_smem = wide_bwd_smem(own, kv, p.dq_stages, kv);
+  // dk/dv: a stage is a Q and a dO box, the slab two of each and the lse and delta rows
+  const int qg = 2 * kWideDkvQ * 128, slab = 2 * qg + 2 * kResRow<1, kWideDkvQ> * 4;
+  p.dkv_stages = wide_bwd_stages(own, qg, slab);
+  p.dkv_smem = wide_bwd_smem(own, qg, p.dkv_stages, slab);
+  return p;
+}
+
+// dq: one CTA per 64 queries x one slab of a (batch row, head); one
+// producer warp starts every load, one consumer warpgroup computes
+template <int kN, bool kCausal>
+__global__ void __launch_bounds__(128 + 32, 1)
+flash_bwd_dq_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Shape sh, int boxes, int stages) {
+  constexpr int kBox = kBM * 128, kNBox = kN * 128;  // bytes of a 64-column box of the CTA's queries, of kN keys
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  // Q's boxes, dO's, the stages (a K box, then a V box), the K slab (two
+  // boxes), then the mbarriers; every box 1024-byte aligned
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* sg = sq + boxes * kBM * 64;
+  __nv_bfloat16* sk = sg + boxes * kBM * 64;
+  __nv_bfloat16* ss = sk + stages * 2 * kN * 64;
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(ss + 2 * kN * 64);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kWideBwdStagesMax;
+  uint64_t* slab_full = empty + kWideBwdStagesMax;
+  uint64_t* slab_empty = slab_full + 1;
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int q0 = blockIdx.x * kBM, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = key_tiles<kCausal, kN>(sh, q0, q0 + kBM);
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128);  // every consumer thread releases the stage
+    }
+    mbar_init(slab_full, 1);
+    mbar_init(slab_empty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: one thread starts every load
+    if (lane == 0) {
+      const int s_boxes = c0 + 64 < sh.dh ? 2 : 1;  // a slab box wholly past dh is not loaded
+      mbar_expect_tx(own_full, 2 * boxes * kBox);
+      for (int j = 0; j < boxes; ++j) {
+        tma_load_4d(sq + j * kBM * 64, &tm_q, own_full, 64 * j, h, q0, b);
+        tma_load_4d(sg + j * kBM * 64, &tm_g, own_full, 64 * j, h, q0, b);
+      }
+      int n = 0;  // boxes loaded so far
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int j = 0; j < boxes; ++j, ++n) {
+          const int st = n % stages;
+          if (n >= stages) mbar_wait(&empty[st], (n / stages - 1) & 1);
+          __nv_bfloat16* kt = sk + st * 2 * kN * 64;
+          mbar_expect_tx(&full[st], 2 * kNBox);
+          tma_load_4d(kt, &tm_k, &full[st], 64 * j, h, t * kN, b);
+          tma_load_4d(kt + kN * 64, &tm_v, &full[st], 64 * j, h, t * kN, b);
+        }
+        if (t > 0) mbar_wait(slab_empty, (t - 1) & 1);
+        mbar_expect_tx(slab_full, s_boxes * kNBox);
+        for (int j = 0; j < s_boxes; ++j) tma_load_4d(ss + j * kN * 64, &tm_k, slab_full, c0 + 64 * j, h, t * kN, b);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows wq * 16 + {g, g + 8} of the CTA's queries;
+  // S and dP columns 8j + 2 t4 + {0, 1} of the key tile, dQ's of the slab
+  const int wq = warp, g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + wq * 16 + g;
+  const float sl2 = sh.scale * kLog2e;
+  float lse2[2], dlt[2];  // lse in log2 units and delta x scale; p = 0 on rows past tq
+  int lim[2];             // the rows' key limits
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < sh.tq ? lse[res_index(sh, h, b, row)] * kLog2e : INFINITY;
+    dlt[r] = row < sh.tq ? delta[res_index(sh, h, b, row)] * sh.scale : 0.f;
+    lim[r] = key_limit<kCausal>(sh, row);
+  }
+  float sc[kN / 2], dp[kN / 2], acc[kSlab / 2];
+  uint32_t da[kN / 16][4];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(own_full, 0);
+  const uint64_t dq_desc = desc<128>(sq, kBox), dg_desc = desc<128>(sg, kBox);
+  const uint64_t ds_desc = desc<128>(ss, kNBox);  // the K slab as an MN-major B over its two boxes
+  int n = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    wg_fence();  // sc and dp were read by the last tile's dS
+    for (int j = 0; j < boxes; ++j, ++n) {  // S += Q_j K_j^T, dP += dO_j V_j^T: 4 k16 steps a box
+      const int st = n % stages;
+      mbar_wait(&full[st], (n / stages) & 1);
+      const uint64_t dk = desc<128>(sk + st * 2 * kN * 64, kNBox), dv = desc<128>(sk + (st * 2 + 1) * kN * 64, kNBox);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<kN>(sc, dq_desc + (uint64_t)((j * kBox + kk * 32) >> 4), dk + (uint64_t)(kk * 2), j + kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<kN>(dp, dg_desc + (uint64_t)((j * kBox + kk * 32) >> 4), dv + (uint64_t)(kk * 2), j + kk);
+      wg_commit();
+      if (j > 0) {  // box j - 1's products are done: its stage is free
+        wg_wait<1>();
+        mbar_arrive(&empty[(n - 1) % stages]);
+      }
+    }
+    wg_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    mbar_arrive(&empty[(n - 1) % stages]);
+    // p = exp(s scale - lse) (0 at keys past the row's limit), dS = p (dP -
+    // delta) scale, rounded to bf16 pairs as in flash_bwd_dq_sm90_kernel
+    const int k_hi[2] = {lim[0] - t * kN, lim[1] - t * kN};
+#pragma unroll
+    for (int i = 0; i < kN / 2; i += 2) {
+      const int r = (i >> 1) & 1, key = 8 * (i / 4) + 2 * t4;
+      const float p0 = key < k_hi[r] ? ex2(fmaf(sc[i], sl2, -lse2[r])) : 0.f;
+      const float p1 = key + 1 < k_hi[r] ? ex2(fmaf(sc[i + 1], sl2, -lse2[r])) : 0.f;
+      da[i / 8][(i / 2) % 4] =
+          pack_bf16(p0 * fmaf(dp[i], sh.scale, -dlt[r]), p1 * fmaf(dp[i + 1], sh.scale, -dlt[r]));
+    }
+    mbar_wait(slab_full, t & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)  // dQ += bf16(dS) K_slab, 16 keys a step
+      wgmma_rs<kSlab>(acc, da[kk], ds_desc + mnstep<128>(kk));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(slab_empty);
+  }
+  store_acc(dq + (size_t)b * sh.tq * sh.d + (size_t)h * sh.dh + c0, acc, row0, sh.tq, sh.d, sh.dh - c0, t4);
+}
+
+// dk, dv: one CTA per 64 keys x one slab of a (batch row, head). CTAs whose
+// keys all lie at or past kv_len, or that no query sees, write zeros
+template <bool kCausal>
+__global__ void __launch_bounds__(128 + 32, 1)
+flash_bwd_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
+                               const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dlt,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh, int boxes,
+                               int stages) {
+  constexpr int kQ = kWideDkvQ;
+  constexpr int kBox = kBM * 128, kQBox = kQ * 128;  // bytes of a 64-column box of the CTA's keys, of kQ queries
+  constexpr int kRBox = kResBox<1, kQ>, kRRow = kResRow<1, kQ>;
+  static_assert(kResPieces<1, kQ> == 1, "one residual box a tile");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  // K's boxes, V's, the stages (a Q box, then a dO box), the slab (Q's two
+  // boxes, dO's two, the lse row, the delta row), then the mbarriers
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* sv = sk + boxes * kBM * 64;
+  __nv_bfloat16* sq = sv + boxes * kBM * 64;
+  __nv_bfloat16* sqs = sq + stages * 2 * kQ * 64;
+  __nv_bfloat16* sgs = sqs + 2 * kQ * 64;
+  float* slse = reinterpret_cast<float*>(sgs + 2 * kQ * 64);
+  float* sdlt = slse + kRRow;
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(sdlt + kRRow);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kWideBwdStagesMax;
+  uint64_t* slab_full = empty + kWideBwdStagesMax;
+  uint64_t* slab_empty = slab_full + 1;
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int k0 = blockIdx.x * kBM, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // causal: q tiles whose last query lies above the CTA's first key see none of it
+  const int n_qt = (sh.tq + kQ - 1) / kQ;
+  const int lo = k0 - sh.q_offset - (kQ - 1);
+  const int qt0 = kCausal && lo > 0 ? (lo + kQ - 1) / kQ : 0;
+  const int n_tiles = k0 < sh.kv_len && qt0 < n_qt ? n_qt - qt0 : 0;
+  const int res0 = (h * sh.batch + b) * sh.tq;  // this (head, batch row)'s residuals (hpb 1)
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 128);
+    }
+    mbar_init(slab_full, 1);
+    mbar_init(slab_empty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: one thread starts every load
+    if (lane == 0 && n_tiles > 0) {
+      const int s_boxes = c0 + 64 < sh.dh ? 2 : 1;
+      mbar_expect_tx(own_full, 2 * boxes * kBox);
+      for (int j = 0; j < boxes; ++j) {
+        tma_load_4d(sk + j * kBM * 64, &tm_k, own_full, 64 * j, h, k0, b);
+        tma_load_4d(sv + j * kBM * 64, &tm_v, own_full, 64 * j, h, k0, b);
+      }
+      int n = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int q_row = (qt0 + t) * kQ;
+        for (int j = 0; j < boxes; ++j, ++n) {
+          const int st = n % stages;
+          if (n >= stages) mbar_wait(&empty[st], (n / stages - 1) & 1);
+          __nv_bfloat16* qt = sq + st * 2 * kQ * 64;
+          mbar_expect_tx(&full[st], 2 * kQBox);
+          tma_load_4d(qt, &tm_q, &full[st], 64 * j, h, q_row, b);
+          tma_load_4d(qt + kQ * 64, &tm_g, &full[st], 64 * j, h, q_row, b);
+        }
+        if (t > 0) mbar_wait(slab_empty, (t - 1) & 1);
+        // a residual box past tq reads the next row's residuals (masked
+        // below) or zeros past the end
+        const int first = (res0 + q_row) & ~3;
+        mbar_expect_tx(slab_full, 2 * s_boxes * kQBox + 2 * kRBox * 4);
+        for (int j = 0; j < s_boxes; ++j) {
+          tma_load_4d(sqs + j * kQ * 64, &tm_q, slab_full, c0 + 64 * j, h, q_row, b);
+          tma_load_4d(sgs + j * kQ * 64, &tm_g, slab_full, c0 + 64 * j, h, q_row, b);
+        }
+        tma_load_1d(slse, &tm_lse, slab_full, first);
+        tma_load_1d(sdlt, &tm_dlt, slab_full, first);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: keys wq * 16 + {g, g + 8} of the CTA's; S^T and
+  // dP^T columns (queries) 8j + 2 t4 + {0, 1} of the q tile
+  const int wq = warp, g = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + wq * 16 + g;
+  const bool live[2] = {key0 < sh.kv_len, key0 + 8 < sh.kv_len};
+  const float sl2 = sh.scale * kLog2e;
+  float acc_k[kSlab / 2], acc_v[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n_tiles > 0) {
+    float sc[kQ / 2], dp[kQ / 2];
+    uint32_t pa[kQ / 16][4], da[kQ / 16][4];
+    mbar_wait(own_full, 0);
+    const uint64_t dk_desc = desc<128>(sk, kBox), dv_desc = desc<128>(sv, kBox);
+    const uint64_t dqs = desc<128>(sqs, kQBox), dgs = desc<128>(sgs, kQBox);  // the slabs as MN-major Bs
+    int n = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      wg_fence();
+      for (int j = 0; j < boxes; ++j, ++n) {  // S^T += K_j Q_j^T, dP^T += V_j dO_j^T
+        const int st = n % stages;
+        mbar_wait(&full[st], (n / stages) & 1);
+        const uint64_t dq_ = desc<128>(sq + st * 2 * kQ * 64, kQBox);
+        const uint64_t dg_ = desc<128>(sq + (st * 2 + 1) * kQ * 64, kQBox);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kQ>(sc, dk_desc + (uint64_t)((j * kBox + kk * 32) >> 4), dq_ + (uint64_t)(kk * 2), j + kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kQ>(dp, dv_desc + (uint64_t)((j * kBox + kk * 32) >> 4), dg_ + (uint64_t)(kk * 2), j + kk);
+        wg_commit();
+        if (j > 0) {
+          wg_wait<1>();
+          mbar_arrive(&empty[(n - 1) % stages]);
+        }
+      }
+      wg_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+      mbar_arrive(&empty[(n - 1) % stages]);
+      mbar_wait(slab_full, t & 1);
+      const int q_tile = qt0 + t;
+      // the tile's columns c with q_lo[r] <= c < q_hi[r] are the queries key
+      // row r sees, as in flash_bwd_dkv_sm90_kernel
+      int q_lo[2], q_hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        q_lo[r] = kCausal ? key0 + 8 * r - sh.q_offset - q_tile * kQ : 0;
+        q_hi[r] = live[r] ? sh.tq - q_tile * kQ : 0;
+      }
+      const int first = (res0 + q_tile * kQ) & 3;  // the tile's first residual in its box
+#pragma unroll
+      for (int j = 0; j < kQ / 8; ++j) {
+        float lse2[2], dlt[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          lse2[c] = slse[first + 8 * j + 2 * t4 + c] * kLog2e;
+          dlt[c] = sdlt[first + 8 * j + 2 * t4 + c] * sh.scale;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * j + e, r = e >> 1, c = 8 * j + 2 * t4;
+          const bool on0 = c >= q_lo[r] && c < q_hi[r], on1 = c + 1 >= q_lo[r] && c + 1 < q_hi[r];
+          const float p0 = on0 ? ex2(fmaf(sc[i], sl2, -lse2[0])) : 0.f;
+          const float p1 = on1 ? ex2(fmaf(sc[i + 1], sl2, -lse2[1])) : 0.f;
+          pa[i / 8][(i / 2) % 4] = pack_bf16(p0, p1);
+          da[i / 8][(i / 2) % 4] = pack_bf16(on0 ? p0 * fmaf(dp[i], sh.scale, -dlt[0]) : 0.f,
+                                             on1 ? p1 * fmaf(dp[i + 1], sh.scale, -dlt[1]) : 0.f);
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)  // dV += bf16(P)^T dO_slab, 16 queries a step
+        wgmma_rs<kSlab>(acc_v, pa[kk], dgs + mnstep<128>(kk));
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)  // dK += bf16(dS)^T Q_slab
+        wgmma_rs<kSlab>(acc_k, da[kk], dqs + mnstep<128>(kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc_v);
+      reg_fence(acc_k);
+      mbar_arrive(slab_empty);
+    }
+  }
+  const size_t off = (size_t)b * sh.tk * sh.d + (size_t)h * sh.dh + c0;
+  store_acc(dk + off, acc_k, key0, sh.tk, sh.d, sh.dh - c0, t4);
+  store_acc(dv + off, acc_v, key0, sh.tk, sh.d, sh.dh - c0, t4);
+}
+
+template <int kN, bool kCausal>
+int run_dq_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+                void* dq, const Shape& sh, const WideBwdPlan& p, cudaStream_t stream) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g;  // 64-column boxes in the 128-byte swizzle
+  if (!encode_heads<128>(enc, &tm_q, q, sh, sh.tq, kBM) || !encode_heads<128>(enc, &tm_g, dout, sh, sh.tq, kBM) ||
+      !encode_heads<128>(enc, &tm_k, k, sh, sh.tk, kN) || !encode_heads<128>(enc, &tm_v, v, sh, sh.tk, kN))
+    return (int)cudaErrorInvalidValue;
+  static bool lifted[64] = {};  // to the most any plan takes, once
+  const cudaError_t err = lift_smem(flash_bwd_dq_wide_sm90_kernel<kN, kCausal>, kSmemMax, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tq + kBM - 1) / kBM, sh.n_head * p.slabs, sh.batch);
+  flash_bwd_dq_wide_sm90_kernel<kN, kCausal><<<grid, 128 + 32, p.dq_smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), sh, p.boxes, p.dq_stages);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCausal>
+int run_dkv_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, const Shape& sh, const WideBwdPlan& p, cudaStream_t stream) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt;
+  if (!encode_heads<128>(enc, &tm_k, k, sh, sh.tk, kBM) || !encode_heads<128>(enc, &tm_v, v, sh, sh.tk, kBM) ||
+      !encode_heads<128>(enc, &tm_q, q, sh, sh.tq, kWideDkvQ) ||
+      !encode_heads<128>(enc, &tm_g, dout, sh, sh.tq, kWideDkvQ) || !encode_res<1, kWideDkvQ>(enc, &tm_lse, lse, sh) ||
+      !encode_res<1, kWideDkvQ>(enc, &tm_dlt, delta, sh))
+    return (int)cudaErrorInvalidValue;
+  static bool lifted[64] = {};
+  const cudaError_t err = lift_smem(flash_bwd_dkv_wide_sm90_kernel<kCausal>, kSmemMax, lifted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sh.tk + kBM - 1) / kBM, sh.n_head * p.slabs, sh.batch);
+  flash_bwd_dkv_wide_sm90_kernel<kCausal><<<grid, 128 + 32, p.dkv_smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, tm_lse, tm_dlt, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sh,
+      p.boxes, p.dkv_stages);
+  return (int)cudaGetLastError();
+}
+
+// K8 at a head width from 136 to 768: the dq kernel, then the dk/dv kernel
+template <bool kCausal>
+int bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+             void* dq, void* dk, void* dv, const Shape& sh, cudaStream_t s) {
+  if (bad_wide_shape(sh)) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const WideBwdPlan p = wide_bwd_plan(sh.dh);
+  const int err = p.dq_keys == 64 ? run_dq_wide<64, kCausal>(q, k, v, dout, lse, delta, dq, sh, p, s)
+                                  : run_dq_wide<32, kCausal>(q, k, v, dout, lse, delta, dq, sh, p, s);
+  if (err != 0) return err;
+  return run_dkv_wide<kCausal>(q, k, v, dout, lse, delta, dk, dv, sh, p, s);
+}
+
 }  // namespace sm90
 
 // the forward at the width class of sh.dh (below the class only with one
@@ -1557,6 +2011,7 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v, const void* dou
 int h2_hpb(int dh) { return dh == 32 || dh == 64 || dh == 128 ? 128 / dh : 0; }
 
 // ------------------------------------ fp32: K3, K5, K7, K6, K8 at dh 32-128
+// (K5, K7, K7-lse and K8 above 128: the wide kernels after these, each with its note)
 //
 // fp32 in, fp32 out, fp32-accurate products on the tensor cores in 3xTF32.
 // Serves `flash_h2_fwd_f32`, `flash_mh_fwd_f32`, `flash_fwd_f32`,
@@ -2505,6 +2960,352 @@ int run_fwd_wide(const void* q, const void* k, const void* v, void* out, void* l
   return (int)cudaGetLastError();
 }
 
+// ---- the fp32 wide backward: K8 at head widths 136-768
+//
+// Serves `flash_bwd_f32` above 128: a dq kernel and a dk/dv kernel, each CTA
+// one slab of kSlab output columns (O 64 registers a thread; dk/dv 128),
+// recomputing S and dP over the whole head width, as the bf16 kernels do.
+//   - A CTA's own operands (Q and dO in the dq kernel, K and V in the dk/dv
+//     kernel) lie raw in shared memory for the whole walk, rows `stride`
+//     floats apart as the wide forward's Q: 64 rows (4 warps) where they fit
+//     beside the stages (dh <= 384), else 32 (`wide_bwd_cfg`, mirrored by
+//     `ops.flash_attention.f32_k8_wide_plan`).
+//   - The other side walks in tiles of kWideKeys = 16 keys (queries), each
+//     streamed through two stages by 16-byte cp.async as items: chunks of
+//     64 columns of both operands (K and V; Q and dO), rows kWideCF floats
+//     apart (a float2 B-fragment load's half-warp meets 16 bank pairs), then
+//     the slab's 128 columns of the operand the output product sums over (K;
+//     dO, then Q), rows kWideVF apart as the wide forward's V. The next
+//     item's copy overlaps this item's products.
+//   - 3xTF32 on mma.sync m16n8k8 with every fragment split as it is read, as
+//     the wide forward. The truncation rule: each chunk's S (dP) goes into
+//     zeroed accumulators, its correction passes into their own, both added
+//     in fp32; each tile's 16 keys (queries) are one output accumulation
+//     into a zeroed accumulator, added to the slab's in fp32.
+//   - Masks as `bwd_dq_kernel` and `bwd_dkv_kernel`: selects on p, per-row
+//     key limits, the causal walks, zeros for keys no query sees.
+constexpr int kWideChunk = 64;                    // columns of a streamed chunk
+constexpr int kWideCF = kWideChunk + 8;           // floats of a staged chunk row
+constexpr int kWideStageF = 2 * kWideKeys * kWideCF;  // floats of a stage: a chunk of two operands
+static_assert(kWideKeys * kWideVF <= kWideStageF, "a slab item fits a stage");
+
+struct WideBwdCfg {
+  int rows;    // own rows a CTA (queries, or keys in the dk/dv kernel), 16 a warp
+  int stride;  // floats of an own row
+  int slabs;   // output slabs a head
+  int smem;    // dynamic shared bytes (both kernels)
+};
+
+inline WideBwdCfg wide_bwd_cfg(int dh) {
+  WideBwdCfg c;
+  c.stride = (dh + 31) / 32 * 32 + 8;
+  c.slabs = (dh + kSlab - 1) / kSlab;
+  const int rest = (2 * kWideStageF + 2 * 2 * kWideKeys) * 4;  // two stages, lse and delta of two tiles
+  c.rows = 2 * 64 * c.stride * 4 + rest <= sm90::kSmemMax ? 64 : 32;
+  c.smem = 2 * c.rows * c.stride * 4 + rest;
+  return c;
+}
+
+// rows row0 .. row0 + kRows - 1 (zero past n_rows) of a slice at src (row r at
+// src + r * d, dh values) into dst, rows `stride` floats apart
+template <int kRows>
+__device__ __forceinline__ void load_own(float* dst, const float* src, int row0, int n_rows, int d, int dh,
+                                         int stride) {
+  const int chunks = dh / 4;
+  for (int i = threadIdx.x; i < kRows * chunks; i += kRows * 2) {
+    const int r = i / chunks, c = i % chunks;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + r * stride + 4 * c, src + (in ? (size_t)(row0 + r) * d + 4 * c : 0), in);
+  }
+}
+
+// kWideKeys rows from row0 of kOps operands (at src[op], zero past n_rows
+// and past dh) into dst (operand op at dst + op * kWideKeys * kF), columns
+// col0 .. col0 + kCols - 1, rows kF floats apart
+template <int kThr, int kOps, int kCols, int kF>
+__device__ __forceinline__ void load_tile(float* dst, const float* const (&src)[kOps], int row0, int n_rows, int d,
+                                          int col0, int dh) {
+  constexpr int kC = kCols / 4;
+  for (int i = threadIdx.x; i < kOps * kWideKeys * kC; i += kThr) {
+    const int op = i / (kWideKeys * kC), r = i / kC % kWideKeys, c = i % kC;
+    const bool in = row0 + r < n_rows && col0 + 4 * c < dh;
+    cp_async16(dst + op * kWideKeys * kF + r * kF + 4 * c,
+               src[op] + (in ? (size_t)(row0 + r) * d + col0 + 4 * c : 0), in);
+  }
+}
+
+// s[n] += A B_n^T over one chunk's k8 steps: A's rows g, g + 8 at a (float2
+// at columns 8 st + 2t), B's two n8 tiles of rows along kWideCF-float rows
+// at b (row g, 2t); the chunk's passes into zeroed accumulators
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const float* a, int a_stride, const float* b,
+                                             int steps) {
+  float ps[2][4] = {}, pc[2][4] = {};
+#pragma unroll 2
+  for (int st = 0; st < steps; ++st) {
+    const float2 x0 = *reinterpret_cast<const float2*>(a + 8 * st);
+    const float2 x1 = *reinterpret_cast<const float2*>(a + 8 * a_stride + 8 * st);
+    uint32_t f[8];
+    split(x0.x, f[0], f[4]);
+    split(x1.x, f[1], f[5]);
+    split(x0.y, f[2], f[6]);
+    split(x1.y, f[3], f[7]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float2 y = *reinterpret_cast<const float2*>(b + 8 * n * kWideCF + 8 * st);
+      uint4 bf;
+      split(y.x, bf.x, bf.y);
+      split(y.y, bf.z, bf.w);
+      mma3(ps[n], pc[n], f, bf);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] += ps[n][e] + pc[n][e];
+}
+
+// acc[n] += P B(n) for the slab's n_out n8 tiles: P two accumulator tiles
+// over a tile's 16 keys (queries), B the staged slab (row 2t at b[0], column
+// g: b = slab + 2t kWideVF + g), the 16 summed into a zeroed accumulator
+__device__ __forceinline__ void slab_product(float (&acc)[kSlab / 8][4], const float (&p0)[4], const float (&p1)[4],
+                                             const float* b, int n_out) {
+  uint32_t a0[8], a1[8];
+  split_acc(a0, p0);
+  split_acc(a1, p1);
+#pragma unroll
+  for (int n = 0; n < kSlab / 8; ++n) {
+    if (n >= n_out) continue;
+    const float* vp = b + 8 * n;
+    uint4 b0, b1;  // rows 2t, 2t + 1, then 8 + 2t, 9 + 2t
+    split(vp[0], b0.x, b0.y);
+    split(vp[kWideVF], b0.z, b0.w);
+    split(vp[8 * kWideVF], b1.x, b1.y);
+    split(vp[9 * kWideVF], b1.z, b1.w);
+    float d[4] = {};
+    mma3(d, d, a0, b0);
+    mma3(d, d, a1, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += d[i];
+  }
+}
+
+// rows row, row + 8 (< n_rows) of a slab accumulator, its n_out n8 tiles, to dst (row r at dst + r * d)
+__device__ __forceinline__ void store_slab(float* dst, const float (&acc)[kSlab / 8][4], int row, int n_rows, int d,
+                                           int n_out) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= n_rows) continue;
+    float* p = dst + (size_t)(row + 8 * r) * d + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kSlab / 8; ++n)
+      if (n < n_out) *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// dq: one CTA per kRows queries x one slab of a (batch row, head); items a
+// key tile: its chunks of K and V, then its K slab
+template <int kRows, bool kCausal>
+__global__ void __launch_bounds__(kRows * 2, 1)
+bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dq, Shape sh, int stride) {
+  constexpr int kThr = kRows * 2;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* gs = qs + kRows * stride;
+  float* stg = gs + kRows * stride;  // two stages of kWideStageF
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab;
+  const int b = blockIdx.z, warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + (size_t)h * sh.dh;
+  const size_t koff = (size_t)b * sh.tk * sh.d + (size_t)h * sh.dh;
+  const int chunks = (sh.dh + kWideChunk - 1) / kWideChunk, per_tile = chunks + 1;
+  const int items = key_tiles<kCausal, kWideKeys>(sh, q0, q0 + kRows) * per_tile;
+  const int n_out = min(kSlab, sh.dh - c0) / 8;  // the slab's n8 tiles below dh
+  const float* const kv[2] = {k + koff, v + koff};
+  const float* const ko[1] = {k + koff};
+
+  load_own<kRows>(qs, q + qoff, q0, sh.tq, sh.d, sh.dh, stride);
+  load_own<kRows>(gs, dout + qoff, q0, sh.tq, sh.d, sh.dh, stride);
+  // item i: chunk c of key tile i / per_tile, or (c == chunks) its K slab
+  auto load_item = [&](int i) {
+    float* dst = stg + (i & 1) * kWideStageF;
+    const int key0 = i / per_tile * kWideKeys, c = i % per_tile;
+    if (c < chunks)
+      load_tile<kThr, 2, kWideChunk, kWideCF>(dst, kv, key0, sh.tk, sh.d, c * kWideChunk, sh.dh);
+    else
+      load_tile<kThr, 1, kSlab, kWideVF>(dst, ko, key0, sh.tk, sh.d, c0, sh.dh);
+  };
+  load_item(0);
+  cp_commit();
+
+  const int row = q0 + 16 * warp + g;  // this thread's rows: row and row + 8
+  float lse2[2], dlt[2];
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // p = 0 on rows past tq
+    const int qr = row + 8 * r;
+    lse2[r] = qr < sh.tq ? lse[res_index(sh, h, b, qr)] * kLog2e : INFINITY;
+    dlt[r] = qr < sh.tq ? delta[res_index(sh, h, b, qr)] : 0.f;
+    lim[r] = key_limit<kCausal>(sh, qr);
+  }
+  const float sl2 = sh.scale * kLog2e;
+  const float* qa = qs + (16 * warp + g) * stride + 2 * t;
+  const float* ga = gs + (16 * warp + g) * stride + 2 * t;
+  float s[2][4], dp[2][4], o[kSlab / 8][4] = {};
+  for (int i = 0; i < items; ++i) {
+    cp_wait<0>();
+    __syncthreads();  // item i (and the own rows) landed; every warp is done with item i - 1
+    if (i + 1 < items) load_item(i + 1);
+    cp_commit();
+    const float* cur = stg + (i & 1) * kWideStageF;
+    const int c = i % per_tile;
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    if (c < chunks) {  // S += Q K^T and dP += dO V^T over the chunk's columns
+      const int steps = min(kWideChunk, sh.dh - c * kWideChunk) / 8;
+      chunk_scores(s, qa + c * kWideChunk, stride, cur + g * kWideCF + 2 * t, steps);
+      chunk_scores(dp, ga + c * kWideChunk, stride, cur + kWideKeys * kWideCF + g * kWideCF + 2 * t, steps);
+    } else {  // s becomes dS = p (dP - delta) scale; dQ += dS K_slab
+      const int key0 = i / per_tile * kWideKeys;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool in = key0 + 8 * n + 2 * t + (e & 1) < lim[r];
+          const float p = in ? exp2_approx(s[n][e] * sl2 - lse2[r]) : 0.f;
+          s[n][e] = p * (dp[n][e] - dlt[r]) * sh.scale;
+        }
+      slab_product(o, s[0], s[1], cur + 2 * t * kWideVF + g, n_out);
+    }
+  }
+  cp_wait<0>();  // the own rows of a CTA with no item
+  store_slab(dq + qoff + c0, o, row, sh.tq, sh.d, n_out);
+}
+
+// dk, dv: one CTA per kRows keys x one slab of a (batch row, head); items a
+// query tile: its chunks of Q and dO (the first with the tile's lse and
+// delta), then its dO slab, then its Q slab. CTAs whose keys no query sees
+// write zeros
+template <int kRows, bool kCausal>
+__global__ void __launch_bounds__(kRows * 2, 1)
+bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, Shape sh, int stride) {
+  constexpr int kThr = kRows * 2;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;
+  float* vs = ks + kRows * stride;
+  float* stg = vs + kRows * stride;       // two stages of kWideStageF
+  float* lsd = stg + 2 * kWideStageF;     // a tile's lse then delta, two tiles
+  const int n_slab = (sh.dh + kSlab - 1) / kSlab;
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y / n_slab, c0 = blockIdx.y % n_slab * kSlab;
+  const int b = blockIdx.z, warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const size_t qoff = (size_t)b * sh.tq * sh.d + (size_t)h * sh.dh;
+  const size_t koff = (size_t)b * sh.tk * sh.d + (size_t)h * sh.dh;
+  const int n_q = (sh.tq + kWideKeys - 1) / kWideKeys;
+  // the first query tile that sees key k0 (none for keys past kv_len)
+  const int first = k0 >= sh.kv_len ? n_q : kCausal ? max(0, k0 - sh.q_offset) / kWideKeys : 0;
+  const int chunks = (sh.dh + kWideChunk - 1) / kWideChunk, per_tile = chunks + 2;
+  const int items = (n_q - first) * per_tile;
+  const int n_out = min(kSlab, sh.dh - c0) / 8;
+  const int key = k0 + 16 * warp + g;  // this thread's keys: key and key + 8
+  const float* const qg[2] = {q + qoff, dout + qoff};
+  float acc_k[kSlab / 8][4] = {}, acc_v[kSlab / 8][4] = {};
+
+  if (items > 0) {
+    load_own<kRows>(ks, k + koff, k0, sh.tk, sh.d, sh.dh, stride);
+    load_own<kRows>(vs, v + koff, k0, sh.tk, sh.d, sh.dh, stride);
+    // item i: chunk c of query tile first + i / per_tile, or its dO slab
+    // (c == chunks) or Q slab (c == chunks + 1)
+    auto load_item = [&](int i) {
+      float* dst = stg + (i & 1) * kWideStageF;
+      const int tile = i / per_tile, row0 = (first + tile) * kWideKeys, c = i % per_tile;
+      if (c < chunks) {
+        load_tile<kThr, 2, kWideChunk, kWideCF>(dst, qg, row0, sh.tq, sh.d, c * kWideChunk, sh.dh);
+        if (c == 0 && threadIdx.x < 2 * kWideKeys) {  // the tile's lse and delta, zero past tq
+          const int x = threadIdx.x, r = x % kWideKeys, qr = row0 + r;
+          const size_t at = res_index(sh, h, b, qr < sh.tq ? qr : 0);
+          cp_async4(lsd + (tile & 1) * 2 * kWideKeys + x, (x < kWideKeys ? lse : delta) + at, qr < sh.tq);
+        }
+      } else {
+        const float* const slab[1] = {(c == chunks ? dout : q) + qoff};
+        load_tile<kThr, 1, kSlab, kWideVF>(dst, slab, row0, sh.tq, sh.d, c0, sh.dh);
+      }
+    };
+    load_item(0);
+    cp_commit();
+    const float sl2 = sh.scale * kLog2e;
+    const float* ka = ks + (16 * warp + g) * stride + 2 * t;
+    const float* va = vs + (16 * warp + g) * stride + 2 * t;
+    float s[2][4], dp[2][4];
+    for (int i = 0; i < items; ++i) {
+      cp_wait<0>();
+      __syncthreads();  // item i (and K, V) landed; every warp is done with item i - 1
+      if (i + 1 < items) load_item(i + 1);
+      cp_commit();
+      const float* cur = stg + (i & 1) * kWideStageF;
+      const int tile = i / per_tile, c = i % per_tile;
+      if (c == 0) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+      if (c < chunks) {  // S^T += K Q^T and dP^T += V dO^T over the chunk's columns
+        const int steps = min(kWideChunk, sh.dh - c * kWideChunk) / 8;
+        chunk_scores(s, ka + c * kWideChunk, stride, cur + g * kWideCF + 2 * t, steps);
+        chunk_scores(dp, va + c * kWideChunk, stride, cur + kWideKeys * kWideCF + g * kWideCF + 2 * t, steps);
+      } else if (c == chunks) {  // s becomes p^T, dp dS^T (rows keys, columns queries); dV += P^T dO_slab
+        const int q_row = (first + tile) * kWideKeys;
+        const float* l = lsd + (tile & 1) * 2 * kWideKeys;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * t + (e & 1), qr = q_row + col;
+            const bool in = qr < sh.tq && key + 8 * (e >> 1) < key_limit<kCausal>(sh, qr);
+            const float p = in ? exp2_approx(s[n][e] * sl2 - l[col] * kLog2e) : 0.f;
+            dp[n][e] = p * (dp[n][e] - l[kWideKeys + col]) * sh.scale;
+            s[n][e] = p;
+          }
+        slab_product(acc_v, s[0], s[1], cur + 2 * t * kWideVF + g, n_out);
+      } else {  // dK += dS^T Q_slab
+        slab_product(acc_k, dp[0], dp[1], cur + 2 * t * kWideVF + g, n_out);
+      }
+    }
+  }
+  store_slab(dk + koff + c0, acc_k, key, sh.tk, sh.d, n_out);
+  store_slab(dv + koff + c0, acc_v, key, sh.tk, sh.d, n_out);
+}
+
+template <int kRows, bool kCausal>
+int run_bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+                 void* dq, void* dk, void* dv, const Shape& sh, const WideBwdCfg& c, cudaStream_t stream) {
+  static bool lifted_dq[64] = {}, lifted_dkv[64] = {};  // to the most any plan takes, once
+  cudaError_t err = sm90::lift_smem(bwd_dq_wide_kernel<kRows, kCausal>, sm90::kSmemMax, lifted_dq);
+  if (err == cudaSuccess) err = sm90::lift_smem(bwd_dkv_wide_kernel<kRows, kCausal>, sm90::kSmemMax, lifted_dkv);
+  if (err != cudaSuccess) return (int)err;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(dout),
+              *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
+  bwd_dq_wide_kernel<kRows, kCausal><<<dim3((sh.tq + kRows - 1) / kRows, sh.n_head * c.slabs, sh.batch), kRows * 2,
+                                       c.smem, stream>>>(qf, kf, vf, gf, lf, df, static_cast<float*>(dq), sh,
+                                                         c.stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkv_wide_kernel<kRows, kCausal><<<dim3((sh.tk + kRows - 1) / kRows, sh.n_head * c.slabs, sh.batch), kRows * 2,
+                                        c.smem, stream>>>(qf, kf, vf, gf, lf, df, static_cast<float*>(dk),
+                                                          static_cast<float*>(dv), sh, c.stride);
+  return (int)cudaGetLastError();
+}
+
 // each instance lifts its own shared-memory limit (one record per kernel
 // instance: a record per kernel type would skip a second width's)
 template <int kDh, bool kCausal>
@@ -2587,10 +3388,20 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const
   }
 }
 
-// the backward at the width class of sh.dh
+// the backward at the width class of sh.dh, or the wide backward from 136 to 768
 int bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta, void* dq,
         void* dk, void* dv, const Shape& sh, bool causal, void* stream) {
   auto s = (cudaStream_t)stream;
+  if (sh.dh > 128) {
+    if (bad_wide_shape(sh)) return (int)cudaErrorInvalidValue;
+    if (misaligned({q, k, v, dout, dq, dk, dv})) return (int)cudaErrorMisalignedAddress;
+    const WideBwdCfg c = wide_bwd_cfg(sh.dh);
+    if (c.rows == 64)
+      return causal ? run_bwd_wide<64, true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, c, s)
+                    : run_bwd_wide<64, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, c, s);
+    return causal ? run_bwd_wide<32, true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, c, s)
+                  : run_bwd_wide<32, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, c, s);
+  }
   switch (width_class(sh.dh)) {
     case 32: return launch_bwd<32>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
     case 64: return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, sh, causal, s);
@@ -2632,7 +3443,7 @@ extern "C" int flash_mh_plan_bf16(int dh, int tq, void* plan) {
     if (cls == 128) sm90::fwd_plan<128>(tq, p);
     return 0;
   }
-  if (dh <= 128 || dh > kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
+  if (bad_wide_dh(dh)) return (int)cudaErrorInvalidValue;
   const sm90::WidePlan w = sm90::wide_plan(dh, tq);
   const int vals[6] = {2, w.slabs, w.wg * sm90::kBM, w.keys, w.stages, w.smem};
   for (int i = 0; i < 6; ++i) p[i] = vals[i];
@@ -2669,11 +3480,15 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
-// K8: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
+// K8: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32; dh a
+// multiple of 8 from 8 to 768 (the wide backward above 128)
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                               const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
                               int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  if (dh > 128)
+    return causal ? sm90::bwd_wide<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, (cudaStream_t)stream)
+                  : sm90::bwd_wide<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, (cudaStream_t)stream);
   return causal ? launch_bwd_sm90<true>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream)
                 : launch_bwd_sm90<false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, stream);
 }
@@ -2723,7 +3538,8 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* 
   return f32::fwd(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
-// K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32
+// K8 at fp32: (dq, dk, dv) of K7 from lse and delta, both (BH, Tq, 1) fp32;
+// dh a multiple of 8 from 8 to 768 (the wide backward above 128)
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv, int bh, int tq, int tk, int dh,
                              int kv_len, int causal, int q_offset, float scale, void* stream) {
@@ -2736,8 +3552,35 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v, const 
 // a head, shared bytes. Returns cudaErrorInvalidValue for a width it does
 // not serve (a multiple of 8 from 136 to 768)
 extern "C" int flash_wide_plan_f32(int dh, void* plan) {
-  if (dh <= 128 || dh > kWideMaxDh || dh % 8) return (int)cudaErrorInvalidValue;
+  if (bad_wide_dh(dh)) return (int)cudaErrorInvalidValue;
   const f32::WideCfg c = f32::wide_cfg(dh);
+  const int vals[4] = {c.rows, f32::kWideKeys, c.slabs, c.smem};
+  int* p = static_cast<int*>(plan);
+  for (int i = 0; i < 4; ++i) p[i] = vals[i];
+  return 0;
+}
+
+// K8's wide backward plan at head width dh (`ops.flash_attention.
+// k8_wide_plan`): plan[0..6] = output slabs a head, keys a K / V box of
+// the dq kernel, its stages, its shared bytes, the dk/dv kernel's queries a
+// Q / dO box, its stages, its shared bytes. Returns cudaErrorInvalidValue
+// for a width it does not serve (a multiple of 8 from 136 to 768)
+extern "C" int flash_wide_bwd_plan_bf16(int dh, void* plan) {
+  if (bad_wide_dh(dh)) return (int)cudaErrorInvalidValue;
+  const sm90::WideBwdPlan w = sm90::wide_bwd_plan(dh);
+  const int vals[7] = {w.slabs, w.dq_keys, w.dq_stages, w.dq_smem, sm90::kWideDkvQ, w.dkv_stages, w.dkv_smem};
+  int* p = static_cast<int*>(plan);
+  for (int i = 0; i < 7; ++i) p[i] = vals[i];
+  return 0;
+}
+
+// the fp32 wide backward's plan at head width dh (`ops.flash_attention.
+// f32_k8_wide_plan`): plan[0..3] = own rows a CTA, keys (queries) a tile,
+// output slabs a head, shared bytes of either kernel. Returns
+// cudaErrorInvalidValue for a width it does not serve (136-768)
+extern "C" int flash_wide_bwd_plan_f32(int dh, void* plan) {
+  if (bad_wide_dh(dh)) return (int)cudaErrorInvalidValue;
+  const f32::WideBwdCfg c = f32::wide_bwd_cfg(dh);
   const int vals[4] = {c.rows, f32::kWideKeys, c.slabs, c.smem};
   int* p = static_cast<int*>(plan);
   for (int i = 0; i < 4; ++i) p[i] = vals[i];

@@ -70,8 +70,8 @@ def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
 # and K6 (and K5 on K3's forward) serve the classes themselves, as the JAX
 # package's `h2_eligible` does
 WIDTH_CLASSES = (32, 64, 128)
-# the head widths K1, K2, K7, K7-lse, K8 and the fp32 K5 serve: every
-# multiple of 8 from 8 to 128, in bf16 and in fp32
+# the head widths the width classes serve (K1, K2, K7, K7-lse, K8 and the
+# fp32 K5 up to 128): every multiple of 8 from 8 to 128, in bf16 and in fp32
 MIN_HEAD_WIDTH, MAX_HEAD_WIDTH = 8, WIDTH_CLASSES[-1]
 
 
@@ -88,8 +88,9 @@ def width_class(dh: int, name: str = "attention") -> int:
 # the width classes of K1 and K2: WIDTH_CLASSES and 256, so that every
 # multiple of 8 from 136 to 256 runs in the class of 256
 DECODE_CLASSES = WIDTH_CLASSES + (256,)
-# the head widths of the wide forwards (the bf16 one of K5, K7 and K7-lse,
-# and the fp32 one of K5, K7 and K7-lse): every multiple of 8 from 136 to 768
+# the head widths of the wide kernels (the bf16 forward of K5, K7 and
+# K7-lse, the fp32 one of K5, K7 and K7-lse, and K8's backward in both
+# dtypes): every multiple of 8 from 136 to 768
 WIDE_MAX_HEAD_WIDTH = 768
 
 
@@ -104,10 +105,11 @@ def decode_class(dh: int, name: str = "decode attention") -> int:
 
 
 def forward_width(dh: int, name: str = "flash attention") -> int:
-    """The width class a flash forward (K7, K7-lse, the fp32 K5) runs a head
-    width dh in: `width_class(dh)` up to 128, and 0 from 136 to 768 (the
-    wide forwards, which take the head's true width). Raises for any other
-    width: 0, one that is not a multiple of 8, or one above 768."""
+    """The width class a flash kernel of K7's range (K7, K7-lse, K8, the
+    fp32 K5) runs a head width dh in: `width_class(dh)` up to 128, and 0
+    from 136 to 768 (the wide kernels, which take the head's true width).
+    Raises for any other width: 0, one that is not a multiple of 8, or one
+    above 768."""
     if dh < MIN_HEAD_WIDTH or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
         raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
                          f"{WIDE_MAX_HEAD_WIDTH}, got {dh}")

@@ -59,6 +59,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_mh_plan_bf16": (_I, _I, _P),
         # dh, out (4 int32): the fp32 wide forward's plan (`flash_attention.f32_wide_plan`)
         "flash_wide_plan_f32": (_I, _P),
+        # dh, out (7 int32): K8's wide backward plan (`flash_attention.k8_wide_plan`)
+        "flash_wide_bwd_plan_bf16": (_I, _P),
+        # dh, out (4 int32): the fp32 wide backward's plan (`flash_attention.f32_k8_wide_plan`)
+        "flash_wide_bwd_plan_f32": (_I, _P),
         # the same five at fp32
         "flash_h2_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_h2_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -28,14 +28,14 @@ The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
 count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
 head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
-the JAX package's `h2_eligible`); K8 every multiple of 8 from 8 to 128 in
-both, run at the width class `ops.width_class(dh)` with the columns past
-dh zeros; K7, K7-lse and K5 every multiple of 8 up to 768 in both
-(`ops.forward_width`): up to 128 at the width class (the bf16 K5 on the
+the JAX package's `h2_eligible`); K7, K7-lse, K8 and K5 every multiple of
+8 up to 768 in both (`ops.forward_width`): up to 128 at the width class
+`ops.width_class(dh)` with the columns past dh zeros (the bf16 K5 on the
 route `k5_plan` gives: K3's forward at 32, 64 and 128 and, over per-head
 tensor maps, at the class of the other widths up to 120), and from 136 on
-the wide forwards, 128 output columns a CTA (bf16: route B, whose plan
-`k5_plan` mirrors for K5 and K7 alike; fp32: `f32_wide_plan`). The h2
+the wide kernels, 128 output columns a CTA (the forwards: bf16 route B,
+whose plan `k5_plan` mirrors for K5 and K7 alike, and fp32 `f32_wide_plan`;
+K8's backward: `k8_wide_plan` in bf16, `f32_k8_wide_plan` in fp32). The h2
 residuals hold 128 // dh heads a lane: hpb 4, 2 and 1.
 On the card nothing falls back to a plain version or to a kernel of another
 dtype: a shape, width or dtype no kernel serves raises.
@@ -122,6 +122,12 @@ def k5_plan(dh: int, tq: int) -> K5Plan:
     return K5Plan("B", -(-dh // _SLAB), wg * _BM, keys, stages, 1024 + q_bytes + stages * stage + 8 * (1 + 3 * stages))
 
 
+def _check_wide(name: str, dh: int) -> None:
+    if dh <= WIDTH_CLASSES[-1] or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
+        raise ValueError(f"{name} takes a head width that is a multiple of 8 from {WIDTH_CLASSES[-1] + 8} to "
+                         f"{WIDE_MAX_HEAD_WIDTH}, got {dh}")
+
+
 class F32WidePlan(NamedTuple):
     rows: int  # query rows a CTA, 16 a warp
     keys: int  # keys a K / V tile
@@ -138,13 +144,77 @@ def f32_wide_plan(dh: int) -> F32WidePlan:
     of 16 keys (K over the head's columns, V over the slab's 128) in shared
     memory, rows dh rounded up to 32 plus 8 floats apart (V 132); 64 rows
     where that fits in K5_SMEM_MAX, else 32. Raises for any other width."""
-    if dh <= WIDTH_CLASSES[-1] or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
-        raise ValueError(f"the fp32 wide forward takes a head width that is a multiple of 8 from "
-                         f"{WIDTH_CLASSES[-1] + 8} to {WIDE_MAX_HEAD_WIDTH}, got {dh}")
+    _check_wide("the fp32 wide forward", dh)
     stride = -(-dh // 32) * 32 + 8
     stages = 2 * _F32_WIDE_KEYS * (stride + _SLAB + 4) * 4
     rows = 64 if 64 * stride * 4 + stages <= K5_SMEM_MAX else 32
     return F32WidePlan(rows, _F32_WIDE_KEYS, -(-dh // _SLAB), rows * stride * 4 + stages)
+
+
+class K8WidePlan(NamedTuple):
+    slabs: int  # output slabs of 128 columns a head
+    dq_keys: int  # keys a K / V box of the dq kernel (64 query rows a CTA)
+    dq_stages: int  # K / V box stages of the dq kernel
+    dq_smem: int  # its shared bytes, the 1024-byte alignment slack included
+    dkv_queries: int  # queries a Q / dO box of the dk/dv kernel (64 keys a CTA)
+    dkv_stages: int  # Q / dO box stages of the dk/dv kernel
+    dkv_smem: int
+
+
+_WIDE_BWD_STAGES = 4  # the stages the mbarriers are laid out for
+_WIDE_BWD_BARS = 8 * (1 + 2 * _WIDE_BWD_STAGES + 2)
+_WIDE_DKV_QUERIES = 32
+_RES_ROW = 64  # floats of a tile's lse (delta) row in shared memory: 32 queries + 4, rounded up to 32
+
+
+def k8_wide_plan(dh: int) -> K8WidePlan:
+    """K8's bf16 plan at head width dh (136-768), as `flash_wide_bwd_plan_bf16`
+    in C gives it: one consumer warpgroup of 64 rows; the own operands (Q and
+    dO, or K and V) resident in 64-column boxes, the other side streamed a
+    box at a time through the stages, the slab's operand in a buffer of its
+    own (dk/dv: with the tile's lse and delta). The dq kernel's K / V boxes
+    hold 64 keys where two stages of them fit, else 32; each kernel as many
+    stages, up to 4, as K5_SMEM_MAX holds. Raises for any other width."""
+    _check_wide("K8's wide backward", dh)
+    own = 2 * -(-dh // 64) * _BM * 128
+
+    def smem(stage, stages, slab):
+        return 1024 + own + stages * stage + slab + _WIDE_BWD_BARS
+
+    def stages(stage, slab):
+        return min(_WIDE_BWD_STAGES, (K5_SMEM_MAX - smem(0, 0, slab)) // stage)
+
+    keys = 64 if stages(2 * 64 * 128, 2 * 64 * 128) >= 2 else 32
+    kv = 2 * keys * 128
+    qg = 2 * _WIDE_DKV_QUERIES * 128
+    slab = 2 * qg + 2 * _RES_ROW * 4
+    dq_stages, dkv_stages = stages(kv, kv), stages(qg, slab)
+    return K8WidePlan(-(-dh // _SLAB), keys, dq_stages, smem(kv, dq_stages, kv), _WIDE_DKV_QUERIES, dkv_stages,
+                      smem(qg, dkv_stages, slab))
+
+
+class F32K8WidePlan(NamedTuple):
+    rows: int  # own rows a CTA (queries in the dq kernel, keys in the dk/dv kernel), 16 a warp
+    keys: int  # keys (queries) a streamed tile
+    slabs: int  # output slabs of 128 columns a head
+    smem: int  # dynamic shared bytes of either kernel
+
+
+_F32_WIDE_STAGE_F = 2 * _F32_WIDE_KEYS * (64 + 8)  # a stage: two operands' chunks of 64 columns, rows 72 floats
+
+
+def f32_k8_wide_plan(dh: int) -> F32K8WidePlan:
+    """K8's fp32 plan at head width dh (136-768), as `flash_wide_bwd_plan_f32`
+    in C gives it: the own operands of the CTA's rows resident, rows dh
+    rounded up to 32 plus 8 floats apart, beside two stages of 16 rows x
+    (two 64-column chunks, or one 128-column slab) and two tiles' lse and
+    delta; 64 rows where that fits in K5_SMEM_MAX, else 32. Raises for any
+    other width."""
+    _check_wide("K8's fp32 wide backward", dh)
+    stride = -(-dh // 32) * 32 + 8
+    rest = (2 * _F32_WIDE_STAGE_F + 4 * _F32_WIDE_KEYS) * 4
+    rows = 64 if 2 * 64 * stride * 4 + rest <= K5_SMEM_MAX else 32
+    return F32K8WidePlan(rows, _F32_WIDE_KEYS, -(-dh // _SLAB), 2 * rows * stride * 4 + rest)
 
 
 def _kv_len(tk: int, kv_valid_len: Optional[int]) -> int:
@@ -481,7 +551,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = False, q_o
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset: int = 0,
                         kv_valid_len: Optional[int] = None, scale: float = 1.0):
-    """K8 wrapper: (dq, dk, dv) of K7; delta = rowsum(dO * O) in PyTorch."""
+    """K8 wrapper: (dq, dk, dv) of K7; delta = rowsum(dO * O) in PyTorch.
+    Head widths up to 128 run at their width class, 136-768 on the wide
+    backward of q's dtype."""
     if not on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, scale=scale)
@@ -489,7 +561,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     tk = k.shape[1]
     sfx = _check("flash_attention_bwd", (q, k, v, out, g),
                  ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), (bh, tq, dh)))
-    width_class(dh, f"flash_attention_bwd {'fp32' if sfx == 'f32' else sfx}")
+    forward_width(dh, f"flash_attention_bwd {'fp32' if sfx == 'f32' else sfx}")
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -10,7 +10,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      memory and spills from `nvcc -Xptxas -v`;
   3. holds each kernel of the decode slice against its plain PyTorch
      version on the card at the shapes of `base` (K4 at the decode slice's
-     32 x 30 s, the CLI's 1 x 12000 frames and a train step's 16 x 30 s,
+     32 x 30 s, the CLI's 1 x 9000 frames and a train step's 16 x 30 s,
      with the reference composition torch.stft + |.|^2 + mel matmul + log10
      as its "library" column, bound by its bytes or a real FFT's
      operations, with the operations of its factored DFT and of the direct
@@ -55,14 +55,14 @@ Phases, each of which raises (exit code != 0) when it fails:
  11. checks the card's beam against the plain path on the CPU (fp32) on 2
      windows, teacher-forced to the card's best sequences;
  12. writes base's random weights to a `.pt` (and, for this phase's runs,
-     base's widths at 2 + 2 layers: CLI_DEPTH) and a seeded 70 s WAV, and
+     base's widths at 2 + 2 layers: CLI_DEPTH) and a seeded 40 s WAV, and
      transcribes it through the CLI in process (`cli.cli`, its defaults:
      beam 5 at t=0, best-of 5 up the fallback ladder), with `--language
      en`, detecting the language, and with a 19-token prompt carried into
      every window (K7 in the prefill); checks the five output files and the
      launch counts, then holds K7 and K3 against their plain versions at
      the prefill shapes those runs gave them;
- 13. word timestamps through the CLI on the same 70 s WAV, with `--model
+ 13. word timestamps through the CLI on the same 40 s WAV, with `--model
      base --model_dir <tmp>` (the `base.pt` of phase 12, so the preset's 8
      alignment heads are set) and one rung of the ladder: once with
      `--word_timestamps True`, once adding `--hallucination_silence_threshold
@@ -105,7 +105,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      second launch;
  18. K5 through the CLI and the trainer at a geometry `h2_eligible`
      rejects: random weights at 2 + 2 layers with d 576 and 9 heads (head
-     width 64) to a `.pt`, phase 12's 70 s WAV through the CLI with
+     width 64) to a `.pt`, phase 12's 40 s WAV through the CLI with
      `--word_timestamps True` at one rung (K5 in the encoder and the beam
      prefill's cross-attention), and 2 train steps at batch 8 in bf16
      with these dims as `debug_dims` (non-causal K7 with lse and K8 over
@@ -210,6 +210,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      reset before and read after; (d) the CLI at 16 heads of 80, bf16, on
      a 30 s WAV. K1, K2, K7, K7-lse, K8 (each dtype) and K5 (both) launch
      on (c) and (d); K3 and K6 launch on none.
+ 25. head widths above 128 (K1 and K2 136-256 in the class of 256; K7,
+     K7-lse, K8 and the fp32 K5 136-768 on the wide kernels): (a) at 136,
+     200, 256, 384 and 768 (K1 / K2 to 256), in bf16 and fp32, each kernel
+     against its plain version, bitwise on a second launch, and K8 and K7
+     at 776 and K1 / K2 at 264 refused; then at 5 heads of 256 at
+     large-v3's widths and 4 of 192 at small's, 2 + 2 layers, random
+     weights from seed 0 (WW_DIMS), each in bf16 and fp32: (c) the greedy
+     window path on 8 windows with and without kv_quant, beam 5 on 4, the
+     decode gate against the CPU, 3 train steps at batch 8 (K7-lse and K8
+     6 times a step) and `evaluate`, then phase 7's (bf16) and phase 20's
+     (fp32) train gates; (d) at dh256 the CLI with the 19-token prompt;
+     (b) each kernel at its paths' shapes, K8 beside SDPA's backward.
 Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
 fp32 queries (the fp32 window path's cross) against their plain versions;
 their launches count under `decode_attention_f32` and
@@ -315,6 +327,16 @@ def attn_bound(macs: float, n_bytes: float, mults: int = 4, kind: str = "bf16"):
     """Attention in bf16 (or `kind`): `mults` FLOPs per (query, key,
     channel) triple (4 forward: QK^T and PV; 10 backward: S, dP, dV, dQ, dK)."""
     return bound(mults * macs, n_bytes, kind)
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for scaled_dot_product_attention
+    on these inputs (flash, efficient, cudnn or math), a label for a library
+    column."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name.lower()
 
 
 def heads(x, n_head: int, n_keys=None):
@@ -537,8 +559,8 @@ def check_kernels(card: str):
     record = make_recorder(card, rows)
 
     # K4 at the paths' shapes: 32 clips of 30 s (the decode slice), the CLI's
-    # 70 s WAV (70 s + 30 s of padding, bucketed to 120 s: 1 x 12000 frames)
-    # and the train step's 16 clips of 30 s, fp32. Compared after the max-8
+    # long WAV (LONG_WAV_S + 30 s of padding, bucketed to whole windows:
+    # `long_wav_frames`) and the train step's 16 clips of 30 s, fp32. Compared after the max-8
     # clamp and (x+4)/4, as the encoder sees it: the kernel's factored DFT and
     # the plain version's direct products round differently (~1e-6 in log10
     # of a bin, more near the clamp floor).
@@ -548,7 +570,8 @@ def check_kernels(card: str):
     fb = torch.from_numpy(mel_filters(80)).to(dev)
     hann = torch.hann_window(N_FFT, device=dev)
     for batch, n_frames, what in ((N_WINDOWS, 3000, "the decode slice's 32 x 30 s"),
-                                  (1, 12000, "the CLI's 70 s WAV, bucketed to 120 s"),
+                                  (1, long_wav_frames(), f"the CLI's {LONG_WAV_S:.0f} s WAV, bucketed to "
+                                   f"{long_wav_frames() // 100} s"),
                                   (TRAIN_BATCH, 3000, "a train step's 16 x 30 s")):
         wave = torch.randn((batch, n_frames * HOP_LENGTH), generator=gen, device=dev) * 0.1
         padded = F.pad(wave[:, None], (N_FFT // 2, N_FFT // 2), mode="reflect")[:, 0].contiguous()
@@ -1260,6 +1283,18 @@ def check_beam_against_cpu(model, waves_seed: int = 1):
         raise AssertionError("the card's beam disagrees with the CPU reference")
 
 
+# the CLI phases' long WAV (phases 12, 13, 18, 20, 22): two windows, so that
+# the seek loop and words across a window boundary run; its file name is
+# kept from when it was 70 s long
+LONG_WAV_S = 40.0
+
+
+def long_wav_frames() -> int:
+    """The log-mel frames the CLI runs on the long WAV: LONG_WAV_S plus 30 s
+    of padding, bucketed up to a whole number of 30 s windows."""
+    return math.ceil((LONG_WAV_S + 30.0) / 30.0) * 3000
+
+
 def write_long_wav(path: str, seconds: float, seed: int) -> None:
     """A seeded 16 kHz WAV: tones that change every 4-9 s, with 1-3 s of
     silence between them, plus a little noise."""
@@ -1300,7 +1335,7 @@ CLI_RUNS = (
 
 
 def run_cli(card: str, model, workdir: str):
-    """Phase 12: long-form transcription of a 70 s WAV through the CLI, in
+    """Phase 12: long-form transcription of a 40 s WAV through the CLI, in
     process, with its defaults: with --language en, detecting the language,
     and with a prompt carried into every window, at base's widths and
     CLI_DEPTH's layers; `model`'s checkpoint is written beside it for
@@ -1331,7 +1366,7 @@ def run_cli(card: str, model, workdir: str):
     torch.save(checkpoint_dict(from_random(dataclasses.replace(model.dims, **CLI_DEPTH), seed=0, device=DEVICE,
                                            dtype=torch.bfloat16)), ckpt)
     torch.cuda.empty_cache()
-    write_long_wav(clip, 70.0, seed=0)
+    write_long_wav(clip, LONG_WAV_S, seed=0)
     total = {}
     for n, extra in enumerate(CLI_RUNS):
         out = os.path.join(workdir, f"cli{n}")
@@ -1366,7 +1401,7 @@ def run_cli(card: str, model, workdir: str):
             total[k] = total.get(k, 0) + v
         label = ' '.join(extra).replace(CLI_PROMPT, f"<{n_prompt} tokens>") or "language detected"
         print(f"[cli] {label}, base's widths at {CLI_DEPTH['n_audio_layer']} + {CLI_DEPTH['n_text_layer']} layers: "
-              f"{wall:.1f} s wall for 70 s of audio; "
+              f"{wall:.1f} s wall for {LONG_WAV_S:.0f} s of audio; "
               f"language {result['language']}; {len(result['segments'])} segments from windows at seek "
               f"{seeks}; accepted rung's temperature per window {json.dumps(rungs)}; "
               f"{len(text.splitlines())} lines printed [{card}]", flush=True)
@@ -1515,7 +1550,7 @@ class WordsProbe:
 
 
 def run_words_cli(card: str, workdir: str):
-    """Phase 13: word timestamps through the CLI on phase 12's 70 s WAV,
+    """Phase 13: word timestamps through the CLI on phase 12's 40 s WAV,
     with `--model base --model_dir <workdir>` (so the preset's alignment
     heads are set), `--language en` and one rung of the ladder (with the
     hallucination threshold, random weights make every window re-seek about
@@ -1570,7 +1605,7 @@ def run_words_cli(card: str, workdir: str):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         seeks = sorted({s["seek"] for s in segments})
-        print(f"[words] {' '.join(extra)}: {wall:.1f} s wall for 70 s of audio; {probe.windows} aligned windows "
+        print(f"[words] {' '.join(extra)}: {wall:.1f} s wall for {LONG_WAV_S:.0f} s of audio; {probe.windows} aligned windows "
               f"(the longest {probe.longest} tokens), K11 {counts['median_filter']} and K13 "
               f"{counts['dtw_trace']} launches; {len(segments)} segments "
               f"from windows at seek {seeks}, {len(words)} words, mean probability "
@@ -2113,7 +2148,7 @@ class ShapeProbe:
 
 def run_mh_cli(card: str, workdir: str):
     """Phase 18 (a): random weights from seed 0 at MH_DIMS (d 576, 9 heads:
-    `h2_eligible` rejects it) written to a `.pt`, and phase 12's 70 s WAV
+    `h2_eligible` rejects it) written to a `.pt`, and phase 12's 40 s WAV
     transcribed through the CLI with word timestamps at one rung. K5 runs in
     the encoder (decode and alignment) and in the beam prefill's folded
     cross-attention (5 x 8 queries). Returns the launch counts and the
@@ -2162,7 +2197,7 @@ def run_mh_cli(card: str, workdir: str):
             raise AssertionError(f"the d=576 CLI run launched no {name}: {counts}")
     if counts["flash_attention_h2"] or counts["flash_attention_h2_lse"]:
         raise AssertionError(f"the d=576 CLI run launched K3, which h2_eligible rejects there: {counts}")
-    print(f"[mh] CLI d=576 9 heads, --word_timestamps True at one rung: {wall:.1f} s wall for 70 s of audio; "
+    print(f"[mh] CLI d=576 9 heads, --word_timestamps True at one rung: {wall:.1f} s wall for {LONG_WAV_S:.0f} s of audio; "
           f"{len(segments)} segments, {len(words)} words; K5 shapes (q, k, kv_valid_len) "
           f"{sorted((q, k, n) for q, k, n, _ in probe.shapes)} [{card}]", flush=True)
     print(f"[mh] launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
@@ -2415,7 +2450,7 @@ def run_fp32_slice(card: str, slice_rate: float):
 
 
 def run_fp32_cli(card: str, model, workdir: str):
-    """Phase 20 (b): phase 12's 70 s WAV through the CLI with `--fp16 False
+    """Phase 20 (b): phase 12's 40 s WAV through the CLI with `--fp16 False
     --word_timestamps True` at one rung, `--model base --model_dir` (base's
     alignment heads) and the 19-token prompt carried into every window: the
     beam decode and its prompted prefill (K7) in fp32; the alignment forward
@@ -2432,7 +2467,7 @@ def run_fp32_cli(card: str, model, workdir: str):
 
     torch.save(checkpoint_dict(model), os.path.join(workdir, f"{MODEL}.pt"))
     clip = os.path.join(workdir, "clip70.wav")
-    write_long_wav(clip, 70.0, seed=0)
+    write_long_wav(clip, LONG_WAV_S, seed=0)
     out = os.path.join(workdir, "fp32_words")
     printed = io.StringIO()
     probe = ShapeProbe("flash_attention", torch.float32)
@@ -2468,7 +2503,7 @@ def run_fp32_cli(card: str, model, workdir: str):
     if counts["decode_attention"] or counts["decode_attention_i8"]:
         raise AssertionError(f"the fp32 CLI run's decode launched bf16 K1 / K2: {counts}")
     print(f"[fp32] CLI --fp16 False --word_timestamps True, the 19-token prompt, one rung: {wall:.1f} s wall for "
-          f"70 s of audio; {len(segments)} segments, {len(words)} words; fp32 K7 shapes (q, k, kv_valid_len, causal) "
+          f"{LONG_WAV_S:.0f} s of audio; {len(segments)} segments, {len(words)} words; fp32 K7 shapes (q, k, kv_valid_len, causal) "
           f"{sorted(probe.shapes)} [{card}]", flush=True)
     print(f"[fp32] launches {json.dumps({k: v for k, v in counts.items() if v})} (the bf16 flash launches are the "
           f"alignment forward's, in the model's dtype)", flush=True)
@@ -3521,7 +3556,7 @@ def run_resume(card: str, workdir: str, total: dict):
 
 
 def run_flac_cli(card: str, workdir: str, total: dict):
-    """Phase 22 (f): where ffmpeg is on PATH, phase 12's 70 s WAV converted
+    """Phase 22 (f): where ffmpeg is on PATH, phase 12's 40 s WAV converted
     to FLAC with it and transcribed through the CLI at base (one rung,
     `--language en`), as the WAV is with the same options: the same text."""
     import contextlib
@@ -3539,7 +3574,7 @@ def run_flac_cli(card: str, workdir: str, total: dict):
         print("[files] (f) ffmpeg: absent on this machine", flush=True)
         return
     clip = os.path.join(workdir, "clip70.wav")
-    write_long_wav(clip, 70.0, seed=0)
+    write_long_wav(clip, LONG_WAV_S, seed=0)
     flac = os.path.join(workdir, "clip70.flac")
     subprocess.run(["ffmpeg", "-nostdin", "-y", "-i", clip, flac], capture_output=True, check=True)
     ckpt = os.path.join(workdir, "base.pt")
@@ -4284,9 +4319,9 @@ def run_any_widths(card: str):
 
 # ------------------------------------------------------------------ phase 25
 
-# head widths above 128 for serving: K1 and K2 run 136-256 in the class of
-# 256 (`ops.decode_class`), K7, K7-lse and the fp32 K5 136-768 on the wide
-# forwards (`ops.forward_width`); K8 still stops at 128
+# head widths above 128: K1 and K2 run 136-256 in the class of 256
+# (`ops.decode_class`), K7, K7-lse, K8 and the fp32 K5 136-768 on the wide
+# kernels (`ops.forward_width`), so both serving and training run there
 WW_WIDTHS = (136, 200, 256, 384, 768)
 WW_DECODE_WIDTHS = (136, 200, 256)
 # two published widths at other head counts, depth cut to 2 + 2 layers
@@ -4310,9 +4345,11 @@ def check_wide_kernels(card: str):
     non-causal (8, 130) over 300 keys valid to 270) and the fp32 K5 at the
     same widths (768 // dh heads, at least one; (2, 200) over 300 keys
     valid to 270) against their plain versions at phase 21's tolerances,
-    each the same bits on a second launch; K8 at 136 and K1 / K2 at 264
-    must raise naming the widths they serve. Not timed: the paths' shapes
-    are timed in (b)."""
+    and K8 (dq, dk, dv from the plain lse at the K7 shapes) within 2^-6 (bf16)
+    or FP32_REL (fp32) of its plain version's largest output, each the same
+    bits on a second launch; K8 and K7 at 776 and K1 / K2 at 264 must raise
+    naming the widths they serve. Not timed: the paths' shapes are timed in
+    (b)."""
     import torch
 
     from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
@@ -4367,6 +4404,11 @@ def check_wide_kernels(card: str):
                      [pout, plse], [out_tol, lse_tol], lambda: FA.flash_attention(q, k, v, return_lse=True, **kw))
                 held("flash_attention" + sfx, what, FA.flash_attention(q, k, v, **kw), pout, out_tol,
                      lambda: FA.flash_attention(q, k, v, **kw))
+                g = rnd(bh, tq, dh)
+                want = FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)
+                held("flash_attention_bwd" + sfx, what, FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw), want,
+                     [rel * w.float().abs().max().item() for w in want],
+                     lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
             n_head = max(1, 768 // dh)
             q, k, v = rnd(2, 200, n_head * dh), rnd(2, 300, n_head * dh), rnd(2, 300, n_head * dh)
             kw = dict(n_head=n_head, kv_valid_len=270, scale=dh**-0.5)
@@ -4398,11 +4440,10 @@ def check_wide_kernels(card: str):
                          DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw), want, tol,
                          lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw))
         # the widths past what each kernel serves raise, naming them
-        q, k, v = rnd(4, 48, 136), rnd(4, 48, 136), rnd(4, 48, 136)
-        pout, plse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
-        refused(f"K8 {dtype} at 136", lambda: FA.flash_attention_bwd(q, k, v, pout, plse, q, causal=True),
-                "from 8 to 128")
         q, k, v = rnd(4, 48, 776), rnd(4, 48, 776), rnd(4, 48, 776)
+        lse = torch.zeros((4, 48, 1), device=dev)
+        refused(f"K8 {dtype} at 776", lambda: FA.flash_attention_bwd(q, k, v, q, lse, q, causal=True),
+                "from 8 to 768")
         refused(f"K7 {dtype} at 776", lambda: FA.flash_attention(q, k, v), "from 8 to 768")
         ck = rnd(1, 1, 1536, 264)
         (k8, ks) = DA.quantize_kv_rows(ck.float())
@@ -4413,12 +4454,12 @@ def check_wide_kernels(card: str):
     torch.cuda.empty_cache()
     print(f"[wide] (a) {n_checks} kernel calls at head widths {list(WW_WIDTHS)} (K1 / K2 at "
           f"{list(WW_DECODE_WIDTHS)}) in bf16 and fp32 against their plain versions (phase 21's tolerances), each "
-          f"bitwise on a second launch, K8 at 136, K7 at 776 and K1 / K2 at 264 refused: worst err/tol "
+          f"bitwise on a second launch, K8 and K7 at 776 and K1 / K2 at 264 refused: worst err/tol "
           f"{json.dumps({k: round(v, 3) for k, v in sorted(worst.items())})}; {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
 
 
-def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=()):
+def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(), train_shapes=()):
     """Phase 25 (b): at one geometry of WW_DIMS and dtype, each attention
     kernel its serving paths run, at their shapes, against its plain
     version, bitwise on a second launch, timed beside its bound at the true
@@ -4430,7 +4471,11 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=())
     768) (bf16: route B; fp32: the fp32 wide forward); K2 and K1 over the
     greedy path's cross cache (2 layers x 8 windows x 1500 keys, int8
     padded to 1536 with valid_upto 1499) at group 1 and over the beam's 4
-    windows at group 5. Rows for the kernels line."""
+    windows at group 5; K8 at the shapes the train steps gave it
+    (`train_shapes`: the encoder's (8 x H, 1536, dh) keys valid to 1500, the
+    train bucket's causal self-attention and its cross over the encoder's
+    1500 rows), beside SDPA's backward on the same 4-D views (the backend
+    PyTorch picks is named). Rows for the kernels line."""
     import torch
     import torch.nn.functional as F
 
@@ -4450,14 +4495,37 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=())
     dtype, dt, sfx, esz = (torch.float32, "fp32", "_f32", 4) if fp32 else (torch.bfloat16, "bf16", "", 2)
     rel = FP32_REL if fp32 else 2.0**-6
     fwd = f"fp32 wide forward {FA.f32_wide_plan(dh)}" if fp32 else f"route B {FA.k5_plan(dh, 1536)}"
+    bwd_plan = f"fp32 wide backward {FA.f32_k8_wide_plan(dh)}" if fp32 else f"{FA.k8_wide_plan(dh)}"
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def bounds(macs, n_bytes):
+    def bounds(macs, n_bytes, mults=4):
         if fp32:
-            return dict(bound=attn_bound(macs, n_bytes, 4, "3xtf32"), ffma_bound=attn_bound(macs, n_bytes, 4, "fp32"))
-        return dict(bound=attn_bound(macs, n_bytes))
+            return dict(bound=attn_bound(macs, n_bytes, mults, "3xtf32"),
+                        ffma_bound=attn_bound(macs, n_bytes, mults, "fp32"))
+        return dict(bound=attn_bound(macs, n_bytes, mults))
+
+    def k8_row(q, k, v, g, kw, case, plain_iters):
+        bh, tq, _ = q.shape
+        n_keys = kw.get("kv_valid_len") or k.shape[1]
+        causal = kw.get("causal", False)
+        pairs = sum(min(n_keys, i + 1) for i in range(tq)) if causal else tq * n_keys
+        io = (2 * q.numel() + 2 * bh * n_keys * dh) * esz
+        ql, kl, vl = (x[None].detach().requires_grad_(True) for x in (q, k[:, :n_keys], v[:, :n_keys]))
+        lib = dict(scale=scale, is_causal=causal)
+        backend = sdpa_backend(ql, kl, vl, **lib)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, **lib)
+        pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        want = list(FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw))
+        record("flash_attention_bwd" + sfx, f"{case}, {bwd_plan}; library: SDPA's backward ({backend})", src,
+               "asr_ttl_mtl_tpu/ops/flash_attention.py:976,1030",
+               list(FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw)), want,
+               [rel * w.float().abs().max().item() for w in want],
+               lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw),
+               lambda: FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw),
+               **bounds(bh * pairs * dh, 2 * io + 2 * plse.numel() * 4, mults=10), plain_iters=plain_iters,
+               library=lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g[None], retain_graph=True), repeat=True)
 
     def k7_rows(q, k, v, kw, case, lse, plain_iters):
         bh, tq, _ = q.shape
@@ -4507,6 +4575,16 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=())
                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), repeat=True)
         del q, k, v, want, qh, kh, vh
 
+    # K8 at the train steps' shapes: the encoder, the decoder's causal
+    # self-attention and its cross (the largest first)
+    for qs, ks, kv, causal in sorted(train_shapes, key=lambda x: (-x[0][1], x[3])):
+        q, k, v, g = rnd(*qs), rnd(*ks), rnd(*ks), rnd(*qs)
+        what = "causal self" if causal else "encoder" if qs[1] == ks[1] else "cross"
+        k8_row(q, k, v, g, dict(causal=causal, kv_valid_len=kv, scale=scale),
+               f"{tag}: the train step's {what} {qs} x {ks} {dt}" + (f", kv_valid_len {kv}" if kv else ""),
+               1 if qs[1] > 1000 else 20)
+        del q, k, v, g
+
     # K2 and K1 over the cross cache: 8 windows at group 1, the beam's 4 at group 5
     src = "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu"
     n_layer = dims["n_text_layer"]
@@ -4555,9 +4633,7 @@ def run_wide_width(card: str, geometry: str, workdir: str, fp32: bool = False):
     then phase 5's check of the bf16 decode against the CPU's fp32 plain
     path on 2 windows, or phase 20's fp32 decode gate. Each path's launch
     counts are reset just before it and read just after; no K3 or K6, in
-    fp32 no bf16 kernel. At dh256 in bf16, a train step must raise at K8,
-    naming the widths it serves (a check, not a path). Returns the counts
-    of each path."""
+    fp32 no bf16 kernel. Returns the counts of each path."""
     import numpy as np
     import torch
 
@@ -4618,43 +4694,89 @@ def run_wide_width(card: str, geometry: str, workdir: str, fp32: bool = False):
         check_against_cpu(model)
     del task, plain_task, beam_task, mel, model
     torch.cuda.empty_cache()
-    if geometry == "dh256" and not fp32:
-        check_train_step_refused(card, workdir)
     return list(paths.values())
 
 
-def check_train_step_refused(card: str, workdir: str):
-    """Phase 25 (c), the training backward: one train step at 5 heads of 256
-    (WW_DIMS["dh256"], batch HW_TRAIN_BATCH, bf16) runs the forward (K7-lse
-    on the wide forward) and must raise at K8, which serves 8-128."""
+def run_wide_training(card: str, geometry: str, workdir: str, fp32: bool = False, ref=None):
+    """Phase 25 (c), training: at one geometry of WW_DIMS, MultiTaskTrainer
+    with these dims as `debug_dims` (random weights from seed 0), AW_TRAIN_STEPS
+    steps at batch HW_TRAIN_BATCH and `evaluate` on the first batch, each
+    counted from 0 just before it and read just after: every step launches
+    K4 once and K7-lse and K8 once an attention (the encoder's 2 layers, the
+    decoder's 2 self and 2 cross: 6), nothing else, so no K3 or K6, and in
+    fp32 no bf16 kernel. Then the gates on the 2 clips they take: bf16,
+    phase 7's (`check_train_step_against_cpu`, whose CPU step is returned
+    as `ref`); fp32, phase 20's against that CPU step. Returns (the counts
+    of each path, `ref`, the shapes K8 got in the steps)."""
+    import numpy as np
     import torch
 
     from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=WW_DIMS["dh256"],
-                         batch_size=HW_TRAIN_BATCH, val_batch_size=HW_TRAIN_BATCH, compute_dtype="bfloat16",
-                         learning_rate=1e-5, seed=0, num_workers=4, epochs=1, save_dir=os.path.join(workdir, "dh256_out"))
-    ds = MultiTaskSpeechDataset(write_clips(workdir, HW_TRAIN_BATCH, seed=25), cfg)
-    batch = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
-                            buckets=cfg.token_buckets))[0]
+    dims = WW_DIMS[geometry]
+    sfx, dt, dtype = ("_f32", "fp32", torch.float32) if fp32 else ("", "bf16", torch.bfloat16)
+    tag = f"[wide {geometry}{' fp32' if fp32 else ''}]"
+    n_attn = dims["n_audio_layer"] + 2 * dims["n_text_layer"]
+    paths = {}
+
+    def counted(name, fn):
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        paths[name] = dict(LAUNCHES)
+        if fp32:
+            no_bf16_kernel(paths[name], f"{tag} {name}")
+        h2 = {k: v for k, v in paths[name].items() if k.startswith("flash_attention_h2") and v}
+        if h2:
+            raise AssertionError(f"{tag} {name} launched the h2 kernels, which serve 32, 64 and 128 only: {h2}")
+        return out, time.perf_counter() - t0
+
+    cfg = TrainingConfig(model_size=MODEL, pretrained="random", debug_dims=dims, batch_size=HW_TRAIN_BATCH,
+                         val_batch_size=HW_TRAIN_BATCH, compute_dtype="float32" if fp32 else "bfloat16",
+                         learning_rate=1e-5, seed=0, num_workers=4, epochs=1,
+                         save_dir=os.path.join(workdir, f"{geometry}{sfx}_train"))
+    ds = MultiTaskSpeechDataset(write_clips(workdir, AW_TRAIN_STEPS * HW_TRAIN_BATCH, seed=25), cfg)
+    batches = list(DataLoader(ds, HW_TRAIN_BATCH, shuffle=True, num_workers=4, drop_last=True, seed=0,
+                              buckets=cfg.token_buckets))[:AW_TRAIN_STEPS]
     trainer = MultiTaskTrainer(cfg, verbose=False)
-    reset_launch_counts()
+    per_step = {"log_mel": 1, f"flash_attention_lse{sfx}": n_attn, f"flash_attention_bwd{sfx}": n_attn}
+    losses, step_s = [], []
+    probe = ShapeProbe("flash_attention_bwd", dtype)
     try:
-        trainer.train_step(batch)
-    except ValueError as err:
-        if "flash_attention_bwd" not in str(err) or "from 8 to 128" not in str(err):
-            raise AssertionError(f"the dh256 train step raised without naming K8's widths: {err}")
-        message = str(err)
-    else:
-        raise AssertionError("a train step at 5 heads of 256 ran: K8 serves 8-128")
-    sync()
-    if LAUNCHES["flash_attention_lse"] <= 0 or LAUNCHES["flash_attention_bwd"]:
-        raise AssertionError(f"the dh256 train step launched {dict(LAUNCHES)}")
-    print(f"[wide dh256] a train step at batch {HW_TRAIN_BATCH} ran K7-lse {LAUNCHES['flash_attention_lse']} times "
-          f"and stopped at K8: {message!r} [{card}]", flush=True)
+        for i, batch in enumerate(batches):
+            (loss, _), dt_s = counted(f"train step {i + 1}", lambda: trainer.train_step(batch))
+            launched = {k: v for k, v in paths[f"train step {i + 1}"].items() if v}
+            if launched != per_step:
+                raise AssertionError(f"{tag} train step {i + 1} launched {launched}, expected {per_step}")
+            losses.append(float(loss))
+            step_s.append(dt_s)
+    finally:
+        probe.close()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: non-finite train loss {losses}")
+    metrics, t_eval = counted("evaluate", lambda: trainer.evaluate(batches[:1]))
+    c = paths["evaluate"]
+    if c["flash_attention" + sfx] <= 0 or c["flash_attention_bwd" + sfx] or c["flash_attention_lse" + sfx]:
+        raise AssertionError(f"{tag} evaluate launched {c}")
+    for key in ("loss", "wer", "disease_acc"):
+        if not np.isfinite(metrics[key]):
+            raise AssertionError(f"{tag} evaluate: {key} = {metrics[key]}")
+    print(f"{tag} train, batch {HW_TRAIN_BATCH}, {dt}, token buckets {[bt['input_tokens'].shape[1] for bt in batches]}: "
+          f"{AW_TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; step s "
+          f"{', '.join(f'{x:.4f}' for x in step_s)} (the first has the set-up); evaluate {t_eval:.3f} s, loss "
+          f"{metrics['loss']:.4f}, launches {json.dumps({k: v for k, v in c.items() if v})}; launches a step "
+          f"{json.dumps(per_step)}; K8 shapes (q, k, kv_valid_len, causal) {sorted(probe.shapes)} [{card}]", flush=True)
+    if fp32:  # phase 20's gate against the CPU step of the bf16 trainer's weights
+        check_fp32_train_step_against_cpu(card, trainer, ref, what=f"{geometry}, the bf16 trainer's weights, CPU "
+                                                                    f"step {ref['cpu_s']:.1f} s")
+    else:  # phase 7's gate, whose CPU step the fp32 gate takes too
+        ref = check_train_step_against_cpu(card, trainer, batches[0])
     del trainer
     torch.cuda.empty_cache()
+    return list(paths.values()), ref, probe.shapes
 
 
 def run_wide_cli(card: str, workdir: str, fp32: bool):
@@ -4720,34 +4842,39 @@ def run_wide_cli(card: str, workdir: str, fp32: bool):
 
 
 def run_wide_widths(card: str):
-    """Phase 25: (a), then at each geometry and dtype (c), at dh256 (d), and
-    (b) at the shapes they ran; every kernel of phase 25 must launch on its
-    paths: K1 and K2 at both geometries, K7 at dh256 (the encoder and the
-    CLI's prefill), K5 at dh192, in both dtypes. Returns (the timed rows,
-    the paths' counts)."""
+    """Phase 25: (a), then at each geometry and dtype (c) serving and
+    training with the gates, at dh256 (d), and (b) at the shapes they ran;
+    every kernel of phase 25 must launch on its paths: K1, K2, K7-lse and K8
+    at both geometries, K7 at dh256 (the encoder and the CLI's prefill), K5
+    at dh192, in both dtypes. Returns (the timed rows, the paths' counts)."""
     import torch
 
     check_wide_kernels(card)
     rows, paths = [], []
     with tempfile.TemporaryDirectory() as workdir:
         for geometry in WW_DIMS:
+            ref = None
             for fp32 in (False, True):
+                t0 = time.perf_counter()
                 got = run_wide_width(card, geometry, workdir, fp32)
                 cli_shapes = ()
                 if geometry == "dh256":
                     counts, cli_shapes = run_wide_cli(card, workdir, fp32)
                     got.append(counts)
                 torch.cuda.empty_cache()
-                rows += check_wide_path_kernels(card, geometry, fp32, cli_shapes)
+                trained, ref, train_shapes = run_wide_training(card, geometry, workdir, fp32, ref)
+                got += trained
+                rows += check_wide_path_kernels(card, geometry, fp32, cli_shapes, train_shapes)
                 sfx = "_f32" if fp32 else ""
-                names = ["decode_attention_i8" + sfx, "decode_attention" + sfx,
+                names = ["decode_attention_i8" + sfx, "decode_attention" + sfx, "flash_attention_lse" + sfx,
+                         "flash_attention_bwd" + sfx,
                          ("flash_attention" if geometry == "dh256" else "flash_attention_mh") + sfx]
                 total = {name: sum(c.get(name, 0) for c in got) for name in names}
                 if not all(total.values()):
                     raise AssertionError(f"no launch of a phase-25 kernel on the {geometry} "
                                          f"{'fp32' if fp32 else 'bf16'} paths: {total}")
-                print(f"[wide] launches over the {geometry} {'fp32' if fp32 else 'bf16'} paths {json.dumps(total)}",
-                      flush=True)
+                print(f"[wide] launches over the {geometry} {'fp32' if fp32 else 'bf16'} paths {json.dumps(total)}; "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
                 paths += got
     return rows, paths
 
@@ -4820,7 +4947,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        write_long_wav(os.path.join(workdir, "clip70.wav"), 70.0, seed=0)
+        write_long_wav(os.path.join(workdir, "clip70.wav"), LONG_WAV_S, seed=0)
         mh_cli_counts, mh_shapes = run_mh_cli(card, workdir)
         mh_train_counts, mh_train_shapes = run_mh_training(card, workdir)
     rows += check_mh_kernels(card, mh_shapes, mh_train_shapes)
@@ -4872,8 +4999,8 @@ def main() -> int:
     aw_rows, aw_paths = run_any_widths(card)
     rows += aw_rows
 
-    # phase 25: head widths above 128 for serving, at 5 heads of 256
-    # (large-v3's widths) and 4 of 192 (small's), bf16 and fp32
+    # phase 25: head widths above 128 for serving and training, at 5 heads
+    # of 256 (large-v3's widths) and 4 of 192 (small's), bf16 and fp32
     stamp("phase 25 starts")
     ww_rows, ww_paths = run_wide_widths(card)
     rows += ww_rows
@@ -4886,8 +5013,9 @@ def main() -> int:
     # evaluate runs at head widths 128 and 32 in bf16 and in fp32, and phase 22's train steps,
     # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
     # runs, each rank's counts, and phase 24's runs at 16 heads of 80 and 8
-    # of 96 and its CLI run, and phase 25's serving runs at 5 heads of 256
-    # and 4 of 192 and its CLI runs), each counted from 0 just before it ran
+    # of 96 and its CLI run, and phase 25's serving, train and evaluate runs
+    # at 5 heads of 256 and 4 of 192 and its CLI runs), each counted from 0
+    # just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
              fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths)

@@ -239,17 +239,16 @@ def test_flash_wrappers_take_the_head_widths(fake_card, dh):
                                       (136, torch.float32), (20, torch.float32), (256, torch.float32)])
 def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
     """A width no kernel of the dtype serves raises before any launch,
-    naming the widths served: K8 serves every multiple of 8 from 8 to 128,
-    so 136, 20 and 256 raise there; K7 (and K5 in fp32) every multiple of 8
-    up to 768, so 20 (or, past 128, 776) raises there; K3 and K6 serve 32,
-    64 and 128 only, so 80 and 96 (and this width) raise there."""
+    naming the widths served: K7, K8 (and K5 in fp32) serve every multiple
+    of 8 up to 768, so 20 (or, past 128, 776) raises there; K3 and K6 serve
+    32, 64 and 128 only, so 80 and 96 (and this width) raise there."""
     n_head = 2
-    wide = dh if dh % 8 else 776  # a width K7 and the fp32 K5 refuse
-    qs, qw = torch.zeros((4, 20, dh), dtype=dtype), torch.zeros((4, 20, wide), dtype=dtype)
+    wide = dh if dh % 8 else 776  # a width K7, K8 and the fp32 K5 refuse
+    qw = torch.zeros((4, 20, wide), dtype=dtype)
     lse7 = torch.zeros((4, 20, 1))
     q = torch.zeros((2, 20, n_head * wide), dtype=dtype)
     calls = [(lambda: PF.flash_attention(qw, qw, qw, causal=True), "multiple of 8 from 8 to 768"),
-             (lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse7, qs, causal=True), "multiple of 8 from 8 to 128")]
+             (lambda: PF.flash_attention_bwd(qw, qw, qw, qw, lse7, qw, causal=True), "multiple of 8 from 8 to 768")]
     if dtype == torch.float32:  # the bf16 K5's own check names its range (`k5_plan`)
         calls.append((lambda: PF.flash_attention_mh(q, q, q, n_head=n_head), "multiple of 8 from 8 to 768"))
     for call, served in calls:

@@ -10,7 +10,10 @@ forward over head maps, 136-768 on the wide forward) and its C plan
 against `k5_plan`. Above 128 for serving: K7, K7-lse and the fp32 K5 at
 136, 200, 256, 384 and 768 on the wide forwards, K2 and K1 at 136, 200 and
 256 in the class of 256, and the fp32 wide forward's C plan against
-`f32_wide_plan`. A width no kernel serves raises on the card. Marked
+`f32_wide_plan`. Above 128 for training: K8 at 136, 200, 256, 384 and 768
+on the wide backwards (and at every multiple of 8 from 136 to 768 on a
+small shape), their C plans against `k8_wide_plan` and `f32_k8_wide_plan`.
+A width no kernel serves raises on the card. Marked
 `cuda`: they skip where there is no card (`python -m pytest
 tests/test_torch_*.py -q -m cuda` on the machine with one). This file
 imports no JAX: the plain versions are the reference, and their own tests
@@ -190,6 +193,28 @@ def test_f32_wide_plan_matches_the_c_dispatch(card):
 
 
 @pytest.mark.cuda
+def test_k8_wide_plans_match_the_c_dispatch(card):
+    """`flash_wide_bwd_plan_bf16` and `flash_wide_bwd_plan_f32`, the plans
+    K8's wide backwards take in C, equal `k8_wide_plan` and
+    `f32_k8_wide_plan` at every multiple of 8 from 136 to 768; widths they
+    do not serve give an error there too."""
+    import ctypes
+
+    from asr_ttl_mtl_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib("flash_attention")
+    bf16, f32 = (ctypes.c_int * 7)(), (ctypes.c_int * 4)()
+    for dh in range(136, 769, 8):
+        assert lib.flash_wide_bwd_plan_bf16(dh, ctypes.addressof(bf16)) == 0
+        assert tuple(bf16) == tuple(PF.k8_wide_plan(dh)), dh
+        assert lib.flash_wide_bwd_plan_f32(dh, ctypes.addressof(f32)) == 0
+        assert tuple(f32) == tuple(PF.f32_k8_wide_plan(dh)), dh
+    for dh in (0, 64, 128, 132, 776):
+        assert lib.flash_wide_bwd_plan_bf16(dh, ctypes.addressof(bf16)) != 0
+        assert lib.flash_wide_bwd_plan_f32(dh, ctypes.addressof(f32)) != 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("b,group,tk,valid", [(8, 1, 1500, None), (8, 5, 1500, None), (1, 5, 1500, None),
@@ -242,9 +267,9 @@ def test_k1_on_card(card, dh, b, group, tk, valid, dtype):
                                          (96, torch.float32)])
 def test_other_widths_raise_on_card(card, h2_dh, dtype):
     """No fallback: K3 and K6 refuse 80 and 96 (they serve 32, 64 and 128,
-    as the JAX package's h2 kernels); K8 refuses 136, 20 and 256 (8-128),
-    K1 and K2 20 and 264 (8-256), K7 (and K5 in fp32) 20 and 776 (8-768),
-    each naming the range it serves; nothing launches."""
+    as the JAX package's h2 kernels); K1 and K2 refuse 20 and 264 (8-256),
+    K7, K8 (and K5 in fp32) 20 and 776 (8-768), each naming the range it
+    serves; nothing launches."""
     n_head = 1280 // h2_dh if h2_dh == 80 else 768 // h2_dh
     d = h2_dh * n_head
     q, = _rnd(card, 0, (2, 64, d), dtype=dtype)
@@ -261,13 +286,12 @@ def test_other_widths_raise_on_card(card, h2_dh, dtype):
         ki, ks = PD.quantize_kv_rows(ck.float())
         qn, = _rnd(card, 0, (2, 64, 2 * dh), dtype=dtype)
         calls = []  # (the range the refusal names, the call)
-        if dh in (136, 20, 256):
-            calls.append(("8 to 128", lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True)))
         if dh in (20, 264):
             calls += [("8 to 256", lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0)),
                       ("8 to 256", lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0))]
         if dh in (20, 776):
             calls.append(("8 to 768", lambda: PF.flash_attention(qs, qs, qs, causal=True)))
+            calls.append(("8 to 768", lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True)))
             if dtype == torch.float32:
                 calls.append(("8 to 768", lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2)))
         for served, call in calls:
@@ -393,6 +417,32 @@ def test_k7_wide_on_card(card, dh, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", WIDE_WIDTHS)
+def test_k8_wide_on_card(card, dh, dtype):
+    """K8 on the wide backwards (bf16: the TMA + wgmma dq and dk/dv kernels,
+    a CTA a 128-column slab; fp32: the 3xTF32 pair): causal at q_offset 0
+    and over 96 keys at q_offset 48, causal over 160 queries, non-causal
+    with keys valid short of tk, and 70 keys under 200 queries; dq, dk and
+    dv within the dtype's share of the plain version's largest output,
+    bitwise on a second launch, one launch a call."""
+    rel = _share(dtype)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    for bh, tq, tk, causal, q_offset, kv_len in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                 (4, 160, 160, True, 0, None), (8, 130, 300, False, 0, 270),
+                                                 (3, 200, 70, False, 0, None)):
+        q, k, v, g = _rnd(card, dh + tq + tk, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), dtype=dtype)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+        out, lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        reset_launch_counts()
+        got = PF.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        for a, w in zip(got, PF.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)):
+            _close(a, w, lambda x: rel * x.float().abs().max().item())
+        _same_bits(lambda: PF.flash_attention_bwd(q, k, v, out, lse, g, **kw), got)
+        assert {n: c for n, c in LAUNCHES.items() if c} == {f"flash_attention_bwd{sfx}": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", DECODE_WIDE_WIDTHS)
 def test_k2_and_k1_at_the_class_of_256_on_card(card, dh, dtype):
     """K2 and K1 at 5 heads of dh in the class of 256 (at 136 and 200 K1's
@@ -428,8 +478,8 @@ def test_k2_and_k1_at_the_class_of_256_on_card(card, dh, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_every_wide_width_on_card(card, dtype):
-    """Every multiple of 8 the wide forwards serve (136-768): K7 with lse,
-    causal at q_offset 30 over 70 keys, and the fp32 K5 (768 // dh heads,
+    """Every multiple of 8 the wide kernels serve (136-768): K7 with lse and
+    K8, causal at q_offset 30 over 70 keys, and the fp32 K5 (768 // dh heads,
     keys valid to 60); every multiple of 8 from 136 to 256 in K2 and K1 at
     5 heads over a 1536-key cross cache valid to 1499, group 5. Each
     against its plain version at the dtype's tolerance."""
@@ -443,6 +493,10 @@ def test_every_wide_width_on_card(card, dtype):
         got = PF.flash_attention(q, k, v, return_lse=True, **kw)
         _close(got[0], want, lambda w: rel * w.float().abs().max().item())
         _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
+        g, = _rnd(card, dh + 2, (2, 40, dh), dtype=dtype)
+        for a, w in zip(PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw),
+                        PF.flash_attention_bwd_plain(q, k, v, want, want_lse, g, **kw)):
+            _close(a, w, lambda x: rel * x.float().abs().max().item())
         if dtype == torch.float32:
             n_head = max(1, 768 // dh)
             q, k, v = _rnd(card, dh + 1, (2, 40, n_head * dh), (2, 70, n_head * dh), (2, 70, n_head * dh),
@@ -467,6 +521,6 @@ def test_every_wide_width_on_card(card, dtype):
             tol = flip + FP32_REL * ref.max()
         assert ((got.float() - want.float()).abs() <= tol).all(), dh
     n_wide, n_decode = len(range(136, 769, 8)), len(range(136, 257, 8))
-    assert LAUNCHES[f"flash_attention_lse{sfx}"] == n_wide
+    assert LAUNCHES[f"flash_attention_lse{sfx}"] == LAUNCHES[f"flash_attention_bwd{sfx}"] == n_wide
     assert LAUNCHES[f"decode_attention{sfx}"] == LAUNCHES[f"decode_attention_i8{sfx}"] == n_decode
     assert LAUNCHES["flash_attention_mh_f32"] == (n_wide if dtype == torch.float32 else 0)

@@ -1,7 +1,9 @@
-"""One train step at head widths 32 and 128: the port's MultiTaskTrainer
-against the JAX package's loss function on the same carried weights, batch
-and dropout keep-mask, at the training test set-up of torch_port_helpers
-with d 128 and 4 heads (dh 32), and d 256 and 2 heads (dh 128)."""
+"""One train step at head widths 32, 128, 192 and 256: the port's
+MultiTaskTrainer against the JAX package's loss function on the same
+carried weights, batch and dropout keep-mask, at the training test set-up
+of torch_port_helpers with d 128 and 4 heads (dh 32), d 256 and 2 heads (dh
+128), d 384 and 2 heads (dh 192: K8's wide backward on the card) and d 512
+and 2 heads (dh 256)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,10 +25,10 @@ from torch_port_helpers import DEBUG_DIMS, TRAIN_CONFIG, np_tree, write_wav_data
 
 REL = 1e-4  # the loss and gradient norms, as test_torch_trainer.py holds them
 # head width -> (d, n_head)
-WIDTHS = {32: (128, 4), 128: (256, 2)}
+WIDTHS = {32: (128, 4), 128: (256, 2), 192: (384, 2), 256: (512, 2)}
 
 
-@pytest.mark.parametrize("dh", [32, 128])
+@pytest.mark.parametrize("dh", sorted(WIDTHS))
 def test_train_step_matches_jax(dh, tmp_path):
     """One MultiTaskTrainer step from the same carried weights, batch and
     dropout keep-mask: the loss and every group's gradient norm within 1e-4

@@ -1,8 +1,10 @@
-"""Head widths above 128 for serving: `ops.decode_class` (K1 and K2 at the
-class of 256, every multiple of 8 from 136 to 256) and `ops.forward_width`
-(K7, K7-lse and the fp32 K5 on the wide forwards, 136-768), the Python
-mirrors of the new shared-memory plans, the plain K7 with lse, K2, K1 and
-K5 against the JAX functions in interpret mode at dh 136, 200 and 256, and
+"""Head widths above 128: `ops.decode_class` (K1 and K2 at the class of
+256, every multiple of 8 from 136 to 256) and `ops.forward_width` (K7,
+K7-lse, K8 and the fp32 K5 on the wide kernels, 136-768), the Python
+mirrors of the shared-memory plans (K8's `k8_wide_plan` and
+`f32_k8_wide_plan` among them), the plain K7 with lse, K8, K2, K1 and K5
+against the JAX functions in interpret mode at dh 136, 200 and 256 (K8
+also at 768), and
 `DecodingTask.run` against the JAX package at 2 heads of 256 (d 512: the
 encoder on K5) and 4 heads of 256 (d 1024: the encoder on K7). The kernels
 at these widths on the card are in test_torch_head_width_card.py."""
@@ -104,11 +106,45 @@ def test_forward_width_refuses_the_rest(dh):
             PF.f32_wide_plan(dh)
 
 
-@pytest.mark.parametrize("dh", [136, 256])
-def test_k8_still_refuses_above_128(dh):
-    """K8 (the training backward) keeps the classes: the next slice's work."""
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
-        ops.width_class(dh, "flash_attention_bwd")
+@pytest.mark.parametrize("dh,refused", [(136, 132), (256, 776)])
+def test_k8_still_refuses_above_128(dh, refused):
+    """K8 (the training backward) serves 136-768 on the wide backwards
+    (forward_width 0, both plans), and still refuses a width above 128 that
+    is not a multiple of 8 (132) or lies past 768 (776), naming 8-768."""
+    assert ops.forward_width(dh, "flash_attention_bwd") == 0
+    assert PF.k8_wide_plan(dh).slabs == PF.f32_k8_wide_plan(dh).slabs == -(-dh // 128)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 768"):
+        ops.forward_width(refused, "flash_attention_bwd")
+    for plan in (PF.k8_wide_plan, PF.f32_k8_wide_plan):
+        with pytest.raises(ValueError, match="from 136 to 768"):
+            plan(refused)
+
+
+@pytest.mark.parametrize("dh", range(136, 769, 8))
+def test_k8_wide_plans_fit_at_every_width(dh):
+    """K8's wide plans: each kernel's shared memory fits 227 KB with at least
+    two stages, and the registers a consumer thread holds for its tiles stay
+    in the budget, whatever the width (a CTA owns a 128-column slab): bf16
+    dq's slab (64 fp32), S and dP (dq_keys / 2 each) and bf16 dS (dq_keys /
+    4) at most 160 of 255; dk/dv's two slabs (128), S^T and dP^T (16 each)
+    and bf16 P^T and dS^T (8 each) at most 192 (the fp32 kernels hold the
+    same slabs at every width). bf16: 64-key dq boxes up to 704, 32 above;
+    fp32: 64 own rows up to 384, 32 above."""
+    p, f = PF.k8_wide_plan(dh), PF.f32_k8_wide_plan(dh)
+    assert max(p.dq_smem, p.dkv_smem, f.smem) <= PF.K5_SMEM_MAX
+    assert p.dq_stages >= 2 and p.dkv_stages >= 2 and p.dkv_queries == 32
+    assert p.dq_keys == (64 if dh <= 704 else 32)
+    assert f.rows == (64 if dh <= 384 else 32) and f.keys == 16
+    assert 64 + p.dq_keys + p.dq_keys // 4 <= 160
+    assert 128 + p.dkv_queries + p.dkv_queries // 2 <= 192
+    assert p.slabs == f.slabs == -(-dh // 128)
+
+
+@pytest.mark.parametrize("dh", [0, 8, 128, 132, 772, 776])
+def test_k8_wide_plans_refuse_the_rest(dh):
+    for plan in (PF.k8_wide_plan, PF.f32_k8_wide_plan):
+        with pytest.raises(ValueError, match="multiple of 8 from 136 to 768"):
+            plan(dh)
 
 
 # ----------------------------------------------------------- K7-lse ------
@@ -129,6 +165,27 @@ def test_k7_lse_plain_matches_jax(dh, causal, q_offset, kv_valid_len):
     _close(pout, jout)
     _close(plse, jlse)
     _close(PF.flash_attention(_t(q), _t(k), _t(v), **kw), jout_only)
+
+
+@pytest.mark.parametrize("dh,bh,tq,tk", [(136, 2, 40, 64), (200, 2, 40, 64), (256, 2, 40, 64), (768, 1, 20, 24)])
+@pytest.mark.parametrize("causal,q_offset,kv_valid_len", [(True, 7, None), (False, 0, 50)], ids=["causal", "cross"])
+def test_k7_lse_and_k8_plain_match_jax(dh, bh, tq, tk, causal, q_offset, kv_valid_len):
+    """The plain K7 with lse and the plain K8 at a head width the wide
+    backwards serve, against the JAX package's flash_attention and
+    flash_attention_bwd in interpret mode: causal at a q_offset, and cross
+    over ragged keys (valid to 50, or to 20 of 24 at 768)."""
+    if kv_valid_len is not None:
+        kv_valid_len = min(kv_valid_len, tk - 4)
+    q, k, v, g = _inputs([(bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh)], seed=dh + tq + 1)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len, scale=dh**-0.5)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = JF.flash_attention(q, k, v, return_lse=True, interpret=True, **kw)
+        jgrads = JF.flash_attention_bwd(q, k, v, jout, jlse, g, interpret=True, **kw)
+    pout, plse = PF.flash_attention(_t(q), _t(k), _t(v), return_lse=True, **kw)
+    _close(pout, jout)
+    _close(plse, jlse)
+    for a, c in zip(PF.flash_attention_bwd(_t(q), _t(k), _t(v), _t(jout), _t(jlse), _t(g), **kw), jgrads):
+        _close(a, c)
 
 
 # ----------------------------------------------------- K2, K1, K5 ------
