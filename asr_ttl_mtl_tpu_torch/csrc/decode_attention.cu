@@ -1,19 +1,24 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
 // (L, B, Tk, D) KV caches, for Hopper (sm_90a), at every head width dh = D /
-// n_head that is a multiple of 8 from 8 to 256, with bf16 or fp32 q. Both
-// kernels are built for the width classes 32, 64, 128 and 256 (a template
-// parameter, as is q's type); a width dh runs in the smallest class kDh >=
-// dh (`decode_class`). A CTA reads only a head's dh real columns from device
+// n_head from 1 to 768, with bf16 or fp32 q. Both kernels are built for
+// the width classes 32, 64, 128, 256, 512 and 768 (a template parameter,
+// as is q's type); a width dh runs in the smallest class kDh >= dh
+// (`decode_class`). A CTA reads only a head's dh real columns from device
 // memory (the bytes stay dh's: both kernels are bound by them) and fills
 // columns [dh, kDh) of its staged rows and of q with zeros, which add
 // nothing to q.k; the output columns they give are never written. Head h
-// starts at column h dh: K2's 16-byte copies stay aligned at every width
-// (dh * sizeof(T) is a multiple of 16), K1's int8 rows take 16-byte copies
-// where dh is a multiple of 16 and 8-byte ones elsewhere (h dh then lies 8
-// bytes off a 16-byte boundary for odd h). The compute is the class's: 80
-// columns run at 128's tensor-core work, 136 at 256's. At the class of 256
-// the staged tiles are twice as wide, so fewer are in flight (`K2Cfg`,
-// `K1Cfg`), and K2's fp32 scores keep q in registers 128 columns at a time.
+// starts at byte h dh sizeof(T) of a cache row, so a row is copied in the
+// largest pieces of 16, 8, 4, 2 or 1 bytes that divide its dh sizeof(T)
+// bytes (`piece_bytes`): 16-byte cp.async wherever dh sizeof(T) is a
+// multiple of 16, down to single bytes for an int8 row of odd dh (dh 75);
+// pieces of 2 and 1 bytes, which cp.async does not take, are a load and a
+// store. The caches are read in place, never padded. The compute is the
+// class's: 80 columns run at 128's tensor-core work, 136 at 256's, 300 at
+// 512's. From the class of 256 on the staged tiles are wide, so fewer are
+// in flight and, above 256, each holds fewer keys (`K2Cfg`, `K1Cfg`); the
+// products hold at most 256 columns of q and of the P.V sums in registers
+// at a time (K2's `kPass`; K1 reads q's fragments from shared memory above
+// 256), and K2's fp32 scores keep q in registers 128 columns at a time.
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
@@ -51,9 +56,13 @@
 //     windows already fill the card with S = 1, where a second wave of
 //     CTAs measured slower on an H100 (0.0546 against 0.0621 ms).
 //   - A CTA streams its chunk's K rows, then its V rows, in tiles of 128
-//     keys through a ring of shared-memory buffers filled by 16-byte
-//     cp.async (4 tiles in flight for bf16, 2 for fp32), so the V loads are
-//     already in flight while the softmax runs.
+//     keys (above 256: 32 bf16 rows, 16 fp32) through a ring of
+//     shared-memory buffers filled by cp.async (4 tiles in flight for bf16,
+//     2 for fp32), so the V loads are already in flight while the softmax
+//     runs. Above the class of 256 a CTA takes at most 16 of the group's
+//     query rows (`k2_cta_rows`): each row's q and P.V partials are 3 KB at
+//     768, so a larger group takes one CTA a 16-row chunk, each reading the
+//     cache, still in one launch.
 //   - Products. bf16 caches: both on the tensor cores, mma.sync m16n8k16
 //     (dh / 16 steps for the scores; P.V's dh / 8 column blocks round the
 //     4 warps) with the group's rows padded to 16 (rows beyond 16 in
@@ -97,9 +106,11 @@
 //     depend on the running max beyond an fp32 rounding, so the int8 p of a
 //     block is the sequential walk's up to the flips the plain version's
 //     flip bound covers.
-//   - Per block, its K tiles (128 keys, with their k and v scales), then its
-//     V tiles, stream through a 4-deep cp.async ring, so the V loads are in
-//     flight during the block's softmax.
+//   - Per block, its K tiles (128 keys, 32 above 256, with their k and v
+//     scales), then its V tiles, stream through a cp.async ring (4 deep, 2
+//     from 256), so the V loads are in flight during the block's softmax.
+//     The tile is only the staging unit: the block, over which p is
+//     quantized, and its order stay the contract's at every width.
 //   - Both products on the tensor cores, mma.sync m16n8k32 s8 with int32
 //     accumulation (exact, as the plain version's float64 sums): the rows
 //     padded to 16; K rows are the B operand as they lie. For P V each V
@@ -149,22 +160,34 @@ constexpr int kK2MaxSplit = 8;   // CTAs a cluster: the portable limit
 constexpr int kK2RowChunk = 16;  // query rows a pass of the threads takes
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// kDh: the width class, 32, 64, 128 or 256 (a head width dh <= kDh runs in it)
+// kDh: the width class, 32, 64, 128, 256, 512 or 768 (a head width dh <=
+// kDh runs in it)
 template <typename T, int kDh>
 struct K2Cfg {
   static constexpr int kVec = 16 / (int)sizeof(T);                         // elements a 16-byte copy moves
   static constexpr int kRowBytes = kDh * (int)sizeof(T) + 16;             // a staged key row, padded off the banks
-  // keys a staged tile holds: kK2Tile, but 64 of fp32 rows at 256 (1 KB a row)
-  static constexpr int kTile = sizeof(T) == 4 && kDh == 256 ? 64 : kK2Tile;
+  // keys a staged tile holds: kK2Tile, but 64 of fp32 rows at 256 (1 KB a
+  // row), and above 256 32 of bf16 rows and 16 of fp32 (1-3 KB a row)
+  static constexpr int kTile = kDh > 256 ? (sizeof(T) == 2 ? 32 : 16) : sizeof(T) == 4 && kDh == 256 ? 64 : kK2Tile;
   // tiles in flight: ~70 KB of bf16 rows at 32-128 (2 tiles at 128), 2 of
-  // fp32, and 2 of ~67 KB at 256 in either dtype
+  // fp32, 2 of ~67 KB at 256 in either dtype, and 2 of 33-50 KB above
   static constexpr int kRing = sizeof(T) == 2 ? (kDh >= 128 ? 2 : 4) : 2;
   static constexpr int kRingBytes = kRing * kTile * kRowBytes;
   // the q values a thread of the fp32 scores keeps in registers: the whole
   // row up to 128, else 128 at a time
   static constexpr int kQRegs = kDh < 128 ? kDh : 128;
+  // the columns a pass of the tensor-core products (and of the fp32 P.V)
+  // holds in registers: the whole row up to 256, else 256 at a time
+  static constexpr int kPass = kDh < 256 ? kDh : 256;
 };
 
+// query rows a CTA takes: the whole group up to the class of 256; above it,
+// 16 a CTA once the group is larger (q and the P.V partials, 3 KB a row
+// each at 768, would outgrow shared memory beside the staged tiles), the
+// CTAs of a cache row's row chunks each reading the cache
+__host__ __device__ __forceinline__ int k2_cta_rows(int group, int dh_class) {
+  return dh_class > 256 && group > kK2RowChunk ? kK2RowChunk : group;
+}
 __host__ __device__ __forceinline__ int k2_rows(int group) { return group < kK2RowChunk ? group : kK2RowChunk; }
 // P.V: 8 threads take a row; the threads left over take slices of the keys
 __host__ __device__ __forceinline__ int k2_slices(int group) { return kK2Threads / (8 * k2_rows(group)); }
@@ -172,9 +195,10 @@ __host__ __device__ __forceinline__ int k2_stride(int chunk) { return (chunk + 3
 
 // ring, q (G x dh fp32), scores (G x chunk fp32), P.V partials (slices x G
 // x dh fp32), row max / sum, local and global (4 x G fp32), and one fp32 a
-// thread for the row reductions
+// thread for the row reductions, G the CTA's rows (`k2_cta_rows`)
 template <typename T, int kDh>
-size_t k2_smem_bytes(int group, int chunk) {
+size_t k2_smem_bytes(int group_all, int chunk) {
+  const int group = k2_cta_rows(group_all, kDh);
   return (size_t)K2Cfg<T, kDh>::kRingBytes +
          4 * ((size_t)group * kDh + (size_t)group * k2_stride(chunk) + (size_t)k2_slices(group) * group * kDh +
               4 * (size_t)group + kK2Threads);
@@ -205,9 +229,84 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the bytes a copy of a head's row moves: the largest of 16, 8, 4, 2 and 1
+// that divides the row's bytes. Head h starts at byte h x row_bytes of a
+// cache row (and rows are d = n_head x dh elements apart), so every piece
+// of every head lies on a multiple of it.
+__host__ __device__ __forceinline__ int piece_bytes(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : row_bytes % 2 == 0 ? 2 : 1;
+}
+// pieces of 2 or 1 bytes, which cp.async does not take: a load and a
+// store each, kBatch loads a thread issued before their stores so that
+// their latencies overlap; done before the barrier that precedes any read
+// of the slot
+template <typename P>
+__device__ __forceinline__ void copy_narrow(unsigned char* dst, int dst_stride, const unsigned char* src,
+                                            size_t src_stride, int n_rows, int per_row) {
+  constexpr int kBatch = 8;
+  const int n = n_rows * per_row, step = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * step) {
+    P v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * step;
+      if (e < n)
+        v[u] = *reinterpret_cast<const P*>(src + (size_t)(e / per_row) * src_stride + (e % per_row) * sizeof(P));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * step;
+      if (e < n) *reinterpret_cast<P*>(dst + (e / per_row) * dst_stride + (e % per_row) * sizeof(P)) = v[u];
+    }
+  }
+}
+// `n_rows` rows of `row_bytes` bytes, `src_stride` bytes apart in device
+// memory, into shared rows `dst_stride` bytes apart, in pieces of
+// `piece_bytes(row_bytes)`: 16, 8 and 4 by cp.async (the ring's commit
+// groups wait for them), 2 and 1 by `copy_narrow`
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_stride, const unsigned char* src,
+                                          size_t src_stride, int n_rows, int row_bytes) {
+  const int piece = piece_bytes(row_bytes), per_row = row_bytes / piece;
+  if (piece == 2) return copy_narrow<uint16_t>(dst, dst_stride, src, src_stride, n_rows, per_row);
+  if (piece == 1) return copy_narrow<uint8_t>(dst, dst_stride, src, src_stride, n_rows, per_row);
+  for (int e = threadIdx.x; e < n_rows * per_row; e += blockDim.x) {
+    unsigned char* d = dst + (e / per_row) * dst_stride + (e % per_row) * piece;
+    const unsigned char* g = src + (size_t)(e / per_row) * src_stride + (e % per_row) * piece;
+    if (piece == 16)
+      cp_async16(d, g);
+    else if (piece == 8)
+      cp_async8(d, g);
+    else
+      cp_async4(d, g);
+  }
+}
+// zeros in bytes [row_bytes, class_bytes) of `n_rows` staged rows `stride`
+// bytes apart (16-byte aligned): bytewise up to the next 16-byte boundary,
+// then 16 bytes at a time; no copy writes them
+__device__ __forceinline__ void zero_tail(unsigned char* base, int n_rows, int stride, int row_bytes,
+                                          int class_bytes) {
+  const int z0 = (row_bytes + 15) & ~15, lead = z0 - row_bytes, per = lead + (class_bytes - z0) / 16;
+  for (int e = threadIdx.x; e < n_rows * per; e += blockDim.x) {
+    unsigned char* r = base + (size_t)(e / per) * stride;
+    const int c = e % per;
+    if (c < lead)
+      r[row_bytes + c] = 0;
+    else
+      *reinterpret_cast<uint4*>(r + z0 + 16 * (c - lead)) = make_uint4(0, 0, 0, 0);
+  }
 }
 
 // ---- the products of one staged tile (128 keys; rows of kRowBytes)
@@ -218,37 +317,41 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int kDh>
 __device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
                                            int j0, int G, float scale) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes;
+  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kPass = K2Cfg<__nv_bfloat16, kDh>::kPass;
   const int warp = threadIdx.x / 32, g8 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
   for (int g0 = 0; g0 < G; g0 += 16) {
     const int r0 = g0 + g8, r1 = r0 + 8;
-    uint32_t qa[kDh / 16][4];
+    // the columns kPass at a time (once up to 256): a pass's scores add to
+    // the passes before it, which this thread wrote
+    for (int p0 = 0; p0 < kDh; p0 += kPass) {
+      uint32_t qa[kPass / 16][4];
 #pragma unroll
-    for (int ks = 0; ks < kDh / 16; ++ks) {
-      const int c = 16 * ks + 2 * t4;
-      const float2 zero = make_float2(0.f, 0.f);
-      const float2 x00 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c) : zero;
-      const float2 x10 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c) : zero;
-      const float2 x01 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c + 8) : zero;
-      const float2 x11 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c + 8) : zero;
-      qa[ks][0] = pack_bf16(x00.x, x00.y);  // exact: q holds bf16 values
-      qa[ks][1] = pack_bf16(x10.x, x10.y);
-      qa[ks][2] = pack_bf16(x01.x, x01.y);
-      qa[ks][3] = pack_bf16(x11.x, x11.y);
-    }
-    for (int kb = 8 * warp; kb < nk; kb += 8 * kK2Warps) {
-      float dacc[4] = {0.f, 0.f, 0.f, 0.f};
-      const unsigned char* kr = tile + (kb + g8) * kRow + 4 * t4;
+      for (int ks = 0; ks < kPass / 16; ++ks) {
+        const int c = p0 + 16 * ks + 2 * t4;
+        const float2 zero = make_float2(0.f, 0.f);
+        const float2 x00 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c) : zero;
+        const float2 x10 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c) : zero;
+        const float2 x01 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c + 8) : zero;
+        const float2 x11 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c + 8) : zero;
+        qa[ks][0] = pack_bf16(x00.x, x00.y);  // exact: q holds bf16 values
+        qa[ks][1] = pack_bf16(x10.x, x10.y);
+        qa[ks][2] = pack_bf16(x01.x, x01.y);
+        qa[ks][3] = pack_bf16(x11.x, x11.y);
+      }
+      for (int kb = 8 * warp; kb < nk; kb += 8 * kK2Warps) {
+        float dacc[4] = {0.f, 0.f, 0.f, 0.f};
+        const unsigned char* kr = tile + (kb + g8) * kRow + 2 * p0 + 4 * t4;
 #pragma unroll
-      for (int ks = 0; ks < kDh / 16; ++ks)
-        mma_bf16(dacc, qa[ks], *reinterpret_cast<const uint32_t*>(kr + 32 * ks),
-                 *reinterpret_cast<const uint32_t*>(kr + 32 * ks + 16));
-      const int kl = kb + 2 * t4, j = j0 + kl;
+        for (int ks = 0; ks < kPass / 16; ++ks)
+          mma_bf16(dacc, qa[ks], *reinterpret_cast<const uint32_t*>(kr + 32 * ks),
+                   *reinterpret_cast<const uint32_t*>(kr + 32 * ks + 16));
+        const int kl = kb + 2 * t4, j = j0 + kl;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (kl + e >= nk) continue;
-        if (r0 < G) sc[r0 * cs + j + e] = dacc[e] * scale;
-        if (r1 < G) sc[r1 * cs + j + e] = dacc[2 + e] * scale;
+        for (int e = 0; e < 2; ++e) {
+          if (kl + e >= nk) continue;
+          if (r0 < G) sc[r0 * cs + j + e] = p0 == 0 ? dacc[e] * scale : sc[r0 * cs + j + e] + dacc[e] * scale;
+          if (r1 < G) sc[r1 * cs + j + e] = p0 == 0 ? dacc[2 + e] * scale : sc[r1 * cs + j + e] + dacc[2 + e] * scale;
+        }
       }
     }
   }
@@ -300,11 +403,14 @@ __device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, c
 template <int kDh>
 __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kBlocks = kDh / 8 / kK2Warps;
+  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kPass = K2Cfg<__nv_bfloat16, kDh>::kPass;
+  constexpr int kBlocks = kPass / 8 / kK2Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
   // lanes 0-7 address keys 0-7 of a 16-key step, lanes 8-15 keys 8-15
-  const unsigned char* vrow = tile + (lane % 16) * kRow + 16 * warp;
+  // (the columns kPass at a time: once up to 256)
+  for (int p0 = 0; p0 < kDh; p0 += kPass)
   for (int g0 = 0; g0 < G; g0 += 16) {
+    const unsigned char* vrow = tile + (lane % 16) * kRow + 2 * p0 + 16 * warp;
     const int r0 = g0 + g8, r1 = r0 + 8;
     float acc[kBlocks][4] = {};
     for (int k16 = 0; k16 < nk; k16 += 16) {
@@ -328,7 +434,7 @@ __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, con
     }
 #pragma unroll
     for (int n = 0; n < kBlocks; ++n) {
-      const int c = 8 * (warp + kK2Warps * n) + 2 * t4;
+      const int c = p0 + 8 * (warp + kK2Warps * n) + 2 * t4;
       if (r0 < G) part[r0 * kDh + c] += acc[n][0], part[r0 * kDh + c + 1] += acc[n][1];
       if (r1 < G) part[r1 * kDh + c] += acc[n][2], part[r1 * kDh + c + 1] += acc[n][3];
     }
@@ -343,11 +449,12 @@ template <typename T, int kDh>
 __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
   using C = K2Cfg<T, kDh>;
-  constexpr int kChunks = kDh / C::kVec / 8;  // 16-byte chunks a thread
-  static_assert(kDh % (8 * C::kVec) == 0, "whole chunks a thread");
+  constexpr int kChunks = C::kPass / C::kVec / 8;  // 16-byte chunks a thread a pass
+  static_assert(C::kPass % (8 * C::kVec) == 0, "whole chunks a thread");
   const int RC = k2_rows(G), KS = k2_slices(G);
   const int cc = threadIdx.x % 8, rr = (threadIdx.x / 8) % RC, ks = threadIdx.x / (8 * RC);
   if (ks >= KS) return;
+  for (int p0 = 0; p0 < kDh; p0 += C::kPass)  // the columns kPass at a time: once up to 256
   for (int g0 = 0; g0 < G; g0 += RC) {
     const int gg = g0 + rr;
     if (gg >= G) continue;
@@ -355,7 +462,7 @@ __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, con
     float acc[kChunks][C::kVec] = {};
     for (int j = ks; j < nk; j += KS) {
       const float p = prow[j];
-      const unsigned char* vr = tile + j * C::kRowBytes + cc * 16;
+      const unsigned char* vr = tile + j * C::kRowBytes + p0 * sizeof(T) + cc * 16;
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
         const uint4 raw = *reinterpret_cast<const uint4*>(vr + i * 128);
@@ -368,12 +475,13 @@ __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, con
 #pragma unroll
     for (int i = 0; i < kChunks; ++i)
 #pragma unroll
-      for (int c = 0; c < C::kVec; ++c) dst[(cc + 8 * i) * C::kVec + c] += acc[i][c];
+      for (int c = 0; c < C::kVec; ++c) dst[p0 + (cc + 8 * i) * C::kVec + c] += acc[i][c];
   }
 }
 
-// grid (S, n_head, batch), cluster (S, 1, 1): block x is the rank in the
-// cluster, and takes keys [x * chunk, (x + 1) * chunk) of [0, n_valid)
+// grid (S, n_head, batch x row chunks), cluster (S, 1, 1): block x is the
+// rank in the cluster, and takes keys [x * chunk, (x + 1) * chunk) of [0,
+// n_valid) for the query rows of its row chunk (`k2_cta_rows`)
 template <typename T, int kDh>
 __global__ void __launch_bounds__(kK2Threads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
@@ -384,8 +492,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int G = group, cs = k2_stride(chunk), RC = k2_rows(G), KS = k2_slices(G);
+  const int rpc = k2_cta_rows(group, kDh), n_rc = (group + rpc - 1) / rpc;
+  const int h = blockIdx.y, b = blockIdx.z / n_rc, g_lo = (blockIdx.z % n_rc) * rpc, tid = threadIdx.x;
+  const int G = min(rpc, group - g_lo), cs = k2_stride(chunk), RC = k2_rows(G), KS = k2_slices(G);
 
   unsigned char* ring = smem;
   float* qs = reinterpret_cast<float*>(smem + C::kRingBytes);
@@ -402,7 +511,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
   const size_t row = (size_t)layer * batch + b;
   const T* kb = cache_k + (row * tk + k_lo) * d + (size_t)h * dh;
   const T* vb = cache_v + (row * tk + k_lo) * d + (size_t)h * dh;
-  const int per_row = dh / C::kVec;  // 16-byte copies a row reads (dh * sizeof(T) is a multiple of 16)
+  const int row_bytes = dh * (int)sizeof(T);
 
   // the loads in order: K tiles 0 .. n_tiles-1, then V tiles; item i goes
   // to ring slot i % kRing, and every item commits one group (empty past
@@ -413,10 +522,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
       const int j0 = (i < n_tiles ? i : i - n_tiles) * C::kTile, nk = min(C::kTile, n_c - j0);
       unsigned char* dst = ring + (size_t)(i % C::kRing) * C::kTile * C::kRowBytes;
       constexpr int kPerRow = kDh / C::kVec;
-      for (int e = tid; e < nk * per_row; e += kK2Threads) {
-        const int r = e / per_row, c = e % per_row;
-        cp_async16(dst + r * C::kRowBytes + c * 16, src + (size_t)(j0 + r) * d + c * C::kVec);
-      }
+      copy_rows(dst, C::kRowBytes, reinterpret_cast<const unsigned char*>(src + (size_t)j0 * d), (size_t)d * sizeof(T),
+                nk, row_bytes);
       // the mma path takes V 16 keys at a time: rows past the chunk are zero
       // (p is 0 there, and 0 x a stale NaN would not be)
       if (kMma && i >= n_tiles)
@@ -426,15 +533,12 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     cp_async_commit();
   };
   // the columns past dh of every staged row are zeros: no copy writes them
-  const int pad = kDh / C::kVec - per_row;
-  for (int e = tid; e < C::kRing * C::kTile * pad; e += kK2Threads)
-    *reinterpret_cast<uint4*>(ring + (size_t)(e / pad) * C::kRowBytes + (per_row + e % pad) * 16) =
-        make_uint4(0, 0, 0, 0);
+  zero_tail(ring, C::kRing * C::kTile, C::kRowBytes, row_bytes, kDh * (int)sizeof(T));
 #pragma unroll
   for (int i = 0; i < C::kRing; ++i) load_item(i);
 
   for (int i = tid; i < G * kDh; i += kK2Threads)
-    qs[i] = i % kDh < dh ? to_f(q[((size_t)b * G + i / kDh) * d + (size_t)h * dh + i % kDh]) : 0.f;
+    qs[i] = i % kDh < dh ? to_f(q[((size_t)b * group + g_lo + i / kDh) * d + (size_t)h * dh + i % kDh]) : 0.f;
   for (int i = tid; i < KS * G * kDh; i += kK2Threads) part[i] = 0.f;
 
   int item = 0;
@@ -535,7 +639,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     const int g = e / dh, c = e % dh;
     float s = 0.f;
     for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(part, r)[g * kDh + c];
-    out[((size_t)b * G + g) * d + (size_t)h * dh + c] = from_f<T>(s);
+    out[((size_t)b * group + g_lo + g) * d + (size_t)h * dh + c] = from_f<T>(s);
   }
   cluster.sync();  // no CTA leaves while a peer still reads its shared memory
 }
@@ -546,27 +650,36 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
 // against 0.075 at group 16)
 constexpr int kK1Threads = 256;
 constexpr int kK1Warps = kK1Threads / 32;
-constexpr int kK1Tile = 128;                 // keys a staged tile holds
+constexpr int kK1Tile = 128;                 // the key blocks' granularity (tk_blk is a multiple of it)
 constexpr int kK1Rows = 16;                  // query rows a CTA takes: the M of an mma
 constexpr int kK1MaxSplit = 8;               // CTAs a cluster: the portable limit
-constexpr int kK1VtRow = kK1Tile + 16;       // 144 bytes: a column of the transposed V tile
 
-// K1 at width class kDh (32, 64, 128 or 256): the staged rows and how the
-// 8 warps share the P.V products. The output's kDh / 8 column blocks go
-// round the warps, kColBlocks a warp (4 at 256); at dh 32 its 4 blocks take
-// 4 warps, so two warps share each block (kKSplit 2) and take alternate
-// 32-key steps, and their int32 sums, exact in any order, meet after the
-// block's last tile.
+// K1 at width class kDh (32, 64, 128, 256, 512 or 768): the staged rows and
+// how the 8 warps share the P.V products. The output's kDh / 8 column
+// blocks go round the warps, kColBlocks a warp (4 at 256, 12 at 768); at
+// dh 32 its 4 blocks take 4 warps, so two warps share each block (kKSplit
+// 2) and take alternate 32-key steps, and their int32 sums, exact in any
+// order, meet after the block's last tile.
 template <int kDh>
 struct K1Cfg {
-  // tiles in flight: 4, but 2 of the 272-byte rows at 256, so that the
-  // scores of a block of 1024 keys still fit beside them
-  static constexpr int kRing = kDh == 256 ? 2 : 4;
-  static constexpr int kRow = kDh + 16;                           // a staged int8 row, off the banks
-  static constexpr int kSlot = kK1Tile * kRow + 2 * kK1Tile * 4;  // the rows, then the k and v scales of a K tile
+  // keys a staged tile holds: 128, but 32 above 256, where 128 rows would
+  // take 66-99 KB a tile (and the transposed V tile as much again). The
+  // tiles only stage a key block: the block (tk_blk), over which p is
+  // quantized, stays the contract's at every width.
+  static constexpr int kTile = kDh > 256 ? 32 : kK1Tile;
+  // tiles in flight: 4, but 2 from 256 on, so that the scores of a block
+  // of 1024 keys still fit beside them
+  static constexpr int kRing = kDh >= 256 ? 2 : 4;
+  static constexpr int kRow = kDh + 16;                       // a staged int8 row, off the banks
+  static constexpr int kSlot = kTile * kRow + 2 * kTile * 4;  // the rows, then the k and v scales of a K tile
+  static constexpr int kVtRow = kTile + 16;                   // a column of the transposed V tile (144 bytes up to 256)
   static constexpr int kColBlocks = kDh / 8 > kK1Warps ? kDh / 8 / kK1Warps : 1;  // 8-column blocks a warp owns
-  static constexpr int kColWarps = kDh / 8 / kColBlocks;          // warps over the columns
-  static constexpr int kKSplit = kK1Warps / kColWarps;            // warps that share a column block
+  static constexpr int kColWarps = kDh / 8 / kColBlocks;      // warps over the columns
+  static constexpr int kKSplit = kK1Warps / kColWarps;        // warps that share a column block
+  // q's A fragments (kDh / 32 x 4 registers) stay in registers up to 256;
+  // above, each score step reads them from q's int8 rows in shared memory
+  static constexpr bool kQInRegs = kDh <= 256;
+  static_assert(kRing * kSlot >= kK1Rows * kDh * 4, "the ring holds the partial outputs");
 };
 
 // shared memory of a K1 CTA: the ring, the transposed V tile, q in int8,
@@ -578,7 +691,7 @@ __host__ __device__ __forceinline__ int k1_p_stride(int tk_blk) { return tk_blk 
 template <int kDh>
 size_t k1_smem_bytes(int rows, int tk_blk) {
   using C = K1Cfg<kDh>;
-  return (size_t)C::kRing * C::kSlot + (size_t)kDh * kK1VtRow + (size_t)kK1Rows * C::kRow +
+  return (size_t)C::kRing * C::kSlot + (size_t)kDh * C::kVtRow + (size_t)kK1Rows * C::kRow +
          4 * (size_t)rows * k1_score_stride(tk_blk) + (size_t)kK1Rows * k1_p_stride(tk_blk) + 4 * (size_t)tk_blk +
          4 * 5 * kK1Rows;
 }
@@ -591,14 +704,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
 }
 __device__ __forceinline__ uint32_t ld_u32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
@@ -622,7 +727,8 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
                       const float* __restrict__ v_scale, TQ* __restrict__ out, int layer, int batch, int group,
                       int tk, int d, int dh, int tk_blk, int n_valid, float scale) {
   using C = K1Cfg<kDh>;
-  constexpr int kK1Row = C::kRow, kK1Slot = C::kSlot, kK1ColBlocks = C::kColBlocks;
+  constexpr int kK1Row = C::kRow, kK1Slot = C::kSlot, kK1ColBlocks = C::kColBlocks, kTile = C::kTile;
+  constexpr int kVtRow = C::kVtRow;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -636,7 +742,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
 
   unsigned char* ring = smem;
   int8_t* vt = reinterpret_cast<int8_t*>(ring + C::kRing * kK1Slot);
-  int8_t* qi = vt + kDh * kK1VtRow;
+  int8_t* qi = vt + kDh * kVtRow;
   float* sc = reinterpret_cast<float*>(qi + kK1Rows * kK1Row);
   int8_t* pi = reinterpret_cast<int8_t*>(sc + RC * scs);
   float* vsb = reinterpret_cast<float*>(pi + kK1Rows * pis);
@@ -651,17 +757,13 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
 
   const int n_blocks = (n_valid + tk_blk - 1) / tk_blk;
   const int blk_lo = rank * n_blocks / split, blk_hi = (rank + 1) * n_blocks / split;
-  const int T = tk_blk / kK1Tile;  // tiles of a whole block
+  const int T = tk_blk / kTile;  // tiles of a whole block
   const int key_hi = min(blk_hi * tk_blk, n_valid);
-  const int t_last = blk_hi > blk_lo ? (key_hi - (blk_hi - 1) * tk_blk + kK1Tile - 1) / kK1Tile : 0;
+  const int t_last = blk_hi > blk_lo ? (key_hi - (blk_hi - 1) * tk_blk + kTile - 1) / kTile : 0;
   const int n_items = blk_hi > blk_lo ? 2 * T * (blk_hi - blk_lo - 1) + 2 * t_last : 0;
   const size_t row = (size_t)layer * batch + b;
   const int8_t* kb = cache_k + row * tk * d + (size_t)h * dh;
   const int8_t* vb = cache_v + row * tk * d + (size_t)h * dh;
-  // a row's dh bytes by 16-byte copies where dh is a multiple of 16, else by
-  // 8-byte ones (head h then starts 8 bytes off a 16-byte boundary for odd h)
-  const bool wide = dh % 16 == 0;
-  const int per_row = wide ? dh / 16 : dh / 8;
   const float* ksb = k_scale + row * tk;
   const float* vsg = v_scale + row * tk;
 
@@ -674,8 +776,8 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     const int nt = blk == blk_hi - 1 ? t_last : T;
     const int w = i - rel * 2 * T;
     is_v = w >= nt;
-    j0 = blk * tk_blk + (is_v ? w - nt : w) * kK1Tile;
-    nk = min(kK1Tile, n_valid - j0);
+    j0 = blk * tk_blk + (is_v ? w - nt : w) * kTile;
+    nk = min(kTile, n_valid - j0);
   };
   auto load_item = [&](int i) {
     if (i < n_items) {
@@ -683,32 +785,20 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       bool is_v;
       item_at(i, j0, nk, is_v);
       unsigned char* dst = ring + (size_t)(i % C::kRing) * kK1Slot;
-      const int8_t* src = (is_v ? vb : kb) + (size_t)j0 * d;
-      if (wide)
-        for (int e = tid; e < nk * per_row; e += kK1Threads)
-          cp_async16(dst + (e / per_row) * kK1Row + (e % per_row) * 16,
-                     src + (size_t)(e / per_row) * d + (e % per_row) * 16);
-      else
-        for (int e = tid; e < nk * per_row; e += kK1Threads)
-          cp_async8(dst + (e / per_row) * kK1Row + (e % per_row) * 8,
-                    src + (size_t)(e / per_row) * d + (e % per_row) * 8);
+      // a row's dh bytes (head h starts at byte h dh of a cache row)
+      copy_rows(dst, kK1Row, reinterpret_cast<const unsigned char*>((is_v ? vb : kb) + (size_t)j0 * d), d, nk, dh);
       if (!is_v) {
-        float* dsc = reinterpret_cast<float*>(dst + kK1Tile * kK1Row);
+        float* dsc = reinterpret_cast<float*>(dst + kTile * kK1Row);
         for (int e = tid; e < 2 * nk; e += kK1Threads) {  // 4 bytes a key: no scale past n_valid is read
           const int j = e % nk;
-          cp_async4(dsc + (e / nk) * kK1Tile + j, (e < nk ? ksb : vsg) + j0 + j);
+          cp_async4(dsc + (e / nk) * kTile + j, (e < nk ? ksb : vsg) + j0 + j);
         }
       }
     }
     cp_async_commit();
   };
   // the columns past dh of every staged row are zeros: no copy writes them
-  const int pad = (kDh - dh) / 8;
-  for (int e = tid; e < C::kRing * kK1Tile * pad; e += kK1Threads) {
-    const int r = e / pad;
-    *reinterpret_cast<uint2*>(ring + (size_t)(r / kK1Tile) * kK1Slot + (r % kK1Tile) * kK1Row + dh + 8 * (e % pad)) =
-        make_uint2(0, 0);
-  }
+  for (int slot = 0; slot < C::kRing; ++slot) zero_tail(ring + (size_t)slot * kK1Slot, kTile, kK1Row, dh, kDh);
 #pragma unroll
   for (int i = 0; i < C::kRing; ++i) load_item(i);
 
@@ -732,14 +822,18 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
     }
   }
   __syncthreads();
-  // q as the A fragments of the dh / 32 k32 steps (rows past RC are zero)
-  uint32_t qa[kDh / 32][4];
+  // q as the A fragments of the dh / 32 k32 steps (rows past RC are zero):
+  // in registers up to 256, else read from qi at each step
+  auto q_frag = [&](int ks, uint32_t(&a)[4]) {
+    a[0] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 4 * t4) : 0u;
+    a[1] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 4 * t4) : 0u;
+    a[2] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
+    a[3] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
+  };
+  uint32_t qa[C::kQInRegs ? kDh / 32 : 1][4];
+  if constexpr (C::kQInRegs) {
 #pragma unroll
-  for (int ks = 0; ks < kDh / 32; ++ks) {
-    qa[ks][0] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 4 * t4) : 0u;
-    qa[ks][1] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 4 * t4) : 0u;
-    qa[ks][2] = g < RC ? ld_u32(qi + g * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
-    qa[ks][3] = g + 8 < RC ? ld_u32(qi + (g + 8) * kK1Row + 32 * ks + 16 + 4 * t4) : 0u;
+    for (int ks = 0; ks < kDh / 32; ++ks) q_frag(ks, qa[ks]);
   }
   // this warp's output columns: the 8-column blocks kK1ColBlocks x cw + n
   float acc[kK1ColBlocks][4] = {};
@@ -747,26 +841,34 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
   int item = 0;
   for (int blk = blk_lo; blk < blk_hi; ++blk) {
     const int kb0 = blk * tk_blk, n_k = min(tk_blk, n_valid - kb0);
-    const int nt = (n_k + kK1Tile - 1) / kK1Tile;
+    const int nt = (n_k + kTile - 1) / kTile;
     // ---- scores s = (s32 x q step x scale) x k scale of the block's keys, all rows
     for (int t = 0; t < nt; ++t, ++item) {
       cp_async_wait<C::kRing - 1>();
       __syncthreads();
       const unsigned char* slot = ring + (size_t)(item % C::kRing) * kK1Slot;
-      const float* ks_t = reinterpret_cast<const float*>(slot + kK1Tile * kK1Row);
-      const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
+      const float* ks_t = reinterpret_cast<const float*>(slot + kTile * kK1Row);
+      const int j0 = t * kTile, nk = min(kTile, n_k - j0);
       for (int n8 = warp; n8 * 8 < nk; n8 += kK1Warps) {
         int c[4] = {0, 0, 0, 0};
         const int8_t* kr = reinterpret_cast<const int8_t*>(slot) + (n8 * 8 + g) * kK1Row + 4 * t4;
 #pragma unroll
-        for (int ks = 0; ks < kDh / 32; ++ks) mma_s8(c, qa[ks], ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
+        for (int ks = 0; ks < kDh / 32; ++ks) {
+          if constexpr (C::kQInRegs) {
+            mma_s8(c, qa[ks], ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
+          } else {
+            uint32_t a[4];
+            q_frag(ks, a);
+            mma_s8(c, a, ld_u32(kr + 32 * ks), ld_u32(kr + 32 * ks + 16));
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = g + 8 * (e >> 1), key = n8 * 8 + 2 * t4 + (e & 1);
           if (r < RC && key < nk) sc[r * scs + j0 + key] = __fmul_rn(__fmul_rn((float)c[e], qsc[r]), ks_t[key]);
         }
       }
-      for (int j = tid; j < nk; j += kK1Threads) vsb[j0 + j] = ks_t[kK1Tile + j];
+      for (int j = tid; j < nk; j += kK1Threads) vsb[j0 + j] = ks_t[kTile + j];
       __syncthreads();  // the slot is free again
       load_item(item + C::kRing);
     }
@@ -810,7 +912,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       cp_async_wait<C::kRing - 1>();
       __syncthreads();  // also orders the softmax above before the first tile
       const unsigned char* slot = ring + (size_t)(item % C::kRing) * kK1Slot;
-      const int j0 = t * kK1Tile, nk = min(kK1Tile, n_k - j0);
+      const int j0 = t * kTile, nk = min(kTile, n_k - j0);
       for (int e = tid; e < ((nk + 3) / 4) * (kDh / 4); e += kK1Threads) {
         const int k4 = e / (kDh / 4), c4 = e % (kDh / 4);
         const unsigned char* src = slot + 4 * k4 * kK1Row + 4 * c4;
@@ -820,11 +922,11 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         const uint32_t w3 = *reinterpret_cast<const uint32_t*>(src + 3 * kK1Row);
         const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
         const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
-        int8_t* dst = vt + 4 * c4 * kK1VtRow + 4 * k4;
+        int8_t* dst = vt + 4 * c4 * kVtRow + 4 * k4;
         *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + kK1VtRow) = __byte_perm(lo01, lo23, 0x7632);
-        *reinterpret_cast<uint32_t*>(dst + 2 * kK1VtRow) = __byte_perm(hi01, hi23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + 3 * kK1VtRow) = __byte_perm(hi01, hi23, 0x7632);
+        *reinterpret_cast<uint32_t*>(dst + kVtRow) = __byte_perm(lo01, lo23, 0x7632);
+        *reinterpret_cast<uint32_t*>(dst + 2 * kVtRow) = __byte_perm(hi01, hi23, 0x5410);
+        *reinterpret_cast<uint32_t*>(dst + 3 * kVtRow) = __byte_perm(hi01, hi23, 0x7632);
       }
       __syncthreads();
       for (int k32 = 32 * kp; k32 < nk; k32 += 32 * C::kKSplit) {
@@ -836,7 +938,7 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
         pa[3] = g + 8 < RC ? ld_u32(p0 + (g + 8) * pis + 16) : 0u;
 #pragma unroll
         for (int n = 0; n < kK1ColBlocks; ++n) {
-          const int8_t* vc = vt + ((kK1ColBlocks * cw + n) * 8 + g) * kK1VtRow + k32 + 4 * t4;
+          const int8_t* vc = vt + ((kK1ColBlocks * cw + n) * 8 + g) * kVtRow + k32 + 4 * t4;
           mma_s8(o[n], pa, ld_u32(vc), ld_u32(vc + 16));
         }
       }
@@ -921,10 +1023,16 @@ cudaError_t raise_smem_limit(size_t bytes) {
 }
 
 // the width class a head width runs in (`ops.decode_class`): the smallest
-// of 32, 64, 128 and 256 that is >= dh, for a multiple of 8 from 8 to 256;
-// else 0
+// of 32, 64, 128, 256, 512 and 768 that is >= dh, for a width from 1 to
+// 768; else 0
 int decode_class(int dh) {
-  return dh < 8 || dh > 256 || dh % 8 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+  return dh < 1 || dh > 768 ? 0
+         : dh <= 32         ? 32
+         : dh <= 64         ? 64
+         : dh <= 128        ? 128
+         : dh <= 256        ? 256
+         : dh <= 512        ? 512
+                            : 768;
 }
 
 // the head width of a call: d / n_head, or 0 where n_head does not divide d
@@ -944,7 +1052,8 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
   cudaError_t err = raise_smem_limit<decode_attn_kernel<T, kDh>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, n_head, batch);
+  const int rpc = k2_cta_rows(group, kDh);
+  cfg.gridDim = dim3(split, n_head, batch * ((group + rpc - 1) / rpc));
   cfg.blockDim = dim3(kK2Threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -1012,6 +1121,12 @@ int decode_by_class(const void* q, const void* k, const void* v, void* out, int 
     case 256:
       return launch_decode<T, 256>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
                                    scale, stream);
+    case 512:
+      return launch_decode<T, 512>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                   scale, stream);
+    case 768:
+      return launch_decode<T, 768>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split,
+                                   scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1035,15 +1150,66 @@ int decode_i8_by_class(const void* q, const void* k, const void* ks, const void*
     case 256:
       return launch_decode_i8<TQ, 256>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
                                        valid_upto, split, scale, stream);
+    case 512:
+      return launch_decode_i8<TQ, 512>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                       valid_upto, split, scale, stream);
+    case 768:
+      return launch_decode_i8<TQ, 768>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                       valid_upto, split, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// a CTA's shared memory at width class kDh of either kernel, or 0 for a
+// width K1 and K2 do not serve
+template <typename T>
+size_t k2_smem_at(int dh, int group, int chunk) {
+  switch (decode_class(dh)) {
+    case 32: return k2_smem_bytes<T, 32>(group, chunk);
+    case 64: return k2_smem_bytes<T, 64>(group, chunk);
+    case 128: return k2_smem_bytes<T, 128>(group, chunk);
+    case 256: return k2_smem_bytes<T, 256>(group, chunk);
+    case 512: return k2_smem_bytes<T, 512>(group, chunk);
+    case 768: return k2_smem_bytes<T, 768>(group, chunk);
+    default: return 0;
+  }
+}
+size_t k1_smem_at(int dh, int rows, int tk_blk) {
+  switch (decode_class(dh)) {
+    case 32: return k1_smem_bytes<32>(rows, tk_blk);
+    case 64: return k1_smem_bytes<64>(rows, tk_blk);
+    case 128: return k1_smem_bytes<128>(rows, tk_blk);
+    case 256: return k1_smem_bytes<256>(rows, tk_blk);
+    case 512: return k1_smem_bytes<512>(rows, tk_blk);
+    case 768: return k1_smem_bytes<768>(rows, tk_blk);
+    default: return 0;
+  }
+}
+
 }  // namespace
 
+// K2's shared bytes a CTA (`ops.decode_attention.k2_smem_bytes`) at head
+// width dh over a chunk of `chunk` keys for a group of `group` rows, with
+// caches of `itemsize` bytes (2: bf16, 4: fp32); -1 for a width or itemsize
+// K2 does not take
+extern "C" int decode_smem_bytes(int itemsize, int dh, int group, int chunk) {
+  const size_t n = itemsize == 2   ? k2_smem_at<__nv_bfloat16>(dh, group, chunk)
+                   : itemsize == 4 ? k2_smem_at<float>(dh, group, chunk)
+                                   : 0;
+  return n == 0 ? -1 : (int)n;
+}
+
+// K1's shared bytes a CTA (`ops.decode_attention.k1_smem_bytes`) at head
+// width dh over `rows` query rows (at most 16) and key blocks of tk_blk; -1
+// for a width K1 does not take
+extern "C" int decode_i8_smem_bytes(int dh, int rows, int tk_blk) {
+  const size_t n = k1_smem_at(dh, rows, tk_blk);
+  return n == 0 ? -1 : (int)n;
+}
+
 // `split` is the cluster size S (1, 2, 4 or 8; `k2_plan`); a head width d /
-// n_head that is a multiple of 8 from 8 to 256 (d = dh * n_head)
+// n_head from 1 to 768 (d = dh * n_head)
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
                                 int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
                                 float scale, void* stream) {
@@ -1060,7 +1226,7 @@ extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void
 }
 
 // `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at a head
-// width that is a multiple of 8 from 8 to 256
+// width from 1 to 768
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
                                    int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {

@@ -85,35 +85,50 @@ def width_class(dh: int, name: str = "attention") -> int:
     return next(c for c in WIDTH_CLASSES if c >= dh)
 
 
-# the width classes of K1 and K2: WIDTH_CLASSES and 256, so that every
-# multiple of 8 from 136 to 256 runs in the class of 256
-DECODE_CLASSES = WIDTH_CLASSES + (256,)
+# the head widths K1, K2, K7, K7-lse and K8 serve: every width from 1 to
+# 768, in bf16 and in fp32 (the JAX package takes wider heads still, up to
+# the widest model's d of 1280; the port refuses them)
+SERVED_MIN_WIDTH, SERVED_MAX_WIDTH = 1, 768
+# the width classes of K1 and K2: a head width dh runs in the smallest class
+# at or above it, its columns [dh, class) zeros in shared memory
+DECODE_CLASSES = WIDTH_CLASSES + (256, 512, 768)
 # the head widths of the wide kernels (the bf16 forward of K5, K7 and
 # K7-lse, the fp32 one of K5, K7 and K7-lse, and K8's backward in both
 # dtypes): every multiple of 8 from 136 to 768
 WIDE_MAX_HEAD_WIDTH = 768
 
 
+def _check_served(dh: int, name: str) -> None:
+    if dh < SERVED_MIN_WIDTH or dh > SERVED_MAX_WIDTH:
+        raise ValueError(f"{name} kernel takes a head width from {SERVED_MIN_WIDTH} to {SERVED_MAX_WIDTH}, got {dh}")
+
+
+def kernel_width(dh: int) -> int:
+    """The head width the flash kernels (K7, K7-lse, K8) run a head of width
+    dh at: dh rounded up to a multiple of 8. A row of a width off a multiple
+    of 8 cannot be copied as it is (a TMA map's rows, and the fp32 kernels'
+    16-byte copies, need 16-byte strides), so the wrappers lay such heads
+    out at this width with zero columns. K1 and K2 read a head's dh columns
+    as they lie in the caches and run it in `decode_class(dh)`."""
+    return -(-dh // 8) * 8
+
+
 def decode_class(dh: int, name: str = "decode attention") -> int:
-    """The width class (32, 64, 128 or 256) K1 and K2 run a head width dh
-    in: the smallest of DECODE_CLASSES that is >= dh. Raises for a width
-    they do not serve: 0, one that is not a multiple of 8, or one above 256."""
-    if dh < MIN_HEAD_WIDTH or dh > DECODE_CLASSES[-1] or dh % 8:
-        raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
-                         f"{DECODE_CLASSES[-1]}, got {dh}")
+    """The width class (32, 64, 128, 256, 512 or 768) K1 and K2 run a head
+    width dh in: the smallest of DECODE_CLASSES that is >= dh. Raises for a
+    width they do not serve: 0, or one above 768."""
+    _check_served(dh, name)
     return next(c for c in DECODE_CLASSES if c >= dh)
 
 
 def forward_width(dh: int, name: str = "flash attention") -> int:
-    """The width class a flash kernel of K7's range (K7, K7-lse, K8, the
-    fp32 K5) runs a head width dh in: `width_class(dh)` up to 128, and 0
-    from 136 to 768 (the wide kernels, which take the head's true width).
-    Raises for any other width: 0, one that is not a multiple of 8, or one
-    above 768."""
-    if dh < MIN_HEAD_WIDTH or dh > WIDE_MAX_HEAD_WIDTH or dh % 8:
-        raise ValueError(f"{name} kernel takes a head width that is a multiple of 8 from {MIN_HEAD_WIDTH} to "
-                         f"{WIDE_MAX_HEAD_WIDTH}, got {dh}")
-    return width_class(dh, name) if dh <= MAX_HEAD_WIDTH else 0
+    """The width class a flash kernel of K7's range (K7, K7-lse, K8) runs a
+    head width dh in: `width_class(kernel_width(dh))` up to 128, and 0 from
+    129 to 768 (the wide kernels, which take the head's width). Raises for
+    any other width: 0, or one above 768."""
+    _check_served(dh, name)
+    width = kernel_width(dh)
+    return width_class(width, name) if width <= MAX_HEAD_WIDTH else 0
 
 
 def check_class_width(name: str, dh: int, sfx: str) -> None:

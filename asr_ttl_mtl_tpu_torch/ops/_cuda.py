@@ -79,6 +79,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # n_head, tk_blk, valid_upto, split (the cluster size, `k1_plan`), scale, stream
         "decode_attn_i8_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "decode_attn_i8_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        # itemsize, dh, group, chunk -> K2's shared bytes a CTA (`decode_attention.k2_smem_bytes`), or -1
+        "decode_smem_bytes": (_I, _I, _I, _I),
+        # dh, rows, tk_blk -> K1's shared bytes a CTA (`decode_attention.k1_smem_bytes`), or -1
+        "decode_i8_smem_bytes": (_I, _I, _I),
     },
     "topk": {
         # x, values, indices, rows, v, k, split (the cluster size, `k9_plan`), stream

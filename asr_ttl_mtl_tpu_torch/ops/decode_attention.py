@@ -19,13 +19,15 @@ K2 splits the valid keys of each (cache row, head) across a thread-block
 cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
 
-Both kernels take every head width dh = d / n_head that is a multiple of
-8 from 8 to 256, with bf16 or fp32 q (and caches of q's dtype for K2): the
-kernel of width class `ops.decode_class(dh)` (32, 64, 128 or 256) reads the
-dh real columns of a head and zero-fills the rest in shared memory. Any
-other width raises on the card. A launch with fp32 q counts under
-`<name>_f32`. `k2_smem_bytes` and `k1_smem_bytes` mirror the kernels'
-shared memory at each class.
+Both kernels take every head width dh = d / n_head from 1 to 768, with
+bf16 or fp32 q (and caches of q's dtype for K2): the kernel of width class
+`ops.decode_class(dh)` (32, 64, 128, 256, 512 or 768) reads the dh real
+columns of a head where they lie in the caches (in pieces of 16 bytes down
+to 1, as the head's row bytes allow) and zero-fills the rest in shared
+memory. Any other width (0, or above 768) raises on the card. A launch
+with fp32 q counts under `<name>_f32`. `k2_smem_bytes` and `k1_smem_bytes`
+mirror the kernels' shared memory at each class (the C entries
+`decode_smem_bytes` and `decode_i8_smem_bytes` give the same).
 """
 
 from __future__ import annotations
@@ -128,13 +130,24 @@ def k2_n_valid(tk: int, valid_upto: Optional[int]) -> int:
     return tk if v < 0 else min(v + 1, tk)
 
 
+def k2_cta_rows(group: int, dh: int) -> int:
+    """Query rows a K2 CTA takes at width class dh: the whole group up to
+    256; above, 16 once the group is larger (a CTA per 16-row chunk)."""
+    return _K2_ROW_CHUNK if dh > 256 and group > _K2_ROW_CHUNK else group
+
+
 def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
     """Shared memory of one K2 CTA (`k2_smem_bytes` in the source) of width
-    class dh (32, 64, 128 or 256, `ops.decode_class`): the ring of staged
-    tiles (4 bf16 tiles at dh 32 and 64, 2 at 128 and 256, 2 of fp32; 64-key
-    tiles of fp32 at 256), q, the chunk's scores, the P.V partials, the row
-    statistics and the reduction buffer."""
-    tile = 64 if itemsize == 4 and dh == 256 else _K2_TILE
+    class dh (32-768, `ops.decode_class`): the ring of staged tiles (4 bf16
+    tiles at dh 32 and 64, 2 from 128 on, 2 of fp32; 64-key tiles of fp32
+    at 256, and above 256 tiles of 32 bf16 keys or 16 fp32 ones), q, the
+    chunk's scores, the P.V partials, the row statistics and the reduction
+    buffer, for the CTA's `k2_cta_rows` query rows."""
+    if dh > 256:
+        tile = 32 if itemsize == 2 else 16
+    else:
+        tile = 64 if itemsize == 4 and dh == 256 else _K2_TILE
+    group = k2_cta_rows(group, dh)
     ring = (2 if itemsize != 2 or dh >= 128 else 4) * tile * (dh * itemsize + 16)
     slices = _K2_THREADS // (8 * min(group, _K2_ROW_CHUNK))  # P.V: 8 threads a row, dh / 8 columns each
     stride = (chunk + 3) // 4 * 4
@@ -143,15 +156,17 @@ def k2_smem_bytes(group: int, chunk: int, itemsize: int, dh: int = 64) -> int:
 
 @functools.lru_cache(maxsize=4096)  # a decode step asks the same few questions every call
 def k2_plan(batch: int, n_head: int, n_keys: int, group: int = 1, itemsize: int = 2, dh: int = 64) -> int:
-    """S, the CTAs of K2's cluster for one (cache row, head) over `n_keys`
-    valid keys: the largest S in K2_SPLITS that keeps batch x n_head x S
-    within the card's resident CTAs (2 a streaming multiprocessor), but no
-    larger than keeps n_keys // S >= K2_MIN_KEYS; raised further only while
-    the chunk's scores do not fit in shared memory. Raises when no S fits
-    (a group of ~125 rows over 1500 keys). `dh` is the width class
+    """S, the CTAs of K2's cluster for one (cache row, head, row chunk) over
+    `n_keys` valid keys: the largest S in K2_SPLITS that keeps the grid
+    (batch x n_head x row chunks x S) within the card's resident CTAs (2 a
+    streaming multiprocessor), but no larger than keeps n_keys // S >=
+    K2_MIN_KEYS; raised further only while the chunk's scores do not fit in
+    shared memory. Raises when no S fits (up to the class of 256, a group of
+    ~125 rows over 1500 keys). `dh` is the width class
     (`ops.decode_class`)."""
     by_keys = max(s for s in K2_SPLITS if s == 1 or n_keys // s >= K2_MIN_KEYS)
-    fill = max(s for s in K2_SPLITS if s == 1 or batch * n_head * s <= _RESIDENT)
+    ctas = batch * n_head * -(-group // k2_cta_rows(group, dh))
+    fill = max(s for s in K2_SPLITS if s == 1 or ctas * s <= _RESIDENT)
     split = min(fill, by_keys)
     for s in K2_SPLITS:
         if s >= split and k2_smem_bytes(group, -(-n_keys // s), itemsize, dh) <= _K2_SMEM_LIMIT:
@@ -293,18 +308,20 @@ def decode_attention_i8_plain(
 _K1_RESIDENT = 2 * 132  # K1 CTAs in one wave: 2 on each of an H100's 132 streaming multiprocessors
 K1_MAX_SPLIT = 8  # CTAs a cluster: the portable limit
 K1_ROWS = 16  # query rows a CTA takes; a larger group takes more clusters
-_K1_TILE = 128  # keys a staged tile holds
+_K1_TILE = 128  # keys a staged tile holds up to the class of 256
 
 
 def k1_smem_bytes(rows: int, tk_blk: int, dh: int = 64) -> int:
     """Shared memory of one K1 CTA (`k1_smem_bytes` in the source) of width
     class dh (`ops.decode_class`) over `rows` query rows (at most K1_ROWS)
-    and key blocks of tk_blk: the ring of staged int8 tiles with their k and
-    v scales (4, 2 at 256), the transposed V tile, q in int8, a block's
-    fp32 scores and int8 p, its v scales and the row statistics."""
+    and key blocks of tk_blk: the ring of staged int8 tiles of 128 keys (32
+    above 256) with their k and v scales (4 deep, 2 from 256), the
+    transposed V tile, q in int8, a block's fp32 scores and int8 p, its v
+    scales and the row statistics."""
     row = dh + 16
-    ring = 2 if dh == 256 else 4
-    return (ring * (_K1_TILE * row + 2 * _K1_TILE * 4) + dh * (_K1_TILE + 16) + K1_ROWS * row
+    tile = _K1_TILE if dh <= 256 else 32
+    ring = 2 if dh >= 256 else 4
+    return (ring * (tile * row + 2 * tile * 4) + dh * (tile + 16) + K1_ROWS * row
             + 4 * rows * (tk_blk + 4) + K1_ROWS * (tk_blk + 16) + 4 * tk_blk + 4 * 5 * K1_ROWS)
 
 

@@ -28,8 +28,12 @@ The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
 count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
 head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
-the JAX package's `h2_eligible`); K7, K7-lse, K8 and K5 every multiple of
-8 up to 768 in both (`ops.forward_width`): up to 128 at the width class
+the JAX package's `h2_eligible`); K5 every multiple of 8 up to 768 in
+both (as `mh_flash_eligible`), and K7, K7-lse and K8 every width from 1 to
+768 (`ops.forward_width`): a width off a multiple of 8 is laid out at
+`ops.kernel_width(dh)` (dh rounded up to 8) with zero columns, which add
+exact zeros to q.k and to dO.v, and the extra columns of the outputs are
+dropped. Up to 128 a kernel runs at the width class
 `ops.width_class(dh)` with the columns past dh zeros (the bf16 K5 on the
 route `k5_plan` gives: K3's forward at 32, 64 and 128 and, over per-head
 tensor maps, at the class of the other widths up to 120), and from 136 on
@@ -48,7 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import (WIDE_MAX_HEAD_WIDTH, WIDTH_CLASSES, _cuda, check_class_width, count_launch, forward_width,
-               kernel_dtype, on_card, width_class)
+               kernel_dtype, kernel_width, on_card, width_class)
 
 _NEG_INF = -1e30
 _MH_MAX_D = WIDE_MAX_HEAD_WIDTH  # the widest d (and head width) K5 serves
@@ -458,7 +462,9 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
     if n_head < 1 or d % n_head:
         raise ValueError(f"flash_attention_mh kernel takes d split into equal heads, got d={d} n_head={n_head}")
     if sfx == "f32":  # multiples of 8 up to 768: the class up to 128, the wide forward above
-        forward_width(d // n_head, "flash_attention_mh fp32")
+        if (d // n_head) % 8 or not 8 <= d // n_head <= _MH_MAX_D:  # as `mh_flash_eligible`
+            raise ValueError(f"flash_attention_mh fp32 kernel takes a head width that is a multiple of 8 from 8 to "
+                             f"{_MH_MAX_D}, got {d // n_head}")
     else:
         k5_plan(d // n_head, tq)
     out = torch.empty_like(q)
@@ -511,7 +517,8 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                     kv_valid_len: Optional[int] = None, scale: float = 1.0, return_lse: bool = False):
     """K7 wrapper: softmax(scale q k^T + mask) v over flattened (batch*heads),
     plus lse (BH, Tq, 1) fp32 with return_lse. Head widths up to 128 run at
-    their width class, 136-768 on the wide forward of q's dtype."""
+    their width class, 129-768 on the wide forward of q's dtype; a width off
+    a multiple of 8 is copied out at `kernel_width(dh)` first (`_padded`)."""
     if not on_card("flash_attention", q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                      scale=scale, return_lse=return_lse)
@@ -519,16 +526,18 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
     tk = k.shape[1]
     sfx = _check("flash_attention", (q, k, v), ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
     forward_width(dh, f"flash_attention {'fp32' if sfx == 'f32' else sfx}")
+    q, k, v = _padded((q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
     fn = f"flash_fwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-        bh, tq, tk, dh, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
+        bh, tq, tk, q.shape[2], _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
     _cuda.check("flash_attention", fn, code)
     count_launch("flash_attention_lse" if return_lse else "flash_attention", sfx)
+    out = _unpadded(out, dh)
     return (out, lse) if return_lse else out
 
 
@@ -552,8 +561,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = False, q_o
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset: int = 0,
                         kv_valid_len: Optional[int] = None, scale: float = 1.0):
     """K8 wrapper: (dq, dk, dv) of K7; delta = rowsum(dO * O) in PyTorch.
-    Head widths up to 128 run at their width class, 136-768 on the wide
-    backward of q's dtype."""
+    Head widths up to 128 run at their width class, 129-768 on the wide
+    backward of q's dtype; a width off a multiple of 8 is copied out at
+    `kernel_width(dh)` first (`_padded`)."""
     if not on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, scale=scale)
@@ -564,17 +574,33 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     forward_width(dh, f"flash_attention_bwd {'fp32' if sfx == 'f32' else sfx}")
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
+    q, k, v, g = _padded((q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = f"flash_bwd_{sfx}"
     code = getattr(_cuda.lib("flash_attention"), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, tq, tk, dh, _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
+        bh, tq, tk, q.shape[2], _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
     _cuda.check("flash_attention", fn, code)
     count_launch("flash_attention_bwd", sfx)
-    return dq, dk, dv
+    return _unpadded(dq, dh), _unpadded(dk, dh), _unpadded(dv, dh)
+
+
+def _padded(tensors):
+    """(BH, T, dh) tensors laid out at `kernel_width(dh)`, zeros past dh:
+    the kernels of K7's range read rows whose width is a multiple of 8. The
+    zero columns add exact zeros to q.k and to dO.v, so the dh columns of
+    every output are what the kernel gives at a served width; the rest are
+    zeros, which `_unpadded` drops."""
+    dh = tensors[0].shape[-1]
+    width = kernel_width(dh)
+    return tuple(t if width == dh else torch.nn.functional.pad(t, (0, width - dh)) for t in tensors)
+
+
+def _unpadded(x: torch.Tensor, dh: int) -> torch.Tensor:
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -213,8 +213,8 @@ Phases, each of which raises (exit code != 0) when it fails:
  25. head widths above 128 (K1 and K2 136-256 in the class of 256; K7,
      K7-lse, K8 and the fp32 K5 136-768 on the wide kernels): (a) at 136,
      200, 256, 384 and 768 (K1 / K2 to 256), in bf16 and fp32, each kernel
-     against its plain version, bitwise on a second launch, and K8 and K7
-     at 776 and K1 / K2 at 264 refused; then at 5 heads of 256 at
+     against its plain version, bitwise on a second launch, and K8, K7, K1
+     and K2 at 776 refused; then at 5 heads of 256 at
      large-v3's widths and 4 of 192 at small's, 2 + 2 layers, random
      weights from seed 0 (WW_DIMS), each in bf16 and fp32: (c) the greedy
      window path on 8 windows with and without kv_quant, beam 5 on 4, the
@@ -222,6 +222,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      6 times a step) and `evaluate`, then phase 7's (bf16) and phase 20's
      (fp32) train gates; (d) at dh256 the CLI with the 19-token prompt;
      (b) each kernel at its paths' shapes, K8 beside SDPA's backward.
+ 26. every head width up to 768 (K1 and K2 264-768 in the classes of 512
+     and 768, and widths off a multiple of 8 in K1, K2, K7, K7-lse and K8,
+     which the flash wrappers lay out at the width rounded up to 8): (a) in
+     bf16 and fp32, K2 and K1 at 264, 384, 512, 640 and 768 and at 4, 20,
+     75, 100 and 300, groups 1, 5 and 16, and K7, K7-lse and K8 at 3, 20,
+     75, 100, 300 and 700 (causal, q_offset, ragged kv_len), each against
+     its plain version and bitwise on a second launch, K1 / K2 / K7 / K8
+     at 0 refused, and the pad copy timed; then, random weights from seed
+     0 (FW_DIMS), each in bf16 and fp32: (b) 2 heads of 640 at large-v3's
+     widths, 2 + 2 layers: the greedy window path on 8 windows with and
+     without kv_quant, beam 5 on 4 and the decode gate; (c) d 600 at 8
+     heads of 75, 80 mels, 2 + 2 layers: the same, 3 train steps at batch
+     8, `evaluate` and the train gates, and (bf16) the CLI with the
+     19-token prompt; each kernel at those paths' shapes, timed.
 Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
 fp32 queries (the fp32 window path's cross) against their plain versions;
 their launches count under `decode_attention_f32` and
@@ -3890,6 +3904,45 @@ def run_multi_device(card: str, workdir: str):
     return paths
 
 
+class KernelChecks:
+    """Phases 24-26 (a): `held` holds a kernel call to its plain version
+    (each output of the plain version's shape, finite, within its tolerance,
+    and the same bits on a second launch), keeping the worst err/tol by
+    kernel and the count of calls; `refused` asserts that a call raises a
+    ValueError naming the widths served."""
+
+    def __init__(self):
+        self.worst, self.n = {}, 0
+
+    def held(self, name, what, got, want, tol, run):
+        import torch
+
+        def listed(x):
+            return list(x) if isinstance(x, (tuple, list)) else [x]
+
+        torch.cuda.synchronize()
+        for g, w, t in zip(listed(got), listed(want), listed(tol)):
+            if g.shape != w.shape:
+                raise AssertionError(f"{name} {what}: shape {tuple(g.shape)}, expected {tuple(w.shape)}")
+            ratio = ((g.float() - w.float()).abs() / t).max().item()
+            if not (ratio <= 1.0 and bool(torch.isfinite(g.float()).all())):
+                raise AssertionError(f"{name} {what}: worst err/tol {ratio}")
+            self.worst[name] = max(self.worst.get(name, 0.0), ratio)
+        if not all(torch.equal(a, b) for a, b in zip(listed(run()), listed(got))):
+            raise AssertionError(f"{name} {what}: a second launch gave other bits")
+        self.n += 1
+
+    @staticmethod
+    def refused(what, fn, served):
+        try:
+            fn()
+        except ValueError as err:
+            if served not in str(err):
+                raise AssertionError(f"{what} raised without naming the widths served ({served}): {err}")
+            return
+        raise AssertionError(f"{what} did not raise")
+
+
 # ------------------------------------------------------------------ phase 24
 
 # every head width that is a multiple of 8 up to 128 and not a class width:
@@ -3929,22 +3982,8 @@ def check_any_width_kernels(card: str):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(24)
     t0 = time.perf_counter()
-    worst, n_checks = {}, 0
-
-    def listed(x):
-        return list(x) if isinstance(x, (tuple, list)) else [x]
-
-    def held(name, what, got, want, tol, run):
-        nonlocal n_checks
-        torch.cuda.synchronize()
-        for g, w, t in zip(listed(got), listed(want), listed(tol)):
-            ratio = ((g.float() - w.float()).abs() / t).max().item()
-            if not (ratio <= 1.0 and bool(torch.isfinite(g.float()).all())):
-                raise AssertionError(f"{name} {what}: worst err/tol {ratio}")
-            worst[name] = max(worst.get(name, 0.0), ratio)
-        if not all(torch.equal(a, b) for a, b in zip(listed(run()), listed(got))):
-            raise AssertionError(f"{name} {what}: a second launch gave other bits")
-        n_checks += 1
+    checks = KernelChecks()
+    held = checks.held
 
     for fp32 in (False, True):
         dtype, sfx = (torch.float32, "_f32") if fp32 else (torch.bfloat16, "")
@@ -3994,9 +4033,9 @@ def check_any_width_kernels(card: str):
                 held("flash_attention_mh_f32", f"dh {dh}, 3 heads, (2, 200) x 300 keys to 270",
                      FA.flash_attention_mh(q, k, v, **kw), want, FP32_REL * want.abs().max().item(),
                      lambda: FA.flash_attention_mh(q, k, v, **kw))
-    print(f"[any] (a) {n_checks} kernel calls at head widths {list(AW_WIDTHS)} in bf16 and fp32 against their plain "
+    print(f"[any] (a) {checks.n} kernel calls at head widths {list(AW_WIDTHS)} in bf16 and fp32 against their plain "
           f"versions (phase 21's tolerances), each bitwise on a second launch: worst err/tol "
-          f"{json.dumps({k: round(v, 3) for k, v in sorted(worst.items())})}; {time.perf_counter() - t0:.1f} s "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(checks.worst.items())})}; {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
 
 
@@ -4347,8 +4386,8 @@ def check_wide_kernels(card: str):
     valid to 270) against their plain versions at phase 21's tolerances,
     and K8 (dq, dk, dv from the plain lse at the K7 shapes) within 2^-6 (bf16)
     or FP32_REL (fp32) of its plain version's largest output, each the same
-    bits on a second launch; K8 and K7 at 776 and K1 / K2 at 264 must raise
-    naming the widths they serve. Not timed: the paths' shapes are timed in
+    bits on a second launch; K8, K7, K1 and K2 at 776 must raise naming the
+    widths they serve (1-768). Not timed: the paths' shapes are timed in
     (b)."""
     import torch
 
@@ -4358,31 +4397,8 @@ def check_wide_kernels(card: str):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
     t0 = time.perf_counter()
-    worst, n_checks = {}, 0
-
-    def listed(x):
-        return list(x) if isinstance(x, (tuple, list)) else [x]
-
-    def held(name, what, got, want, tol, run):
-        nonlocal n_checks
-        torch.cuda.synchronize()
-        for g, w, t in zip(listed(got), listed(want), listed(tol)):
-            ratio = ((g.float() - w.float()).abs() / t).max().item()
-            if not (ratio <= 1.0 and bool(torch.isfinite(g.float()).all())):
-                raise AssertionError(f"{name} {what}: worst err/tol {ratio}")
-            worst[name] = max(worst.get(name, 0.0), ratio)
-        if not all(torch.equal(a, b) for a, b in zip(listed(run()), listed(got))):
-            raise AssertionError(f"{name} {what}: a second launch gave other bits")
-        n_checks += 1
-
-    def refused(what, fn, served):
-        try:
-            fn()
-        except ValueError as err:
-            if served not in str(err):
-                raise AssertionError(f"{what} raised without naming the widths served ({served}): {err}")
-            return
-        raise AssertionError(f"{what} did not raise")
+    checks = KernelChecks()
+    held, refused = checks.held, checks.refused
 
     for fp32 in (False, True):
         dtype, sfx = (torch.float32, "_f32") if fp32 else (torch.bfloat16, "")
@@ -4443,19 +4459,19 @@ def check_wide_kernels(card: str):
         q, k, v = rnd(4, 48, 776), rnd(4, 48, 776), rnd(4, 48, 776)
         lse = torch.zeros((4, 48, 1), device=dev)
         refused(f"K8 {dtype} at 776", lambda: FA.flash_attention_bwd(q, k, v, q, lse, q, causal=True),
-                "from 8 to 768")
-        refused(f"K7 {dtype} at 776", lambda: FA.flash_attention(q, k, v), "from 8 to 768")
-        ck = rnd(1, 1, 1536, 264)
+                "from 1 to 768")
+        refused(f"K7 {dtype} at 776", lambda: FA.flash_attention(q, k, v), "from 1 to 768")
+        ck = rnd(1, 1, 1536, 776)
         (k8, ks) = DA.quantize_kv_rows(ck.float())
-        q = rnd(1, 1, 264)
-        refused(f"K2 {dtype} at 264", lambda: DA.decode_attention(q, ck, ck, 0, 1, scale=1.0), "from 8 to 256")
-        refused(f"K1 {dtype} at 264", lambda: DA.decode_attention_i8(q, k8, ks, k8, ks, 0, 1, scale=1.0),
-                "from 8 to 256")
+        q = rnd(1, 1, 776)
+        refused(f"K2 {dtype} at 776", lambda: DA.decode_attention(q, ck, ck, 0, 1, scale=1.0), "from 1 to 768")
+        refused(f"K1 {dtype} at 776", lambda: DA.decode_attention_i8(q, k8, ks, k8, ks, 0, 1, scale=1.0),
+                "from 1 to 768")
     torch.cuda.empty_cache()
-    print(f"[wide] (a) {n_checks} kernel calls at head widths {list(WW_WIDTHS)} (K1 / K2 at "
+    print(f"[wide] (a) {checks.n} kernel calls at head widths {list(WW_WIDTHS)} (K1 / K2 at "
           f"{list(WW_DECODE_WIDTHS)}) in bf16 and fp32 against their plain versions (phase 21's tolerances), each "
-          f"bitwise on a second launch, K8 and K7 at 776 and K1 / K2 at 264 refused: worst err/tol "
-          f"{json.dumps({k: round(v, 3) for k, v in sorted(worst.items())})}; {time.perf_counter() - t0:.1f} s "
+          f"bitwise on a second launch, K8, K7, K1 and K2 at 776 refused: worst err/tol "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(checks.worst.items())})}; {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
 
 
@@ -4482,9 +4498,12 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(),
     from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
     from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
 
-    dims = WW_DIMS[geometry]
+    from asr_ttl_mtl_tpu_torch.ops import decode_class, kernel_width, width_class
+
+    dims = WIDTH_DIMS[geometry]
     d, n_head = dims["n_audio_state"], dims["n_audio_head"]
     dh = d // n_head
+    cls = decode_class(dh)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
     rows = []
@@ -4494,8 +4513,13 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(),
     scale = dh**-0.5
     dtype, dt, sfx, esz = (torch.float32, "fp32", "_f32", 4) if fp32 else (torch.bfloat16, "bf16", "", 2)
     rel = FP32_REL if fp32 else 2.0**-6
-    fwd = f"fp32 wide forward {FA.f32_wide_plan(dh)}" if fp32 else f"route B {FA.k5_plan(dh, 1536)}"
-    bwd_plan = f"fp32 wide backward {FA.f32_k8_wide_plan(dh)}" if fp32 else f"{FA.k8_wide_plan(dh)}"
+    width = kernel_width(dh)  # the width K7 and K8 run at: dh rounded up to 8, the extra columns zeros
+    if width <= 128:
+        fwd = f"width class {width_class(width)}" + (f", laid out at {width}" if width != dh else "")
+        bwd_plan = fwd
+    else:
+        fwd = f"fp32 wide forward {FA.f32_wide_plan(width)}" if fp32 else f"route B {FA.k5_plan(width, 1536)}"
+        bwd_plan = f"fp32 wide backward {FA.f32_k8_wide_plan(width)}" if fp32 else f"{FA.k8_wide_plan(width)}"
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -4551,7 +4575,7 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(),
                    **bounds(bh * pairs * dh, io + plse.numel() * 4), plain_iters=plain_iters, library=lib,
                    repeat=True)
 
-    if geometry == "dh256":  # d 1280: the encoder on K7 over split heads
+    if encoder_attention(dims) == "flash_attention":  # no K5 shape: the encoder on K7 over split heads
         bh = b * n_head
         q, k, v = rnd(bh, 1536, dh), rnd(bh, 1536, dh), rnd(bh, 1536, dh)
         k7_rows(q, k, v, dict(kv_valid_len=1500, scale=scale), f"{tag}: encoder ({bh}, 1536, {dh}) {dt}, "
@@ -4597,9 +4621,9 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(),
         kh, vh = heads(ckw[1], n_head), heads(cvw[1], n_head)
         kw = dict(scale=scale, group=group)
         want = DA.decode_attention_plain(q, ckw, cvw, 1, n_head, **kw)
-        split = DA.k2_plan(n_win, n_head, 1500, group, esz, 256)
+        split = DA.k2_plan(n_win, n_head, 1500, group, esz, cls)
         record("decode_attention" + sfx, f"{tag}: cross {tuple(ckw.shape)} {dt}, q ({n_win * group}, 1, {d}), "
-               f"group {group}, class 256, cluster of {split}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               f"group {group}, class {cls}, cluster of {split}", src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
                DA.decode_attention(q, ckw, cvw, 1, n_head, **kw), want,
                (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
                lambda: DA.decode_attention(q, ckw, cvw, 1, n_head, **kw),
@@ -4613,7 +4637,7 @@ def check_wide_path_kernels(card: str, geometry: str, fp32: bool, cli_shapes=(),
         tol = flip + FP32_REL * ref.max() if fp32 else (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
         tk_blk = DA._i8_blocks(n_win, k8.shape[2], d)[1]
         record("decode_attention_i8" + sfx, f"{tag}: cross {tuple(k8.shape)} int8, q ({n_win * group}, 1, {d}) "
-               f"{dt}, group {group}, valid_upto 1499, tk_blk {tk_blk}, class 256", src,
+               f"{dt}, group {group}, valid_upto 1499, tk_blk {tk_blk}, class {cls}", src,
                "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
                DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8), want, tol,
                lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw8),
@@ -4641,11 +4665,11 @@ def run_wide_width(card: str, geometry: str, workdir: str, fp32: bool = False):
     from asr_ttl_mtl_tpu_torch.models import ModelDimensions, from_random
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    dims = WW_DIMS[geometry]
+    dims = WIDTH_DIMS[geometry]
     sfx = "_f32" if fp32 else ""
-    tag = f"[wide {geometry}{' fp32' if fp32 else ''}]"
+    tag = f"[{phase_tag(geometry)} {geometry}{' fp32' if fp32 else ''}]"
     n_layer, n_mels = dims["n_audio_layer"], dims["n_mels"]
-    encoder_kernel = ("flash_attention" if geometry == "dh256" else "flash_attention_mh") + sfx
+    encoder_kernel = encoder_attention(dims) + sfx
     model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.bfloat16)
     paths = {}
 
@@ -4714,9 +4738,9 @@ def run_wide_training(card: str, geometry: str, workdir: str, fp32: bool = False
     from asr_ttl_mtl_tpu_torch.mtl import DataLoader, MultiTaskSpeechDataset, MultiTaskTrainer, TrainingConfig
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    dims = WW_DIMS[geometry]
+    dims = WIDTH_DIMS[geometry]
     sfx, dt, dtype = ("_f32", "fp32", torch.float32) if fp32 else ("", "bf16", torch.bfloat16)
-    tag = f"[wide {geometry}{' fp32' if fp32 else ''}]"
+    tag = f"[{phase_tag(geometry)} {geometry}{' fp32' if fp32 else ''}]"
     n_attn = dims["n_audio_layer"] + 2 * dims["n_text_layer"]
     paths = {}
 
@@ -4779,15 +4803,15 @@ def run_wide_training(card: str, geometry: str, workdir: str, fp32: bool = False
     return list(paths.values()), ref, probe.shapes
 
 
-def run_wide_cli(card: str, workdir: str, fp32: bool):
-    """Phase 25 (d): random weights from seed 0 at WW_DIMS["dh256"] (bf16)
-    written to a `.pt`, and a seeded 30 s WAV through the CLI at one rung
-    (beam 5 at t=0) with phase 12's 19-token prompt carried into every
-    window (fp32: `--fp16 False`): K4 at 128 mels, K7 in the encoder and
-    the prompted prefill (its causal self-attention and its cross over one
-    window), K2 at group 5 in the beam steps, K9. Returns the launch counts
-    and the prefill's K7 shapes (q, k, kv_valid_len, causal) in the run's
-    dtype, the encoder's taken out."""
+def run_wide_cli(card: str, workdir: str, fp32: bool, geometry: str = "dh256"):
+    """Phase 25 (d) (and phase 26 (c) at dh75): random weights from seed 0
+    at WIDTH_DIMS[geometry] (bf16) written to a `.pt`, and a seeded 30 s WAV
+    through the CLI at one rung (beam 5 at t=0) with phase 12's 19-token
+    prompt carried into every window (fp32: `--fp16 False`): K4, K7 in the
+    encoder and the prompted prefill (its causal self-attention and its
+    cross over one window), K2 at group 5 in the beam steps, K9. Returns the
+    launch counts and the prefill's K7 shapes (q, k, kv_valid_len, causal)
+    in the run's dtype, the encoder's taken out."""
     import contextlib
     import io
 
@@ -4798,13 +4822,17 @@ def run_wide_cli(card: str, workdir: str, fp32: bool):
     from asr_ttl_mtl_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     sfx, dt = ("_f32", torch.float32) if fp32 else ("", torch.bfloat16)
-    ckpt, clip = os.path.join(workdir, "dh256.pt"), os.path.join(workdir, "clip30.wav")
+    dims = WIDTH_DIMS[geometry]
+    ckpt, clip = os.path.join(workdir, f"{geometry}.pt"), os.path.join(workdir, "clip30.wav")
     if not os.path.exists(ckpt):
-        torch.save(checkpoint_dict(from_random(ModelDimensions(**WW_DIMS["dh256"]), seed=0, device=DEVICE,
+        torch.save(checkpoint_dict(from_random(ModelDimensions(**dims), seed=0, device=DEVICE,
                                                dtype=torch.bfloat16)), ckpt)
+    if not os.path.exists(clip):
         write_long_wav(clip, 30.0, seed=25)
     torch.cuda.empty_cache()
-    out = os.path.join(workdir, f"dh256_cli{sfx}")
+    out = os.path.join(workdir, f"{geometry}_cli{sfx}")
+    label = (f"[{phase_tag(geometry)}] ({'c' if geometry in FW_DIMS else 'd'}) CLI at {geometry} "
+             f"({dims['n_text_head']} heads of {dims['n_text_state'] // dims['n_text_head']}, 2 + 2 layers)")
     printed = io.StringIO()
     probe = ShapeProbe("flash_attention", dt)
     try:
@@ -4822,19 +4850,19 @@ def run_wide_cli(card: str, workdir: str, fp32: bool):
         probe.close()
     text = printed.getvalue()
     if "Skipping" in text:
-        raise AssertionError(f"the dh256 CLI skipped the file:\n{text[-3000:]}")
+        raise AssertionError(f"{label} skipped the file:\n{text[-3000:]}")
     files = sorted(os.listdir(out))
     if files != [f"clip30.{ext}" for ext in ("json", "srt", "tsv", "txt", "vtt")]:
-        raise AssertionError(f"the dh256 CLI wrote {files}")
+        raise AssertionError(f"{label} wrote {files}")
     if fp32:
-        no_bf16_kernel(counts, "[wide] (d) the fp32 CLI")
+        no_bf16_kernel(counts, f"{label} fp32")
     prefill = {s for s in probe.shapes if s[0][1] < 1500}
     if not any(s[3] for s in prefill) or not any(not s[3] for s in prefill):
-        raise AssertionError(f"the dh256 CLI's prefill ran no causal or no cross K7: {sorted(probe.shapes)}")
+        raise AssertionError(f"{label}: the prefill ran no causal or no cross K7: {sorted(probe.shapes)}")
     for name in ("log_mel", "flash_attention" + sfx, "decode_attention" + sfx, "topk_logprobs"):
         if counts[name] <= 0:
-            raise AssertionError(f"the dh256 CLI run launched no {name}: {counts}")
-    print(f"[wide] (d) CLI at dh256 (large-v3's widths, 5 heads of 256, 2 + 2 layers), {'fp32' if fp32 else 'bf16'}, "
+            raise AssertionError(f"{label} launched no {name}: {counts}")
+    print(f"{label}, {'fp32' if fp32 else 'bf16'}, "
           f"30 s WAV at one rung, the 19-token prompt: {wall:.1f} s wall; K7 shapes (q, k, kv_valid_len, causal) "
           f"{sorted(probe.shapes)}; launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]",
           flush=True)
@@ -4877,6 +4905,179 @@ def run_wide_widths(card: str):
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
                 paths += got
     return rows, paths
+
+
+# ------------------------------------------------------------------ phase 26
+
+# every head width up to 768: K1 and K2 from 264 to 768 in the classes of
+# 512 and 768 (`ops.decode_class`), and widths off a multiple of 8 in K1 and
+# K2 (read in place, in pieces of 8 bytes down to 1) and in K7, K7-lse and K8
+# (laid out by the wrappers at `ops.kernel_width(dh)`, zero columns)
+FW_DECODE_WIDTHS = (264, 384, 512, 640, 768, 4, 20, 75, 100, 300)
+FW_FLASH_WIDTHS = (3, 20, 75, 100, 300, 700)
+# two geometries, depth cut to 2 + 2 layers (random weights from seed 0):
+# large-v3's widths (d 1280, 128 mels, vocab 51866) at 2 heads of 640, and
+# a d of 600 (no preset has it; the JAX package takes it) at 8 heads of 75
+FW_DIMS = {
+    "dh640": dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=2, n_audio_layer=2, n_vocab=51866,
+                  n_text_ctx=448, n_text_state=1280, n_text_head=2, n_text_layer=2),
+    "dh75": dict(n_mels=80, n_audio_ctx=1500, n_audio_state=600, n_audio_head=8, n_audio_layer=2, n_vocab=51865,
+                 n_text_ctx=448, n_text_state=600, n_text_head=8, n_text_layer=2),
+}
+# the geometries of phases 25 and 26, which share their path functions
+WIDTH_DIMS = {**WW_DIMS, **FW_DIMS}
+
+
+def phase_tag(geometry: str) -> str:
+    return "full" if geometry in FW_DIMS else "wide"
+
+
+def encoder_attention(dims: dict) -> str:
+    """The kernel an encoder of these dims runs its attention on (the bf16
+    name): K5 where `mh_flash_eligible` takes the shape, else K7 over split
+    heads (d above 768, or a head width off a multiple of 8)."""
+    from asr_ttl_mtl_tpu_torch.ops.flash_attention import mh_flash_eligible
+
+    d, n_head, t = dims["n_audio_state"], dims["n_audio_head"], dims["n_audio_ctx"]
+    return "flash_attention_mh" if mh_flash_eligible(t, t, d, n_head, False) else "flash_attention"
+
+
+def check_full_kernels(card: str):
+    """Phase 26 (a): in bf16 and in fp32, K2 and K1 at FW_DECODE_WIDTHS (3
+    heads, 2 at 640 and 768; 2 cache rows of 1536 keys valid to 1499 at
+    groups 1, 5 and 16, and one row at group 1), K7, K7-lse and K8 at
+    FW_FLASH_WIDTHS (causal (12, 48) at q_offset 0 and over 96 keys at
+    q_offset 48, non-causal (8, 130) over 300 keys valid to 270), each
+    against its plain version at phase 21's tolerances (K8 within 2^-6 or
+    FP32_REL of its plain version's largest output) and the same bits on a
+    second launch; K1, K2, K7 and K8 at a width of 0 must raise naming the
+    widths served (1-768). Then the wrappers' pad copy (q, k and v of the
+    dh75 encoder, (64, 1536, 75) -> 80 columns) timed alone. Not timed
+    otherwise: the paths' shapes are timed in (b) and (c). Returns the pad
+    copy's ms."""
+    import torch
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    t0 = time.perf_counter()
+    checks = KernelChecks()
+    held, refused = checks.held, checks.refused
+
+    for fp32 in (False, True):
+        dtype, sfx = (torch.float32, "_f32") if fp32 else (torch.bfloat16, "")
+        rel = FP32_REL if fp32 else 2.0**-6
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        for dh in FW_FLASH_WIDTHS:
+            for bh, tq, tk, causal, q_offset, kv in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                     (8, 130, 300, False, 0, 270)):
+                q, k, v = rnd(bh, tq, dh), rnd(bh, tk, dh), rnd(bh, tk, dh)
+                kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv, scale=dh**-0.5)
+                what = f"dh {dh} ({bh}, {tq}, {dh}) x {tk} keys, causal {causal}, q_offset {q_offset}, valid {kv}"
+                pout, plse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+                out_tol = rel * pout.float().abs().max().item()
+                lse_tol = FP32_REL * plse.abs().max().item() if fp32 else 1e-4
+                held("flash_attention_lse" + sfx, what, FA.flash_attention(q, k, v, return_lse=True, **kw),
+                     [pout, plse], [out_tol, lse_tol], lambda: FA.flash_attention(q, k, v, return_lse=True, **kw))
+                held("flash_attention" + sfx, what, FA.flash_attention(q, k, v, **kw), pout, out_tol,
+                     lambda: FA.flash_attention(q, k, v, **kw))
+                g = rnd(bh, tq, dh)
+                want = FA.flash_attention_bwd_plain(q, k, v, pout, plse, g, **kw)
+                held("flash_attention_bwd" + sfx, what, FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw), want,
+                     [rel * w.float().abs().max().item() for w in want],
+                     lambda: FA.flash_attention_bwd(q, k, v, pout, plse, g, **kw))
+        for dh in FW_DECODE_WIDTHS:
+            n_head = 2 if dh >= 640 else 3
+            d = n_head * dh
+            for rows, groups in ((2, (1, BEAM, 16)), (1, (1,))):
+                ck, cv = rnd(2, rows, 1536, d), rnd(2, rows, 1536, d)
+                (k8, ks), (v8, vs) = DA.quantize_kv_rows(ck.float()), DA.quantize_kv_rows(cv.float())
+                for group in groups:
+                    q = rnd(rows * group, 1, d)
+                    kw = dict(scale=dh**-0.5, valid_upto=1499, group=group)
+                    what = (f"dh {dh}, {n_head} heads, ({rows}, 1536) cache to 1499, group {group}, tk_blk "
+                            f"{DA._i8_blocks(rows, 1536, d)[1]}")
+                    want = DA.decode_attention_plain(q, ck, cv, 1, n_head, **kw)
+                    held("decode_attention" + sfx, what, DA.decode_attention(q, ck, cv, 1, n_head, **kw), want,
+                         (FP32_REL if fp32 else 2.0**-7) * want.float().abs().max().item(),
+                         lambda: DA.decode_attention(q, ck, cv, 1, n_head, **kw))
+                    want, flip = DA.decode_attention_i8_plain(q, k8, ks, v8, vs, 1, n_head, return_flip_bound=True,
+                                                              **kw)
+                    ref = want.float().abs()
+                    tol = (flip + FP32_REL * ref.max() if fp32 else
+                           (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max())
+                    held("decode_attention_i8" + sfx, what,
+                         DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw), want, tol,
+                         lambda: DA.decode_attention_i8(q, k8, ks, v8, vs, 1, n_head, **kw))
+        # a width of 0 (d 0 split into 2 heads) raises, naming the widths served
+        q, lse = rnd(4, 48, 0), torch.zeros((4, 48, 1), device=dev)
+        refused(f"K8 {dtype} at 0", lambda: FA.flash_attention_bwd(q, q, q, q, lse, q, causal=True), "from 1 to 768")
+        refused(f"K7 {dtype} at 0", lambda: FA.flash_attention(q, q, q), "from 1 to 768")
+        ck, qd = rnd(1, 1, 128, 0), rnd(1, 1, 0)
+        sc = torch.ones((1, 1, 128), device=dev)
+        refused(f"K2 {dtype} at 0", lambda: DA.decode_attention(qd, ck, ck, 0, 2, scale=1.0), "from 1 to 768")
+        refused(f"K1 {dtype} at 0", lambda: DA.decode_attention_i8(qd, ck.to(torch.int8), sc, ck.to(torch.int8), sc,
+                                                                   0, 2, scale=1.0), "from 1 to 768")
+    # the flash wrappers' copy of a width off a multiple of 8 into rows of
+    # kernel_width(dh): q, k and v of the dh75 encoder's K7 call, bf16
+    qkv = [torch.randn((HW_WINDOWS * 8, 1536, 75), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+    pad_ms = timed_ms(lambda: FA._padded(qkv))
+    del qkv
+    torch.cuda.empty_cache()
+    print(f"[full] (a) {checks.n} kernel calls, K2 / K1 at {list(FW_DECODE_WIDTHS)} and K7 / K7-lse / K8 at "
+          f"{list(FW_FLASH_WIDTHS)}, in bf16 and fp32 against their plain versions (phase 21's tolerances), each "
+          f"bitwise on a second launch, K8, K7, K1 and K2 at 0 refused: worst err/tol "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(checks.worst.items())})}; the pad copy of q, k, v "
+          f"({HW_WINDOWS * 8}, 1536, 75) bf16 -> 80 columns {pad_ms:.4f} ms; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return pad_ms
+
+
+def run_full_widths(card: str):
+    """Phase 26: (a), then at each geometry of FW_DIMS and dtype the serving
+    paths with the decode gate (phase 25's `run_wide_width`), at dh75 also
+    3 train steps, `evaluate` and the train gates (`run_wide_training`) and
+    in bf16 the CLI with the 19-token prompt (`run_wide_cli`), and each
+    kernel at the shapes they ran (`check_wide_path_kernels`). The new
+    ranges' kernels must launch on the paths: K1 and K2 at both
+    geometries, and at dh75 K7, K7-lse and K8, in both dtypes. Returns
+    (the timed rows, the paths' counts, the pad copy's ms)."""
+    import torch
+
+    pad_ms = check_full_kernels(card)
+    rows, paths = [], []
+    with tempfile.TemporaryDirectory() as workdir:
+        for geometry in FW_DIMS:
+            ref = None
+            for fp32 in (False, True):
+                t0 = time.perf_counter()
+                got = run_wide_width(card, geometry, workdir, fp32)
+                cli_shapes, train_shapes = (), ()
+                if geometry == "dh75":
+                    if not fp32:
+                        counts, cli_shapes = run_wide_cli(card, workdir, fp32, geometry)
+                        got.append(counts)
+                    torch.cuda.empty_cache()
+                    trained, ref, train_shapes = run_wide_training(card, geometry, workdir, fp32, ref)
+                    got += trained
+                rows += check_wide_path_kernels(card, geometry, fp32, cli_shapes, train_shapes)
+                sfx = "_f32" if fp32 else ""
+                names = ["decode_attention_i8" + sfx, "decode_attention" + sfx]
+                if geometry == "dh75":
+                    names += ["flash_attention" + sfx, "flash_attention_lse" + sfx, "flash_attention_bwd" + sfx]
+                total = {name: sum(c.get(name, 0) for c in got) for name in names}
+                if not all(total.values()):
+                    raise AssertionError(f"no launch of a phase-26 kernel on the {geometry} "
+                                         f"{'fp32' if fp32 else 'bf16'} paths: {total}")
+                print(f"[full] launches over the {geometry} {'fp32' if fp32 else 'bf16'} paths {json.dumps(total)}; "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                paths += got
+    return rows, paths, pad_ms
 
 
 def main() -> int:
@@ -5005,6 +5206,12 @@ def main() -> int:
     ww_rows, ww_paths = run_wide_widths(card)
     rows += ww_rows
 
+    # phase 26: every head width up to 768, at 2 heads of 640 (large-v3's
+    # widths) and 8 of 75 (d 600), bf16 and fp32
+    stamp("phase 26 starts")
+    fw_rows, fw_paths, _ = run_full_widths(card)
+    rows += fw_rows
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
@@ -5014,11 +5221,12 @@ def main() -> int:
     # twins, profiled epoch, resumed runs and CLI runs, and phase 23's mesh
     # runs, each rank's counts, and phase 24's runs at 16 heads of 80 and 8
     # of 96 and its CLI run, and phase 25's serving, train and evaluate runs
-    # at 5 heads of 256 and 4 of 192 and its CLI runs), each counted from 0
-    # just before it ran
+    # at 5 heads of 256 and 4 of 192 and its CLI runs, and phase 26's
+    # serving runs at 2 heads of 640 and 8 of 75 and its train, evaluate and
+    # CLI runs at 8 of 75), each counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths)
+             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths, *fw_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:

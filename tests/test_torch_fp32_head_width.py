@@ -160,15 +160,15 @@ def test_decode_wrappers_call_the_f32_symbol_at_the_width(fake_card, int8, dh):
 # a width each fp32 kernel still refuses (dh -> (K8's, K1's and K2's, K5's
 # and K7's)): K3 and K6 serve 32, 64 and 128; K1 and K2 every multiple of 8
 # from 8 to 256, K5, K7 and K8 from 8 to 768
-REFUSED = {16: (20, 20, 20), 80: (776, 264, 776), 96: (20, 20, 20), 256: (776, 264, 776)}
+REFUSED = {16: (776, 776, 20), 80: (776, 1024, 776), 96: (1024, 776, 20), 256: (776, 1024, 776)}
 
 
 @pytest.mark.parametrize("dh", [16, 80, 96, 256])
 def test_other_widths_still_raise_in_fp32(fake_card, dh):
     """A width no kernel serves raises in fp32 before any launch, naming the
-    widths served: K3 and K6 (where d is a multiple of 128) at dh; K8, K2
-    and K1, K5 and K7 at a width outside 8-768, 8-256 and 8-768 or not a
-    multiple of 8 (REFUSED[dh])."""
+    widths served: K3 and K6 (where d is a multiple of 128) at dh; K7 and
+    K8, and K2 and K1, at a width past 1-768, and K5 at one past 8-768 or
+    not a multiple of 8 (REFUSED[dh])."""
     n_head = 2
     d = n_head * dh
     q = torch.zeros((2, 20, d))
@@ -183,13 +183,12 @@ def test_other_widths_still_raise_in_fp32(fake_card, dh):
     ck = torch.zeros((1, 2, 128, n_head * wd), device="meta")
     ck8 = torch.zeros((1, 2, 128, n_head * wd), dtype=torch.int8, device="meta")
     sc = torch.ones((1, 2, 128), device="meta")
-    qw, qs = torch.zeros((2, 20, n_head * wf)), torch.zeros((4, 20, wf))
+    qw = torch.zeros((2, 20, n_head * wf))
     calls += [(lambda: PF.flash_attention_mh(qw, qw, qw, n_head=n_head), "multiple of 8 from 8 to 768"),
-              (lambda: PF.flash_attention(qs, qs, qs, causal=True), "multiple of 8 from 8 to 768"),
-              (lambda: PF.flash_attention_bwd(q8, q8, q8, q8, lse7, q8, causal=True), "multiple of 8 from 8 to 768"),
-              (lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0), "multiple of 8 from 8 to 256"),
-              (lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0),
-               "multiple of 8 from 8 to 256")]
+              (lambda: PF.flash_attention(q8, q8, q8, causal=True), "from 1 to 768"),
+              (lambda: PF.flash_attention_bwd(q8, q8, q8, q8, lse7, q8, causal=True), "from 1 to 768"),
+              (lambda: PD.decode_attention(qd, ck, ck, 0, n_head, scale=1.0), "from 1 to 768"),
+              (lambda: PD.decode_attention_i8(qd, ck8, sc, ck8, sc, 0, n_head, scale=1.0), "from 1 to 768")]
     for call, message in calls:
         with pytest.raises(ValueError, match=message):
             call()

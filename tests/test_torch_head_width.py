@@ -239,16 +239,18 @@ def test_flash_wrappers_take_the_head_widths(fake_card, dh):
                                       (136, torch.float32), (20, torch.float32), (256, torch.float32)])
 def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
     """A width no kernel of the dtype serves raises before any launch,
-    naming the widths served: K7, K8 (and K5 in fp32) serve every multiple
-    of 8 up to 768, so 20 (or, past 128, 776) raises there; K3 and K6 serve
-    32, 64 and 128 only, so 80 and 96 (and this width) raise there."""
+    naming the widths served: K7 and K8 serve every width from 1 to 768, so
+    776 (or 1024) raises there; the fp32 K5 every multiple of 8 up to 768,
+    so 20 (or 776) raises there; K3 and K6 serve 32, 64 and 128 only, so 80
+    and 96 (and this width) raise there."""
     n_head = 2
-    wide = dh if dh % 8 else 776  # a width K7, K8 and the fp32 K5 refuse
+    wide = 776 if dh % 8 == 0 else 1024  # a width K7 and K8 refuse
     qw = torch.zeros((4, 20, wide), dtype=dtype)
     lse7 = torch.zeros((4, 20, 1))
-    q = torch.zeros((2, 20, n_head * wide), dtype=dtype)
-    calls = [(lambda: PF.flash_attention(qw, qw, qw, causal=True), "multiple of 8 from 8 to 768"),
-             (lambda: PF.flash_attention_bwd(qw, qw, qw, qw, lse7, qw, causal=True), "multiple of 8 from 8 to 768")]
+    k5_width = dh if dh % 8 else 776  # a width the fp32 K5 refuses
+    q = torch.zeros((2, 20, n_head * k5_width), dtype=dtype)
+    calls = [(lambda: PF.flash_attention(qw, qw, qw, causal=True), "from 1 to 768"),
+             (lambda: PF.flash_attention_bwd(qw, qw, qw, qw, lse7, qw, causal=True), "from 1 to 768")]
     if dtype == torch.float32:  # the bf16 K5's own check names its range (`k5_plan`)
         calls.append((lambda: PF.flash_attention_mh(q, q, q, n_head=n_head), "multiple of 8 from 8 to 768"))
     for call, served in calls:
@@ -270,15 +272,16 @@ def test_flash_wrappers_refuse_other_widths(fake_card, dh, dtype):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["K2", "K1"])
 def test_decode_wrappers_take_the_head_widths(fake_decode_card, int8):
-    """K1 and K2 take every multiple of 8 from 8 to 256 with bf16 and with
-    fp32 q; 264, 20 and 272 raise before any launch, naming that range."""
-    widths = range(8, 257, 8)
+    """K1 and K2 take every multiple of 8 from 8 to 768 and widths off a
+    multiple of 8 (1, 20, 75, 300) with bf16 and with fp32 q; 776 and 1024
+    raise before any launch, naming the range 1-768."""
+    widths = [*range(8, 769, 8), 1, 20, 75, 300]
     for dh in widths:
         _decode_call(dh, torch.bfloat16, int8=int8)()
         _decode_call(dh, torch.float32, int8=int8)()
     assert len(fake_decode_card) == 2 * len(widths)
-    for dh, dtype in ((264, torch.bfloat16), (20, torch.bfloat16), (20, torch.float32), (272, torch.float32)):
-        with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+    for dh, dtype in ((776, torch.bfloat16), (1024, torch.bfloat16), (776, torch.float32), (1024, torch.float32)):
+        with pytest.raises(ValueError, match="from 1 to 768"):
             _decode_call(dh, dtype, int8=int8)()
     with pytest.raises(ValueError, match="equal heads"):
         _decode_call(64, torch.bfloat16, d=200, n_head=3, int8=int8)()

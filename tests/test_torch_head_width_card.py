@@ -13,7 +13,11 @@ against `k5_plan`. Above 128 for serving: K7, K7-lse and the fp32 K5 at
 `f32_wide_plan`. Above 128 for training: K8 at 136, 200, 256, 384 and 768
 on the wide backwards (and at every multiple of 8 from 136 to 768 on a
 small shape), their C plans against `k8_wide_plan` and `f32_k8_wide_plan`.
-A width no kernel serves raises on the card. Marked
+Every width up to 768: K2 and K1 at 264, 384, 512, 640 and 768 (and
+every multiple of 8 from 264 to 768) in the classes of 512 and 768, and
+at 4, 20, 75, 100 and 300; K7, K7-lse and K8 at 3, 20, 75, 100, 300 and
+700; the C shared-memory plans of K2 and K1 against `k2_smem_bytes` and
+`k1_smem_bytes`. A width no kernel serves raises on the card. Marked
 `cuda`: they skip where there is no card (`python -m pytest
 tests/test_torch_*.py -q -m cuda` on the machine with one). This file
 imports no JAX: the plain versions are the reference, and their own tests
@@ -267,9 +271,9 @@ def test_k1_on_card(card, dh, b, group, tk, valid, dtype):
                                          (96, torch.float32)])
 def test_other_widths_raise_on_card(card, h2_dh, dtype):
     """No fallback: K3 and K6 refuse 80 and 96 (they serve 32, 64 and 128,
-    as the JAX package's h2 kernels); K1 and K2 refuse 20 and 264 (8-256),
-    K7, K8 (and K5 in fp32) 20 and 776 (8-768), each naming the range it
-    serves; nothing launches."""
+    as the JAX package's h2 kernels); K1, K2, K7 and K8 refuse 776 and 1024
+    (they serve 1-768), and the fp32 K5 20 and 776 (multiples of 8 up to
+    768), each naming the range it serves; nothing launches."""
     n_head = 1280 // h2_dh if h2_dh == 80 else 768 // h2_dh
     d = h2_dh * n_head
     q, = _rnd(card, 0, (2, 64, d), dtype=dtype)
@@ -279,23 +283,22 @@ def test_other_widths_raise_on_card(card, h2_dh, dtype):
                  lambda: PF.flash_attention_h2_bwd(q, q, q, res, res, q, n_head=n_head)):
         with pytest.raises(ValueError, match="head width of 32, 64, 128"):
             call()
-    for dh in (136, 20, 256, 264, 776):
+    for dh in (136, 20, 256, 1024, 776):
         qs, = _rnd(card, 0, (4, 64, dh), dtype=dtype)
         lse = torch.zeros((4, 64, 1), device=card)
         qd, ck = _rnd(card, 0, (2, 1, 2 * dh), (1, 2, 128, 2 * dh), dtype=dtype)
         ki, ks = PD.quantize_kv_rows(ck.float())
         qn, = _rnd(card, 0, (2, 64, 2 * dh), dtype=dtype)
         calls = []  # (the range the refusal names, the call)
-        if dh in (20, 264):
-            calls += [("8 to 256", lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0)),
-                      ("8 to 256", lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0))]
-        if dh in (20, 776):
-            calls.append(("8 to 768", lambda: PF.flash_attention(qs, qs, qs, causal=True)))
-            calls.append(("8 to 768", lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True)))
-            if dtype == torch.float32:
-                calls.append(("8 to 768", lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2)))
+        if dh in (1024, 776):
+            calls += [("from 1 to 768", lambda: PD.decode_attention(qd, ck, ck, 0, 2, scale=1.0)),
+                      ("from 1 to 768", lambda: PD.decode_attention_i8(qd, ki, ks, ki, ks, 0, 2, scale=1.0)),
+                      ("from 1 to 768", lambda: PF.flash_attention(qs, qs, qs, causal=True)),
+                      ("from 1 to 768", lambda: PF.flash_attention_bwd(qs, qs, qs, qs, lse, qs, causal=True))]
+        if dh in (20, 776) and dtype == torch.float32:
+            calls.append(("multiple of 8 from 8 to 768", lambda: PF.flash_attention_mh(qn, qn, qn, n_head=2)))
         for served, call in calls:
-            with pytest.raises(ValueError, match=f"multiple of 8 from {served}"):
+            with pytest.raises(ValueError, match=served):
                 call()
     assert sum(LAUNCHES.values()) == 0
 
@@ -524,3 +527,130 @@ def test_every_wide_width_on_card(card, dtype):
     assert LAUNCHES[f"flash_attention_lse{sfx}"] == LAUNCHES[f"flash_attention_bwd{sfx}"] == n_wide
     assert LAUNCHES[f"decode_attention{sfx}"] == LAUNCHES[f"decode_attention_i8{sfx}"] == n_decode
     assert LAUNCHES["flash_attention_mh_f32"] == (n_wide if dtype == torch.float32 else 0)
+
+
+# ------------------------------- every head width up to 768 (1-768) ------
+
+DECODE_FULL_WIDTHS = [264, 384, 512, 640, 768]  # the classes of 512 and 768
+OFF_WIDTHS = [4, 20, 75, 100, 300]  # off a multiple of 8: rows copied in 8, 8, 1-2, 8 and 8 byte pieces (bf16)
+FLASH_OFF_WIDTHS = [3, 20, 75, 100, 300, 700]
+
+
+def _decode_checked(card, dh, n_head, cases, dtype):
+    """K2 and K1 at n_head heads of dh over each (rows b, group, tk,
+    valid_upto) case: K2 within 2^-7 (bf16) or FP32_REL of the plain
+    version's largest output, K1 within its flip bound, each bitwise on a
+    second launch and one launch a call."""
+    d = n_head * dh
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    share = 2.0**-7 if dtype == torch.bfloat16 else FP32_REL
+    for b, group, tk, valid in cases:
+        q, ck, cv = _rnd(card, tk + group + dh, (b * group, 1, d), (2, b, tk, d), (2, b, tk, d), dtype=dtype)
+        kw = dict(scale=dh**-0.5, valid_upto=valid, group=group)
+        reset_launch_counts()
+        got = PD.decode_attention(q, ck, cv, 1, n_head, **kw)
+        _close(got, PD.decode_attention_plain(q, ck, cv, 1, n_head, **kw), lambda w: share * w.float().abs().max())
+        _same_bits(lambda: PD.decode_attention(q, ck, cv, 1, n_head, **kw), got)
+        (ki, ks), (vi, vs) = PD.quantize_kv_rows(ck.float()), PD.quantize_kv_rows(cv.float())
+        want, flip = PD.decode_attention_i8_plain(q, ki, ks, vi, vs, 1, n_head, return_flip_bound=True, **kw)
+        got = PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw)
+        ref = want.float().abs()
+        if dtype == torch.bfloat16:
+            tol = (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max()
+        else:
+            tol = flip + FP32_REL * ref.max()
+        assert ((got.float() - want.float()).abs() <= tol).all(), (dh, b, group)
+        _same_bits(lambda: PD.decode_attention_i8(q, ki, ks, vi, vs, 1, n_head, **kw), got)
+        assert LAUNCHES[f"decode_attention{sfx}"] == 2 and LAUNCHES[f"decode_attention_i8{sfx}"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", DECODE_FULL_WIDTHS)
+def test_k2_and_k1_from_264_to_768_on_card(card, dh, dtype):
+    """K2 and K1 in the classes of 512 and 768 at 2 heads of dh over cross
+    caches of 1536 keys valid to 1499 at groups 1, 5, 16 and 20 (above 16 a
+    K2 CTA takes 16 rows), one cache row at group 1 (int8 key blocks of up
+    to 512) and a 448-row self cache valid to 37."""
+    _decode_checked(card, dh, 2, ((2, 1, 1536, 1499), (2, 5, 1536, 1499), (2, 16, 1536, 1499),
+                                  (2, 20, 1536, 1499), (1, 1, 1536, 1499), (4, 5, 448, 37)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", OFF_WIDTHS)
+def test_k2_and_k1_off_multiples_of_8_on_card(card, dh, dtype):
+    """K2 and K1 at 5 heads of a width off a multiple of 8 (head h at column
+    h dh: odd heads of 75 start on an odd byte of an int8 row and an even
+    one of a bf16 row), over cross caches at groups 1, 5 and 16 and a
+    self cache."""
+    _decode_checked(card, dh, 5, ((2, 1, 1536, 1499), (2, 5, 1536, 1499), (2, 16, 1536, 1499),
+                                  (8, 5, 448, 37)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", FLASH_OFF_WIDTHS)
+def test_k7_and_k8_off_multiples_of_8_on_card(card, dh, dtype):
+    """K7 with and without lse and K8 at a width off a multiple of 8, laid
+    out at kernel_width(dh) by the wrappers: causal, q_offset 48 and
+    non-causal with keys valid short of tk; outputs of width dh within the
+    dtype's share of the plain version's largest, bitwise on a second
+    launch, one launch a call."""
+    rel = _share(dtype)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    for bh, tq, tk, causal, q_offset, kv_len in ((12, 48, 48, True, 0, None), (12, 48, 96, True, 48, None),
+                                                 (8, 130, 300, False, 0, 270)):
+        q, k, v, g = _rnd(card, dh + tq + tk, (bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), dtype=dtype)
+        kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_len, scale=dh**-0.5)
+        want, want_lse = PF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        reset_launch_counts()
+        got = PF.flash_attention(q, k, v, return_lse=True, **kw)
+        assert tuple(got[0].shape) == (bh, tq, dh)
+        _close(got[0], want, lambda w: rel * w.float().abs().max().item())
+        _close(got[1], want_lse, lambda w: 1e-4 if dtype == torch.bfloat16 else FP32_REL * w.abs().max().item())
+        _same_bits(lambda: PF.flash_attention(q, k, v, return_lse=True, **kw), got)
+        _close(PF.flash_attention(q, k, v, **kw), want, lambda w: rel * w.float().abs().max().item())
+        grads = PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw)
+        want_grads = PF.flash_attention_bwd_plain(q, k, v, want, want_lse, g, **kw)
+        scale = max(w.float().abs().max().item() for w in want_grads)
+        _close(grads, want_grads, lambda w: rel * scale)
+        _same_bits(lambda: PF.flash_attention_bwd(q, k, v, want, want_lse, g, **kw), grads)
+        assert {n: c for n, c in LAUNCHES.items() if c} == {f"flash_attention_lse{sfx}": 2,
+                                                            f"flash_attention{sfx}": 1,
+                                                            f"flash_attention_bwd{sfx}": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_decode_width_from_264_on_card(card, dtype):
+    """Every multiple of 8 from 264 to 768 in K2 and K1 at 2 heads over a
+    1536-key cross cache valid to 1499, group 5, each against its plain
+    version at the dtype's tolerance."""
+    reset_launch_counts()
+    for dh in range(264, 769, 8):
+        _decode_checked(card, dh, 2, ((2, 5, 1536, 1499),), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_plans_match_the_c_dispatch(card):
+    """`decode_smem_bytes` and `decode_i8_smem_bytes`, the shared memory the
+    C launchers give K2's and K1's CTAs, equal `k2_smem_bytes` and
+    `k1_smem_bytes` at every width from 1 to 768 (at the width's class),
+    for both cache dtypes, groups 1, 5, 9, 16 and 40 and chunks of 1 to
+    1500 keys, rows 1-16 and key blocks of 128-1024; a width past 768 gives
+    -1."""
+    from asr_ttl_mtl_tpu_torch.ops import _cuda, decode_class
+
+    lib = _cuda.lib("decode_attention")
+    for dh in range(1, 769):
+        cls = decode_class(dh)
+        for itemsize in (2, 4):
+            for group in (1, 5, 9, 16, 40):
+                for chunk in (1, 63, 188, 375, 1500):
+                    assert lib.decode_smem_bytes(itemsize, dh, group, chunk) == \
+                        PD.k2_smem_bytes(group, chunk, itemsize, cls), (dh, itemsize, group, chunk)
+        for rows in (1, 5, 16):
+            for tk_blk in (128, 256, 512, 1024):
+                assert lib.decode_i8_smem_bytes(dh, rows, tk_blk) == PD.k1_smem_bytes(rows, tk_blk, cls)
+    assert lib.decode_smem_bytes(2, 776, 1, 128) == lib.decode_i8_smem_bytes(0, 1, 128) == -1

@@ -91,29 +91,29 @@ def test_f32_wide_plan_fits_at_every_width(dh):
     assert ops.forward_width(dh) == 0 and PF.k5_plan(dh, 1536).route == "B"
 
 
-@pytest.mark.parametrize("dh", [0, 4, 132, 260, 264, 512])
+@pytest.mark.parametrize("dh", [0, -8, 769, 776, 1024, 1280])
 def test_decode_class_refuses_the_rest(dh):
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+    with pytest.raises(ValueError, match="from 1 to 768"):
         ops.decode_class(dh)
 
 
-@pytest.mark.parametrize("dh", [0, 4, 132, 772, 776, 1024])
+@pytest.mark.parametrize("dh", [0, -8, 769, 772, 776, 1024])
 def test_forward_width_refuses_the_rest(dh):
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 768"):
+    with pytest.raises(ValueError, match="from 1 to 768"):
         ops.forward_width(dh)
     if dh > 128:
         with pytest.raises(ValueError):
             PF.f32_wide_plan(dh)
 
 
-@pytest.mark.parametrize("dh,refused", [(136, 132), (256, 776)])
+@pytest.mark.parametrize("dh,refused", [(136, 776), (256, 1024)])
 def test_k8_still_refuses_above_128(dh, refused):
     """K8 (the training backward) serves 136-768 on the wide backwards
-    (forward_width 0, both plans), and still refuses a width above 128 that
-    is not a multiple of 8 (132) or lies past 768 (776), naming 8-768."""
+    (forward_width 0, both plans), and still refuses a width past 768 (776,
+    1024), naming 1-768; the wide plans refuse it too."""
     assert ops.forward_width(dh, "flash_attention_bwd") == 0
     assert PF.k8_wide_plan(dh).slabs == PF.f32_k8_wide_plan(dh).slabs == -(-dh // 128)
-    with pytest.raises(ValueError, match="multiple of 8 from 8 to 768"):
+    with pytest.raises(ValueError, match="from 1 to 768"):
         ops.forward_width(refused, "flash_attention_bwd")
     for plan in (PF.k8_wide_plan, PF.f32_k8_wide_plan):
         with pytest.raises(ValueError, match="from 136 to 768"):
