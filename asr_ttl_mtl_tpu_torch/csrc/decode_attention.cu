@@ -1,30 +1,33 @@
 // K1 and K2: single-token decode attention over a layer of the stacked
 // (L, B, Tk, D) KV caches, for Hopper (sm_90a), at every head width dh = D /
-// n_head from 1 to 768, with bf16 or fp32 q. Both kernels are built for
-// the width classes 32, 64, 128, 256, 512 and 768 (a template parameter,
-// as is q's type); a width dh runs in the smallest class kDh >= dh
-// (`decode_class`). A CTA reads only a head's dh real columns from device
+// n_head from 1 to 768, with bf16, fp16 or fp32 q. Both kernels are built
+// for the width classes 32, 64, 128, 256, 512 and 768 (a template
+// parameter, as is q's type); a width dh runs in the smallest class kDh >=
+// dh (`decode_class`). A CTA reads only a head's dh real columns from device
 // memory (the bytes stay dh's: both kernels are bound by them) and fills
 // columns [dh, kDh) of its staged rows and of q with zeros, which add
 // nothing to q.k; the output columns they give are never written. Head h
 // starts at byte h dh sizeof(T) of a cache row, so a row is copied in the
 // largest pieces of 16, 8, 4, 2 or 1 bytes that divide its dh sizeof(T)
 // bytes (`piece_bytes`): 16-byte cp.async wherever dh sizeof(T) is a
-// multiple of 16, down to single bytes for an int8 row of odd dh (dh 75);
-// pieces of 2 and 1 bytes, which cp.async does not take, are a load and a
-// store. The caches are read in place, never padded. The compute is the
-// class's: 80 columns run at 128's tensor-core work, 136 at 256's, 300 at
-// 512's. From the class of 256 on the staged tiles are wide, so fewer are
-// in flight and, above 256, each holds fewer keys (`K2Cfg`, `K1Cfg`); the
-// products hold at most 256 columns of q and of the P.V sums in registers
-// at a time (K2's `kPass`; K1 reads q's fragments from shared memory above
-// 256), and K2's fp32 scores keep q in registers 128 columns at a time.
+// multiple of 16 (every preset's head; a template flag, `kPiece16`, so that
+// this copy is the plain loop it was before the narrower pieces came), down
+// to single bytes for an int8 row of odd dh (dh 75); pieces of 2 and 1
+// bytes, which cp.async does not take, are a load and a store. The caches
+// are read in place, never padded. The compute is the class's: 80 columns
+// run at 128's tensor-core work, 136 at 256's, 300 at 512's. From the
+// class of 256 on the staged tiles are wide, so fewer are in flight and,
+// above 256, each holds fewer keys (`K2Cfg`, `K1Cfg`); the products hold at
+// most 256 columns of q and of the P.V sums in registers at a time (K2's
+// `kPass`; K1 reads q's fragments from shared memory above 256), and K2's
+// fp32 scores keep q in registers 128 columns at a time.
 //
 // K2 `decode_attn_*` replaces `_decode_attn_kernel`
 // (asr_ttl_mtl_tpu/ops/decode_attention.py:39, entry `decode_attention` :94):
-// bf16 or fp32 caches, per-head fp32 scores, a full softmax, p / l cast to
-// the cache dtype, then p.V with fp32 accumulation. Keys past `valid_upto`
-// are masked (-1 = all valid). `group` query rows share one cache row.
+// bf16, fp16 or fp32 caches, per-head fp32 scores, a full softmax, p / l
+// cast to the cache dtype, then p.V with fp32 accumulation. Keys past
+// `valid_upto` are masked (-1 = all valid). `group` query rows share one
+// cache row.
 //
 // K1 `decode_attn_i8_*` replaces `_decode_attn_i8_kernel` (:186, entry
 // `decode_attention_i8` :329): int8 caches with one fp32 scale per
@@ -63,7 +66,9 @@
 //     query rows (`k2_cta_rows`): each row's q and P.V partials are 3 KB at
 //     768, so a larger group takes one CTA a 16-row chunk, each reading the
 //     cache, still in one launch.
-//   - Products. bf16 caches: both on the tensor cores, mma.sync m16n8k16
+//   - Products. bf16 and fp16 caches: both on the tensor cores, mma.sync
+//     m16n8k16 of the cache's type (fp16 the bf16 code's twin: the same
+//     tiles, fragments and shared memory, as both are 2 bytes)
 //     (dh / 16 steps for the scores; P.V's dh / 8 column blocks round the
 //     4 warps) with the group's rows padded to 16 (rows beyond 16 in
 //     further passes over the tile already staged) and fp32 accumulation;
@@ -130,9 +135,11 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -143,6 +150,7 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -150,6 +158,8 @@ template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // ---------------------------------------------------------------- K2 ------
 
@@ -204,23 +214,37 @@ size_t k2_smem_bytes(int group_all, int chunk) {
               4 * (size_t)group + kK2Threads);
 }
 
-// m16n8k16 bf16 products on the tensor cores, fp32 accumulate (bf16 x bf16
-// products are exact in fp32, as in the plain version's fp32 einsum)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// m16n8k16 products of T (bf16 or fp16) on the tensor cores, fp32
+// accumulate (products of either are exact in fp32, as in the plain
+// version's fp32 einsum)
+#define DECODE_MMA16(TY)                                                                                     \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY                                            \
+               ".f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"                      \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    DECODE_MMA16("f16");
+  else
+    DECODE_MMA16("bf16");
 }
+#undef DECODE_MMA16
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"((uint32_t)__cvta_generic_to_shared(p)));
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
+// two floats rounded to T (bf16 or fp16) as one word of an mma fragment
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  } else {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -293,6 +317,15 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_stride, co
       cp_async4(d, g);
   }
 }
+// copy_rows for rows whose bytes are a multiple of 16 (`kPiece16`): 16-byte
+// cp.async alone, `per_row` pieces a row, by kThreads threads
+template <int kThreads>
+__device__ __forceinline__ void copy_rows16(unsigned char* dst, int dst_stride, const unsigned char* src,
+                                            size_t src_stride, int n_rows, int per_row) {
+  for (int e = threadIdx.x; e < n_rows * per_row; e += kThreads)
+    cp_async16(dst + (e / per_row) * dst_stride + (e % per_row) * 16,
+               src + (size_t)(e / per_row) * src_stride + (e % per_row) * 16);
+}
 // zeros in bytes [row_bytes, class_bytes) of `n_rows` staged rows `stride`
 // bytes apart (16-byte aligned): bytewise up to the next 16-byte boundary,
 // then 16 bytes at a time; no copy writes them
@@ -311,13 +344,14 @@ __device__ __forceinline__ void zero_tail(unsigned char* base, int n_rows, int s
 
 // ---- the products of one staged tile (128 keys; rows of kRowBytes)
 
-// bf16: scores of rows g0 .. g0 + 15 (zero past G) against 8 keys an mma
-// (dh / 16 steps); warp w takes the key blocks w, w + kK2Warps, ...; thread
-// (g8, t4) holds rows g0 + g8 and g0 + g8 + 8, keys 2 t4 and 2 t4 + 1 of a block
-template <int kDh>
+// bf16 or fp16 (T): scores of rows g0 .. g0 + 15 (zero past G) against 8
+// keys an mma (dh / 16 steps); warp w takes the key blocks w, w + kK2Warps,
+// ...; thread (g8, t4) holds rows g0 + g8 and g0 + g8 + 8, keys 2 t4 and 2
+// t4 + 1 of a block
+template <typename T, int kDh>
 __device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, const unsigned char* tile, int nk,
                                            int j0, int G, float scale) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kPass = K2Cfg<__nv_bfloat16, kDh>::kPass;
+  constexpr int kRow = K2Cfg<T, kDh>::kRowBytes, kPass = K2Cfg<T, kDh>::kPass;
   const int warp = threadIdx.x / 32, g8 = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
   for (int g0 = 0; g0 < G; g0 += 16) {
     const int r0 = g0 + g8, r1 = r0 + 8;
@@ -333,17 +367,17 @@ __device__ __forceinline__ void scores_mma(float* sc, int cs, const float* qs, c
         const float2 x10 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c) : zero;
         const float2 x01 = r0 < G ? *reinterpret_cast<const float2*>(qs + r0 * kDh + c + 8) : zero;
         const float2 x11 = r1 < G ? *reinterpret_cast<const float2*>(qs + r1 * kDh + c + 8) : zero;
-        qa[ks][0] = pack_bf16(x00.x, x00.y);  // exact: q holds bf16 values
-        qa[ks][1] = pack_bf16(x10.x, x10.y);
-        qa[ks][2] = pack_bf16(x01.x, x01.y);
-        qa[ks][3] = pack_bf16(x11.x, x11.y);
+        qa[ks][0] = pack2<T>(x00.x, x00.y);  // exact: q holds values of T
+        qa[ks][1] = pack2<T>(x10.x, x10.y);
+        qa[ks][2] = pack2<T>(x01.x, x01.y);
+        qa[ks][3] = pack2<T>(x11.x, x11.y);
       }
       for (int kb = 8 * warp; kb < nk; kb += 8 * kK2Warps) {
         float dacc[4] = {0.f, 0.f, 0.f, 0.f};
         const unsigned char* kr = tile + (kb + g8) * kRow + 2 * p0 + 4 * t4;
 #pragma unroll
         for (int ks = 0; ks < kPass / 16; ++ks)
-          mma_bf16(dacc, qa[ks], *reinterpret_cast<const uint32_t*>(kr + 32 * ks),
+          mma16<T>(dacc, qa[ks], *reinterpret_cast<const uint32_t*>(kr + 32 * ks),
                    *reinterpret_cast<const uint32_t*>(kr + 32 * ks + 16));
         const int kl = kb + 2 * t4, j = j0 + kl;
 #pragma unroll
@@ -395,15 +429,15 @@ __device__ __forceinline__ void scores_fma(float* sc, int cs, const float* qs, c
   }
 }
 
-// bf16: out rows g0 .. g0 + 15 += P (16 rows x 16 keys an mma) V (16 keys x 8
-// columns), into part (G x dh); warp w owns the 8-column blocks w, w +
-// kK2Warps, ... (dh / 32 of them), and ldmatrix.trans turns the key-major V
+// bf16 or fp16 (T): out rows g0 .. g0 + 15 += P (16 rows x 16 keys an mma)
+// V (16 keys x 8 columns), into part (G x dh); warp w owns the 8-column
+// blocks w, w + kK2Warps, ... (dh / 32 of them), and ldmatrix.trans turns the key-major V
 // rows into B fragments. V rows past nk are zero (the loader writes them), p
 // is 0 there.
-template <int kDh>
+template <typename T, int kDh>
 __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, const unsigned char* tile, int nk,
                                        int j0, int G) {
-  constexpr int kRow = K2Cfg<__nv_bfloat16, kDh>::kRowBytes, kPass = K2Cfg<__nv_bfloat16, kDh>::kPass;
+  constexpr int kRow = K2Cfg<T, kDh>::kRowBytes, kPass = K2Cfg<T, kDh>::kPass;
   constexpr int kBlocks = kPass / 8 / kK2Warps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
   // lanes 0-7 address keys 0-7 of a 16-key step, lanes 8-15 keys 8-15
@@ -422,14 +456,14 @@ __device__ __forceinline__ void pv_mma(float* part, const float* sc, int cs, con
         const float p01 = r0 < G && kl + 1 < nk ? sc[r0 * cs + j + 1] : 0.f;
         const float p10 = r1 < G && kl < nk ? sc[r1 * cs + j] : 0.f;
         const float p11 = r1 < G && kl + 1 < nk ? sc[r1 * cs + j + 1] : 0.f;
-        pa[2 * h8] = pack_bf16(p00, p01);  // exact: p / l was rounded to bf16
-        pa[2 * h8 + 1] = pack_bf16(p10, p11);
+        pa[2 * h8] = pack2<T>(p00, p01);  // exact: p / l was rounded to T
+        pa[2 * h8 + 1] = pack2<T>(p10, p11);
       }
 #pragma unroll
       for (int n = 0; n < kBlocks; ++n) {
         uint32_t vb[2];
         ldmatrix_x2_trans(vb, vrow + k16 * kRow + 16 * kK2Warps * n);
-        mma_bf16(acc[n], pa, vb[0], vb[1]);
+        mma16<T>(acc[n], pa, vb[0], vb[1]);
       }
     }
 #pragma unroll
@@ -481,14 +515,15 @@ __device__ __forceinline__ void pv_fma(float* part, const float* sc, int cs, con
 
 // grid (S, n_head, batch x row chunks), cluster (S, 1, 1): block x is the
 // rank in the cluster, and takes keys [x * chunk, (x + 1) * chunk) of [0,
-// n_valid) for the query rows of its row chunk (`k2_cta_rows`)
-template <typename T, int kDh>
+// n_valid) for the query rows of its row chunk (`k2_cta_rows`); kPiece16:
+// a head's row is a whole number of 16-byte pieces (`copy_rows16`)
+template <typename T, int kDh, bool kPiece16>
 __global__ void __launch_bounds__(kK2Threads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const T* __restrict__ cache_v,
                    T* __restrict__ out, int layer, int batch, int group, int tk, int d, int dh, int n_valid,
                    int chunk, float scale) {
   using C = K2Cfg<T, kDh>;
-  constexpr bool kMma = sizeof(T) == 2;  // bf16 caches: both products on the tensor cores
+  constexpr bool kMma = sizeof(T) == 2;  // bf16 and fp16 caches: both products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -522,8 +557,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
       const int j0 = (i < n_tiles ? i : i - n_tiles) * C::kTile, nk = min(C::kTile, n_c - j0);
       unsigned char* dst = ring + (size_t)(i % C::kRing) * C::kTile * C::kRowBytes;
       constexpr int kPerRow = kDh / C::kVec;
-      copy_rows(dst, C::kRowBytes, reinterpret_cast<const unsigned char*>(src + (size_t)j0 * d), (size_t)d * sizeof(T),
-                nk, row_bytes);
+      const unsigned char* from = reinterpret_cast<const unsigned char*>(src + (size_t)j0 * d);
+      if constexpr (kPiece16)
+        copy_rows16<kK2Threads>(dst, C::kRowBytes, from, (size_t)d * sizeof(T), nk, row_bytes / 16);
+      else
+        copy_rows(dst, C::kRowBytes, from, (size_t)d * sizeof(T), nk, row_bytes);
       // the mma path takes V 16 keys at a time: rows past the chunk are zero
       // (p is 0 there, and 0 x a stale NaN would not be)
       if (kMma && i >= n_tiles)
@@ -549,7 +587,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     const unsigned char* tile = ring + (size_t)(item % C::kRing) * C::kTile * C::kRowBytes;
     const int nk = min(C::kTile, n_c - t * C::kTile);
     if constexpr (kMma)
-      scores_mma<kDh>(sc, cs, qs, tile, nk, t * C::kTile, G, scale);
+      scores_mma<T, kDh>(sc, cs, qs, tile, nk, t * C::kTile, G, scale);
     else
       scores_fma<T, kDh>(sc, cs, qs, tile, nk, t * C::kTile, G, scale);
     __syncthreads();  // the slot is free again
@@ -619,7 +657,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ cache_k, const
     const unsigned char* tile = ring + (size_t)(item % C::kRing) * C::kTile * C::kRowBytes;
     const int nk = min(C::kTile, n_c - t * C::kTile);
     if constexpr (kMma)
-      pv_mma<kDh>(part, sc, cs, tile, nk, t * C::kTile, G);
+      pv_mma<T, kDh>(part, sc, cs, tile, nk, t * C::kTile, G);
     else
       pv_fma<T, kDh>(part, sc, cs, tile, nk, t * C::kTile, G);
     __syncthreads();
@@ -719,8 +757,9 @@ __device__ __forceinline__ float warp_reduce(float v) {
 
 // grid (S, n_head, batch x row chunks of 16), cluster (S, 1, 1): block x is
 // the rank in the cluster and takes the whole key blocks
-// [x * nb / S, (x + 1) * nb / S) of the nb blocks that hold valid keys
-template <typename TQ, int kDh>
+// [x * nb / S, (x + 1) * nb / S) of the nb blocks that hold valid keys;
+// kPiece16 as K2's
+template <typename TQ, int kDh, bool kPiece16>
 __global__ void __launch_bounds__(kK1Threads)
 decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache_k,
                       const float* __restrict__ k_scale, const int8_t* __restrict__ cache_v,
@@ -786,7 +825,11 @@ decode_attn_i8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ cache
       item_at(i, j0, nk, is_v);
       unsigned char* dst = ring + (size_t)(i % C::kRing) * kK1Slot;
       // a row's dh bytes (head h starts at byte h dh of a cache row)
-      copy_rows(dst, kK1Row, reinterpret_cast<const unsigned char*>((is_v ? vb : kb) + (size_t)j0 * d), d, nk, dh);
+      const unsigned char* from = reinterpret_cast<const unsigned char*>((is_v ? vb : kb) + (size_t)j0 * d);
+      if constexpr (kPiece16)
+        copy_rows16<kK1Threads>(dst, kK1Row, from, d, nk, dh / 16);
+      else
+        copy_rows(dst, kK1Row, from, d, nk, dh);
       if (!is_v) {
         float* dsc = reinterpret_cast<float*>(dst + kTile * kK1Row);
         for (int e = tid; e < 2 * nk; e += kK1Threads) {  // 4 bytes a key: no scale past n_valid is read
@@ -1049,7 +1092,10 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
   const int chunk = (n_valid + split - 1) / split;
   const size_t smem = k2_smem_bytes<T, kDh>(group, chunk);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = raise_smem_limit<decode_attn_kernel<T, kDh>>(smem);
+  const bool whole = dh * sizeof(T) % 16 == 0;
+  auto kernel = whole ? decode_attn_kernel<T, kDh, true> : decode_attn_kernel<T, kDh, false>;
+  cudaError_t err = whole ? raise_smem_limit<decode_attn_kernel<T, kDh, true>>(smem)
+                          : raise_smem_limit<decode_attn_kernel<T, kDh, false>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   const int rpc = k2_cta_rows(group, kDh);
@@ -1064,7 +1110,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* out, int la
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attn_kernel<T, kDh>, static_cast<const T*>(q), static_cast<const T*>(k),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
                            static_cast<const T*>(v), static_cast<T*>(out), layer, batch, group, tk, d, dh, n_valid,
                            chunk, scale);
   if (err != cudaSuccess) return (int)err;
@@ -1082,7 +1128,10 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
   const int n_valid = valid_upto < 0 ? tk : min(valid_upto + 1, tk);
   const size_t smem = k1_smem_bytes<kDh>(min(group, kK1Rows), tk_blk);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = raise_smem_limit<decode_attn_i8_kernel<TQ, kDh>>(smem);
+  const bool whole = dh % 16 == 0;
+  auto kernel = whole ? decode_attn_i8_kernel<TQ, kDh, true> : decode_attn_i8_kernel<TQ, kDh, false>;
+  cudaError_t err = whole ? raise_smem_limit<decode_attn_i8_kernel<TQ, kDh, true>>(smem)
+                          : raise_smem_limit<decode_attn_i8_kernel<TQ, kDh, false>>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, n_head, batch * ((group + kK1Rows - 1) / kK1Rows));
@@ -1096,7 +1145,7 @@ int launch_decode_i8(const void* q, const void* k, const void* ks, const void* v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_attn_i8_kernel<TQ, kDh>, static_cast<const TQ*>(q),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(q),
                            static_cast<const int8_t*>(k), static_cast<const float*>(ks), static_cast<const int8_t*>(v),
                            static_cast<const float*>(vs), static_cast<TQ*>(out), layer, batch, group, tk, d, dh,
                            tk_blk, n_valid, scale);
@@ -1189,9 +1238,31 @@ size_t k1_smem_at(int dh, int rows, int tk_blk) {
 
 }  // namespace
 
+#ifdef DECODE_ATTENTION_F16
+// The fp16 entries, built by decode_attention_f16.cu in a translation unit
+// of their own (one nvcc each, in parallel with this file's;
+// `ops/_cuda.py`): the bf16 kernels' twins, instantiated for __half.
+
+// fp16 caches, the same head widths: the bf16 kernel's twin
+extern "C" int decode_attn_f16(const void* q, const void* k, const void* v, void* out, int layer, int n_layer,
+                               int batch, int group, int tk, int d, int n_head, int valid_upto, int split,
+                               float scale, void* stream) {
+  return decode_by_class<__half>(q, k, v, out, layer, n_layer, batch, group, tk, d, n_head, valid_upto, split, scale,
+                                 stream);
+}
+
+// fp16 q over int8 caches, the same head widths
+extern "C" int decode_attn_i8_f16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                                  void* out, int layer, int n_layer, int batch, int group, int tk, int d,
+                                  int n_head, int tk_blk, int valid_upto, int split, float scale, void* stream) {
+  return decode_i8_by_class<__half>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
+                                    valid_upto, split, scale, stream);
+}
+#else  // the bf16 and fp32 entries, and the shared-memory plans
+
 // K2's shared bytes a CTA (`ops.decode_attention.k2_smem_bytes`) at head
 // width dh over a chunk of `chunk` keys for a group of `group` rows, with
-// caches of `itemsize` bytes (2: bf16, 4: fp32); -1 for a width or itemsize
+// caches of `itemsize` bytes (2: bf16 or fp16, 4: fp32); -1 for a width or itemsize
 // K2 does not take
 extern "C" int decode_smem_bytes(int itemsize, int dh, int group, int chunk) {
   const size_t n = itemsize == 2   ? k2_smem_at<__nv_bfloat16>(dh, group, chunk)
@@ -1225,7 +1296,7 @@ extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, void
                                 stream);
 }
 
-// `split` is the cluster size S (1-8; `k1_plan`); bf16 or fp32 q at a head
+// `split` is the cluster size S (1-8; `k1_plan`); bf16, fp16 or fp32 q at a head
 // width from 1 to 768
 extern "C" int decode_attn_i8_bf16(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                                    void* out, int layer, int n_layer, int batch, int group, int tk, int d,
@@ -1240,5 +1311,7 @@ extern "C" int decode_attn_i8_f32(const void* q, const void* k, const void* ks, 
   return decode_i8_by_class<float>(q, k, ks, v, vs, out, layer, n_layer, batch, group, tk, d, n_head, tk_blk,
                                    valid_upto, split, scale, stream);
 }
+
+#endif  // DECODE_ATTENTION_F16
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -41,6 +41,14 @@
 // where delta = rowsum(dO * O) comes from the caller (plain PyTorch, as the
 // JAX package leaves it to XLA).
 //
+// The serving forwards (K3, K5 and K7 without the logsumexp) also take
+// fp16: the same kernels (`flash_fwd_sm90_kernel`,
+// `flash_fwd_wide_sm90_kernel`) instantiated for __half (their element
+// type a template parameter: 2 bytes as bf16, so every shared-memory plan,
+// TMA box, swizzle and wgmma shape holds), with fp16 tensor maps, wgmma
+// `.f16` products and p and the output rounded to fp16 (the `_f16`
+// entries). The training kernels stay bf16 and fp32.
+//
 // Both layouts are one addressing scheme: a block serves (q or k tile, head
 // h, batch row b) and reads rows of dh values at stride `d` from
 // b*T*d + h*dh. K3/K6 pass the natural layout (d = dh * n_head); K7/K8 pass
@@ -79,10 +87,12 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -191,12 +201,12 @@ struct Geo {
   static constexpr int kSteps = kSwB / 32;  // k16 steps of a K-major operand in a box row
 };
 
-template <int kDh, int kWG, int kStages>
+template <int kDh, int kWG, int kStages, typename T = __nv_bfloat16>  // T: bf16 or fp16, 2 bytes either way
 struct Smem {  // every tile 1024-byte aligned: a swizzle pattern repeats over 8 rows (1024 or 512 bytes)
   static constexpr int kN = kFwdKeys<kDh>;
-  alignas(1024) __nv_bfloat16 q[kWG * kBM * kDh];
-  alignas(1024) __nv_bfloat16 k[kStages][kN * kDh];
-  alignas(1024) __nv_bfloat16 v[kStages][kN * kDh];
+  alignas(1024) T q[kWG * kBM * kDh];
+  alignas(1024) T k[kStages][kN * kDh];
+  alignas(1024) T v[kStages][kN * kDh];
   uint64_t q_full, k_full[kStages], v_full[kStages], empty[kStages];
 };
 
@@ -245,9 +255,9 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
 
 // a tile of `rows` rows x kDh columns at (column col, row, batch b) into
 // shared memory, one box a kBoxCols columns; completion counts on `bar`
-template <int kDh>
-__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int b, int rows) {
+template <int kDh, typename T>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int col, int row, int b,
+                                         int rows) {
   using G = Geo<kDh>;
 #pragma unroll
   for (int j = 0; j < G::kBoxes; ++j)
@@ -266,9 +276,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 }
 
 // tma_tile from the head map: head h's columns 0 .. kDh, those past dh zeros
-template <int kDh>
-__device__ __forceinline__ void tma_head_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int h,
-                                              int row, int b, int rows) {
+template <int kDh, typename T>
+__device__ __forceinline__ void tma_head_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int h, int row, int b,
+                                              int rows) {
   using G = Geo<kDh>;
 #pragma unroll
   for (int j = 0; j < G::kBoxes; ++j) tma_load_4d(dst + j * rows * G::kBoxCols, map, bar, j * G::kBoxCols, h, row, b);
@@ -316,6 +326,16 @@ __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+// two floats rounded to T (bf16 or fp16) as one word of a fragment
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; -inf gives 0
@@ -368,134 +388,145 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N], float (&m_run)[2], 
   }
 }
 
-// p rounded to bf16 pairs as the A fragments of P V: the accumulator of 16
-// keys is the A fragment of one k16 step (pairs 4kk .. 4kk + 3)
-template <int N>
+// p rounded to pairs of T (bf16 or fp16) as the A fragments of P V: the
+// accumulator of 16 keys is the A fragment of one k16 step (pairs 4kk .. 4kk + 3)
+template <typename T, int N>
 __device__ __forceinline__ void pack_p(const float (&sc)[N], uint32_t (&pa)[N / 8][4]) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) pa[i / 4][i % 4] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) pa[i / 4][i % 4] = pack2<T>(sc[2 * i], sc[2 * i + 1]);
 }
+
+// two output values rounded to T at dst (4-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
+}
+
+// The wgmma products of the 2-byte operand type T (bf16, or the fp16
+// forwards' fp16): one instruction string a shape, the type its argument.
+#define FA_WGMMA_SS_32(TY)                                                                                             \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %18, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                                                      \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                           \
+      "}, "                                                                                                            \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])           \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define FA_WGMMA_SS_64(TY)                                                                                             \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %34, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                                      \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                                 \
+      "}, "                                                                                                            \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define FA_WGMMA_SS_128(TY)                                                                                            \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %66, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                                                     \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                                 \
+      "}, "                                                                                                            \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),        \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),        \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),        \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])         \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define FA_WGMMA_RS_32(TY)                                                                                             \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %21, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                                                      \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                           \
+      "}, "                                                                                                            \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define FA_WGMMA_RS_64(TY)                                                                                             \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %37, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                                      \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                                 \
+      "}, "                                                                                                            \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define FA_WGMMA_RS_128(TY)                                                                                            \
+  asm volatile(                                                                                                        \
+      "{\n.reg .pred p;\n"                                                                                             \
+      "setp.ne.b32 p, %69, 0;\n"                                                                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                                                     \
+      "{"                                                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                                 \
+      "}, "                                                                                                            \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),        \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),        \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),        \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 // d (m64nN fp32, N / 2 a thread) (+)= A (64 x 16, shared, K-major) . B (nN x 16, shared, K-major)^T
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
+template <int N, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss takes N 32, 64 or 128");
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  if constexpr (N == 32) {
+    if constexpr (kF16) FA_WGMMA_SS_32("f16"); else FA_WGMMA_SS_32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (kF16) FA_WGMMA_SS_64("f16"); else FA_WGMMA_SS_64("bf16");
+  } else {
+    if constexpr (kF16) FA_WGMMA_SS_128("f16"); else FA_WGMMA_SS_128("bf16");
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64nN fp32, N / 2 a thread) += A (64 x 16 bf16, registers) . B (16 x nN, shared, MN-major)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// d (m64nN fp32, N / 2 a thread) += A (64 x 16 of T, registers) . B (16 x nN, shared, MN-major)
+template <int N, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs takes N 32, 64 or 128");
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  if constexpr (N == 32) {
+    if constexpr (kF16) FA_WGMMA_RS_32("f16"); else FA_WGMMA_RS_32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (kF16) FA_WGMMA_RS_64("f16"); else FA_WGMMA_RS_64("bf16");
+  } else {
+    if constexpr (kF16) FA_WGMMA_RS_128("f16"); else FA_WGMMA_RS_128("bf16");
+  }
 }
 
 // the key tiles of kN that queries [q0, q_end) see: up to kv_len and, when
@@ -512,15 +543,15 @@ __device__ __forceinline__ int key_limit(const Shape& sh, int row) {
   return kCausal ? min(sh.kv_len, sh.q_offset + row + 1) : sh.kv_len;
 }
 
-template <int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
+template <typename T, int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse, Shape sh) {
+                      const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, float* __restrict__ lse,
+                      Shape sh) {
   using G = Geo<kDh>;
   constexpr int kN = kFwdKeys<kDh>;
   extern __shared__ unsigned char smem_raw[];
-  auto& s = *reinterpret_cast<Smem<kDh, kWG, kStages>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
+  auto& s = *reinterpret_cast<Smem<kDh, kWG, kStages, T>*>(smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023));
   const int q0 = blockIdx.x * kWG * kBM, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tiles = key_tiles<kCausal, kN>(sh, q0, q0 + kWG * kBM);
@@ -540,7 +571,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   if (warp == kWG * 4) {  // the producer warp: one thread starts every load
     // head h's tile of `rows` rows from `row`: the 3-D maps at column h * dh,
     // or with kHeads the head maps at (0, h)
-    auto load = [&](__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row, int rows) {
+    auto load = [&](T* dst, const CUtensorMap* map, uint64_t* bar, int row, int rows) {
       if constexpr (kHeads)
         tma_head_tile<kDh>(dst, map, bar, h, row, b, rows);
       else
@@ -586,7 +617,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     const uint64_t dk = desc<kDh>(s.k[st], kKBox);
 #pragma unroll
     for (int kk = 0; kk < kDh / 16; ++kk)
-      wgmma_ss<kN>(sc, dq + kstep<kDh>(kk, kQBox), dk + kstep<kDh>(kk, kKBox), kk);
+      wgmma_ss<kN, T>(sc, dq + kstep<kDh>(kk, kQBox), dk + kstep<kDh>(kk, kKBox), kk);
     wg_commit();
   };
   // O += P V of tile t: kN / 16 steps of 16 keys
@@ -595,7 +626,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     mbar_wait(&s.v_full[st], (t / kStages) & 1);
     const uint64_t dv = desc<kDh>(s.v[st], kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kDh>(o, pa[kk], dv + mnstep<kDh>(kk));
+    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kDh, T>(o, pa[kk], dv + mnstep<kDh>(kk));
     wg_commit();
   };
 
@@ -604,7 +635,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
   wg_wait<0>();
   reg_fence(sc);
   softmax_tile(sc, m_run, l_run, corr, 0, lim, warp_lim, t4, sl2);
-  pack_p(sc, pa);
+  pack_p<T>(sc, pa);
   for (int t = 1; t < n_tiles; ++t) {
     wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
     start_s(t);
@@ -617,7 +648,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     mbar_arrive(&s.empty[(t - 1) % kStages]);
 #pragma unroll
     for (int i = 0; i < kDh / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-    pack_p(sc, pa);
+    pack_p<T>(sc, pa);
   }
   wg_fence();
   start_pv(n_tiles - 1);
@@ -631,12 +662,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_con
     if (qrow >= sh.tq) continue;
     // a row with no valid key (l == 0) writes 0, and lse -1e30
     const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
-    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + 2 * t4;
+    T* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + 2 * t4;
 #pragma unroll
     for (int j = 0; j < kDh / 8; ++j)  // the dh real columns only
-      if (8 * j < sh.dh)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (8 * j < sh.dh) store2(dst + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (lse != nullptr && t4 == 0)
       lse[res_index(sh, h, b, qrow)] = l_run[r] == 0.f ? kNegInf : m_run[r] * kLn2 + logf(l_run[r]);
   }
@@ -664,33 +693,38 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (B, T, D) bf16 tensor as a 3-D map (D, T, B), boxes of kBoxCols columns
-// x `rows` rows x 1 in the kSwB-byte swizzle, zeros outside
-template <int kDh>
+// the tensor map's element type of T: bf16 or, for the fp16 forwards, fp16
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// a (B, T, D) tensor of T (bf16 or fp16) as a 3-D map (D, T, B), boxes of
+// kBoxCols columns x `rows` rows x 1 in the kSwB-byte swizzle, zeros outside
+template <int kDh, typename T = __nv_bfloat16>
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch, int t, int d, int rows) {
   constexpr int kSwB = Geo<kDh>::kSwB;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
   const cuuint32_t box[3] = {(cuuint32_t)Geo<kDh>::kBoxCols, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+  return enc(map, kMapType<T>, 3, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, kSwB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a (B, T, n_head * dh) bf16 tensor as a 4-D map (dh, n_head, T, B), boxes
+// a (B, T, n_head * dh) tensor of T as a 4-D map (dh, n_head, T, B), boxes
 // of kBoxCols columns of one head x `rows` rows in the kSwB-byte swizzle:
 // a box's columns past dh are zeros (out of the map's bounds), not the next
 // head's, and a box wholly past dh is all zeros. The head stride, dh * 2
 // bytes, is a multiple of 16 as TMA needs: dh is a multiple of 8
-template <int kDh>
+template <int kDh, typename T = __nv_bfloat16>
 bool encode_heads(EncodeTiled enc, CUtensorMap* map, const void* ptr, const Shape& sh, int t, int rows) {
   constexpr int kSwB = Geo<kDh>::kSwB;
   const cuuint64_t dims[4] = {(cuuint64_t)sh.dh, (cuuint64_t)sh.n_head, (cuuint64_t)t, (cuuint64_t)sh.batch};
   const cuuint64_t strides[3] = {(cuuint64_t)sh.dh * 2, (cuuint64_t)sh.d * 2, (cuuint64_t)t * sh.d * 2};
   const cuuint32_t box[4] = {(cuuint32_t)Geo<kDh>::kBoxCols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+  return enc(map, kMapType<T>, 4, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, kSwB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -712,26 +746,26 @@ cudaError_t lift_smem(Kernel kernel, int bytes, bool (&lifted)[64]) {
 template <int kDh, int kWG, int kStages>
 constexpr int kFwdSmem = (int)sizeof(Smem<kDh, kWG, kStages>) + 1024;
 
-template <int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
+template <typename T, int kDh, int kWG, int kStages, bool kCausal, bool kHeads>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, cudaStream_t stream) {
   constexpr int kN = kFwdKeys<kDh>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  const bool encoded =
-      kHeads ? encode_heads<kDh>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) &&
-                   encode_heads<kDh>(enc, &tm_k, k, sh, sh.tk, kN) && encode_heads<kDh>(enc, &tm_v, v, sh, sh.tk, kN)
-             : encode<kDh>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) &&
-                   encode<kDh>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kN) &&
-                   encode<kDh>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kN);
+  const bool encoded = kHeads ? encode_heads<kDh, T>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) &&
+                                    encode_heads<kDh, T>(enc, &tm_k, k, sh, sh.tk, kN) &&
+                                    encode_heads<kDh, T>(enc, &tm_v, v, sh, sh.tk, kN)
+                              : encode<kDh, T>(enc, &tm_q, q, sh.batch, sh.tq, sh.d, kWG * kBM) &&
+                                    encode<kDh, T>(enc, &tm_k, k, sh.batch, sh.tk, sh.d, kN) &&
+                                    encode<kDh, T>(enc, &tm_v, v, sh.batch, sh.tk, sh.d, kN);
   if (!encoded) return (int)cudaErrorInvalidValue;
   constexpr int kSmem = kFwdSmem<kDh, kWG, kStages>;
   static bool lifted[64] = {};
-  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal, kHeads>, kSmem, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_sm90_kernel<T, kDh, kWG, kStages, kCausal, kHeads>, kSmem, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head, sh.batch);
-  flash_fwd_sm90_kernel<kDh, kWG, kStages, kCausal, kHeads><<<grid, kWG * 128 + 32, kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh);
+  flash_fwd_sm90_kernel<T, kDh, kWG, kStages, kCausal, kHeads><<<grid, kWG * 128 + 32, kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(out), static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
@@ -1241,7 +1275,7 @@ void fwd_plan(int tq, int* plan) {
 
 // the forward over the natural layout (K3, K5 at a head width of kDh or,
 // with `heads`, below it, and K7 as batch = BH, one head)
-template <int kDh>
+template <int kDh, typename T>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal, bool heads,
         cudaStream_t s) {
   // below its class, a head's boxes of the 3-D maps would take its
@@ -1253,13 +1287,13 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
   if (heads)
-    return sh.tq <= kBM ? run<kDh, 1, 2, false, true>(q, k, v, out, lse, sh, s)
-                        : run<kDh, 2, 4, false, true>(q, k, v, out, lse, sh, s);
+    return sh.tq <= kBM ? run<T, kDh, 1, 2, false, true>(q, k, v, out, lse, sh, s)
+                        : run<T, kDh, 2, 4, false, true>(q, k, v, out, lse, sh, s);
   if (sh.tq <= kBM)
-    return causal ? run<kDh, 1, 2, true, false>(q, k, v, out, lse, sh, s)
-                  : run<kDh, 1, 2, false, false>(q, k, v, out, lse, sh, s);
-  return causal ? run<kDh, 2, 4, true, false>(q, k, v, out, lse, sh, s)
-                : run<kDh, 2, 4, false, false>(q, k, v, out, lse, sh, s);
+    return causal ? run<T, kDh, 1, 2, true, false>(q, k, v, out, lse, sh, s)
+                  : run<T, kDh, 1, 2, false, false>(q, k, v, out, lse, sh, s);
+  return causal ? run<T, kDh, 2, 4, true, false>(q, k, v, out, lse, sh, s)
+                : run<T, kDh, 2, 4, false, false>(q, k, v, out, lse, sh, s);
 }
 
 // (dq, dk, dv) of the forward: K6 (natural layout, h2 residuals, kHpb =
@@ -1344,20 +1378,20 @@ inline WidePlan wide_plan(int dh, int tq) {
   return p;
 }
 
-template <int kWG, int kN, bool kCausal>
+template <typename T, int kWG, int kN, bool kCausal>
 __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                           float* __restrict__ lse, Shape sh, int boxes, int stages) {
+                           const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, float* __restrict__ lse,
+                           Shape sh, int boxes, int stages) {
   constexpr int kRows = kWG * kBM;
   constexpr int kQBox = kRows * 128, kKBox = kN * 128;  // bytes of a 64-column box of the Q and K / V tiles
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
   // Q, then the K tiles, then the V slabs, each box 1024-byte aligned (the
   // boxes are multiples of 4 KB), then the mbarriers
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* sk = sq + kRows * 64 * boxes;
-  __nv_bfloat16* sv = sk + stages * kN * 64 * boxes;
+  T* sq = reinterpret_cast<T*>(base);
+  T* sk = sq + kRows * 64 * boxes;
+  T* sv = sk + stages * kN * 64 * boxes;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + stages * kN * kSlab);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + stages;
@@ -1386,10 +1420,10 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % stages;
         if (t >= stages) mbar_wait(&empty[st], (t / stages - 1) & 1);
-        __nv_bfloat16* kt = sk + st * kN * 64 * boxes;
+        T* kt = sk + st * kN * 64 * boxes;
         mbar_expect_tx(&k_full[st], boxes * kKBox);
         for (int j = 0; j < boxes; ++j) tma_load_4d(kt + j * kN * 64, &tm_k, &k_full[st], 64 * j, h, t * kN, b);
-        __nv_bfloat16* vt = sv + st * kN * kSlab;
+        T* vt = sv + st * kN * kSlab;
         mbar_expect_tx(&v_full[st], v_boxes * kKBox);
         for (int j = 0; j < v_boxes; ++j)
           tma_load_4d(vt + j * kN * 64, &tm_v, &v_full[st], c0 + 64 * j, h, t * kN, b);
@@ -1422,8 +1456,8 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     for (int j = 0; j < boxes; ++j) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<kN>(sc, dq + (uint64_t)((j * kQBox + kk * 32) >> 4), dk + (uint64_t)((j * kKBox + kk * 32) >> 4),
-                     j + kk);
+        wgmma_ss<kN, T>(sc, dq + (uint64_t)((j * kQBox + kk * 32) >> 4),
+                        dk + (uint64_t)((j * kKBox + kk * 32) >> 4), j + kk);
     }
     wg_commit();
   };
@@ -1433,7 +1467,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     mbar_wait(&v_full[st], (t / stages) & 1);
     const uint64_t dv = desc<128>(sv + st * kN * kSlab, kKBox);
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kSlab>(o, pa[kk], dv + mnstep<128>(kk));
+    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs<kSlab, T>(o, pa[kk], dv + mnstep<128>(kk));
     wg_commit();
   };
 
@@ -1442,7 +1476,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   wg_wait<0>();
   reg_fence(sc);
   softmax_tile(sc, m_run, l_run, corr, 0, lim, warp_lim, t4, sl2);
-  pack_p(sc, pa);
+  pack_p<T>(sc, pa);
   for (int t = 1; t < n_tiles; ++t) {
     wg_fence();  // sc was rewritten by the softmax, o rescaled, pa packed
     start_s(t);
@@ -1455,7 +1489,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     mbar_arrive(&empty[(t - 1) % stages]);
 #pragma unroll
     for (int i = 0; i < kSlab / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-    pack_p(sc, pa);
+    pack_p<T>(sc, pa);
   }
   wg_fence();
   start_pv(n_tiles - 1);
@@ -1468,54 +1502,54 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     const int qrow = row0 + g + 8 * r;
     if (qrow >= sh.tq) continue;
     const float inv = l_run[r] == 0.f ? 0.f : 1.f / l_run[r];
-    __nv_bfloat16* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + c0 + 2 * t4;
+    T* dst = out + ((size_t)b * sh.tq + qrow) * sh.d + (size_t)h * sh.dh + c0 + 2 * t4;
 #pragma unroll
     for (int j = 0; j < kSlab / 8; ++j)  // the slab's columns below dh only
-      if (c0 + 8 * j < sh.dh)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      if (c0 + 8 * j < sh.dh) store2(dst + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     // a row with no valid key writes 0, and lse -1e30
     if (lse != nullptr && c0 == 0 && t4 == 0)
       lse[res_index(sh, h, b, qrow)] = l_run[r] == 0.f ? kNegInf : m_run[r] * kLn2 + logf(l_run[r]);
   }
 }
 
-template <int kWG, int kN, bool kCausal>
+template <typename T, int kWG, int kN, bool kCausal>
 int run_wide(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, const WidePlan& p,
              cudaStream_t stream) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;  // 64-column boxes in the 128-byte swizzle: the class 128's
-  if (!encode_heads<128>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) || !encode_heads<128>(enc, &tm_k, k, sh, sh.tk, kN) ||
-      !encode_heads<128>(enc, &tm_v, v, sh, sh.tk, kN))
+  if (!encode_heads<128, T>(enc, &tm_q, q, sh, sh.tq, kWG * kBM) ||
+      !encode_heads<128, T>(enc, &tm_k, k, sh, sh.tk, kN) || !encode_heads<128, T>(enc, &tm_v, v, sh, sh.tk, kN))
     return (int)cudaErrorInvalidValue;
   static bool lifted[64] = {};  // to the most any plan takes, once
-  const cudaError_t err = lift_smem(flash_fwd_wide_sm90_kernel<kWG, kN, kCausal>, kSmemMax, lifted);
+  const cudaError_t err = lift_smem(flash_fwd_wide_sm90_kernel<T, kWG, kN, kCausal>, kSmemMax, lifted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sh.tq + kWG * kBM - 1) / (kWG * kBM), sh.n_head * p.slabs, sh.batch);
-  flash_fwd_wide_sm90_kernel<kWG, kN, kCausal><<<grid, kWG * 128 + 32, p.smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sh, p.boxes, p.stages);
+  flash_fwd_wide_sm90_kernel<T, kWG, kN, kCausal><<<grid, kWG * 128 + 32, p.smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(out), static_cast<float*>(lse), sh, p.boxes, p.stages);
   return (int)cudaGetLastError();
 }
 
-template <bool kCausal>
+template <typename T, bool kCausal>
 int run_wide_plan(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
                   const WidePlan& p, cudaStream_t s) {
-  if (p.wg == 2) return run_wide<2, 64, kCausal>(q, k, v, out, lse, sh, p, s);
-  return p.keys == 64 ? run_wide<1, 64, kCausal>(q, k, v, out, lse, sh, p, s)
-                      : run_wide<1, 32, kCausal>(q, k, v, out, lse, sh, p, s);
+  if (p.wg == 2) return run_wide<T, 2, 64, kCausal>(q, k, v, out, lse, sh, p, s);
+  return p.keys == 64 ? run_wide<T, 1, 64, kCausal>(q, k, v, out, lse, sh, p, s)
+                      : run_wide<T, 1, 32, kCausal>(q, k, v, out, lse, sh, p, s);
 }
 
 // the wide forward at a head width from 136 to 768: K5 (route B; natural
 // layout, no lse) and K7 (batch = BH, one head; causal, lse), residuals
-// through `res_index`
+// through `res_index`; T bf16 or (K5 and K7 without lse) fp16
+template <typename T>
 int fwd_wide(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
              cudaStream_t s) {
   if (bad_wide_shape(sh)) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const WidePlan p = wide_plan(sh.dh, sh.tq);
-  return causal ? run_wide_plan<true>(q, k, v, out, lse, sh, p, s) : run_wide_plan<false>(q, k, v, out, lse, sh, p, s);
+  return causal ? run_wide_plan<T, true>(q, k, v, out, lse, sh, p, s)
+                : run_wide_plan<T, false>(q, k, v, out, lse, sh, p, s);
 }
 
 // -------------------------------------- K8 at head widths 136-768: route B's cut
@@ -1968,18 +2002,20 @@ int bwd_wide(const void* q, const void* k, const void* v, const void* dout, cons
 }  // namespace sm90
 
 // the forward at the width class of sh.dh (below the class only with one
-// head a row, K7, or over the head maps, K5's route A)
+// head a row, K7, or over the head maps, K5's route A), of T (bf16 or fp16)
+template <typename T = __nv_bfloat16>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh,
                     bool causal, void* stream, bool heads = false) {
   auto s = (cudaStream_t)stream;
   switch (width_class(sh.dh)) {
-    case 32: return sm90::fwd<32>(q, k, v, out, lse, sh, causal, heads, s);
-    case 64: return sm90::fwd<64>(q, k, v, out, lse, sh, causal, heads, s);
-    case 128: return sm90::fwd<128>(q, k, v, out, lse, sh, causal, heads, s);
+    case 32: return sm90::fwd<32, T>(q, k, v, out, lse, sh, causal, heads, s);
+    case 64: return sm90::fwd<64, T>(q, k, v, out, lse, sh, causal, heads, s);
+    case 128: return sm90::fwd<128, T>(q, k, v, out, lse, sh, causal, heads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+#ifndef FLASH_ATTENTION_F16  // the fp16 entries' translation unit instantiates the fp16 forwards alone
 // K6 at head width sh.dh (32, 64 or 128): the h2 residuals hold hpb = 128 /
 // dh heads a lane
 int launch_h2_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -1992,6 +2028,7 @@ int launch_h2_bwd_sm90(const void* q, const void* k, const void* v, const void* 
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif  // FLASH_ATTENTION_F16
 
 // K8 at the width class of sh.dh, residuals (BH, Tq, 1)
 template <bool kCausal>
@@ -3366,6 +3403,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
                 : run_bwd<kDh, false>(q, k, v, dout, lse, delta, dq, dk, dv, sh, s);
 }
 
+#ifndef FLASH_ATTENTION_F16
 // the forward at the width class of sh.dh, or the wide forward from 136 to 768
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse, const Shape& sh, bool causal,
         void* stream) {
@@ -3409,10 +3447,52 @@ int bwd(const void* q, const void* k, const void* v, const void* dout, const voi
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif  // FLASH_ATTENTION_F16
 
 }  // namespace f32
 
 }  // namespace
+
+#ifdef FLASH_ATTENTION_F16
+// ------------------------------------------------------ fp16 entry points
+// The serving forwards of the bf16 entries below with fp16 tensors: the
+// same kernels (`flash_fwd_sm90_kernel`, `flash_fwd_wide_sm90_kernel`)
+// instantiated for __half, with fp16 tensor maps and wgmma f16 products,
+// built by flash_attention_f16.cu in a translation unit of their own (one
+// nvcc each, in parallel with this file's; `ops/_cuda.py`). No logsumexp:
+// the training forwards (K3-lse, K7-lse) and backwards (K6, K8) come with
+// the fp16 training slice.
+
+// K5 at fp16: the routes and plan of `flash_mh_fwd_bf16`
+extern "C" int flash_mh_fwd_f16(const void* q, const void* k, const void* v, void* out, int batch, int tq, int tk,
+                                int d, int n_head, int kv_len, float scale, void* stream) {
+  if (n_head < 1 || d % n_head) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
+  if (dh <= 128) return launch_fwd_sm90<__half>(q, k, v, out, nullptr, sh, false, stream, width_class(dh) != dh);
+  return sm90::fwd_wide<__half>(q, k, v, out, nullptr, sh, false, (cudaStream_t)stream);
+}
+
+// K3 at fp16, no logsumexp (`lse` must be null)
+extern "C" int flash_h2_fwd_f16(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+                                int tq, int tk, int d, int n_head, int kv_len, float scale, void* stream) {
+  if (n_head < 1 || d % n_head || lse != nullptr) return (int)cudaErrorInvalidValue;
+  const int dh = d / n_head;
+  Shape sh{batch, tq, tk, d, dh, n_head, h2_hpb(dh), kv_len, 0, scale};
+  if (sh.hpb < 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd_sm90<__half>(q, k, v, out, nullptr, sh, false, stream);
+}
+
+// K7 at fp16, no logsumexp (`lse` must be null): dh a multiple of 8 from 8 to 768
+extern "C" int flash_fwd_f16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
+                             int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
+  if (lse != nullptr) return (int)cudaErrorInvalidValue;
+  Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
+  if (dh > 128) return sm90::fwd_wide<__half>(q, k, v, out, nullptr, sh, causal != 0, (cudaStream_t)stream);
+  return launch_fwd_sm90<__half>(q, k, v, out, nullptr, sh, causal != 0, stream);
+}
+
+#else  // the bf16 and fp32 entries, and the plans
 
 // K5: natural (B, T, D) layout, non-causal, head width d / n_head any
 // multiple of 8 up to 768; no logsumexp. The width classes 32, 64 and 128
@@ -3425,7 +3505,7 @@ extern "C" int flash_mh_fwd_bf16(const void* q, const void* k, const void* v, vo
   const int dh = d / n_head;
   Shape sh{batch, tq, tk, d, dh, n_head, 1, kv_len, 0, scale};
   if (dh <= 128) return launch_fwd_sm90(q, k, v, out, nullptr, sh, false, stream, width_class(dh) != dh);
-  return sm90::fwd_wide(q, k, v, out, nullptr, sh, false, (cudaStream_t)stream);
+  return sm90::fwd_wide<__nv_bfloat16>(q, k, v, out, nullptr, sh, false, (cudaStream_t)stream);
 }
 
 // K5's plan at head width dh and tq queries, as `flash_mh_fwd_bf16` takes
@@ -3449,6 +3529,9 @@ extern "C" int flash_mh_plan_bf16(int dh, int tq, void* plan) {
   for (int i = 0; i < 6; ++i) p[i] = vals[i];
   return 0;
 }
+
+// the fp16 K5's plan: the bf16 K5's (the element size, 2 bytes, is all the plan reads of the type)
+extern "C" int flash_mh_plan_f16(int dh, int tq, void* plan) { return flash_mh_plan_bf16(dh, tq, plan); }
 
 // K3: natural (B, T, D) layout, non-causal, head width d / n_head 32, 64 or
 // 128; `lse` may be null, else it is (D/128, B, Tq, 128 / dh) fp32
@@ -3476,7 +3559,7 @@ extern "C" int flash_h2_bwd_bf16(const void* q, const void* k, const void* v, co
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int tq,
                               int tk, int dh, int kv_len, int causal, int q_offset, float scale, void* stream) {
   Shape sh{bh, tq, tk, dh, dh, 1, 1, kv_len, q_offset, scale};
-  if (dh > 128) return sm90::fwd_wide(q, k, v, out, lse, sh, causal != 0, (cudaStream_t)stream);
+  if (dh > 128) return sm90::fwd_wide<__nv_bfloat16>(q, k, v, out, lse, sh, causal != 0, (cudaStream_t)stream);
   return launch_fwd_sm90(q, k, v, out, lse, sh, causal != 0, stream);
 }
 
@@ -3586,6 +3669,8 @@ extern "C" int flash_wide_bwd_plan_f32(int dh, void* plan) {
   for (int i = 0; i < 4; ++i) p[i] = vals[i];
   return 0;
 }
+
+#endif  // FLASH_ATTENTION_F16
 
 extern "C" const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -10,6 +10,8 @@
 // sum of exp(x - m).
 // K10 `topk_*` replaces `_topk_kernel` (:32, entry `topk_pallas` :123): the
 // same selection without the log-softmax (values are the raw x as fp32).
+// Rows of bf16, fp16 or fp32 (a template parameter: 8, 8 or 4 values a
+// 16-byte load); an fp16 row holds -inf where the logit filters fill it.
 //
 // Order, as lax.top_k: value descending, ties to the lowest index, a value
 // that occurs several times is listed as often as it occurs. Empty slots are
@@ -54,6 +56,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -101,6 +104,7 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 // element q of a 16-byte vector of T, by register selects (no local memory)
 __device__ __forceinline__ unsigned word(const uint4& u, int w) {
@@ -110,6 +114,10 @@ __device__ __forceinline__ float pick(const uint4& u, int q, float) { return __u
 __device__ __forceinline__ float pick(const uint4& u, int q, __nv_bfloat16) {
   const unsigned w = word(u, q >> 1);  // little-endian: element 2j is the low half of word j
   return __uint_as_float((q & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+__device__ __forceinline__ float pick(const uint4& u, int q, __half) {  // fp16 -inf (0xfc00) gives -inf
+  const unsigned w = word(u, q >> 1);
+  return __half2float(__ushort_as_half((unsigned short)((q & 1) ? (w >> 16) : (w & 0xffffu))));
 }
 
 // one sorted list of KMAX (key, index) pairs in registers, best first
@@ -511,6 +519,12 @@ extern "C" int topk_logprobs_bf16(const void* x, float* vals, int* idx, int rows
   return launch<__nv_bfloat16, true>(x, vals, idx, rows, v, k, split, stream);
 }
 
+// fp16 rows (an fp16 model's beam step): the same kernel over 8 values a 16-byte load
+extern "C" int topk_logprobs_f16(const void* x, float* vals, int* idx, int rows, int v, int k, int split,
+                                 void* stream) {
+  return launch<__half, true>(x, vals, idx, rows, v, k, split, stream);
+}
+
 extern "C" int topk_logprobs_f32(const void* x, float* vals, int* idx, int rows, int v, int k, int split,
                                  void* stream) {
   return launch<float, true>(x, vals, idx, rows, v, k, split, stream);
@@ -518,6 +532,10 @@ extern "C" int topk_logprobs_f32(const void* x, float* vals, int* idx, int rows,
 
 extern "C" int topk_bf16(const void* x, float* vals, int* idx, int rows, int v, int k, int split, void* stream) {
   return launch<__nv_bfloat16, false>(x, vals, idx, rows, v, k, split, stream);
+}
+
+extern "C" int topk_f16(const void* x, float* vals, int* idx, int rows, int v, int k, int split, void* stream) {
+  return launch<__half, false>(x, vals, idx, rows, v, k, split, stream);
 }
 
 extern "C" int topk_f32(const void* x, float* vals, int* idx, int rows, int v, int k, int split, void* stream) {

@@ -18,6 +18,15 @@ _PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256)
 _EXIT_CHECK_EVERY = 8  # steps between host checks of "every row finished"
 
 
+@lru_cache(maxsize=8)
+def neg_fill(dtype: torch.dtype) -> float:
+    """The value a logit filter fills in a `dtype` row: _NEG as JAX's
+    `jnp.where(mask, _NEG, logits)` gives it, the weakly typed -1e9 cast to
+    the logits' dtype: -inf in fp16 (past its range), -1e9 rounded in bf16
+    (as `masked_fill` rounds it) and -1e9 in fp32."""
+    return float(torch.tensor(_NEG, dtype=torch.float32).to(dtype))
+
+
 def _bucket(n: int) -> int:
     for b in _PROMPT_BUCKETS:
         if n <= b:
@@ -65,41 +74,42 @@ def _apply_filters(
 ) -> torch.Tensor:
     """All reference logit filters as one vectorized masking pass."""
     blank, sup = _filter_masks(cfg, logits.device)
+    neg = neg_fill(logits.dtype)
     if cfg.suppress_blank and step == 0:
-        logits = logits.masked_fill(blank[None, :], _NEG)
+        logits = logits.masked_fill(blank[None, :], neg)
     if cfg.suppress_tokens:
-        logits = logits.masked_fill(sup[None, :], _NEG)
+        logits = logits.masked_fill(sup[None, :], neg)
 
     if cfg.apply_timestamp_rules:
         ts_begin = cfg.timestamp_begin
         vocab_ids = torch.arange(cfg.n_vocab, device=logits.device)[None, :]
-        logits = logits.masked_fill(vocab_ids == cfg.no_timestamps, _NEG)
+        logits = logits.masked_fill(vocab_ids == cfg.no_timestamps, neg)
 
         last_was_ts = (prev_tok >= ts_begin) & (step >= 1)
         penult_was_ts = (penult_tok >= ts_begin) | (step < 2)
         force_non_ts = (last_was_ts & penult_was_ts)[:, None]
         force_ts_or_eot = (last_was_ts & ~penult_was_ts)[:, None]
-        logits = logits.masked_fill(force_non_ts & (vocab_ids >= ts_begin), _NEG)
-        logits = logits.masked_fill(force_ts_or_eot & (vocab_ids < cfg.eot), _NEG)
+        logits = logits.masked_fill(force_non_ts & (vocab_ids >= ts_begin), neg)
+        logits = logits.masked_fill(force_ts_or_eot & (vocab_ids < cfg.eot), neg)
 
         # non-decreasing timestamps
         has_ts = last_ts >= 0
         ts_floor = torch.where(last_was_ts & ~penult_was_ts, last_ts, last_ts + 1)
         ts_mask = has_ts[:, None] & (vocab_ids >= ts_begin) & (vocab_ids < ts_floor[:, None])
-        logits = logits.masked_fill(ts_mask, _NEG)
+        logits = logits.masked_fill(ts_mask, neg)
 
         # at the first sample: force a timestamp, optionally capped
         if step == 0:
-            logits = logits.masked_fill(vocab_ids < ts_begin, _NEG)
+            logits = logits.masked_fill(vocab_ids < ts_begin, neg)
             if cfg.max_initial_timestamp_index >= 0:
-                logits = logits.masked_fill(vocab_ids > ts_begin + cfg.max_initial_timestamp_index, _NEG)
+                logits = logits.masked_fill(vocab_ids > ts_begin + cfg.max_initial_timestamp_index, neg)
 
         # sample a timestamp if their total probability beats every text token
         # (compared on raw logits: the log_softmax shift is common to both)
         ts_logprob = torch.logsumexp(logits[:, ts_begin:].float(), dim=-1)
         max_text = logits[:, :ts_begin].float().amax(dim=-1)
         force_ts = (ts_logprob > max_text)[:, None]
-        logits = logits.masked_fill(force_ts & (vocab_ids < ts_begin), _NEG)
+        logits = logits.masked_fill(force_ts & (vocab_ids < ts_begin), neg)
 
     return logits
 

@@ -24,7 +24,8 @@ import torch
 
 from .audio import CHUNK_LENGTH
 from .beam import collect_beam, dispatch_beam
-from .decode_steps import _EXIT_CHECK_EVERY, _NEG, _PROMPT_BUCKETS, FilterConfig, _apply_filters, _bucket, _fetch
+from .decode_steps import (_EXIT_CHECK_EVERY, _PROMPT_BUCKETS, FilterConfig, _apply_filters, _bucket, _fetch,
+                           neg_fill)
 from .models import whisper as W
 from .tokenizer import Tokenizer, get_tokenizer, normalize_language
 from .utils import compression_ratio
@@ -117,7 +118,7 @@ def detect_language(model: "WhisperModel", mel: torch.Tensor, tokenizer: Optiona
 
     mask = torch.ones(logits.shape[-1], dtype=torch.bool)
     mask[list(tokenizer.all_language_tokens)] = False
-    logits = logits.masked_fill(mask.to(logits.device)[None, :], _NEG)
+    logits = logits.masked_fill(mask.to(logits.device)[None, :], neg_fill(logits.dtype))
     language_tokens = logits.argmax(dim=-1).cpu().numpy()
     probs = torch.softmax(logits, dim=-1).cpu().numpy()
     language_probs = [
@@ -204,12 +205,8 @@ class DecodingTask:
             apply_timestamp_rules=not options.without_timestamps,
             max_initial_timestamp_index=max_initial_timestamp_index,
         )
+        # the model's dtype (bf16, fp16 or fp32, each with its kernels on the card), or fp32
         self.compute_dtype = model.compute_dtype if options.fp16 else torch.float32
-        if model.device.type == "cuda" and self.compute_dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(
-                f"fp16={options.fp16} with a {model.compute_dtype} model computes in {self.compute_dtype}, but the "
-                "card's kernels serve bf16 and fp32: decode with a bf16 model (fp16=True) or with fp16=False (fp32)"
-            )
         self.kv_quant = bool(options.kv_quant)
         self.int8_encoder = bool(options.int8_encoder)
 

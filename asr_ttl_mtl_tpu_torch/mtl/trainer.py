@@ -26,7 +26,9 @@ cannot be read without JAX. `profile_dir` traces epoch 0 with
 torch.profiler and prints the step timer's summary
 (`utils/profiling.py`). Not served here, and raising `NotImplementedError`
 when asked for: `steps_per_call > 1` and packed dispatch. `compute_dtype`
-"bfloat16" or "float32" runs on the card through the kernels of that dtype.
+"bfloat16" or "float32" runs on the card through the kernels of that dtype;
+"float16" (the JAX trainer's too) raises until the fp16 training slice
+(ROADMAP Queue 2a) ports the backward kernels.
 
 Over a ("dp", "tp") mesh (`mesh_shape`; JAX :171-307, :413-525, :625-700,
 :840-889) every rank runs the same trainer on the same host batches, one
@@ -65,6 +67,7 @@ from ..audio import finish_transfer_mel, log_mel_for_transfer, log_mel_spectrogr
 from ..models import whisper as W
 from ..models.dims import ModelDimensions
 from ..models.registry import WhisperModel, from_random, load_model
+from ..ops import F16_TRAINING
 from ..ops.chunked_xent import chunked_softmax_xent
 from ..parallel import comm
 from ..parallel.mesh import axis, create_mesh, make_shard, pad_rows, row_block, tp_dim
@@ -151,7 +154,8 @@ class MultiTaskTrainer:
         self.disease_token_position = 1 if self.is_english_only else 2
 
         if config.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype={config.compute_dtype!r}: the port serves {sorted(_DTYPES)}")
+            later = f"; fp16 training comes with {F16_TRAINING}" if config.compute_dtype == "float16" else ""
+            raise ValueError(f"compute_dtype={config.compute_dtype!r}: the port trains in {sorted(_DTYPES)}{later}")
         self.compute_dtype = _DTYPES[config.compute_dtype]
         self.model = self._load_base_model()
         self._expand_vocabulary()

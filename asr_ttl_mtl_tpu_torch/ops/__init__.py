@@ -42,6 +42,15 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_lse_f32": 0,
     "flash_attention_bwd_f32": 0,  # K8 at fp32
     "int8_mlp_f32": 0,  # K14 with fp32 activations
+    # the fp16 kernels: the serving path's (F16_KERNELS)
+    "decode_attention_i8_f16": 0,  # K1 with fp16 queries
+    "decode_attention_f16": 0,  # K2 at fp16
+    "flash_attention_h2_f16": 0,  # K3 at fp16
+    "flash_attention_mh_f16": 0,  # K5 at fp16
+    "flash_attention_f16": 0,  # K7 at fp16
+    "topk_logprobs_f16": 0,  # K9 over fp16 rows
+    "topk_f16": 0,  # K10 over fp16 rows
+    "int8_mlp_f16": 0,  # K14 with fp16 activations
 }
 
 
@@ -51,16 +60,25 @@ def reset_launch_counts() -> None:
 
 
 # the suffix of a kernel's C symbol for the dtype it computes in
-_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+# the kernels with an fp16 twin: the serving path's. K3-lse, K6, K7-lse and
+# K8 (training) raise for fp16 until the fp16 training slice (ROADMAP Queue
+# 2a) ports them; K4, K11, K12 and K13 take fp32 alone, as in JAX
+F16_KERNELS = frozenset(("decode_attention_i8", "decode_attention", "flash_attention_h2", "flash_attention_mh",
+                         "flash_attention", "topk_logprobs", "topk", "int8_mlp"))
+F16_TRAINING = "the fp16 training slice (ROADMAP Queue 2a)"
 
 
 def kernel_dtype(name: str, tensors: Sequence[torch.Tensor]) -> str:
-    """The C symbol suffix for the tensors' one dtype, "bf16" or "f32".
-    Mixed dtypes, or any other dtype (fp16 among them), raise."""
+    """The C symbol suffix for the tensors' one dtype: "bf16", "f16" or
+    "f32". Mixed dtypes, or any other dtype, raise; so does fp16 for a
+    kernel `name` (as counted in LAUNCHES) outside F16_KERNELS."""
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or tensors[0].dtype not in _SUFFIX:
-        raise TypeError(f"{name} kernel takes bf16 or fp32 tensors of one dtype, got "
+        raise TypeError(f"{name} kernel takes bf16, fp16 or fp32 tensors of one dtype, got "
                         f"{sorted(str(d) for d in dtypes)}")
+    if tensors[0].dtype == torch.float16 and name not in F16_KERNELS:
+        raise TypeError(f"{name} kernel has no fp16 twin yet: it comes with {F16_TRAINING}")
     return _SUFFIX[tensors[0].dtype]
 
 
@@ -133,15 +151,21 @@ def forward_width(dh: int, name: str = "flash attention") -> int:
 
 def check_class_width(name: str, dh: int, sfx: str) -> None:
     """Raise unless dh is a width class itself: what K3 and K6 (the h2
-    kernels, whose residuals hold 128 // dh heads a lane) serve, in either
-    dtype (`sfx`, "bf16" or "f32")."""
+    kernels, whose residuals hold 128 // dh heads a lane) serve, in any
+    dtype (`sfx`, "bf16", "f16" or "f32")."""
     if dh not in WIDTH_CLASSES:
-        raise ValueError(f"{name} {'fp32' if sfx == 'f32' else sfx} kernel takes a head width of "
+        raise ValueError(f"{name} {dtype_label(sfx)} kernel takes a head width of "
                          f"{', '.join(map(str, WIDTH_CLASSES))}, got {dh}")
 
 
+def dtype_label(sfx: str) -> str:
+    """How messages name a symbol suffix's dtype: bf16, fp16 or fp32."""
+    return {"f32": "fp32", "f16": "fp16"}.get(sfx, sfx)
+
+
 def count_launch(name: str, sfx: str) -> None:
-    """One launch of kernel `name`: an fp32 one counts under `<name>_f32`."""
+    """One launch of kernel `name`: an fp32 one counts under `<name>_f32`,
+    an fp16 one under `<name>_f16`."""
     LAUNCHES[name if sfx == "bf16" else f"{name}_{sfx}"] += 1
 
 

@@ -5,7 +5,9 @@ library with a plain C interface, and loaded with `ctypes`. Nothing here
 includes PyTorch's headers, so a build takes seconds. The libraries go to
 `asr_ttl_mtl_tpu_torch/_build/`, keyed by a hash of the source and flags,
 and are built at first use from the sources in the checkout only.
-`build_all()` starts one `nvcc` per source at once.
+`build_all()` starts one `nvcc` per source at once. `<name>_f16.cu`
+includes `<name>.cu` and builds its fp16 entries alone, so that those
+instances compile beside the rest instead of after them (`source`).
 
 Every entry point returns `cudaGetLastError()` as an int after its launch;
 `check()` turns a non-zero code into an exception.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +27,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mel", "flash_attention", "decode_attention", "topk", "median", "dtw", "int8_mlp")
+SOURCES = ("mel", "flash_attention", "flash_attention_f16", "decode_attention", "decode_attention_f16", "topk", "median",
+           "dtw", "int8_mlp")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +73,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
         "flash_mh_fwd_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        # the fp16 K5's plan (the bf16 one's)
+        "flash_mh_plan_f16": (_I, _I, _P),
+    },
+    "flash_attention_f16": {
+        # the serving forwards at fp16, arguments as their bf16 twins' (K3
+        # and K7 without the logsumexp: lse must be null)
+        "flash_h2_fwd_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_fwd_f16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "flash_mh_fwd_f16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "decode_attention": {
         # q, cache_k, cache_v, out, layer, n_layer, batch, group, tk, d, n_head,
@@ -84,12 +97,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # dh, rows, tk_blk -> K1's shared bytes a CTA (`decode_attention.k1_smem_bytes`), or -1
         "decode_i8_smem_bytes": (_I, _I, _I),
     },
+    "decode_attention_f16": {
+        # K2 and K1 at fp16, arguments as their bf16 twins'
+        "decode_attn_f16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        "decode_attn_i8_f16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    },
     "topk": {
         # x, values, indices, rows, v, k, split (the cluster size, `k9_plan`), stream
         "topk_logprobs_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
         "topk_logprobs_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
         "topk_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
         "topk_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "topk_logprobs_f16": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "topk_f16": (_P, _P, _P, _I, _I, _I, _I, _P),
         # the largest cluster the card schedules (or a negative CUDA error)
         "topk_max_split": (),
     },
@@ -114,6 +134,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # both routes with fp32 x and out
         "int8_mlp_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "int8_mlp_mma_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # and with fp16 x and out
+        "int8_mlp_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "int8_mlp_mma_f16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 
@@ -128,9 +151,20 @@ def nvcc() -> str:
     return found
 
 
+def source(name: str, sfx: str) -> str:
+    """The library holding kernel source `name`'s entry for symbol suffix
+    `sfx`: `<name>_f16` for an fp16 entry where that source exists."""
+    return f"{name}_f16" if sfx == "f16" and f"{name}_f16" in SIGNATURES else name
+
+
 def _lib_path(name: str) -> str:
+    """The library's path, keyed by the source, the sources it includes and the flags."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text = f.read()
+    for included in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, included.decode()), "rb") as f:
+            text += f.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -20,14 +20,16 @@ cluster of S CTAs; `k2_plan` picks S and `k2_chunks` gives each CTA's keys,
 as the kernel cuts them.
 
 Both kernels take every head width dh = d / n_head from 1 to 768, with
-bf16 or fp32 q (and caches of q's dtype for K2): the kernel of width class
-`ops.decode_class(dh)` (32, 64, 128, 256, 512 or 768) reads the dh real
-columns of a head where they lie in the caches (in pieces of 16 bytes down
-to 1, as the head's row bytes allow) and zero-fills the rest in shared
-memory. Any other width (0, or above 768) raises on the card. A launch
-with fp32 q counts under `<name>_f32`. `k2_smem_bytes` and `k1_smem_bytes`
-mirror the kernels' shared memory at each class (the C entries
-`decode_smem_bytes` and `decode_i8_smem_bytes` give the same).
+bf16, fp16 or fp32 q (and caches of q's dtype for K2): the kernel of width
+class `ops.decode_class(dh)` (32, 64, 128, 256, 512 or 768) reads the dh
+real columns of a head where they lie in the caches (in pieces of 16 bytes
+down to 1, as the head's row bytes allow) and zero-fills the rest in
+shared memory. Any other width (0, or above 768) raises on the card. A
+launch with fp32 q counts under `<name>_f32`, one with fp16 q under
+`<name>_f16` (its entries in the `decode_attention_f16` library).
+`k2_smem_bytes` and `k1_smem_bytes` mirror the kernels' shared memory at
+each class (the C entries `decode_smem_bytes` and `decode_i8_smem_bytes`
+give the same; fp16 takes bf16's, both 2 bytes).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from . import _cuda, count_launch, decode_class
+from . import _cuda, count_launch, decode_class, kernel_dtype
 
 _NEG_INF = -1e30
 # K1's p*v_scale/sp within this of a midpoint may round either way under
@@ -217,8 +219,7 @@ def decode_attention(
     if not q.is_cuda:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     n_layer, b, tk, d = cache_k.shape
-    if q.dtype != cache_k.dtype or cache_k.dtype != cache_v.dtype or q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"decode_attention kernel takes one of bf16/fp32 for q and caches, got {q.dtype}/{cache_k.dtype}")
+    kernel_dtype("decode_attention", (q, cache_k, cache_v))
     if q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape or group < 1:
         raise ValueError(f"decode_attention: bad shapes q={tuple(q.shape)} cache={tuple(cache_k.shape)} group={group}")
     _head_width("decode_attention", d, n_head)
@@ -231,14 +232,15 @@ def _launch_k2(q, cache_k, cache_v, layer, n_head, scale, valid_upto, group) -> 
     n_layer, b, tk, d = cache_k.shape
     split = k2_plan(b, n_head, k2_n_valid(tk, valid_upto), group, q.element_size(), decode_class(d // n_head))
     out = torch.empty_like(q)
-    fn = "decode_attn_bf16" if q.dtype == torch.bfloat16 else "decode_attn_f32"
-    code = getattr(_cuda.lib("decode_attention"), fn)(
+    sfx = kernel_dtype("decode_attention", (q,))
+    fn, lib = f"decode_attn_{sfx}", _cuda.source("decode_attention", sfx)
+    code = getattr(_cuda.lib(lib), fn)(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
         int(layer), n_layer, b, group, tk, d, n_head, _valid(valid_upto), split, float(scale),
         _cuda.stream_handle(q.device),
     )
-    _cuda.check("decode_attention", fn, code)
-    count_launch("decode_attention", "bf16" if q.dtype == torch.bfloat16 else "f32")
+    _cuda.check(lib, fn, code)
+    count_launch("decode_attention", sfx)
     return out
 
 
@@ -367,8 +369,9 @@ def decode_attention_i8(
     blocks = _i8_blocks(b, tk, d)
     if blocks is None:
         raise ValueError(f"decode_attention_i8: unsupported int8 geometry b={b} tk={tk} d={d}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or cache_k.dtype != torch.int8 or cache_v.dtype != torch.int8:
-        raise TypeError(f"decode_attention_i8 kernel takes bf16/fp32 q and int8 caches, got {q.dtype}/{cache_k.dtype}")
+    kernel_dtype("decode_attention_i8", (q,))
+    if cache_k.dtype != torch.int8 or cache_v.dtype != torch.int8:
+        raise TypeError(f"decode_attention_i8 kernel takes int8 caches, got {cache_k.dtype}/{cache_v.dtype}")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("decode_attention_i8: row scales must be float32")
     if (q.shape != (b * group, 1, d) or cache_v.shape != cache_k.shape
@@ -385,12 +388,13 @@ def _launch_k1(q, cache_k, k_scale, cache_v, v_scale, layer, n_head, scale, vali
     n_layer, b, tk, d = cache_k.shape
     split = k1_plan(b, n_head, k1_n_blocks(tk, tk_blk, valid_upto), group)
     out = torch.empty_like(q)
-    fn = "decode_attn_i8_bf16" if q.dtype == torch.bfloat16 else "decode_attn_i8_f32"
-    code = getattr(_cuda.lib("decode_attention"), fn)(
+    sfx = kernel_dtype("decode_attention_i8", (q,))
+    fn, lib = f"decode_attn_i8_{sfx}", _cuda.source("decode_attention", sfx)
+    code = getattr(_cuda.lib(lib), fn)(
         q.data_ptr(), cache_k.data_ptr(), k_scale.data_ptr(), cache_v.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), int(layer), n_layer, b, group, tk, d, n_head, tk_blk, _valid(valid_upto), split,
         float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("decode_attention", fn, code)
-    count_launch("decode_attention_i8", "bf16" if q.dtype == torch.bfloat16 else "f32")
+    _cuda.check(lib, fn, code)
+    count_launch("decode_attention_i8", sfx)
     return out

@@ -26,7 +26,10 @@ Counterparts in `asr_ttl_mtl_tpu/ops/flash_attention.py`:
 
 The CUDA kernels take bf16 or fp32 (every tensor of a call in one dtype;
 `ops.kernel_dtype` picks the C symbol, `_bf16` or `_f32`, and fp32 launches
-count under their own keys, e.g. `flash_attention_h2_f32`). K3 and K6 take
+count under their own keys, e.g. `flash_attention_h2_f32`). The forwards
+without the logsumexp (K3, K5, K7: the serving path's) also take fp16,
+on the bf16 kernels' fp16 twins (`_f16`, counted as `<name>_f16`); K3-lse,
+K6, K7-lse and K8 raise for fp16 until the fp16 training slice. K3 and K6 take
 head widths 32, 64 and 128 in bf16 and in fp32 (`ops.WIDTH_CLASSES`, as
 the JAX package's `h2_eligible`); K5 every multiple of 8 up to 768 in
 both (as `mh_flash_eligible`), and K7, K7-lse and K8 every width from 1 to
@@ -51,8 +54,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import (WIDE_MAX_HEAD_WIDTH, WIDTH_CLASSES, _cuda, check_class_width, count_launch, forward_width,
-               kernel_dtype, kernel_width, on_card, width_class)
+from . import (WIDE_MAX_HEAD_WIDTH, WIDTH_CLASSES, _cuda, check_class_width, count_launch, dtype_label,
+               forward_width, kernel_dtype, kernel_width, on_card, width_class)
 
 _NEG_INF = -1e30
 _MH_MAX_D = WIDE_MAX_HEAD_WIDTH  # the widest d (and head width) K5 serves
@@ -100,8 +103,9 @@ def _fwd_smem(cls: int, wg: int, stages: int, keys: int) -> int:
 
 
 def k5_plan(dh: int, tq: int) -> K5Plan:
-    """The bf16 K5's route at head width dh and tq queries, as
-    `flash_mh_fwd_bf16` takes it (`flash_mh_plan_bf16` in C gives the same).
+    """The bf16 (and fp16) K5's route at head width dh and tq queries, as
+    `flash_mh_fwd_bf16` takes it (`flash_mh_plan_bf16` in C gives the same;
+    the fp16 twin, `flash_mh_plan_f16`, the same again).
     Up to 128: K3's forward at the width class, 64 query rows a CTA where
     tq <= 64 (2 stages) else 128 (4), keys a tile 64 at class 128 else 128;
     over the 3-D maps at a class itself, over the head maps below one
@@ -303,7 +307,8 @@ def _bwd_plain(q, k, v, g, lse, delta, mask, scale):
 
 def _check(name: str, tensors, shapes) -> str:
     """The CUDA wrappers take contiguous tensors of the given shapes on one
-    device, all bf16 or all fp32; returns the symbol suffix."""
+    device, all bf16, all fp32 or (the kernels `ops.F16_KERNELS` names) all
+    fp16; returns the symbol suffix. `name` is the kernel as counted."""
     sfx = kernel_dtype(name, tensors)
     dev = tensors[0].device
     for t, shape in zip(tensors, shapes):
@@ -354,22 +359,24 @@ def flash_attention_h2_plain(q, k, v, *, n_head: int, kv_valid_len: Optional[int
 def flash_attention_h2(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = None,
                        scale: float = 1.0, return_lse: bool = False):
     """K3 wrapper: q (B, Tq, D), k and v (B, Tk, D) -> (B, Tq, D) in v's
-    dtype, plus lse (D//128, B, Tq, hpb) fp32 with return_lse."""
+    dtype (bf16, fp16 or fp32), plus lse (D//128, B, Tq, hpb) fp32 with
+    return_lse (bf16 or fp32)."""
     if not on_card("flash_attention_h2", q):
         return flash_attention_h2_plain(q, k, v, n_head=n_head, kv_valid_len=kv_valid_len,
                                         scale=scale, return_lse=return_lse)
     b, tq, d = q.shape
     tk = k.shape[1]
-    sfx = _check("flash_attention_h2", (q, k, v), ((b, tq, d), (b, tk, d), (b, tk, d)))
+    sfx = _check("flash_attention_h2_lse" if return_lse else "flash_attention_h2", (q, k, v),
+                 ((b, tq, d), (b, tk, d), (b, tk, d)))
     dh = _h2_width("flash_attention_h2", d, n_head, sfx, return_lse)
     out = torch.empty_like(q)
     lse = torch.empty((d // 128, b, tq, 128 // dh), dtype=torch.float32, device=q.device) if return_lse else None
-    fn = f"flash_h2_fwd_{sfx}"
-    code = getattr(_cuda.lib("flash_attention"), fn)(
+    fn, lib = f"flash_h2_fwd_{sfx}", _cuda.source("flash_attention", sfx)
+    code = getattr(_cuda.lib(lib), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
         b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", fn, code)
+    _cuda.check(lib, fn, code)
     count_launch("flash_attention_h2_lse" if return_lse else "flash_attention_h2", sfx)
     return (out, lse) if return_lse else out
 
@@ -468,12 +475,12 @@ def flash_attention_mh(q, k, v, *, n_head: int, kv_valid_len: Optional[int] = No
     else:
         k5_plan(d // n_head, tq)
     out = torch.empty_like(q)
-    fn = f"flash_mh_fwd_{sfx}"
-    code = getattr(_cuda.lib("flash_attention"), fn)(
+    fn, lib = f"flash_mh_fwd_{sfx}", _cuda.source("flash_attention", sfx)
+    code = getattr(_cuda.lib(lib), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, tq, tk, d, n_head, _kv_len(tk, kv_valid_len), float(scale), _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", fn, code)
+    _cuda.check(lib, fn, code)
     count_launch("flash_attention_mh", sfx)
     return out
 
@@ -515,8 +522,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, q_offset: int = 0,
 
 def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                     kv_valid_len: Optional[int] = None, scale: float = 1.0, return_lse: bool = False):
-    """K7 wrapper: softmax(scale q k^T + mask) v over flattened (batch*heads),
-    plus lse (BH, Tq, 1) fp32 with return_lse. Head widths up to 128 run at
+    """K7 wrapper: softmax(scale q k^T + mask) v over flattened (batch*heads)
+    in bf16, fp16 or fp32, plus lse (BH, Tq, 1) fp32 with return_lse (bf16
+    or fp32). Head widths up to 128 run at
     their width class, 129-768 on the wide forward of q's dtype; a width off
     a multiple of 8 is copied out at `kernel_width(dh)` first (`_padded`)."""
     if not on_card("flash_attention", q):
@@ -524,18 +532,19 @@ def flash_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
                                      scale=scale, return_lse=return_lse)
     bh, tq, dh = q.shape
     tk = k.shape[1]
-    sfx = _check("flash_attention", (q, k, v), ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
-    forward_width(dh, f"flash_attention {'fp32' if sfx == 'f32' else sfx}")
+    sfx = _check("flash_attention_lse" if return_lse else "flash_attention", (q, k, v),
+                 ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh)))
+    forward_width(dh, f"flash_attention {dtype_label(sfx)}")
     q, k, v = _padded((q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=q.device) if return_lse else None
-    fn = f"flash_fwd_{sfx}"
-    code = getattr(_cuda.lib("flash_attention"), fn)(
+    fn, lib = f"flash_fwd_{sfx}", _cuda.source("flash_attention", sfx)
+    code = getattr(_cuda.lib(lib), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
         bh, tq, tk, q.shape[2], _kv_len(tk, kv_valid_len), int(causal), int(q_offset), float(scale),
         _cuda.stream_handle(q.device),
     )
-    _cuda.check("flash_attention", fn, code)
+    _cuda.check(lib, fn, code)
     count_launch("flash_attention_lse" if return_lse else "flash_attention", sfx)
     out = _unpadded(out, dh)
     return (out, lse) if return_lse else out
@@ -571,7 +580,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = False, q_offset:
     tk = k.shape[1]
     sfx = _check("flash_attention_bwd", (q, k, v, out, g),
                  ((bh, tq, dh), (bh, tk, dh), (bh, tk, dh), (bh, tq, dh), (bh, tq, dh)))
-    forward_width(dh, f"flash_attention_bwd {'fp32' if sfx == 'f32' else sfx}")
+    forward_width(dh, f"flash_attention_bwd {dtype_label(sfx)}")
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
     _check_res("flash_attention_bwd", (lse, delta), (bh, tq, 1))
     q, k, v, g = _padded((q, k, v, g))

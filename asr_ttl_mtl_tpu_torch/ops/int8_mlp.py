@@ -14,9 +14,10 @@ runs whatever the compute dtype, as in the TPU kernel (the unfused
 
 Weights are in the port's (out, in) layout: w1q (H, D) int8 with one fp32
 scale per row (per output column of the JAX (D, H) weight), w2q (D, H).
-The CUDA kernel takes bf16 or fp32 activations (`int8_mlp_bf16` /
-`int8_mlp_f32` and the mma.sync route's pair; fp32 launches count under
-`int8_mlp_f32`); any other dtype raises. `k14_plan` picks its route by
+The CUDA kernel takes bf16, fp16 or fp32 activations (`int8_mlp_bf16` /
+`int8_mlp_f16` / `int8_mlp_f32` and the mma.sync route's three; fp16 and
+fp32 launches count under `int8_mlp_f16` and `int8_mlp_f32`); any other
+dtype raises. `k14_plan` picks its route by
 shape: the wgmma kernel on a cluster of 4 CTAs for d up to 1024 (every
 shape the gate admits there), else the earlier mma.sync kernel.
 """
@@ -78,7 +79,7 @@ def k14_mma_smem(d: int, hidden: int, act_bytes: int = 2) -> int:
 
 def k14_plan(n: int, d: int, hidden: int, act_bytes: int = 2) -> K14Plan:
     """K14's route for (n rows, d, hidden) with activations of `act_bytes`
-    (2 bf16, 4 fp32): the wgmma kernel with the most stages (2-4) that fit,
+    (2 bf16 or fp16, 4 fp32): the wgmma kernel with the most stages (2-4) that fit,
     for d up to 1024, else the mma.sync kernel; raises where neither fits.
     The wgmma route's shared memory does not depend on the activation dtype
     (fp32 quantizes GEMM1's output straight into the int8 chunk slots)."""

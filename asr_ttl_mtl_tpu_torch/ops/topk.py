@@ -7,7 +7,8 @@ the beam step's per-beam pick of the top K+1 log-probabilities, and `topk`
 replaces `topk_pallas` (:123, kernel `_topk_kernel` :32), which, as in the
 JAX package, no path calls.
 
-Both return (values (rows, k) fp32, indices (rows, k) int32) in
+Both take bf16, fp16 or fp32 rows (an fp16 launch counts under
+`<name>_f16`) and return (values (rows, k) fp32, indices (rows, k) int32) in
 `lax.top_k`'s order: value descending, ties to the lowest index, repeated
 values listed as often as they occur. The plain versions rank the raw fp32
 values with a stable descending sort (`torch.topk` leaves the order of
@@ -27,7 +28,7 @@ from typing import List, Tuple
 
 import torch
 
-from . import LAUNCHES, _cuda
+from . import _cuda, count_launch, kernel_dtype
 
 MAX_K = 32  # the kernel keeps at most 32 (value, index) pairs per thread
 
@@ -89,8 +90,9 @@ def topk_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def _launch(kind: str, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if not x.is_cuda:
         raise ValueError(f"{kind}: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2:
-        raise TypeError(f"{kind}: the kernel takes a (rows, V) bf16 or fp32 tensor, got {x.dtype} {tuple(x.shape)}")
+    sfx = kernel_dtype(kind, (x,))
+    if x.dim() != 2:
+        raise TypeError(f"{kind}: the kernel takes a (rows, V) tensor, got {tuple(x.shape)}")
     rows, v = x.shape
     if not 1 <= k <= min(MAX_K, v):
         raise ValueError(f"{kind}: k={k} outside 1..{min(MAX_K, v)}")
@@ -100,12 +102,13 @@ def _launch(kind: str, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Ten
     if rows == 0:
         return vals, idx
     split = k9_plan(rows, v, *_card_limits(x.device.index if x.device.index is not None else 0))
-    fn = f"{kind}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}"
+    fn = f"{kind}_{sfx}"
     code = getattr(_cuda.lib("topk"), fn)(
         x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, v, k, split, _cuda.stream_handle(x.device)
     )
     _cuda.check("topk", fn, code)
-    LAUNCHES[kind] += 1
+    # fp32 rows count under the kernel's name, as bf16 ones do; fp16 under `<name>_f16`
+    count_launch(kind, "f16" if sfx == "f16" else "bf16")
     return vals, idx
 
 

@@ -236,6 +236,22 @@ Phases, each of which raises (exit code != 0) when it fails:
      heads of 75, 80 mels, 2 + 2 layers: the same, 3 train steps at batch
      8, `evaluate` and the train gates, and (bf16) the CLI with the
      19-token prompt; each kernel at those paths' shapes, timed.
+ 27. fp16 serving, random weights from seed 0 in fp16 (`from_random(...,
+     dtype=torch.float16)`): (a) phase 4's window path at base's full
+     width and depth, 3 batches of 32 windows, with the K14 switch off and
+     then on; (b) one batch with kv_quant=False (K2 over fp16 caches) and
+     phase 5's gate against the CPU's fp32 plain path; (c) `transcribe` of
+     the 40 s WAV with beam 5 at t=0, the 19-token prompt carried into
+     every window (K7, K9) and word timestamps, then `transcribe_batch` of
+     it with int8 KV and words (K12 fp32); (d)-(g) one batch of 8
+     windows with phase 4's options and the prompt at d 576 (9 heads of
+     64: K5 on K3's maps), 8 heads of 96 (K5's route A), 4 of 192 (route
+     B) and 5 of 256 (K7 on route B's kernel), 2 + 2 layers; every path's
+     launches all fp16 kernels (or the fp32-only K4, K11-K13), each fp16
+     kernel of the serving path launched; (h) each fp16 kernel (K1, K2,
+     K3, K5, K7, K9, K10, K14) at those paths' shapes against its plain
+     version at its bf16 twin's tolerance, bitwise on a second launch,
+     timed beside its plain version, SDPA (or torch.topk) and its bound.
 Phase 20 (d) also holds K2 at fp32 (the fp32 CLI's beam step) and K1 with
 fp32 queries (the fp32 window path's cross) against their plain versions;
 their launches count under `decode_attention_f32` and
@@ -278,10 +294,11 @@ DEVICE_TIMED = ("decode_attention", "decode_attention_i8", "decode_attention_f32
                 "flash_attention_bwd", "log_mel", "dtw_trace", "int8_mlp", "median_filter",
                 "flash_attention_h2_f32", "flash_attention_h2_lse_f32", "flash_attention_h2_bwd_f32",
                 "flash_attention_mh_f32", "flash_attention_f32", "flash_attention_lse_f32", "flash_attention_bwd_f32",
-                "int8_mlp_f32")
+                "int8_mlp_f32", "decode_attention_f16", "decode_attention_i8_f16", "flash_attention_h2_f16",
+                "flash_attention_mh_f16", "flash_attention_f16", "int8_mlp_f16")
 # dense, H100 SXM at 700 W; "3xtf32": fp32-accurate products as three TF32
 # passes on the tensor cores (495 TFLOP/s / 3), "fp32" FFMA on the CUDA cores
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "3xtf32": 495e12 / 3}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12, "3xtf32": 495e12 / 3}
 
 
 def bound(flops: float, n_bytes: float, kind: str):
@@ -2074,15 +2091,16 @@ def run_int8_mlp(card: str, model, slice_rate: float):
     return counts
 
 
-def check_int8_mlp(card: str, model):
-    """Phase 17, K14 against its plain version at the window path's shape,
-    (32 x 1536, 512) rows through base's first encoder MLP, bf16. Both
+def check_int8_mlp(card: str, model, dtype=None):
+    """Phase 17 (and 27 in fp16), K14 against its plain version at the
+    window path's shape, (32 x 1536, 512) rows through base's first encoder
+    MLP, bf16 (or `dtype`: fp16, the row counted as `int8_mlp_f16`). Both
     quantize the same values with the same divisions and roundings, so the
     first int8 intermediate must be equal; the GELU's tanhf may differ in
     its last bit, which can move a bf16 rounding and flip a second int8
     intermediate by one step. Tolerance per output: one activation step
     (|w2q| sg s2) for each flipped second intermediate of its row, plus
-    one bf16 rounding (2^-7 |ref|) and fp32 noise."""
+    one bf16 rounding (2^-7 |ref|; fp16 rounds finer) and fp32 noise."""
     import torch
 
     from asr_ttl_mtl_tpu_torch.models import whisper as W
@@ -2097,30 +2115,32 @@ def check_int8_mlp(card: str, model):
     w1q, s1 = W._quant_rowwise_sym(fc1.weight.float())
     w2q, s2 = W._quant_rowwise_sym(fc2.weight.float())
     n = N_WINDOWS * 1536
-    x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    dtype = dtype or torch.bfloat16
+    name = "int8_mlp" if dtype == torch.bfloat16 else "int8_mlp_f16"
+    x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
     args = (x, w1q, s1.reshape(-1), fc1.bias.float(), w2q, s2.reshape(-1), fc2.bias.float())
     want, pqx, pqg, psg = M.int8_mlp_plain(*args, return_int8=True)
     got, qx, qg, sg = M.int8_mlp(*args, return_int8=True)
     sync()
     x_flips = (qx != pqx).float().mean().item()
     flips = (qg.int() - pqg.int()).abs()
-    print(f"[int8_mlp] int8 intermediates, kernel vs plain: first (x) {x_flips:.3e} differ, second (GELU) "
+    print(f"[{name}] int8 intermediates, kernel vs plain: first (x) {x_flips:.3e} differ, second (GELU) "
           f"{(flips > 0).float().mean().item():.3e} differ, by at most {flips.max().item()}; row scales of the "
           f"second, max relative difference {((sg - psg).abs() / psg).max().item():.3e}", flush=True)
     if x_flips != 0.0 or flips.max().item() > 1:
-        raise AssertionError("int8_mlp: the kernel's int8 intermediates differ from the plain version's")
+        raise AssertionError(f"{name}: the kernel's int8 intermediates differ from the plain version's")
     ref = want.float().abs()
     tol = (flips.float() @ w2q.float().abs().t()) * psg * s2.reshape(1, -1) + 2.0**-7 * ref + 1e-5 * ref.max()
     del flips, pqx, pqg, qx, qg
     with torch.inference_mode():
         unfused_ms = timed_ms(lambda: W.linear_i8(fc2, W.gelu(W.linear_i8(fc1, x))))
-    print(f"[int8_mlp] the unfused composition linear_i8(fc2, gelu(linear_i8(fc1, x))) at this shape: "
+    print(f"[{name}] the unfused composition linear_i8(fc2, gelu(linear_i8(fc1, x))) at this shape: "
           f"{unfused_ms:.4f} ms [{card}]", flush=True)
-    # bound: the two int8 products; bytes: the bf16 rows in and out, the
-    # int8 weights and the fp32 scales and biases, once each
+    # bound: the two int8 products; bytes: the bf16 (fp16) rows in and
+    # out, the int8 weights and the fp32 scales and biases, once each
     n_bytes = 2 * n * d * 2 + 2 * d * hidden + 2 * (d + hidden) * 4
     plan = M.k14_plan(n, d, hidden)
-    record("int8_mlp", f"x ({n}, {d}) bf16, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8, {plan.route} route, "
+    record(name, f"x ({n}, {d}) {'bf16' if dtype == torch.bfloat16 else 'fp16'}, w1 ({hidden}, {d}) and w2 ({d}, {hidden}) int8, {plan.route} route, "
            f"cluster of {plan.cluster}, {plan.stages} stages",
            "asr_ttl_mtl_tpu_torch/csrc/int8_mlp.cu", "asr_ttl_mtl_tpu/ops/int8_mlp.py:46", got, want, tol,
            lambda: M.int8_mlp(*args), lambda: M.int8_mlp_plain(*args),
@@ -5080,6 +5100,363 @@ def run_full_widths(card: str):
     return rows, paths, pad_ms
 
 
+# ------------------------------------------------------------------ phase 27
+
+# fp16 serving: an fp16 model (`from_random(..., dtype=torch.float16)`) at
+# base's full width and depth, then one batch of FP16_WINDOWS windows at
+# each of four geometries, 2 + 2 layers, random weights from seed 0: d 576
+# at 9 heads of 64 (K5 over K3's maps at its class), small's d 768 at 8
+# heads of 96 (K5's route A) and at 4 of 192 (route B), and large-v3's d
+# 1280 at 5 heads of 256 (no K5 shape: K7 on route B's kernel)
+FP16_WINDOWS = 8
+FP16_DIMS = {"d576": MH_DIMS, "dh96": AW_DIMS["dh96"], "dh192": WW_DIMS["dh192"], "dh256": WW_DIMS["dh256"]}
+# the fp16 kernels the serving paths must launch (K10: no path, as in JAX)
+FP16_KERNELS = ("decode_attention_i8_f16", "decode_attention_f16", "flash_attention_h2_f16", "flash_attention_mh_f16",
+                "flash_attention_f16", "topk_logprobs_f16", "int8_mlp_f16")
+# the kernels that stay fp32 whatever the model's dtype, as in JAX: K4, K11, K13, K12
+FP32_ONLY = ("log_mel", "median_filter", "dtw_trace", "dtw_paths_batch")
+
+
+def only_fp16(counts: dict, what: str) -> None:
+    """An fp16 model's path launched no bf16 or fp32 kernel but the fp32-only ones."""
+    other = {k: v for k, v in counts.items() if v and not k.endswith("_f16") and k not in FP32_ONLY}
+    if other:
+        raise AssertionError(f"{what} launched kernels of another dtype than fp16: {other}")
+
+
+def run_fp16_base(card: str, workdir: str):
+    """Phase 27 (a)-(c) at base's full width and depth, fp16: (a) phase 4's
+    window path (3 batches of 32 windows, int8 KV, W8A8 encoder) with the
+    K14 switch off, then on; (b) one batch with kv_quant=False; phase 5's
+    gate against the CPU's fp32 plain path; (c) `transcribe` of the 40 s
+    WAV with beam 5 at t=0, the 19-token prompt carried into every window
+    and word timestamps, then `transcribe_batch` of it with int8 KV, the
+    W8A8 encoder and words. Returns (the model, each path's counts, K7's
+    fp16 shapes in (c))."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, from_random, log_mel_spectrogram, transcribe_batch
+    from asr_ttl_mtl_tpu_torch.models import whisper as W
+    from asr_ttl_mtl_tpu_torch.transcribe import transcribe
+
+    model = from_random(MODEL, seed=0, device=DEVICE, dtype=torch.float16)
+    n_layer = model.dims.n_audio_layer
+    mel = log_mel_spectrogram(make_waves(N_WINDOWS, seed=0), device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS))
+    assert task.compute_dtype == torch.float16
+    audio_s = N_WINDOWS * N_BATCHES * 30.0
+    paths, rates = {}, {}
+    try:
+        for mode in ("off", "auto"):
+            W.set_int8_mlp_kernel(mode)
+            task.run(mel)  # warm-up, not counted
+            (results, t_dec, _), counts = counted(lambda: pipeline(task, mel))
+            assert len(results) == N_WINDOWS * N_BATCHES
+            for r in results:
+                assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob), r
+            k14 = n_layer * N_BATCHES if mode == "auto" else 0
+            if (counts["flash_attention_h2_f16"] != n_layer * N_BATCHES or counts["decode_attention_i8_f16"] <= 0
+                    or counts["int8_mlp_f16"] != k14):
+                raise AssertionError(f"[fp16] window path, K14 switch {mode}: launches {counts}")
+            only_fp16(counts, f"[fp16] window path, K14 switch {mode}")
+            paths[f"window, K14 {mode}"] = counts
+            rates[mode] = audio_s / t_dec
+            print(f"[fp16] (a) base fp16, {N_BATCHES} batches x {N_WINDOWS} windows, kv_quant + int8_encoder, K14 "
+                  f"switch {mode}, 64 tokens: decode {t_dec:.3f} s = {rates[mode]:.1f} audio-s/s [{card}]; launches "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})}; text[0]={results[0].text[:40]!r} "
+                  f"avg_logprob[0]={results[0].avg_logprob:.4f}", flush=True)
+    finally:
+        W.set_int8_mlp_kernel("off")
+    # the loop is host-bound and the host's cores are shared: repeat to show the spread, as phase 4
+    more = sorted(audio_s / pipeline(task, mel)[1] for _ in range(4))
+    print(f"[fp16] (a) 4 more runs, K14 switch off: {', '.join(f'{r:.1f}' for r in more)} audio-s/s "
+          f"(median {statistics.median(more):.1f}) [{card}]", flush=True)
+    plain_task = DecodingTask(model, DecodingOptions(**{**BASE_OPTIONS, "kv_quant": False}))
+    plain_task.run(mel)  # warm-up
+    t0 = time.perf_counter()
+    float_results, counts = counted(lambda: plain_task.run(mel))
+    t_float = time.perf_counter() - t0
+    for r in float_results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    if counts["decode_attention_f16"] <= 0 or counts["flash_attention_h2_f16"] != n_layer:
+        raise AssertionError(f"[fp16] kv_quant=False: launches {counts}")
+    only_fp16(counts, "[fp16] kv_quant=False")
+    paths["kv_quant=False"] = counts
+    print(f"[fp16] (b) kv_quant=False, 1 batch: {t_float:.3f} s = {N_WINDOWS * 30.0 / t_float:.1f} audio-s/s "
+          f"[{card}]; launches {json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
+    check_against_cpu(model)
+
+    clip = os.path.join(workdir, "clip70.wav")
+    write_long_wav(clip, LONG_WAV_S, seed=0)
+    probe = ShapeProbe("flash_attention", torch.float16)
+    try:
+        t0 = time.perf_counter()
+        result, counts = counted(lambda: transcribe(
+            model, clip, language="en", beam_size=BEAM, temperature=0.0, initial_prompt=CLI_PROMPT,
+            carry_initial_prompt=True, condition_on_previous_text=False, word_timestamps=True))
+        wall = time.perf_counter() - t0
+    finally:
+        probe.close()
+    segments = result["segments"]
+    seeks = sorted({s["seek"] for s in segments})
+    words = [w for s in segments for w in s.get("words", [])]
+    if len(seeks) < 2 or not words or not all(w["start"] <= w["end"] for w in words):
+        raise AssertionError(f"[fp16] transcribe: {len(segments)} segments from windows {seeks}, {len(words)} words")
+    expect_launched(counts, ("log_mel", "flash_attention_h2_f16", "flash_attention_f16", "decode_attention_f16",
+                             "topk_logprobs_f16", "median_filter", "dtw_trace"), "[fp16] transcribe")
+    only_fp16(counts, "[fp16] transcribe")
+    paths["transcribe"] = counts
+    print(f"[fp16] (c) transcribe, base fp16, {LONG_WAV_S:.0f} s WAV, beam {BEAM} at t=0, the 19-token prompt "
+          f"carried, word timestamps: {wall:.1f} s wall; {len(segments)} segments from windows at seek {seeks}, "
+          f"{len(words)} words; K7 fp16 shapes (q, k, kv_valid_len, causal) {sorted(probe.shapes)}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    # the batched entry on the same WAV: windows at fixed strides, int8 KV,
+    # the W8A8 encoder, words aligned in a batch (K12)
+    t0 = time.perf_counter()
+    outs, counts = counted(lambda: transcribe_batch(model, [clip], batch_size=16, temperature=0.0, language="en",
+                                                    kv_quant=True, int8_encoder=True, word_timestamps=True))
+    wall = time.perf_counter() - t0
+    words = [w for s in outs[0]["segments"] for w in s.get("words", [])]
+    if not words or not all(w["start"] <= w["end"] for w in words):
+        raise AssertionError(f"[fp16] transcribe_batch: {len(outs[0]['segments'])} segments, {len(words)} words")
+    expect_launched(counts, ("log_mel", "flash_attention_h2_f16", "decode_attention_i8_f16", "dtw_paths_batch"),
+                    "[fp16] transcribe_batch")
+    only_fp16(counts, "[fp16] transcribe_batch")
+    paths["transcribe_batch"] = counts
+    print(f"[fp16] (c) transcribe_batch, the same WAV, batch 16 at t=0, kv_quant + int8_encoder, word timestamps: "
+          f"{wall:.1f} s wall; {len(outs[0]['segments'])} segments, {len(words)} words; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    return model, paths, probe.shapes
+
+
+def run_fp16_geometry(card: str, geometry: str):
+    """Phase 27 (d)-(g): one batch of FP16_WINDOWS seeded windows at a
+    geometry of FP16_DIMS, fp16, phase 4's options with the 19-token prompt
+    (so the prefill's causal self-attention runs K7), the encoder on K5 (or
+    K7 where `mh_flash_eligible` rejects the shape). Returns (the counts,
+    the fp16 shapes K5 and K7 got)."""
+    import numpy as np
+    import torch
+
+    from asr_ttl_mtl_tpu_torch import DecodingOptions, DecodingTask, log_mel_spectrogram
+    from asr_ttl_mtl_tpu_torch.models import ModelDimensions, from_random
+
+    dims = FP16_DIMS[geometry]
+    model = from_random(ModelDimensions(**dims), seed=0, device=DEVICE, dtype=torch.float16)
+    mel = log_mel_spectrogram(make_waves(FP16_WINDOWS, seed=0), n_mels=dims["n_mels"], device=DEVICE)
+    task = DecodingTask(model, DecodingOptions(**BASE_OPTIONS, prompt=CLI_PROMPT))
+    task.run(mel)  # warm-up, not counted
+    probes = {name: ShapeProbe(name, torch.float16) for name in ("flash_attention_mh", "flash_attention")}
+    try:
+        t0 = time.perf_counter()
+        results, counts = counted(lambda: task.run(mel))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in probes.values():
+            p.close()
+    for r in results:
+        assert len(r.tokens) == 64 and np.isfinite(r.avg_logprob), r
+    encoder = encoder_attention(dims) + "_f16"
+    expect_launched(counts, (encoder, "flash_attention_f16", "decode_attention_i8_f16"), f"[fp16] {geometry}")
+    only_fp16(counts, f"[fp16] {geometry}")
+    print(f"[fp16] {geometry} ({dims['n_audio_head']} heads of {dims['n_audio_state'] // dims['n_audio_head']}, 2 + 2 "
+          f"layers), 1 batch of {FP16_WINDOWS} windows, kv_quant + int8_encoder, the 19-token prompt: {wall:.3f} s; "
+          f"K5 shapes {sorted(probes['flash_attention_mh'].shapes)}, "
+          f"K7 shapes {sorted(probes['flash_attention'].shapes)}; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    del task, model
+    torch.cuda.empty_cache()
+    return counts, {name: p.shapes for name, p in probes.items()}
+
+
+def check_fp16_kernels(card: str, model, k7_shapes, k5_shapes):
+    """Phase 27 (h): each fp16 kernel against its plain version at the
+    paths' shapes, at its bf16 twin's tolerance (fp16 rounds finer), the
+    same bits on a second launch, timed beside its bound (fp16's dense peak
+    is bf16's), the plain version and the library call (SDPA in fp16; for
+    K9 torch.topk of log_softmax, for K10 torch.topk): K3 at the encoder's
+    (32, 1536, 512), K1 over the window path's int8 cross store and self
+    cache, K2 over its fp16 caches (kv_quant=False) and over the beam's one
+    window at group 5 (transcribe), K9 and K10 at the beam's 5 rows and the
+    beam slice's 160, K7 and K5 at every fp16 shape (c)-(g) gave them, and
+    K14 at (32 x 1536, 512) rows through base's first encoder MLP."""
+    import torch
+    import torch.nn.functional as F
+
+    from asr_ttl_mtl_tpu_torch.ops import decode_attention as DA
+    from asr_ttl_mtl_tpu_torch.ops import flash_attention as FA
+    from asr_ttl_mtl_tpu_torch.ops import forward_width
+    from asr_ttl_mtl_tpu_torch.ops import topk as T
+    from asr_ttl_mtl_tpu_torch.scripts.card_timing import graph_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows = []
+    record = make_recorder(card, rows)
+    fa_src, da_src = "asr_ttl_mtl_tpu_torch/csrc/flash_attention.cu", "asr_ttl_mtl_tpu_torch/csrc/decode_attention.cu"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).half()
+
+    # K3 at the encoder's shape
+    q, k, v = (rnd(N_WINDOWS, 1536, 512) for _ in range(3))
+    kw = dict(n_head=8, kv_valid_len=1500, scale=0.125)
+    want = FA.flash_attention_h2_plain(q, k, v, **kw)
+    qh, kh, vh = (heads(x, 8, 1500 if x is not q else None) for x in (q, k, v))
+    record("flash_attention_h2_f16", "q,k,v (32, 1536, 512) fp16, kv_valid_len 1500 (the encoder)", fa_src,
+           "asr_ttl_mtl_tpu/ops/flash_attention.py:514", FA.flash_attention_h2(q, k, v, **kw), want,
+           2.0**-6 * want.float().abs().max().item(), lambda: FA.flash_attention_h2(q, k, v, **kw),
+           lambda: FA.flash_attention_h2_plain(q, k, v, **kw),
+           bound=attn_bound(N_WINDOWS * 1536 * 1500 * 512, (2 * q.numel() + 2 * 32 * 1500 * 512) * 2, kind="fp16"),
+           library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125), repeat=True)
+    del q, k, v, want, qh, kh, vh
+
+    # K5 and K7 at the shapes the paths gave them, natural layout (K5) or
+    # head-split (K7), q_offset 0: keys to kv_valid_len, causal keys up to the query
+    for name, shapes in (("flash_attention_mh_f16", k5_shapes), ("flash_attention_f16", k7_shapes)):
+        main = True
+        for geometry, (qs, ks, kv_len, causal) in sorted(shapes, key=lambda x: (x[0] != "base", x[0], str(x[1]))):
+            n_keys = kv_len or ks[1]
+            q, k, v = rnd(*qs), rnd(*ks), rnd(*ks)
+            if name == "flash_attention_mh_f16":
+                n_head = FP16_DIMS[geometry]["n_audio_head"]
+                dh = qs[2] // n_head
+                kw = dict(n_head=n_head, kv_valid_len=kv_len, scale=dh**-0.5)
+                run = lambda: FA.flash_attention_mh(q, k, v, **kw)  # noqa: E731
+                plain = lambda: FA.flash_attention_mh_plain(q, k, v, **kw)  # noqa: E731
+                qh, kh, vh = heads(q, n_head), heads(k, n_head, n_keys), heads(v, n_head, n_keys)
+                library = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=dh**-0.5)  # noqa: E731
+                macs = qs[0] * qs[1] * n_keys * qs[2]
+                case = (f"{geometry}: q {qs} x k {ks}, {n_head} heads of {dh}, keys to {n_keys}, "
+                        f"{k5_route(dh, qs[1])}")
+                replaces = "asr_ttl_mtl_tpu/ops/flash_attention.py:346"
+                n_bytes = (2 * q.numel() + 2 * qs[0] * n_keys * qs[2]) * 2
+            else:
+                dh = qs[2]
+                kw = dict(causal=causal, kv_valid_len=kv_len, scale=dh**-0.5)
+                run = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+                plain = lambda: FA.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+                seen = qs[1] if causal else n_keys  # causal, q_offset 0: the first tq keys
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q[None], k[None, :, :seen], v[None, :, :seen], is_causal=causal, scale=dh**-0.5)
+                macs = qs[0] * (qs[1] * (qs[1] + 1) // 2 if causal else qs[1] * n_keys) * dh
+                case = (f"{geometry}: q {qs} x k {ks}, {'causal' if causal else f'keys to {n_keys}'}, "
+                        f"{'class ' + str(forward_width(dh)) if dh <= 128 else 'route B'}")
+                replaces = "asr_ttl_mtl_tpu/ops/flash_attention.py:165"
+                n_bytes = (2 * q.numel() + 2 * qs[0] * seen * dh) * 2
+            want = plain()
+            record(name, case, fa_src, replaces, run(), want, 2.0**-6 * want.float().abs().max().item(), run, plain,
+                   bound=attn_bound(macs, n_bytes, kind="fp16"), library=library, main=main, repeat=True)
+            main = False
+            del q, k, v, want
+
+    # K1 and K2 at the window path's caches and the beam's one window
+    scale = 64**-0.5
+    qd = rnd(N_WINDOWS, 1, 512)
+    cross_k, cross_v = rnd(6, N_WINDOWS, 1500, 512), rnd(6, N_WINDOWS, 1500, 512)
+    self_k, self_v = rnd(6, N_WINDOWS, 128, 512), rnd(6, N_WINDOWS, 128, 512)
+    for case, q, ck, cv, valid, group, main in (
+        ("cross (6,32,1500,512) fp16 (kv_quant=False)", qd, cross_k, cross_v, None, 1, True),
+        ("self (6,32,128,512) fp16, valid_upto 70", qd, self_k, self_v, 70, 1, False),
+        (f"cross (6,1,1500,512) fp16, q ({BEAM},1,512), group {BEAM} (transcribe's beam)", rnd(BEAM, 1, 512),
+         cross_k[:, :1].contiguous(), cross_v[:, :1].contiguous(), None, BEAM, False),
+    ):
+        b = ck.shape[1]
+        kw = dict(scale=scale, valid_upto=valid, group=group)
+        n_keys = ck.shape[2] if valid is None else valid + 1
+        want = DA.decode_attention_plain(q, ck, cv, 5, 8, **kw)
+        qh = q.reshape(b, group, 8, 64).transpose(1, 2)
+        kh, vh = heads(ck[5], 8, n_keys), heads(cv[5], 8, n_keys)
+        record("decode_attention_f16", case, da_src, "asr_ttl_mtl_tpu/ops/decode_attention.py:39",
+               DA.decode_attention(q, ck, cv, 5, 8, **kw), want, 2.0**-7 * want.float().abs().max().item(),
+               lambda: DA.decode_attention(q, ck, cv, 5, 8, **kw),
+               lambda: DA.decode_attention_plain(q, ck, cv, 5, 8, **kw),
+               bound=attn_bound(b * group * n_keys * 512, 2 * b * n_keys * 512 * 2, kind="fp16"),
+               library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), main=main, repeat=True)
+    for case, kv, valid, main in (("cross (6,32,1536,512) int8, q (32,1,512) fp16, valid_upto 1499", (cross_k, cross_v),
+                                   1499, True),
+                                  ("self (6,32,128,512) int8, q (32,1,512) fp16, valid_upto 70", (self_k, self_v), 70,
+                                   False)):
+        args = (*DA.quantize_kv_rows(kv[0]), *DA.quantize_kv_rows(kv[1]))
+        kw = dict(scale=scale, valid_upto=valid)
+        want, flip = DA.decode_attention_i8_plain(qd, *args, 5, 8, return_flip_bound=True, **kw)
+        ref = want.float().abs()
+        record("decode_attention_i8_f16", case, da_src, "asr_ttl_mtl_tpu/ops/decode_attention.py:186",
+               DA.decode_attention_i8(qd, *args, 5, 8, **kw), want,
+               (1 + 2.0**-7) * flip + 2.0**-7 * ref + 1e-5 * ref.max(),
+               lambda: DA.decode_attention_i8(qd, *args, 5, 8, **kw),
+               lambda: DA.decode_attention_i8_plain(qd, *args, 5, 8, **kw),
+               bound=bound(4 * N_WINDOWS * (valid + 1) * 512, 2 * N_WINDOWS * (valid + 1) * (512 + 4), "int8"),
+               main=main, repeat=True)
+    del cross_k, cross_v, self_k, self_v
+
+    # K9 and K10 over fp16 rows as the beam step sees them at step 0: the
+    # filters' -inf (fp16's fill) on the suppressed and text lanes
+    n_vocab = model.dims.n_vocab
+    x = (torch.randn((N_WINDOWS * BEAM, n_vocab), generator=gen, device=dev) * 2.0).half()
+    x[:, 100:50257] = float("-inf")
+    x[:, [50300, 50400]] = x.amax(dim=-1, keepdim=True) + 0.5  # a tie at the top
+    x[2] = float("-inf")
+    x[2, [11, 12, 13]] = 1.0  # fewer than k finite values
+    k = BEAM + 1
+
+    def log_softmax_topk(xt):
+        return torch.topk(xt.float().log_softmax(-1), k)
+
+    for name, fn, plain, lib, n_rows, main in (
+        ("topk_logprobs_f16", T.topk_logprobs, T.topk_logprobs_plain, log_softmax_topk, BEAM, True),
+        ("topk_logprobs_f16", T.topk_logprobs, T.topk_logprobs_plain, log_softmax_topk, N_WINDOWS * BEAM, False),
+        ("topk_f16", T.topk, T.topk_plain, lambda xt: torch.topk(xt.float(), k), BEAM, True),
+    ):
+        xt = x[:n_rows].contiguous()
+        (gv, gi), (pv, pi), (av, ai) = fn(xt, k), plain(xt, k), fn(xt, k)
+        if not (torch.equal(av.view(torch.int32), gv.view(torch.int32)) and torch.equal(ai, gi)):
+            raise AssertionError(f"{name} ({n_rows}): a second launch gave other bits")
+        if not torch.equal(torch.isfinite(gv), torch.isfinite(pv)):
+            raise AssertionError(f"{name}: -inf values at other places than the plain version's")
+        v_tol = 4e-6 * pv.abs().clamp(min=1.0) if name == "topk_logprobs_f16" else torch.full_like(pv, 1e-30)
+        split = T.k9_plan(n_rows, n_vocab, *T._card_limits(dev.index or 0))
+        record(name, f"({n_rows}, {n_vocab}) fp16 with -inf lanes, k {k}, cluster of {split}",
+               "asr_ttl_mtl_tpu_torch/csrc/topk.cu",
+               f"asr_ttl_mtl_tpu/ops/pallas_topk.py:{51 if 'logprobs' in name else 32}",
+               [torch.nan_to_num(gv, neginf=-3e38), gi], [torch.nan_to_num(pv, neginf=-3e38), pi], [v_tol, 0.5],
+               lambda: fn(xt, k), lambda: plain(xt, k),
+               bound=bound(xt.numel() * (3 if "logprobs" in name else 1), xt.numel() * 2 + n_rows * k * 8, "fp32"),
+               library=lambda: lib(xt), main=main)  # bitwise again: held above, on the values before nan_to_num
+        # microseconds, less than the wrapper's host work: the device times too, as phase 9
+        rows[-1]["device_ms"], rows[-1]["library_device_ms"] = graph_ms(lambda: fn(xt, k)), graph_ms(lambda: lib(xt))
+    del x
+    rows += check_int8_mlp(card, model, torch.float16)
+    return rows
+
+
+def run_fp16(card: str):
+    """Phase 27: fp16 serving on the card. Returns (kernel rows, each
+    path's launch counts)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as workdir:
+        model, paths, k7_shapes = run_fp16_base(card, workdir)
+    k7 = {("base", s) for s in k7_shapes}
+    k5 = set()
+    for geometry in FP16_DIMS:
+        counts, shapes = run_fp16_geometry(card, geometry)
+        paths[geometry] = counts
+        k5 |= {(geometry, s) for s in shapes["flash_attention_mh"]}
+        k7 |= {(geometry, s) for s in shapes["flash_attention"]}
+    total = {}
+    for counts in paths.values():
+        add_counts(total, counts)
+    expect_launched(total, FP16_KERNELS, "phase 27's paths")
+    print(f"[fp16] launches over phase 27's paths {json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    rows = check_fp16_kernels(card, model, k7, k5)
+    del model
+    torch.cuda.empty_cache()
+    return rows, list(paths.values())
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "asr_ttl_mtl_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository (asr_ttl_mtl_tpu_torch/ missing)")
@@ -5212,6 +5589,12 @@ def main() -> int:
     fw_rows, fw_paths, _ = run_full_widths(card)
     rows += fw_rows
 
+    # phase 27: fp16 serving, at base's full width and depth and at d 576,
+    # 8 heads of 96, 4 of 192 and 5 of 256
+    stamp("phase 27 starts")
+    f16_rows, f16_paths = run_fp16(card)
+    rows += f16_rows
+
     # launches: the sum over the main paths (decode slice, kv_quant=False
     # batch, train steps, evaluate, beam slice, the CLI's runs, the words
     # runs, the batched runs, the K14 window path, the d=576 CLI run and
@@ -5223,26 +5606,28 @@ def main() -> int:
     # of 96 and its CLI run, and phase 25's serving, train and evaluate runs
     # at 5 heads of 256 and 4 of 192 and its CLI runs, and phase 26's
     # serving runs at 2 heads of 640 and 8 of 75 and its train, evaluate and
-    # CLI runs at 8 of 75), each counted from 0 just before it ran
+    # CLI runs at 8 of 75, and phase 27's fp16 window paths, kv_quant=False
+    # batch, transcribe run and batches at its four geometries), each
+    # counted from 0 just before it ran
     paths = (main_counts, k2_counts, train_counts, eval_counts, beam_counts, cli_counts, words_counts, batch_counts,
              int8_counts, mh_cli_counts, mh_train_counts, fp32_slice_counts, fp32_cli_counts, fp32_train_counts,
-             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths, *fw_paths)
+             fp32_eval_counts, *hw_paths, files_counts, *mesh_paths, *aw_paths, *ww_paths, *fw_paths, *f16_paths)
     launches = {name: sum(c.get(name, 0) for c in paths) for name in main_counts}
     kernels = []
     for r in rows:
         if r.pop("main"):
             kernels.append({**r, "launches": launches[r["name"]]})
     for k in kernels:
-        if k["name"] == "topk":
+        if k["name"] in ("topk", "topk_f16"):
             k["path"] = "none: as in the JAX package, no path calls topk_pallas (tests only)"
     names = [k["name"] for k in kernels]
     cases = [(k["name"], k["case"]) for k in kernels]
     if len(set(cases)) != len(cases) or set(names) != set(launches):
         raise AssertionError(f"the kernels line needs a row for every kernel: {names} against {sorted(launches)}")
     # K10 is exempt: the JAX package's topk_pallas has no caller on any path
-    # either, so no main path can launch it; phase 9 holds it against its
-    # plain version
-    missing = [name for name, n in launches.items() if n == 0 and name != "topk"]
+    # either, so no main path can launch it; phases 9 and 27 hold it against
+    # its plain version
+    missing = [name for name, n in launches.items() if n == 0 and name not in ("topk", "topk_f16")]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {missing}")
     stamp("the phases end")

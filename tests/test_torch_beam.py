@@ -157,14 +157,13 @@ def test_fp16_false_still_decodes_on_cpu(setup):
 
 @pytest.mark.cuda
 def test_fp16_false_is_refused_on_card(cuda_device):  # noqa: F811
-    """The card's kernels serve bf16 and fp32: fp16=False (fp32) is taken,
-    while a dtype no kernel serves (an fp16 model with fp16=True) is still
-    refused, with a message that names what is served."""
+    """The card's kernels serve bf16, fp16 and fp32: fp16=False (fp32) is
+    taken, and so is an fp16 model with fp16=True (fp16 serving), which
+    refuses nothing now."""
     model = from_random("tiny", seed=0, device=cuda_device, dtype=torch.bfloat16)
     assert PD.DecodingTask(model, PD.DecodingOptions(language="en", fp16=False)).compute_dtype == torch.float32
     half = from_random("tiny", seed=0, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(ValueError, match="serve bf16 and fp32"):
-        PD.DecodingTask(half, PD.DecodingOptions(language="en", fp16=True))
+    assert PD.DecodingTask(half, PD.DecodingOptions(language="en", fp16=True)).compute_dtype == torch.float16
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """fp32 on the card, the parts that run without one: the kernel wrappers'
-dtype rule (bf16 and fp32 pick their C symbols and launch counts, fp16 and
-mixed dtypes raise) with the library and the card faked, and the conv
+dtype rule (bf16 and fp32 pick their C symbols and launch counts, mixed
+dtypes raise, and so does fp16 for the training kernels, whose fp16 twins
+come with the fp16 training slice; the fp16 serving kernels are
+tests/test_torch_fp16.py's) with the library and the card faked, and the conv
 stem's fp32 convolution under cuDNN without TF32, forward and backward,
 while the bf16 call is left as it was; and the precision argument of the
 fp32 flash kernels' 3xTF32 products, on an emulation of the TF32 rounding."""
@@ -90,10 +92,16 @@ def test_flash_wrappers_pick_the_symbol_of_the_dtype(fake_card, kernel, dtype):
 
 @pytest.mark.parametrize("kernel", FLASH)
 def test_flash_wrappers_refuse_fp16_and_mixed_dtypes(fake_card, kernel):
-    for calls in (_flash_calls(torch.float16), _flash_calls(torch.float32, k_dtype=torch.bfloat16),
-                  _flash_calls(torch.bfloat16, k_dtype=torch.float32)):
-        with pytest.raises(TypeError, match="bf16 or fp32"):
+    """Mixed dtypes raise for every flash kernel, fp16 for the training ones
+    (K3-lse, K6, K7-lse, K8); K3, K5 and K7 serve fp16 (test_torch_fp16.py)."""
+    for calls in (_flash_calls(torch.float32, k_dtype=torch.bfloat16),
+                  _flash_calls(torch.bfloat16, k_dtype=torch.float32),
+                  _flash_calls(torch.float16, k_dtype=torch.bfloat16)):
+        with pytest.raises(TypeError, match="of one dtype"):
             calls[kernel][0]()
+    if kernel in ("K3-lse", "K6", "K7-lse", "K8"):
+        with pytest.raises(TypeError, match="fp16 training slice"):
+            _flash_calls(torch.float16)[kernel][0]()
     assert fake_card.called == [] and sum(LAUNCHES.values()) == 0
 
 
@@ -121,16 +129,11 @@ def test_k14_picks_the_symbol_of_the_dtype(fake_card, d, hidden, route, dtype):
     x = torch.zeros((40, d), dtype=dtype)
     w1q, w2q = torch.zeros((hidden, d), dtype=torch.int8), torch.zeros((d, hidden), dtype=torch.int8)
     s1, b1, s2, b2 = torch.ones(hidden), torch.zeros(hidden), torch.ones(d), torch.zeros(d)
-    if dtype == torch.float16:
-        with pytest.raises(TypeError, match="bf16 or fp32"):
-            PM.int8_mlp(x, w1q, s1, b1, w2q, s2, b2)
-        assert fake_card.called == []
-        return
     assert PM.k14_plan(40, d, hidden, x.element_size()).route == route
     assert PM.int8_mlp(x, w1q, s1, b1, w2q, s2, b2).dtype == dtype
-    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    sfx = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}[dtype]
     assert fake_card.called == [f"int8_mlp_{sfx}" if route == "wgmma" else f"int8_mlp_mma_{sfx}"]
-    assert {k: n for k, n in LAUNCHES.items() if n} == {"int8_mlp" if sfx == "bf16" else "int8_mlp_f32": 1}
+    assert {k: n for k, n in LAUNCHES.items() if n} == {"int8_mlp" if sfx == "bf16" else f"int8_mlp_{sfx}": 1}
 
 
 def test_k14_mma_route_holds_fp32_rows_in_shared_memory():

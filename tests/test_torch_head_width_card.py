@@ -159,9 +159,10 @@ def test_k5_on_card_takes_the_forward(card, dh, n_head, dtype):
 
 @pytest.mark.cuda
 def test_k5_plan_matches_the_c_dispatch(card):
-    """`flash_mh_plan_bf16`, the plan the bf16 K5's C dispatch takes, equals
-    `k5_plan` at every multiple of 8 up to 768 and both tile plans; widths
-    no route serves give an error there too."""
+    """`flash_mh_plan_bf16`, the plan the bf16 K5's C dispatch takes, and
+    its fp16 twin's `flash_mh_plan_f16` equal `k5_plan` at every multiple of
+    8 up to 768 and both tile plans; widths no route serves give an error
+    there too."""
     import ctypes
 
     from asr_ttl_mtl_tpu_torch.ops import _cuda
@@ -169,13 +170,14 @@ def test_k5_plan_matches_the_c_dispatch(card):
     lib = _cuda.lib("flash_attention")
     out = (ctypes.c_int * 6)()
     routes = {"class": 0, "A": 1, "B": 2}
-    for dh in range(8, 769, 8):
-        for tq in (1, 64, 65, 1536):
-            assert lib.flash_mh_plan_bf16(dh, tq, ctypes.addressof(out)) == 0
-            plan = PF.k5_plan(dh, tq)
-            assert tuple(out) == (routes[plan.route], *plan[1:]), (dh, tq)
-    for dh in (0, 4, 20, 132, 776):
-        assert lib.flash_mh_plan_bf16(dh, 64, ctypes.addressof(out)) != 0
+    for entry in (lib.flash_mh_plan_bf16, lib.flash_mh_plan_f16):
+        for dh in range(8, 769, 8):
+            for tq in (1, 64, 65, 1536):
+                assert entry(dh, tq, ctypes.addressof(out)) == 0
+                plan = PF.k5_plan(dh, tq)
+                assert tuple(out) == (routes[plan.route], *plan[1:]), (dh, tq)
+        for dh in (0, 4, 20, 132, 776):
+            assert entry(dh, 64, ctypes.addressof(out)) != 0
 
 
 @pytest.mark.cuda
